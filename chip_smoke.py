@@ -5,22 +5,39 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 It builds every CUDA kernel of the port from ``ray_lightning_tpu_torch/
 ops/csrc``, holds each against its plain PyTorch version on the card,
-times it, then drives the port's main path — multi-tenant LoRA serving of
-GPT-2-small through ``ServeEngine`` — and checks that the path went
-through the kernels and that its greedy tokens equal the port's static
-``generate()`` on each tenant's merged weights.  Phases:
+times it, then drives the port's two main paths: multi-tenant LoRA
+serving of GPT-2-small through ``ServeEngine`` (its greedy tokens equal
+the port's static ``generate()`` on each tenant's merged weights), and
+``Trainer.fit`` of GPT-2-small (the LayerNorm and flash-attention kernels
+at every site, counted per step).  Phases:
 
 0. device and build: the card's name and power limit, TF32 off, each
    kernel built (one nvcc per source, all at once) with its registers and
    shared memory;
-1. kernel vs plain at the main path's shapes, f32 and bf16, plus a batch
+1. BGMV vs plain at the serving path's shapes, f32 and bf16, plus a batch
    of null-adapter rows whose delta must be exactly 0.0;
-2. kernel timing (CUDA graphs of back-to-back launches over rotating
-   inputs larger than L2, as the main path finds them) beside the plain
-   version and the least time the card could take;
+2. BGMV timing (CUDA graphs of back-to-back launches over rotating inputs
+   larger than L2, as the main path finds them) beside the plain version
+   and the least time the card could take;
 3. the server in f32: GPT-2-small with random weights from a seed, 4
    synthetic rank-16 tenants plus the base model, 10 greedy requests;
-4. the same requests at bf16 (tokens not compared).
+4. the same requests at bf16 (tokens not compared);
+5. LayerNorm and flash-attention kernels vs plain, forward and backward
+   (each backward pair on the same saved statistics), at the training
+   path's shapes (and ragged or D=128 ones): f32 within 1e-5·max|ref| +
+   1e-6, bf16 by its worst row, relative Frobenius error and worst tile's
+   bias (``bf16_measures``);
+6. their timing beside the plain version, the PyTorch library call
+   (``F.layer_norm``, ``F.scaled_dot_product_attention``; yardsticks only,
+   never on the path) and the bound;
+7. the trainer: GPT-2-small, batch 16 x 1024 tokens, bf16, warmed up,
+   then a measured fit whose kernel launches per step must be exactly
+   25 / 25 / 12 / 12, with tokens/s, MFU and peak memory, and a
+   torch.profiler window;
+8. end-to-end checks: one bf16 training step of the full-width model,
+   its gradients on the card (kernels) against the CPU's (plain versions,
+   same roundings); a 3-step f32 fit on the card against the same fit on
+   the CPU; and a bf16 card fit against the f32 one.
 
 Any failure raises: the script exits non-zero and prints no result.  The
 line before the last is the kernels' JSON record; the last line is
@@ -43,6 +60,16 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}
 BGMV_SOURCE = "ray_lightning_tpu_torch/ops/csrc/bgmv.cu"
 BGMV_REPLACES = "ray_lightning_tpu/ops/lora.py:101"
+LN_SOURCE = "ray_lightning_tpu_torch/ops/csrc/layer_norm.cu"
+FLASH_SOURCE = "ray_lightning_tpu_torch/ops/csrc/flash_attention.cu"
+REPLACES = {
+    "ln_fwd": "ray_lightning_tpu/ops/layer_norm.py:111",
+    "ln_bwd": "ray_lightning_tpu/ops/layer_norm.py:144",
+    "flash_fwd": "ray_lightning_tpu/ops/flash_attention.py:152",
+    "flash_bwd": "ray_lightning_tpu/ops/flash_attention.py:271",
+}
+TRAIN_B, TRAIN_T = 16, 1024  # the training cell: batch 16 x 1024 tokens
+TRAIN_STEPS = 24             # measured optimizer steps
 D_MODEL = 768          # GPT-2-small width
 RANKS = (8, 16, 64)
 N_TENANTS = 4
@@ -393,6 +420,581 @@ def phase_server(torch, np, card):
     return f32, bf16
 
 
+# -- phases 5 and 6: the training path's kernels ---------------------------
+
+def bf16_measures(torch, got, ref):
+    """How far a bf16 result lies from its plain version on the same
+    inputs, each measure relative to the reference itself (max|ref| is
+    ~50x a typical element of attention at S=1024, so a tolerance scaled
+    by it would let a wrong tile through):
+      row  — the worst row's ‖got − ref‖ / (‖ref‖ + 1e-2·rms row norm);
+             a row is the last axis (one head's vector at one position, one
+             LN row), and the floor keeps a row that is ~0 by cancellation
+             (dq at position 0) from reading as a 100% error;
+      frob — ‖got − ref‖ / ‖ref‖ over the whole tensor;
+      bias — the worst tile of 64 positions' Σ(got − ref)·ref / Σ ref²:
+             a share of a sum left out, or a rounding that leans one way,
+             shows here, where round-to-nearest noise cancels.
+    Positions are the sequence axis of a (B, S, H, D) tensor and the rows
+    of an (N, d) one."""
+    g, r = got.float(), ref.float()
+    if r.ndim == 4:
+        g, r = (t.transpose(0, 1).reshape(t.shape[1], -1, t.shape[-1])
+                for t in (g, r))
+    else:
+        g, r = (t.reshape(t.shape[0], 1, -1) for t in (g, r))
+    d = g - r
+    rn = r.norm(dim=-1)
+    floor = 1e-2 * rn.square().mean().sqrt()
+    row = (d.norm(dim=-1) / (rn + floor)).max().item()
+    frob = (d.norm() / r.norm()).item()
+    dr, rr = (d * r).sum(dim=(1, 2)), r.square().sum(dim=(1, 2))
+    pad = -len(dr) % 64
+    dr, rr = (torch.nn.functional.pad(t, (0, pad)).reshape(-1, 64).sum(1)
+              for t in (dr, rr))
+    bias = (dr / rr.clamp_min(1e-30)).abs().max().item()
+    return {"row": row, "frob": frob, "bias": bias}
+
+
+# Limits of the bf16 measures, set between the readings of the correct
+# kernels and of kernels with a planted fault on the card at the training
+# path's shapes (``chip_faults.py``; PERF.md): correct row <= 6.0e-3,
+# frob <= 1.3e-3, bias <= 6.4e-5; every fault over at least one limit.
+BF16_LIMITS = {"row": 2e-2, "frob": 5e-3, "bias": 5e-4}
+
+
+def held(torch, label, pairs):
+    """Check each (name, got, ref, dtype of the result); returns the
+    largest abs error.  f32: max abs error <= 1e-5·max|ref| + 1e-6 (sums in
+    another order).  bf16: every measure of ``bf16_measures`` within
+    ``BF16_LIMITS``."""
+    torch.cuda.synchronize()
+    worst = 0.0
+    for name, got, ref, dtype in pairs:
+        err = (got.float() - ref.float()).abs().max().item()
+        scale = ref.float().abs().max().item()
+        if dtype == torch.float32:
+            tol = 1e-5 * scale + 1e-6
+            print(f"phase 5: {label} {name}: max_abs_err={err:.3e} "
+                  f"max|ref|={scale:.3e} tol={tol:.3e}")
+            check(err <= tol, f"{label} {name} within tolerance")
+        else:
+            m = bf16_measures(torch, got, ref)
+            print(f"phase 5: {label} {name}: max_abs_err={err:.3e} "
+                  f"max|ref|={scale:.3e}; "
+                  + ", ".join(f"{k} {v:.3e} (limit {BF16_LIMITS[k]:.0e})"
+                              for k, v in m.items()))
+            for k, v in m.items():
+                check(v <= BF16_LIMITS[k], f"{label} {name} {k} {v:.3e} "
+                      f"within {BF16_LIMITS[k]}")
+        worst = max(worst, err)
+    return worst
+
+
+def ln_case(torch, gen, n, d, dtype):
+    x = (torch.randn(n, d, generator=gen, device="cuda") * 2 + 0.3).to(dtype)
+    g = torch.randn(d, generator=gen, device="cuda")
+    b = torch.randn(d, generator=gen, device="cuda")
+    dy = torch.randn(n, d, generator=gen, device="cuda").to(dtype)
+    return x, g, b, dy
+
+
+def flash_case(torch, gen, B, S, H, D, dtype):
+    """q, k, v as the per-head views of one fused projection (the main
+    path's layout), and an output gradient."""
+    qkv = torch.randn(B, S, 3 * H * D, generator=gen, device="cuda").to(dtype)
+    q, k, v = (t.view(B, S, H, D) for t in qkv.split(H * D, dim=-1))
+    do = torch.randn(B, S, H, D, generator=gen, device="cuda").to(dtype)
+    return q, k, v, do
+
+
+def phase_train_kernels(torch):
+    """Phase 5.  Returns the largest error of each kernel at the training
+    path's own shapes in bf16 (the JSON record's max_abs_err)."""
+    from ray_lightning_tpu_torch.ops import flash_attention as fa
+    from ray_lightning_tpu_torch.ops import layer_norm as ln
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    errs = {}
+    n_main = TRAIN_B * TRAIN_T
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        for n, d in ((n_main, D_MODEL), (1001, D_MODEL), (37, 100)):
+            x, g, b, dy = ln_case(torch, gen, n, d, dtype)
+            y, mu, rs = ln.ln_fwd(x, g, b)
+            yp, mup, rsp = ln.ln_fwd_plain(x, g, b)
+            dx, dg, db = ln.ln_bwd(x, g, dy, mup, rsp)
+            dxp, dgp, dbp = ln.ln_bwd_plain(x, g, dy, mup, rsp)
+            label = f"ln {name} n={n} d={d}"
+            f32 = torch.float32
+            e_fwd = held(torch, label, [("y", y, yp, dtype),
+                                        ("mu", mu, mup, f32),
+                                        ("rstd", rs, rsp, f32)])
+            e_bwd = held(torch, label, [("dx", dx, dxp, dtype),
+                                        ("dg", dg, dgp, f32),
+                                        ("db", db, dbp, f32)])
+            if dtype == torch.bfloat16 and n == n_main:
+                errs["ln_fwd"], errs["ln_bwd"] = e_fwd, e_bwd
+        for B, S, H, D in ((TRAIN_B, TRAIN_T, 12, 64),
+                           (TRAIN_B, TRAIN_T, 6, 128)):
+            q, k, v, do = flash_case(torch, gen, B, S, H, D, dtype)
+            scale = D ** -0.5
+            out, lse = fa.flash_fwd(q, k, v, scale)
+            outp, lsep = fa.flash_fwd_plain(q, k, v, scale)
+            # Both backward versions take the same out and lse, so their
+            # comparison sees the backward alone.
+            dq, dk, dv = fa.flash_bwd(q, k, v, outp, lsep, do, scale)
+            dqp, dkp, dvp = fa.flash_bwd_plain(q, k, v, outp, lsep, do,
+                                               scale)
+            label = f"flash {name} B={B} S={S} H={H} D={D}"
+            e_fwd = held(torch, label, [("out", out, outp, dtype),
+                                        ("lse", lse, lsep, torch.float32)])
+            e_bwd = held(torch, label, [("dq", dq, dqp, dtype),
+                                        ("dk", dk, dkp, dtype),
+                                        ("dv", dv, dvp, dtype)])
+            if dtype == torch.bfloat16 and D == 64:
+                errs["flash_fwd"], errs["flash_bwd"] = e_fwd, e_bwd
+            del dqp, dkp, dvp, outp
+    return errs
+
+
+def least_ms(nbytes, ops, dtype_name):
+    """(least ms, what bounds it): bytes over the memory rate against
+    operations over the peak rate of the inputs' type."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[dtype_name] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def ln_bounds(n, d, es):
+    """LN forward and backward: each input read once, each output written
+    once; ~8 f32 operations an element forward, ~12 backward."""
+    fwd = least_ms(2 * n * d * es + 2 * d * 4 + 2 * n * 4, 8 * n * d,
+                   "float32")
+    bwd = least_ms(3 * n * d * es + d * 4 + 2 * n * 4 + 2 * d * 4,
+                   12 * n * d, "float32")
+    return fwd, bwd
+
+
+def flash_bounds(B, S, H, D, es, dtype_name):
+    """Causal attention: the S(S+1)/2 visible (query, key) pairs of each
+    head; the forward does 4·D operations a pair (Q·Kᵀ, P·V), the backward
+    10·D (Q·Kᵀ again, dO·Vᵀ, Pᵀ·dO, dSᵀ·Q, dS·K).  Bytes: q, k, v (+ out,
+    dout) read once, outputs written once, lse f32."""
+    pairs = B * H * S * (S + 1) // 2
+    elems = B * S * H * D
+    fwd = least_ms(4 * elems * es + B * H * S * 4, 4 * D * pairs, dtype_name)
+    bwd = least_ms(8 * elems * es + B * H * S * 4, 10 * D * pairs,
+                   dtype_name)
+    return fwd, bwd
+
+
+def library(label, fn):
+    """A yardstick's time, or None with the reason printed (the library
+    call is timed only to compare; the port never calls it)."""
+    try:
+        return fn()
+    except (RuntimeError, TypeError) as err:
+        print(f"phase 6: {label}: library call not timed ({err})"[:300])
+        return None
+
+
+def phase_train_timing(torch, card):
+    """Phase 6: each kernel at the main path's bf16 shapes in a CUDA
+    graph over rotating inputs larger than L2, beside the plain version,
+    the library call and the bound.  Returns the JSON record fields."""
+    import torch.nn.functional as F
+
+    from ray_lightning_tpu_torch.ops import flash_attention as fa
+    from ray_lightning_tpu_torch.ops import layer_norm as ln
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    dt, es = torch.bfloat16, 2
+    n, d = TRAIN_B * TRAIN_T, D_MODEL
+    rec = {}
+    # LayerNorm: 4 sets of x and dy of 25 MB each.
+    sets = [ln_case(torch, gen, n, d, dt) for _ in range(4)]
+    fwd_sets = [(x, g, b) for x, g, b, _ in sets]
+    lib_fwd_sets = [(x, g.to(dt), b.to(dt)) for x, g, b, _ in sets]
+    bwd_sets, lib_bwd_sets = [], []
+    for x, g, b, dy in sets:
+        _, mu, rs = ln.ln_fwd(x, g, b)
+        bwd_sets.append((x, g, dy, mu, rs))
+        gd, bd = g.to(dt), b.to(dt)
+        _, mean, rstd = torch.ops.aten.native_layer_norm(x, [d], gd, bd,
+                                                         1e-5)
+        lib_bwd_sets.append((dy, x, mean, rstd, gd, bd))
+    (fb, fby), (bb, bby) = ln_bounds(n, d, es)
+    rec["ln_fwd"] = {
+        "ms": graph_ms(torch, lambda *a: ln.ln_fwd(*a), fwd_sets),
+        "plain_ms": graph_ms(torch, ln.ln_fwd_plain, fwd_sets),
+        "library_ms": library("F.layer_norm", lambda: graph_ms(
+            torch, lambda x, g, b: F.layer_norm(x, (d,), g, b, 1e-5),
+            lib_fwd_sets)),
+        "bound_ms": fb, "bound_by": fby}
+    rec["ln_bwd"] = {
+        "ms": graph_ms(torch, ln.ln_bwd, bwd_sets),
+        "plain_ms": graph_ms(torch, ln.ln_bwd_plain, bwd_sets),
+        "library_ms": library("native_layer_norm_backward", lambda: graph_ms(
+            torch, lambda dy, x, m, r, g, b:
+            torch.ops.aten.native_layer_norm_backward(
+                dy, x, [d], m, r, g, b, [True, True, True]), lib_bwd_sets)),
+        "bound_ms": bb, "bound_by": bby}
+
+    def ln_fwd_bwd(x, g, b, dy):
+        xr = x.detach().requires_grad_(True)
+        F.layer_norm(xr, (d,), g, b, 1e-5).backward(dy)
+
+    both = library("F.layer_norm fwd+bwd", lambda: eager_ms(
+        torch, ln_fwd_bwd, [(x, g.to(dt), b.to(dt), dy)
+                            for x, g, b, dy in sets]))
+    print(f"phase 6: F.layer_norm fwd+bwd (eager, autograd): {both} ms")
+
+    # Flash attention: 2 sets of q, k, v (75 MB each).
+    B, S, H, D = TRAIN_B, TRAIN_T, 12, 64
+    scale = D ** -0.5
+    fsets = [flash_case(torch, gen, B, S, H, D, dt) for _ in range(2)]
+    fwd_sets = [(q, k, v) for q, k, v, _ in fsets]
+    bwd_sets, lib_bwd_sets = [], []
+    for q, k, v, do in fsets:
+        out, lse = fa.flash_fwd(q, k, v, scale)
+        bwd_sets.append((q, k, v, out, lse, do))
+    heads = [tuple(t.transpose(1, 2) for t in (q, k, v, do))
+             for q, k, v, do in fsets]
+
+    def sdpa(q, k, v):
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True)
+
+    def sdpa_bwd_sets():
+        out = []
+        for q, k, v, do in heads:
+            r = torch.ops.aten._scaled_dot_product_flash_attention(
+                q, k, v, 0.0, True)
+            out.append((do, q, k, v, r[0], r[1], r[2], r[3], r[4], r[5],
+                        r[6], r[7]))
+        return out
+
+    def sdpa_bwd(do, q, k, v, o, lse, cq, ck, mq, mk, seed, offset):
+        return torch.ops.aten._scaled_dot_product_flash_attention_backward(
+            do, q, k, v, o, lse, cq, ck, mq, mk, 0.0, True, seed, offset)
+
+    (fb, fby), (bb, bby) = flash_bounds(B, S, H, D, es, "bfloat16")
+    rec["flash_fwd"] = {
+        "ms": graph_ms(torch, lambda q, k, v: fa.flash_fwd(q, k, v, scale),
+                       fwd_sets, reps=5),
+        "plain_ms": graph_ms(torch, lambda q, k, v: fa.flash_fwd_plain(
+            q, k, v, scale), fwd_sets, reps=5),
+        "library_ms": library("F.scaled_dot_product_attention", lambda:
+                              graph_ms(torch, sdpa,
+                                       [h[:3] for h in heads], reps=5)),
+        "bound_ms": fb, "bound_by": fby}
+    rec["flash_bwd"] = {
+        "ms": graph_ms(torch, lambda *a: fa.flash_bwd(*a, scale),
+                       bwd_sets, reps=5),
+        "plain_ms": graph_ms(torch, lambda *a: fa.flash_bwd_plain(
+            *a, scale), bwd_sets, reps=5),
+        "library_ms": library("_scaled_dot_product_flash_attention_backward",
+                              lambda: graph_ms(torch, sdpa_bwd,
+                                               sdpa_bwd_sets(), reps=5)),
+        "bound_ms": bb, "bound_by": bby}
+
+    def sdpa_fwd_bwd(q, k, v, do):
+        q, k, v = (t.detach().requires_grad_(True) for t in (q, k, v))
+        sdpa(q, k, v).backward(do)
+
+    both = library("SDPA fwd+bwd", lambda: eager_ms(torch, sdpa_fwd_bwd,
+                                                    heads, reps=5))
+    print(f"phase 6: F.scaled_dot_product_attention fwd+bwd (eager, "
+          f"autograd): {both} ms")
+    for name, r in rec.items():
+        lib = ("none" if r["library_ms"] is None
+               else f"{r['library_ms'] * 1e3:.1f} us")
+        print(f"phase 6: {name} bf16 at the main path's shape: kernel "
+              f"{r['ms'] * 1e3:.1f} us (graph); plain "
+              f"{r['plain_ms'] * 1e3:.1f} us; library {lib}; bound "
+              f"{r['bound_ms'] * 1e3:.1f} us ({r['bound_by']}); {card}")
+    # f32 bounds, for the record (the ops bound governs flash there).
+    (ff, _), (fbw, _) = flash_bounds(B, S, H, D, 4, "float32")
+    print(f"phase 6: flash f32 bounds: fwd {ff * 1e3:.1f} us, bwd "
+          f"{fbw * 1e3:.1f} us (operations at 67 TF/s)")
+    return rec
+
+
+# -- phases 7 and 8: the trainer -------------------------------------------
+
+def make_clock(torch, Callback):
+    class StepClock(Callback):
+        """A CUDA event after each step and the step's loss tensor: no
+        host sync inside the run."""
+
+        def __init__(self):
+            self.events, self.losses = [], []
+
+        def on_train_batch_end(self, trainer, module, logs, batch_idx):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.events.append(ev)
+            self.losses.append(logs["train_loss"])
+
+    return StepClock()
+
+
+def phase_trainer(torch, card):
+    """Phase 7.  Returns the run's metrics and each kernel's launches."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from ray_lightning_tpu_torch.core.callbacks import Callback
+    from ray_lightning_tpu_torch.core.trainer import Trainer
+    from ray_lightning_tpu_torch.models.gpt import (
+        GPT, GPTConfig, SyntheticLMDataModule,
+    )
+    from ray_lightning_tpu_torch.ops import flash_attention as fa
+    from ray_lightning_tpu_torch.ops import layer_norm as ln
+    from ray_lightning_tpu_torch.telemetry.step_stats import (
+        model_flops_per_token,
+    )
+
+    cfg = GPTConfig.gpt2_small()
+
+    def fit(steps, callbacks=()):
+        tr = Trainer(max_steps=steps, limit_val_batches=0, precision="bf16",
+                     seed=SEED, callbacks=list(callbacks))
+        tr.fit(GPT(cfg), SyntheticLMDataModule(cfg, batch_size=TRAIN_B,
+                                               num_batches=steps, seed=SEED))
+        return tr
+
+    print(f"phase 7: Trainer.fit of GPT-2-small (L={cfg.n_layer}, "
+          f"d={cfg.d_model}, V={cfg.vocab_size}), batch {TRAIN_B} x "
+          f"{TRAIN_T} tokens, bf16, CE as the vocab-chunk scan")
+    fit(3)  # warm-up: libraries loaded, cuBLAS and allocator warmed
+    counters = {"ln_fwd": ln.ln_fwd, "ln_bwd": ln.ln_bwd,
+                "flash_fwd": fa.flash_fwd, "flash_bwd": fa.flash_bwd}
+    per_step = {"ln_fwd": 2 * cfg.n_layer + 1, "ln_bwd": 2 * cfg.n_layer + 1,
+                "flash_fwd": cfg.n_layer, "flash_bwd": cfg.n_layer}
+    clock = make_clock(torch, Callback)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    tr = fit(TRAIN_STEPS, [clock])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in clock.losses]
+    print(f"phase 7: {tr.global_step} steps, launches {launches}; per "
+          f"step {per_step}")
+    check(tr.global_step == TRAIN_STEPS, "every step ran")
+    for k, n in launches.items():
+        check(n == per_step[k] * TRAIN_STEPS,
+              f"{k}: {n} launches = {per_step[k]} x {TRAIN_STEPS}")
+    check(all(np.isfinite(losses)), "finite losses")
+    check(abs(losses[0] - np.log(cfg.vocab_size)) < 0.5,
+          f"first loss {losses[0]} near ln(V) = {np.log(cfg.vocab_size)}")
+    step_ms = [clock.events[i].elapsed_time(clock.events[i + 1])
+               for i in range(len(clock.events) - 1)]
+    windows = [float(np.mean(step_ms[i:i + 4]))
+               for i in range(0, len(step_ms) - 3, 4)]
+    ms = float(np.median(windows))
+    tokens_s = TRAIN_B * TRAIN_T / (ms / 1e3)
+    flops = model_flops_per_token(cfg, "full")
+    mfu = tokens_s * flops / 989e12
+    print(f"phase 7: losses {losses[0]:.4f} -> {losses[-1]:.4f}; step "
+          f"{ms:.2f} ms (median of {len(windows)} windows of 4 steps, "
+          f"CUDA events; all steps {min(step_ms):.2f}-{max(step_ms):.2f} "
+          f"ms); {tokens_s:.0f} tokens/s; MFU {100 * mfu:.2f}% "
+          f"({flops / 1e6:.1f} MFLOP/token against 989 TF/s); peak memory "
+          f"{peak / 2**30:.2f} GiB; wall {wall:.2f} s for the fit; {card}")
+    result = {"steps": TRAIN_STEPS, "step_ms": ms, "tokens_per_s": tokens_s,
+              "mfu": mfu, "peak_gib": peak / 2**30,
+              "first_loss": losses[0], "last_loss": losses[-1],
+              "launches": launches}
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fit(3)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    device = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not device:
+        print("phase 7 profile: device time not measured (the profiler "
+              "recorded no CUDA events)")
+        return result
+    by_name = {}
+    for e in device:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    busy = sum(by_name.values())
+    share = {k: sum(v for n, v in by_name.items() if k in n) / busy
+             for k in ("ln_fwd_kernel", "ln_bwd_kernel", "flash_fwd_kernel",
+                       "flash_bwd_kernel")}
+    print(f"phase 7 profile: 3-step fit (model build and init included): "
+          f"wall {wall_us / 1e3:.1f} ms, device busy {busy / 1e3:.1f} ms "
+          f"({100 * busy / wall_us:.1f}%), {len(device)} device events; "
+          f"kernel shares of device time "
+          + ", ".join(f"{k} {100 * v:.1f}%" for k, v in share.items())
+          + f"; {card}")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
+        print(f"phase 7 profile:   {100 * us / busy:5.1f}%  {us / 1e3:8.2f}"
+              f" ms  {name[:100]}")
+    result["profile"] = {"wall_ms": wall_us / 1e3,
+                         "device_busy_ms": busy / 1e3,
+                         "device_busy_share": busy / wall_us,
+                         "kernel_share_of_device": share}
+    return result
+
+
+def named_leaves(tree, prefix=""):
+    """(name, tensor) for each leaf of nested dicts, in tree order; a
+    stacked ``blocks`` leaf gives one entry per layer."""
+    if isinstance(tree, dict):
+        return [nl for k, v in tree.items()
+                for nl in named_leaves(v, f"{prefix}{k}/")]
+    if prefix.startswith("blocks/"):
+        return [(f"{prefix[:-1]}[{i}]", t) for i, t in enumerate(tree)]
+    return [(prefix[:-1], tree)]
+
+
+def step_grads(torch, cfg, init, tokens, device, precision):
+    """One training step of the full-width model through the loop's own
+    ``loss_and_grads``: (loss, [(leaf name, f32 CPU gradient)])."""
+    from ray_lightning_tpu_torch.models.gpt import GPT
+    from ray_lightning_tpu_torch.models.optim import tree_map
+    from ray_lightning_tpu_torch.parallel.step_fns import loss_and_grads
+
+    module = GPT(cfg, precision=precision, device=device)
+    params = tree_map(lambda t: t.to(device), init)
+    grads, logs = loss_and_grads(module, params,
+                                 {"tokens": tokens.to(device)}, None)
+    return float(logs["train_loss"]), [
+        (n, g.float().cpu()) for n, g in named_leaves(grads)]
+
+
+def worst_leaf(a, b):
+    """(largest ‖a − b‖ / ‖b‖ over the leaves, that leaf's name)."""
+    return max(((float((x - y).norm() / y.norm().clamp_min(1e-30)), n)
+                for (n, x), (_, y) in zip(a, b)))
+
+
+# Worst leaf's relative gradient difference, bf16 step on the card
+# (kernels) vs the CPU (plain versions), set between the correct kernels'
+# reading (1.4e-2, as far as bf16 moves the gradients from f32) and those
+# of a skipped tile or a dropped dQ (>= 5.2e-2; ``chip_faults.py``).
+GRAD_BF16_LIMIT = 3e-2
+
+
+def bf16_step_check(torch, cfg, init, card):
+    """One bf16 training step of the full-width model at batch 1 on the
+    card and on the CPU, whose plain versions make the same bf16
+    roundings: the gradients of every leaf (each layer of a stacked one)
+    must agree within ``GRAD_BF16_LIMIT`` in relative norm.  The f32 step
+    on the card shows how far bf16 itself moves them."""
+    import numpy as np
+
+    from ray_lightning_tpu_torch.ops import flash_attention as fa
+    from ray_lightning_tpu_torch.ops import layer_norm as ln
+
+    rng = np.random.default_rng(SEED + 2)
+    tokens = torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, size=(1, cfg.seq_len + 1)))
+    before = (fa.flash_bwd.launches, ln.ln_bwd.launches)
+    card_loss, card_g = step_grads(torch, cfg, init, tokens, "cuda", "bf16")
+    launched = (fa.flash_bwd.launches - before[0],
+                ln.ln_bwd.launches - before[1])
+    t0 = time.perf_counter()
+    cpu_loss, cpu_g = step_grads(torch, cfg, init, tokens, "cpu", "bf16")
+    cpu_s = time.perf_counter() - t0
+    _, f32_g = step_grads(torch, cfg, init, tokens, "cuda", "f32")
+    rel, leaf = worst_leaf(card_g, cpu_g)
+    rel_f32, leaf_f32 = worst_leaf(card_g, f32_g)
+    print(f"phase 8: bf16 step, card vs CPU: loss {card_loss:.6f} vs "
+          f"{cpu_loss:.6f}; worst gradient leaf {leaf} rel norm diff "
+          f"{rel:.3e} (limit {GRAD_BF16_LIMIT:.0e}); card bf16 vs card "
+          f"f32: worst {leaf_f32} {rel_f32:.3e}; flash_bwd / ln_bwd "
+          f"launches on the card {launched}; CPU step {cpu_s:.1f} s; {card}")
+    check(launched == (cfg.n_layer, 2 * cfg.n_layer + 1),
+          "the card step ran the backward kernels")
+    check(rel <= GRAD_BF16_LIMIT, f"bf16 gradients card vs CPU {rel:.3e}")
+    return {"grad_rel_bf16_card_vs_cpu": rel, "grad_worst_leaf": leaf,
+            "grad_rel_bf16_vs_f32": rel_f32}
+
+
+def phase_end_to_end(torch, card):
+    """Phase 8: the full-width model from one set of initial params: one
+    bf16 step's gradients, card against CPU (``bf16_step_check``); then 3
+    optimizer steps at batch 1 (warmup 2, so steps 2 and 3 have lr > 0):
+    f32 on the card (kernels) against f32 on the CPU (plain versions);
+    bf16 on the card against f32 on the card."""
+    from ray_lightning_tpu_torch.core.callbacks import Callback
+    from ray_lightning_tpu_torch.core.trainer import Trainer
+    from ray_lightning_tpu_torch.models.gpt import (
+        GPT, GPTConfig, SyntheticLMDataModule,
+    )
+    from ray_lightning_tpu_torch.models.optim import tree_leaves
+    from ray_lightning_tpu_torch.ops import flash_attention as fa
+    from ray_lightning_tpu_torch.parallel.strategies import LocalStrategy
+
+    cfg = dataclasses.replace(GPTConfig.gpt2_small(), warmup_steps=2)
+    init = GPT(cfg, device="cpu").init_params(
+        torch.Generator().manual_seed(SEED))
+
+    def run(device, precision):
+        module = GPT(cfg, device=device)
+        module.initial_params = init
+        losses = []
+
+        class Losses(Callback):
+            def on_train_batch_end(self, trainer, module, logs, batch_idx):
+                losses.append(float(logs["train_loss"]))
+
+        before = fa.flash_fwd.launches
+        t0 = time.perf_counter()
+        tr = Trainer(LocalStrategy(device=device), max_steps=3,
+                     limit_val_batches=0, precision=precision,
+                     callbacks=[Losses()])
+        tr.fit(module, SyntheticLMDataModule(cfg, batch_size=1,
+                                             num_batches=3, seed=SEED + 1))
+        launched = fa.flash_fwd.launches - before
+        print(f"phase 8: {precision} fit on {device}: losses "
+              + ", ".join(f"{x:.6f}" for x in losses)
+              + f"; {time.perf_counter() - t0:.1f} s; flash_fwd launches "
+              f"{launched}")
+        check(launched == (3 * cfg.n_layer if device == "cuda" else 0),
+              f"the {device} fit ran the kernels on the card only")
+        return losses, tree_leaves(tr.state.params)
+
+    grads = bf16_step_check(torch, cfg, init, card)
+    card_l, card_p = run("cuda", "f32")
+    cpu_l, cpu_p = run("cpu", "f32")
+    bf_l, _ = run("cuda", "bf16")
+    init_p = tree_leaves(init)
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(card_l, cpu_l))
+    upd_rel = 0.0
+    for p_card, p_cpu, p0 in zip(card_p, cpu_p, init_p):
+        d_card = p_card.cpu() - p0
+        d_cpu = p_cpu - p0
+        upd_rel = max(upd_rel, float((d_card - d_cpu).norm()
+                                     / d_cpu.norm().clamp_min(1e-30)))
+    bf_rel = max(abs(a - b) / abs(b) for a, b in zip(bf_l, card_l))
+    print(f"phase 8: card f32 vs CPU f32: per-step loss rel err "
+          f"{loss_rel:.3e} (tol 1e-5); parameter updates after step 3, "
+          f"largest relative norm of the difference over the leaves "
+          f"{upd_rel:.3e} (tol 1e-2: Adam divides each gradient by its own "
+          f"root mean square, so f32 noise in a near-zero gradient moves "
+          f"its element by up to lr); {card}")
+    print(f"phase 8: card bf16 vs card f32: per-step loss rel err "
+          f"{bf_rel:.3e} (tol 1e-2, bf16 activations)")
+    check(loss_rel <= 1e-5, "card f32 losses match the CPU's")
+    check(upd_rel <= 1e-2, "card f32 updates match the CPU's")
+    check(bf_rel <= 1e-2, "card bf16 losses match f32")
+    return {"loss_rel_card_vs_cpu": loss_rel,
+            "update_rel_card_vs_cpu": upd_rel,
+            "loss_rel_bf16_vs_f32": bf_rel, **grads}
+
+
 def main() -> int:
     import torch
 
@@ -426,15 +1028,31 @@ def main() -> int:
 
     record = phase_kernel(torch, lora, card)
     f32, bf16 = phase_server(torch, np, card)
+    errs = phase_train_kernels(torch)
+    timing = phase_train_timing(torch, card)
+    train = phase_trainer(torch, card)
+    e2e = phase_end_to_end(torch, card)
 
-    print('kernels: ["bgmv"]')
-    print("server: " + json.dumps({"f32": f32, "bf16": bf16,
-                                   "card": card}))
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "bgmv", "route": "cuda", "source": BGMV_SOURCE,
         "replaces": BGMV_REPLACES, "launches": f32["launches"],
         **record, "library_ms": None,
-    }]}))
+    }]
+    for name in ("ln_fwd", "ln_bwd", "flash_fwd", "flash_bwd"):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": LN_SOURCE if name.startswith("ln") else FLASH_SOURCE,
+            "replaces": REPLACES[name],
+            "launches": train["launches"][name],
+            "max_abs_err": errs[name], **timing[name],
+        })
+    print("kernels: " + json.dumps([k["name"] for k in kernels]))
+    print("server: " + json.dumps({"f32": f32, "bf16": bf16,
+                                   "card": card}))
+    print("trainer: " + json.dumps({**train, "end_to_end": e2e,
+                                    "card": card}))
+    print(card)
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

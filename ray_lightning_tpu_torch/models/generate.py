@@ -9,8 +9,8 @@ Python loop here, and the cache is written in place where JAX used
 
 Numerics follow the JAX package: each chunk's k/v is written before it is
 attended, scores/softmax/PV run in f32 with hidden slots masked to
-``_NEG_INF``, and the tied LM head runs in the compute dtype, its logits
-then taken as f32.  The serving engine (``serve/engine.py``) is held
+``_NEG_INF``, and the tied LM head takes compute-dtype operands to f32
+logits.  The serving engine (``serve/engine.py``) is held
 against :func:`generate`.
 """
 
@@ -27,6 +27,7 @@ from ray_lightning_tpu_torch.models.gpt import (
     resolve_weight,
 )
 from ray_lightning_tpu_torch.ops.attention import _NEG_INF
+from ray_lightning_tpu_torch.ops.matmul import mm_f32
 from ray_lightning_tpu_torch.ops.layer_norm import layer_norm
 from ray_lightning_tpu_torch.ops.lora import apply_lora
 
@@ -121,10 +122,13 @@ def _embed(params, tokens: torch.Tensor, c: torch.dtype) -> torch.Tensor:
 
 
 def _head_logits(params, h: torch.Tensor, c: torch.dtype) -> torch.Tensor:
-    """``ln_f`` + tied LM head on hidden ``(..., d)`` → logits ``(..., V)``,
-    computed in the compute dtype and taken as f32."""
+    """``ln_f`` + tied LM head on hidden ``(..., d)`` → f32 logits
+    ``(..., V)``: compute-dtype operands, an f32 product (the JAX einsum's
+    ``preferred_element_type=f32``; bf16 logits are not rounded to bf16)."""
     h = layer_norm(h, params["ln_f_g"], params["ln_f_b"])
-    return (h @ _wte(params, c).T).float()
+    d = h.shape[-1]
+    logits = mm_f32(h.to(c).reshape(-1, d), _wte(params, c).T)
+    return logits.reshape(*h.shape[:-1], -1)
 
 
 def _reject_unmerged_lora(params: Dict[str, Any]) -> None:

@@ -1,4 +1,4 @@
-"""GPT — the decoder-only LM family, in PyTorch.
+"""GPT — the decoder-only LM family, in PyTorch: model, loss and data.
 
 Parameters are a plain dict in the JAX package's layout
 (``ray_lightning_tpu/models/gpt.py::GPT.init_params``): ``wte``, ``wpe``,
@@ -8,6 +8,15 @@ Parameters are a plain dict in the JAX package's layout
 (``models/convert.py``) runs here unchanged, and the tests compare like
 with like.  Activations run in the compute dtype (``precision``);
 parameters, LayerNorm statistics and attention softmax stay f32.
+
+Training (``training_step``, ``_loss``) runs the trunk of the JAX
+package's ``forward_hidden`` with its single-device kernel gates on: every
+LayerNorm site through ``layer_norm(..., use_kernel=True)`` and attention
+through ``causal_attention`` (``attn_impl="flash"``, the default: the
+flash kernels on the card, their plain versions on the CPU), then the vocab-chunked tied
+LM head + cross-entropy (``ops/cross_entropy.py``).  The stacked ``blocks``
+tensors are unbound per layer, so their gradients come back stacked
+``(L, ...)``: the optimizer and the tests see the JAX package's tree.
 
 LoRA: the adapter helpers (``add_lora_adapters``, ``extract_lora``,
 ``merge_lora``, ``synthetic_lora_adapter``) keep the JAX package's
@@ -20,22 +29,37 @@ import dataclasses
 import math
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
-from torch import nn
 
+from ray_lightning_tpu_torch.core.data import (
+    ArrayDataset, NumpyLoader, TpuDataModule,
+)
+from ray_lightning_tpu_torch.core.module import TrainModule
 from ray_lightning_tpu_torch.device import resolve_device
+from ray_lightning_tpu_torch.models.optim import (
+    chain, clip_by_global_norm, gpt_adamw,
+)
+from ray_lightning_tpu_torch.ops.attention import (
+    ATTN_IMPLS, causal_attention, resolve_impl,
+)
+from ray_lightning_tpu_torch.ops.cross_entropy import (
+    fused_lm_head_cross_entropy,
+)
 from ray_lightning_tpu_torch.ops.layer_norm import layer_norm
+from ray_lightning_tpu_torch.ops.matmul import mm_f32
 
-__all__ = ["GPTConfig", "GPT", "resolve_weight", "has_int8_weights",
-           "has_lora_adapters", "add_lora_adapters", "extract_lora",
-           "merge_lora", "synthetic_lora_adapter"]
+__all__ = ["GPTConfig", "GPT", "SyntheticLMDataModule", "resolve_weight",
+           "has_int8_weights", "has_lora_adapters", "add_lora_adapters",
+           "extract_lora", "merge_lora", "synthetic_lora_adapter"]
 
 
 @dataclasses.dataclass(frozen=True)
 class GPTConfig:
-    """The dense subset of the JAX package's ``GPTConfig`` that inference
-    reads (training-only fields port with the training slice)."""
+    """The JAX package's ``GPTConfig`` for dense models.  ``n_experts``
+    and ``opt_state_dtype`` exist so that a config asking for MoE or a
+    compressed optimizer state is refused (later slices of the port)."""
 
     vocab_size: int = 50304  # GPT-2 vocab padded to a multiple of 128
     n_layer: int = 12
@@ -43,6 +67,13 @@ class GPTConfig:
     d_model: int = 768
     seq_len: int = 1024
     mlp_ratio: int = 4
+    lr: float = 3e-4
+    weight_decay: float = 0.1
+    warmup_steps: int = 100
+    n_experts: int = 0
+    # AdamW first-moment storage dtype ("bfloat16" or "float32").
+    mu_dtype: str = "bfloat16"
+    opt_state_dtype: Optional[str] = None
     # LoRA (0 = off): rank of the adapters on the attention projections
     # (qkv and proj); the adapter delta is scaled by lora_alpha / rank.
     lora_rank: int = 0
@@ -52,7 +83,7 @@ class GPTConfig:
     def tiny(cls) -> "GPTConfig":
         """Test-sized config."""
         return cls(vocab_size=512, n_layer=2, n_head=4, d_model=128,
-                   seq_len=128)
+                   seq_len=128, warmup_steps=2)
 
     @classmethod
     def gpt2_small(cls) -> "GPTConfig":
@@ -76,11 +107,11 @@ def resolve_weight(tree: Dict[str, Any], name: str,
 
 
 def _mlp_residual(x: torch.Tensor, p: Dict[str, Any],
-                  c: torch.dtype) -> torch.Tensor:
+                  c: torch.dtype, ln_kernel: bool = False) -> torch.Tensor:
     """LN2 + GELU MLP + residual — the dense second half of a GPT block,
     over any leading dims.  GELU is the tanh form, as ``jax.nn.gelu``'s
-    default."""
-    h = layer_norm(x, p["ln2_g"], p["ln2_b"])
+    default.  ``ln_kernel``: the LayerNorm kernel pair (training)."""
+    h = layer_norm(x, p["ln2_g"], p["ln2_b"], use_kernel=ln_kernel)
     h = F.gelu(
         h @ resolve_weight(p, "mlp_in_w", c) + p["mlp_in_b"].to(c),
         approximate="tanh",
@@ -94,30 +125,51 @@ def _normal(shape, std: float, generator: torch.Generator) -> torch.Tensor:
                        device=generator.device) * std
 
 
-class GPT(nn.Module):
-    """Decoder-only LM: a config, a precision and a device.
+class GPT(TrainModule):
+    """Decoder-only LM: a config, an attention implementation, a precision
+    and a device.  Batch contract (training): ``{"tokens": int (B, T+1)}``
+    — inputs are ``tokens[:, :-1]``, targets ``tokens[:, 1:]``.
 
     The parameters are a dict (see the module docstring), made by
     :meth:`init_params` or converted from the JAX package, and passed to
-    the functions of ``models/generate.py`` and ``serve/``.
+    the step methods, to ``models/generate.py`` and to ``serve/``.
 
     Args:
+        attn_impl: ``"flash"`` — the flash kernels (their plain versions
+            on the CPU); ``"xla"`` — the plain attention under autograd;
+            ``"auto"`` (default, the JAX package's name) becomes
+            ``"flash"`` here.
         precision: ``"f32"`` (default) or ``"bf16"`` — the activations'
-            compute dtype.
+            compute dtype; the fit loop sets it from the trainer's.
         device: where :meth:`init_params` puts the parameters; ``None``
             means ``"cuda"`` and raises without a card.
+        remat: rematerialisation is a later slice of the port; True
+            raises.
     """
 
     def __init__(self, config: Optional[GPTConfig] = None,
-                 precision: str = "f32", device=None):
+                 attn_impl: str = "auto", precision: str = "f32",
+                 device=None, remat: bool = False):
         super().__init__()
         if precision not in ("f32", "bf16", "bfloat16"):
             raise ValueError(
                 f"precision {precision!r} not in ('f32', 'bf16')"
             )
+        if attn_impl not in ATTN_IMPLS:
+            raise ValueError(
+                f"attn_impl {attn_impl!r} not in {ATTN_IMPLS} (ring "
+                f"attention is a later slice of the port)")
+        if remat:
+            raise NotImplementedError(
+                "remat is not supported by the PyTorch port yet (a later "
+                "slice ports it as torch.utils.checkpoint); use "
+                "remat=False")
         self.config = config or GPTConfig.tiny()
+        self.attn_impl = resolve_impl(attn_impl)
         self.precision = precision
         self.device = resolve_device(device)
+        self.save_hyperparameters(**dataclasses.asdict(self.config),
+                                  attn_impl=attn_impl)
 
     def _compute_dtype(self) -> torch.dtype:
         return torch.bfloat16 if self.precision in ("bf16", "bfloat16") \
@@ -159,6 +211,116 @@ class GPT(nn.Module):
             "ln_f_b": torch.zeros(d),
         }
         return _tree_to(params, self.device)
+
+    # -- forward ------------------------------------------------------------
+    def forward(self, params: Dict[str, Any],
+                tokens: torch.Tensor) -> torch.Tensor:
+        """tokens (B, T) -> logits (B, T, vocab) f32.  Materialises the
+        full logits: inference only; the loss goes through the chunked
+        head."""
+        x, _ = self.forward_hidden(params, tokens)
+        c = self._compute_dtype()
+        B, T, d = x.shape
+        return mm_f32(x.reshape(B * T, d), params["wte"].to(c).T).reshape(
+            B, T, -1)
+
+    def forward_hidden(self, params: Dict[str, Any], tokens: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Trunk: tokens (B, T) -> (final hidden (B, T, d) after ``ln_f``,
+        MoE aux loss — 0.0, the port's configs being dense)."""
+        cfg = self.config
+        if cfg.n_experts > 0:
+            raise NotImplementedError(
+                "MoE (n_experts > 0) is not supported by the PyTorch port "
+                "yet (a later slice ports ops/moe.py)")
+        if cfg.lora_rank > 0 or has_lora_adapters(params):
+            raise NotImplementedError(
+                "LoRA training is not supported by the PyTorch port yet (a "
+                "later slice); fold adapters with merge_lora, or serve "
+                "them through ServeEngine's adapter pool")
+        c = self._compute_dtype()
+        B, T = tokens.shape
+        H, Dh, d = cfg.n_head, cfg.head_dim, cfg.d_model
+        x = (params["wte"][tokens.long()] + params["wpe"][:T]).to(c)
+        # unbind, not indexing: its backward stacks the per-layer grads in
+        # one op, so they come back in the (L, ...) layout.
+        names = list(params["blocks"])
+        layers = [dict(zip(names, ts)) for ts in zip(
+            *(params["blocks"][k].unbind(0) for k in names))]
+        for p in layers:
+            h = layer_norm(x, p["ln1_g"], p["ln1_b"], use_kernel=True)
+            qkv = h @ p["qkv_w"].to(c) + p["qkv_b"].to(c)
+            q, k, v = (z.reshape(B, T, H, Dh) for z in qkv.split(d, dim=-1))
+            att = causal_attention(q, k, v, impl=self.attn_impl)
+            att = att.reshape(B, T, d)
+            x = x + (att @ p["proj_w"].to(c) + p["proj_b"].to(c))
+            x = _mlp_residual(x, p, c, ln_kernel=True)
+        x = layer_norm(x, params["ln_f_g"], params["ln_f_b"], use_kernel=True)
+        return x, torch.zeros((), device=x.device)
+
+    # -- steps --------------------------------------------------------------
+    def _loss(self, params: Dict[str, Any], tokens: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Mean next-token CE of ``tokens (B, T+1)`` through the
+        vocab-chunked tied head (the JAX package's scan path)."""
+        inputs, targets = tokens[:, :-1], tokens[:, 1:]
+        x, aux = self.forward_hidden(params, inputs)
+        loss = fused_lm_head_cross_entropy(
+            x, params["wte"], targets, compute_dtype=self._compute_dtype(),
+        ).mean()
+        return loss, aux
+
+    def training_step(self, params, batch, rng):
+        loss, _ = self._loss(params, batch["tokens"])
+        return loss, {"train_loss": loss}
+
+    def validation_step(self, params, batch):
+        loss, _ = self._loss(params, batch["tokens"])
+        return {"val_loss": loss, "val_ppl": torch.exp(loss)}
+
+    def configure_optimizers(self):
+        """Global-norm clip 1.0, then the family's masked warmup-cosine
+        AdamW (``models/optim.py``)."""
+        if self.config.lora_rank > 0:
+            raise NotImplementedError(
+                "LoRA training is not supported by the PyTorch port yet")
+        return chain(clip_by_global_norm(1.0), gpt_adamw(self.config))
+
+
+class SyntheticLMDataModule(TpuDataModule):
+    """Deterministic synthetic token stream: the JAX package's
+    ``SyntheticLMDataModule`` with the same numpy draws, so both packages
+    see the same batches."""
+
+    def __init__(self, config: GPTConfig, batch_size: int = 8,
+                 num_batches: int = 16, seed: int = 0):
+        super().__init__()
+        self.config = config
+        self.batch_size = batch_size
+        self.num_batches = num_batches
+        self.seed = seed
+        self._tokens: Optional[np.ndarray] = None
+
+    def setup(self, stage: str) -> None:
+        if self._tokens is None:
+            rng = np.random.default_rng(self.seed)
+            n = self.batch_size * self.num_batches
+            self._tokens = rng.integers(
+                0, self.config.vocab_size,
+                size=(n, self.config.seq_len + 1),
+            ).astype(np.int32)
+
+    def _loader(self):
+        return NumpyLoader(
+            ArrayDataset(tokens=self._tokens), batch_size=self.batch_size,
+            shard_index=self.shard_index, num_shards=self.num_shards,
+        )
+
+    def train_dataloader(self):
+        return self._loader()
+
+    def val_dataloader(self):
+        return self._loader()
 
 
 def _tree_to(tree: Dict[str, Any], device: torch.device) -> Dict[str, Any]:

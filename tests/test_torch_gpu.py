@@ -1,11 +1,13 @@
-"""The port's CUDA kernel and a tiny engine on the card.
+"""The port's CUDA kernels, a tiny engine and a tiny fit on the card.
 
 Marked ``gpu``; each test skips (inside its fixture, never at import)
 when no CUDA device is available.  Run on the card with
 ``pytest -m gpu tests/test_torch_gpu.py``.  Kernel vs plain tolerances as
 in ``chip_smoke.py``: f32 max abs error <= 1e-5·max|ref| + 1e-6 (f32 sums
-in another order), bf16 <= 2e-2·max|ref| (one bf16 rounding of the
-output, which may land on the other side).
+in another order); bf16 (BGMV) <= 2e-2·max|ref|; the training kernels'
+bf16 results by measures relative to the reference itself
+(:func:`_bf16_measures`, limits ``BF16_LIMITS``), since at attention's
+shapes max|ref| is many times a typical element.
 """
 
 import dataclasses
@@ -14,11 +16,16 @@ import numpy as np
 import pytest
 import torch
 
+from ray_lightning_tpu_torch.core.trainer import Trainer
 from ray_lightning_tpu_torch.models.generate import generate
 from ray_lightning_tpu_torch.models.gpt import (
-    GPT, GPTConfig, synthetic_lora_adapter,
+    GPT, GPTConfig, SyntheticLMDataModule, synthetic_lora_adapter,
 )
+from ray_lightning_tpu_torch.ops import flash_attention as fa
+from ray_lightning_tpu_torch.ops import layer_norm as ln
 from ray_lightning_tpu_torch.ops import lora
+from ray_lightning_tpu_torch.ops.attention import causal_attention
+from ray_lightning_tpu_torch.parallel.strategies import LocalStrategy
 from ray_lightning_tpu_torch.serve.engine import ServeConfig, ServeEngine
 
 pytestmark = pytest.mark.gpu
@@ -121,3 +128,124 @@ def test_tiny_engine_on_the_card_matches_merged_generate(cuda):
     for (p, a), h in zip(reqs, handles):
         ref = generate(module, merged[a], [p], 10)[0, len(p):].tolist()
         assert h.result(0) == ref
+
+
+BF16_LIMITS = {"row": 2e-2, "frob": 5e-3, "bias": 5e-4}  # as chip_smoke.py
+
+
+def _bf16_measures(got, ref):
+    """chip_smoke.py's ``bf16_measures``: the worst row's relative error
+    (floored at 1e-2 of the rms row norm), the relative Frobenius error,
+    and the worst 64-position tile's bias Σ(got − ref)·ref / Σ ref²."""
+    g, r = got.float(), ref.float()
+    if r.ndim == 4:  # (B, S, H, D): positions on axis 1
+        g, r = (t.transpose(0, 1).reshape(t.shape[1], -1, t.shape[-1])
+                for t in (g, r))
+    else:  # (N, d)
+        g, r = (t.reshape(t.shape[0], 1, -1) for t in (g, r))
+    d = g - r
+    rn = r.norm(dim=-1)
+    row = (d.norm(dim=-1) / (rn + 1e-2 * rn.square().mean().sqrt())).max()
+    dr, rr = (d * r).sum(dim=(1, 2)), r.square().sum(dim=(1, 2))
+    pad = -len(dr) % 64
+    dr, rr = (torch.nn.functional.pad(t, (0, pad)).reshape(-1, 64).sum(1)
+              for t in (dr, rr))
+    return {"row": row.item(), "frob": (d.norm() / r.norm()).item(),
+            "bias": (dr / rr.clamp_min(1e-30)).abs().max().item()}
+
+
+def _assert_close(got, ref, dt):
+    if dt == torch.float32:
+        scale = ref.float().abs().max().item()
+        err = (got.float() - ref.float()).abs().max().item()
+        assert err <= 1e-5 * scale + 1e-6
+    else:
+        m = _bf16_measures(got, ref)
+        assert all(m[k] <= BF16_LIMITS[k] for k in m), m
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,d", [(2048, 768), (1001, 768), (37, 100),
+                                 (5, 1600)])
+def test_layer_norm_kernels_match_plain(cuda, dtype, n, d):
+    dt = getattr(torch, dtype)
+    x = (torch.randn(n, d, generator=cuda, device="cuda") * 2 + 0.3).to(dt)
+    g = torch.randn(d, generator=cuda, device="cuda")
+    b = torch.randn(d, generator=cuda, device="cuda")
+    dy = torch.randn(n, d, generator=cuda, device="cuda").to(dt)
+    f0, b0 = ln.ln_fwd.launches, ln.ln_bwd.launches
+    y, mu, rs = ln.ln_fwd(x, g, b)
+    y_only, none_mu, none_rs = ln.ln_fwd(x, g, b, want_stats=False)
+    yp, mup, rsp = ln.ln_fwd_plain(x, g, b)
+    # Both backward versions take the same statistics.
+    dx, dg, db = ln.ln_bwd(x, g, dy, mup, rsp)
+    dxp, dgp, dbp = ln.ln_bwd_plain(x, g, dy, mup, rsp)
+    torch.cuda.synchronize()
+    assert (ln.ln_fwd.launches, ln.ln_bwd.launches) == (f0 + 2, b0 + 1)
+    assert none_mu is None and none_rs is None and torch.equal(y_only, y)
+    for got, ref in ((y, yp), (dx, dxp)):
+        assert got.dtype == dt
+        _assert_close(got, ref, dt)
+    for got, ref in ((mu, mup), (rs, rsp), (dg, dgp), (db, dbp)):
+        _assert_close(got, ref, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,D", [(2, 256, 4, 64), (1, 512, 2, 128),
+                                     (3, 64, 5, 64)])
+def test_flash_kernels_match_plain_on_strided_views(cuda, dtype, B, S, H,
+                                                    D):
+    dt = getattr(torch, dtype)
+    qkv = torch.randn(B, S, 3 * H * D, generator=cuda, device="cuda").to(dt)
+    q, k, v = (t.view(B, S, H, D) for t in qkv.split(H * D, dim=-1))
+    do = torch.randn(B, S, H, D, generator=cuda, device="cuda").to(dt)
+    scale = D ** -0.5
+    f0, b0 = fa.flash_fwd.launches, fa.flash_bwd.launches
+    out, lse = fa.flash_fwd(q, k, v, scale)
+    outp, lsep = fa.flash_fwd_plain(q, k, v, scale)
+    # Both backward versions take the same out and lse.
+    dq, dk, dv = fa.flash_bwd(q, k, v, outp, lsep, do, scale)
+    grads_p = fa.flash_bwd_plain(q, k, v, outp, lsep, do, scale)
+    torch.cuda.synchronize()
+    assert (fa.flash_fwd.launches, fa.flash_bwd.launches) == (f0 + 1, b0 + 1)
+    _assert_close(out, outp, dt)
+    _assert_close(lse, lsep, torch.float32)
+    for got, ref in zip((dq, dk, dv), grads_p):
+        assert got.dtype == dt and got.shape == (B, S, H, D)
+        _assert_close(got, ref, dt)
+
+
+def test_kernels_reject_what_they_do_not_take(cuda):
+    q = torch.randn(1, 128, 2, 32, device="cuda")  # head_dim 32
+    with pytest.raises(ValueError, match="impl='xla'"):
+        causal_attention(q, q, q, impl="flash")
+    with pytest.raises(ValueError, match="impl='xla'"):
+        fa.flash_fwd(torch.randn(1, 100, 2, 64, device="cuda"),
+                     *[torch.randn(1, 100, 2, 64, device="cuda")] * 2, 0.1)
+    with pytest.raises(ValueError, match="dtype"):
+        h = torch.randn(1, 128, 2, 64, device="cuda").half()
+        fa.flash_fwd(h, h, h, 0.1)
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        x = torch.randn(4, 64, device="cuda").half()
+        ln.ln_fwd(x, torch.ones(64, device="cuda"),
+                  torch.zeros(64, device="cuda"))
+    out = causal_attention(q, q, q, impl="xla")  # the named way out
+    assert out.shape == q.shape
+
+
+def test_tiny_fit_on_the_card_counts_every_launch(cuda):
+    cfg = GPTConfig(vocab_size=512, n_layer=2, n_head=2, d_model=128,
+                    seq_len=128, warmup_steps=2)
+    counters = (ln.ln_fwd, ln.ln_bwd, fa.flash_fwd, fa.flash_bwd)
+    for c in counters:
+        c.launches = 0
+    tr = Trainer(max_steps=3, limit_val_batches=0)  # LocalStrategy(): card
+    tr.fit(GPT(cfg), SyntheticLMDataModule(cfg, batch_size=4,
+                                           num_batches=3))
+    n_ln = 2 * cfg.n_layer + 1
+    assert [c.launches for c in counters] == [3 * n_ln, 3 * n_ln,
+                                              3 * cfg.n_layer,
+                                              3 * cfg.n_layer]
+    assert np.isfinite(tr.callback_metrics["train_loss"])
+    assert isinstance(tr.strategy, LocalStrategy)
+    assert tr.state.params["wte"].is_cuda
