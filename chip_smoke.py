@@ -8,12 +8,14 @@ ops/csrc``, holds each against its plain PyTorch version on the card,
 times it, then drives the port's two main paths: multi-tenant LoRA
 serving of GPT-2-small through ``ServeEngine`` (its greedy tokens equal
 the port's static ``generate()`` on each tenant's merged weights), and
-``Trainer.fit`` of GPT-2-small (the LayerNorm and flash-attention kernels
-at every site, counted per step).  Phases:
+``Trainer.fit`` of GPT-2-small in its headline configuration (the JAX
+package's one-chip ``bench.py`` program: the LayerNorm, flash-attention and
+fused LM-head cross-entropy kernels at every site, blocks rematerialised
+under ``remat_policy="dots+flash"``), counted per step.  Phases:
 
 0. device and build: the card's name and power limit, TF32 off, each
-   kernel built (one nvcc per source, all at once) with its registers and
-   shared memory;
+   kernel built (one nvcc per source, all at once) with its registers,
+   shared memory and spills;
 1. BGMV vs plain at the serving path's shapes, f32 and bf16, plus a batch
    of null-adapter rows whose delta must be exactly 0.0;
 2. BGMV timing (CUDA graphs of back-to-back launches over rotating inputs
@@ -22,22 +24,30 @@ at every site, counted per step).  Phases:
 3. the server in f32: GPT-2-small with random weights from a seed, 4
    synthetic rank-16 tenants plus the base model, 10 greedy requests;
 4. the same requests at bf16 (tokens not compared);
-5. LayerNorm and flash-attention kernels vs plain, forward and backward
-   (each backward pair on the same saved statistics), at the training
-   path's shapes (and ragged or D=128 ones): f32 within 1e-5·max|ref| +
-   1e-6, bf16 by its worst row, relative Frobenius error and worst tile's
-   bias (``bf16_measures``);
+5. LayerNorm, flash-attention and CE kernels vs plain, forward and
+   backward (each backward pair on the same saved statistics), at the
+   training path's shapes (and ragged, D=128 or d=1536 ones): f32 within
+   1e-5·max|ref| + 1e-6 (CE also by the measures below at f32 limits),
+   bf16 by its worst row, relative Frobenius error and worst tile's bias
+   (``bf16_measures``);
 6. their timing beside the plain version, the PyTorch library call
-   (``F.layer_norm``, ``F.scaled_dot_product_attention``; yardsticks only,
-   never on the path) and the bound;
-7. the trainer: GPT-2-small, batch 16 x 1024 tokens, bf16, warmed up,
-   then a measured fit whose kernel launches per step must be exactly
-   25 / 25 / 12 / 12, with tokens/s, MFU and peak memory, and a
-   torch.profiler window;
-8. end-to-end checks: one bf16 training step of the full-width model,
-   its gradients on the card (kernels) against the CPU's (plain versions,
-   same roundings); a 3-step f32 fit on the card against the same fit on
-   the CPU; and a bf16 card fit against the f32 one.
+   (``F.layer_norm``, ``F.scaled_dot_product_attention``; for CE, which no
+   single call computes, the cuBLAS time of the same products and the
+   vocab-chunk scan it replaces; yardsticks only, never on the path) and
+   the bound;
+7. the trainer: GPT-2-small, batch 16 x 1024 tokens, bf16, three arms —
+   (a) the headline, (b) CE kernels without remat, (c) the CE scan
+   (``GPT(ce_kernel=False)``) without remat — each warmed up, then a
+   measured fit whose kernel launches per step must be exact (a: 49 / 25 /
+   12 / 12 / 1 / 1 / 1 for LN fwd, LN bwd, flash fwd, flash bwd, CE fwd,
+   dx, dW), with tokens/s, MFU and peak memory ((a) below (b)); a
+   torch.profiler window over (a); then a depth-2 step per remat policy
+   with its launch gates;
+8. end-to-end checks on the headline configuration: one bf16 training
+   step of the full-width model, its gradients on the card (kernels)
+   against the CPU's (plain versions, same roundings); a 3-step f32 fit on
+   the card against the same fit on the CPU; and a bf16 card fit against
+   the f32 one.
 
 Any failure raises: the script exits non-zero and prints no result.  The
 line before the last is the kernels' JSON record; the last line is
@@ -60,14 +70,25 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}
 BGMV_SOURCE = "ray_lightning_tpu_torch/ops/csrc/bgmv.cu"
 BGMV_REPLACES = "ray_lightning_tpu/ops/lora.py:101"
-LN_SOURCE = "ray_lightning_tpu_torch/ops/csrc/layer_norm.cu"
-FLASH_SOURCE = "ray_lightning_tpu_torch/ops/csrc/flash_attention.cu"
+SOURCES = {
+    "ln": "ray_lightning_tpu_torch/ops/csrc/layer_norm.cu",
+    "flash": "ray_lightning_tpu_torch/ops/csrc/flash_attention.cu",
+    "ce": "ray_lightning_tpu_torch/ops/csrc/cross_entropy.cu",
+}
 REPLACES = {
     "ln_fwd": "ray_lightning_tpu/ops/layer_norm.py:111",
     "ln_bwd": "ray_lightning_tpu/ops/layer_norm.py:144",
     "flash_fwd": "ray_lightning_tpu/ops/flash_attention.py:152",
     "flash_bwd": "ray_lightning_tpu/ops/flash_attention.py:271",
+    "ce_fwd": "ray_lightning_tpu/ops/cross_entropy.py:248",
+    "ce_bwd_dx": "ray_lightning_tpu/ops/cross_entropy.py:424",
+    "ce_bwd_dw": "ray_lightning_tpu/ops/cross_entropy.py:441",
 }
+TRAIN_KERNELS = tuple(REPLACES)
+VOCAB = 50304          # GPT-2-small's padded vocabulary
+# The headline training configuration: the JAX package's bench.py
+# _bench_fit program on one chip (every kernel on, remat "dots+flash").
+HEADLINE = {"remat": True, "remat_policy": "dots+flash"}
 TRAIN_B, TRAIN_T = 16, 1024  # the training cell: batch 16 x 1024 tokens
 TRAIN_STEPS = 24             # measured optimizer steps
 D_MODEL = 768          # GPT-2-small width
@@ -461,32 +482,41 @@ def bf16_measures(torch, got, ref):
 # path's shapes (``chip_faults.py``; PERF.md): correct row <= 6.0e-3,
 # frob <= 1.3e-3, bias <= 6.4e-5; every fault over at least one limit.
 BF16_LIMITS = {"row": 2e-2, "frob": 5e-3, "bias": 5e-4}
+# The same measures' limits for the CE kernels' f32 results, held beside
+# the max-abs check: at the main shape the cotangent is the mean loss's
+# (~1/N), dx and dW elements lie near or under that check's absolute 1e-6,
+# and only these relative measures see a scaled softmax term.  Set between
+# the correct kernels' readings (row <= 6.7e-6, frob <= 4.1e-6, bias <=
+# 1.5e-7) and ``chip_faults.py``'s softmax term against lse + 1 at the f32
+# main shape (dx row 1.5e-2, frob 1.3e-2; dW row 0.35, frob 6.7e-3), which
+# the max-abs check passes (err/tol 0.08 and 0.77); PERF.md.
+F32_LIMITS = {"row": 1e-4, "frob": 5e-5, "bias": 5e-5}
 
 
-def held(torch, label, pairs):
+def held(torch, label, pairs, f32_limits=None):
     """Check each (name, got, ref, dtype of the result); returns the
     largest abs error.  f32: max abs error <= 1e-5·max|ref| + 1e-6 (sums in
-    another order).  bf16: every measure of ``bf16_measures`` within
+    another order), and every measure of ``bf16_measures`` within
+    ``f32_limits`` where given.  bf16: every measure within
     ``BF16_LIMITS``."""
     torch.cuda.synchronize()
     worst = 0.0
     for name, got, ref, dtype in pairs:
         err = (got.float() - ref.float()).abs().max().item()
         scale = ref.float().abs().max().item()
+        limits = f32_limits if dtype == torch.float32 else BF16_LIMITS
+        line = (f"phase 5: {label} {name}: max_abs_err={err:.3e} "
+                f"max|ref|={scale:.3e}")
         if dtype == torch.float32:
             tol = 1e-5 * scale + 1e-6
-            print(f"phase 5: {label} {name}: max_abs_err={err:.3e} "
-                  f"max|ref|={scale:.3e} tol={tol:.3e}")
+            line += f" tol={tol:.3e}"
             check(err <= tol, f"{label} {name} within tolerance")
-        else:
-            m = bf16_measures(torch, got, ref)
-            print(f"phase 5: {label} {name}: max_abs_err={err:.3e} "
-                  f"max|ref|={scale:.3e}; "
-                  + ", ".join(f"{k} {v:.3e} (limit {BF16_LIMITS[k]:.0e})"
-                              for k, v in m.items()))
-            for k, v in m.items():
-                check(v <= BF16_LIMITS[k], f"{label} {name} {k} {v:.3e} "
-                      f"within {BF16_LIMITS[k]}")
+        m = bf16_measures(torch, got, ref) if limits else {}
+        print(line + "".join(f"; {k} {v:.3e} (limit {limits[k]:.0e})"
+                             for k, v in m.items()))
+        for k, v in m.items():
+            check(v <= limits[k], f"{label} {name} {k} {v:.3e} within "
+                  f"{limits[k]}")
         worst = max(worst, err)
     return worst
 
@@ -555,7 +585,91 @@ def phase_train_kernels(torch):
             if dtype == torch.bfloat16 and D == 64:
                 errs["flash_fwd"], errs["flash_bwd"] = e_fwd, e_bwd
             del dqp, dkp, dvp, outp
+    from ray_lightning_tpu_torch.ops import cross_entropy as ce
+
+    shapes = ce_shapes(torch)
+    for n, v, d, dtype in shapes:
+        case = ce_case(torch, gen, n, v, d, dtype)
+        label = f"ce {str(dtype)[6:]} N={n} V={v} d={d}"
+        pairs = ce_pairs(torch, ce, case)
+        e_fwd = held(torch, label, pairs[:2], F32_LIMITS)
+        e_dx = held(torch, label, pairs[2:3], F32_LIMITS)
+        e_dw = held(torch, label, pairs[3:], F32_LIMITS)
+        if (n, v, d, dtype) == shapes[0]:
+            errs["ce_fwd"], errs["ce_bwd_dx"], errs["ce_bwd_dw"] = (
+                e_fwd, e_dx, e_dw)
+        if (n, v, d, dtype) == shapes[1]:
+            ce_f64_errors(torch, case, pairs)
+        del case, pairs
     return errs
+
+
+def ce_f64_errors(torch, case, pairs):
+    """How far the f32 kernel and the f32 plain version each lie from an
+    f64 evaluation of the same math (a sum over 50304 vocab columns in
+    f32 carries its own reordering error, which the f32 tolerance above
+    must cover for both)."""
+    x, w, t, g = case
+    x64, w64 = x.double(), w.double()
+    logits = x64 @ w64.t()
+    lse = torch.logsumexp(logits, 1)
+    p = torch.exp(logits - lse[:, None])
+    del logits
+    p[torch.arange(len(t), device=p.device), t.long()] -= 1.0
+    dl = p.mul_(g.double()[:, None])
+    ref = {"lse": lse, "dx": dl @ w64, "dW": dl.t() @ x64}
+    del dl, p
+    got = {name: (k, pl) for name, k, pl, _ in pairs}
+    for name, r in ref.items():
+        k, pl = got[name]
+        scale = r.abs().max().item()
+        print(f"phase 5: ce f32 {name} against f64: kernel max abs err "
+              f"{(k.double() - r).abs().max().item():.3e}, plain "
+              f"{(pl.double() - r).abs().max().item():.3e}, max|ref| "
+              f"{scale:.3e}")
+
+
+def ce_shapes(torch):
+    """Phase 5's CE shapes: the main path's (bf16 first: its errors are
+    the record's), its f32 twin, a ragged case on both axes in both
+    dtypes, and the widest d the JAX gate lets bf16 take."""
+    n = TRAIN_B * TRAIN_T
+    return ((n, VOCAB, D_MODEL, torch.bfloat16),
+            (n, VOCAB, D_MODEL, torch.float32),
+            (1000, 515, D_MODEL, torch.bfloat16),
+            (1000, 515, D_MODEL, torch.float32),
+            (4096, VOCAB, 2 * D_MODEL, torch.bfloat16))
+
+
+def ce_case(torch, gen, n, v, d, dtype):
+    """x, w (the compute dtype), int32 targets with a gold label in the
+    last, partial vocab tile, and a cotangent g with some zeros.  w is
+    scaled as GPT-2's embedding (std 0.02) and x as a LayerNorm output,
+    so the logits have the trainer's spread."""
+    x = torch.randn(n, d, generator=gen, device="cuda").to(dtype)
+    w = (torch.randn(v, d, generator=gen, device="cuda") * 0.02).to(dtype)
+    t = torch.randint(0, v, (n,), generator=gen, device="cuda",
+                      dtype=torch.int32)
+    t[0] = v - 1
+    g = torch.rand(n, generator=gen, device="cuda") / n
+    g[::7] = 0.0
+    return x, w, t, g
+
+
+def ce_pairs(torch, ce, case):
+    """(name, kernel result, plain result, dtype to hold it in) for loss,
+    lse, dx and dW; both backward versions take the plain forward's lse.
+    loss and lse are f32 sums of exact products on either route."""
+    x, w, t, g = case
+    loss, lse = ce.ce_fwd(x, w, t)
+    lossp, lsep = ce.ce_fwd_plain(x, w, t)
+    dx = ce.ce_bwd_dx(x, w, t, lsep, g)
+    dxp = ce.ce_bwd_dx_plain(x, w, t, lsep, g)
+    dw = ce.ce_bwd_dw(x, w, t, lsep, g)
+    dwp = ce.ce_bwd_dw_plain(x, w, t, lsep, g)
+    f32 = torch.float32
+    return [("loss", loss, lossp, f32), ("lse", lse, lsep, f32),
+            ("dx", dx, dxp, x.dtype), ("dW", dw, dwp, x.dtype)]
 
 
 def least_ms(nbytes, ops, dtype_name):
@@ -706,6 +820,7 @@ def phase_train_timing(torch, card):
                                                     heads, reps=5))
     print(f"phase 6: F.scaled_dot_product_attention fwd+bwd (eager, "
           f"autograd): {both} ms")
+    rec.update(ce_timing(torch, card))
     for name, r in rec.items():
         lib = ("none" if r["library_ms"] is None
                else f"{r['library_ms'] * 1e3:.1f} us")
@@ -717,6 +832,92 @@ def phase_train_timing(torch, card):
     (ff, _), (fbw, _) = flash_bounds(B, S, H, D, 4, "float32")
     print(f"phase 6: flash f32 bounds: fwd {ff * 1e3:.1f} us, bwd "
           f"{fbw * 1e3:.1f} us (operations at 67 TF/s)")
+    return rec
+
+
+def ce_bounds(n, v, d, es):
+    """CE: 2·N·V·d operations a logits product (the forward one, each
+    backward kernel two: the logits again and its own product); bytes: x,
+    w, targets, lse, g read once, the outputs written once."""
+    prod = 2 * n * v * d
+    fwd = least_ms((n + v) * d * es + n * 4 + 2 * n * 4, prod, "bfloat16")
+    dx = least_ms((n + v) * d * es + 3 * n * 4 + n * d * 4, 2 * prod,
+                  "bfloat16")
+    dw = least_ms((n + v) * d * es + 3 * n * 4 + v * d * 4, 2 * prod,
+                  "bfloat16")
+    return fwd, dx, dw
+
+
+def ce_timing(torch, card):
+    """Phase 6 for the CE kernels at the main path's bf16 shape: each
+    kernel, its plain version, the vocab-chunk scan it replaces (forward,
+    and its backward, which makes dx and dW at once) and the cuBLAS time
+    of the same products (``torch.mm(..., out_dtype=f32)``).  No single
+    PyTorch call computes fused CE, so ``library_ms`` is None and cuBLAS
+    is printed as the yardstick."""
+    from ray_lightning_tpu_torch.ops import cross_entropy as ce
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    n, v, d = TRAIN_B * TRAIN_T, VOCAB, D_MODEL
+    # Two sets of x, w (100 MB each, twice L2), with the f32 wte of the
+    # trainer for the scan, which casts its chunks itself.
+    sets = [ce_case(torch, gen, n, v, d, torch.bfloat16) for _ in range(2)]
+    fwd_sets = [(x, w, t) for x, w, t, _ in sets]
+    bwd_sets = [(x, w, t, ce.ce_fwd_plain(x, w, t)[1], g)
+                for x, w, t, g in sets]
+    scan_fwd = [(x, w.float(), t.long()) for x, w, t, _ in sets]
+    scan_bwd = [(x, wf, t, lse, g) for (x, wf, t), (*_, lse, g)
+                in zip(scan_fwd, bwd_sets)]
+    dls = [ce._dlogits_plain(*a) for a in bwd_sets]
+
+    def scan_f(x, w, t):
+        return ce._ce_fwd(x, w, t, 7, torch.bfloat16)
+
+    def scan_b(x, w, t, lse, g):
+        return ce._ce_bwd(x, w, t, lse, g, 7, torch.bfloat16)
+
+    def mm(a, b):
+        return torch.mm(a, b, out_dtype=torch.float32)
+
+    (fb, fby), (xb, xby), (wb, wby) = ce_bounds(n, v, d, 2)
+    reps = 3
+    rec = {
+        "ce_fwd": {
+            "ms": graph_ms(torch, ce.ce_fwd, fwd_sets, reps),
+            "plain_ms": graph_ms(torch, ce.ce_fwd_plain, fwd_sets, reps),
+            "library_ms": None, "bound_ms": fb, "bound_by": fby},
+        "ce_bwd_dx": {
+            "ms": graph_ms(torch, ce.ce_bwd_dx, bwd_sets, reps),
+            "plain_ms": graph_ms(torch, ce.ce_bwd_dx_plain, bwd_sets, reps),
+            "library_ms": None, "bound_ms": xb, "bound_by": xby},
+        "ce_bwd_dw": {
+            "ms": graph_ms(torch, ce.ce_bwd_dw, bwd_sets, reps),
+            "plain_ms": graph_ms(torch, ce.ce_bwd_dw_plain, bwd_sets, reps),
+            "library_ms": None, "bound_ms": wb, "bound_by": wby},
+    }
+    yard = {
+        "scan_fwd_ms": graph_ms(torch, scan_f, scan_fwd, reps),
+        "scan_bwd_ms": graph_ms(torch, scan_b, scan_bwd, reps),
+        "cublas_logits_ms": graph_ms(
+            torch, lambda x, w, t: mm(x, w.t()), fwd_sets, reps),
+        "cublas_dx_product_ms": graph_ms(
+            torch, lambda dl, w: mm(dl, w),
+            [(dl, w) for dl, (_, w, *_r) in zip(dls, bwd_sets)], reps),
+        "cublas_dw_product_ms": graph_ms(
+            torch, lambda dl, x: mm(dl.t(), x),
+            [(dl, x) for dl, (x, *_r) in zip(dls, bwd_sets)], reps),
+    }
+    y = yard
+    print(f"phase 6: ce yardsticks (no single PyTorch call computes fused "
+          f"CE): cuBLAS x·Wᵀ {y['cublas_logits_ms']:.3f} ms, dlogits·W "
+          f"{y['cublas_dx_product_ms']:.3f} ms, dlogitsᵀ·x "
+          f"{y['cublas_dw_product_ms']:.3f} ms (so the same products: fwd "
+          f"{y['cublas_logits_ms']:.3f}, dx "
+          f"{y['cublas_logits_ms'] + y['cublas_dx_product_ms']:.3f}, dW "
+          f"{y['cublas_logits_ms'] + y['cublas_dw_product_ms']:.3f} ms); "
+          f"the vocab-chunk scan it replaces: fwd {y['scan_fwd_ms']:.3f} ms,"
+          f" bwd (dx and dW) {y['scan_bwd_ms']:.3f} ms; {card}")
+    print("ce_yardsticks: " + json.dumps(yard))
     return rec
 
 
@@ -739,83 +940,128 @@ def make_clock(torch, Callback):
     return StepClock()
 
 
+def launch_counters():
+    """Each training-path kernel's wrapper, whose ``launches`` it counts."""
+    from ray_lightning_tpu_torch.ops import cross_entropy as ce
+    from ray_lightning_tpu_torch.ops import flash_attention as fa
+    from ray_lightning_tpu_torch.ops import layer_norm as ln
+
+    return {"ln_fwd": ln.ln_fwd, "ln_bwd": ln.ln_bwd,
+            "flash_fwd": fa.flash_fwd, "flash_bwd": fa.flash_bwd,
+            "ce_fwd": ce.ce_fwd, "ce_bwd_dx": ce.ce_bwd_dx,
+            "ce_bwd_dw": ce.ce_bwd_dw}
+
+
+def per_step_launches(n_layer, remat, policy="dots+flash", ce=True):
+    """Kernel launches a training step must make: LN at 2L+1 sites, flash
+    at L, CE once each; remat re-runs the blocks' 2L LN forwards, and the
+    flash forward too under "dots"."""
+    L = n_layer
+    return {"ln_fwd": 2 * L + 1 + (2 * L if remat else 0),
+            "ln_bwd": 2 * L + 1,
+            "flash_fwd": L * (2 if remat and policy == "dots" else 1),
+            "flash_bwd": L,
+            "ce_fwd": int(ce), "ce_bwd_dx": int(ce), "ce_bwd_dw": int(ce)}
+
+
+# Phase 7's arms: (label, GPT kwargs).
+ARMS = (("a_headline", HEADLINE),
+        ("b_ce_kernels_no_remat", {}),
+        ("c_ce_scan_no_remat", {"ce_kernel": False}))
+
+
+def train_arm(torch, cfg, gpt_kw, steps, callbacks=()):
+    """One bf16 fit of ``GPT(cfg, **gpt_kw)`` at batch TRAIN_B; returns
+    (global_step, callback_metrics)."""
+    from ray_lightning_tpu_torch.core.trainer import Trainer
+    from ray_lightning_tpu_torch.models.gpt import GPT, SyntheticLMDataModule
+
+    tr = Trainer(max_steps=steps, limit_val_batches=0, precision="bf16",
+                 seed=SEED, callbacks=list(callbacks))
+    tr.fit(GPT(cfg, **gpt_kw),
+           SyntheticLMDataModule(cfg, batch_size=TRAIN_B, num_batches=steps,
+                                 seed=SEED))
+    return tr.global_step, dict(tr.callback_metrics)
+
+
 def phase_trainer(torch, card):
-    """Phase 7.  Returns the run's metrics and each kernel's launches."""
+    """Phase 7: the three arms, each with its exact launches per step,
+    ms/step, tokens/s, MFU and peak memory; a profile of the headline arm;
+    then the remat policies' launch gates at depth 2."""
+    import gc
+
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
     from ray_lightning_tpu_torch.core.callbacks import Callback
-    from ray_lightning_tpu_torch.core.trainer import Trainer
-    from ray_lightning_tpu_torch.models.gpt import (
-        GPT, GPTConfig, SyntheticLMDataModule,
-    )
-    from ray_lightning_tpu_torch.ops import flash_attention as fa
-    from ray_lightning_tpu_torch.ops import layer_norm as ln
+    from ray_lightning_tpu_torch.models.gpt import REMAT_POLICIES, GPTConfig
     from ray_lightning_tpu_torch.telemetry.step_stats import (
         model_flops_per_token,
     )
 
     cfg = GPTConfig.gpt2_small()
-
-    def fit(steps, callbacks=()):
-        tr = Trainer(max_steps=steps, limit_val_batches=0, precision="bf16",
-                     seed=SEED, callbacks=list(callbacks))
-        tr.fit(GPT(cfg), SyntheticLMDataModule(cfg, batch_size=TRAIN_B,
-                                               num_batches=steps, seed=SEED))
-        return tr
-
+    counters = launch_counters()
     print(f"phase 7: Trainer.fit of GPT-2-small (L={cfg.n_layer}, "
           f"d={cfg.d_model}, V={cfg.vocab_size}), batch {TRAIN_B} x "
-          f"{TRAIN_T} tokens, bf16, CE as the vocab-chunk scan")
-    fit(3)  # warm-up: libraries loaded, cuBLAS and allocator warmed
-    counters = {"ln_fwd": ln.ln_fwd, "ln_bwd": ln.ln_bwd,
-                "flash_fwd": fa.flash_fwd, "flash_bwd": fa.flash_bwd}
-    per_step = {"ln_fwd": 2 * cfg.n_layer + 1, "ln_bwd": 2 * cfg.n_layer + 1,
-                "flash_fwd": cfg.n_layer, "flash_bwd": cfg.n_layer}
-    clock = make_clock(torch, Callback)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    for c in counters.values():
-        c.launches = 0
-    t0 = time.perf_counter()
-    tr = fit(TRAIN_STEPS, [clock])
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {k: c.launches for k, c in counters.items()}
-    peak = torch.cuda.max_memory_allocated()
-    losses = [float(x) for x in clock.losses]
-    print(f"phase 7: {tr.global_step} steps, launches {launches}; per "
-          f"step {per_step}")
-    check(tr.global_step == TRAIN_STEPS, "every step ran")
-    for k, n in launches.items():
-        check(n == per_step[k] * TRAIN_STEPS,
-              f"{k}: {n} launches = {per_step[k]} x {TRAIN_STEPS}")
-    check(all(np.isfinite(losses)), "finite losses")
-    check(abs(losses[0] - np.log(cfg.vocab_size)) < 0.5,
-          f"first loss {losses[0]} near ln(V) = {np.log(cfg.vocab_size)}")
-    step_ms = [clock.events[i].elapsed_time(clock.events[i + 1])
-               for i in range(len(clock.events) - 1)]
-    windows = [float(np.mean(step_ms[i:i + 4]))
-               for i in range(0, len(step_ms) - 3, 4)]
-    ms = float(np.median(windows))
-    tokens_s = TRAIN_B * TRAIN_T / (ms / 1e3)
+          f"{TRAIN_T} tokens, bf16, {TRAIN_STEPS} measured steps per arm")
+    for label, kw in ARMS:  # warm-up: libraries, cuBLAS, allocator
+        train_arm(torch, cfg, kw, 2)
     flops = model_flops_per_token(cfg, "full")
-    mfu = tokens_s * flops / 989e12
-    print(f"phase 7: losses {losses[0]:.4f} -> {losses[-1]:.4f}; step "
-          f"{ms:.2f} ms (median of {len(windows)} windows of 4 steps, "
-          f"CUDA events; all steps {min(step_ms):.2f}-{max(step_ms):.2f} "
-          f"ms); {tokens_s:.0f} tokens/s; MFU {100 * mfu:.2f}% "
-          f"({flops / 1e6:.1f} MFLOP/token against 989 TF/s); peak memory "
-          f"{peak / 2**30:.2f} GiB; wall {wall:.2f} s for the fit; {card}")
-    result = {"steps": TRAIN_STEPS, "step_ms": ms, "tokens_per_s": tokens_s,
-              "mfu": mfu, "peak_gib": peak / 2**30,
-              "first_loss": losses[0], "last_loss": losses[-1],
-              "launches": launches}
+    result = {}
+    for label, kw in ARMS:
+        clock = make_clock(torch, Callback)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        steps, _ = train_arm(torch, cfg, kw, TRAIN_STEPS, [clock])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: c.launches for k, c in counters.items()}
+        peak = torch.cuda.max_memory_allocated()
+        want = per_step_launches(cfg.n_layer, kw.get("remat", False),
+                                 ce=kw.get("ce_kernel", True))
+        losses = [float(x) for x in clock.losses]
+        print(f"phase 7 {label}: {steps} steps, launches {launches}; per "
+              f"step {want}")
+        check(steps == TRAIN_STEPS, f"{label}: every step ran")
+        for k, n in launches.items():
+            check(n == want[k] * TRAIN_STEPS,
+                  f"{label} {k}: {n} launches = {want[k]} x {TRAIN_STEPS}")
+        check(all(np.isfinite(losses)), f"{label}: finite losses")
+        check(abs(losses[0] - np.log(cfg.vocab_size)) < 0.5,
+              f"{label}: first loss {losses[0]} near ln(V)")
+        step_ms = [clock.events[i].elapsed_time(clock.events[i + 1])
+                   for i in range(len(clock.events) - 1)]
+        windows = [float(np.mean(step_ms[i:i + 4]))
+                   for i in range(0, len(step_ms) - 3, 4)]
+        ms = float(np.median(windows))
+        tokens_s = TRAIN_B * TRAIN_T / (ms / 1e3)
+        mfu = tokens_s * flops / 989e12
+        print(f"phase 7 {label}: losses {losses[0]:.4f} -> {losses[-1]:.4f};"
+              f" step {ms:.2f} ms (median of {len(windows)} windows of 4 "
+              f"steps, CUDA events; all steps {min(step_ms):.2f}-"
+              f"{max(step_ms):.2f} ms); {tokens_s:.0f} tokens/s; MFU "
+              f"{100 * mfu:.2f}% ({flops / 1e6:.1f} MFLOP/token against 989 "
+              f"TF/s); peak memory {peak / 2**30:.2f} GiB; wall {wall:.2f} s;"
+              f" {card}")
+        result[label] = {"steps": steps, "step_ms": ms,
+                         "tokens_per_s": tokens_s, "mfu": mfu,
+                         "peak_gib": peak / 2**30, "first_loss": losses[0],
+                         "last_loss": losses[-1], "launches": launches}
+        del clock
+    a, b = result["a_headline"], result["b_ce_kernels_no_remat"]
+    check(a["peak_gib"] < b["peak_gib"],
+          f"remat's peak {a['peak_gib']:.2f} GiB below no remat's "
+          f"{b['peak_gib']:.2f} GiB")
 
+    label, kw = ARMS[0]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fit(3)
+        train_arm(torch, cfg, kw, 3)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     device = [e for e in prof.events()
@@ -823,27 +1069,43 @@ def phase_trainer(torch, card):
     if not device:
         print("phase 7 profile: device time not measured (the profiler "
               "recorded no CUDA events)")
-        return result
-    by_name = {}
-    for e in device:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-    busy = sum(by_name.values())
-    share = {k: sum(v for n, v in by_name.items() if k in n) / busy
-             for k in ("ln_fwd_kernel", "ln_bwd_kernel", "flash_fwd_kernel",
-                       "flash_bwd_kernel")}
-    print(f"phase 7 profile: 3-step fit (model build and init included): "
-          f"wall {wall_us / 1e3:.1f} ms, device busy {busy / 1e3:.1f} ms "
-          f"({100 * busy / wall_us:.1f}%), {len(device)} device events; "
-          f"kernel shares of device time "
-          + ", ".join(f"{k} {100 * v:.1f}%" for k, v in share.items())
-          + f"; {card}")
-    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
-        print(f"phase 7 profile:   {100 * us / busy:5.1f}%  {us / 1e3:8.2f}"
-              f" ms  {name[:100]}")
-    result["profile"] = {"wall_ms": wall_us / 1e3,
-                         "device_busy_ms": busy / 1e3,
-                         "device_busy_share": busy / wall_us,
-                         "kernel_share_of_device": share}
+    else:
+        by_name = {}
+        for e in device:
+            by_name[e.name] = (by_name.get(e.name, 0.0)
+                               + e.time_range.elapsed_us())
+        busy = sum(by_name.values())
+        share = {k: sum(v for n, v in by_name.items() if k in n) / busy
+                 for k in ("ln_fwd_kernel", "ln_bwd_kernel",
+                           "flash_fwd_kernel", "flash_bwd_kernel",
+                           "ce_fwd_kernel", "ce_grad_kernel")}
+        print(f"phase 7 profile (headline arm): 3-step fit (model build and "
+              f"init included): wall {wall_us / 1e3:.1f} ms, device busy "
+              f"{busy / 1e3:.1f} ms ({100 * busy / wall_us:.1f}%), "
+              f"{len(device)} device events; kernel shares of device time "
+              + ", ".join(f"{k} {100 * v:.1f}%" for k, v in share.items())
+              + f"; {card}")
+        for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:14]:
+            print(f"phase 7 profile:   {100 * us / busy:5.1f}%  "
+                  f"{us / 1e3:8.2f} ms  {name[:100]}")
+        result["profile"] = {"wall_ms": wall_us / 1e3,
+                             "device_busy_ms": busy / 1e3,
+                             "device_busy_share": busy / wall_us,
+                             "kernel_share_of_device": share}
+
+    # The policies' gates: one step at full width, depth 2.
+    shallow = dataclasses.replace(cfg, n_layer=2)
+    gates = {}
+    for policy in REMAT_POLICIES:
+        for c in counters.values():
+            c.launches = 0
+        train_arm(torch, shallow, {"remat": True, "remat_policy": policy}, 1)
+        got = {k: c.launches for k, c in counters.items()}
+        want = per_step_launches(2, True, policy)
+        print(f"phase 7 policy {policy}: depth-2 step launches {got}")
+        check(got == want, f"remat_policy {policy}: launches {got} = {want}")
+        gates[policy] = got
+    result["policy_gates"] = gates
     return result
 
 
@@ -859,13 +1121,14 @@ def named_leaves(tree, prefix=""):
 
 
 def step_grads(torch, cfg, init, tokens, device, precision):
-    """One training step of the full-width model through the loop's own
-    ``loss_and_grads``: (loss, [(leaf name, f32 CPU gradient)])."""
+    """One training step of the full-width model in the headline
+    configuration through the loop's own ``loss_and_grads``: (loss,
+    [(leaf name, f32 CPU gradient)])."""
     from ray_lightning_tpu_torch.models.gpt import GPT
     from ray_lightning_tpu_torch.models.optim import tree_map
     from ray_lightning_tpu_torch.parallel.step_fns import loss_and_grads
 
-    module = GPT(cfg, precision=precision, device=device)
+    module = GPT(cfg, precision=precision, device=device, **HEADLINE)
     params = tree_map(lambda t: t.to(device), init)
     grads, logs = loss_and_grads(module, params,
                                  {"tokens": tokens.to(device)}, None)
@@ -887,23 +1150,21 @@ GRAD_BF16_LIMIT = 3e-2
 
 
 def bf16_step_check(torch, cfg, init, card):
-    """One bf16 training step of the full-width model at batch 1 on the
-    card and on the CPU, whose plain versions make the same bf16
-    roundings: the gradients of every leaf (each layer of a stacked one)
-    must agree within ``GRAD_BF16_LIMIT`` in relative norm.  The f32 step
-    on the card shows how far bf16 itself moves them."""
+    """One bf16 training step of the full-width model (headline
+    configuration) at batch 1 on the card and on the CPU, whose plain
+    versions make the same bf16 roundings: the gradients of every leaf
+    (each layer of a stacked one) must agree within ``GRAD_BF16_LIMIT`` in
+    relative norm.  The f32 step on the card shows how far bf16 itself
+    moves them."""
     import numpy as np
 
-    from ray_lightning_tpu_torch.ops import flash_attention as fa
-    from ray_lightning_tpu_torch.ops import layer_norm as ln
-
+    counters = launch_counters()
     rng = np.random.default_rng(SEED + 2)
     tokens = torch.from_numpy(
         rng.integers(0, cfg.vocab_size, size=(1, cfg.seq_len + 1)))
-    before = (fa.flash_bwd.launches, ln.ln_bwd.launches)
+    before = {k: c.launches for k, c in counters.items()}
     card_loss, card_g = step_grads(torch, cfg, init, tokens, "cuda", "bf16")
-    launched = (fa.flash_bwd.launches - before[0],
-                ln.ln_bwd.launches - before[1])
+    launched = {k: c.launches - before[k] for k, c in counters.items()}
     t0 = time.perf_counter()
     cpu_loss, cpu_g = step_grads(torch, cfg, init, tokens, "cpu", "bf16")
     cpu_s = time.perf_counter() - t0
@@ -913,17 +1174,18 @@ def bf16_step_check(torch, cfg, init, card):
     print(f"phase 8: bf16 step, card vs CPU: loss {card_loss:.6f} vs "
           f"{cpu_loss:.6f}; worst gradient leaf {leaf} rel norm diff "
           f"{rel:.3e} (limit {GRAD_BF16_LIMIT:.0e}); card bf16 vs card "
-          f"f32: worst {leaf_f32} {rel_f32:.3e}; flash_bwd / ln_bwd "
-          f"launches on the card {launched}; CPU step {cpu_s:.1f} s; {card}")
-    check(launched == (cfg.n_layer, 2 * cfg.n_layer + 1),
-          "the card step ran the backward kernels")
+          f"f32: worst {leaf_f32} {rel_f32:.3e}; launches on the card "
+          f"{launched}; CPU step {cpu_s:.1f} s; {card}")
+    check(launched == per_step_launches(cfg.n_layer, True),
+          "the card step ran every kernel of the headline step")
     check(rel <= GRAD_BF16_LIMIT, f"bf16 gradients card vs CPU {rel:.3e}")
     return {"grad_rel_bf16_card_vs_cpu": rel, "grad_worst_leaf": leaf,
             "grad_rel_bf16_vs_f32": rel_f32}
 
 
 def phase_end_to_end(torch, card):
-    """Phase 8: the full-width model from one set of initial params: one
+    """Phase 8, on the headline configuration (remat "dots+flash", every
+    kernel): the full-width model from one set of initial params: one
     bf16 step's gradients, card against CPU (``bf16_step_check``); then 3
     optimizer steps at batch 1 (warmup 2, so steps 2 and 3 have lr > 0):
     f32 on the card (kernels) against f32 on the CPU (plain versions);
@@ -934,6 +1196,7 @@ def phase_end_to_end(torch, card):
         GPT, GPTConfig, SyntheticLMDataModule,
     )
     from ray_lightning_tpu_torch.models.optim import tree_leaves
+    from ray_lightning_tpu_torch.ops import cross_entropy as ce
     from ray_lightning_tpu_torch.ops import flash_attention as fa
     from ray_lightning_tpu_torch.parallel.strategies import LocalStrategy
 
@@ -942,7 +1205,7 @@ def phase_end_to_end(torch, card):
         torch.Generator().manual_seed(SEED))
 
     def run(device, precision):
-        module = GPT(cfg, device=device)
+        module = GPT(cfg, device=device, **HEADLINE)
         module.initial_params = init
         losses = []
 
@@ -950,19 +1213,21 @@ def phase_end_to_end(torch, card):
             def on_train_batch_end(self, trainer, module, logs, batch_idx):
                 losses.append(float(logs["train_loss"]))
 
-        before = fa.flash_fwd.launches
+        before = (fa.flash_fwd.launches, ce.ce_bwd_dw.launches)
         t0 = time.perf_counter()
         tr = Trainer(LocalStrategy(device=device), max_steps=3,
                      limit_val_batches=0, precision=precision,
                      callbacks=[Losses()])
         tr.fit(module, SyntheticLMDataModule(cfg, batch_size=1,
                                              num_batches=3, seed=SEED + 1))
-        launched = fa.flash_fwd.launches - before
+        launched = (fa.flash_fwd.launches - before[0],
+                    ce.ce_bwd_dw.launches - before[1])
         print(f"phase 8: {precision} fit on {device}: losses "
               + ", ".join(f"{x:.6f}" for x in losses)
-              + f"; {time.perf_counter() - t0:.1f} s; flash_fwd launches "
-              f"{launched}")
-        check(launched == (3 * cfg.n_layer if device == "cuda" else 0),
+              + f"; {time.perf_counter() - t0:.1f} s; flash_fwd / ce_bwd_dw "
+              f"launches {launched}")
+        check(launched == ((3 * cfg.n_layer, 3) if device == "cuda"
+                           else (0, 0)),
               f"the {device} fit ran the kernels on the card only")
         return losses, tree_leaves(tr.state.params)
 
@@ -1038,12 +1303,13 @@ def main() -> int:
         "replaces": BGMV_REPLACES, "launches": f32["launches"],
         **record, "library_ms": None,
     }]
-    for name in ("ln_fwd", "ln_bwd", "flash_fwd", "flash_bwd"):
+    # Launches: the headline arm's run of the training path.
+    for name in TRAIN_KERNELS:
         kernels.append({
             "name": name, "route": "cuda",
-            "source": LN_SOURCE if name.startswith("ln") else FLASH_SOURCE,
+            "source": SOURCES[name.split("_")[0]],
             "replaces": REPLACES[name],
-            "launches": train["launches"][name],
+            "launches": train["a_headline"]["launches"][name],
             "max_abs_err": errs[name], **timing[name],
         })
     print("kernels: " + json.dumps([k["name"] for k in kernels]))

@@ -12,11 +12,17 @@ parameters, LayerNorm statistics and attention softmax stay f32.
 Training (``training_step``, ``_loss``) runs the trunk of the JAX
 package's ``forward_hidden`` with its single-device kernel gates on: every
 LayerNorm site through ``layer_norm(..., use_kernel=True)`` and attention
-through ``causal_attention`` (``attn_impl="flash"``, the default: the
-flash kernels on the card, their plain versions on the CPU), then the vocab-chunked tied
-LM head + cross-entropy (``ops/cross_entropy.py``).  The stacked ``blocks``
-tensors are unbound per layer, so their gradients come back stacked
-``(L, ...)``: the optimizer and the tests see the JAX package's tree.
+through ``causal_attention`` (``attn_impl="auto"``, the default: the flash
+kernels on the card, their plain versions on the CPU), then the tied LM
+head + cross-entropy with ``use_kernel=True`` (``ops/cross_entropy.py``:
+the CE kernels where the JAX gate admits ``d``, else the vocab-chunk
+scan; ``GPT(ce_kernel=False)`` takes the scan).  With ``remat=True`` each
+block runs under
+non-reentrant ``torch.utils.checkpoint`` with a selective policy that
+mirrors the JAX package's ``remat_policy`` (:func:`remat_policy_fn`).  The
+stacked ``blocks`` tensors are unbound per layer, so their gradients come
+back stacked ``(L, ...)``: the optimizer and the tests see the JAX
+package's tree.
 
 LoRA: the adapter helpers (``add_lora_adapters``, ``extract_lora``,
 ``merge_lora``, ``synthetic_lora_adapter``) keep the JAX package's
@@ -26,12 +32,16 @@ LoRA: the adapter helpers (``add_lora_adapters``, ``extract_lora``,
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
+)
 
 from ray_lightning_tpu_torch.core.data import (
     ArrayDataset, NumpyLoader, TpuDataModule,
@@ -42,15 +52,19 @@ from ray_lightning_tpu_torch.models.optim import (
     chain, clip_by_global_norm, gpt_adamw,
 )
 from ray_lightning_tpu_torch.ops.attention import (
-    ATTN_IMPLS, causal_attention, resolve_impl,
+    ATTN_IMPLS, causal_attention,
 )
+# Imported for its side effect: it registers torch.ops.rlt_torch.flash_fwd,
+# which remat_policy_fn names.
+import ray_lightning_tpu_torch.ops.flash_attention  # noqa: F401
 from ray_lightning_tpu_torch.ops.cross_entropy import (
     fused_lm_head_cross_entropy,
 )
 from ray_lightning_tpu_torch.ops.layer_norm import layer_norm
 from ray_lightning_tpu_torch.ops.matmul import mm_f32
 
-__all__ = ["GPTConfig", "GPT", "SyntheticLMDataModule", "resolve_weight",
+__all__ = ["GPTConfig", "GPT", "SyntheticLMDataModule", "REMAT_POLICIES",
+           "remat_policy_fn", "resolve_weight",
            "has_int8_weights", "has_lora_adapters", "add_lora_adapters",
            "extract_lora", "merge_lora", "synthetic_lora_adapter"]
 
@@ -120,6 +134,43 @@ def _mlp_residual(x: torch.Tensor, p: Dict[str, Any],
             + p["mlp_out_b"].to(c))
 
 
+REMAT_POLICIES = ("dots+flash", "dots+flash-out", "dots", "bf16-resid")
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def remat_policy_fn(name: str) -> Callable:
+    """The selective-checkpoint policy of ``remat_policy=name``: what one
+    block's backward keeps, the rest being recomputed.
+
+    * ``"dots"`` — the outputs of the weight products (``aten.mm`` and
+      ``aten.addmm``, 2-D: the JAX ``dots_with_no_batch_dims_saveable``);
+      the flash forward runs again in the backward.
+    * ``"dots+flash-out"`` — the above plus the flash forward's ``out``
+      and ``lse`` (the outputs of ``torch.ops.rlt_torch.flash_fwd``).
+    * ``"dots+flash"`` — the JAX package adds the flash forward's inputs,
+      its per-head q/k/v transposes.  Here the kernels read q, k and v as
+      strided views of the fused projection, whose product output is
+      already saved; what is left of the inputs is its bias add, one
+      elementwise op a layer.  So the policy is that of
+      ``"dots+flash-out"``: the two names compute the same numbers, and
+      no measurement has shown the extra (B, T, 3d) save a layer to pay.
+    * ``"bf16-resid"`` — the ``"dots+flash-out"`` set; the block's carry is
+      stored in bf16 (``GPT.forward_hidden``).
+
+    Elementwise ops and LayerNorm (its forward kernel too) are recomputed
+    under every policy."""
+    flash = name != "dots"
+
+    def policy(ctx, func, *args, **kwargs):
+        if func in _DOTS:
+            return CheckpointPolicy.MUST_SAVE
+        if flash and func is torch.ops.rlt_torch.flash_fwd.default:
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+
+    return policy
+
+
 def _normal(shape, std: float, generator: torch.Generator) -> torch.Tensor:
     return torch.randn(shape, generator=generator,
                        device=generator.device) * std
@@ -143,13 +194,20 @@ class GPT(TrainModule):
             compute dtype; the fit loop sets it from the trainer's.
         device: where :meth:`init_params` puts the parameters; ``None``
             means ``"cuda"`` and raises without a card.
-        remat: rematerialisation is a later slice of the port; True
-            raises.
+        remat: recompute each block in the backward instead of keeping
+            its activations (``torch.utils.checkpoint``, non-reentrant).
+        remat_policy: what the backward keeps: one of
+            :data:`REMAT_POLICIES` (:func:`remat_policy_fn`), checked even
+            when ``remat`` is off, as in the JAX package.
+        ce_kernel: the LM head's cross-entropy on its kernel route
+            (default, the JAX package's one-chip program) where the JAX
+            gate admits ``d``; ``False`` takes the vocab-chunk scan.
     """
 
     def __init__(self, config: Optional[GPTConfig] = None,
                  attn_impl: str = "auto", precision: str = "f32",
-                 device=None, remat: bool = False):
+                 device=None, remat: bool = False,
+                 remat_policy: str = "dots+flash", ce_kernel: bool = True):
         super().__init__()
         if precision not in ("f32", "bf16", "bfloat16"):
             raise ValueError(
@@ -159,17 +217,20 @@ class GPT(TrainModule):
             raise ValueError(
                 f"attn_impl {attn_impl!r} not in {ATTN_IMPLS} (ring "
                 f"attention is a later slice of the port)")
-        if remat:
-            raise NotImplementedError(
-                "remat is not supported by the PyTorch port yet (a later "
-                "slice ports it as torch.utils.checkpoint); use "
-                "remat=False")
+        if remat_policy not in REMAT_POLICIES:
+            raise ValueError(
+                f"remat_policy {remat_policy!r} not in {REMAT_POLICIES}")
         self.config = config or GPTConfig.tiny()
-        self.attn_impl = resolve_impl(attn_impl)
+        self.attn_impl = attn_impl
         self.precision = precision
         self.device = resolve_device(device)
+        self.remat = remat
+        self.remat_policy = remat_policy
+        self.ce_kernel = ce_kernel
         self.save_hyperparameters(**dataclasses.asdict(self.config),
-                                  attn_impl=attn_impl)
+                                  attn_impl=attn_impl, remat=remat,
+                                  remat_policy=remat_policy,
+                                  ce_kernel=ce_kernel)
 
     def _compute_dtype(self) -> torch.dtype:
         return torch.bfloat16 if self.precision in ("bf16", "bfloat16") \
@@ -239,34 +300,63 @@ class GPT(TrainModule):
                 "later slice); fold adapters with merge_lora, or serve "
                 "them through ServeEngine's adapter pool")
         c = self._compute_dtype()
-        B, T = tokens.shape
-        H, Dh, d = cfg.n_head, cfg.head_dim, cfg.d_model
-        x = (params["wte"][tokens.long()] + params["wpe"][:T]).to(c)
+        x = (params["wte"][tokens.long()] + params["wpe"][:tokens.shape[1]]
+             ).to(c)
+        # "bf16-resid": the carry between blocks — what the remat backward
+        # keeps of each layer — is held in bf16 and upcast on entry; gated
+        # on remat, as in the JAX package.
+        bf16r = self.remat and self.remat_policy == "bf16-resid"
+        if bf16r:
+            x = x.to(torch.bfloat16)
         # unbind, not indexing: its backward stacks the per-layer grads in
         # one op, so they come back in the (L, ...) layout.
         names = list(params["blocks"])
         layers = [dict(zip(names, ts)) for ts in zip(
             *(params["blocks"][k].unbind(0) for k in names))]
+        block = functools.partial(self._block, c=c, bf16r=bf16r)
+        remat = self.remat and torch.is_grad_enabled()
+        context_fn = functools.partial(
+            create_selective_checkpoint_contexts,
+            remat_policy_fn(self.remat_policy))
         for p in layers:
-            h = layer_norm(x, p["ln1_g"], p["ln1_b"], use_kernel=True)
-            qkv = h @ p["qkv_w"].to(c) + p["qkv_b"].to(c)
-            q, k, v = (z.reshape(B, T, H, Dh) for z in qkv.split(d, dim=-1))
-            att = causal_attention(q, k, v, impl=self.attn_impl)
-            att = att.reshape(B, T, d)
-            x = x + (att @ p["proj_w"].to(c) + p["proj_b"].to(c))
-            x = _mlp_residual(x, p, c, ln_kernel=True)
+            if remat:
+                x = checkpoint(block, x, p, use_reentrant=False,
+                               context_fn=context_fn)
+            else:
+                x = block(x, p)
+        if bf16r:
+            x = x.to(c)
         x = layer_norm(x, params["ln_f_g"], params["ln_f_b"], use_kernel=True)
         return x, torch.zeros((), device=x.device)
+
+    def _block(self, x: torch.Tensor, p: Dict[str, torch.Tensor], *,
+               c: torch.dtype, bf16r: bool) -> torch.Tensor:
+        """One transformer block of the training trunk."""
+        cfg = self.config
+        B, T, d = x.shape
+        if bf16r:
+            x = x.to(c)
+        h = layer_norm(x, p["ln1_g"], p["ln1_b"], use_kernel=True)
+        qkv = h @ p["qkv_w"].to(c) + p["qkv_b"].to(c)
+        q, k, v = (z.reshape(B, T, cfg.n_head, cfg.head_dim)
+                   for z in qkv.split(d, dim=-1))
+        att = causal_attention(q, k, v, impl=self.attn_impl).reshape(B, T, d)
+        x = x + (att @ p["proj_w"].to(c) + p["proj_b"].to(c))
+        x = _mlp_residual(x, p, c, ln_kernel=True)
+        return x.to(torch.bfloat16) if bf16r else x
 
     # -- steps --------------------------------------------------------------
     def _loss(self, params: Dict[str, Any], tokens: torch.Tensor
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Mean next-token CE of ``tokens (B, T+1)`` through the
-        vocab-chunked tied head (the JAX package's scan path)."""
+        """Mean next-token CE of ``tokens (B, T+1)`` through the fused tied
+        head: on its kernel route unless ``ce_kernel`` is off (the JAX
+        package's one-chip program; the JAX gate on ``d`` sends other
+        widths to the scan)."""
         inputs, targets = tokens[:, :-1], tokens[:, 1:]
         x, aux = self.forward_hidden(params, inputs)
         loss = fused_lm_head_cross_entropy(
             x, params["wte"], targets, compute_dtype=self._compute_dtype(),
+            use_kernel=self.ce_kernel,
         ).mean()
         return loss, aux
 

@@ -1,10 +1,13 @@
 """Causal flash attention on ``(B, S, H, D)`` tensors, and its CUDA kernels.
 
-:func:`flash_attention` is a ``torch.autograd.Function`` in the shape of
-the JAX package's ``_flash``/``_flash_vjp_fwd``/``_flash_vjp_bwd``
+:func:`flash_attention` has the shape of the JAX package's
+``_flash``/``_flash_vjp_fwd``/``_flash_vjp_bwd``
 (``ray_lightning_tpu/ops/flash_attention.py``): the forward returns
 ``out`` and saves ``(q, k, v, out, lse)``; the backward recomputes the
-probabilities from ``lse``.  Its two halves are :func:`flash_fwd` and
+probabilities from ``lse``.  The forward is the registered operator
+``torch.ops.rlt_torch.flash_fwd`` (:func:`flash_fwd_op`), which a
+selective-checkpoint policy can name, as the JAX package names the
+residuals ``flash_out``/``flash_lse`` with ``checkpoint_name``.  Its two halves are :func:`flash_fwd` and
 :func:`flash_bwd`: on CPU tensors they run the plain pair
 (:func:`flash_fwd_plain`, :func:`flash_bwd_plain`), on CUDA tensors they
 launch the kernels of ``csrc/flash_attention.cu`` (which replace
@@ -29,8 +32,8 @@ import torch
 from ray_lightning_tpu_torch.ops import _build
 from ray_lightning_tpu_torch.ops.attention import _NEG_INF
 
-__all__ = ["flash_attention", "flash_fwd", "flash_bwd", "flash_fwd_plain",
-           "flash_bwd_plain"]
+__all__ = ["flash_attention", "flash_fwd", "flash_bwd", "flash_fwd_op",
+           "flash_fwd_plain", "flash_bwd_plain"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_HEAD_DIMS = (64, 128)
@@ -206,19 +209,33 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_bwd.launches = 0
 
 
-class _FlashAttention(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, k, v, scale):
-        out, lse = flash_fwd(q, k, v, scale, want_lse=True)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.scale = scale
-        return out
+# The forward is a registered operator, not a ctypes call hidden inside an
+# autograd.Function, so that a selective-checkpoint policy
+# (``models/gpt.py``, ``remat_policy``) can see it and keep its outputs.
+@torch.library.custom_op("rlt_torch::flash_fwd", mutates_args=())
+def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(out, lse)`` of :func:`flash_fwd` as the operator
+    ``torch.ops.rlt_torch.flash_fwd``, differentiable through
+    :func:`flash_bwd`."""
+    return flash_fwd(q, k, v, scale, want_lse=True)
 
-    @staticmethod
-    def backward(ctx, do):
-        q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_bwd(q, k, v, out, lse, do, ctx.scale)
-        return dq, dk, dv, None
+
+def _flash_setup_context(ctx, inputs, output):
+    q, k, v, scale = inputs
+    out, lse = output
+    ctx.save_for_backward(q, k, v, out, lse)
+    ctx.scale = scale
+
+
+def _flash_backward(ctx, do, _dlse):
+    q, k, v, out, lse = ctx.saved_tensors
+    dq, dk, dv = flash_bwd(q, k, v, out, lse, do, ctx.scale)
+    return dq, dk, dv, None
+
+
+flash_fwd_op.register_autograd(_flash_backward,
+                               setup_context=_flash_setup_context)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -227,5 +244,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     that needs no gradient computes ``out`` alone."""
     scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return _FlashAttention.apply(q, k, v, scale)
+        return flash_fwd_op(q, k, v, scale)[0]
     return flash_fwd(q, k, v, scale, want_lse=False)[0]

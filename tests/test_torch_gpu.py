@@ -1,4 +1,4 @@
-"""The port's CUDA kernels, a tiny engine and a tiny fit on the card.
+"""The port's CUDA kernels, a tiny engine and tiny fits on the card.
 
 Marked ``gpu``; each test skips (inside its fixture, never at import)
 when no CUDA device is available.  Run on the card with
@@ -21,6 +21,7 @@ from ray_lightning_tpu_torch.models.generate import generate
 from ray_lightning_tpu_torch.models.gpt import (
     GPT, GPTConfig, SyntheticLMDataModule, synthetic_lora_adapter,
 )
+from ray_lightning_tpu_torch.ops import cross_entropy as ce
 from ray_lightning_tpu_torch.ops import flash_attention as fa
 from ray_lightning_tpu_torch.ops import layer_norm as ln
 from ray_lightning_tpu_torch.ops import lora
@@ -249,3 +250,80 @@ def test_tiny_fit_on_the_card_counts_every_launch(cuda):
     assert np.isfinite(tr.callback_metrics["train_loss"])
     assert isinstance(tr.strategy, LocalStrategy)
     assert tr.state.params["wte"].is_cuda
+
+
+def _ce_case(gen, n, v, d, dt):
+    x = torch.randn(n, d, generator=gen, device="cuda").to(dt)
+    w = (torch.randn(v, d, generator=gen, device="cuda") * 0.05).to(dt)
+    t = torch.randint(0, v, (n,), generator=gen, device="cuda",
+                      dtype=torch.int32)
+    t[0] = v - 1  # a gold label in the last, partial vocab tile
+    g = torch.rand(n, generator=gen, device="cuda")
+    g[::7] = 0.0
+    return x, w, t, g
+
+
+@pytest.mark.parametrize("dtype,n,v,d", [
+    ("float32", 1000, 515, 768), ("bfloat16", 1000, 515, 768),
+    ("float32", 2048, 50304, 768), ("bfloat16", 2048, 50304, 768),
+    ("bfloat16", 1024, 50304, 1536), ("float32", 77, 130, 128),
+    ("bfloat16", 77, 130, 384)])
+def test_ce_kernels_match_plain(cuda, dtype, n, v, d):
+    dt = getattr(torch, dtype)
+    x, w, t, g = _ce_case(cuda, n, v, d, dt)
+    launches = (ce.ce_fwd.launches, ce.ce_bwd_dx.launches,
+                ce.ce_bwd_dw.launches)
+    loss, lse = ce.ce_fwd(x, w, t)
+    lossp, lsep = ce.ce_fwd_plain(x, w, t)
+    # Both backward versions take the same lse.
+    dx = ce.ce_bwd_dx(x, w, t, lsep, g)
+    dw = ce.ce_bwd_dw(x, w, t, lsep, g)
+    dxp = ce.ce_bwd_dx_plain(x, w, t, lsep, g)
+    dwp = ce.ce_bwd_dw_plain(x, w, t, lsep, g)
+    torch.cuda.synchronize()
+    assert (ce.ce_fwd.launches, ce.ce_bwd_dx.launches,
+            ce.ce_bwd_dw.launches) == tuple(k + 1 for k in launches)
+    for got, ref in ((loss, lossp), (lse, lsep)):
+        assert got.dtype == torch.float32
+        _assert_close(got, ref, torch.float32)
+    for got, ref in ((dx, dxp), (dw, dwp)):
+        assert got.dtype == torch.float32 and got.shape == ref.shape
+        _assert_close(got, ref, dt)
+    assert (dx[::7] == 0).all()
+
+
+def test_ce_kernels_reject_what_they_do_not_take(cuda):
+    x = torch.randn(8, 128, device="cuda")
+    w = torch.randn(50, 128, device="cuda")
+    t = torch.zeros(8, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        ce.ce_fwd(x.half(), w.half(), t)
+    with pytest.raises(ValueError, match="one dtype"):
+        ce.ce_fwd(x, w.to(torch.bfloat16), t)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        ce.ce_fwd(x[:, :96].contiguous(), w[:, :96].contiguous(), t)
+    with pytest.raises(ValueError, match="contiguous"):
+        ce.ce_fwd(torch.randn(128, 8, device="cuda").t(), w, t)
+    with pytest.raises(ValueError, match="targets"):
+        ce.ce_fwd(x, w, t[:4])
+    with pytest.raises(ValueError, match="is on"):
+        ce.ce_fwd(x, w.cpu(), t)
+    with pytest.raises(ValueError, match="lse and g"):
+        ce.ce_bwd_dx(x, w, t, torch.zeros(4, device="cuda"),
+                     torch.zeros(8, device="cuda"))
+
+
+def test_tiny_fit_with_remat_counts_the_ce_launches(cuda):
+    cfg = GPTConfig(vocab_size=515, n_layer=2, n_head=2, d_model=128,
+                    seq_len=128, warmup_steps=2)
+    counters = (ln.ln_fwd, ln.ln_bwd, fa.flash_fwd, fa.flash_bwd, ce.ce_fwd,
+                ce.ce_bwd_dx, ce.ce_bwd_dw)
+    for c in counters:
+        c.launches = 0
+    tr = Trainer(max_steps=3, limit_val_batches=0, precision="bf16")
+    tr.fit(GPT(cfg, remat=True, remat_policy="dots+flash"),
+           SyntheticLMDataModule(cfg, batch_size=4, num_batches=3))
+    L = cfg.n_layer
+    assert [c.launches for c in counters] == [
+        3 * (4 * L + 1), 3 * (2 * L + 1), 3 * L, 3 * L, 3, 3, 3]
+    assert np.isfinite(tr.callback_metrics["train_loss"])

@@ -270,8 +270,10 @@ def test_entry_points_refuse_what_is_not_ported():
         Trainer(strat, megastep=4)
     with pytest.raises(NotImplementedError, match="RLTCKPT1"):
         Trainer(strat, resume_from_checkpoint="x.ckpt")
-    with pytest.raises(NotImplementedError, match="remat"):
-        GPT(GPTConfig.tiny(), device="cpu", remat=True)
+    # remat is ported; an unknown save policy is refused at construction.
+    with pytest.raises(ValueError, match="remat_policy"):
+        GPT(GPTConfig.tiny(), device="cpu", remat=True,
+            remat_policy="everything")
     with pytest.raises(NotImplementedError, match="telemetry"):
         LocalStrategy(device="cpu", telemetry="full")
     moe = GPT(dataclasses.replace(GPTConfig.tiny(), n_experts=4),
