@@ -9,9 +9,10 @@ Run from the root of a checkout, on a machine with one NVIDIA GPU:
 It builds the kernels of the checkout and, from mutated copies of
 ``ray_lightning_tpu_torch/ops/csrc/flash_attention.cu`` and
 ``cross_entropy.cu`` written to a temporary directory (never to the
-checkout), seven faulty variants of the bf16 (tensor-core) flash kernels —
-a key tile skipped, a (key tile, query tile) pair skipped, dQ dropped, and
-p or ds rounded toward zero instead of to nearest — and four of the CE
+checkout), eight faulty variants of the bf16 (tensor-core) flash kernels —
+a key tile skipped, a (key tile, query tile) pair skipped, dQ dropped, p or
+ds rounded toward zero instead of to nearest, and the forward's cp.async
+ring read one stage ahead — and five of the CE
 kernels: the last, ragged vocab tile skipped in the forward, the padded
 vocab columns left unmasked in the forward, dlogits rounded toward zero
 instead of to nearest (bf16), the one-hot term dropped in dW, and the
@@ -21,9 +22,10 @@ reads, at the training path's shapes:
 1. ``chip_smoke.bf16_measures`` of the correct LN and flash kernels
    against their plain versions (several shapes and seeds), which must
    stay within ``chip_smoke.BF16_LIMITS``;
-2. the same measures for each faulty variant, which the check must catch
-   (some measure of some output over its limit), beside the old check's
-   ratio max|err| / (2e-2·max|ref|);
+2. the same measures for each faulty variant at every shape of
+   ``SHAPES``, which the check must catch at the main path's shape (some
+   measure of some output over its limit), beside the old check's ratio
+   max|err| / (2e-2·max|ref|);
 3. one bf16 training step of the full-width GPT-2-small at batch 1 in the
    headline configuration: the worst leaf's relative gradient difference
    between the card and the CPU (``chip_smoke.step_grads``), for the
@@ -58,33 +60,35 @@ from concurrent.futures import ThreadPoolExecutor
 
 import chip_smoke as cs
 
-FWD_LOOP = ("for (int kt = 0; kt <= qt; ++kt) {\n"
-            "    __syncthreads();  // the previous tile's readers are done\n"
-            "    tc_load_tile<D>(Ks")
-BWD_LOOP = ("    __syncthreads();  // the previous tile's readers are done\n"
-            "    tc_load_tile<D>(Qs")
+FWD_SKIP = "    if (!active || k0 > row0 + 16 * MR - 1) continue;"
+FWD_P = "          s[mi][j][e] = p;"
+BWD_TILE = "    const bf16* Qs = QdO + (i % kStages) * kStage;"
+RZ = "__bfloat162float(__float2bfloat16_rz({}))"
 # name -> (text of the correct source, its replacement, caught by the
 # training step's gradient check too)
 FAULTS = {
-    # key tile 1 left out of the sums of query tiles 8 and later
-    "fwd_skip_key_tile": (FWD_LOOP, FWD_LOOP.replace(
-        "{\n", "{\n    if (qt >= 8 && kt == 1) continue;\n", 1), True),
-    "fwd_p_rz": ("Ps[row * kLP + c] = __float2bfloat16_rn(p);",
-                 "Ps[row * kLP + c] = __float2bfloat16_rz(p);", False),
-    # ... in query tiles 8 and later only
-    "fwd_p_rz_late": ("Ps[row * kLP + c] = __float2bfloat16_rn(p);",
-                      "Ps[row * kLP + c] = qt >= 8 ? __float2bfloat16_rz(p)"
-                      " : __float2bfloat16_rn(p);", False),
+    # key tile 1 left out of the sums of query tiles 4 and later (rows 512+)
+    "fwd_skip_key_tile": (FWD_SKIP, FWD_SKIP.replace(
+        ") continue;", " || (qt >= 4 && kt == 1)) continue;"), True),
+    "fwd_p_rz": (FWD_P, f"          s[mi][j][e] = {RZ.format('p')};", False),
+    # ... in query tiles 4 and later only
+    "fwd_p_rz_late": (FWD_P, f"          s[mi][j][e] = qt >= 4 ? "
+                      f"{RZ.format('p')} : p;", False),
+    # the pipeline: the forward reads K and V from the stage one ahead of
+    # the tile it computes (still loading, or left from an earlier tile)
+    "fwd_ring_off_by_one": (
+        "    const bf16* Ks = KVs + (kt % kStages) * kStage;",
+        "    const bf16* Ks = KVs + ((kt + 1) % kStages) * kStage;", True),
     # the (key tile 0, query tile 8) pair left out of dK, dV and dQ
-    "bwd_skip_pair": (BWD_LOOP, "    if (kt == 0 && qt == 8) continue;\n"
-                      + BWD_LOOP, True),
-    "bwd_ds_rz": ("dSTs[krow * kLP + c] = __float2bfloat16_rn(ds);",
-                  "dSTs[krow * kLP + c] = __float2bfloat16_rz(ds);", False),
-    "bwd_p_rz": ("PTs[krow * kLP + c] = __float2bfloat16_rn(pr);",
-                 "PTs[krow * kLP + c] = __float2bfloat16_rz(pr);", False),
+    "bwd_skip_pair": (BWD_TILE, "    if (kt == 0 && qt == 8) continue;\n"
+                      + BWD_TILE, True),
+    "bwd_ds_rz": ("          dpt[j][e] = ds;",
+                  f"          dpt[j][e] = {RZ.format('ds')};", False),
+    "bwd_p_rz": ("          st[j][e] = p;",
+                 f"          st[j][e] = {RZ.format('p')};", False),
     # dQ never accumulated: dq = 0
-    "bwd_no_dq": ("for (int c = lane; c < D; c += 32) atomicAdd(dst + c, "
-                  "Xs[r * LO + c]);", "(void)dst;", True),
+    "bwd_no_dq": ("        atomicAdd(reinterpret_cast<float4*>(dst), v4);",
+                  "        (void)dst;\n        (void)v4;", True),
 }
 # name -> (text of the correct cross_entropy.cu, its replacement)
 CE_FAULTS = {
@@ -166,7 +170,9 @@ def flash_readings(torch, fa, shape, seed=0):
 
 
 def over(m):
-    return [k for k in cs.BF16_LIMITS if m[k] > cs.BF16_LIMITS[k]]
+    """The measures over their limit; NaN counts as over, as in
+    ``chip_smoke.held``."""
+    return [k for k in cs.BF16_LIMITS if not m[k] <= cs.BF16_LIMITS[k]]
 
 
 def ce_readings(torch, ce, shape, seed=0):
@@ -181,11 +187,11 @@ def ce_readings(torch, ce, shape, seed=0):
     for n, got, ref, dtype in pairs:
         m = cs.bf16_measures(torch, got, ref)
         if dtype == torch.float32:
-            bad = [k for k in cs.F32_LIMITS if m[k] > cs.F32_LIMITS[k]]
+            bad = [k for k in cs.F32_LIMITS if not m[k] <= cs.F32_LIMITS[k]]
             err = (got.float() - ref.float()).abs().max().item()
             m["err/tol"] = err / (1e-5 * ref.float().abs().max().item()
                                   + 1e-6)
-            res[n] = (m, bad + (["err/tol"] if m["err/tol"] > 1 else []))
+            res[n] = (m, bad + ([] if m["err/tol"] <= 1 else ["err/tol"]))
         else:
             res[n] = (m, over(m))
     return res
@@ -253,20 +259,21 @@ def main() -> int:
                         failures.append(f"correct flash {shape} {n} "
                                         f"{over(m)}")
 
-        # 2. the flash faults, at the main path's shape
+        # 2. the flash faults, at every shape; caught at the main one
         for name in FAULTS:
             use(_build, "flash_attention", {
                 "rlt_flash_fwd": fa._FWD_ARGTYPES,
                 "rlt_flash_bwd": fa._BWD_ARGTYPES}, libs[name])
             caught = {}
-            for n, m in flash_readings(torch, fa, MAIN).items():
-                print(f"fault {name} {n}: {fmt(m)} over the limit: "
-                      f"{over(m)}")
-                if over(m):
-                    caught[n] = over(m)
+            for shape in SHAPES:
+                for n, m in flash_readings(torch, fa, shape).items():
+                    print(f"fault {name} {shape} {n}: {fmt(m)} over the "
+                          f"limit: {over(m)}")
+                    if over(m):
+                        caught[f"{shape} {n}"] = over(m)
             summary["faults"][name] = caught
-            if not caught:
-                failures.append(f"fault {name} not caught")
+            if not any(k.startswith(f"{MAIN} ") for k in caught):
+                failures.append(f"fault {name} not caught at {MAIN}")
         use(_build, "flash_attention", {}, None)
 
         # 3. one bf16 training step at full width: card vs CPU gradients

@@ -34,7 +34,8 @@ under ``remat_policy="dots+flash"``), counted per step.  Phases:
    (``F.layer_norm``, ``F.scaled_dot_product_attention``; for CE, which no
    single call computes, the cuBLAS time of the same products and the
    vocab-chunk scan it replaces; yardsticks only, never on the path) and
-   the bound;
+   the bound; the flash forward must take at most 2x the SDPA call and
+   the backward at most 1.5x SDPA's flash backward;
 7. the trainer: GPT-2-small, batch 16 x 1024 tokens, bf16, three arms —
    (a) the headline, (b) CE kernels without remat, (c) the CE scan
    (``GPT(ce_kernel=False)``) without remat — each warmed up, then a
@@ -56,8 +57,10 @@ line before the last is the kernels' JSON record; the last line is
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -812,6 +815,33 @@ def phase_train_timing(torch, card):
                                                sdpa_bwd_sets(), reps=5)),
         "bound_ms": bb, "bound_by": bby}
 
+    # The default SDPA call dispatches to cuDNN's attention on this card;
+    # PyTorch's FlashAttention-2 kernel, printed beside it, is the
+    # mma.sync design the kernels here follow.
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    def fa2_ms():
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            return graph_ms(torch, sdpa, [h[:3] for h in heads], reps=5)
+
+    fa2 = library("SDPA flash backend", fa2_ms)
+    fwd, bwd = rec["flash_fwd"], rec["flash_bwd"]
+    check(fwd["library_ms"] is not None and bwd["library_ms"] is not None,
+          "the SDPA yardsticks of the flash kernels timed")
+    print(f"phase 6: flash fwd {fwd['ms'] * 1e3:.1f} us = "
+          f"{fwd['ms'] / fwd['library_ms']:.2f} x "
+          f"F.scaled_dot_product_attention ({fwd['library_ms'] * 1e3:.1f} "
+          f"us; its flash backend "
+          f"{'not timed' if fa2 is None else f'{fa2 * 1e3:.1f} us'}), "
+          f"limit 2; flash bwd {bwd['ms'] * 1e3:.1f} us = "
+          f"{bwd['ms'] / bwd['library_ms']:.2f} x "
+          f"_scaled_dot_product_flash_attention_backward "
+          f"({bwd['library_ms'] * 1e3:.1f} us), limit 1.5; {card}")
+    check(fwd["ms"] <= 2 * fwd["library_ms"],
+          "flash fwd within 2 x F.scaled_dot_product_attention")
+    check(bwd["ms"] <= 1.5 * bwd["library_ms"],
+          "flash bwd within 1.5 x the SDPA flash backward")
+
     def sdpa_fwd_bwd(q, k, v, do):
         q, k, v = (t.detach().requires_grad_(True) for t in (q, k, v))
         sdpa(q, k, v).backward(do)
@@ -820,6 +850,7 @@ def phase_train_timing(torch, card):
                                                     heads, reps=5))
     print(f"phase 6: F.scaled_dot_product_attention fwd+bwd (eager, "
           f"autograd): {both} ms")
+    flash_occupancy(card)
     rec.update(ce_timing(torch, card))
     for name, r in rec.items():
         lib = ("none" if r["library_ms"] is None
@@ -1070,20 +1101,27 @@ def phase_trainer(torch, card):
         print("phase 7 profile: device time not measured (the profiler "
               "recorded no CUDA events)")
     else:
-        by_name = {}
+        by_name, count = {}, {}
         for e in device:
             by_name[e.name] = (by_name.get(e.name, 0.0)
                                + e.time_range.elapsed_us())
+            count[e.name] = count.get(e.name, 0) + 1
         busy = sum(by_name.values())
-        share = {k: sum(v for n, v in by_name.items() if k in n) / busy
-                 for k in ("ln_fwd_kernel", "ln_bwd_kernel",
-                           "flash_fwd_kernel", "flash_bwd_kernel",
-                           "ce_fwd_kernel", "ce_grad_kernel")}
+        keys = ("ln_fwd_kernel", "ln_bwd_kernel", "flash_fwd_kernel",
+                "flash_bwd_kernel", "tc_delta_kernel", "round_to_bf16_kernel",
+                "ce_fwd_kernel", "ce_grad_kernel")
+        kernel_us = {k: sum(v for name, v in by_name.items() if k in name)
+                     for k in keys}
+        calls = {k: sum(c for name, c in count.items() if k in name)
+                 for k in keys}
+        share = {k: kernel_us[k] / busy for k in keys}
         print(f"phase 7 profile (headline arm): 3-step fit (model build and "
               f"init included): wall {wall_us / 1e3:.1f} ms, device busy "
               f"{busy / 1e3:.1f} ms ({100 * busy / wall_us:.1f}%), "
               f"{len(device)} device events; kernel shares of device time "
-              + ", ".join(f"{k} {100 * v:.1f}%" for k, v in share.items())
+              + ", ".join(f"{k} {100 * share[k]:.1f}% ({calls[k]} launches,"
+                          f" {kernel_us[k] / max(calls[k], 1):.1f} us each)"
+                          for k in keys)
               + f"; {card}")
         for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:14]:
             print(f"phase 7 profile:   {100 * us / busy:5.1f}%  "
@@ -1260,6 +1298,54 @@ def phase_end_to_end(torch, card):
             "loss_rel_bf16_vs_f32": bf_rel, **grads}
 
 
+def ptxas_kernels(log):
+    """(kernel, registers, bytes spilled) of each entry function in the
+    ``-Xptxas -v`` report of a build; a template's D is kept as <D>."""
+    out, name, spilled = [], None, 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            for d in re.finditer(r"\d+", name):  # length-prefixed names
+                word = name[d.end():d.end() + int(d.group())]
+                if word.endswith("_kernel") and word.isidentifier():
+                    t = re.match(r"I\w*?Li(\d+)E", name[d.end() + len(word):])
+                    name = word + (f"<{t.group(1)}>" if t else "")
+                    break
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spilled = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            out.append((name, int(m.group(1)), spilled))
+            name, spilled = None, 0
+    return out
+
+
+def flash_occupancy(card):
+    """Phase 6: registers, threads and shared bytes of each bf16 flash
+    kernel and the blocks the card keeps resident per SM (at least 8
+    warps)."""
+    from ray_lightning_tpu_torch.ops import _build
+
+    fn = _build.load_function("flash_attention", "rlt_flash_tc_occupancy",
+                              [ctypes.c_int] * 2
+                              + [ctypes.POINTER(ctypes.c_int)] * 4)
+    for which, name in ((0, "fwd"), (1, "bwd")):
+        for d in (64, 128):
+            vals = [ctypes.c_int() for _ in range(4)]
+            err = fn(which, d, *[ctypes.byref(v) for v in vals])
+            check(err == 0, f"occupancy query of flash {name} D={d}")
+            regs, threads, smem, blocks = (v.value for v in vals)
+            warps = blocks * threads // 32
+            print(f"phase 6: flash {name} bf16 D={d}: {regs} registers a "
+                  f"thread, {threads} threads and {smem} B of shared memory "
+                  f"a block, {blocks} blocks ({warps} warps) resident per "
+                  f"SM; {card}")
+            check(warps >= 8, f"flash {name} D={d}: {warps} warps per SM")
+
+
 def main() -> int:
     import torch
 
@@ -1287,9 +1373,11 @@ def main() -> int:
           f"{time.perf_counter() - t0:.2f} s wall")
     for b in builds:
         print(f"phase 0: {b.name}: nvcc {b.seconds:.2f} s -> {b.path.name}")
-        for line in b.log.splitlines():
-            if "Used" in line or "spill" in line:
-                print(f"phase 0:   {line.strip()}")
+        for kernel, regs, spilled in ptxas_kernels(b.log):
+            print(f"phase 0:   {kernel}: {regs} registers, {spilled} bytes "
+                  "spilled")
+            if kernel.startswith("tc_flash"):
+                check(spilled == 0, f"{kernel} builds with no spills")
 
     record = phase_kernel(torch, lora, card)
     f32, bf16 = phase_server(torch, np, card)

@@ -8,54 +8,59 @@
 // applied to the f32 scores (not folded into q), hidden keys set to -1e30
 // (not -inf), the probabilities rounded to v's dtype before the P·V product,
 // ds = p·(dp - delta)·scale rounded to q's dtype before the dK and dQ
-// products, and lse = m + log(l).
+// products, and lse = m + log(l).  The bf16 kernels differ in two f32
+// details: exp(x) is 2^(x·log2 e) on the special-function unit, with
+// scale·log2 e folded into one FMA (one more rounding of the exponent's
+// argument; results below 2^-126 flush to 0), and a hidden key's
+// probability is set to 0 outright, which is what exp(-1e30 - m) gives.
 //
-// What bounds it: operations.  At GPT-2-small (B·H = 192, S = 1024,
-// D = 64) the forward's causal half of Q·Kᵀ and P·V is ~25.8 GFLOP against
-// ~100 MB of q, k, v and out, over 250 operations per byte; the backward
-// does about 2.5 times the forward's products.
+// What bounds it, at GPT-2-small (B·H = 192, S = 1024, D = 64) in bf16
+// (chip_smoke.py::flash_bounds): the forward's least time is 30.3 µs, set
+// by its bytes (q, k, v read and out written once, ~100 MB; its causal
+// half of Q·Kᵀ and P·V is 25.8 GFLOP, 26 µs at the tensor cores' peak);
+// the backward's is 65.2 µs, set by its operations (Q·Kᵀ again, dO·Vᵀ,
+// Pᵀ·dO, dSᵀ·Q, dS·K: 64.5 GFLOP).
 //
-// Design.  Tiles are 64 queries by 64 keys.  Two routes, chosen by dtype:
-// bf16 runs the products on the tensor cores through WMMA (16x16x16, f32
-// accumulation; the TC kernels below); f32 runs them on the CUDA cores in
-// f32 (the SIMT kernels), since TF32 would not keep f32's precision.
-//   SIMT: a block of 256 threads is a 16 x 16 grid in which thread
-//   (ty, tx) owns score rows ty·4 + i and columns tx + 16·j (i, j < 4),
-//   and output rows ty·4 + i, columns tx + 16·jj (jj < D/16).  Tiles live
-//   in shared memory as f32 with rows padded to D + 1 floats, so the
-//   threads of a warp reading one column of a tile hit distinct banks.
-//   TC: a block of four warps; warp w owns rows 16w..16w+15 of every
-//   score tile, so the softmax needs only warp-level synchronisation.
-//   Tiles stay bf16 in shared memory; scores (and the forward's output
-//   accumulator, which the online softmax rescales per row) round-trip
-//   through f32 shared memory.
+// Design.  Two routes, chosen by dtype.  bf16 (the training path) runs on
+// the tensor cores with mma.sync m16n8k16 and keeps every product's result
+// in registers: a warp owns 16-row tiles of the scores, turns them into
+// probabilities there, and feeds them to the next product as A fragments,
+// so nothing but the inputs and dSᵀ goes through shared memory.  Tiles
+// arrive by cp.async into rings of stages, so the next tile loads while
+// this one is computed.  (The TPU kernel keeps K and V of a whole head in
+// VMEM; here they stream as 64-key tiles.)  f32 runs the products on the
+// CUDA cores in f32 (the SIMT kernels), since TF32 would not keep f32's
+// precision: a block of 256 threads is a 16 x 16 grid in which thread
+// (ty, tx) owns score rows ty·4 + i and columns tx + 16·j (i, j < 4), and
+// output rows ty·4 + i, columns tx + 16·jj (jj < D/16), with f32 tiles in
+// shared memory, rows padded to D + 1 floats.
 // Both routes follow the same plan:
 //   Forward: one block per (b·h, query tile), heaviest tiles first.  It
 //   walks the key tiles up to the diagonal with the online softmax
 //   (running max m and sum l per row, f32), masks only the diagonal
-//   tile, and writes out = acc / l and lse.  The TPU kernel keeps K and V
-//   of a whole head in VMEM; here a block streams 64-key tiles.
-//   Backward: a first kernel computes delta = rowsum(dO·O) (B·H, S) f32.
-//   Then one block per (b·h, key tile) walks the query tiles from the
-//   diagonal down, recomputing p = exp(s - lse) and dp = dO·Vᵀ, and keeps
-//   dK and dV in registers.  dQ cannot ride along as the TPU kernel's
-//   per-key-block partial planes without an S/64-fold buffer, so each
-//   block adds its dQ contribution into an f32 buffer with atomics (sums in
-//   an order that changes from run to run); for bf16 a last kernel rounds
-//   that buffer to dq.
+//   tiles, and writes out = acc / l and lse.
+//   Backward: a first kernel computes delta = rowsum(dO·O) (B·H, S) f32
+//   (the bf16 one also clears the dQ buffer).  Then one block per (b·h, key
+//   tile) walks the query tiles from the diagonal down, recomputing
+//   p = exp(s - lse) and dp = dO·Vᵀ, and keeps dK and dV in registers.  dQ
+//   cannot ride along as the TPU kernel's per-key-block partial planes
+//   without an S/64-fold buffer, so each block adds its dQ contribution
+//   into an f32 buffer with atomics (sums in an order that changes from
+//   run to run); for bf16 a last kernel rounds that buffer to dq.
 // q, k and v are read in place through their strides, so the per-head
 // views of a fused (B, S, 3·H·D) projection need no copy; every other
 // tensor is contiguous (B, S, H, D).
 //
-// The kernels allocate nothing and do not synchronise (the backward clears
-// its dQ buffer with cudaMemsetAsync).  The C entry points launch on the
-// caller's stream and return cudaGetLastError().
+// The kernels allocate nothing and do not synchronise (the f32 backward
+// clears its dQ buffer with cudaMemsetAsync).  The C entry points launch on
+// the caller's stream and return cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
+#include <cmath>
 #include <cstddef>
+#include <cstdint>
 #include <type_traits>
 
 namespace {
@@ -64,11 +69,6 @@ constexpr int kTile = 64;        // queries and keys per tile
 constexpr int kThreads = 256;    // 16 x 16
 constexpr int kPS = kTile + 1;   // padded row of a score tile
 constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 // Sum and max over the 16 threads of one row group (lanes tx = 0..15 of
 // the same ty share a half-warp).
@@ -219,11 +219,11 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// delta[bh, s] = Σ_d dO·O in f32; one warp per row.  o and dout are
-// contiguous (B, S, H, D).
-template <typename T, int D>
-__global__ void flash_delta_kernel(const T* __restrict__ out,
-                                   const T* __restrict__ dout,
+// delta[bh, s] = Σ_d dO·O for the f32 route; one warp per row.  o and
+// dout are contiguous (B, S, H, D).
+template <int D>
+__global__ void flash_delta_kernel(const float* __restrict__ out,
+                                   const float* __restrict__ dout,
                                    float* __restrict__ delta, int B, int H,
                                    int S) {
   const long long row =
@@ -238,7 +238,7 @@ __global__ void flash_delta_kernel(const T* __restrict__ out,
   const long long off = ((b * S + s) * H + h) * D;
   float t = 0.f;
   for (int c = lane; c < D; c += 32) {
-    t += to_f32(dout[off + c]) * to_f32(out[off + c]);
+    t += dout[off + c] * out[off + c];
   }
   for (int o = 16; o > 0; o >>= 1) t += __shfl_xor_sync(0xffffffffu, t, o);
   if (lane == 0) delta[row] = t;
@@ -407,184 +407,369 @@ flash_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 
 // ---------------------------------------------------------------------------
-// bf16 on the tensor cores (WMMA 16x16x16, f32 accumulation).  The same
-// 64 x 64 tiles, a block of four warps; warp w owns score rows
-// 16w..16w+15, so the online softmax needs no block-wide barrier.  Tiles
-// stay bf16 in shared memory (rows padded by 8 elements, 16-byte vector
-// loads); scores and the forward's output accumulator round-trip through
-// f32 shared memory, where the per-row softmax arithmetic runs in f32.
+// bf16 on the tensor cores: mma.sync m16n8k16 (bf16 in, f32 accumulation)
+// on register fragments, tiles streamed by cp.async.  Tiles are bf16 in
+// shared memory with rows padded by 8 elements (16 bytes), so the eight
+// rows an ldmatrix reads fall in distinct banks.  Register fragments
+// follow the PTX m16n8k16 layouts: lane = 4·g + t holds C elements (row g,
+// cols 2t, 2t+1) and (row g + 8, same cols) of each 16 x 8 tile; the C
+// fragments of two neighbouring n8 tiles are the A fragment of one k16
+// step, so probabilities go from the scores' registers straight into the
+// next product.
 // ---------------------------------------------------------------------------
 
-namespace wm = nvcuda::wmma;
 using bf16 = __nv_bfloat16;
-constexpr int kTcWarps = 4;
-constexpr int kTcThreads = 32 * kTcWarps;
-constexpr int kLS = kTile + 4;   // f32 score row (WMMA ldm: multiple of 4)
-constexpr int kLP = kTile + 8;   // bf16 probability row (multiple of 8)
+constexpr int kFwdRows = 128;  // queries a forward block owns
+constexpr int kBwdWarps = 4;
+constexpr int kBwdThreads = 32 * kBwdWarps;
+constexpr int kLP = kTile + 8;             // dSᵀ row (bf16)
+constexpr float kLog2e = 1.4426950408889634f;
 
-constexpr size_t tc_align(size_t x) { return (x + 127) / 128 * 128; }
-
-// Row lengths and the byte sizes of the shared arrays, each 128-byte
-// aligned (WMMA wants 32-byte aligned fragment pointers).
+// Row length, ring depths and shared bytes of the tiles.
 template <int D>
 struct Tc {
-  static constexpr int LT = D + 8;  // bf16 tile row
-  static constexpr int LO = D + 4;  // f32 output row
-  static constexpr size_t tile = tc_align(sizeof(bf16) * kTile * LT);
-  static constexpr size_t scores = tc_align(sizeof(float) * kTile * kLS);
-  static constexpr size_t probs = tc_align(sizeof(bf16) * kTile * kLP);
-  static constexpr size_t outs = tc_align(sizeof(float) * kTile * LO);
-  static constexpr size_t rowvec = tc_align(sizeof(float) * kTile);
-  static constexpr size_t fwd_bytes = 3 * tile + scores + probs + outs +
-                                      rowvec;
-  static constexpr size_t bwd_bytes = 4 * tile + 2 * scores + 2 * probs +
-                                      outs + 2 * rowvec;
+  static constexpr int LT = D + 8;         // bf16 tile row
+  static constexpr int tile = kTile * LT;  // one 64-row tile
+  // Forward: m16 tiles a warp owns, warps and blocks per SM.
+  static constexpr int fwd_mr = D == 64 ? 2 : 1;
+  static constexpr int fwd_threads = 32 * (kFwdRows / 16 / fwd_mr);
+  static constexpr int fwd_blocks = D == 64 ? 2 : 1;
+  static constexpr int fwd_stages = 2;
+  static constexpr int bwd_stages = 2;
+  // Forward: Q (128 rows), then the stages of K and V.
+  static constexpr size_t fwd_bytes =
+      sizeof(bf16) * (2 * tile + fwd_stages * 2 * tile);
+  // Backward: K, V, the stages of Q and dO, dSᵀ; the stages of lse, delta.
+  static constexpr size_t bwd_bytes =
+      sizeof(bf16) * (2 * tile + bwd_stages * 2 * tile + kTile * kLP) +
+      sizeof(float) * bwd_stages * 2 * kTile;
 };
 
-using FragA = wm::fragment<wm::matrix_a, 16, 16, 16, bf16, wm::row_major>;
-using FragAT = wm::fragment<wm::matrix_a, 16, 16, 16, bf16, wm::col_major>;
-using FragB = wm::fragment<wm::matrix_b, 16, 16, 16, bf16, wm::row_major>;
-using FragBT = wm::fragment<wm::matrix_b, 16, 16, 16, bf16, wm::col_major>;
-using FragC = wm::fragment<wm::accumulator, 16, 16, 16, float>;
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-// Rows [row0, row0 + 64) of head (b, h), 16 bytes a load (the wrapper
-// checks the alignment).
-template <int D>
-__device__ __forceinline__ void tc_load_tile(bf16* tile, const bf16* base,
-                                             Strides st, int b, int h,
-                                             int row0) {
+__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p))
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p))
+      : "memory");
+}
+
+__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :
+               : "r"(smem_u32(smem)), "l"(gmem)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// 2^x on the special-function unit; results below 2^-126 flush to 0.
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Two f32 values rounded to nearest bf16, the first in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The C fragments of n8 tiles 2t and 2t + 1 as the bf16 A fragment of k16
+// step t.
+__device__ __forceinline__ void c_to_a(const float c0[4], const float c1[4],
+                                       uint32_t a[4]) {
+  a[0] = pack_bf16(c0[0], c0[1]);
+  a[1] = pack_bf16(c0[2], c0[3]);
+  a[2] = pack_bf16(c1[0], c1[1]);
+  a[3] = pack_bf16(c1[2], c1[3]);
+}
+
+// Start copying rows [row0, row0 + nrows) of head (b, h) into a padded
+// tile, 16 bytes a copy (the wrapper checks the alignment).
+template <int D, int kThreadsT>
+__device__ __forceinline__ void cp_tile(bf16* tile, const bf16* base,
+                                        Strides st, int b, int h, int row0,
+                                        int nrows) {
   constexpr int kVecs = D / 8;
   const bf16* p = base + b * st.b + h * st.h;
-  for (int idx = threadIdx.x; idx < kTile * kVecs; idx += kTcThreads) {
+  for (int idx = threadIdx.x; idx < nrows * kVecs; idx += kThreadsT) {
     const int r = idx / kVecs;
     const int c = (idx % kVecs) * 8;
-    *reinterpret_cast<uint4*>(tile + r * Tc<D>::LT + c) =
-        *reinterpret_cast<const uint4*>(p + (row0 + r) * st.s + c);
+    cp_async16(tile + r * (D + 8) + c, p + (row0 + r) * st.s + c);
   }
 }
 
+// One block per (b·h, 128-query tile), heaviest tiles first; warp w owns
+// MR m16 tiles, queries 16·MR·w .. 16·MR·(w + 1) − 1 (a last tile of 64
+// queries leaves the upper half of the warps idle).  The warp keeps the
+// scores, the probabilities and its MR x 16 x D output accumulator in
+// registers for the whole walk over the key tiles, and each K or V
+// fragment it loads feeds its MR m16 tiles.  Q, K and V tiles arrive by
+// cp.async; K and V stream through a ring of stages, the next tiles
+// loading while this one is computed.
 template <int D>
-__global__ void __launch_bounds__(kTcThreads)
+__global__ void __launch_bounds__(Tc<D>::fwd_threads, Tc<D>::fwd_blocks)
 tc_flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, bf16* __restrict__ out,
                     float* __restrict__ lse, Strides sq, Strides sk,
                     Strides sv, int H, int S, float scale) {
   using L = Tc<D>;
-  constexpr int LT = L::LT, LO = L::LO;
+  constexpr int LT = L::LT, ND = D / 8, KD = D / 16;
+  constexpr int MR = L::fwd_mr, kThreadsT = L::fwd_threads;
+  constexpr int kStages = L::fwd_stages;
+  constexpr int kStage = 2 * L::tile;  // K, then V
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw + L::tile);
-  bf16* Vs = reinterpret_cast<bf16*>(smem_raw + 2 * L::tile);
-  float* Ss = reinterpret_cast<float*>(smem_raw + 3 * L::tile);
-  bf16* Ps = reinterpret_cast<bf16*>(smem_raw + 3 * L::tile + L::scores);
-  float* Os = reinterpret_cast<float*>(smem_raw + 3 * L::tile + L::scores +
-                                       L::probs);
-  float* Ls = reinterpret_cast<float*>(smem_raw + 3 * L::tile + L::scores +
-                                       L::probs + L::outs);
+  bf16* KVs = Qs + 2 * L::tile;
 
-  const int bh = blockIdx.y;
+  const int bh = blockIdx.x;
   const int b = bh / H;
   const int h = bh % H;
-  const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest tiles first
-  const int q0 = qt * kTile;
+  // Heaviest tiles first, across all heads: the last wave holds the
+  // lightest.
+  const int qt = gridDim.y - 1 - blockIdx.y;
+  const int q0 = qt * kFwdRows;
+  const int nq = min(kFwdRows, S - q0);
+  const int n_kt = (q0 + nq) / kTile;
   const int w = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  // Softmax layout: lanes 2r and 2r+1 share row 16w + r, columns 2i + hf.
-  const int row = 16 * w + (lane >> 1);
-  const int hf = lane & 1;
+  const int g = lane >> 2, tig = lane & 3;
+  const int wr = 16 * MR * w;  // the warp's first query in the tile
+  const int row0 = q0 + wr;
+  const bool active = wr < nq;
 
-  tc_load_tile<D>(Qs, q, sq, b, h, q0);
-  for (int c = hf; c < D; c += 2) Os[row * LO + c] = 0.f;
-  float m = kNegInf, l = 0.f;
-
-  for (int kt = 0; kt <= qt; ++kt) {
-    __syncthreads();  // the previous tile's readers are done
-    tc_load_tile<D>(Ks, k, sk, b, h, kt * kTile);
-    tc_load_tile<D>(Vs, v, sv, b, h, kt * kTile);
-    __syncthreads();
-
-    FragC acc[4];
+  // Start copying key tile t's K and V into stage t % kStages.
+  auto issue = [&](int t) {
+    bf16* dst = KVs + (t % kStages) * kStage;
+    cp_tile<D, kThreadsT>(dst, k, sk, b, h, t * kTile, kTile);
+    cp_tile<D, kThreadsT>(dst + L::tile, v, sv, b, h, t * kTile, kTile);
+  };
+  cp_tile<D, kThreadsT>(Qs, q, sq, b, h, q0, nq);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) wm::fill_fragment(acc[j], 0.f);
-#pragma unroll
-    for (int kk = 0; kk < D; kk += 16) {
-      FragA a;
-      wm::load_matrix_sync(a, Qs + 16 * w * LT + kk, LT);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        FragBT bt;  // Kᵀ: column n of B is key row n
-        wm::load_matrix_sync(bt, Ks + 16 * j * LT + kk, LT);
-        wm::mma_sync(acc[j], a, bt, acc[j]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      wm::store_matrix_sync(Ss + 16 * w * kLS + 16 * j, acc[j], kLS,
-                            wm::mem_row_major);
-    }
-    __syncwarp();
-
-    const bool diag = kt == qt;
-    float mx = kNegInf;
-    for (int c = hf; c < kTile; c += 2) {
-      float s = Ss[row * kLS + c] * scale;
-      if (diag && c > row) s = kNegInf;
-      Ss[row * kLS + c] = s;
-      mx = fmaxf(mx, s);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    const float m_new = fmaxf(m, mx);
-    const float corr = expf(m - m_new);
-    float psum = 0.f;
-    for (int c = hf; c < kTile; c += 2) {
-      const float p = expf(Ss[row * kLS + c] - m_new);
-      psum += p;
-      Ps[row * kLP + c] = __float2bfloat16_rn(p);
-    }
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    l = l * corr + psum;
-    m = m_new;
-    for (int c = hf; c < D; c += 2) Os[row * LO + c] *= corr;
-    __syncwarp();
-
-#pragma unroll
-    for (int n0 = 0; n0 < D; n0 += 16) {
-      FragC o;
-      wm::load_matrix_sync(o, Os + 16 * w * LO + n0, LO, wm::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < kTile; kk += 16) {
-        FragA a;
-        FragB bv;
-        wm::load_matrix_sync(a, Ps + 16 * w * kLP + kk, kLP);
-        wm::load_matrix_sync(bv, Vs + kk * LT + n0, LT);
-        wm::mma_sync(o, a, bv, o);
-      }
-      wm::store_matrix_sync(Os + 16 * w * LO + n0, o, LO, wm::mem_row_major);
-    }
-    __syncwarp();
+  for (int t = 0; t < kStages - 1; ++t) {  // Q rides in the first group
+    if (t < n_kt) issue(t);
+    cp_async_commit();
   }
 
-  if (hf == 0) {
-    Ls[row] = l;
-    if (lse != nullptr) {
-      lse[static_cast<long long>(bh) * S + q0 + row] = m + logf(l);
+  float o[MR][ND][4];
+  // Rows g and g + 8 of each m16 tile: running max (of the scaled scores)
+  // and this lane's share of the running sum.
+  float m[MR][2], l[MR][2];
+#pragma unroll
+  for (int mi = 0; mi < MR; ++mi) {
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[mi][n][e] = 0.f;
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      m[mi][r] = kNegInf;
+      l[mi][r] = 0.f;
+    }
+  }
+  const float sl2 = scale * kLog2e;
+  const bf16* Qw = Qs + (wr + (lane & 15)) * LT + ((lane >> 4) << 3);
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    // This thread's copies of tile kt have landed (later groups may not);
+    // after the barrier everyone's have, and tile kt - 1's stage is free.
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    if (kt + kStages - 1 < n_kt) issue(kt + kStages - 1);
+    cp_async_commit();  // possibly empty: one group per iteration
+    const int k0 = kt * kTile;
+    // Every key hidden from the warp.  (Tiles are 64-aligned and m16
+    // tiles 16-aligned, so a warp that sees the tile sees a key in every
+    // row.)
+    if (!active || k0 > row0 + 16 * MR - 1) continue;
+    const bf16* Ks = KVs + (kt % kStages) * kStage;
+    const bf16* Vs = Ks + L::tile;
+
+    // S = Q·Kᵀ: per m16 tile, 16 queries x 64 keys, n8 tile j holding keys
+    // 8j..8j+7.
+    float s[MR][8][4];
+#pragma unroll
+    for (int mi = 0; mi < MR; ++mi) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[mi][j][e] = 0.f;
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t qa[MR][4];
+#pragma unroll
+      for (int mi = 0; mi < MR; ++mi) {
+        ldsm_x4(qa[mi], Qw + 16 * mi * LT + 16 * kk);
+      }
+#pragma unroll
+      for (int jp = 0; jp < 4; ++jp) {
+        uint32_t kb[4];
+        ldsm_x4(kb, Ks + (16 * jp + (lane & 7) + ((lane >> 4) << 3)) * LT +
+                        16 * kk + (((lane >> 3) & 1) << 3));
+#pragma unroll
+        for (int mi = 0; mi < MR; ++mi) {
+          mma_bf16(s[mi][2 * jp], qa[mi], kb[0], kb[1]);
+          mma_bf16(s[mi][2 * jp + 1], qa[mi], kb[2], kb[3]);
+        }
+      }
+    }
+    if (k0 + kTile - 1 > row0) {  // the diagonal: hide keys after the query
+#pragma unroll
+      for (int mi = 0; mi < MR; ++mi) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if (k0 + 8 * j + 2 * tig + (e & 1) >
+                row0 + 16 * mi + g + 8 * (e >> 1)) {
+              s[mi][j][e] = -INFINITY;
+            }
+          }
+        }
+      }
+    }
+    // Online softmax.  max(s)·scale is the max of the scaled scores (f32
+    // rounding is monotone), and p = exp(s·scale − m) is computed as
+    // 2^(s·scale·log2 e − m·log2 e) in one FMA.
+#pragma unroll
+    for (int mi = 0; mi < MR; ++mi) {
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        mx[0] = fmaxf(mx[0], fmaxf(s[mi][j][0], s[mi][j][1]));
+        mx[1] = fmaxf(mx[1], fmaxf(s[mi][j][2], s[mi][j][3]));
+      }
+      float corr[2], neg[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m[mi][r], mx[r] * scale);
+        corr[r] = fast_exp2((m[mi][r] - m_new) * kLog2e);
+        neg[r] = -m_new * kLog2e;
+        m[mi][r] = m_new;
+        l[mi][r] *= corr[r];
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = fast_exp2(fmaf(s[mi][j][e], sl2, neg[e >> 1]));
+          l[mi][e >> 1] += p;
+          s[mi][j][e] = p;
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        o[mi][n][0] *= corr[0];
+        o[mi][n][1] *= corr[0];
+        o[mi][n][2] *= corr[1];
+        o[mi][n][3] *= corr[1];
+      }
+    }
+    // O += P·V, P rounded to bf16 in registers.
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      uint32_t pa[MR][4];
+#pragma unroll
+      for (int mi = 0; mi < MR; ++mi) {
+        c_to_a(s[mi][2 * t], s[mi][2 * t + 1], pa[mi]);
+      }
+#pragma unroll
+      for (int np = 0; np < D / 16; ++np) {
+        uint32_t vb[4];
+        ldsm_x4_trans(vb, Vs + (16 * t + (lane & 7) +
+                                (((lane >> 3) & 1) << 3)) * LT +
+                              16 * np + ((lane >> 4) << 3));
+#pragma unroll
+        for (int mi = 0; mi < MR; ++mi) {
+          mma_bf16(o[mi][2 * np], pa[mi], vb[0], vb[1]);
+          mma_bf16(o[mi][2 * np + 1], pa[mi], vb[2], vb[3]);
+        }
+      }
+    }
+  }
+  if (!active) return;
+
+  // out = O / l, through the warp's own rows of the Q tile, 16 bytes a
+  // store (out is contiguous); lse = m + log l.
+  bf16* Os = Qs + wr * LT;
+#pragma unroll
+  for (int mi = 0; mi < MR; ++mi) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[mi][r] += __shfl_xor_sync(0xffffffffu, l[mi][r], 1);
+      l[mi][r] += __shfl_xor_sync(0xffffffffu, l[mi][r], 2);
+    }
+    if (lse != nullptr && tig == 0) {
+      float* dst = lse + static_cast<long long>(bh) * S + row0 + 16 * mi + g;
+      dst[0] = m[mi][0] + logf(l[mi][0]);
+      dst[8] = m[mi][1] + logf(l[mi][1]);
+    }
+    bf16* Om = Os + 16 * mi * LT;
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      *reinterpret_cast<uint32_t*>(Om + g * LT + 8 * n + 2 * tig) =
+          pack_bf16(o[mi][n][0] / l[mi][0], o[mi][n][1] / l[mi][0]);
+      *reinterpret_cast<uint32_t*>(Om + (g + 8) * LT + 8 * n + 2 * tig) =
+          pack_bf16(o[mi][n][2] / l[mi][1], o[mi][n][3] / l[mi][1]);
     }
   }
   __syncwarp();
-  // The warp's 16 rows, written row by row (out is contiguous).
-  for (int r = 16 * w; r < 16 * w + 16; ++r) {
-    bf16* o = out + ((static_cast<long long>(b) * S + q0 + r) * H + h) * D;
-    for (int c = lane; c < D; c += 32) {
-      o[c] = __float2bfloat16_rn(Os[r * LO + c] / Ls[r]);
-    }
+  for (int idx = lane; idx < 16 * MR * (D / 8); idx += 32) {
+    const int r = idx / (D / 8);
+    const int c = (idx % (D / 8)) * 8;
+    const long long off =
+        ((static_cast<long long>(b) * S + row0 + r) * H + h) * D + c;
+    *reinterpret_cast<uint4*>(out + off) =
+        *reinterpret_cast<const uint4*>(Os + r * LT + c);
   }
 }
 
-// One block per (b·h, key tile); warp w owns key rows 16w..16w+15 of the
-// transposed scores and of dK, dV (kept as WMMA accumulators), and query
-// rows 16w..16w+15 of the tile's dQ contribution.
+// One block per (b·h, 64-key tile), key tile 0 (the longest walk) first;
+// warp w owns keys 16w..16w+15.  The warp keeps its K and V fragments
+// (D = 64; at D = 128 they are read from shared memory per query tile) and
+// its dK, dV accumulators in registers for the whole walk down the query
+// tiles from the diagonal; Q, dO, lse and delta tiles stream through a
+// ring of cp.async stages.  Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ land in registers,
+// where Pᵀ and dSᵀ are formed and fed to dV += Pᵀ·dO and dK += dSᵀ·Q as A
+// fragments, in passes of 32 queries (16 at D = 128) that keep the
+// registers clear of spills.  dSᵀ also goes to shared memory as bf16:
+// dQ = dS·K needs it transposed, and each warp then adds 16 queries' dQ
+// into the f32 buffer with float4 atomics.
 template <int D>
-__global__ void __launch_bounds__(kTcThreads)
+__global__ void __launch_bounds__(kBwdThreads, D == 64 ? 3 : 2)
 tc_flash_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
                     const float* __restrict__ lse,
@@ -593,20 +778,18 @@ tc_flash_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     bf16* __restrict__ dv, Strides sq, Strides sk,
                     Strides sv, int H, int S, float scale) {
   using L = Tc<D>;
-  constexpr int LT = L::LT, LO = L::LO, JD = D / 16;
+  constexpr int LT = L::LT, ND = D / 8, KD = D / 16;
+  constexpr int QW = D == 64 ? 32 : 16;  // queries a register pass covers
+  constexpr int NJ = QW / 8;
+  constexpr bool kHoldKV = D == 64;
+  constexpr int kStages = L::bwd_stages;
+  constexpr int kStage = 2 * L::tile;  // Q, then dO
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  unsigned char* p = smem_raw;
-  bf16* Ks = reinterpret_cast<bf16*>(p);
-  bf16* Vs = reinterpret_cast<bf16*>(p += L::tile);
-  bf16* Qs = reinterpret_cast<bf16*>(p += L::tile);
-  bf16* dOs = reinterpret_cast<bf16*>(p += L::tile);
-  float* STs = reinterpret_cast<float*>(p += L::tile);
-  float* dPTs = reinterpret_cast<float*>(p += L::scores);
-  bf16* PTs = reinterpret_cast<bf16*>(p += L::scores);
-  bf16* dSTs = reinterpret_cast<bf16*>(p += L::probs);
-  float* Xs = reinterpret_cast<float*>(p += L::probs);  // dQ, then dK/dV
-  float* lse_s = reinterpret_cast<float*>(p += L::outs);
-  float* delta_s = reinterpret_cast<float*>(p += L::rowvec);
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Vs = Ks + L::tile;
+  bf16* QdO = Vs + L::tile;
+  bf16* dSs = QdO + kStages * kStage;  // dSᵀ: [key][query]
+  float* stats = reinterpret_cast<float*>(dSs + kTile * kLP);  // lse, delta
 
   const int bh = blockIdx.y;
   const int b = bh / H;
@@ -616,146 +799,291 @@ tc_flash_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int n_tiles = S / kTile;
   const int w = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int krow = 16 * w + (lane >> 1);  // elementwise: key row
-  const int hf = lane & 1;
+  const int g = lane >> 2, tig = lane & 3;
+  const int krow = 16 * w + g;  // the lane's keys: krow and krow + 8
   const Strides sc = {static_cast<long long>(S) * H * D,
                       static_cast<long long>(H) * D, D};
+  const long long srow = static_cast<long long>(bh) * S;
 
-  tc_load_tile<D>(Ks, k, sk, b, h, k0);
-  tc_load_tile<D>(Vs, v, sv, b, h, k0);
-  FragC dk_acc[JD], dv_acc[JD];
+  // Start copying query tile qt's Q, dO, lse and delta into stage
+  // (qt - kt) % kStages.
+  auto issue = [&](int qt) {
+    const int stage = (qt - kt) % kStages;
+    bf16* dst = QdO + stage * kStage;
+    cp_tile<D, kBwdThreads>(dst, q, sq, b, h, qt * kTile, kTile);
+    cp_tile<D, kBwdThreads>(dst + L::tile, dout, sc, b, h, qt * kTile,
+                            kTile);
+    if (threadIdx.x < 32) {
+      const int part = threadIdx.x >> 4, c = 4 * (threadIdx.x & 15);
+      cp_async16(stats + (2 * stage + part) * kTile + c,
+                 (part == 0 ? lse : delta) + srow + qt * kTile + c);
+    }
+  };
+
+  cp_tile<D, kBwdThreads>(Ks, k, sk, b, h, k0, kTile);
+  cp_tile<D, kBwdThreads>(Vs, v, sv, b, h, k0, kTile);
 #pragma unroll
-  for (int n = 0; n < JD; ++n) {
-    wm::fill_fragment(dk_acc[n], 0.f);
-    wm::fill_fragment(dv_acc[n], 0.f);
+  for (int t = 0; t < kStages - 1; ++t) {  // K and V ride in the first group
+    if (kt + t < n_tiles) issue(kt + t);
+    cp_async_commit();
   }
 
-  for (int qt = kt; qt < n_tiles; ++qt) {
-    const int q0 = qt * kTile;
-    __syncthreads();  // the previous tile's readers are done
-    tc_load_tile<D>(Qs, q, sq, b, h, q0);
-    tc_load_tile<D>(dOs, dout, sc, b, h, q0);
-    if (threadIdx.x < kTile) {
-      lse_s[threadIdx.x] = lse[static_cast<long long>(bh) * S + q0 + threadIdx.x];
-      delta_s[threadIdx.x] =
-          delta[static_cast<long long>(bh) * S + q0 + threadIdx.x];
+  float dka[ND][4], dva[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      dka[n][e] = 0.f;
+      dva[n][e] = 0.f;
     }
-    __syncthreads();
+  }
+  uint32_t kf[KD][4], vf[KD][4];
+  const float sl2 = scale * kLog2e;
+  const int arow = 16 * w + (lane & 15);  // A-fragment row of ldmatrix
+  const int acol = (lane >> 4) << 3;
 
-    // Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ for the warp's 16 keys x 64 queries.
-    FragC st[4], dpt[4];
+  for (int qt = kt; qt < n_tiles; ++qt) {
+    const int i = qt - kt;
+    // This thread's copies of tile qt have landed (later groups may not);
+    // after the barrier everyone's have, and tile qt - 1's stage and dSᵀ
+    // are free.
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    if (qt + kStages - 1 < n_tiles) issue(qt + kStages - 1);
+    cp_async_commit();  // possibly empty: one group per iteration
+    if constexpr (kHoldKV) {
+      if (i == 0) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      wm::fill_fragment(st[j], 0.f);
-      wm::fill_fragment(dpt[j], 0.f);
-    }
-#pragma unroll
-    for (int kk = 0; kk < D; kk += 16) {
-      FragA ak, av;
-      wm::load_matrix_sync(ak, Ks + 16 * w * LT + kk, LT);
-      wm::load_matrix_sync(av, Vs + 16 * w * LT + kk, LT);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        FragBT bq, bo;
-        wm::load_matrix_sync(bq, Qs + 16 * j * LT + kk, LT);
-        wm::load_matrix_sync(bo, dOs + 16 * j * LT + kk, LT);
-        wm::mma_sync(st[j], ak, bq, st[j]);
-        wm::mma_sync(dpt[j], av, bo, dpt[j]);
+        for (int kk = 0; kk < KD; ++kk) {
+          ldsm_x4(kf[kk], Ks + arow * LT + 16 * kk + acol);
+          ldsm_x4(vf[kk], Vs + arow * LT + 16 * kk + acol);
+        }
       }
     }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      wm::store_matrix_sync(STs + 16 * w * kLS + 16 * j, st[j], kLS,
-                            wm::mem_row_major);
-      wm::store_matrix_sync(dPTs + 16 * w * kLS + 16 * j, dpt[j], kLS,
-                            wm::mem_row_major);
-    }
-    __syncwarp();
-
+    const bf16* Qs = QdO + (i % kStages) * kStage;
+    const bf16* dOs = Qs + L::tile;
+    const float* lse_s = stats + 2 * (i % kStages) * kTile;
+    const float* delta_s = lse_s + kTile;
     const bool diag = qt == kt;
-    for (int c = hf; c < kTile; c += 2) {  // c: query within the tile
-      float s = STs[krow * kLS + c] * scale;
-      if (diag && krow > c) s = kNegInf;
-      const float pr = expf(s - lse_s[c]);
-      const float ds = pr * (dPTs[krow * kLS + c] - delta_s[c]) * scale;
-      PTs[krow * kLP + c] = __float2bfloat16_rn(pr);
-      dSTs[krow * kLP + c] = __float2bfloat16_rn(ds);
-    }
-    __syncwarp();
 
-    // dV += Pᵀ·dO and dK += dSᵀ·Q for the warp's keys.
+#pragma unroll 1  // passes one after another: no spills
+    for (int hq = 0; hq < kTile / QW; ++hq) {
+      // Sᵀ and dPᵀ: the warp's 16 keys x QW queries.
+      float st[NJ][4], dpt[NJ][4];
 #pragma unroll
-    for (int kk = 0; kk < kTile; kk += 16) {
-      FragA ap, ads;
-      wm::load_matrix_sync(ap, PTs + 16 * w * kLP + kk, kLP);
-      wm::load_matrix_sync(ads, dSTs + 16 * w * kLP + kk, kLP);
+      for (int j = 0; j < NJ; ++j) {
 #pragma unroll
-      for (int n = 0; n < JD; ++n) {
-        FragB bo, bq;
-        wm::load_matrix_sync(bo, dOs + kk * LT + 16 * n, LT);
-        wm::load_matrix_sync(bq, Qs + kk * LT + 16 * n, LT);
-        wm::mma_sync(dv_acc[n], ap, bo, dv_acc[n]);
-        wm::mma_sync(dk_acc[n], ads, bq, dk_acc[n]);
+        for (int e = 0; e < 4; ++e) {
+          st[j][e] = 0.f;
+          dpt[j][e] = 0.f;
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        uint32_t ka[4], va[4];
+        if constexpr (kHoldKV) {
+#pragma unroll
+          for (int x = 0; x < 4; ++x) {
+            ka[x] = kf[kk][x];
+            va[x] = vf[kk][x];
+          }
+        } else {
+          ldsm_x4(ka, Ks + arow * LT + 16 * kk + acol);
+          ldsm_x4(va, Vs + arow * LT + 16 * kk + acol);
+        }
+#pragma unroll
+        for (int jp = 0; jp < QW / 16; ++jp) {
+          uint32_t qb[4], ob[4];
+          const int r = hq * QW + 16 * jp + (lane & 7) + ((lane >> 4) << 3);
+          const int c = 16 * kk + (((lane >> 3) & 1) << 3);
+          ldsm_x4(qb, Qs + r * LT + c);
+          ldsm_x4(ob, dOs + r * LT + c);
+          mma_bf16(st[2 * jp], ka, qb[0], qb[1]);
+          mma_bf16(st[2 * jp + 1], ka, qb[2], qb[3]);
+          mma_bf16(dpt[2 * jp], va, ob[0], ob[1]);
+          mma_bf16(dpt[2 * jp + 1], va, ob[2], ob[3]);
+        }
+      }
+      // Pᵀ = exp(s·scale − lse) (0 for keys after the query) and
+      // dSᵀ = Pᵀ·(dPᵀ − delta)·scale, in place of Sᵀ and dPᵀ.
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = hq * QW + 8 * j + 2 * tig + (e & 1);  // query
+          float p = fast_exp2(fmaf(st[j][e], sl2, -lse_s[c] * kLog2e));
+          if (diag && krow + 8 * (e >> 1) > c) p = 0.f;
+          const float ds = p * (dpt[j][e] - delta_s[c]) * scale;
+          st[j][e] = p;
+          dpt[j][e] = ds;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int c = hq * QW + 8 * j + 2 * tig;
+        *reinterpret_cast<uint32_t*>(dSs + krow * kLP + c) =
+            pack_bf16(dpt[j][0], dpt[j][1]);
+        *reinterpret_cast<uint32_t*>(dSs + (krow + 8) * kLP + c) =
+            pack_bf16(dpt[j][2], dpt[j][3]);
+      }
+      // dV += Pᵀ·dO and dK += dSᵀ·Q over these queries.
+#pragma unroll
+      for (int t = 0; t < QW / 16; ++t) {
+        uint32_t pa[4], da[4];
+        c_to_a(st[2 * t], st[2 * t + 1], pa);
+        c_to_a(dpt[2 * t], dpt[2 * t + 1], da);
+        const int r = hq * QW + 16 * t + (lane & 7) + (((lane >> 3) & 1) << 3);
+#pragma unroll
+        for (int np = 0; np < D / 16; ++np) {
+          uint32_t ob[4], qb[4];
+          const int c = 16 * np + ((lane >> 4) << 3);
+          ldsm_x4_trans(ob, dOs + r * LT + c);
+          ldsm_x4_trans(qb, Qs + r * LT + c);
+          mma_bf16(dva[2 * np], pa, ob[0], ob[1]);
+          mma_bf16(dva[2 * np + 1], pa, ob[2], ob[3]);
+          mma_bf16(dka[2 * np], da, qb[0], qb[1]);
+          mma_bf16(dka[2 * np + 1], da, qb[2], qb[3]);
+        }
       }
     }
     __syncthreads();  // every warp's rows of dSᵀ are written
 
-    // dQ rows 16w.. of this query tile: dS·K over the tile's 64 keys.
+    // dQ of queries 16w..16w+15 of this tile: dS·K over the tile's 64
+    // keys, 32 columns at a time, added with float4 atomics (each lane
+    // swaps half its pairs with its neighbour to hold 4 adjacent columns).
+    uint32_t dsa[4][4];
 #pragma unroll
-    for (int n = 0; n < JD; ++n) {
-      FragC dqc;
-      wm::fill_fragment(dqc, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < kTile; kk += 16) {
-        FragAT ads;  // dS = (dSᵀ)ᵀ
-        FragB bk;
-        wm::load_matrix_sync(ads, dSTs + kk * kLP + 16 * w, kLP);
-        wm::load_matrix_sync(bk, Ks + kk * LT + 16 * n, LT);
-        wm::mma_sync(dqc, ads, bk, dqc);
-      }
-      wm::store_matrix_sync(Xs + 16 * w * LO + 16 * n, dqc, LO,
-                            wm::mem_row_major);
+    for (int t = 0; t < 4; ++t) {
+      ldsm_x4_trans(dsa[t], dSs + (16 * t + (lane & 7) + ((lane >> 4) << 3)) *
+                                      kLP + 16 * w +
+                                  (((lane >> 3) & 1) << 3));
     }
-    __syncwarp();
-    for (int r = 16 * w; r < 16 * w + 16; ++r) {
-      float* dst = dq_acc + ((static_cast<long long>(b) * S + q0 + r) * H + h) * D;
-      for (int c = lane; c < D; c += 32) atomicAdd(dst + c, Xs[r * LO + c]);
+    const bool odd = tig & 1;
+    float* dq_rows =
+        dq_acc + ((static_cast<long long>(b) * S + qt * kTile + 16 * w + g +
+                   8 * odd) * H + h) * D + 4 * (tig >> 1);
+#pragma unroll
+    for (int nc = 0; nc < D / 32; ++nc) {
+      float dqc[4][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dqc[j][e] = 0.f;
+      }
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          uint32_t kb[4];
+          ldsm_x4_trans(kb, Ks + (16 * t + (lane & 7) +
+                                  (((lane >> 3) & 1) << 3)) * LT +
+                                32 * nc + 16 * np + ((lane >> 4) << 3));
+          mma_bf16(dqc[2 * np], dsa[t], kb[0], kb[1]);
+          mma_bf16(dqc[2 * np + 1], dsa[t], kb[2], kb[3]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float s0 = odd ? dqc[j][0] : dqc[j][2];
+        const float s1 = odd ? dqc[j][1] : dqc[j][3];
+        const float r0 = __shfl_xor_sync(0xffffffffu, s0, 1);
+        const float r1 = __shfl_xor_sync(0xffffffffu, s1, 1);
+        const float4 v4 = odd ? make_float4(r0, r1, dqc[j][2], dqc[j][3])
+                              : make_float4(dqc[j][0], dqc[j][1], r0, r1);
+        float* dst = dq_rows + 32 * nc + 8 * j;
+        atomicAdd(reinterpret_cast<float4*>(dst), v4);
+      }
     }
   }
 
-  // dK, then dV, through the warp's rows of the staging buffer.
+  // dK and dV through stage 0's rows of the warp, 16 bytes a store.
+  __syncthreads();
+  bf16* Dk = QdO + 16 * w * LT;
+  bf16* Dv = Dk + L::tile;
 #pragma unroll
-  for (int pass = 0; pass < 2; ++pass) {
-    __syncwarp();
-#pragma unroll
-    for (int n = 0; n < JD; ++n) {
-      wm::store_matrix_sync(Xs + 16 * w * LO + 16 * n,
-                            pass == 0 ? dk_acc[n] : dv_acc[n], LO,
-                            wm::mem_row_major);
-    }
-    __syncwarp();
-    bf16* dst_base = pass == 0 ? dk : dv;
-    for (int r = 16 * w; r < 16 * w + 16; ++r) {
-      bf16* dst = dst_base + ((static_cast<long long>(b) * S + k0 + r) * H + h) * D;
-      for (int c = lane; c < D; c += 32) {
-        dst[c] = __float2bfloat16_rn(Xs[r * LO + c]);
-      }
-    }
+  for (int n = 0; n < ND; ++n) {
+    const int c = 8 * n + 2 * tig;
+    *reinterpret_cast<uint32_t*>(Dk + g * LT + c) =
+        pack_bf16(dka[n][0], dka[n][1]);
+    *reinterpret_cast<uint32_t*>(Dk + (g + 8) * LT + c) =
+        pack_bf16(dka[n][2], dka[n][3]);
+    *reinterpret_cast<uint32_t*>(Dv + g * LT + c) =
+        pack_bf16(dva[n][0], dva[n][1]);
+    *reinterpret_cast<uint32_t*>(Dv + (g + 8) * LT + c) =
+        pack_bf16(dva[n][2], dva[n][3]);
+  }
+  __syncwarp();
+  for (int idx = lane; idx < 16 * (D / 8); idx += 32) {
+    const int r = idx / (D / 8);
+    const int c = (idx % (D / 8)) * 8;
+    const long long off =
+        ((static_cast<long long>(b) * S + k0 + 16 * w + r) * H + h) * D + c;
+    *reinterpret_cast<uint4*>(dk + off) =
+        *reinterpret_cast<const uint4*>(Dk + r * LT + c);
+    *reinterpret_cast<uint4*>(dv + off) =
+        *reinterpret_cast<const uint4*>(Dv + r * LT + c);
   }
 }
 
+// delta = rowsum(dO·O) for the bf16 route, D / 8 threads a row, 16 bytes
+// a load; each row's f32 dQ buffer is cleared on the way.  Rows run in
+// memory order, (b·S + s)·H + h.
+template <int D>
+__global__ void tc_delta_kernel(const bf16* __restrict__ out,
+                                const bf16* __restrict__ dout,
+                                float* __restrict__ delta,
+                                float* __restrict__ dq_acc, int H, int S,
+                                long long rows) {
+  constexpr int kPer = D / 8;
+  const long long gid =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long row = gid / kPer;
+  const int part = static_cast<int>(gid % kPer);
+  if (row >= rows) return;  // whole warps: rows·kPer is a multiple of 32
+  const long long off = row * D + 8 * part;
+  const uint4 a = *reinterpret_cast<const uint4*>(out + off);
+  const uint4 c = *reinterpret_cast<const uint4*>(dout + off);
+  const uint32_t aw[4] = {a.x, a.y, a.z, a.w}, cw[4] = {c.x, c.y, c.z, c.w};
+  float t = 0.f;
+#pragma unroll
+  for (int x = 0; x < 4; ++x) {
+    const float2 af = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&aw[x]));
+    const float2 cf = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&cw[x]));
+    t += cf.x * af.x + cf.y * af.y;
+  }
+#pragma unroll
+  for (int o = kPer / 2; o > 0; o >>= 1) {
+    t += __shfl_xor_sync(0xffffffffu, t, o);
+  }
+  float4* z = reinterpret_cast<float4*>(dq_acc + off);
+  z[0] = make_float4(0.f, 0.f, 0.f, 0.f);
+  z[1] = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (part == 0) {
+    const long long bs = row / H;
+    const long long bhrow = (bs / S * H + row % H) * S + bs % S;
+    delta[bhrow] = t;
+  }
+}
+
+// dq = the f32 buffer rounded to bf16, 8 values a thread.
 __global__ void round_to_bf16_kernel(const float* __restrict__ src,
-                                     __nv_bfloat16* __restrict__ dst,
-                                     long long n) {
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i < n) dst[i] = __float2bfloat16_rn(src[i]);
+                                     bf16* __restrict__ dst, long long n8) {
+  const long long i =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n8) return;
+  const float4 a = reinterpret_cast<const float4*>(src)[2 * i];
+  const float4 b = reinterpret_cast<const float4*>(src)[2 * i + 1];
+  reinterpret_cast<uint4*>(dst)[i] =
+      make_uint4(pack_bf16(a.x, a.y), pack_bf16(a.z, a.w),
+                 pack_bf16(b.x, b.y), pack_bf16(b.z, b.w));
 }
 
 template <typename T, int D>
 cudaError_t fwd(const void* q, const void* k, const void* v, void* out,
                 float* lse, Strides sq, Strides sk, Strides sv, int B, int H,
                 int S, float scale, cudaStream_t st) {
-  const dim3 grid(S / kTile, B * H);
   cudaError_t err;
   if constexpr (std::is_same<T, bf16>::value) {
     constexpr size_t smem = Tc<D>::fwd_bytes;
@@ -763,11 +1091,13 @@ cudaError_t fwd(const void* q, const void* k, const void* v, void* out,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return err;
-    tc_flash_fwd_kernel<D><<<grid, kTcThreads, smem, st>>>(
+    const dim3 grid(B * H, (S + kFwdRows - 1) / kFwdRows);
+    tc_flash_fwd_kernel<D><<<grid, Tc<D>::fwd_threads, smem, st>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k),
         static_cast<const bf16*>(v), static_cast<bf16*>(out), lse, sq, sk,
         sv, H, S, scale);
   } else {
+    const dim3 grid(S / kTile, B * H);
     constexpr size_t smem = fwd_smem_bytes<D>();
     err = cudaFuncSetAttribute(flash_fwd_kernel<D>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -789,12 +1119,22 @@ cudaError_t bwd(const void* q, const void* k, const void* v, const void* out,
                 cudaStream_t st) {
   const long long rows = static_cast<long long>(B) * H * S;
   const long long n = rows * D;
-  cudaError_t err =
-      cudaMemsetAsync(dq_acc, 0, static_cast<size_t>(n) * sizeof(float), st);
-  if (err != cudaSuccess) return err;
-  flash_delta_kernel<T, D><<<static_cast<unsigned>((rows + 7) / 8), 256, 0, st>>>(
-      static_cast<const T*>(out), static_cast<const T*>(dout), delta, B, H,
-      S);
+  cudaError_t err;
+  if constexpr (std::is_same<T, bf16>::value) {
+    const long long threads = rows * (D / 8);
+    tc_delta_kernel<D><<<static_cast<unsigned>((threads + 255) / 256), 256, 0,
+                         st>>>(static_cast<const bf16*>(out),
+                               static_cast<const bf16*>(dout), delta, dq_acc,
+                               H, S, rows);
+  } else {
+    err = cudaMemsetAsync(dq_acc, 0, static_cast<size_t>(n) * sizeof(float),
+                          st);
+    if (err != cudaSuccess) return err;
+    flash_delta_kernel<D><<<static_cast<unsigned>((rows + 7) / 8), 256, 0,
+                            st>>>(static_cast<const float*>(out),
+                                  static_cast<const float*>(dout), delta, B,
+                                  H, S);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const dim3 grid(S / kTile, B * H);
@@ -804,7 +1144,7 @@ cudaError_t bwd(const void* q, const void* k, const void* v, const void* out,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return err;
-    tc_flash_bwd_kernel<D><<<grid, kTcThreads, smem, st>>>(
+    tc_flash_bwd_kernel<D><<<grid, kBwdThreads, smem, st>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k),
         static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse,
         delta, dq_acc, static_cast<bf16*>(dk), static_cast<bf16*>(dv), sq,
@@ -824,11 +1164,26 @@ cudaError_t bwd(const void* q, const void* k, const void* v, const void* out,
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   if (static_cast<void*>(dq_acc) != dq) {
-    round_to_bf16_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0, st>>>(
-        dq_acc, static_cast<__nv_bfloat16*>(dq), n);
+    round_to_bf16_kernel<<<static_cast<unsigned>((n / 8 + 255) / 256), 256,
+                           0, st>>>(dq_acc, static_cast<bf16*>(dq), n / 8);
     err = cudaGetLastError();
   }
   return err;
+}
+
+template <typename Kernel>
+cudaError_t occupancy(Kernel kernel, int threads, size_t smem, int* regs,
+                      int* blocks) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  *regs = attr.numRegs;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel,
+                                                       threads, smem);
 }
 
 bool valid_shape(int B, int H, int S, int D) {
@@ -908,6 +1263,33 @@ extern "C" int rlt_flash_bwd(const void* q, const void* k, const void* v,
                                   sq, sk, sv, B, H, S, scale, st);
   } else {
     err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}
+
+// For the record: registers a thread, threads and dynamic shared bytes a
+// block, and blocks resident per SM of a bf16 kernel (which: 0 forward,
+// 1 backward; D 64 or 128) on the current device.
+extern "C" int rlt_flash_tc_occupancy(int which, int D, int* regs,
+                                      int* threads, int* smem_bytes,
+                                      int* blocks_per_sm) {
+  cudaError_t err = cudaErrorInvalidValue;
+  if (which == 0 && (D == 64 || D == 128)) {
+    *threads = D == 64 ? Tc<64>::fwd_threads : Tc<128>::fwd_threads;
+    *smem_bytes = static_cast<int>(D == 64 ? Tc<64>::fwd_bytes
+                                           : Tc<128>::fwd_bytes);
+    err = D == 64 ? occupancy(tc_flash_fwd_kernel<64>, *threads,
+                              *smem_bytes, regs, blocks_per_sm)
+                  : occupancy(tc_flash_fwd_kernel<128>, *threads,
+                              *smem_bytes, regs, blocks_per_sm);
+  } else if (which == 1 && (D == 64 || D == 128)) {
+    *threads = kBwdThreads;
+    *smem_bytes = static_cast<int>(D == 64 ? Tc<64>::bwd_bytes
+                                           : Tc<128>::bwd_bytes);
+    err = D == 64 ? occupancy(tc_flash_bwd_kernel<64>, *threads,
+                              *smem_bytes, regs, blocks_per_sm)
+                  : occupancy(tc_flash_bwd_kernel<128>, *threads,
+                              *smem_bytes, regs, blocks_per_sm);
   }
   return static_cast<int>(err);
 }

@@ -191,14 +191,20 @@ def test_layer_norm_kernels_match_plain(cuda, dtype, n, d):
         _assert_close(got, ref, torch.float32)
 
 
+# The bf16 forward tiles queries by 128 and keys by 64, the backward both by
+# 64: S = 64 and 192 leave a half query tile; (16, 1024, 12, 64) is the
+# training path's shape (B·H = 192).
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("B,S,H,D", [(2, 256, 4, 64), (1, 512, 2, 128),
-                                     (3, 64, 5, 64)])
+                                     (3, 64, 5, 64), (2, 192, 3, 64),
+                                     (2, 192, 3, 128), (4, 1024, 6, 128),
+                                     (16, 1024, 12, 64)])
 def test_flash_kernels_match_plain_on_strided_views(cuda, dtype, B, S, H,
                                                     D):
     dt = getattr(torch, dtype)
     qkv = torch.randn(B, S, 3 * H * D, generator=cuda, device="cuda").to(dt)
     q, k, v = (t.view(B, S, H, D) for t in qkv.split(H * D, dim=-1))
+    assert q.stride() == k.stride() == (S * 3 * H * D, 3 * H * D, D, 1)
     do = torch.randn(B, S, H, D, generator=cuda, device="cuda").to(dt)
     scale = D ** -0.5
     f0, b0 = fa.flash_fwd.launches, fa.flash_bwd.launches
