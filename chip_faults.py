@@ -12,12 +12,17 @@ It builds the kernels of the checkout and, from mutated copies of
 checkout), eight faulty variants of the bf16 (tensor-core) flash kernels —
 a key tile skipped, a (key tile, query tile) pair skipped, dQ dropped, p or
 ds rounded toward zero instead of to nearest, and the forward's cp.async
-ring read one stage ahead — and five of the CE
+ring read one stage ahead — and eight of the CE
 kernels: the last, ragged vocab tile skipped in the forward, the padded
 vocab columns left unmasked in the forward, dlogits rounded toward zero
-instead of to nearest (bf16), the one-hot term dropped in dW, and the
-backward's softmax term taken against lse + 1.  Then it
-reads, at the training path's shapes:
+instead of to nearest (bf16), the one-hot term dropped in dW, the
+backward's softmax term taken against lse + 1 (the last two in the bf16
+cluster kernels and the f32 ones), and three of the bf16 backward's
+cluster design: one peer's partial left out of the logits sum, the
+exchange buffer read one tile off, and each tile's product added
+straight into the running total (the absorption the fresh per-tile
+registers guard against).  Then it reads, at the training path's
+shapes:
 
 1. ``chip_smoke.bf16_measures`` of the correct LN and flash kernels
    against their plain versions (several shapes and seeds), which must
@@ -36,9 +41,11 @@ reads, at the training path's shapes:
 4. phase 5's CE check (``chip_smoke.ce_pairs`` held as ``chip_smoke.held``
    holds them) for the correct CE kernels, which must pass at the main
    shape and the ragged one in both dtypes, and for each faulty CE
-   variant, which it must catch at one of them; the shifted-lse fault
-   must be caught at the f32 main shape, whose dx and dW lie under the
-   max-abs check's absolute 1e-6 (the line reads that check too).
+   variant, which it must catch at the shapes ``CE_FAULTS`` names (at
+   one of them where it names none); the shifted-lse fault must be caught
+   at the f32 main shape, whose dx and dW lie under the max-abs check's
+   absolute 1e-6 (the line reads that check too).  The absorption fault
+   must be caught nowhere: its readings are recorded.
 
 The wrappers are routed to a faulty library by replacing the cached ctypes
 functions of ``ops/_build.py``.  Exits 1 if a correct kernel fails a
@@ -90,43 +97,84 @@ FAULTS = {
     "bwd_no_dq": ("        atomicAdd(reinterpret_cast<float4*>(dst), v4);",
                   "        (void)dst;\n        (void)v4;", True),
 }
-# name -> (text of the correct cross_entropy.cu, its replacement)
+CE_P32 = "            const float p = __expf(acc[i][j][e] - tok_lse[tk]);"
+CE_P16 = "          const float prob = __expf(logit[k] - tok[tk]);"
+# name -> (substitutions in cross_entropy.cu, the shapes of step 4 at which
+# the check must catch the fault; empty: wherever, None: need not)
 CE_FAULTS = {
     # the forward stops before the last, partial vocab tile
-    "ce_fwd_skip_ragged_tile": (
-        "for (int v0 = 0; v0 < V; v0 += kBN) {",
-        "for (int v0 = 0; v0 + kBN <= V; v0 += kBN) {"),
+    "ce_fwd_skip_ragged_tile": ([
+        ("for (int v0 = 0; v0 < V; v0 += kBN) {",
+         "for (int v0 = 0; v0 + kBN <= V; v0 += kBN) {")], ()),
     # vocab columns past V (zero rows, logit 0) counted in the sum-exp
-    "ce_fwd_unmasked_pad": ("const bool in_vocab = vocab_col < V;",
-                            "const bool in_vocab = true;"),
+    "ce_fwd_unmasked_pad": ([("const bool in_vocab = vocab_col < V;",
+                              "const bool in_vocab = true;")], ()),
     # dlogits rounded toward zero, not to nearest, before the products
-    "ce_dlogits_rz": ("return __float2bfloat16_rn(v);",
-                      "return __float2bfloat16_rz(v);"),
+    "ce_dlogits_rz": ([
+        ("__float2bfloat16_rn(lo)", "__float2bfloat16_rz(lo)"),
+        ("__float2bfloat16_rn(hi)", "__float2bfloat16_rz(hi)")],
+        ("bf16 main",)),
     # dW without the -onehot·g term
-    "ce_dw_no_onehot": (
-        "const float hot = (vocab == tok_tgt[tk]) ? 1.f : 0.f;",
-        "const float hot = (!kDW && vocab == tok_tgt[tk]) ? 1.f : 0.f;"),
+    "ce_dw_no_onehot": ([
+        ("const float hot = (vocab == tok_tgt[tk]) ? 1.f : 0.f;",
+         "const float hot = (!kDW && vocab == tok_tgt[tk]) ? 1.f : 0.f;"),
+        ("const float onehot = vocab == tgt ? 1.f : 0.f;",
+         "const float onehot = (!kDW && vocab == tgt) ? 1.f : 0.f;")],
+        ("bf16 main", "f32 main")),
     # the softmax term of dx and dW against lse + 1 (scaled by 1/e)
-    "ce_bwd_lse_shift": (
-        "const float p = __expf(acc[i][j][e] - tok_lse[tk]);",
-        "const float p = __expf(acc[i][j][e] - tok_lse[tk] - 1.f);"),
+    "ce_bwd_lse_shift": ([
+        (CE_P32, CE_P32.replace("tok_lse[tk])", "tok_lse[tk] - 1.f)")),
+        (CE_P16, CE_P16.replace("tok[tk])", "tok[tk] - 1.f)"))],
+        ("bf16 main", "f32 main")),
+    # the logits without the partial of the cluster's block 1
+    "ce_cluster_peer_left_out": ([
+        ("if (u < nvec && nranks > 1) p[u] = ld_peer(Xt + xoff[u], 1, rank);",
+         "if (u < nvec && nranks > 1) p[u] = make_float4(0, 0, 0, 0);")],
+        ("bf16 main", "bf16 ragged")),
+    # the exchange buffer of the tile before (or after) read
+    "ce_cluster_buffer_off_by_one": ([
+        ("const float* Xt = xbuf(t);", "const float* Xt = xbuf(t + 1);")],
+        ("bf16 main", "bf16 ragged")),
+    # each tile's product added straight into the running total
+    "ce_cluster_absorption": ([
+        ("tile_product(part, Ds, Ct, wm, wn, lane);",
+         "tile_product(acc, Ds, Ct, wm, wn, lane);")], None),
 }
 MAIN = (cs.TRAIN_B, cs.TRAIN_T, 12, 64)
 SHAPES = (MAIN, (cs.TRAIN_B, cs.TRAIN_T, 6, 128), (2, 256, 4, 64),
           (1, 512, 2, 128), (3, 64, 5, 64))
 
 
+def ce_fault_shapes(torch):
+    """Step 4's CE shapes (N, V, d, dtype): the main path's in both
+    dtypes and a case ragged in N and V (at the main path's d, so the bf16
+    backward runs the main path's clusters)."""
+    n = cs.TRAIN_B * cs.TRAIN_T
+    return {"bf16 main": (n, cs.VOCAB, cs.D_MODEL, torch.bfloat16),
+            "f32 main": (n, cs.VOCAB, cs.D_MODEL, torch.float32),
+            "bf16 ragged": (1000, 515, cs.D_MODEL, torch.bfloat16),
+            "f32 ragged": (1000, 515, cs.D_MODEL, torch.float32)}
+
+
 def fmt(m):
     return " ".join(f"{k}={v:.3e}" for k, v in m.items())
 
 
-def compile_fault(build, source, tmp, name, old, new):
-    if source.count(old) != 1:
-        raise RuntimeError(f"{name}: the text to mutate occurs "
-                           f"{source.count(old)} times, not once")
+def mutate(source, name, subs):
+    """``source`` with each (old, new) of ``subs`` replaced; each old text
+    must occur exactly once."""
+    for old, new in subs:
+        if source.count(old) != 1:
+            raise RuntimeError(f"{name}: the text to replace occurs "
+                               f"{source.count(old)} times, not once")
+        source = source.replace(old, new)
+    return source
+
+
+def compile_fault(build, source, tmp, name, subs):
     src = os.path.join(tmp, f"{name}.cu")
     with open(src, "w") as f:
-        f.write(source.replace(old, new))
+        f.write(mutate(source, name, subs))
     so = os.path.join(tmp, f"lib{name}.so")
     p = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", so, src],
                        capture_output=True, text=True)
@@ -218,8 +266,9 @@ def main() -> int:
                "ce_faults": {}}
     flash_src = (_build.CSRC / "flash_attention.cu").read_text()
     ce_src = (_build.CSRC / "cross_entropy.cu").read_text()
-    jobs = ([(flash_src, n, old, new) for n, (old, new, _) in FAULTS.items()]
-            + [(ce_src, n, old, new) for n, (old, new) in CE_FAULTS.items()])
+    jobs = ([(flash_src, n, [(old, new)])
+             for n, (old, new, _) in FAULTS.items()]
+            + [(ce_src, n, subs) for n, (subs, _) in CE_FAULTS.items()])
     tmp = tempfile.mkdtemp(prefix="chip_faults-")
     try:
         t0 = time.perf_counter()
@@ -310,12 +359,7 @@ def main() -> int:
         use(_build, "flash_attention", {}, None)
 
         # 4. the CE kernels, correct and faulty, by phase 5's check
-        n_main = cs.TRAIN_B * cs.TRAIN_T
-        f32_main = (n_main, cs.VOCAB, cs.D_MODEL, torch.float32)
-        ce_shapes = ((n_main, cs.VOCAB, cs.D_MODEL, torch.bfloat16),
-                     f32_main,
-                     (1000, 515, cs.D_MODEL, torch.bfloat16),
-                     (1000, 515, cs.D_MODEL, torch.float32))
+        ce_shapes = ce_fault_shapes(torch)
         ce_syms = {"rlt_ce_fwd": ce._FWD_ARGTYPES,
                    "rlt_ce_bwd_dx": ce._BWD_ARGTYPES,
                    "rlt_ce_bwd_dw": ce._BWD_ARGTYPES}
@@ -323,29 +367,34 @@ def main() -> int:
             use(_build, "cross_entropy", ce_syms,
                 None if name is None else libs[name])
             caught = {}
-            for shape in ce_shapes:
+            for where, shape in ce_shapes.items():
                 for seed in ((0, 1) if name is None else (0,)):
-                    label = (f"{name or 'correct'} N={shape[0]} "
-                             f"V={shape[1]} {str(shape[3])[6:]}")
+                    label = f"{name or 'correct'} {where}"
                     for n, (m, bad) in ce_readings(torch, ce, shape,
                                                    seed).items():
                         print(f"ce {label} seed {seed} {n}: {fmt(m)} over "
                               f"the limit: {bad}")
                         if name is None:
-                            summary["ce_correct"][f"{label} {seed} {n}"] = m
+                            summary["ce_correct"][f"{where} {seed} {n}"] = m
                             if bad:
                                 failures.append(f"correct ce {label} {n}")
-                        elif bad:
-                            caught[f"{label} {n}"] = bad
-            if name is not None:
-                summary["ce_faults"][name] = caught
-                if not caught:
-                    failures.append(f"ce fault {name} not caught")
-            if name == "ce_bwd_lse_shift" and not any(
-                    k.startswith(f"{name} N={f32_main[0]} V={f32_main[1]} "
-                                 "float32") for k in caught):
-                failures.append(f"ce fault {name} not caught at the f32 "
-                                "main shape")
+                        else:
+                            summary["ce_faults"].setdefault(name, {})[
+                                f"{where} {n}"] = {**m, "over": bad}
+                            if bad:
+                                caught.setdefault(where, []).append(n)
+            if name is None:
+                continue
+            must = CE_FAULTS[name][1]
+            print(f"ce fault {name}: caught at {caught or 'no shape'}")
+            if must is None:
+                continue
+            if not caught:
+                failures.append(f"ce fault {name} not caught")
+            for where in must:
+                if where not in caught:
+                    failures.append(f"ce fault {name} not caught at the "
+                                    f"{where} shape")
         use(_build, "cross_entropy", {}, None)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)

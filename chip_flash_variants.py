@@ -99,15 +99,10 @@ VARIANTS = {
 
 
 def build_variant(build, source, tmp, name, subs):
-    for old, new in subs:
-        if source.count(old) != 1:
-            raise RuntimeError(f"{name}: the text to replace occurs "
-                               f"{source.count(old)} times, not once")
-        source = source.replace(old, new)
     label = "".join(c if c.isalnum() else "_" for c in name)
     src = os.path.join(tmp, f"{label}.cu")
     with open(src, "w") as f:
-        f.write(source)
+        f.write(cf.mutate(source, name, subs))
     so = os.path.join(tmp, f"lib{label}.so")
     p = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", so, src],
                        capture_output=True, text=True)

@@ -35,7 +35,10 @@ under ``remat_policy="dots+flash"``), counted per step.  Phases:
    single call computes, the cuBLAS time of the same products and the
    vocab-chunk scan it replaces; yardsticks only, never on the path) and
    the bound; the flash forward must take at most 2x the SDPA call and
-   the backward at most 1.5x SDPA's flash backward;
+   the backward at most 1.5x SDPA's flash backward; the registers, shared
+   memory and resident blocks (flash) or clusters (the bf16 CE backward,
+   launched as thread-block clusters, one block per slice of d) of each
+   tensor-core kernel;
 7. the trainer: GPT-2-small, batch 16 x 1024 tokens, bf16, three arms —
    (a) the headline, (b) CE kernels without remat, (c) the CE scan
    (``GPT(ce_kernel=False)``) without remat — each warmed up, then a
@@ -635,12 +638,14 @@ def ce_f64_errors(torch, case, pairs):
 def ce_shapes(torch):
     """Phase 5's CE shapes: the main path's (bf16 first: its errors are
     the record's), its f32 twin, a ragged case on both axes in both
-    dtypes, and the widest d the JAX gate lets bf16 take."""
+    dtypes, a d whose last slice of the bf16 backward's cluster is ragged,
+    and the widest d the JAX gate lets bf16 take."""
     n = TRAIN_B * TRAIN_T
     return ((n, VOCAB, D_MODEL, torch.bfloat16),
             (n, VOCAB, D_MODEL, torch.float32),
             (1000, 515, D_MODEL, torch.bfloat16),
             (1000, 515, D_MODEL, torch.float32),
+            (1000, 515, 640, torch.bfloat16),
             (4096, VOCAB, 2 * D_MODEL, torch.bfloat16))
 
 
@@ -851,6 +856,7 @@ def phase_train_timing(torch, card):
     print(f"phase 6: F.scaled_dot_product_attention fwd+bwd (eager, "
           f"autograd): {both} ms")
     flash_occupancy(card)
+    ce_occupancy(torch, card)
     rec.update(ce_timing(torch, card))
     for name, r in rec.items():
         lib = ("none" if r["library_ms"] is None
@@ -1109,7 +1115,7 @@ def phase_trainer(torch, card):
         busy = sum(by_name.values())
         keys = ("ln_fwd_kernel", "ln_bwd_kernel", "flash_fwd_kernel",
                 "flash_bwd_kernel", "tc_delta_kernel", "round_to_bf16_kernel",
-                "ce_fwd_kernel", "ce_grad_kernel")
+                "ce_fwd_kernel", "ce_grad_cluster_kernel")
         kernel_us = {k: sum(v for name, v in by_name.items() if k in name)
                      for k in keys}
         calls = {k: sum(c for name, c in count.items() if k in name)
@@ -1298,20 +1304,31 @@ def phase_end_to_end(torch, card):
             "loss_rel_bf16_vs_f32": bf_rel, **grads}
 
 
+def kernel_name(mangled):
+    """``name<arg>`` of a mangled kernel: the length-prefixed identifier
+    ending in ``_kernel`` and its first integer or bool template argument.
+    A digit run may hold the end of an anonymous namespace's hash before
+    the length, so each of its suffixes is tried as the length."""
+    for run in re.finditer(r"\d+", mangled):
+        digits = run.group()
+        for k in range(len(digits)):
+            word = mangled[run.end():run.end() + int(digits[k:])]
+            if word.endswith("_kernel") and word.isidentifier():
+                t = re.match(r"I\w*?L[ib](\d+)E",
+                             mangled[run.end() + len(word):])
+                return word + (f"<{t.group(1)}>" if t else "")
+    return mangled
+
+
 def ptxas_kernels(log):
     """(kernel, registers, bytes spilled) of each entry function in the
-    ``-Xptxas -v`` report of a build; a template's D is kept as <D>."""
+    ``-Xptxas -v`` report of a build (names as ``kernel_name`` gives
+    them)."""
     out, name, spilled = [], None, 0
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            name = m.group(1)
-            for d in re.finditer(r"\d+", name):  # length-prefixed names
-                word = name[d.end():d.end() + int(d.group())]
-                if word.endswith("_kernel") and word.isidentifier():
-                    t = re.match(r"I\w*?Li(\d+)E", name[d.end() + len(word):])
-                    name = word + (f"<{t.group(1)}>" if t else "")
-                    break
+            name = kernel_name(m.group(1))
             continue
         m = re.search(r"(\d+) bytes spill stores", line)
         if m:
@@ -1344,6 +1361,32 @@ def flash_occupancy(card):
                   f"a block, {blocks} blocks ({warps} warps) resident per "
                   f"SM; {card}")
             check(warps >= 8, f"flash {name} D={d}: {warps} warps per SM")
+
+
+CE_OCCUPANCY_ARGTYPES = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 5
+
+
+def ce_occupancy(torch, card):
+    """Phase 6: registers, threads and shared bytes of the bf16 CE
+    backward kernels (a cluster per 64 rows, one block per slice of d) and
+    the clusters the card keeps resident at once, at the main path's d and
+    the widest d the JAX gate lets bf16 take."""
+    from ray_lightning_tpu_torch.ops import _build
+
+    fn = _build.load_function("cross_entropy", "rlt_ce_bwd_occupancy",
+                              CE_OCCUPANCY_ARGTYPES)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for which, name in ((0, "dx"), (1, "dW")):
+        for d in (D_MODEL, 2 * D_MODEL):
+            vals = [ctypes.c_int() for _ in range(5)]
+            err = fn(which, d, *[ctypes.byref(v) for v in vals])
+            check(err == 0, f"occupancy query of ce {name} d={d}")
+            regs, threads, smem, size, clusters = (v.value for v in vals)
+            print(f"phase 6: ce {name} bf16 d={d}: {regs} registers a "
+                  f"thread, {threads} threads and {smem} B of shared memory "
+                  f"a block, clusters of {size} blocks: {clusters} resident "
+                  f"({clusters * size} of {sms} SMs); {card}")
+            check(clusters >= 1, f"ce {name} d={d}: a cluster fits")
 
 
 def main() -> int:

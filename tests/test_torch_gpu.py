@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from ray_lightning_tpu_torch.core.callbacks import Callback
 from ray_lightning_tpu_torch.core.trainer import Trainer
 from ray_lightning_tpu_torch.models.generate import generate
 from ray_lightning_tpu_torch.models.gpt import (
@@ -273,7 +274,8 @@ def _ce_case(gen, n, v, d, dt):
     ("float32", 1000, 515, 768), ("bfloat16", 1000, 515, 768),
     ("float32", 2048, 50304, 768), ("bfloat16", 2048, 50304, 768),
     ("bfloat16", 1024, 50304, 1536), ("float32", 77, 130, 128),
-    ("bfloat16", 77, 130, 384)])
+    ("bfloat16", 77, 130, 384), ("bfloat16", 300, 1000, 640),
+    ("bfloat16", 77, 130, 1280)])
 def test_ce_kernels_match_plain(cuda, dtype, n, v, d):
     dt = getattr(torch, dtype)
     x, w, t, g = _ce_case(cuda, n, v, d, dt)
@@ -296,6 +298,57 @@ def test_ce_kernels_match_plain(cuda, dtype, n, v, d):
         assert got.dtype == torch.float32 and got.shape == ref.shape
         _assert_close(got, ref, dt)
     assert (dx[::7] == 0).all()
+
+
+@pytest.mark.parametrize("n,v,d", [(2048, 50304, 768), (1000, 515, 1536),
+                                   (300, 1000, 640), (77, 130, 128)])
+def test_ce_backward_is_bitwise_repeatable(cuda, n, v, d):
+    """dx and dW of two launches on the same bf16 inputs are bitwise
+    equal: every output element has one writer and a cluster's partial
+    logits are summed in one fixed order of its blocks (no atomics)."""
+    x, w, t, g = _ce_case(cuda, n, v, d, torch.bfloat16)
+    lse = ce.ce_fwd_plain(x, w, t)[1]
+    runs = [(ce.ce_bwd_dx(x, w, t, lse, g), ce.ce_bwd_dw(x, w, t, lse, g))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for first, second in zip(*runs):
+        assert torch.isfinite(first).all()
+        assert torch.equal(first, second)
+
+
+def test_bf16_fit_with_ce_kernels_matches_the_scan(cuda):
+    """Four bf16 steps with the CE kernels and with the vocab-chunk scan
+    (``ce_kernel=False``) from one seed give the same per-step losses
+    within 1e-3 relative.  Both routes round the same f32 dlogits to bf16
+    before the products and differ only in the order of their f32 sums; a
+    bf16 rounding that flips moves one element by 2^-8 of itself, and four
+    AdamW steps carry such flips into the weights (the CPU's plain versions
+    and the scan differ by 1.2e-5 at this size).  1e-3 is a tenth of what
+    ``chip_smoke.py`` phase 8 allows bf16 against f32.  d = 640 makes each
+    cluster two blocks, the second on a ragged 256-wide slice."""
+
+    class Losses(Callback):
+        def __init__(self):
+            self.values = []
+
+        def on_train_batch_end(self, trainer, module, logs, batch_idx):
+            self.values.append(float(logs["train_loss"]))
+
+    cfg = GPTConfig(vocab_size=515, n_layer=2, n_head=10, d_model=640,
+                    seq_len=128, warmup_steps=2)
+    losses = []
+    for ce_kernel in (True, False):
+        rec = Losses()
+        ce.ce_bwd_dx.launches = 0
+        tr = Trainer(max_steps=4, limit_val_batches=0, precision="bf16",
+                     seed=0, callbacks=[rec])
+        tr.fit(GPT(cfg, ce_kernel=ce_kernel),
+               SyntheticLMDataModule(cfg, batch_size=4, num_batches=4,
+                                     seed=0))
+        assert ce.ce_bwd_dx.launches == (4 if ce_kernel else 0)
+        losses.append(np.array(rec.values))
+    assert len(losses[0]) == 4 and np.isfinite(losses[0]).all()
+    np.testing.assert_allclose(losses[0], losses[1], rtol=1e-3)
 
 
 def test_ce_kernels_reject_what_they_do_not_take(cuda):
