@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""Variants of the bf16 CE backward kernels (dx, dW) side by side on one
-NVIDIA GPU.
+"""Variants of the bf16 CE backward kernels (dx, dW), of the bf16 CE
+forward and of the bf16 LN backward, side by side on one NVIDIA GPU.
 
 Run from the root of a checkout:
 
     python3 chip_ce_variants.py [--parent PATH] [--phases]
+    python3 chip_ce_variants.py --fwd [--parent PATH]
+    python3 chip_ce_variants.py --ln [--parent PATH]
 
 Each entry of ``VARIANTS`` is a list of text substitutions on
 ``ray_lightning_tpu_torch/ops/csrc/cross_entropy.cu`` that changes one
@@ -29,6 +31,22 @@ thread of block 0 (so the copy's registers stay near the real one's), and
 prints that phase's cycles per tile at the main path's shape.  Exits 1 if
 a variant does not build or the kernels as built fail a limit; the last
 line is a JSON summary.
+
+``--fwd`` does the same for the forward kernel with ``FWD_VARIANTS``, the
+designs the kernel as built was chosen over, each kept here as
+substitutions of its source (the TMA ring's depth, 128-column vocab tiles,
+the second consumer warpgroup started two stages late, W multicast over a
+cluster of two blocks): each variant's
+loss and lse held against the plain version at the bf16 shapes of
+``chip_faults.py``'s CE check, its time at the main path's shape beside
+cuBLAS x·Wᵀ.  ``--ln`` times ``LN_VARIANTS`` of
+``ray_lightning_tpu_torch/ops/csrc/layer_norm.cu`` (4 against 8 warps a
+block; the cross-block column sum by the last block to finish, found by an
+atomic ticket, against the column-sum kernel as built) beside
+``native_layer_norm_backward``, at the main path's width and at
+``WIDE_D`` = 1600 (the wide form), holds each at ``chip_faults.ln_shapes``
+and prints the device time of each of its kernels (profiler).  With
+``--parent``, the earlier source of the same file is one more variant.
 """
 
 from __future__ import annotations
@@ -127,6 +145,182 @@ VARIANTS = {
 }
 PARENT = "parent (--parent)"
 
+# The forward's rejected designs (cross_entropy.cu, ce_fwd_wgmma_kernel),
+# each as substitutions of the source as built.
+STAGES = "constexpr int kFStages = 4;"
+FWD_KERNEL = ("__global__ void __launch_bounds__(kFThreads, 1)\n"
+              "ce_fwd_wgmma_kernel(")
+
+
+def wgmma_n128():
+    """The m64n128k16 wgmma: 64 f32 accumulators a thread."""
+    regs = ", ".join(f"%{i}" for i in range(64))
+    outs = ", ".join(f'"+f"(d[{i}])' for i in range(64))
+    return ("__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], "
+            "uint64_t a,\n    uint64_t b, int scale_d) {\n  asm volatile(\n"
+            '      "{\\n.reg .pred p;\\nsetp.ne.b32 p, %66, 0;\\n"\n'
+            '      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"\n'
+            f'      "{regs}"\n'
+            '      "}, %64, %65, p, 1, 1, 0, 0;\\n}\\n"\n'
+            f"      : {outs}\n"
+            '      : "l"(a), "l"(b), "r"(scale_d));\n}\n\n')
+
+
+# 128-column vocab tiles
+BN128 = [("constexpr int kFN = 256;", "constexpr int kFN = 128;"),
+         (FWD_KERNEL, wgmma_n128() + FWD_KERNEL),
+         ("wgmma_m64n256k16(acc, sw128_desc",
+          "wgmma_m64n128k16(acc, sw128_desc")]
+# the second consumer warpgroup held at a named barrier until the first
+# has consumed two stages, so one warpgroup's softmax runs under the
+# other's products
+SKEW = [
+    ("    int stage = 0;\n    unsigned phase = 0;\n    for (int v0",
+     "    int stage = 0;\n    unsigned phase = 0;\n    int consumed = 0;\n"
+     '    if (wg == 1) asm volatile("bar.sync 1, 256;\\n" ::: "memory");\n'
+     "    for (int v0"),
+    ("        prev = stage;",
+     "        if (wg == 0 && ++consumed == 2) {\n"
+     '          asm volatile("bar.arrive 1, 256;\\n" ::: "memory");\n'
+     "        }\n        prev = stage;")]
+# W tiles multicast over a cluster of two blocks along the tokens: each
+# block loads half the tile's W rows into both, and a stage is free once
+# the consumers of both blocks are done with it
+MULTICAST_HELPERS = r"""// Arrive on the barrier at the same place in block `rank` of the cluster.
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar,
+                                                    uint32_t rank) {
+  asm volatile(
+      "{\n.reg .b32 ra;\nmapa.shared::cluster.u32 ra, %0, %1;\n"
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [ra];\n}\n" ::
+          "r"(bar),
+      "r"(rank)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_multicast(uint32_t dst,
+                                                   const CUtensorMap* map,
+                                                   uint32_t bar, int c0,
+                                                   int c1, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(
+          dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "h"(mask)
+      : "memory");
+}
+
+"""
+PEER_ARRIVE = ("mbar_arrive(empty + 8 * prev);\n"
+               "          mbar_arrive_cluster(empty + 8 * prev, rank ^ 1);")
+MULTICAST = [
+    ("// The wgmma operand descriptor",
+     MULTICAST_HELPERS + "// The wgmma operand descriptor"),
+    ("  const int r0 = blockIdx.x * kFM;\n",
+     "  const int r0 = blockIdx.x * kFM;\n"
+     "  const uint32_t rank = static_cast<uint32_t>(cluster_rank());\n"),
+    ("mbar_init(empty + 8 * s, 2);", "mbar_init(empty + 8 * s, 4);"),
+    ("  __syncthreads();\n\n  if (threadIdx.x >= 256) {",
+     "  __syncthreads();\n  cluster_arrive();\n  cluster_wait();\n\n"
+     "  if (threadIdx.x >= 256) {"),
+    ("          tma_load(dst + kFXBytes, &tmw, fb, kc * kFK, v0);",
+     "          tma_load_multicast(dst + kFXBytes + rank * (kFN / 2) * 128,"
+     " &tmw, fb,\n                             kc * kFK, v0 + rank * (kFN / 2),"
+     " 0x3);"),
+    ("        if (kc > 0 && t == 0) mbar_arrive(empty + 8 * prev);",
+     "        if (kc > 0 && t == 0) {\n          " + PEER_ARRIVE
+     + "\n        }"),
+    ("      if (t == 0) mbar_arrive(empty + 8 * prev);",
+     "      if (t == 0) {\n          " + PEER_ARRIVE + "\n      }"),
+    # no block of a cluster leaves while its peer may still write into it
+    ("  }\n}\n\n// ------------------------------------------------------------"
+     "---------------\n// Launchers",
+     "  }\n  cluster_arrive();\n  cluster_wait();\n}\n\n// ----------------"
+     "-----------------------------------------------------------\n"
+     "// Launchers"),
+    ("!tile_map(&tmw, w, V, d, kFN)", "!tile_map(&tmw, w, V, d, kFN / 2)"),
+    ("  ce_fwd_wgmma_kernel<<<(N + kFM - 1) / kFM, kFThreads, kFSmem, st>>>(\n"
+     "      tmx, tmw, targets, loss, lse, N, V, d);\n",
+     "  cudaLaunchConfig_t cfg = {};\n"
+     "  cfg.gridDim = dim3(((N + kFM - 1) / kFM + 1) / 2 * 2);\n"
+     "  cfg.blockDim = dim3(kFThreads);\n"
+     "  cfg.dynamicSmemBytes = kFSmem;\n"
+     "  cfg.stream = st;\n"
+     "  cudaLaunchAttribute attr;\n"
+     "  attr.id = cudaLaunchAttributeClusterDimension;\n"
+     "  attr.val.clusterDim.x = 2;\n"
+     "  attr.val.clusterDim.y = 1;\n"
+     "  attr.val.clusterDim.z = 1;\n"
+     "  cfg.attrs = &attr;\n"
+     "  cfg.numAttrs = 1;\n"
+     "  const cudaError_t lerr = cudaLaunchKernelEx(\n"
+     "      &cfg, ce_fwd_wgmma_kernel, tmx, tmw, targets, loss, lse, N, V, d);\n"
+     "  if (lerr != cudaSuccess) return lerr;\n")]
+FWD_VARIANTS = {
+    "as built": ([], False),
+    "ring of 3": ([(STAGES, STAGES.replace("4", "3"))], False),
+    "BN 128": (BN128, False),
+    "BN 128, ring of 6": (BN128 + [(STAGES, STAGES.replace("4", "6"))],
+                          False),
+    "second warpgroup two stages late": (SKEW, False),
+    "W multicast, cluster of 2": (MULTICAST, False),
+}
+# The LN backward's rejected designs (layer_norm.cu, ln_bwd_rows_kernel).
+# The ticket column sum: the block that takes the last ticket sums every
+# partial row in block order, then resets the ticket for the next launch;
+# no second kernel.
+TICKET_SUM = """  __shared__ bool last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    last = atomicAdd(&g_ln_ticket, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (last) {
+    __threadfence();
+    for (int c = threadIdx.x; c < 2 * d; c += blockDim.x) {
+      float t = 0.f;
+      for (int blk = 0; blk < static_cast<int>(gridDim.x); ++blk) {
+        t += __ldcg(part + static_cast<size_t>(blk) * 2 * d + c);
+      }
+      if (c < d) {
+        dg[c] = t;
+      } else {
+        db[c - d] = t;
+      }
+    }
+    if (threadIdx.x == 0) g_ln_ticket = 0;
+  }
+"""
+FOLD_END = ("    for (int v = 0; v < warps; ++v) t += fold[static_cast<size_t>(v)"
+            " * 2 * d + p];\n    out[c] = t;\n  }\n")
+TICKET = [
+    ("constexpr int kColGroups = 8;  // partial-row groups of one column-sum "
+     "block\n",
+     "constexpr int kColGroups = 8;  // partial-row groups of one column-sum "
+     "block\n__device__ unsigned int g_ln_ticket = 0;\n"),
+    ("                   float* __restrict__ part, long long n, int d) {",
+     "                   float* __restrict__ part, float* __restrict__ dg,\n"
+     "                   float* __restrict__ db, long long n, int d) {"),
+    (FOLD_END, FOLD_END + TICKET_SUM),
+    ("                            const float*, const float*, bf16*, float*,\n"
+     "                            long long, int);",
+     "                            const float*, const float*, bf16*, float*,\n"
+     "                            float*, float*, long long, int);"),
+    ("      static_cast<bf16*>(dx), part, n, d);\n  err = cudaGetLastError();\n"
+     "  if (err != cudaSuccess) return err;\n",
+     "      static_cast<bf16*>(dx), part, dg, db, n, d);\n"
+     "  return cudaGetLastError();\n")]
+# The width of the LN backward's second timing (GPT-2 XL's d), past the
+# narrow form's 1543.
+WIDE_D = 1600
+LN_VARIANTS = {
+    "as built": ([], False),
+    "4 warps a block": ([("constexpr int kBwdWarps = 8;",
+                          "constexpr int kBwdWarps = 4;")], False),
+    "ticket column sum": (TICKET, False),
+}
+
 # Points of the cluster kernel's loop (text of the source; "+": just after
 # it, else just before) and the phases between them, each timed for the
 # first thread of a partial warp ("partial") or of the last warp, which
@@ -158,7 +352,7 @@ PHASES = (("head", "loop", "head end", "partial"),
           ("iteration", "loop", "output end", "partial"))
 
 
-def build_variant(build, source, tmp, name, subs):
+def build_variant(build, source, tmp, name, subs, prefix="ce_grad"):
     label = "".join(c if c.isalnum() else "_" for c in name)
     src = os.path.join(tmp, f"{label}.cu")
     with open(src, "w") as f:
@@ -169,7 +363,7 @@ def build_variant(build, source, tmp, name, subs):
     if p.returncode:
         raise RuntimeError(f"nvcc failed on {name}: {p.stderr[-3000:]}")
     regs = {k: (r, s) for k, r, s in cs.ptxas_kernels(p.stderr)
-            if k.startswith("ce_grad")}
+            if k.startswith(prefix)}
     return name, so, regs
 
 
@@ -253,12 +447,151 @@ def clusters(lib, d):
     return vals[3].value, vals[4].value
 
 
+def build_all(build, jobs, prefix):
+    """Build each (source, name, subs) in a temporary directory, one nvcc
+    each, all at once; returns (tmp, {name: library}, {name: ptxas})."""
+    tmp = tempfile.mkdtemp(prefix="chip_ce_variants-")
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        built = list(pool.map(
+            lambda j: build_variant(build, j[0], tmp, j[1], j[2], prefix),
+            jobs))
+    return (tmp, {n: so for n, so, _ in built},
+            {n: regs for n, _, regs in built})
+
+
+def run_fwd(torch, build, ce, source, parent, card):
+    """``--fwd``: each forward variant held and timed (see the module
+    docstring).  Returns (failures, summary)."""
+    jobs = [(source, n, subs) for n, (subs, _) in FWD_VARIANTS.items()]
+    if parent:
+        jobs.append((parent, PARENT, []))
+    tmp, libs, regs = build_all(build, jobs, "ce_fwd")
+    failures, summary = [], {}
+    try:
+        n, v, d = cs.TRAIN_B * cs.TRAIN_T, cs.VOCAB, cs.D_MODEL
+        gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 3)
+        sets = [cs.ce_case(torch, gen, n, v, d, torch.bfloat16)[:3]
+                for _ in range(2)]
+        shapes = {k: s for k, s in cf.ce_fault_shapes(torch).items()
+                  if s[3] == torch.bfloat16}
+        symbols = {"rlt_ce_fwd": ce._FWD_ARGTYPES}
+        for name in list(libs) + list(libs)[::-1]:
+            cf.use(build, "cross_entropy", symbols, libs[name])
+            rec = summary.setdefault(name, {"ptxas": regs[name]})
+            if "over" not in rec:
+                rec["over"] = {}
+                for where, shape in shapes.items():
+                    for out, (m, bad) in cf.ce_readings(
+                            torch, ce, shape).items():
+                        if out in ("loss", "lse") and bad:
+                            rec["over"][f"{where} {out}"] = bad
+                if rec["over"] and name == "as built":
+                    failures.append(f"as built: {rec['over']}")
+            ms = cs.graph_ms(torch, ce.ce_fwd, sets, reps=3)
+            logits = cs.graph_ms(
+                torch, lambda x, w, t: torch.mm(x, w.t(),
+                                                out_dtype=torch.float32),
+                sets, reps=3)
+            rec.setdefault("runs", []).append(
+                {"fwd_ms": ms, "cublas_logits_ms": logits})
+            held = (f"over the limits at {list(rec['over'])}"
+                    if rec["over"] else "within the limits")
+            print(f"fwd {name}: {ms:.3f} ms; cuBLAS x·Wᵀ {logits:.3f} ms; "
+                  + ", ".join(f"{k} {r} registers, {s} B spilled"
+                              for k, (r, s) in sorted(regs[name].items()))
+                  + f"; {held}; {card}")
+        cf.use(build, "cross_entropy", {}, None)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return failures, summary
+
+
+def run_ln(torch, build, source, parent, card):
+    """``--ln``: each LN backward variant held and timed, with its
+    kernels' device time (see the module docstring)."""
+    from ray_lightning_tpu_torch.ops import layer_norm as ln
+
+    jobs = [(source, n, subs) for n, (subs, _) in LN_VARIANTS.items()]
+    if parent:
+        jobs.append((parent, PARENT, []))
+    tmp, libs, regs = build_all(build, jobs, "ln_")
+    failures, summary = [], {}
+    try:
+        n = cs.TRAIN_B * cs.TRAIN_T
+        gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 1)
+
+        def cases(d, count):
+            sets, lib_sets = [], []
+            for _ in range(count):
+                x, g, b, dy = cs.ln_case(torch, gen, n, d, torch.bfloat16)
+                _, mu, rs = ln.ln_fwd_plain(x, g, b)
+                sets.append((x, g, dy, mu, rs))
+                gd, bd = g.bfloat16(), b.bfloat16()
+                _, mean, rstd = torch.ops.aten.native_layer_norm(
+                    x, [d], gd, bd, 1e-5)
+                lib_sets.append((dy, x, mean, rstd, gd, bd))
+            return sets, lib_sets
+
+        # the main path's width, and GPT-2 XL's, which takes the wide form
+        sets, lib_sets = cases(cs.D_MODEL, 4)
+        wide_sets, wide_lib_sets = cases(WIDE_D, 2)
+
+        def native(dy, x, m, r, g, b):
+            return torch.ops.aten.native_layer_norm_backward(
+                dy, x, [x.shape[-1]], m, r, g, b, [True, True, True])
+
+        symbols = {"rlt_ln_bwd": ln._BWD_ARGTYPES}
+        for name in list(libs) + list(libs)[::-1]:
+            cf.use(build, "layer_norm", symbols, libs[name])
+            rec = summary.setdefault(name, {"ptxas": regs[name]})
+            if "over" not in rec:
+                rec["over"] = {}
+                for where, shape in cf.ln_shapes().items():
+                    for out, (m, bad) in cf.ln_readings(torch, ln,
+                                                        shape).items():
+                        if bad:
+                            rec["over"][f"{where} {out}"] = bad
+                if rec["over"] and name == "as built":
+                    failures.append(f"as built: {rec['over']}")
+                rec["kernels_us"] = {
+                    cs.kernel_name(k): v for k, v in
+                    (cs.device_us_by_kernel(torch, ln.ln_bwd, sets)
+                     or {}).items()}
+            us = cs.graph_ms(torch, ln.ln_bwd, sets) * 1e3
+            lib = cs.graph_ms(torch, native, lib_sets) * 1e3
+            wide = cs.graph_ms(torch, ln.ln_bwd, wide_sets) * 1e3
+            wide_lib = cs.graph_ms(torch, native, wide_lib_sets) * 1e3
+            rec.setdefault("runs", []).append(
+                {"us": us, "native_us": lib, f"us_d{WIDE_D}": wide,
+                 f"native_us_d{WIDE_D}": wide_lib})
+            held = (f"over the limits at {list(rec['over'])}"
+                    if rec["over"] else "within the limits")
+            print(f"ln {name}: {us:.1f} us; native_layer_norm_backward "
+                  f"{lib:.1f} us; at d={WIDE_D} {wide:.1f} us, native "
+                  f"{wide_lib:.1f} us; kernels (profiler, eager) "
+                  + ", ".join(f"{k} {v:.1f} us"
+                              for k, v in rec["kernels_us"].items())
+                  + "; " + ", ".join(
+                      f"{k} {r} registers, {s} B spilled"
+                      for k, (r, s) in sorted(regs[name].items())
+                      if k.startswith("ln_bwd_rows_kernel<3"))
+                  + f"; {held}; {card}")
+        cf.use(build, "layer_norm", {}, None)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return failures, summary
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--parent", help="an earlier cross_entropy.cu to "
                         "time beside the variants")
     parser.add_argument("--phases", action="store_true", help="time the "
                         "phases of the kernels as built instead")
+    parser.add_argument("--fwd", action="store_true", help="the forward's "
+                        "variants instead")
+    parser.add_argument("--ln", action="store_true", help="the LN "
+                        "backward's variants instead")
     args = parser.parse_args()
     import torch
 
@@ -272,6 +605,24 @@ def main() -> int:
     card = cs.card_line()
     print(card)
     torch.backends.cuda.matmul.allow_tf32 = False
+    parent = None
+    if args.parent:
+        with open(args.parent) as f:
+            parent = f.read()
+    if args.fwd or args.ln:
+        if args.ln:
+            failures, summary = run_ln(
+                torch, _build, (_build.CSRC / "layer_norm.cu").read_text(),
+                parent, card)
+        else:
+            failures, summary = run_fwd(
+                torch, _build, ce, (_build.CSRC / "cross_entropy.cu")
+                .read_text(), parent, card)
+        for f in failures:
+            print(f"chip_ce_variants: FAILED: {f}")
+        print(card)
+        print(json.dumps({"ok": not failures, "variants": summary}))
+        return 1 if failures else 0
     source = (_build.CSRC / "cross_entropy.cu").read_text()
     if args.phases:
         phases = run_phases(torch, _build, ce, source, card)

@@ -1,27 +1,31 @@
 #!/usr/bin/env python3
-"""Planted faults in the flash and CE kernels, against ``chip_smoke.py``'s
-checks.
+"""Planted faults in the flash, CE and LN backward kernels, against
+``chip_smoke.py``'s checks.
 
 Run from the root of a checkout, on a machine with one NVIDIA GPU:
 
     python3 chip_faults.py
 
 It builds the kernels of the checkout and, from mutated copies of
-``ray_lightning_tpu_torch/ops/csrc/flash_attention.cu`` and
-``cross_entropy.cu`` written to a temporary directory (never to the
-checkout), eight faulty variants of the bf16 (tensor-core) flash kernels —
-a key tile skipped, a (key tile, query tile) pair skipped, dQ dropped, p or
-ds rounded toward zero instead of to nearest, and the forward's cp.async
-ring read one stage ahead — and eight of the CE
-kernels: the last, ragged vocab tile skipped in the forward, the padded
-vocab columns left unmasked in the forward, dlogits rounded toward zero
-instead of to nearest (bf16), the one-hot term dropped in dW, the
-backward's softmax term taken against lse + 1 (the last two in the bf16
-cluster kernels and the f32 ones), and three of the bf16 backward's
-cluster design: one peer's partial left out of the logits sum, the
-exchange buffer read one tile off, and each tile's product added
-straight into the running total (the absorption the fresh per-tile
-registers guard against).  Then it reads, at the training path's
+``ray_lightning_tpu_torch/ops/csrc/flash_attention.cu``,
+``cross_entropy.cu`` and ``layer_norm.cu`` written to a temporary
+directory (never to the checkout), eight faulty variants of the bf16
+(tensor-core) flash kernels — a key tile skipped, a (key tile, query
+tile) pair skipped, dQ dropped, p or ds rounded toward zero instead of
+to nearest, and the forward's cp.async ring read one stage ahead —
+eleven of the CE kernels: the last, ragged vocab tile skipped in the
+forward, the padded vocab columns left unmasked in the forward (both in
+the bf16 wgmma kernel and the f32 one), three of the bf16 forward's
+design (a row's running sum not rescaled when its max grows, the gold
+logit taken from the neighbouring column, the TMA ring's stage before
+the landed one read), dlogits rounded toward zero instead of to nearest
+(bf16), the one-hot term dropped in dW, the backward's softmax term
+taken against lse + 1 (the last two in the bf16 cluster kernels and the
+f32 ones), and three of the bf16 backward's cluster design: one peer's
+partial left out of the logits sum, the exchange buffer read one tile
+off, and each tile's product added straight into the running total (the
+absorption the fresh per-tile registers guard against) — and four of
+the bf16 LN backward. Then it reads, at the training path's
 shapes:
 
 1. ``chip_smoke.bf16_measures`` of the correct LN and flash kernels
@@ -45,7 +49,15 @@ shapes:
    one of them where it names none); the shifted-lse fault must be caught
    at the f32 main shape, whose dx and dW lie under the max-abs check's
    absolute 1e-6 (the line reads that check too).  The absorption fault
-   must be caught nowhere: its readings are recorded.
+   passes that check; at the bf16 main shape the correct kernels' dx and
+   dW must lie within ``chip_smoke.F64_FROB_LIMIT`` of one f64 evaluation
+   (``chip_smoke.ce_f64_reference``) and the absorption fault's must not;
+5. phase 5's check of the bf16 LN backward (dx by the measures, dg and db
+   by max abs error) for the correct kernels, which must pass at every
+   shape of ``ln_shapes``, and for four faults (``LN_FAULTS``: one warp's
+   dg partial dropped, the last partial row left out of the column sum,
+   the d % 8 tail columns skipped, the wide form's second pass reading a
+   stale chunk of x), each caught where its entry says.
 
 The wrappers are routed to a faulty library by replacing the cached ctypes
 functions of ``ops/_build.py``.  Exits 1 if a correct kernel fails a
@@ -101,14 +113,46 @@ CE_P32 = "            const float p = __expf(acc[i][j][e] - tok_lse[tk]);"
 CE_P16 = "          const float prob = __expf(logit[k] - tok[tk]);"
 # name -> (substitutions in cross_entropy.cu, the shapes of step 4 at which
 # the check must catch the fault; empty: wherever, None: need not)
+FWD_TILES = "for (int v0 = 0; v0 < V; v0 += kFN) {\n"
 CE_FAULTS = {
-    # the forward stops before the last, partial vocab tile
+    # the forward stops before the last, partial vocab tile (both routes:
+    # the bf16 producer and consumers, the f32 kernel)
     "ce_fwd_skip_ragged_tile": ([
+        ("      " + FWD_TILES + "        for (int kc",
+         "      " + FWD_TILES.replace("v0 < V", "v0 + kFN <= V")
+         + "        for (int kc"),
+        ("    " + FWD_TILES + "      int prev",
+         "    " + FWD_TILES.replace("v0 < V", "v0 + kFN <= V")
+         + "      int prev"),
         ("for (int v0 = 0; v0 < V; v0 += kBN) {",
-         "for (int v0 = 0; v0 + kBN <= V; v0 += kBN) {")], ()),
+         "for (int v0 = 0; v0 + kBN <= V; v0 += kBN) {")],
+        ("bf16 main", "bf16 ragged", "f32 ragged")),
     # vocab columns past V (zero rows, logit 0) counted in the sum-exp
-    "ce_fwd_unmasked_pad": ([("const bool in_vocab = vocab_col < V;",
-                              "const bool in_vocab = true;")], ()),
+    "ce_fwd_unmasked_pad": ([
+        ("if (c0 + 8 * j + (e & 1) >= V) acc[4 * j + e] = kNegInf;",
+         "(void)e;"),
+        ("const bool in_vocab = vocab_col < V;",
+         "const bool in_vocab = true;")],
+        ("bf16 main", "bf16 ragged", "f32 ragged")),
+    # the bf16 forward's running sum of one row of each thread's pair not
+    # rescaled when the row's max grows
+    "ce_fwd_sum_not_rescaled": ([
+        ("s_a = s_a * fast_exp2((m_a - mn_a) * kLog2e) + sum_a;",
+         "s_a = s_a + sum_a;")], ("bf16 main", "bf16 ragged")),
+    # the gold logit taken from the next column where the target's column
+    # is even
+    "ce_fwd_gold_neighbour": ([
+        ("if (ga == 8 * j) gold_a = acc[4 * j];",
+         "if (ga == 8 * j) gold_a = acc[4 * j + 1];")],
+        ("bf16 main", "bf16 ragged")),
+    # the consumers read the ring's stage before the one that has landed
+    "ce_fwd_ring_stage_early": ([
+        ("const uint32_t xs = ring + stage * kFStageBytes",
+         "const uint32_t xs = ring + ((stage + kFStages - 1) % kFStages) "
+         "* kFStageBytes"),
+        ("const uint32_t ws = ring + stage * kFStageBytes",
+         "const uint32_t ws = ring + ((stage + kFStages - 1) % kFStages) "
+         "* kFStageBytes")], ("bf16 main", "bf16 ragged")),
     # dlogits rounded toward zero, not to nearest, before the products
     "ce_dlogits_rz": ([
         ("__float2bfloat16_rn(lo)", "__float2bfloat16_rz(lo)"),
@@ -135,10 +179,37 @@ CE_FAULTS = {
     "ce_cluster_buffer_off_by_one": ([
         ("const float* Xt = xbuf(t);", "const float* Xt = xbuf(t + 1);")],
         ("bf16 main", "bf16 ragged")),
-    # each tile's product added straight into the running total
+    # each tile's product added straight into the running total: within
+    # the limits against the plain version, caught against f64 (step 4)
     "ce_cluster_absorption": ([
         ("tile_product(part, Ds, Ct, wm, wn, lane);",
          "tile_product(acc, Ds, Ct, wm, wn, lane);")], None),
+}
+# The faults that the f64 yardstick must catch at the bf16 main shape.
+CE_F64_FAULTS = ("ce_cluster_absorption",)
+# name -> (substitutions in layer_norm.cu, the shapes of LN_SHAPES at which
+# the check must catch the fault)
+LN_FAULTS = {
+    # warp 3 of every block leaves its dg partial out of the fold
+    "ln_bwd_warp_dg_dropped": ([
+        ("own[u * kUnit + k] = dgr[i][k];",
+         "own[u * kUnit + k] = w == 3 ? 0.f : dgr[i][k];")],
+        ("main", "ragged")),
+    # the column sum stops before the last block's partial row
+    "ln_col_sum_last_row_left_out": ([
+        ("for (int blk = grp; blk < blocks; blk += kColGroups) {",
+         "for (int blk = grp; blk < blocks - 1; blk += kColGroups) {")],
+        ("main", "ragged")),
+    # the d % 8 columns past the last 8-wide unit never handled (the main
+    # path's d = 768 has none, so only a ragged width can show it)
+    "ln_bwd_tail_skipped": ([
+        ("const bool tail = lane < d - c_tail;", "const bool tail = false;")],
+        ("ragged",)),
+    # the wide form's second pass does not read x again: every chunk takes
+    # the first pass's last chunk of x (only a width past 1543 runs it)
+    "ln_bwd_wide_stale_x": ([
+        ("        load_units<NU, kAligned>(xv, xr, u0, nu);\n", "")],
+        ("wide",)),
 }
 MAIN = (cs.TRAIN_B, cs.TRAIN_T, 12, 64)
 SHAPES = (MAIN, (cs.TRAIN_B, cs.TRAIN_T, 6, 128), (2, 256, 4, 64),
@@ -154,6 +225,45 @@ def ce_fault_shapes(torch):
             "f32 main": (n, cs.VOCAB, cs.D_MODEL, torch.float32),
             "bf16 ragged": (1000, 515, cs.D_MODEL, torch.bfloat16),
             "f32 ragged": (1000, 515, cs.D_MODEL, torch.float32)}
+
+
+def ln_shapes():
+    """The LN backward's shapes (n, d): the main path's, one ragged in n
+    and d (d % 8 = 4, 5 blocks), one ragged in n only, and GPT-2 XL's
+    width, past the narrow form's 1543 (the wide form)."""
+    return {"main": (cs.TRAIN_B * cs.TRAIN_T, cs.D_MODEL),
+            "ragged": (37, 100), "ragged rows": (1001, cs.D_MODEL),
+            "wide": (1001, 1600)}
+
+
+def ln_readings(torch, ln, shape, seed=0):
+    """Phase 5's check of the bf16 LN backward at ``shape``: dx by
+    ``bf16_measures`` against ``BF16_LIMITS``; dg and db (f32) by max abs
+    error over 1e-5·max|ref| + 1e-6, read as ``err/tol``.  Both versions
+    take the same statistics."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x, g, b, dy = cs.ln_case(torch, gen, *shape, torch.bfloat16)
+    _, mu, rs = ln.ln_fwd_plain(x, g, b)
+    got = ln.ln_bwd(x, g, dy, mu, rs)
+    ref = ln.ln_bwd_plain(x, g, dy, mu, rs)
+    torch.cuda.synchronize()
+    m = cs.bf16_measures(torch, got[0], ref[0])
+    res = {"dx": (m, over(m))}
+    for n, a, r in zip(("dg", "db"), got[1:], ref[1:]):
+        e = {"err/tol": ((a - r).abs().max() / (1e-5 * r.abs().max()
+                                                 + 1e-6)).item()}
+        res[n] = (e, [] if e["err/tol"] <= 1 else ["err/tol"])
+    return res
+
+
+def ce_f64_readings(torch, ce, shape, seed=0):
+    """Each CE result's (max abs, relative Frobenius) distance from one
+    f64 evaluation of the same inputs (``chip_smoke.ce_f64_reference``)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    case = cs.ce_case(torch, gen, *shape)
+    pairs = cs.ce_pairs(torch, ce, case)
+    ref = cs.ce_f64_reference(torch, case)
+    return {n: cs.f64_distance(got, ref[n]) for n, got, _, _ in pairs}
 
 
 def fmt(m):
@@ -263,12 +373,15 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     failures = []
     summary = {"correct": {}, "faults": {}, "step": {}, "ce_correct": {},
-               "ce_faults": {}}
+               "ce_faults": {}, "ce_f64": {}, "ln_correct": {},
+               "ln_faults": {}}
     flash_src = (_build.CSRC / "flash_attention.cu").read_text()
     ce_src = (_build.CSRC / "cross_entropy.cu").read_text()
+    ln_src = (_build.CSRC / "layer_norm.cu").read_text()
     jobs = ([(flash_src, n, [(old, new)])
              for n, (old, new, _) in FAULTS.items()]
-            + [(ce_src, n, subs) for n, (subs, _) in CE_FAULTS.items()])
+            + [(ce_src, n, subs) for n, (subs, _) in CE_FAULTS.items()]
+            + [(ln_src, n, subs) for n, (subs, _) in LN_FAULTS.items()])
     tmp = tempfile.mkdtemp(prefix="chip_faults-")
     try:
         t0 = time.perf_counter()
@@ -395,7 +508,56 @@ def main() -> int:
                 if where not in caught:
                     failures.append(f"ce fault {name} not caught at the "
                                     f"{where} shape")
+        # The correct kernels and the f64 faults against f64: dx and dW
+        # within chip_smoke.F64_FROB_LIMIT, and the faults over it.
+        for name in (None, *CE_F64_FAULTS):
+            use(_build, "cross_entropy", ce_syms,
+                None if name is None else libs[name])
+            f64 = ce_f64_readings(torch, ce, ce_shapes["bf16 main"])
+            label = name or "correct"
+            bad = [n for n in ("dx", "dW")
+                   if not f64[n][1] <= cs.F64_FROB_LIMIT]
+            print(f"ce {label} bf16 main against f64: " + ", ".join(
+                f"{n} max abs {a:.3e} frob {f:.3e}"
+                for n, (a, f) in f64.items())
+                + f"; over the limit {cs.F64_FROB_LIMIT:.0e}: {bad}")
+            summary["ce_f64"][label] = {**f64, "over": bad}
+            if name is None and bad:
+                failures.append(f"correct ce against f64: {bad}")
+            if name is not None and not bad:
+                failures.append(f"ce fault {name} not caught against f64")
         use(_build, "cross_entropy", {}, None)
+
+        # 5. the LN backward, correct and faulty, by phase 5's check
+        for name in (None, *LN_FAULTS):
+            use(_build, "layer_norm", {"rlt_ln_bwd": ln._BWD_ARGTYPES},
+                None if name is None else libs[name])
+            caught = {}
+            for where, shape in ln_shapes().items():
+                for seed in ((0, 1) if name is None else (0,)):
+                    label = f"{name or 'correct'} {where}"
+                    for n, (m, bad) in ln_readings(torch, ln, shape,
+                                                   seed).items():
+                        print(f"ln {label} seed {seed} {n}: {fmt(m)} over "
+                              f"the limit: {bad}")
+                        key = f"{where} {seed} {n}"
+                        if name is None:
+                            summary["ln_correct"][key] = m
+                            if bad:
+                                failures.append(f"correct ln {label} {n}")
+                        else:
+                            summary["ln_faults"].setdefault(name, {})[
+                                key] = {**m, "over": bad}
+                            if bad:
+                                caught.setdefault(where, []).append(n)
+            if name is None:
+                continue
+            print(f"ln fault {name}: caught at {caught or 'no shape'}")
+            for where in LN_FAULTS[name][1]:
+                if where not in caught:
+                    failures.append(f"ln fault {name} not caught at the "
+                                    f"{where} shape")
+        use(_build, "layer_norm", {}, None)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for f in failures:

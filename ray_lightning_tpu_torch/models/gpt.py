@@ -12,9 +12,10 @@ parameters, LayerNorm statistics and attention softmax stay f32.
 Training (``training_step``, ``_loss``) runs the trunk of the JAX
 package's ``forward_hidden`` with its single-device kernel gates on: every
 LayerNorm site through ``layer_norm(..., use_kernel=True)`` and attention
-through ``causal_attention`` (``attn_impl="auto"``, the default: the flash
-kernels on the card, their plain versions on the CPU), then the tied LM
-head + cross-entropy with ``use_kernel=True`` (``ops/cross_entropy.py``:
+through ``causal_attention`` (``attn_impl="auto"``, the default: where
+the JAX shape gate admits the heads, the flash kernels on the card and
+their plain versions on the CPU; elsewhere the plain attention), then the
+tied LM head + cross-entropy with ``use_kernel=True`` (``ops/cross_entropy.py``:
 the CE kernels where the JAX gate admits ``d``, else the vocab-chunk
 scan; ``GPT(ce_kernel=False)`` takes the scan).  With ``remat=True`` each
 block runs under
@@ -188,8 +189,9 @@ class GPT(TrainModule):
     Args:
         attn_impl: ``"flash"`` — the flash kernels (their plain versions
             on the CPU); ``"xla"`` — the plain attention under autograd;
-            ``"auto"`` (default, the JAX package's name) becomes
-            ``"flash"`` here.
+            ``"auto"`` (default, the JAX package's name) takes flash
+            where ``ops/attention.py::flash_supported`` (the JAX shape
+            gate) admits the shape, else ``"xla"``.
         precision: ``"f32"`` (default) or ``"bf16"`` — the activations'
             compute dtype; the fit loop sets it from the trainer's.
         device: where :meth:`init_params` puts the parameters; ``None``

@@ -20,18 +20,21 @@
 // per-token vectors: the forward's bound is 1.28 ms at 989 TF/s (bf16), dx's
 // and dW's 2.56 ms each (the logits, then the product).
 //
-// Design.  bf16 runs the products on the tensor cores with mma.sync
-// m16n8k16 (bf16 in, f32 accumulators in registers, fragments loaded with
-// ldmatrix); f32 runs them on the CUDA cores in f32 (TF32 would not keep
-// f32's precision).  Every output element has exactly one writer and every
-// sum a fixed order: no atomics, deterministic results.
-//   Forward: blocks of 256 threads (8 warps, 2 along the tile's rows x 4
-//   along its columns) own 64 tokens and walk all vocab tiles of 128,
-//   streaming d in chunks through shared memory (the next chunk is fetched
-//   into registers while the current one is multiplied).  Each thread keeps
-//   an online (max, sum-exp, gold) for each accumulator slot it owns, over
-//   the columns it sees; at the end the 32 slots of each row are combined in
-//   shared memory in a fixed order.  No logits reach memory.
+// Design.  bf16 runs the products on the tensor cores (bf16 in, f32
+// accumulators in registers); f32 runs them on the CUDA cores in f32 (TF32
+// would not keep f32's precision).  Every output element has exactly one
+// writer and every sum a fixed order: no atomics, deterministic results.
+//   Forward, bf16 (ce_fwd_wgmma_kernel below): wgmma on operands that TMA
+//   loads stream through a ring of shared-memory stages, one producer warp
+//   and two consumer warpgroups of 64 tokens each; the online softmax runs
+//   on the accumulator fragments.  No logits reach memory.
+//   Forward, f32 (ce_fwd_kernel): blocks of 256 threads (8 warps, 2 along
+//   the tile's rows x 4 along its columns) own 64 tokens and walk all vocab
+//   tiles of 128, streaming d in chunks through shared memory (the next
+//   chunk is fetched into registers while the current one is multiplied).
+//   Each thread keeps an online (max, sum-exp, gold) for each accumulator
+//   slot it owns, over the columns it sees; at the end the 32 slots of each
+//   row are combined in shared memory in a fixed order.
 //   dx and dW, bf16: one logits product per tile for all of d, spread over
 //   a thread-block cluster (ce_grad_cluster_kernel below).  A (64, d) f32
 //   accumulator does not fit one block (192 KiB at d = 768), so the
@@ -48,6 +51,7 @@
 // The kernels allocate nothing and do not synchronise.  The C entry points
 // launch on the caller's stream and return cudaGetLastError().
 
+#include <cuda.h>  // CUtensorMap and its enums; nothing of libcuda linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -65,16 +69,10 @@ constexpr int kDS = 256;       // columns of d one dx / dW block owns
 constexpr int kSlots = 32;     // accumulator slots sharing one row
 constexpr float kNegInf = -1e30f;
 
-// d per staged chunk: 128 bytes of a row.  Rows are padded so that the
-// eight rows an ldmatrix phase reads (bf16) or the rows a warp reads at one
-// k (f32) fall on distinct banks.
+// d per staged chunk of the f32 kernels: 128 bytes of a row.  Rows are
+// padded so that the rows a warp reads at one k fall on distinct banks.
 template <typename T>
 struct Cfg;
-template <>
-struct Cfg<bf16> {
-  static constexpr int KC = 64;
-  static constexpr int PAD = 8;
-};
 template <>
 struct Cfg<float> {
   static constexpr int KC = 32;
@@ -111,26 +109,14 @@ __host__ __device__ constexpr int grad_smem_bytes() {
 }
 
 // ---------------------------------------------------------------------------
-// Accumulator layouts.  A warp's tile is (2·16) rows x (NJ·8) columns held as
-// acc[i][j][e]: bf16 in the m16n8k16 C fragment order, f32 in a 4 x 8 lane
-// grid.  row/col give an element's place in the warp's tile; slot gives
-// which of the 8 slots (per warp) sharing its row it is.
+// Accumulator layout of the f32 kernels.  A warp's tile is (2·16) rows x
+// (NJ·8) columns held as acc[i][j][e] in a 4 x 8 lane grid.  row/col give an
+// element's place in the warp's tile; slot gives which of the 8 slots (per
+// warp) sharing its row it is.
 // ---------------------------------------------------------------------------
 
 template <typename T>
 struct Layout;
-template <>
-struct Layout<bf16> {
-  __device__ static int row(int i, int e, int lane) {
-    return i * 16 + (lane >> 2) + ((e >> 1) << 3);
-  }
-  __device__ static int col(int j, int e, int lane) {
-    return j * 8 + ((lane & 3) << 1) + (e & 1);
-  }
-  __device__ static int slot(int e, int lane) {
-    return ((lane & 3) << 1) + (e & 1);
-  }
-};
 template <>
 struct Layout<float> {
   __device__ static int row(int i, int e, int lane) {
@@ -220,36 +206,6 @@ __device__ __forceinline__ void store_chunk(T* St, const uint4 reg[kFetch]) {
     store_vec<T>(St + (v / kVecsPerRow) * stage_ld<T>() +
                      (v % kVecsPerRow) * VE,
                  reg[f]);
-  }
-}
-
-__device__ __forceinline__ void mma_chunk(float acc[2][4][4], const bf16* St,
-                                          int wm, int wn, int lane) {
-  constexpr int LD = stage_ld<bf16>();
-#pragma unroll
-  for (int kk = 0; kk < Cfg<bf16>::KC; kk += 16) {
-    uint32_t a[2][4], b[4][2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      ldsm_x4(a[i], St + (wm * 32 + i * 16 + (lane & 15)) * LD + kk +
-                        (lane >> 4) * 8);
-    }
-#pragma unroll
-    for (int jj = 0; jj < 2; ++jj) {
-      uint32_t r[4];
-      ldsm_x4(r, St + (kBM + wn * 32 + jj * 16 + (lane & 7) +
-                       ((lane >> 4) << 3)) * LD +
-                     kk + ((lane >> 3) & 1) * 8);
-      b[2 * jj][0] = r[0];
-      b[2 * jj][1] = r[1];
-      b[2 * jj + 1][0] = r[2];
-      b[2 * jj + 1][1] = r[3];
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) mma_bf16(acc[i][j], a[i], b[j][0], b[j][1]);
-    }
   }
 }
 
@@ -1078,21 +1034,438 @@ ce_grad_cluster_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
 }
 
 // ---------------------------------------------------------------------------
+// bf16 forward for Hopper (ce_fwd_wgmma_kernel): loss and lse of 128 tokens
+// over the whole vocabulary.
+//
+// The products run on wgmma (m64 x n256 x k16, bf16 in, f32 accumulators in
+// registers), both operands read from shared memory in the 128-byte
+// swizzled layout that the TMA writes.  A block has three roles: one
+// producer warp, whose lane 0 keeps a ring of kFStages stages full with TMA
+// loads (stage = the block's 128 token rows and the tile's kFN vocab rows,
+// 64 of d each, completion counted on an mbarrier), and two consumer
+// warpgroups, each owning 64 token rows: for every vocab tile a warpgroup
+// issues d/16 wgmmas over the ring's stages, frees each stage once the
+// products that read it are done, and folds the finished tile into its
+// rows' online softmax straight from the accumulator fragments.  A thread
+// holds two rows' values (rows r and r + 8 of its warp's 16), so a row's
+// max meets across the quad of lanes that share it by two shuffles, its sum
+// of exp2(logit·log2e − max·log2e) stays per thread until the end, and the
+// gold logit is taken by the thread that holds the target's column.
+// 128-token blocks make N/128 blocks: one wave at N = 16384 on 132 SMs.  The
+// ragged edges: the TMA fills rows past N or V with zeros, and columns past
+// V are masked to -1e30 before the softmax.  Every sum has a fixed order:
+// loss and lse are bitwise repeatable.
+// chip_ce_variants.py --fwd times the designs this one was chosen over, as
+// substitutions of this source: other ring depths, 128-column vocab tiles,
+// the second warpgroup started two stages late, W multicast over a cluster
+// of two blocks.
+// ---------------------------------------------------------------------------
+
+constexpr int kFM = 128;        // token rows a block: 2 warpgroups x 64
+constexpr int kFN = 256;        // vocab columns a tile (the wgmma's N)
+constexpr int kFK = 64;         // d a stage: one 128-byte swizzled row
+constexpr int kFStages = 4;     // depth of the TMA ring
+constexpr int kFThreads = 2 * 128 + 32;
+constexpr int kFXBytes = kFM * kFK * 2;
+constexpr int kFWBytes = kFN * kFK * 2;
+constexpr int kFStageBytes = kFXBytes + kFWBytes;
+constexpr int kFSmem = kFStages * kFStageBytes + 1024 + 2 * kFStages * 8;
+constexpr float kLog2e = 1.4426950408889634f;
+static_assert(kFSmem <= 232448, "the ring must fit a block");
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+// Waits until the phase of parity `parity` of the barrier has completed.  A
+// wait that outlasts 2^36 ns (~69 s) of wall time traps (a launch error)
+// instead of hanging the card: far longer than any launch of this kernel,
+// time-sliced or not.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, unsigned parity) {
+  uint32_t done = 0;
+  unsigned long long start = 0;
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (start == 0) {
+      start = global_ns();
+    } else if (global_ns() - start > (1ull << 36)) {
+      __trap();
+    }
+  }
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// One 2-D TMA tile load (c0 along d, c1 along rows) into shared memory,
+// completing on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// The wgmma operand descriptor of a K-major tile in the 128-byte swizzled
+// layout: rows of 128 bytes, 8-row groups 1024 bytes apart.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr) {
+  return static_cast<uint64_t>((saddr >> 4) & 0x3FFF) |
+         (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) |
+         (static_cast<uint64_t>(1) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving accumulator registers across an
+// asynchronous wgmma.
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// d (+)= a·bᵀ for a 64 x 16 tile a and a 256 x 16 tile b, both K-major in
+// shared memory; scale_d 0 overwrites d.
+__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t a,
+                                                 uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71,"
+      "%72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87,"
+      "%88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103,"
+      "%104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119,"
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+__global__ void __launch_bounds__(kFThreads, 1)
+ce_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tmx,
+                    const __grid_constant__ CUtensorMap tmw,
+                    const int* __restrict__ targets, float* __restrict__ loss,
+                    float* __restrict__ lse, int N, int V, int d) {
+  extern __shared__ __align__(1024) unsigned char fsmem[];
+  // The stages need 1024-byte alignment (the swizzle's period).
+  const uint32_t raw = smem_u32(fsmem);
+  const uint32_t ring = (raw + 1023) & ~1023u;
+  const uint32_t full = ring + kFStages * kFStageBytes;
+  const uint32_t empty = full + kFStages * 8;
+  const int nk = d / kFK;
+  const int r0 = blockIdx.x * kFM;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kFStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 2);  // one arrive of each consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {
+    // The producer warp: lane 0 keeps the ring full.
+    if (threadIdx.x == 256) {
+      int stage = 0;
+      unsigned phase = 0;
+      for (int v0 = 0; v0 < V; v0 += kFN) {
+        for (int kc = 0; kc < nk; ++kc) {
+          mbar_wait(empty + 8 * stage, phase ^ 1);
+          const uint32_t fb = full + 8 * stage;
+          const uint32_t dst = ring + stage * kFStageBytes;
+          mbar_expect_tx(fb, kFStageBytes);
+          tma_load(dst, &tmx, fb, kc * kFK, r0);
+          tma_load(dst + kFXBytes, &tmw, fb, kc * kFK, v0);
+          if (++stage == kFStages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+  } else {
+    // A consumer warpgroup: 64 token rows.
+    const int wg = threadIdx.x >> 7;
+    const int t = threadIdx.x & 127;
+    const int lane = t & 31;
+    const int ra = r0 + wg * 64 + (t >> 5) * 16 + (lane >> 2);  // and ra + 8
+    const int tgt_a = ra < N ? targets[ra] : -1;
+    const int tgt_b = ra + 8 < N ? targets[ra + 8] : -1;
+    float m_a = kNegInf, m_b = kNegInf, s_a = 0.f, s_b = 0.f;
+    float gold_a = 0.f, gold_b = 0.f;
+    float acc[kFN / 2];
+    int stage = 0;
+    unsigned phase = 0;
+    for (int v0 = 0; v0 < V; v0 += kFN) {
+      int prev = 0;
+      for (int kc = 0; kc < nk; ++kc) {
+        mbar_wait(full + 8 * stage, phase);
+        const uint32_t xs = ring + stage * kFStageBytes + wg * (64 * 128);
+        const uint32_t ws = ring + stage * kFStageBytes + kFXBytes;
+        fence_regs(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kFK / 16; ++kk) {
+          wgmma_m64n256k16(acc, sw128_desc(xs + kk * 32),
+                           sw128_desc(ws + kk * 32), kc > 0 || kk > 0);
+        }
+        wgmma_commit();
+        fence_regs(acc);
+        // The chunk before is done: its stage is free.
+        wgmma_wait<1>();
+        fence_regs(acc);
+        if (kc > 0 && t == 0) mbar_arrive(empty + 8 * prev);
+        prev = stage;
+        if (++stage == kFStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      wgmma_wait<0>();
+      fence_regs(acc);
+      if (t == 0) mbar_arrive(empty + 8 * prev);
+
+      // The tile's online softmax.  Element 4j + e of acc is row
+      // ra + 8·(e / 2), column v0 + 8j + 2·(lane % 4) + e % 2.
+      const int c0 = v0 + 2 * (lane & 3);
+      if (v0 + kFN > V) {
+#pragma unroll
+        for (int j = 0; j < kFN / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if (c0 + 8 * j + (e & 1) >= V) acc[4 * j + e] = kNegInf;
+          }
+        }
+      }
+      float mx_a = kNegInf, mx_b = kNegInf;
+#pragma unroll
+      for (int j = 0; j < kFN / 8; ++j) {
+        mx_a = fmaxf(mx_a, fmaxf(acc[4 * j], acc[4 * j + 1]));
+        mx_b = fmaxf(mx_b, fmaxf(acc[4 * j + 2], acc[4 * j + 3]));
+      }
+#pragma unroll
+      for (int o = 1; o <= 2; o <<= 1) {
+        mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, o));
+        mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, o));
+      }
+      const float mn_a = fmaxf(m_a, mx_a);
+      const float mn_b = fmaxf(m_b, mx_b);
+      const float sc_a = mn_a * kLog2e;
+      const float sc_b = mn_b * kLog2e;
+      float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+      for (int j = 0; j < kFN / 8; ++j) {
+        sum_a += fast_exp2(fmaf(acc[4 * j], kLog2e, -sc_a));
+        sum_a += fast_exp2(fmaf(acc[4 * j + 1], kLog2e, -sc_a));
+        sum_b += fast_exp2(fmaf(acc[4 * j + 2], kLog2e, -sc_b));
+        sum_b += fast_exp2(fmaf(acc[4 * j + 3], kLog2e, -sc_b));
+      }
+      s_a = s_a * fast_exp2((m_a - mn_a) * kLog2e) + sum_a;
+      s_b = s_b * fast_exp2((m_b - mn_b) * kLog2e) + sum_b;
+      m_a = mn_a;
+      m_b = mn_b;
+      const int ga = tgt_a - c0;
+      const int gb = tgt_b - c0;
+      if (ga >= 0 && ga < kFN) {
+#pragma unroll
+        for (int j = 0; j < kFN / 8; ++j) {
+          if (ga == 8 * j) gold_a = acc[4 * j];
+          if (ga == 8 * j + 1) gold_a = acc[4 * j + 1];
+        }
+      }
+      if (gb >= 0 && gb < kFN) {
+#pragma unroll
+        for (int j = 0; j < kFN / 8; ++j) {
+          if (gb == 8 * j) gold_b = acc[4 * j + 2];
+          if (gb == 8 * j + 1) gold_b = acc[4 * j + 3];
+        }
+      }
+    }
+    // The quad's partial sums, in lane order; one gold is non-zero.
+#pragma unroll
+    for (int o = 1; o <= 2; o <<= 1) {
+      s_a += __shfl_xor_sync(0xffffffffu, s_a, o);
+      s_b += __shfl_xor_sync(0xffffffffu, s_b, o);
+      gold_a += __shfl_xor_sync(0xffffffffu, gold_a, o);
+      gold_b += __shfl_xor_sync(0xffffffffu, gold_b, o);
+    }
+    if ((lane & 3) == 0) {
+      if (ra < N) {
+        const float l = m_a + logf(s_a);
+        lse[ra] = l;
+        loss[ra] = l - gold_a;
+      }
+      if (ra + 8 < N) {
+        const float l = m_b + logf(s_b);
+        lse[ra + 8] = l;
+        loss[ra + 8] = l - gold_b;
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Launchers
 // ---------------------------------------------------------------------------
 
-template <typename T>
-cudaError_t launch_fwd(const void* x, const void* w, const int* targets,
-                       float* loss, float* lse, int N, int V, int d,
-                       cudaStream_t st) {
-  constexpr int smem = fwd_smem_bytes<T>();
+cudaError_t launch_fwd_f32(const void* x, const void* w, const int* targets,
+                           float* loss, float* lse, int N, int V, int d,
+                           cudaStream_t st) {
+  constexpr int smem = fwd_smem_bytes<float>();
   cudaError_t err = cudaFuncSetAttribute(
-      ce_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      ce_fwd_kernel<float>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((N + kBM - 1) / kBM);
-  ce_fwd_kernel<T><<<grid, kThreads, smem, st>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), targets, loss, lse,
-      N, V, d);
+  ce_fwd_kernel<float><<<grid, kThreads, smem, st>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w), targets,
+      loss, lse, N, V, d);
+  return cudaGetLastError();
+}
+
+// cuTensorMapEncodeTiled, found through the runtime so that the library
+// links no libcuda.
+using EncodeTiledFn = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = []() -> EncodeTiledFn {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiledFn>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The TMA map of a contiguous bf16 (rows, d) matrix, loaded in boxes of
+// box_rows x 64, 128-byte swizzled; rows past the end read as zeros.
+bool tile_map(CUtensorMap* map, const void* base, int rows, int d,
+              int box_rows) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(d) * 2};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(kFK),
+                             static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+            const_cast<void*>(base), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+cudaError_t launch_fwd_bf16(const void* x, const void* w, const int* targets,
+                            float* loss, float* lse, int N, int V, int d,
+                            cudaStream_t st) {
+  CUtensorMap tmx, tmw;
+  if (!tile_map(&tmx, x, N, d, kFM) || !tile_map(&tmw, w, V, d, kFN)) {
+    return cudaErrorInvalidValue;
+  }
+  const cudaError_t err = cudaFuncSetAttribute(
+      ce_fwd_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kFSmem);
+  if (err != cudaSuccess) return err;
+  ce_fwd_wgmma_kernel<<<(N + kFM - 1) / kFM, kFThreads, kFSmem, st>>>(
+      tmx, tmw, targets, loss, lse, N, V, d);
   return cudaGetLastError();
 }
 
@@ -1179,8 +1552,8 @@ extern "C" int rlt_ce_fwd(const void* x, const void* w, const void* targets,
   const int* t = static_cast<const int*>(targets);
   float* lo = static_cast<float*>(loss);
   float* ls = static_cast<float*>(lse);
-  err = dtype == 1 ? launch_fwd<bf16>(x, w, t, lo, ls, N, V, d, st)
-                   : launch_fwd<float>(x, w, t, lo, ls, N, V, d, st);
+  err = dtype == 1 ? launch_fwd_bf16(x, w, t, lo, ls, N, V, d, st)
+                   : launch_fwd_f32(x, w, t, lo, ls, N, V, d, st);
   return static_cast<int>(err);
 }
 

@@ -18,6 +18,7 @@ or ``ln_bwd.launches``.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -123,6 +124,11 @@ def ln_fwd(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
 ln_fwd.launches = 0
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def ln_bwd(x: torch.Tensor, g: torch.Tensor, dy: torch.Tensor,
            mu: torch.Tensor, rstd: torch.Tensor
            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -135,29 +141,28 @@ def ln_bwd(x: torch.Tensor, g: torch.Tensor, dy: torch.Tensor,
         raise ValueError(f"ln_bwd: unsupported device {x.device}")
     code = _check(x, "ln_bwd", g, dy, mu, rstd)
     d = x.shape[-1]
-    x2 = x.contiguous()
-    dy2 = dy.to(x.dtype).contiguous()
-    n = x2.numel() // d
-    if dy2.shape != x2.shape or mu.numel() != n or rstd.numel() != n:
+    n = x.numel() // d
+    if (dy.shape != x.shape or mu.numel() != n or rstd.numel() != n
+            or g.shape != (d,)):
         raise ValueError(
             f"ln_bwd: mismatched shapes x {tuple(x.shape)}, dy "
-            f"{tuple(dy.shape)}, mu {tuple(mu.shape)}, rstd "
-            f"{tuple(rstd.shape)}")
-    g32 = g.float().contiguous()
+            f"{tuple(dy.shape)}, g {tuple(g.shape)}, mu {tuple(mu.shape)}, "
+            f"rstd {tuple(rstd.shape)}")
+    # Each returns the tensor itself where it already has the kernel's
+    # dtype and layout, as the training step's tensors do: no copies there.
+    x2, dy2 = x.contiguous(), dy.to(x.dtype).contiguous()
+    g32, mu32, rs32 = (t.float().contiguous() for t in (g, mu, rstd))
     dx = torch.empty_like(x2)
     dg = torch.empty(d, dtype=torch.float32, device=x.device)
     db = torch.empty(d, dtype=torch.float32, device=x.device)
-    # Per-block f32 partials of dg/db: about two blocks per SM, each
-    # striding over the rows.
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    blocks = max(1, min(-(-n // 8), 2 * sms))
+    # Per-block f32 partials of dg/db: two blocks per SM, each striding
+    # over the rows.
+    blocks = max(1, min(-(-n // 8), 2 * _sm_count(x.device)))
     part = torch.empty(blocks * 2 * d, dtype=torch.float32, device=x.device)
     fn = _build.load_function("layer_norm", "rlt_ln_bwd", _BWD_ARGTYPES)
-    err = fn(x2.data_ptr(), g32.data_ptr(), dy2.data_ptr(),
-             mu.float().contiguous().data_ptr(),
-             rstd.float().contiguous().data_ptr(), dx.data_ptr(),
-             part.data_ptr(), dg.data_ptr(), db.data_ptr(), n, d, blocks,
-             code, x.device.index or 0,
+    err = fn(x2.data_ptr(), g32.data_ptr(), dy2.data_ptr(), mu32.data_ptr(),
+             rs32.data_ptr(), dx.data_ptr(), part.data_ptr(), dg.data_ptr(),
+             db.data_ptr(), n, d, blocks, code, x.device.index or 0,
              torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ln_bwd kernel launch failed: CUDA error {err}")

@@ -46,10 +46,20 @@ def test_ce_faults_apply_once(scripts):
     source = (CSRC / "cross_entropy.cu").read_text()
     _apply_all(cf.mutate, source, {n: subs for n, (subs, _)
                                    in cf.CE_FAULTS.items()})
-    assert len(cf.CE_FAULTS) == 8
+    assert len(cf.CE_FAULTS) == 11
     shapes = {"bf16 main", "f32 main", "bf16 ragged", "f32 ragged"}
     for _, must in cf.CE_FAULTS.values():
         assert must is None or set(must) <= shapes
+
+
+def test_ln_faults_apply_once(scripts):
+    cf = scripts[0]
+    source = (CSRC / "layer_norm.cu").read_text()
+    _apply_all(cf.mutate, source, {n: subs for n, (subs, _)
+                                   in cf.LN_FAULTS.items()})
+    assert len(cf.LN_FAULTS) == 4
+    for _, must in cf.LN_FAULTS.values():
+        assert must and set(must) <= set(cf.ln_shapes())
 
 
 def test_flash_variants_apply_once(scripts):
@@ -64,6 +74,14 @@ def test_ce_variants_apply_once(scripts):
     cf, cv = scripts[0], scripts[2]
     _apply_all(cf.mutate, source, {n: subs for n, (subs, _)
                                    in cv.VARIANTS.items()})
+
+
+def test_fwd_and_ln_variants_apply_once(scripts):
+    cf, cv = scripts[0], scripts[2]
+    _apply_all(cf.mutate, (CSRC / "cross_entropy.cu").read_text(),
+               {n: subs for n, (subs, _) in cv.FWD_VARIANTS.items()})
+    _apply_all(cf.mutate, (CSRC / "layer_norm.cu").read_text(),
+               {n: subs for n, (subs, _) in cv.LN_VARIANTS.items()})
 
 
 def test_a_substitution_that_misses_raises(scripts):
@@ -100,6 +118,10 @@ def test_ce_phase_points_apply_once(scripts):
      "kernelI13__nv_bfloat16EEvPKT_S4_PKiPfS7_iii", "ce_fwd_kernel"),
     ("_ZN12_GLOBAL__N_119tc_flash_fwd_kernelILi64EEEvPK13__nv_bfloat16",
      "tc_flash_fwd_kernel<64>"),
+    ("_ZN12_GLOBAL__N_118ln_bwd_rows_kernelILi3ELb1EEEvPK13__nv_bfloat16",
+     "ln_bwd_rows_kernel<3, 1>"),
+    ("void (anonymous namespace)::ln_bwd_rows_kernel<3, true>(__nv_bfloat16 "
+     "const*, float const*, long long, int)", "ln_bwd_rows_kernel<3, true>"),
     ("bgmv_kernel", "bgmv_kernel")])
 def test_ptxas_names_are_read_past_the_namespace_hash(monkeypatch, mangled,
                                                       name):

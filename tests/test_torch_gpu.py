@@ -168,7 +168,7 @@ def _assert_close(got, ref, dt):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("n,d", [(2048, 768), (1001, 768), (37, 100),
-                                 (5, 1600)])
+                                 (5, 1600), (1001, 1536), (1001, 1600)])
 def test_layer_norm_kernels_match_plain(cuda, dtype, n, d):
     dt = getattr(torch, dtype)
     x = (torch.randn(n, d, generator=cuda, device="cuda") * 2 + 0.3).to(dt)
@@ -314,6 +314,68 @@ def test_ce_backward_is_bitwise_repeatable(cuda, n, v, d):
     for first, second in zip(*runs):
         assert torch.isfinite(first).all()
         assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("n,v,d", [(2048, 50304, 768), (1000, 515, 1536),
+                                   (300, 1000, 640), (77, 130, 128)])
+def test_ce_forward_is_bitwise_repeatable(cuda, n, v, d):
+    """loss and lse of two launches on the same bf16 inputs are bitwise
+    equal: each row's sums run over the vocab tiles in one order, and its
+    quad of lanes meets in one order."""
+    x, w, t, _ = _ce_case(cuda, n, v, d, torch.bfloat16)
+    runs = [ce.ce_fwd(x, w, t) for _ in range(2)]
+    torch.cuda.synchronize()
+    for first, second in zip(*runs):
+        assert torch.isfinite(first).all()
+        assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("n,d", [(2048, 768), (37, 100), (16384, 768),
+                                 (1001, 1536), (5, 1600)])
+def test_ln_backward_is_bitwise_repeatable(cuda, n, d):
+    """dx, dg and db of two bf16 launches are bitwise equal: every partial
+    row and every column sum is taken in one fixed order (no atomics)."""
+    x = (torch.randn(n, d, generator=cuda, device="cuda") * 2 + 0.3).to(
+        torch.bfloat16)
+    g = torch.randn(d, generator=cuda, device="cuda")
+    dy = torch.randn(n, d, generator=cuda, device="cuda").to(torch.bfloat16)
+    _, mu, rs = ln.ln_fwd_plain(x, g, torch.zeros_like(g))
+    runs = [ln.ln_bwd(x, g, dy, mu, rs) for _ in range(2)]
+    torch.cuda.synchronize()
+    for first, second in zip(*runs):
+        assert torch.isfinite(first.float()).all()
+        assert torch.equal(first, second)
+
+
+def test_head_dim_32_fit_on_the_card_matches_the_cpu(cuda):
+    """GPTConfig.tiny() has head_dim 32, which attn_impl="auto" sends to
+    the plain attention (the JAX shape gate): three f32 steps on the card
+    launch no flash kernel, raise nothing, and give the CPU fit's losses
+    within 1e-5 relative (f32 sums in another order)."""
+
+    class Losses(Callback):
+        def __init__(self):
+            self.values = []
+
+        def on_train_batch_end(self, trainer, module, logs, batch_idx):
+            self.values.append(float(logs["train_loss"]))
+
+    cfg = GPTConfig.tiny()
+    assert cfg.head_dim == 32
+    init = GPT(cfg, device="cpu").init_params(torch.Generator().manual_seed(0))
+    losses = {}
+    for device in ("cuda", "cpu"):
+        module = GPT(cfg, device=device)
+        module.initial_params = init
+        rec = Losses()
+        fa.flash_fwd.launches = fa.flash_bwd.launches = 0
+        Trainer(LocalStrategy(device=device), max_steps=3,
+                limit_val_batches=0, callbacks=[rec]).fit(
+            module, SyntheticLMDataModule(cfg, batch_size=4, num_batches=3))
+        assert (fa.flash_fwd.launches, fa.flash_bwd.launches) == (0, 0)
+        losses[device] = np.array(rec.values)
+    assert len(losses["cuda"]) == 3 and np.isfinite(losses["cuda"]).all()
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-5)
 
 
 def test_bf16_fit_with_ce_kernels_matches_the_scan(cuda):
