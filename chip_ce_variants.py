@@ -7,6 +7,7 @@ Run from the root of a checkout:
     python3 chip_ce_variants.py [--parent PATH] [--phases]
     python3 chip_ce_variants.py --fwd [--parent PATH]
     python3 chip_ce_variants.py --ln [--parent PATH]
+    python3 chip_ce_variants.py --bgmv [--parent PATH] [--also PATH ...]
 
 Each entry of ``VARIANTS`` is a list of text substitutions on
 ``ray_lightning_tpu_torch/ops/csrc/cross_entropy.cu`` that changes one
@@ -47,6 +48,17 @@ atomic ticket, against the column-sum kernel as built) beside
 ``WIDE_D`` = 1600 (the wide form), holds each at ``chip_faults.ln_shapes``
 and prints the device time of each of its kernels (profiler).  With
 ``--parent``, the earlier source of the same file is one more variant.
+
+``--bgmv`` times ``BGMV_VARIANTS`` of
+``ray_lightning_tpu_torch/ops/csrc/bgmv.cu`` (the out kernel launched in
+stream order instead of as a programmatic dependent; B copied after the
+wait; half the slices of d; half and twice the blocks along k;
+element-wise copies instead of 16-byte ones; and diagnostics that remove
+one piece of the work) at the eight shapes of ``chip_smoke.py``'s phase 2
+beside the graph floor (``chip_smoke.graph_floor_ms``), each held by
+phase 1's checks (``chip_smoke.bgmv_checks``); ``--parent`` and
+``--also`` name earlier ``bgmv.cu`` files (entry point without scratch),
+timed in the same order.
 """
 
 from __future__ import annotations
@@ -321,6 +333,60 @@ LN_VARIANTS = {
     "ticket column sum": (TICKET, False),
 }
 
+# The BGMV kernels' design choices (bgmv.cu), each undone by substitutions
+# of the source as built.
+BGMV_VARIANTS = {
+    "as built": ([], False),
+    # the out kernel launched in stream order, after the t kernel ends
+    "no programmatic dependent launch": ([
+        ("  attr.val.programmaticStreamSerializationAllowed = 1;",
+         "  attr.val.programmaticStreamSerializationAllowed = 0;")], False),
+    "no row kernel": ([
+        ("  if (W <= kRowMaxW && r % V == 0 && r <= kRowMaxR",
+         "  if (false && W <= kRowMaxW && r % V == 0 && r <= kRowMaxR")],
+        False),
+    "row kernel: a wave of blocks": ([
+        ("    int rb = std::max(1, target_blocks / (4 * W));",
+         "    int rb = std::max(1, target_blocks / W);")], False),
+    "row kernel: half a wave of blocks": ([
+        ("    int rb = std::max(1, target_blocks / (4 * W));",
+         "    int rb = std::max(1, target_blocks / (2 * W));")], False),
+    "B copied after the wait": ([
+        ("  const bool b_early = U <= G;  // B lands while the t kernel runs",
+         "  const bool b_early = false;")], False),
+    "half the slices of d": ([
+        ("  int ds = std::max(1, std::min(target_blocks / tiles, ",
+         "  int ds = std::max(1, std::min(target_blocks / tiles / 2, ")],
+        False),
+    "slices of d of 16 columns or more": ([
+        ("constexpr int kMinSlice = 32;", "constexpr int kMinSlice = 16;")],
+        False),
+    "16 KB of partials an out block": ([
+        ("constexpr int kPartialBytes = 32 << 10;",
+         "constexpr int kPartialBytes = 16 << 10;")], False),
+    "t kernel tiles as the out kernel's": ([
+        ("  while (p.rows1 % 2 == 0 && p.rows1 > 1 &&",
+         "  while (false && p.rows1 % 2 == 0 && p.rows1 > 1 &&")], False),
+    "half the blocks along k": ([
+        ("  int kb = std::max(1, target_blocks / tiles);",
+         "  int kb = std::max(1, target_blocks / tiles / 2);")], False),
+    "twice the blocks along k": ([
+        ("  int kb = std::max(1, target_blocks / tiles);",
+         "  int kb = std::max(1, 2 * target_blocks / tiles);")], False),
+    "element-wise copies": ([("  const bool aligned = d % V == 0",
+                              "  const bool aligned = false && d % V == 0")],
+                            False),
+    # diagnostics: each removes one piece of the work to show its cost
+    "ids not read": ([("    const int id = ids[row0 + row];",
+                       "    const int id = 1;")], True),
+    "no A copies or h·A products": ([
+        ("      const int ndc = max(0, min(p.dch, nd - dc));",
+         "      const int ndc = 0 * nd;")], True),
+    "no t·B products or stores": ([
+        ("  const int nch = (nk + V - 1) / V;",
+         "  const int nch = 0 * nk;")], True),
+}
+
 # Points of the cluster kernel's loop (text of the source; "+": just after
 # it, else just before) and the phases between them, each timed for the
 # first thread of a partial warp ("partial") or of the last warp, which
@@ -582,6 +648,93 @@ def run_ln(torch, build, source, parent, card):
     return failures, summary
 
 
+def old_api_bgmv(torch, lora, lib):
+    """``lora.bgmv`` for a library of an earlier bgmv.cu, whose entry point
+    takes no scratch (the single-kernel design, or the cluster design)."""
+    fn = ctypes.CDLL(lib).rlt_bgmv
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def call(h, a, b, ids):
+        out = torch.empty((h.shape[0], b.shape[2]), dtype=h.dtype,
+                          device=h.device)
+        err = fn(h.data_ptr(), a.data_ptr(), b.data_ptr(), ids.data_ptr(),
+                 out.data_ptr(), h.shape[0], h.shape[1], a.shape[2],
+                 b.shape[2], a.shape[0], lora._DTYPE_CODES[h.dtype], 0,
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"bgmv launch failed: CUDA error {err}")
+        return out
+    return call
+
+
+def run_bgmv(torch, build, source, parent, card, also=()):
+    """``--bgmv``: each BGMV variant, the parent and each ``also`` source
+    (earlier bgmv.cu files, whose entry point takes no scratch) held by
+    phase 1's checks and timed at phase 2's eight shapes beside the graph
+    floor."""
+    from ray_lightning_tpu_torch.ops import lora
+
+    jobs = [(source, n, subs) for n, (subs, _) in BGMV_VARIANTS.items()]
+    earlier = ([(PARENT, parent)] if parent else []) + [
+        (os.path.basename(path), open(path).read()) for path in also]
+    jobs += [(text, name, []) for name, text in earlier]
+    tmp, libs, regs = build_all(build, jobs, "bgmv")
+    failures, summary = [], {}
+    try:
+        gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 4)
+        cases = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            for W in (cs.DECODE_W, cs.PREFILL_W):
+                for k in (3 * cs.D_MODEL, cs.D_MODEL):
+                    probe = cs.bgmv_inputs(torch, W, k, 16, dtype,
+                                           W == cs.DECODE_W, gen)[0]
+                    per_call = sum(t.numel() * t.element_size()
+                                   for t in probe)
+                    copies = max(2, min(64, -(-64 * 2**20 // per_call)))
+                    cases[f"{str(dtype)[6:]} W={W} k={k}"] = cs.bgmv_inputs(
+                        torch, W, k, 16, dtype, W == cs.DECODE_W, gen,
+                        copies)
+        floor = cs.graph_floor_ms(torch)
+        real = lora.bgmv
+        old = {name for name, _ in earlier}
+        for name in list(libs) + list(libs)[::-1]:
+            if name in old:
+                cf.use(build, "bgmv", {}, None)
+                lora.bgmv = old_api_bgmv(torch, lora, libs[name])
+            else:
+                lora.bgmv = real
+                cf.use(build, "bgmv", cf.bgmv_symbols(lora), libs[name])
+            lora._scratch_floats.clear()
+            rec = summary.setdefault(name, {"ptxas": regs[name]})
+            diagnostic = BGMV_VARIANTS.get(name, ([], False))[1]
+            if "failed" not in rec and not diagnostic:
+                rec["failed"] = [
+                    label for label, ok, _ in cs.bgmv_checks(
+                        torch, lora, torch.Generator(device="cuda")
+                        .manual_seed(cs.SEED)) if not ok]
+                if rec["failed"] and name == "as built":
+                    failures.append(f"as built: {rec['failed']}")
+            us = {c: cs.graph_ms(torch, lora.bgmv, sets) * 1e3
+                  for c, sets in cases.items()}
+            rec.setdefault("runs", []).append(us)
+            held = ("diagnostic" if diagnostic else
+                    f"failed {rec['failed']}" if rec["failed"]
+                    else "phase 1 passed")
+            print(f"bgmv {name}: " + ", ".join(
+                f"{c} {v:.2f} us" for c, v in us.items())
+                + f"; graph floor {floor * 1e3:.2f} us; "
+                + ", ".join(f"{k} {r} registers, {s} B spilled"
+                            for k, (r, s) in sorted(regs[name].items()))
+                + f"; {held}; {card}")
+        lora.bgmv = real
+        summary["graph_floor_us"] = floor * 1e3
+        cf.use(build, "bgmv", {}, None)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return failures, summary
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--parent", help="an earlier cross_entropy.cu to "
@@ -592,6 +745,11 @@ def main() -> int:
                         "variants instead")
     parser.add_argument("--ln", action="store_true", help="the LN "
                         "backward's variants instead")
+    parser.add_argument("--bgmv", action="store_true", help="the BGMV "
+                        "kernel's variants instead")
+    parser.add_argument("--also", action="append", default=[],
+                        help="with --bgmv: an earlier bgmv.cu (entry point "
+                        "without scratch) to time beside the variants")
     args = parser.parse_args()
     import torch
 
@@ -609,8 +767,12 @@ def main() -> int:
     if args.parent:
         with open(args.parent) as f:
             parent = f.read()
-    if args.fwd or args.ln:
-        if args.ln:
+    if args.fwd or args.ln or args.bgmv:
+        if args.bgmv:
+            failures, summary = run_bgmv(
+                torch, _build, (_build.CSRC / "bgmv.cu").read_text(), parent,
+                card, args.also)
+        elif args.ln:
             failures, summary = run_ln(
                 torch, _build, (_build.CSRC / "layer_norm.cu").read_text(),
                 parent, card)

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Planted faults in the flash, CE and LN backward kernels, against
+"""Planted faults in the flash, CE, LN backward and BGMV kernels, against
 ``chip_smoke.py``'s checks.
 
 Run from the root of a checkout, on a machine with one NVIDIA GPU:
@@ -8,11 +8,13 @@ Run from the root of a checkout, on a machine with one NVIDIA GPU:
 
 It builds the kernels of the checkout and, from mutated copies of
 ``ray_lightning_tpu_torch/ops/csrc/flash_attention.cu``,
-``cross_entropy.cu`` and ``layer_norm.cu`` written to a temporary
-directory (never to the checkout), eight faulty variants of the bf16
-(tensor-core) flash kernels — a key tile skipped, a (key tile, query
+``cross_entropy.cu``, ``layer_norm.cu`` and ``bgmv.cu`` written to a
+temporary directory (never to the checkout), nine faulty variants of the
+bf16 (tensor-core) flash kernels — a key tile skipped, a (key tile, query
 tile) pair skipped, dQ dropped, p or ds rounded toward zero instead of
-to nearest, and the forward's cp.async ring read one stage ahead —
+to nearest, the forward's cp.async ring read one stage ahead, and at
+head_dim 256 one of each key group's two warps adding nothing to dK and
+dV (``FAULT_SHAPES``: caught at ``chip_smoke.FLASH_256``) —
 eleven of the CE kernels: the last, ragged vocab tile skipped in the
 forward, the padded vocab columns left unmasked in the forward (both in
 the bf16 wgmma kernel and the f32 one), three of the bf16 forward's
@@ -24,16 +26,20 @@ taken against lse + 1 (the last two in the bf16 cluster kernels and the
 f32 ones), and three of the bf16 backward's cluster design: one peer's
 partial left out of the logits sum, the exchange buffer read one tile
 off, and each tile's product added straight into the running total (the
-absorption the fresh per-tile registers guard against) — and four of
-the bf16 LN backward. Then it reads, at the training path's
-shapes:
+absorption the fresh per-tile registers guard against) — four of the
+bf16 LN backward, and five of the BGMV kernels (``BGMV_FAULTS``: a tile's
+first id applied to every row, one slice of d's partial t left out of
+each row's sum, one warp's partial t left out of the row kernel's, the
+last column of a ragged chunk of k dropped, the d tail past the last
+16-byte chunk dropped). Then it reads, at the training path's shapes:
 
 1. ``chip_smoke.bf16_measures`` of the correct LN and flash kernels
    against their plain versions (several shapes and seeds), which must
    stay within ``chip_smoke.BF16_LIMITS``;
 2. the same measures for each faulty variant at every shape of
-   ``SHAPES``, which the check must catch at the main path's shape (some
-   measure of some output over its limit), beside the old check's ratio
+   ``SHAPES``, which the check must catch at the main path's shape (or
+   the one ``FAULT_SHAPES`` names; some measure of some output over its
+   limit), beside the old check's ratio
    max|err| / (2e-2·max|ref|);
 3. one bf16 training step of the full-width GPT-2-small at batch 1 in the
    headline configuration: the worst leaf's relative gradient difference
@@ -57,7 +63,10 @@ shapes:
    shape of ``ln_shapes``, and for four faults (``LN_FAULTS``: one warp's
    dg partial dropped, the last partial row left out of the column sum,
    the d % 8 tail columns skipped, the wide form's second pass reading a
-   stale chunk of x), each caught where its entry says.
+   stale chunk of x), each caught where its entry says;
+6. phase 1's BGMV checks (``chip_smoke.bgmv_checks``) for the correct
+   kernel, which must pass every one, and for each of ``BGMV_FAULTS``, at
+   least one of which must fail.
 
 The wrappers are routed to a faulty library by replacing the cached ctypes
 functions of ``ops/_build.py``.  Exits 1 if a correct kernel fails a
@@ -83,6 +92,7 @@ FWD_SKIP = "    if (!active || k0 > row0 + 16 * MR - 1) continue;"
 FWD_P = "          s[mi][j][e] = p;"
 BWD_TILE = "    const bf16* Qs = QdO + (i % kStages) * kStage;"
 RZ = "__bfloat162float(__float2bfloat16_rz({}))"
+DKDV = "      // dV += Pᵀ·dO and dK += dSᵀ·Q over these queries.\n"
 # name -> (text of the correct source, its replacement, caught by the
 # training step's gradient check too)
 FAULTS = {
@@ -108,7 +118,13 @@ FAULTS = {
     # dQ never accumulated: dq = 0
     "bwd_no_dq": ("        atomicAdd(reinterpret_cast<float4*>(dst), v4);",
                   "        (void)dst;\n        (void)v4;", True),
+    # at D = 256, the second warp of each pair (columns 128..255) never
+    # adds to dK and dV (no effect at D <= 128, where no warp splits D)
+    "bwd_dkdv_half_dropped": (DKDV, "      if (c0 != 0) continue;\n" + DKDV,
+                              False),
 }
+# The shape at which step 2 must catch a fault, where not MAIN.
+FAULT_SHAPES = {"bwd_dkdv_half_dropped": cs.FLASH_256}
 CE_P32 = "            const float p = __expf(acc[i][j][e] - tok_lse[tk]);"
 CE_P16 = "          const float prob = __expf(logit[k] - tok[tk]);"
 # name -> (substitutions in cross_entropy.cu, the shapes of step 4 at which
@@ -211,9 +227,39 @@ LN_FAULTS = {
         ("        load_units<NU, kAligned>(xv, xr, u0, nu);\n", "")],
         ("wide",)),
 }
+# name -> substitutions in bgmv.cu; phase 1's checks (chip_smoke.
+# bgmv_checks) must catch each.
+BGMV_FAULTS = {
+    # every row of a tile takes the tile's first id
+    "bgmv_first_id_everywhere": [
+        ("  if (lane < nrows) slot[lane] = slot_a;",
+         "  if (lane < nrows) slot[lane] = ka >= 0 ? 0 : -1;"),
+        ("    if (lane + 32 < nrows) slot[lane + 32] = slot_b;",
+         "    if (lane + 32 < nrows) slot[lane + 32] = kb >= 0 ? 0 : -1;")],
+    # the last slice of d's partial t left out of each row's sum
+    "bgmv_slice_partial_left_out": [
+        ("      for (int sl = part; sl < p.dsplit; sl += 1 << lp) {",
+         "      for (int sl = part; sl < p.dsplit - (p.dsplit > 1); "
+         "sl += 1 << lp) {")],
+    # the last column of a ragged chunk of k never written
+    "bgmv_ragged_k_column_dropped": [
+        ("    for (int i = 0; i < n; ++i) o[i] = v[i];",
+         "    for (int i = 0; i < n - (n < 4); ++i) o[i] = v[i];"),
+        ("    for (int i = 0; i < n; ++i) o[i] = __float2bfloat16_rn(v[i]);",
+         "    for (int i = 0; i < n - (n < 8); ++i) o[i] = "
+         "__float2bfloat16_rn(v[i]);")],
+    # the row kernel's t without the last warp's partial
+    "bgmv_row_warp_partial_left_out": [
+        ("    for (int q = 0; q < kWarps; ++q) t += s_part[q][tid];",
+         "    for (int q = 0; q < kWarps - 1; ++q) t += s_part[q][tid];")],
+    # h·A stops at the last whole 16-byte chunk of a slice of d
+    "bgmv_d_tail_dropped": [
+        ("      const int ndc = max(0, min(p.dch, nd - dc));",
+         "      const int ndc = max(0, min(p.dch, nd - dc)) / V * V;")],
+}
 MAIN = (cs.TRAIN_B, cs.TRAIN_T, 12, 64)
 SHAPES = (MAIN, (cs.TRAIN_B, cs.TRAIN_T, 6, 128), (2, 256, 4, 64),
-          (1, 512, 2, 128), (3, 64, 5, 64))
+          (1, 512, 2, 128), (3, 64, 5, 64), cs.FLASH_256, (2, 192, 3, 256))
 
 
 def ce_fault_shapes(torch):
@@ -293,6 +339,12 @@ def compile_fault(build, source, tmp, name, subs):
     return name, so
 
 
+def bgmv_symbols(lora):
+    """The BGMV library's C functions and their argtypes, for ``use``."""
+    return {"rlt_bgmv": lora._ARGTYPES,
+            "rlt_bgmv_scratch": lora._SCRATCH_ARGTYPES}
+
+
 def use(build, name, symbols, lib):
     """Route the wrappers of kernel library ``name`` to ``lib`` (None: the
     checkout's build); ``symbols`` maps each C function to its argtypes."""
@@ -367,6 +419,7 @@ def main() -> int:
     from ray_lightning_tpu_torch.ops import cross_entropy as ce
     from ray_lightning_tpu_torch.ops import flash_attention as fa
     from ray_lightning_tpu_torch.ops import layer_norm as ln
+    from ray_lightning_tpu_torch.ops import lora
 
     card = cs.card_line()
     print(card)
@@ -374,20 +427,23 @@ def main() -> int:
     failures = []
     summary = {"correct": {}, "faults": {}, "step": {}, "ce_correct": {},
                "ce_faults": {}, "ce_f64": {}, "ln_correct": {},
-               "ln_faults": {}}
+               "ln_faults": {}, "bgmv_faults": {}}
     flash_src = (_build.CSRC / "flash_attention.cu").read_text()
     ce_src = (_build.CSRC / "cross_entropy.cu").read_text()
     ln_src = (_build.CSRC / "layer_norm.cu").read_text()
+    bgmv_src = (_build.CSRC / "bgmv.cu").read_text()
     jobs = ([(flash_src, n, [(old, new)])
              for n, (old, new, _) in FAULTS.items()]
             + [(ce_src, n, subs) for n, (subs, _) in CE_FAULTS.items()]
-            + [(ln_src, n, subs) for n, (subs, _) in LN_FAULTS.items()])
+            + [(ln_src, n, subs) for n, (subs, _) in LN_FAULTS.items()]
+            + [(bgmv_src, n, subs) for n, subs in BGMV_FAULTS.items()])
     tmp = tempfile.mkdtemp(prefix="chip_faults-")
     try:
         t0 = time.perf_counter()
         with ThreadPoolExecutor(len(jobs) + 3) as pool:
             built = [pool.submit(_build.build, n) for n in
-                     ("flash_attention", "layer_norm", "cross_entropy")]
+                     ("flash_attention", "layer_norm", "cross_entropy",
+                      "bgmv")]
             libs = dict(pool.map(
                 lambda j: compile_fault(_build, j[0], tmp, *j[1:]), jobs))
             for b in built:
@@ -434,8 +490,9 @@ def main() -> int:
                     if over(m):
                         caught[f"{shape} {n}"] = over(m)
             summary["faults"][name] = caught
-            if not any(k.startswith(f"{MAIN} ") for k in caught):
-                failures.append(f"fault {name} not caught at {MAIN}")
+            where = FAULT_SHAPES.get(name, MAIN)
+            if not any(k.startswith(f"{where} ") for k in caught):
+                failures.append(f"fault {name} not caught at {where}")
         use(_build, "flash_attention", {}, None)
 
         # 3. one bf16 training step at full width: card vs CPU gradients
@@ -558,6 +615,24 @@ def main() -> int:
                     failures.append(f"ln fault {name} not caught at the "
                                     f"{where} shape")
         use(_build, "layer_norm", {}, None)
+
+        # 6. BGMV, correct and faulty, by phase 1's checks
+        for name in (None, *BGMV_FAULTS):
+            use(_build, "bgmv", bgmv_symbols(lora),
+                None if name is None else libs[name])
+            lora._scratch_floats.clear()
+            gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
+            failed = [label for label, ok, _ in
+                      cs.bgmv_checks(torch, lora, gen) if not ok]
+            label = name or "correct"
+            print(f"bgmv {label}: {len(failed)} of phase 1's checks failed"
+                  + (f": {failed}" if failed else ""))
+            summary["bgmv_faults"][label] = failed
+            if name is None and failed:
+                failures.append(f"correct bgmv: {failed}")
+            if name is not None and not failed:
+                failures.append(f"bgmv fault {name} not caught")
+        use(_build, "bgmv", {}, None)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for f in failures:

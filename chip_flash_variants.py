@@ -13,7 +13,8 @@ the registers and spills that ptxas reports, holds the results against the
 plain versions at ``chip_faults.SHAPES`` (the diagnostics change the
 function by design and are only timed), and times the forward and the
 backward at the main path's shape (``chip_smoke.graph_ms``) beside the
-SDPA yardsticks, in the order of ``VARIANTS`` and then reversed.  Exits 1
+SDPA yardsticks, and at head_dim 256 (``chip_smoke.FLASH_256``), in the
+order of ``VARIANTS`` and then reversed.  Exits 1
 if a variant does not build or the kernels as built fail a limit; the last
 line is a JSON summary.
 """
@@ -40,9 +41,9 @@ BWD_ORDER = ("  const int bh = blockIdx.y;\n  const int b = bh / H;\n"
              "tile 0 walks the most query tiles\n  const int k0 = kt * "
              "kTile;\n  const int n_tiles = S / kTile;\n"
              "  const int w = threadIdx.x >> 5;\n")
-BWD_GRID = ("  const dim3 grid(S / kTile, B * H);\n  if constexpr "
-            "(std::is_same<T, bf16>::value) {\n    constexpr size_t smem = "
-            "Tc<D>::bwd_bytes;")
+BWD_GRID = ("  if constexpr (std::is_same<T, bf16>::value) {\n"
+            "    const dim3 grid(S / kTile, B * H);\n"
+            "    constexpr size_t smem = Tc<D>::bwd_bytes;")
 # name -> (substitutions, diagnostic: the function changes by design)
 VARIANTS = {
     "as built": ([], False),
@@ -69,8 +70,9 @@ VARIANTS = {
         ("static constexpr int bwd_stages = 2;",
          "static constexpr int bwd_stages = D == 64 ? 3 : 2;")], False),
     "bwd 2 blocks a SM at D = 64": ([
-        ("__launch_bounds__(kBwdThreads, D == 64 ? 3 : 2)",
-         "__launch_bounds__(kBwdThreads, 2)")], False),
+        ("static constexpr int bwd_blocks = D == 64 ? 3 : D == 128 ? 2 : 1;",
+         "static constexpr int bwd_blocks = D == 128 ? 2 : D == 64 ? 2 : 1;")],
+        False),
     "bwd 64-query passes, unrolled": ([
         ("constexpr int QW = D == 64 ? 32 : 16;",
          "constexpr int QW = D == 64 ? 64 : 16;"),
@@ -166,6 +168,17 @@ def main() -> int:
             return torch.ops.aten._scaled_dot_product_flash_attention_backward(
                 do, q, k, v, o, lse, cq, ck, mq, mk, 0.0, True, seed, off)
 
+        # head_dim 256 (GPT-2-small's width over 3 heads)
+        B2, S2, H2, D2 = cs.FLASH_256
+        scale2 = D2 ** -0.5
+        sets2 = [cs.flash_case(torch, gen, B2, S2, H2, D2, torch.bfloat16)
+                 for _ in range(2)]
+        fwd_sets2 = [(q, k, v) for q, k, v, _ in sets2]
+        bwd_sets2 = []
+        for q, k, v, do in sets2:
+            out, lse = fa.flash_fwd_plain(q, k, v, scale2)
+            bwd_sets2.append((q, k, v, out.contiguous(), lse, do))
+
         symbols = {"rlt_flash_fwd": fa._FWD_ARGTYPES,
                    "rlt_flash_bwd": fa._BWD_ARGTYPES}
         for name in list(VARIANTS) + list(VARIANTS)[::-1]:
@@ -188,16 +201,23 @@ def main() -> int:
             with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
                 fa2 = cs.graph_ms(torch, sdpa, [h[:3] for h in heads], reps=5)
             sb = cs.graph_ms(torch, sdpa_bwd, sdpa_bwd_sets, reps=5)
+            f2 = cs.graph_ms(torch, lambda q, k, v: fa.flash_fwd(q, k, v,
+                                                                 scale2),
+                             fwd_sets2, reps=5)
+            b2 = cs.graph_ms(torch, lambda *a: fa.flash_bwd(*a, scale2),
+                             bwd_sets2, reps=5)
             rec.setdefault("runs", []).append(
                 {"fwd_us": f * 1e3, "bwd_us": b * 1e3, "sdpa_us": sd * 1e3,
-                 "sdpa_flash_us": fa2 * 1e3, "sdpa_flash_bwd_us": sb * 1e3})
+                 "sdpa_flash_us": fa2 * 1e3, "sdpa_flash_bwd_us": sb * 1e3,
+                 "fwd_us_d256": f2 * 1e3, "bwd_us_d256": b2 * 1e3})
             held = ("diagnostic" if VARIANTS[name][1] else
                      f"over the limits at {list(rec['over'])}"
                      if rec["over"] else "within the limits")
             print(f"{name}: fwd {f * 1e3:.1f} us, bwd {b * 1e3:.1f} us "
                   f"SDPA {sd * 1e3:.1f} us, its flash backend "
-                  f"{fa2 * 1e3:.1f} us, flash bwd {sb * 1e3:.1f} us; "
-                  f"{held}; {card}")
+                  f"{fa2 * 1e3:.1f} us, flash bwd {sb * 1e3:.1f} us; at "
+                  f"{cs.FLASH_256} fwd {f2 * 1e3:.1f} us, bwd "
+                  f"{b2 * 1e3:.1f} us; {held}; {card}")
         cf.use(_build, "flash_attention", {}, None)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)

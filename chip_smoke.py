@@ -16,17 +16,22 @@ under ``remat_policy="dots+flash"``), counted per step.  Phases:
 0. device and build: the card's name and power limit, TF32 off, each
    kernel built (one nvcc per source, all at once) with its registers,
    shared memory and spills;
-1. BGMV vs plain at the serving path's shapes, f32 and bf16, plus a batch
-   of null-adapter rows whose delta must be exactly 0.0;
+1. BGMV vs plain at the serving path's shapes, f32 and bf16, each also
+   as a batch of null-adapter rows whose delta must be exactly 0.0; at
+   prefill rows in runs of 100 ids (tiles that straddle two ids), one row,
+   64 mixed rows, rank 128, ragged r, d and k; and a decode batch with an
+   out-of-range id, whose row must be NaN (``bgmv_checks``);
 2. BGMV timing (CUDA graphs of back-to-back launches over rotating inputs
-   larger than L2, as the main path finds them) beside the plain version
-   and the least time the card could take;
+   larger than L2, as the main path finds them) beside the plain version,
+   the least time the card could take and the graph floor (a one-element
+   ``add_`` captured the same way), with each shape's launch plan;
 3. the server in f32: GPT-2-small with random weights from a seed, 4
    synthetic rank-16 tenants plus the base model, 10 greedy requests;
 4. the same requests at bf16 (tokens not compared);
 5. LayerNorm, flash-attention and CE kernels vs plain, forward and
    backward (each backward pair on the same saved statistics), at the
-   training path's shapes (and ragged, D=128 or d=1536 or 1600 ones): f32
+   training path's shapes (and ragged, D=128 or 256 or d=1536 or 1600
+   ones; flash at head_dim 256 is ``FLASH_256``): f32
    within 1e-5·max|ref| + 1e-6 (CE also by the measures below at f32
    limits), bf16 by its worst row, relative Frobenius error and worst
    tile's bias (``bf16_measures``); at the CE main shape in both dtypes,
@@ -38,11 +43,12 @@ under ``remat_policy="dots+flash"``), counted per step.  Phases:
    the bound; the flash forward must take at most 2x the SDPA call and
    the backward at most 1.5x SDPA's flash backward, the bf16 LN backward
    at most 0.75x ``native_layer_norm_backward`` and the bf16 CE forward at
-   most 2x cuBLAS x·Wᵀ; the LN backward's kernels each timed by the
-   profiler; the registers, shared memory and resident blocks (LN
-   backward, flash) or clusters (the bf16 CE backward, launched as
-   thread-block clusters, one block per slice of d) of each kernel that
-   keeps its work in registers;
+   most 2x cuBLAS x·Wᵀ; flash at head_dim 256 beside its plain version,
+   SDPA and its bound (printed, no gate); the LN backward's kernels each
+   timed by the profiler; the registers, shared memory and resident
+   blocks (LN backward, flash) or clusters (the bf16 CE backward,
+   launched as thread-block clusters, one block per slice of d) of each
+   kernel that keeps its work in registers;
 7. the trainer: GPT-2-small, batch 16 x 1024 tokens, bf16, three arms —
    (a) the headline, (b) CE kernels without remat, (c) the CE scan
    (``GPT(ce_kernel=False)``) without remat — each warmed up, then a
@@ -96,6 +102,8 @@ REPLACES = {
 }
 TRAIN_KERNELS = tuple(REPLACES)
 VOCAB = 50304          # GPT-2-small's padded vocabulary
+# Flash at head_dim 256: GPT-2-small's width over 3 heads, batch 16 x 1024.
+FLASH_256 = (16, 1024, 3, 256)
 # The headline training configuration: the JAX package's bench.py
 # _bench_fit program on one chip (every kernel on, remat "dots+flash").
 HEADLINE = {"remat": True, "remat_policy": "dots+flash"}
@@ -123,20 +131,26 @@ def card_line() -> str:
 
 # -- phase 1 and 2: the kernel --------------------------------------------
 
-def bgmv_inputs(torch, W, k, r, dtype, mixed, gen, copies=1):
+def bgmv_inputs(torch, W, k, r, dtype, mixed, gen, copies=1, d=D_MODEL,
+                run=None):
     """``copies`` independent (h, a, b, ids) sets at one shape.  Slot 0
     is the null adapter; ``mixed`` rows cycle through all N slots (a
-    decode batch of every tenant and the base model), otherwise every row
-    has tenant 1 (one prefill)."""
+    decode batch of every tenant and the base model); ``run`` gives runs
+    of that many rows one id, cycling through the tenants (the prefill
+    rows of consecutive sequences); otherwise every row has tenant 1 (one
+    prefill)."""
     n = N_TENANTS + 1
-    if mixed:
-        ids = (torch.arange(W, device="cuda") % n).to(torch.int32)
+    rows = torch.arange(W, device="cuda")
+    if run is not None:
+        ids = (rows // run % N_TENANTS + 1).to(torch.int32)
+    elif mixed:
+        ids = (rows % n).to(torch.int32)
     else:
         ids = torch.ones(W, dtype=torch.int32, device="cuda")
     sets = []
     for _ in range(copies):
-        h = torch.randn(W, D_MODEL, generator=gen, device="cuda")
-        a = torch.randn(n, D_MODEL, r, generator=gen, device="cuda") * 0.05
+        h = torch.randn(W, d, generator=gen, device="cuda")
+        a = torch.randn(n, d, r, generator=gen, device="cuda") * 0.05
         b = torch.randn(n, r, k, generator=gen, device="cuda") * 0.3
         a[0] = 0.0
         b[0] = 0.0
@@ -183,6 +197,33 @@ def graph_ms(torch, fn, arg_sets, reps=20):
     return start.elapsed_time(end) / (reps * len(arg_sets))
 
 
+def graph_floor_ms(torch):
+    """The per-call floor of ``graph_ms``: a one-element ``add_`` (one tiny
+    kernel) captured and replayed the same way, 64 calls a graph."""
+    x = torch.zeros(1, device="cuda")
+    return graph_ms(torch, lambda t: t.add_(1.0), [(x,)] * 64)
+
+
+def bgmv_plan(lora, W, k, r, dtype):
+    """The BGMV kernel's launch plan at one shape (``rlt_bgmv_plan``), as
+    text."""
+    from ray_lightning_tpu_torch.ops import _build
+
+    fn = _build.load_function("bgmv", "rlt_bgmv_plan",
+                              [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    vals = (ctypes.c_int * 6)()
+    code = lora._DTYPE_CODES[dtype]
+    err = fn(W, D_MODEL, r, k, N_TENANTS + 1, code, 0,
+             ctypes.cast(vals, ctypes.c_void_p))
+    check(err == 0, f"bgmv plan query at W={W} k={k}")
+    dsplit, kblocks, tiles, smem1, smem2, aligned = vals
+    if dsplit == 0:
+        return f"plan: row kernel {kblocks} x {tiles} blocks"
+    return (f"plan: t kernel {dsplit} slices of d ({smem1} B shared), out "
+            f"kernel {kblocks} x {tiles} blocks ({smem2} B shared), "
+            f"{'16-byte' if aligned else 'element-wise'} copies")
+
+
 def eager_ms(torch, fn, arg_sets, reps=20):
     """Wall ms per call issued from Python one by one (host launch cost
     included), the way the engine issues it."""
@@ -200,10 +241,44 @@ def eager_ms(torch, fn, arg_sets, reps=20):
     return start.elapsed_time(end) / (reps * len(arg_sets))
 
 
-def phase_kernel(torch, lora, card):
-    """Phases 1 and 2.  Returns the JSON record fields measured at the
-    main path's most frequent call: decode qkv, f32, rank 16."""
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
+def bgmv_tolerance(torch, dtype, ref):
+    """Phase 1's tolerance of a BGMV result: f32 1e-5·max|ref| + 1e-6 (f32
+    sums in another order), bf16 2e-2·max|ref| (one rounding of the
+    output, which may land on the other side)."""
+    scale = ref.float().abs().max().item()
+    return 1e-5 * scale + 1e-6 if dtype == torch.float32 else 2e-2 * scale
+
+
+# Phase 1's extra shapes beyond the serving path's (W, k) x ranks grid:
+# (label, W, d, r, k, mixed, run).  Runs of 100 rows are five sequences'
+# prefill rows, so 64-row tiles straddle two ids; d = 100 and k = 1001 are
+# no multiple of 16 bytes (the element-wise path, with a d tail in bf16).
+BGMV_EXTRA = (("prefill runs of 100", PREFILL_W, D_MODEL, 16, 3 * D_MODEL,
+               False, 100),
+              ("one row", 1, D_MODEL, 16, 3 * D_MODEL, True, None),
+              ("64 rows mixed", 64, D_MODEL, 16, D_MODEL, True, None),
+              ("rank 128", DECODE_W, D_MODEL, 128, 3 * D_MODEL, True, None),
+              ("ragged r", 3, D_MODEL, 100, 1000, True, None),
+              ("ragged d and k", 5, 100, 16, 1001, True, None))
+
+
+def bgmv_checks(torch, lora, gen):
+    """Phase 1: every check of the BGMV kernel against its plain version,
+    as (label, passed, detail) — the serving path's shapes in f32 and bf16
+    at ranks 8, 16 and 64 (each also with every row on the null slot,
+    which must give exactly 0.0), ``BGMV_EXTRA``, and a decode batch with
+    an out-of-range id (its row NaN, the others right)."""
+    out = []
+
+    def held(label, dtype, h, a, b, ids):
+        got = lora.bgmv(h, a, b, ids)
+        ref = lora.bgmv_plain(h, a, b, ids)
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs().max().item()
+        tol = bgmv_tolerance(torch, dtype, ref)
+        out.append((f"bgmv {str(dtype)[6:]} {label}", err <= tol,
+                    f"max_abs_err={err:.3e} tol={tol:.3e}"))
+
     shapes = [(W, k) for W in (DECODE_W, PREFILL_W) for k in (3 * D_MODEL,
                                                                D_MODEL)]
     for dtype in (torch.float32, torch.bfloat16):
@@ -211,35 +286,49 @@ def phase_kernel(torch, lora, card):
             for r in RANKS:
                 ((h, a, b, ids),) = bgmv_inputs(torch, W, k, r, dtype,
                                                 W == DECODE_W, gen)
-                got = lora.bgmv(h, a, b, ids)
-                ref = lora.bgmv_plain(h, a, b, ids)
-                torch.cuda.synchronize()
-                err = (got.float() - ref.float()).abs().max().item()
-                scale = ref.float().abs().max().item()
-                tol = (1e-5 * scale + 1e-6 if dtype == torch.float32
-                       else 2e-2 * scale)
-                print(f"phase 1: bgmv {str(dtype)[6:]} W={W} d={D_MODEL} "
-                      f"r={r} k={k}: max_abs_err={err:.3e} "
-                      f"max|ref|={scale:.3e} tol={tol:.3e}")
-                check(err <= tol, f"bgmv W={W} k={k} r={r} {dtype}")
+                held(f"W={W} d={D_MODEL} r={r} k={k}", dtype, h, a, b, ids)
                 zero = lora.bgmv(h, a, b, torch.zeros_like(ids))
                 torch.cuda.synchronize()
-                check(bool((zero == 0).all()),
-                      f"null-slot delta not exactly 0.0 at W={W} k={k}")
-    print("phase 1: null-adapter rows gave exactly 0.0 at every shape")
-    # Ragged edges: a rank that does not divide the block, a width that is
-    # no multiple of the column tile.
-    for dtype in (torch.float32, torch.bfloat16):
-        ((h, a, b, ids),) = bgmv_inputs(torch, 3, 1000, 100, dtype, True,
-                                        gen)
-        got, ref = lora.bgmv(h, a, b, ids), lora.bgmv_plain(h, a, b, ids)
-        err = (got.float() - ref.float()).abs().max().item()
-        scale = ref.float().abs().max().item()
-        tol = 1e-5 * scale + 1e-6 if dtype == torch.float32 else 2e-2 * scale
-        print(f"phase 1: bgmv {str(dtype)[6:]} ragged W=3 r=100 k=1000: "
-              f"max_abs_err={err:.3e} tol={tol:.3e}")
-        check(err <= tol, f"bgmv ragged {dtype}")
+                out.append((f"bgmv {str(dtype)[6:]} W={W} r={r} k={k} null "
+                            f"slot", bool((zero == 0).all()),
+                            "every element exactly 0.0"))
+        for label, W, d, r, k, mixed, run in BGMV_EXTRA:
+            ((h, a, b, ids),) = bgmv_inputs(torch, W, k, r, dtype, mixed,
+                                            gen, d=d, run=run)
+            held(f"{label} W={W} d={d} r={r} k={k}", dtype, h, a, b, ids)
+        ((h, a, b, ids),) = bgmv_inputs(torch, DECODE_W, 3 * D_MODEL, 16,
+                                        dtype, True, gen)
+        ids[2] = N_TENANTS + 3
+        got = lora.bgmv(h, a, b, ids)
+        ref = lora.bgmv_plain(h, a, b, torch.where(ids < N_TENANTS + 1,
+                                                   ids, 0))
+        torch.cuda.synchronize()
+        keep = torch.arange(DECODE_W, device="cuda") != 2
+        err = (got[keep].float() - ref[keep].float()).abs().max().item()
+        tol = bgmv_tolerance(torch, dtype, ref[keep])
+        out.append((f"bgmv {str(dtype)[6:]} out-of-range id",
+                    bool(torch.isnan(got[2].float()).all()) and err <= tol,
+                    f"row 2 all NaN; the rest max_abs_err={err:.3e} "
+                    f"tol={tol:.3e}"))
+    return out
 
+
+def phase_kernel(torch, lora, card):
+    """Phases 1 and 2.  Returns the JSON record fields measured at the
+    main path's most frequent call: decode qkv, f32, rank 16."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    checks = bgmv_checks(torch, lora, gen)
+    for label, ok, detail in checks:
+        print(f"phase 1: {label}: {detail}")
+    for label, ok, _ in checks:
+        check(ok, label)
+    print(f"phase 1: {len(checks)} checks passed; null-slot rows gave "
+          f"exactly 0.0 at every shape")
+    shapes = [(W, k) for W in (DECODE_W, PREFILL_W) for k in (3 * D_MODEL,
+                                                               D_MODEL)]
+    floor = graph_floor_ms(torch)
+    print(f"phase 2: graph floor (a one-element add_ captured and replayed "
+          f"as each kernel below): {floor * 1e3:.2f} us a call; {card}")
     record = None
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype)[6:]
@@ -261,8 +350,9 @@ def phase_kernel(torch, lora, card):
             print(f"phase 2: bgmv {name} W={W} r={r} k={k} U={distinct}: "
                   f"kernel {ms * 1e3:.2f} us (graph), {eager * 1e3:.2f} us "
                   f"(eager, host issue included); plain {plain_ms * 1e3:.2f}"
-                  f" us; bound {bound_ms * 1e3:.3f} us ({bound_by}); "
-                  f"library none; {card}")
+                  f" us; bound {bound_ms * 1e3:.3f} us ({bound_by}); floor "
+                  f"{floor * 1e3:.2f} us; library none; "
+                  f"{bgmv_plan(lora, W, k, r, dtype)}; {card}")
             if dtype == torch.float32 and W == DECODE_W and k == 3 * D_MODEL:
                 h, a, b, ids = sets[0]
                 err = (lora.bgmv(h, a, b, ids)
@@ -577,7 +667,7 @@ def phase_train_kernels(torch):
             if dtype == torch.bfloat16 and n == n_main:
                 errs["ln_fwd"], errs["ln_bwd"] = e_fwd, e_bwd
         for B, S, H, D in ((TRAIN_B, TRAIN_T, 12, 64),
-                           (TRAIN_B, TRAIN_T, 6, 128)):
+                           (TRAIN_B, TRAIN_T, 6, 128), FLASH_256):
             q, k, v, do = flash_case(torch, gen, B, S, H, D, dtype)
             scale = D ** -0.5
             out, lse = fa.flash_fwd(q, k, v, scale)
@@ -900,6 +990,7 @@ def phase_train_timing(torch, card):
           f"({lb['library_ms'] * 1e3:.1f} us), limit 0.75; {card}")
     check(lb["ms"] <= 0.75 * lb["library_ms"],
           "ln bwd within 0.75 x native_layer_norm_backward")
+    flash_256_timing(torch, gen, card)
     ln_bwd_kernels(torch, ln, bwd_ln_sets, card)
     ln_occupancy(card)
     flash_occupancy(card)
@@ -917,6 +1008,66 @@ def phase_train_timing(torch, card):
     print(f"phase 6: flash f32 bounds: fwd {ff * 1e3:.1f} us, bwd "
           f"{fbw * 1e3:.1f} us (operations at 67 TF/s)")
     return rec
+
+
+def flash_256_timing(torch, gen, card):
+    """Phase 6: the bf16 flash pair at head_dim 256 (``FLASH_256``) beside
+    its plain version, the SDPA yardsticks at the same shape and its
+    bound; printed, with no gate (no model of the main path has this
+    head_dim: 0 launches on the headline arm)."""
+    import torch.nn.functional as F
+
+    from ray_lightning_tpu_torch.ops import flash_attention as fa
+
+    B, S, H, D = FLASH_256
+    scale = D ** -0.5
+    sets = [flash_case(torch, gen, B, S, H, D, torch.bfloat16)
+            for _ in range(2)]
+    bwd_sets = [(q, k, v, *fa.flash_fwd(q, k, v, scale), do)
+                for q, k, v, do in sets]
+    heads = [tuple(t.transpose(1, 2) for t in (q, k, v, do))
+             for q, k, v, do in sets]
+
+    def sdpa_bwd_sets():
+        out = []
+        for q, k, v, do in heads:
+            r = torch.ops.aten._scaled_dot_product_flash_attention(
+                q, k, v, 0.0, True)
+            out.append((do, q, k, v, *r[:6], r[6], r[7]))
+        return out
+
+    def sdpa_bwd(do, q, k, v, o, lse, cq, ck, mq, mk, seed, offset):
+        return torch.ops.aten._scaled_dot_product_flash_attention_backward(
+            do, q, k, v, o, lse, cq, ck, mq, mk, 0.0, True, seed, offset)
+
+    (fb, fby), (bb, bby) = flash_bounds(B, S, H, D, 2, "bfloat16")
+    fwd = graph_ms(torch, lambda q, k, v, _: fa.flash_fwd(q, k, v, scale),
+                   sets, reps=5)
+    fwd_plain = graph_ms(torch, lambda q, k, v, _: fa.flash_fwd_plain(
+        q, k, v, scale), sets, reps=5)
+    bwd = graph_ms(torch, lambda *a: fa.flash_bwd(*a, scale), bwd_sets,
+                   reps=5)
+    bwd_plain = graph_ms(torch, lambda *a: fa.flash_bwd_plain(*a, scale),
+                         bwd_sets, reps=5)
+    lib_fwd = library("F.scaled_dot_product_attention at D=256", lambda:
+                      graph_ms(torch, lambda q, k, v, _: F
+                               .scaled_dot_product_attention(
+                                   q, k, v, is_causal=True), heads, reps=5))
+    lib_bwd = library("SDPA flash backward at D=256", lambda: graph_ms(
+        torch, sdpa_bwd, sdpa_bwd_sets(), reps=5))
+
+    def us(x):
+        return "not timed" if x is None else f"{x * 1e3:.1f} us"
+
+    print(f"phase 6: flash bf16 at (B, S, H, D) = {FLASH_256}: fwd "
+          f"{us(fwd)} (plain {us(fwd_plain)}; F.scaled_dot_product_attention"
+          f" {us(lib_fwd)}; bound {fb * 1e3:.1f} us, {fby}); bwd {us(bwd)} "
+          f"(plain {us(bwd_plain)}; SDPA flash backward {us(lib_bwd)}; "
+          f"bound {bb * 1e3:.1f} us, {bby}); {card}")
+    print("flash_256: " + json.dumps({
+        "fwd_ms": fwd, "fwd_plain_ms": fwd_plain, "fwd_library_ms": lib_fwd,
+        "fwd_bound_ms": fb, "bwd_ms": bwd, "bwd_plain_ms": bwd_plain,
+        "bwd_library_ms": lib_bwd, "bwd_bound_ms": bb}))
 
 
 def ce_bounds(n, v, d, es):
@@ -1470,7 +1621,7 @@ def flash_occupancy(card):
                               [ctypes.c_int] * 2
                               + [ctypes.POINTER(ctypes.c_int)] * 4)
     for which, name in ((0, "fwd"), (1, "bwd")):
-        for d in (64, 128):
+        for d in (64, 128, 256):
             vals = [ctypes.c_int() for _ in range(4)]
             err = fn(which, d, *[ctypes.byref(v) for v in vals])
             check(err == 0, f"occupancy query of flash {name} D={d}")

@@ -17,7 +17,7 @@ All implementations share the JAX package's contract
   (``_flash_supported``: some 128-multiple block divides S, head_dim in
   64/128/256) and nothing else, so ``"auto"`` never gives way to the plain
   attention where the JAX package runs its kernel: a shape the rule admits
-  but the port's kernels do not take (head_dim 256, f16, mixed dtypes)
+  but the port's kernels do not take (f16, mixed dtypes, B·H > 65535)
   raises on the card, as ``"flash"`` does.  It is a rule about shape, so it
   routes alike on the CPU and on the card; the JAX gate's platform clause
   (TPU only) has no counterpart, since the plain versions compute the

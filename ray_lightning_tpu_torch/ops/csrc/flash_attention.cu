@@ -89,13 +89,13 @@ struct Strides {
   long long b, s, h;
 };
 
-// Load rows [row0, row0 + 64) of head (b, h) into a padded f32 tile.
-template <int D>
+// Load rows [row0, row0 + ROWS) of head (b, h) into a padded f32 tile.
+template <int D, int ROWS = kTile>
 __device__ __forceinline__ void load_tile(float* tile, const float* base,
                                           Strides st, int b, int h,
                                           int row0) {
   const float* p = base + b * st.b + h * st.h;
-  for (int idx = threadIdx.x; idx < kTile * D; idx += kThreads) {
+  for (int idx = threadIdx.x; idx < ROWS * D; idx += kThreads) {
     const int r = idx / D;
     const int c = idx % D;
     tile[r * (D + 1) + c] = p[(row0 + r) * st.s + c];
@@ -106,9 +106,17 @@ template <int D>
 constexpr size_t fwd_smem_bytes() {
   return sizeof(float) * (3 * kTile * (D + 1) + kTile * kPS);
 }
+// The f32 backward's key tile: 64 keys, 32 at D = 256, where four 64-row
+// f32 tiles (K, V, Q, dO) would pass the 227 KB a block may hold.
+template <int D>
+__host__ __device__ constexpr int bwd_keys() {
+  return D == 256 ? 32 : kTile;
+}
 template <int D>
 constexpr size_t bwd_smem_bytes() {
-  return sizeof(float) * (4 * kTile * (D + 1) + 2 * kTile * kPS + 2 * kTile);
+  constexpr int KT = bwd_keys<D>();
+  return sizeof(float) * (2 * KT * (D + 1) + 2 * kTile * (D + 1) +
+                          2 * kTile * (KT + 1) + 2 * kTile);
 }
 
 template <int D>
@@ -244,6 +252,9 @@ __global__ void flash_delta_kernel(const float* __restrict__ out,
   if (lane == 0) delta[row] = t;
 }
 
+// One block per (key tile of KT keys, b·h); 64-query tiles.  Score rows
+// are queries ty·4 + i, columns keys tx + 16·j (j < KT/16); dK and dV rows
+// are keys ty·KR + i (i < KR = KT/16), columns tx + 16·jj.
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -254,33 +265,37 @@ flash_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  Strides sk, Strides sv, int H, int S, float scale) {
   constexpr int P = D + 1;
   constexpr int JD = D / 16;
+  constexpr int KT = bwd_keys<D>();
+  constexpr int KJ = KT / 16;    // score columns a thread owns
+  constexpr int KR = KT / 16;    // dK, dV rows a thread owns
+  constexpr int SP = KT + 1;     // padded row of a score tile
   extern __shared__ float smem[];
   float* Ks = smem;
-  float* Vs = Ks + kTile * P;
-  float* Qs = Vs + kTile * P;
+  float* Vs = Ks + KT * P;
+  float* Qs = Vs + KT * P;
   float* dOs = Qs + kTile * P;
   float* Ps = dOs + kTile * P;
-  float* dSs = Ps + kTile * kPS;
-  float* lse_s = dSs + kTile * kPS;
+  float* dSs = Ps + kTile * SP;
+  float* lse_s = dSs + kTile * SP;
   float* delta_s = lse_s + kTile;
 
   const int bh = blockIdx.y;
   const int b = bh / H;
   const int h = bh % H;
   const int kt = blockIdx.x;  // key tile 0 walks the most query tiles
-  const int k0 = kt * kTile;
+  const int k0 = kt * KT;
   const int n_tiles = S / kTile;
   const int ty = threadIdx.x >> 4;
   const int tx = threadIdx.x & 15;
   const Strides sc = {static_cast<long long>(S) * H * D,
                       static_cast<long long>(H) * D, D};
 
-  load_tile<D>(Ks, k, sk, b, h, k0);
-  load_tile<D>(Vs, v, sv, b, h, k0);
+  load_tile<D, KT>(Ks, k, sk, b, h, k0);
+  load_tile<D, KT>(Vs, v, sv, b, h, k0);
 
-  float dk_acc[4][JD], dv_acc[4][JD];
+  float dk_acc[KR][JD], dv_acc[KR][JD];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < KR; ++i) {
 #pragma unroll
     for (int jj = 0; jj < JD; ++jj) {
       dk_acc[i][jj] = 0.f;
@@ -288,7 +303,7 @@ flash_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
 
-  for (int qt = kt; qt < n_tiles; ++qt) {
+  for (int qt = k0 / kTile; qt < n_tiles; ++qt) {
     const int q0 = qt * kTile;
     __syncthreads();  // the previous tile's readers are done
     load_tile<D>(Qs, q, sq, b, h, q0);
@@ -300,69 +315,68 @@ flash_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
     __syncthreads();
 
-    // Score rows are queries ty·4 + i, columns keys tx + 16·j.
-    float s[4][4], dp[4][4];
+    float s[4][KJ], dp[4][KJ];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < KJ; ++j) {
         s[i][j] = 0.f;
         dp[i][j] = 0.f;
       }
     }
     for (int c = 0; c < D; ++c) {
-      float qv[4], gv[4], kv[4], vv[4];
+      float qv[4], gv[4], kv[KJ], vv[KJ];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         qv[i] = Qs[(ty * 4 + i) * P + c];
         gv[i] = dOs[(ty * 4 + i) * P + c];
       }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < KJ; ++j) {
         kv[j] = Ks[(tx + 16 * j) * P + c];
         vv[j] = Vs[(tx + 16 * j) * P + c];
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < KJ; ++j) {
           s[i][j] += qv[i] * kv[j];
           dp[i][j] += gv[i] * vv[j];
         }
       }
     }
-    const bool diag = qt == kt;
+    // The tile that holds the diagonal: hide keys after the query.
+    const bool diag = q0 < k0 + KT;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int qi = ty * 4 + i;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < KJ; ++j) {
         const int kj = tx + 16 * j;
         float sv_ = s[i][j] * scale;
-        if (diag && kj > qi) sv_ = kNegInf;
+        if (diag && k0 + kj > q0 + qi) sv_ = kNegInf;
         const float p = expf(sv_ - lse_s[qi]);
         const float ds = p * (dp[i][j] - delta_s[qi]) * scale;
-        Ps[qi * kPS + kj] = p;
-        dSs[qi * kPS + kj] = ds;
+        Ps[qi * SP + kj] = p;
+        dSs[qi * SP + kj] = ds;
       }
     }
     __syncthreads();
 
-    // dV += Pᵀ·dO and dK += dSᵀ·Q over this tile's queries; rows are keys
-    // ty·4 + i, columns tx + 16·jj.
+    // dV += Pᵀ·dO and dK += dSᵀ·Q over this tile's queries.
     for (int c = 0; c < kTile; ++c) {
-      float pv[4], dsv[4];
+      float pv[KR], dsv[KR];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pv[i] = Ps[c * kPS + ty * 4 + i];
-        dsv[i] = dSs[c * kPS + ty * 4 + i];
+      for (int i = 0; i < KR; ++i) {
+        pv[i] = Ps[c * SP + ty * KR + i];
+        dsv[i] = dSs[c * SP + ty * KR + i];
       }
 #pragma unroll
       for (int jj = 0; jj < JD; ++jj) {
         const float gv = dOs[c * P + tx + 16 * jj];
         const float qv = Qs[c * P + tx + 16 * jj];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < KR; ++i) {
           dv_acc[i][jj] += pv[i] * gv;
           dk_acc[i][jj] += dsv[i] * qv;
         }
@@ -375,10 +389,10 @@ flash_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int jj = 0; jj < JD; ++jj) dq_part[i][jj] = 0.f;
     }
-    for (int c = 0; c < kTile; ++c) {
+    for (int c = 0; c < KT; ++c) {
       float dsv[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) dsv[i] = dSs[(ty * 4 + i) * kPS + c];
+      for (int i = 0; i < 4; ++i) dsv[i] = dSs[(ty * 4 + i) * SP + c];
 #pragma unroll
       for (int jj = 0; jj < JD; ++jj) {
         const float kv = Ks[c * P + tx + 16 * jj];
@@ -395,8 +409,8 @@ flash_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const long long off = ((static_cast<long long>(b) * S + k0 + ty * 4 + i) * H + h) * D;
+  for (int i = 0; i < KR; ++i) {
+    const long long off = ((static_cast<long long>(b) * S + k0 + ty * KR + i) * H + h) * D;
 #pragma unroll
     for (int jj = 0; jj < JD; ++jj) {
       dk[off + tx + 16 * jj] = dk_acc[i][jj];
@@ -436,14 +450,27 @@ struct Tc {
   static constexpr int fwd_blocks = D == 64 ? 2 : 1;
   static constexpr int fwd_stages = 2;
   static constexpr int bwd_stages = 2;
+  // Backward: warps that share 16 keys, each accumulating dK and dV for
+  // D / bwd_split of the columns (two at D = 256, where one warp's would
+  // be 256 f32 registers a thread), threads and blocks per SM.
+  static constexpr int bwd_split = D == 256 ? 2 : 1;
+  static constexpr int bwd_threads = kBwdThreads * bwd_split;
+  static constexpr int bwd_blocks = D == 64 ? 3 : D == 128 ? 2 : 1;
+  // The split warps' exchange of Sᵀ and dPᵀ partials: 2 x 16 x 16 f32 a
+  // warp (a pass covers 16 queries at D >= 128).
+  static constexpr int bwd_xfloats =
+      bwd_split > 1 ? bwd_threads / 32 * 2 * 16 * 16 : 0;
   // Forward: Q (128 rows), then the stages of K and V.
   static constexpr size_t fwd_bytes =
       sizeof(bf16) * (2 * tile + fwd_stages * 2 * tile);
-  // Backward: K, V, the stages of Q and dO, dSᵀ; the stages of lse, delta.
+  // Backward: K, V, the stages of Q and dO, dSᵀ; the stages of lse, delta;
+  // the exchange.
   static constexpr size_t bwd_bytes =
       sizeof(bf16) * (2 * tile + bwd_stages * 2 * tile + kTile * kLP) +
-      sizeof(float) * bwd_stages * 2 * kTile;
+      sizeof(float) * (bwd_stages * 2 * kTile + bwd_xfloats);
 };
+static_assert(Tc<256>::fwd_bytes <= 232448 && Tc<256>::bwd_bytes <= 232448,
+              "shared memory of the D = 256 kernels");
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -510,6 +537,12 @@ __device__ __forceinline__ void c_to_a(const float c0[4], const float c1[4],
   a[1] = pack_bf16(c0[2], c0[3]);
   a[2] = pack_bf16(c1[0], c1[1]);
   a[3] = pack_bf16(c1[2], c1[3]);
+}
+
+// The two warps of key group `kw` of a split backward block meet (named
+// barrier 1 + kw; barrier 0 is __syncthreads).
+__device__ __forceinline__ void pair_sync(int kw) {
+  asm volatile("bar.sync %0, 64;\n" ::"r"(1 + kw) : "memory");
 }
 
 // Start copying rows [row0, row0 + nrows) of head (b, h) into a padded
@@ -759,17 +792,22 @@ tc_flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 // One block per (b·h, 64-key tile), key tile 0 (the longest walk) first;
 // warp w owns keys 16w..16w+15.  The warp keeps its K and V fragments
-// (D = 64; at D = 128 they are read from shared memory per query tile) and
+// (D = 64; at D >= 128 they are read from shared memory per query tile) and
 // its dK, dV accumulators in registers for the whole walk down the query
 // tiles from the diagonal; Q, dO, lse and delta tiles stream through a
 // ring of cp.async stages.  Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ land in registers,
 // where Pᵀ and dSᵀ are formed and fed to dV += Pᵀ·dO and dK += dSᵀ·Q as A
-// fragments, in passes of 32 queries (16 at D = 128) that keep the
+// fragments, in passes of 32 queries (16 at D >= 128) that keep the
 // registers clear of spills.  dSᵀ also goes to shared memory as bf16:
 // dQ = dS·K needs it transposed, and each warp then adds 16 queries' dQ
 // into the f32 buffer with float4 atomics.
+// At D = 256 (bwd_split = 2) two warps share 16 keys, 8 warps a block:
+// warp w owns keys 16·(w/2).. and columns 128·(w%2).. of dK, dV and dQ.
+// Each computes Sᵀ and dPᵀ over its half of D, the pair adds the two
+// partials through shared memory (a + b in one warp, b + a in the other:
+// the same f32 sums), and both form the same Pᵀ and dSᵀ.
 template <int D>
-__global__ void __launch_bounds__(kBwdThreads, D == 64 ? 3 : 2)
+__global__ void __launch_bounds__(Tc<D>::bwd_threads, Tc<D>::bwd_blocks)
 tc_flash_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
                     const float* __restrict__ lse,
@@ -778,18 +816,22 @@ tc_flash_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     bf16* __restrict__ dv, Strides sq, Strides sk,
                     Strides sv, int H, int S, float scale) {
   using L = Tc<D>;
-  constexpr int LT = L::LT, ND = D / 8, KD = D / 16;
+  constexpr int LT = L::LT, KD = D / 16;
   constexpr int QW = D == 64 ? 32 : 16;  // queries a register pass covers
   constexpr int NJ = QW / 8;
   constexpr bool kHoldKV = D == 64;
   constexpr int kStages = L::bwd_stages;
   constexpr int kStage = 2 * L::tile;  // Q, then dO
+  constexpr int SPL = L::bwd_split, DH = D / SPL;  // a warp's columns
+  constexpr int NDH = DH / 8, KDH = DH / 16;
+  constexpr int kThreadsT = L::bwd_threads;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
   bf16* Vs = Ks + L::tile;
   bf16* QdO = Vs + L::tile;
   bf16* dSs = QdO + kStages * kStage;  // dSᵀ: [key][query]
   float* stats = reinterpret_cast<float*>(dSs + kTile * kLP);  // lse, delta
+  float* xch = stats + kStages * 2 * kTile;  // the pairs' partials
 
   const int bh = blockIdx.y;
   const int b = bh / H;
@@ -800,7 +842,9 @@ tc_flash_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int w = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, tig = lane & 3;
-  const int krow = 16 * w + g;  // the lane's keys: krow and krow + 8
+  const int kw = w / SPL;           // the warp's 16 keys: 16·kw ..
+  const int c0 = DH * (w % SPL);    // and its first column of D
+  const int krow = 16 * kw + g;  // the lane's keys: krow and krow + 8
   const Strides sc = {static_cast<long long>(S) * H * D,
                       static_cast<long long>(H) * D, D};
   const long long srow = static_cast<long long>(bh) * S;
@@ -810,9 +854,8 @@ tc_flash_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   auto issue = [&](int qt) {
     const int stage = (qt - kt) % kStages;
     bf16* dst = QdO + stage * kStage;
-    cp_tile<D, kBwdThreads>(dst, q, sq, b, h, qt * kTile, kTile);
-    cp_tile<D, kBwdThreads>(dst + L::tile, dout, sc, b, h, qt * kTile,
-                            kTile);
+    cp_tile<D, kThreadsT>(dst, q, sq, b, h, qt * kTile, kTile);
+    cp_tile<D, kThreadsT>(dst + L::tile, dout, sc, b, h, qt * kTile, kTile);
     if (threadIdx.x < 32) {
       const int part = threadIdx.x >> 4, c = 4 * (threadIdx.x & 15);
       cp_async16(stats + (2 * stage + part) * kTile + c,
@@ -820,17 +863,17 @@ tc_flash_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
   };
 
-  cp_tile<D, kBwdThreads>(Ks, k, sk, b, h, k0, kTile);
-  cp_tile<D, kBwdThreads>(Vs, v, sv, b, h, k0, kTile);
+  cp_tile<D, kThreadsT>(Ks, k, sk, b, h, k0, kTile);
+  cp_tile<D, kThreadsT>(Vs, v, sv, b, h, k0, kTile);
 #pragma unroll
   for (int t = 0; t < kStages - 1; ++t) {  // K and V ride in the first group
     if (kt + t < n_tiles) issue(kt + t);
     cp_async_commit();
   }
 
-  float dka[ND][4], dva[ND][4];
+  float dka[NDH][4], dva[NDH][4];
 #pragma unroll
-  for (int n = 0; n < ND; ++n) {
+  for (int n = 0; n < NDH; ++n) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       dka[n][e] = 0.f;
@@ -839,8 +882,8 @@ tc_flash_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   uint32_t kf[KD][4], vf[KD][4];
   const float sl2 = scale * kLog2e;
-  const int arow = 16 * w + (lane & 15);  // A-fragment row of ldmatrix
-  const int acol = (lane >> 4) << 3;
+  const int arow = 16 * kw + (lane & 15);  // A-fragment row of ldmatrix
+  const int acol = c0 + ((lane >> 4) << 3);
 
   for (int qt = kt; qt < n_tiles; ++qt) {
     const int i = qt - kt;
@@ -879,7 +922,7 @@ tc_flash_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         }
       }
 #pragma unroll
-      for (int kk = 0; kk < KD; ++kk) {
+      for (int kk = 0; kk < KDH; ++kk) {
         uint32_t ka[4], va[4];
         if constexpr (kHoldKV) {
 #pragma unroll
@@ -895,13 +938,37 @@ tc_flash_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         for (int jp = 0; jp < QW / 16; ++jp) {
           uint32_t qb[4], ob[4];
           const int r = hq * QW + 16 * jp + (lane & 7) + ((lane >> 4) << 3);
-          const int c = 16 * kk + (((lane >> 3) & 1) << 3);
+          const int c = c0 + 16 * kk + (((lane >> 3) & 1) << 3);
           ldsm_x4(qb, Qs + r * LT + c);
           ldsm_x4(ob, dOs + r * LT + c);
           mma_bf16(st[2 * jp], ka, qb[0], qb[1]);
           mma_bf16(st[2 * jp + 1], ka, qb[2], qb[3]);
           mma_bf16(dpt[2 * jp], va, ob[0], ob[1]);
           mma_bf16(dpt[2 * jp + 1], va, ob[2], ob[3]);
+        }
+      }
+      if constexpr (SPL > 1) {
+        // The pair's partials over the two halves of D, lane by lane:
+        // the partner's written, then read before either writes again.
+        float* mine = xch + w * (2 * NJ * 4 * 32) + lane;
+        const float* theirs = xch + (w ^ 1) * (2 * NJ * 4 * 32) + lane;
+        pair_sync(kw);
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            mine[(8 * j + e) * 32] = st[j][e];
+            mine[(8 * j + 4 + e) * 32] = dpt[j][e];
+          }
+        }
+        pair_sync(kw);
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            st[j][e] += theirs[(8 * j + e) * 32];
+            dpt[j][e] += theirs[(8 * j + 4 + e) * 32];
+          }
         }
       }
       // Pᵀ = exp(s·scale − lse) (0 for keys after the query) and
@@ -918,13 +985,15 @@ tc_flash_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           dpt[j][e] = ds;
         }
       }
+      if (c0 == 0) {  // one warp of a pair stores the pair's dSᵀ
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int c = hq * QW + 8 * j + 2 * tig;
-        *reinterpret_cast<uint32_t*>(dSs + krow * kLP + c) =
-            pack_bf16(dpt[j][0], dpt[j][1]);
-        *reinterpret_cast<uint32_t*>(dSs + (krow + 8) * kLP + c) =
-            pack_bf16(dpt[j][2], dpt[j][3]);
+        for (int j = 0; j < NJ; ++j) {
+          const int c = hq * QW + 8 * j + 2 * tig;
+          *reinterpret_cast<uint32_t*>(dSs + krow * kLP + c) =
+              pack_bf16(dpt[j][0], dpt[j][1]);
+          *reinterpret_cast<uint32_t*>(dSs + (krow + 8) * kLP + c) =
+              pack_bf16(dpt[j][2], dpt[j][3]);
+        }
       }
       // dV += Pᵀ·dO and dK += dSᵀ·Q over these queries.
 #pragma unroll
@@ -934,9 +1003,9 @@ tc_flash_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         c_to_a(dpt[2 * t], dpt[2 * t + 1], da);
         const int r = hq * QW + 16 * t + (lane & 7) + (((lane >> 3) & 1) << 3);
 #pragma unroll
-        for (int np = 0; np < D / 16; ++np) {
+        for (int np = 0; np < KDH; ++np) {
           uint32_t ob[4], qb[4];
-          const int c = 16 * np + ((lane >> 4) << 3);
+          const int c = c0 + 16 * np + ((lane >> 4) << 3);
           ldsm_x4_trans(ob, dOs + r * LT + c);
           ldsm_x4_trans(qb, Qs + r * LT + c);
           mma_bf16(dva[2 * np], pa, ob[0], ob[1]);
@@ -948,22 +1017,23 @@ tc_flash_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     __syncthreads();  // every warp's rows of dSᵀ are written
 
-    // dQ of queries 16w..16w+15 of this tile: dS·K over the tile's 64
-    // keys, 32 columns at a time, added with float4 atomics (each lane
-    // swaps half its pairs with its neighbour to hold 4 adjacent columns).
+    // dQ of queries 16·kw..16·kw+15 of this tile (the warp's columns):
+    // dS·K over the tile's 64 keys, 32 columns at a time, added with float4
+    // atomics (each lane swaps half its pairs with its neighbour to hold 4
+    // adjacent columns).
     uint32_t dsa[4][4];
 #pragma unroll
     for (int t = 0; t < 4; ++t) {
       ldsm_x4_trans(dsa[t], dSs + (16 * t + (lane & 7) + ((lane >> 4) << 3)) *
-                                      kLP + 16 * w +
+                                      kLP + 16 * kw +
                                   (((lane >> 3) & 1) << 3));
     }
     const bool odd = tig & 1;
     float* dq_rows =
-        dq_acc + ((static_cast<long long>(b) * S + qt * kTile + 16 * w + g +
-                   8 * odd) * H + h) * D + 4 * (tig >> 1);
+        dq_acc + ((static_cast<long long>(b) * S + qt * kTile + 16 * kw + g +
+                   8 * odd) * H + h) * D + c0 + 4 * (tig >> 1);
 #pragma unroll
-    for (int nc = 0; nc < D / 32; ++nc) {
+    for (int nc = 0; nc < DH / 32; ++nc) {
       float dqc[4][4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -977,7 +1047,7 @@ tc_flash_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           uint32_t kb[4];
           ldsm_x4_trans(kb, Ks + (16 * t + (lane & 7) +
                                   (((lane >> 3) & 1) << 3)) * LT +
-                                32 * nc + 16 * np + ((lane >> 4) << 3));
+                                c0 + 32 * nc + 16 * np + ((lane >> 4) << 3));
           mma_bf16(dqc[2 * np], dsa[t], kb[0], kb[1]);
           mma_bf16(dqc[2 * np + 1], dsa[t], kb[2], kb[3]);
         }
@@ -998,11 +1068,11 @@ tc_flash_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   // dK and dV through stage 0's rows of the warp, 16 bytes a store.
   __syncthreads();
-  bf16* Dk = QdO + 16 * w * LT;
+  bf16* Dk = QdO + 16 * kw * LT;
   bf16* Dv = Dk + L::tile;
 #pragma unroll
-  for (int n = 0; n < ND; ++n) {
-    const int c = 8 * n + 2 * tig;
+  for (int n = 0; n < NDH; ++n) {
+    const int c = c0 + 8 * n + 2 * tig;
     *reinterpret_cast<uint32_t*>(Dk + g * LT + c) =
         pack_bf16(dka[n][0], dka[n][1]);
     *reinterpret_cast<uint32_t*>(Dk + (g + 8) * LT + c) =
@@ -1013,11 +1083,11 @@ tc_flash_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         pack_bf16(dva[n][2], dva[n][3]);
   }
   __syncwarp();
-  for (int idx = lane; idx < 16 * (D / 8); idx += 32) {
-    const int r = idx / (D / 8);
-    const int c = (idx % (D / 8)) * 8;
+  for (int idx = lane; idx < 16 * NDH; idx += 32) {
+    const int r = idx / NDH;
+    const int c = c0 + (idx % NDH) * 8;
     const long long off =
-        ((static_cast<long long>(b) * S + k0 + 16 * w + r) * H + h) * D + c;
+        ((static_cast<long long>(b) * S + k0 + 16 * kw + r) * H + h) * D + c;
     *reinterpret_cast<uint4*>(dk + off) =
         *reinterpret_cast<const uint4*>(Dk + r * LT + c);
     *reinterpret_cast<uint4*>(dv + off) =
@@ -1137,19 +1207,20 @@ cudaError_t bwd(const void* q, const void* k, const void* v, const void* out,
   }
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const dim3 grid(S / kTile, B * H);
   if constexpr (std::is_same<T, bf16>::value) {
+    const dim3 grid(S / kTile, B * H);
     constexpr size_t smem = Tc<D>::bwd_bytes;
     err = cudaFuncSetAttribute(tc_flash_bwd_kernel<D>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return err;
-    tc_flash_bwd_kernel<D><<<grid, kBwdThreads, smem, st>>>(
+    tc_flash_bwd_kernel<D><<<grid, Tc<D>::bwd_threads, smem, st>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k),
         static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse,
         delta, dq_acc, static_cast<bf16*>(dk), static_cast<bf16*>(dv), sq,
         sk, sv, H, S, scale);
   } else {
+    const dim3 grid(S / bwd_keys<D>(), B * H);
     constexpr size_t smem = bwd_smem_bytes<D>();
     err = cudaFuncSetAttribute(flash_bwd_kernel<D>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1186,17 +1257,32 @@ cudaError_t occupancy(Kernel kernel, int threads, size_t smem, int* regs,
                                                        threads, smem);
 }
 
+// For the record: registers a thread, threads and dynamic shared bytes a
+// block, and blocks resident per SM of a bf16 kernel (which: 0 forward,
+// 1 backward; D 64, 128 or 256) on the current device.
+template <int D>
+cudaError_t tc_occupancy(int which, int* regs, int* threads, int* smem_bytes,
+                         int* blocks_per_sm) {
+  using L = Tc<D>;
+  *threads = which == 0 ? L::fwd_threads : L::bwd_threads;
+  *smem_bytes = static_cast<int>(which == 0 ? L::fwd_bytes : L::bwd_bytes);
+  return which == 0 ? occupancy(tc_flash_fwd_kernel<D>, *threads,
+                                *smem_bytes, regs, blocks_per_sm)
+                    : occupancy(tc_flash_bwd_kernel<D>, *threads,
+                                *smem_bytes, regs, blocks_per_sm);
+}
+
 bool valid_shape(int B, int H, int S, int D) {
   // grid.y is B·H, at most 65535.
   return B >= 1 && H >= 1 && static_cast<long long>(B) * H <= 65535 &&
-         S >= kTile && S % kTile == 0 && (D == 64 || D == 128);
+         S >= kTile && S % kTile == 0 && (D == 64 || D == 128 || D == 256);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  Strides are in elements, D contiguous;
 // out is contiguous (B, S, H, D); lse (B·H, S) f32 may be null (no-grad
-// call: out only).  S must be a multiple of 64 and D 64 or 128.
+// call: out only).  S must be a multiple of 64 and D 64, 128 or 256.
 extern "C" int rlt_flash_fwd(const void* q, const void* k, const void* v,
                              void* out, void* lse, long long qb, long long qs,
                              long long qh, long long kb, long long ks,
@@ -1219,6 +1305,11 @@ extern "C" int rlt_flash_fwd(const void* q, const void* k, const void* v,
                                  st);
   } else if (dtype == 1 && D == 128) {
     err = fwd<__nv_bfloat16, 128>(q, k, v, out, l, sq, sk, sv, B, H, S,
+                                  scale, st);
+  } else if (dtype == 0 && D == 256) {
+    err = fwd<float, 256>(q, k, v, out, l, sq, sk, sv, B, H, S, scale, st);
+  } else if (dtype == 1 && D == 256) {
+    err = fwd<__nv_bfloat16, 256>(q, k, v, out, l, sq, sk, sv, B, H, S,
                                   scale, st);
   } else {
     err = cudaErrorInvalidValue;
@@ -1261,35 +1352,29 @@ extern "C" int rlt_flash_bwd(const void* q, const void* k, const void* v,
   } else if (dtype == 1 && D == 128) {
     err = bwd<__nv_bfloat16, 128>(q, k, v, out, dout, l, dq, dk, dv, acc, dl,
                                   sq, sk, sv, B, H, S, scale, st);
+  } else if (dtype == 0 && D == 256) {
+    err = bwd<float, 256>(q, k, v, out, dout, l, dq, dk, dv, acc, dl, sq, sk,
+                          sv, B, H, S, scale, st);
+  } else if (dtype == 1 && D == 256) {
+    err = bwd<__nv_bfloat16, 256>(q, k, v, out, dout, l, dq, dk, dv, acc, dl,
+                                  sq, sk, sv, B, H, S, scale, st);
   } else {
     err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
 }
 
-// For the record: registers a thread, threads and dynamic shared bytes a
-// block, and blocks resident per SM of a bf16 kernel (which: 0 forward,
-// 1 backward; D 64 or 128) on the current device.
 extern "C" int rlt_flash_tc_occupancy(int which, int D, int* regs,
                                       int* threads, int* smem_bytes,
                                       int* blocks_per_sm) {
+  if (which != 0 && which != 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaErrorInvalidValue;
-  if (which == 0 && (D == 64 || D == 128)) {
-    *threads = D == 64 ? Tc<64>::fwd_threads : Tc<128>::fwd_threads;
-    *smem_bytes = static_cast<int>(D == 64 ? Tc<64>::fwd_bytes
-                                           : Tc<128>::fwd_bytes);
-    err = D == 64 ? occupancy(tc_flash_fwd_kernel<64>, *threads,
-                              *smem_bytes, regs, blocks_per_sm)
-                  : occupancy(tc_flash_fwd_kernel<128>, *threads,
-                              *smem_bytes, regs, blocks_per_sm);
-  } else if (which == 1 && (D == 64 || D == 128)) {
-    *threads = kBwdThreads;
-    *smem_bytes = static_cast<int>(D == 64 ? Tc<64>::bwd_bytes
-                                           : Tc<128>::bwd_bytes);
-    err = D == 64 ? occupancy(tc_flash_bwd_kernel<64>, *threads,
-                              *smem_bytes, regs, blocks_per_sm)
-                  : occupancy(tc_flash_bwd_kernel<128>, *threads,
-                              *smem_bytes, regs, blocks_per_sm);
+  if (D == 64) {
+    err = tc_occupancy<64>(which, regs, threads, smem_bytes, blocks_per_sm);
+  } else if (D == 128) {
+    err = tc_occupancy<128>(which, regs, threads, smem_bytes, blocks_per_sm);
+  } else if (D == 256) {
+    err = tc_occupancy<256>(which, regs, threads, smem_bytes, blocks_per_sm);
   }
   return static_cast<int>(err);
 }

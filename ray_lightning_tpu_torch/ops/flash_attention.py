@@ -36,7 +36,7 @@ __all__ = ["flash_attention", "flash_fwd", "flash_bwd", "flash_fwd_op",
            "flash_fwd_plain", "flash_bwd_plain"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-KERNEL_HEAD_DIMS = (64, 128)
+KERNEL_HEAD_DIMS = (64, 128, 256)
 KERNEL_TILE = 64  # S must be a multiple of it
 _FWD_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 9
                  + [ctypes.c_int] * 4 + [ctypes.c_float]

@@ -32,7 +32,11 @@ LORA_IMPLS = ("kernel", "plain")
 # Kernel dtype codes of csrc/bgmv.cu (h, A, B and out share one dtype).
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_RANK = 128
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_SCRATCH_ARGTYPES = [ctypes.c_int] * 7
+# f32 elements of the kernel's scratch (its partial sums over slices of d)
+# by (W, d, r, k, N, dtype code, device), from rlt_bgmv_scratch.
+_scratch_floats = {}
 
 
 def apply_lora(y: torch.Tensor, h: torch.Tensor, ad, site: str,
@@ -105,10 +109,20 @@ def bgmv(h: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     out = torch.empty((W, k), dtype=h.dtype, device=h.device)
     if W == 0:
         return out
+    device = h.device.index or 0
+    key = (W, d, r, k, n, code, device)
+    floats = _scratch_floats.get(key)
+    if floats is None:
+        size = _build.load_function("bgmv", "rlt_bgmv_scratch",
+                                    _SCRATCH_ARGTYPES)
+        size.restype = ctypes.c_longlong  # (load_function declares int)
+        floats = _scratch_floats[key] = size(*key)
+    scratch = torch.empty(max(floats, 1), dtype=torch.float32,
+                          device=h.device)
     fn = _build.load_function("bgmv", "rlt_bgmv", _ARGTYPES)
     err = fn(
         h.data_ptr(), a.data_ptr(), b.data_ptr(), ids.data_ptr(),
-        out.data_ptr(), W, d, r, k, n, code, h.device.index or 0,
+        out.data_ptr(), scratch.data_ptr(), W, d, r, k, n, code, device,
         torch.cuda.current_stream(h.device).cuda_stream,
     )
     if err != 0:

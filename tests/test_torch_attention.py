@@ -87,6 +87,22 @@ def test_auto_gate_keeps_the_kernels_own_limits():
     assert torch.allclose(got, want, atol=1e-6, rtol=0)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_args_take_head_dim_256(dtype):
+    """The kernels take head_dim 256 in f32 and bf16 (the JAX gate's
+    largest head_dim), and still refuse f16, mixed dtypes and B·H over
+    the grid there, naming the plain attention."""
+    q = torch.zeros(1, 128, 2, 256, dtype=dtype)
+    code, strides = tfa._kernel_args(q, q, q, "flash_fwd")
+    assert code == (0 if dtype == torch.float32 else 1)
+    assert strides == q.stride()[:3] * 3
+    wide = torch.zeros(256, dtype=dtype).expand(1, 128, 65536, 256)
+    for args in ((q.half(),) * 3, (q, q, q.to(torch.float64)),
+                 (q, q.half(), q), (wide,) * 3):
+        with pytest.raises(ValueError, match="impl='xla'"):
+            tfa._kernel_args(*args, "flash_fwd")
+
+
 class _Losses(Callback):
     def __init__(self):
         self.losses = []

@@ -38,7 +38,9 @@ def test_flash_faults_apply_once(scripts):
     source = (CSRC / "flash_attention.cu").read_text()
     _apply_all(cf.mutate, source, {n: [(old, new)] for n, (old, new, _)
                                    in cf.FAULTS.items()})
-    assert len(cf.FAULTS) == 8
+    assert len(cf.FAULTS) == 9
+    assert set(cf.FAULT_SHAPES) <= set(cf.FAULTS)
+    assert set(cf.FAULT_SHAPES.values()) <= set(cf.SHAPES)
 
 
 def test_ce_faults_apply_once(scripts):
@@ -60,6 +62,19 @@ def test_ln_faults_apply_once(scripts):
     assert len(cf.LN_FAULTS) == 4
     for _, must in cf.LN_FAULTS.values():
         assert must and set(must) <= set(cf.ln_shapes())
+
+
+def test_bgmv_faults_apply_once(scripts):
+    cf = scripts[0]
+    source = (CSRC / "bgmv.cu").read_text()
+    _apply_all(cf.mutate, source, cf.BGMV_FAULTS)
+    assert len(cf.BGMV_FAULTS) == 5
+
+
+def test_bgmv_variants_apply_once(scripts):
+    cf, cv = scripts[0], scripts[2]
+    _apply_all(cf.mutate, (CSRC / "bgmv.cu").read_text(),
+               {n: subs for n, (subs, _) in cv.BGMV_VARIANTS.items()})
 
 
 def test_flash_variants_apply_once(scripts):

@@ -104,9 +104,11 @@ def _qkv(seed, shape=(1, 256, 2, 64)):
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
-def test_flash_pair_matches_interpreted_pallas(dtype):
+@pytest.mark.parametrize("shape", [(1, 256, 2, 64), (1, 256, 2, 256)],
+                         ids=["d64", "d256"])
+def test_flash_pair_matches_interpreted_pallas(dtype, shape):
     tdt, jdt = DTYPES[dtype]
-    q, k, v, do = _qkv(1)
+    q, k, v, do = _qkv(1, shape)
     out_j, vjp = jax.vjp(
         lambda a, b_, c: jax_flash(a, b_, c, block_q=128, block_k=128),
         *(_j(z, jdt) for z in (q, k, v)))

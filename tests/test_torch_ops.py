@@ -29,14 +29,19 @@ from ray_lightning_tpu_torch.ops.layer_norm import layer_norm
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _bgmv_case(seed=0, W=5, d=16, r=4, k=12, N=3):
+def _bgmv_case(seed=0, W=5, d=16, r=4, k=12, N=3, run=None):
+    """Random ids, or with ``run`` ids in runs of that many rows (the
+    prefill rows of consecutive sequences), cycling through the slots."""
     rng = np.random.default_rng(seed)
     h = rng.standard_normal((W, d)).astype(np.float32)
     a = rng.standard_normal((N, d, r)).astype(np.float32)
     b = rng.standard_normal((N, r, k)).astype(np.float32)
     a[0] = 0.0
     b[0] = 0.0  # slot 0 = the null adapter
-    ids = rng.integers(0, N, size=(W,)).astype(np.int32)
+    if run is None:
+        ids = rng.integers(0, N, size=(W,)).astype(np.int32)
+    else:
+        ids = ((np.arange(W) // run + 1) % N).astype(np.int32)
     return h, a, b, ids
 
 
@@ -75,6 +80,8 @@ def test_layer_norm_keeps_input_dtype():
     dict(seed=0),
     dict(seed=1, W=9, d=32, r=8, k=40, N=5),
     dict(seed=2, W=1, d=8, r=1, k=3, N=2),
+    # runs of 50 rows straddle the kernel's 64-row tiles (rows 50, 100)
+    dict(seed=3, W=130, d=24, r=8, k=20, N=4, run=50),
 ])
 def test_bgmv_plain_matches_jax_xla_and_pallas(case):
     h, a, b, ids = _bgmv_case(**case)
