@@ -66,7 +66,18 @@ last column of a ragged chunk of k dropped, the d tail past the last
    stale chunk of x), each caught where its entry says;
 6. phase 1's BGMV checks (``chip_smoke.bgmv_checks``) for the correct
    kernel, which must pass every one, and for each of ``BGMV_FAULTS``, at
-   least one of which must fail.
+   least one of which must fail;
+7. phase 9's f32 parity of a captured fit against the eager one
+   (``chip_smoke.megastep_parity``) for the correct code, which must
+   pass, and for two faults of the host path planted in memory
+   (``MEGASTEP_FAULTS``, ``megastep_fault``): the learning rate and bias
+   corrections read on the host from a Python step count, as the
+   optimizer did before its count moved to the device (a capture freezes
+   them, so the second replay trains at the first one's values), and
+   the captured steps' new state not written back into the graph's
+   static state.  Each must fail the parity in both of its
+   configurations (the flash kernels, held to 5x the eager-vs-eager
+   spread, and the plain attention).
 
 The wrappers are routed to a faulty library by replacing the cached ctypes
 functions of ``ops/_build.py``.  Exits 1 if a correct kernel fails a
@@ -76,7 +87,9 @@ summary.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 import json
 import os
 import shutil
@@ -407,6 +420,81 @@ def ce_readings(torch, ce, shape, seed=0):
     return res
 
 
+MEGASTEP_FAULTS = ("lr_read_on_the_host", "state_not_written_back")
+
+
+def _host_count_adamw(correct_adamw, learning_rate, b1, b2, weight_decay,
+                      mask, mu_dtype, eps=1e-8):
+    """``models.optim.adamw`` as it was before its count moved to the
+    device: the learning rate and bias corrections are host floats of a
+    Python step count (the device count is kept only so the state has its
+    shape)."""
+    import numpy as np
+    import torch
+
+    from ray_lightning_tpu_torch.models import optim
+
+    correct = correct_adamw(learning_rate, b1, b2, weight_decay, mask,
+                            mu_dtype, eps)
+    b1_mu = float(torch.tensor(b1, dtype=mu_dtype))
+    calls = [0]
+
+    def update(grads, state, params):
+        calls[0] += 1
+        n = calls[0]
+        c1 = float(np.float32(1) - np.float32(b1) ** np.float32(n))
+        c2 = float(np.float32(1) - np.float32(b2) ** np.float32(n))
+        lr = float(learning_rate(torch.tensor(n - 1, dtype=torch.int32)))
+        decay = optim.tree_leaves(mask(params))
+        ups, mus, nus = [], [], []
+        for g, m, v, p, dec in zip(optim.tree_leaves(grads),
+                                   optim.tree_leaves(state["mu"]),
+                                   optim.tree_leaves(state["nu"]),
+                                   optim.tree_leaves(params), decay):
+            m = (1 - b1) * g + b1_mu * m.float()
+            v = (1 - b2) * (g * g) + b2 * v
+            u = (m / c1) / (torch.sqrt(v / c2) + eps)
+            if dec:
+                u = u + weight_decay * p
+            ups.append((-lr) * u)
+            mus.append(m.to(mu_dtype))
+            nus.append(v)
+        return optim.tree_unflatten(grads, ups), {
+            "count": state["count"] + 1,
+            "mu": optim.tree_unflatten(grads, mus),
+            "nu": optim.tree_unflatten(grads, nus)}
+
+    return optim.GradientTransformation(correct.init, update)
+
+
+@contextlib.contextmanager
+def megastep_fault(name):
+    """Plant one of ``MEGASTEP_FAULTS`` in the port's modules (in memory;
+    the checkout is not touched) for the duration of the block."""
+    import torch
+
+    from ray_lightning_tpu_torch.models import optim
+    from ray_lightning_tpu_torch.parallel import step_fns
+
+    if name == "lr_read_on_the_host":
+        module, attr = optim, "adamw"
+        fault = functools.partial(_host_count_adamw, optim.adamw)
+    else:
+        module, attr = step_fns, "copy_state"
+        correct_copy = step_fns.copy_state
+
+        def fault(dst, src):
+            # Inside a capture the new state is dropped.
+            if not torch.cuda.is_current_stream_capturing():
+                correct_copy(dst, src)
+    saved = getattr(module, attr)
+    setattr(module, attr, fault)
+    try:
+        yield
+    finally:
+        setattr(module, attr, saved)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -633,6 +721,25 @@ def main() -> int:
             if name is not None and not failed:
                 failures.append(f"bgmv fault {name} not caught")
         use(_build, "bgmv", {}, None)
+
+        # 7. the host path under megastep, correct and faulty, by phase 9's
+        # f32 parity
+        summary["megastep"] = {}
+        for name in (None, *MEGASTEP_FAULTS):
+            label = name or "correct"
+            print(f"megastep {label}:")
+            if name is None:
+                parity = cs.megastep_parity(torch, card)
+            else:
+                with megastep_fault(name):
+                    parity = cs.megastep_parity(torch, card)
+            summary["megastep"][label] = parity
+            if name is None and not parity["ok"]:
+                failures.append("correct megastep: phase 9's parity failed")
+            for arm in ("headline", "xla_attention"):
+                if name is not None and parity[arm]["ok"]:
+                    failures.append(
+                        f"megastep fault {name} not caught in {arm}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for f in failures:

@@ -61,7 +61,21 @@ under ``remat_policy="dots+flash"``), counted per step.  Phases:
    step of the full-width model, its gradients on the card (kernels)
    against the CPU's (plain versions, same roundings); a 3-step f32 fit on
    the card against the same fit on the CPU; and a bf16 card fit against
-   the f32 one.
+   the f32 one;
+9. megastep: arms (a) and (b), each eager (``megastep="off"``) and
+   captured (``megastep=8``: the first stride eager, then one CUDA graph
+   of 8 steps captured at the second and replayed), 56 steps: ms/step from
+   CUDA events with every 8-step window, tokens/s, MFU, the telemetry's
+   ``dispatch_ms`` and ``step_time_ms`` (within 10% of the events), the
+   device's idle share over two strides of a profiled fit (whose kernel
+   launches must be 8 x the per-step counts a stride: by profiler kernel
+   name in the replays, by the wrappers' counters in the eager steps),
+   peak memory (captured <= 1.10x
+   eager), one capture per captured fit, the capture's wall time, the
+   state write-back's cost, bf16 losses within 1e-4 of eager; then a
+   depth-2 f32 fit captured against eager (``megastep_parity``: losses
+   within 1e-5; params within 1e-5, or with the flash kernels within 5x
+   the eager-vs-eager difference of the same run).
 
 Any failure raises: the script exits non-zero and prints no result.  The
 line before the last is the kernels' JSON record; the last line is
@@ -1212,13 +1226,15 @@ ARMS = (("a_headline", HEADLINE),
 
 
 def train_arm(torch, cfg, gpt_kw, steps, callbacks=()):
-    """One bf16 fit of ``GPT(cfg, **gpt_kw)`` at batch TRAIN_B; returns
-    (global_step, callback_metrics)."""
+    """One bf16 fit of ``GPT(cfg, **gpt_kw)`` at batch TRAIN_B, every step
+    eager (``megastep="off"``: phase 7 is the eager yardstick, and its
+    launch counters count Python calls, which a captured graph's replays
+    do not make); returns (global_step, callback_metrics)."""
     from ray_lightning_tpu_torch.core.trainer import Trainer
     from ray_lightning_tpu_torch.models.gpt import GPT, SyntheticLMDataModule
 
     tr = Trainer(max_steps=steps, limit_val_batches=0, precision="bf16",
-                 seed=SEED, callbacks=list(callbacks))
+                 seed=SEED, callbacks=list(callbacks), megastep="off")
     tr.fit(GPT(cfg, **gpt_kw),
            SyntheticLMDataModule(cfg, batch_size=TRAIN_B, num_batches=steps,
                                  seed=SEED))
@@ -1509,6 +1525,407 @@ def phase_end_to_end(torch, card):
             "loss_rel_bf16_vs_f32": bf_rel, **grads}
 
 
+# -- phase 9: megastep ------------------------------------------------------
+
+MEGASTEP_K = 8
+# 7 strides: the eager warm-up, the capture and its replay, then 5 more
+# replays, whose windows the step time is read from.  Not a multiple of
+# the telemetry's sampling cadence (32 steps): the last stride is not a
+# sampled one, and step_time_ms covers its device time only through the
+# loop's wait at the epoch's end.
+MEGASTEP_STEPS = 56
+PROFILE_STEPS = 32         # the profiled fits: strides 3 and 4
+# The f32 parity: megastep 4 over 12 steps, so 2 strides are replays (a
+# graph that froze its capture-time step count would still get the first
+# replay right).
+PARITY_K, PARITY_STEPS = 4, 12
+# With the flash kernels the eager fit does not repeat itself (the f32
+# dQ atomics): the captured fit's params are held to this multiple of the
+# eager-vs-eager difference of the same run (1.40e-5 on an H100; the
+# learning rate frozen at capture reads 1.12e-3), or to 1e-5.
+PARITY_FLOOR_X = 5
+# The bf16 captured-vs-eager losses: sound runs read <= 8.4e-6 on an
+# H100, the state not written back 1.6e-3.
+BF16_LOSS_TOL = 1e-4
+# Each training kernel's main launch by its name in a profile (bf16).
+PROFILE_NAMES = {"ln_fwd": "ln_fwd_kernel", "ln_bwd": "ln_bwd_rows_kernel",
+                 "flash_fwd": "tc_flash_fwd_kernel",
+                 "flash_bwd": "tc_flash_bwd_kernel",
+                 "ce_fwd": "ce_fwd_wgmma_kernel",
+                 "ce_bwd_dx": "ce_grad_cluster_kernel<false>",
+                 "ce_bwd_dw": "ce_grad_cluster_kernel<true>"}
+
+
+def megastep_fit(torch, cfg, gpt_kw, steps, megastep, precision="bf16",
+                 init=None, callbacks=(), batch=TRAIN_B):
+    """One fit of ``GPT(cfg, **gpt_kw)`` on the card through
+    ``LocalStrategy(megastep=...)``; returns the trainer."""
+    from ray_lightning_tpu_torch.core.trainer import Trainer
+    from ray_lightning_tpu_torch.models.gpt import GPT, SyntheticLMDataModule
+    from ray_lightning_tpu_torch.parallel.strategies import LocalStrategy
+
+    module = GPT(cfg, **gpt_kw)
+    if init is not None:
+        module.initial_params = init
+    tr = Trainer(LocalStrategy(megastep=megastep), max_steps=steps,
+                 limit_val_batches=0, precision=precision, seed=SEED,
+                 callbacks=list(callbacks))
+    tr.fit(module, SyntheticLMDataModule(cfg, batch_size=batch,
+                                         num_batches=steps, seed=SEED))
+    return tr
+
+
+def hook_clock(torch, Callback):
+    class HookClock(Callback):
+        """A CUDA event, the loss tensor and the batch index at each hook:
+        each step of an eager fit, each stride's end of a captured one."""
+
+        def __init__(self):
+            self.events, self.losses, self.index = [], [], []
+
+        def on_train_batch_end(self, trainer, module, logs, batch_idx):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.events.append(ev)
+            self.losses.append(logs["train_loss"])
+            self.index.append(batch_idx)
+
+    return HookClock()
+
+
+def stride_ms(clock, k):
+    """Device ms of each k-step window after the first, between the CUDA
+    events at the windows' ends (the first is the 2nd stride, which a
+    captured fit spends capturing first)."""
+    ends = [e for e, i in zip(clock.events, clock.index) if (i + 1) % k == 0]
+    return [a.elapsed_time(b) for a, b in zip(ends, ends[1:])]
+
+
+def booked_ms(clock, first):
+    """Device ms a step over the steps a fit's ``StepStats`` books as
+    steady state, from the CUDA events at the hook of batch index
+    ``first`` (the last step it books as compile) to the last hook."""
+    at = dict(zip(clock.index, clock.events))
+    last = clock.index[-1]
+    return at[first].elapsed_time(at[last]) / (last - first)
+
+
+def profiled_strides(torch, cfg, gpt_kw, megastep):
+    """A fit profiled over its 3rd and 4th strides of MEGASTEP_K steps
+    (two replays when captured): each training kernel's launches
+    by name, and the device's idle share over the span from the first
+    kernel's start to the last one's end; and the launches the wrappers'
+    counters saw over the same strides (``counted``; none in a replay).
+    None when the profiler records no CUDA events."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from ray_lightning_tpu_torch.core.callbacks import Callback
+
+    per = 1 if megastep == "off" else MEGASTEP_K
+    hooks = MEGASTEP_K // per  # hook calls a stride
+
+    counters = launch_counters()
+
+    class Stepper(Callback):
+        def __init__(self, prof):
+            self.prof, self.calls, self.counted = prof, 0, None
+
+        def on_train_batch_end(self, trainer, module, logs, batch_idx):
+            self.calls += 1
+            if self.calls in (2 * hooks, 4 * hooks):
+                # The window opens on an idle card (nothing of the strides
+                # before it lands in it) and closes on one (all of its
+                # kernels have run).
+                torch.cuda.synchronize()
+            if self.calls == 2 * hooks:
+                for c in counters.values():
+                    c.launches = 0
+            if self.calls == 4 * hooks:
+                self.counted = {k: c.launches for k, c in counters.items()}
+            self.prof.step()
+
+    # The 2nd stride's last hook call is the profiler's warm-up step: the
+    # tracer runs before the window opens.
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=2 * hooks - 1, warmup=1,
+                                   active=2 * hooks, repeat=1)) as prof:
+        stepper = Stepper(prof)
+        megastep_fit(torch, cfg, gpt_kw, PROFILE_STEPS, megastep,
+                     callbacks=[stepper])
+        torch.cuda.synchronize()
+    device = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not device:
+        return None
+    start = min(e.time_range.start for e in device)
+    end = max(e.time_range.end for e in device)
+    busy = sum(e.time_range.elapsed_us() for e in device)
+    counts = {k: sum(1 for e in device if name in e.name)
+              for k, name in PROFILE_NAMES.items()}
+    return {"launches": counts, "counted": stepper.counted,
+            "span_ms": (end - start) / 1e3, "busy_ms": busy / 1e3,
+            "idle_share": 1 - busy / (end - start), "events": len(device)}
+
+
+def write_back_ms(torch, state, reps=20):
+    """Device ms of one write-back of the whole training state
+    (``step_fns.copy_state``, what each captured step does once) and the
+    bytes it moves (each leaf read once and written once)."""
+    from ray_lightning_tpu_torch.core.module import TrainState
+    from ray_lightning_tpu_torch.models.optim import tree_leaves, tree_map
+    from ray_lightning_tpu_torch.parallel.step_fns import copy_state
+
+    src = TrainState(tree_map(torch.clone, state.params),
+                     tree_map(torch.clone, state.opt_state))
+    copy_state(state, src)
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        copy_state(state, src)
+    stop.record()
+    stop.synchronize()
+    nbytes = 2 * sum(t.nbytes for t in tree_leaves(
+        (state.params, state.opt_state)))
+    return start.elapsed_time(stop) / reps, nbytes
+
+
+def megastep_parity(torch, card):
+    """Depth-2 GPT-2-small (full width) in f32, warmup 2 (so the learning
+    rate and bias corrections move step to step): ``megastep=PARITY_K``
+    against ``"off"`` over PARITY_STEPS steps from one init, in the
+    headline configuration and with the plain attention
+    (``attn_impl="xla"``).  The losses the captured fit reports (each
+    stride's last step, and the epoch mean) within 1e-5 relative of the
+    eager fit's in both; the params within 1e-5 absolute with the plain
+    attention, where the eager fit repeats itself.  With the flash
+    kernels it does not: the f32 flash backward adds dQ with atomics in
+    an order that changes from run to run, and Adam divides each
+    gradient by its own scale, so a second eager fit reads that spread
+    (the floor) and the captured fit's params are held within
+    PARITY_FLOOR_X times it (or 1e-5).  Returns the readings and
+    ``ok``."""
+    import numpy as np
+
+    from ray_lightning_tpu_torch.core.callbacks import Callback
+    from ray_lightning_tpu_torch.models.gpt import GPT, GPTConfig
+    from ray_lightning_tpu_torch.models.optim import tree_leaves
+
+    cfg = dataclasses.replace(GPTConfig.gpt2_small(), n_layer=2,
+                              warmup_steps=2)
+    init = GPT(cfg, device="cpu").init_params(
+        torch.Generator().manual_seed(SEED + 3))
+    ends = [PARITY_K * j - 1 for j in range(1, PARITY_STEPS // PARITY_K + 1)]
+
+    def param_diff(a, b):
+        return max(float((x - y).abs().max()) for x, y in zip(
+            tree_leaves(a.state.params), tree_leaves(b.state.params)))
+
+    out, ok = {}, True
+    for label, kw, repeat in (("headline", HEADLINE, True),
+                              ("xla_attention", {**HEADLINE,
+                                                 "attn_impl": "xla"}, False)):
+        runs = {}
+        for name, mode in (("eager", "off"), ("captured", PARITY_K),
+                           *((("eager_again", "off"),) if repeat else ())):
+            clock = hook_clock(torch, Callback)
+            tr = megastep_fit(torch, cfg, kw, PARITY_STEPS, mode,
+                              precision="f32", init=init, callbacks=[clock],
+                              batch=2)
+            runs[name] = (tr, {i: float(x) for i, x in
+                               zip(clock.index, clock.losses)})
+        (eager, e_loss), (cap, c_loss) = runs["eager"], runs["captured"]
+        loss_rel = max(abs(c_loss[i] - e_loss[i]) / abs(e_loss[i])
+                       for i in ends if i in c_loss)
+        mean_rel = abs(cap.callback_metrics["train_loss"]
+                       - eager.callback_metrics["train_loss"]) / abs(
+            eager.callback_metrics["train_loss"])
+        diff = param_diff(cap, eager)
+        floor = param_diff(runs["eager_again"][0], eager) if repeat else None
+        param_tol = max(PARITY_FLOOR_X * floor, 1e-5) if repeat else 1e-5
+        good = (sorted(c_loss) == ends
+                and cap.callback_metrics["recompiles"] == 1
+                and np.isfinite(loss_rel) and loss_rel <= 1e-5
+                and mean_rel <= 1e-5 and diff <= param_tol)
+        ok = ok and good
+        print(f"phase 9 parity {label}: depth 2, f32, megastep {PARITY_K} vs "
+              f"off over {PARITY_STEPS} steps: stride-end losses "
+              + ", ".join(f"{i}: {c_loss.get(i, float('nan')):.7f} / "
+                          f"{e_loss[i]:.7f}" for i in ends)
+              + f"; worst rel {loss_rel:.3e}, epoch mean rel {mean_rel:.3e} "
+              f"(tol 1e-5); params max abs diff {diff:.3e} (tol "
+              f"{param_tol:.3e}"
+              + (f" = max({PARITY_FLOOR_X} x eager vs eager on the card "
+                 f"{floor:.3e}, 1e-5))" if repeat else ")")
+              + f"; captures {cap.callback_metrics['recompiles']:.0f}; "
+              f"{'ok' if good else 'FAILED'}; {card}")
+        out[label] = {"loss_rel": loss_rel, "mean_rel": mean_rel,
+                      "param_diff": diff, "eager_floor": floor,
+                      "param_tol": param_tol, "ok": good}
+    out["ok"] = ok
+    return out
+
+
+def phase_megastep(torch, card):
+    """Phase 9: arms (a) and (b) of phase 7, each eager (``megastep="off"``)
+    and captured (``megastep=8``), 56 steps: ms/step (median of the 3rd to
+    7th 8-step windows ÷ 8, CUDA events) with every window, tokens/s, MFU,
+    ``dispatch_ms`` and a stride's host issue time, the device's idle share
+    over two strides (profiled fit), peak memory, the capture's wall time
+    and the state write-back's cost; gates on the replays' kernel launches
+    by name, one capture per captured fit, peak memory, the bf16 losses
+    and ``step_time_ms`` against the events.  Then the f32 parity."""
+    import gc
+
+    import numpy as np
+
+    from ray_lightning_tpu_torch.core.callbacks import Callback
+    from ray_lightning_tpu_torch.models.gpt import GPTConfig
+    from ray_lightning_tpu_torch.telemetry.step_stats import (
+        model_flops_per_token,
+    )
+
+    cfg = GPTConfig.gpt2_small()
+    flops = model_flops_per_token(cfg, "full")
+    k = MEGASTEP_K
+    print(f"phase 9: megastep: GPT-2-small, batch {TRAIN_B} x {TRAIN_T}, "
+          f"bf16, {MEGASTEP_STEPS} steps a fit, eager (megastep='off') and "
+          f"captured (megastep={k}: one CUDA graph of {k} steps, captured "
+          f"at the 2nd stride and replayed from there on)")
+    result, failed = {}, []
+
+    def gate(cond, what):
+        # Every reading of the phase prints before a failed gate stops it.
+        if not cond:
+            print(f"phase 9: FAILED: {what}")
+            failed.append(what)
+
+    for label, kw in ARMS[:2]:
+        arm = {}
+        for mode in ("off", k):
+            name = "eager" if mode == "off" else "captured"
+            clock = hook_clock(torch, Callback)
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            tr = megastep_fit(torch, cfg, kw, MEGASTEP_STEPS, mode,
+                              callbacks=[clock])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            reserved = torch.cuda.max_memory_reserved()
+            windows = stride_ms(clock, k)
+            ms = float(np.median(windows[1:])) / k
+            tokens_s = TRAIN_B * TRAIN_T / (ms / 1e3)
+            m = tr.callback_metrics
+            stats = tr.telemetry_report["step_stats"]
+            losses = {i: float(x) for i, x in zip(clock.index, clock.losses)}
+            wb_ms, wb_bytes = write_back_ms(torch, tr.state)
+            prof = profiled_strides(torch, cfg, kw, mode)
+            check(prof is not None, f"{label} {name}: the profiler recorded "
+                  "the card's kernels")
+            # StepStats books step 0 (eager) or the first two strides (the
+            # warm-up and the capture) as compile.
+            booked = booked_ms(clock, 0 if mode == "off" else 2 * k - 1)
+            tel_rel = abs(m["step_time_ms"] - booked) / booked
+            # The host waits inside a dispatch for room to queue more
+            # work (or, captured, for the pinned batch buffer), which keeps
+            # it at most about a stride ahead of the card.  The smallest
+            # dispatch is that of a stride that starts on an idle card
+            # (after a sampled one).
+            issue_ms = stats["dispatch_min_ms"] * k
+            arm[name] = {
+                "step_ms": ms, "stride_ms": windows,
+                "tokens_per_s": tokens_s, "mfu": tokens_s * flops / 989e12,
+                "step_time_ms": m["step_time_ms"], "booked_ms": booked,
+                "dispatch_ms": m["dispatch_ms"],
+                "stride_dispatch_ms": m["dispatch_ms"] * k,
+                "stride_dispatch_min_ms": issue_ms,
+                "device_step_ms": m.get("device_step_ms"),
+                "telemetry_mfu": m.get("mfu"),
+                "idle_share": prof["idle_share"],
+                "profile_span_ms": prof["span_ms"],
+                "profile_launches": prof["launches"],
+                "peak_gib": peak / 2**30, "reserved_gib": reserved / 2**30,
+                "capture_s": stats.get("capture_total_s", 0.0),
+                "write_back_ms": wb_ms, "write_back_gb": wb_bytes / 1e9,
+                "losses": losses, "train_loss": m["train_loss"],
+                "wall_s": wall,
+            }
+            print(f"phase 9 {label} {name}: step {ms:.2f} ms (median of "
+                  f"strides 3-{len(windows) + 1} / {k}, CUDA events; "
+                  f"strides 2-{len(windows) + 1} "
+                  + ", ".join(f"{w:.1f}" for w in windows)
+                  + f" ms); {tokens_s:.0f} tokens/s; MFU "
+                  f"{100 * tokens_s * flops / 989e12:.2f}% (989 TF/s); "
+                  f"telemetry step_time_ms {m['step_time_ms']:.2f} against "
+                  f"the events' {booked:.2f} over the steps it books "
+                  f"({100 * tel_rel:.1f}% off), dispatch_ms "
+                  f"{m['dispatch_ms']:.3f} ({m['dispatch_ms'] * k:.2f} ms "
+                  f"a stride; the smallest, on an idle card, "
+                  f"{issue_ms:.2f} ms), mfu "
+                  f"{100 * m.get('mfu', float('nan')):.2f}%; device idle "
+                  f"{100 * prof['idle_share']:.1f}% of two strides' span "
+                  f"({prof['span_ms']:.1f} ms, {prof['events']} device "
+                  f"events); peak allocated {peak / 2**30:.2f} GiB, reserved "
+                  f"{reserved / 2**30:.2f} GiB; captures "
+                  f"{m['recompiles']:.0f}, capture wall "
+                  f"{arm[name]['capture_s']:.2f} s; state write-back "
+                  f"{wb_ms:.3f} ms ({wb_bytes / 1e9:.2f} GB moved, "
+                  f"{wb_bytes / wb_ms / 1e6:.0f} GB/s); fit wall {wall:.1f} s;"
+                  f" {card}")
+            gate(tr.global_step == MEGASTEP_STEPS,
+                  f"{label} {name}: every step ran")
+            gate(all(np.isfinite(list(losses.values()))),
+                  f"{label} {name}: finite losses")
+            want = per_step_launches(cfg.n_layer, kw.get("remat", False))
+            # A replay's launches are seen only by the profiler, an eager
+            # step's by the wrappers' counters too.  The profiler loses
+            # records now and then (64 or ~1000 of ~23,000 in a window of
+            # two eager strides, on an H100), so the eager arm is gated by
+            # the counters, which count every launch.
+            seen = prof["launches"] if mode != "off" else prof["counted"]
+            print(f"phase 9 {label} {name}: launches in two strides "
+                  f"(profiler / counters): " + ", ".join(
+                      f"{kn} {prof['launches'][kn]} / {prof['counted'][kn]}"
+                      for kn in want))
+            for kn, n in seen.items():
+                gate(n == 2 * k * want[kn],
+                     f"{label} {name}: {kn} {n} launches in two strides = "
+                     f"2 x {k} x {want[kn]}")
+            gate(m["recompiles"] == (0 if mode == "off" else 1),
+                  f"{label} {name}: captures {m['recompiles']}")
+            gate(tel_rel <= 0.10, f"{label} {name}: step_time_ms "
+                 f"{m['step_time_ms']:.2f} within 10% of the events' "
+                 f"{booked:.2f}")
+            # The next fit's peak must not count this one's state.
+            del tr, clock
+        eager, cap = arm["eager"], arm["captured"]
+        gate(cap["peak_gib"] <= 1.10 * eager["peak_gib"],
+              f"{label}: captured peak {cap['peak_gib']:.2f} GiB <= 1.10 x "
+              f"eager {eager['peak_gib']:.2f} GiB")
+        rel = max(abs(cap["losses"][i] - eager["losses"][i])
+                  / abs(eager["losses"][i]) for i in cap["losses"])
+        mean_rel = abs(cap["train_loss"] - eager["train_loss"]) / abs(
+            eager["train_loss"])
+        print(f"phase 9 {label}: captured vs eager: stride-end losses worst "
+              f"rel {rel:.3e}, epoch mean rel {mean_rel:.3e} (tol "
+              f"{BF16_LOSS_TOL:g}, bf16); step {cap['step_ms']:.2f} vs {eager['step_ms']:.2f} "
+              f"ms; idle {100 * cap['idle_share']:.1f}% vs "
+              f"{100 * eager['idle_share']:.1f}%; peak "
+              f"{cap['peak_gib']:.2f} vs {eager['peak_gib']:.2f} GiB")
+        gate(rel <= BF16_LOSS_TOL and mean_rel <= BF16_LOSS_TOL,
+             f"{label}: captured bf16 losses within {BF16_LOSS_TOL:g} of "
+             f"eager")
+        arm["loss_rel"], arm["mean_rel"] = rel, mean_rel
+        result[label] = arm
+    parity = megastep_parity(torch, card)
+    gate(parity["ok"], "f32 parity of the captured fit")
+    result["f32_parity"] = parity
+    check(not failed, "phase 9: " + "; ".join(failed))
+    return result
+
+
 def kernel_name(mangled):
     """``name<args>`` of a kernel: of a demangled name (the profiler's),
     the identifier ending in ``_kernel`` and its template arguments; of a
@@ -1700,6 +2117,7 @@ def main() -> int:
     timing = phase_train_timing(torch, card)
     train = phase_trainer(torch, card)
     e2e = phase_end_to_end(torch, card)
+    mega = phase_megastep(torch, card)
 
     kernels = [{
         "name": "bgmv", "route": "cuda", "source": BGMV_SOURCE,
@@ -1720,6 +2138,7 @@ def main() -> int:
                                    "card": card}))
     print("trainer: " + json.dumps({**train, "end_to_end": e2e,
                                     "card": card}))
+    print("megastep: " + json.dumps({**mega, "card": card}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -22,8 +22,15 @@ class Callback:
 
     def on_train_batch_end(self, trainer, module, logs: Dict[str, Any],
                            batch_idx: int) -> None:
-        """End of one training step; ``logs`` holds the step's values as
+        """End of one training step, or of a megastep stride (once, with
+        the last inner step's logs and index); ``logs`` holds the values as
         device tensors."""
+
+    def on_accumulation_flush(self, trainer, module, logs: Dict[str, Any],
+                              batch_idx: int) -> None:
+        """End of an epoch whose last accumulation window was partial: its
+        flush is an optimizer step (``logs`` and ``batch_idx`` of the last
+        micro-batch it covers)."""
 
     def on_train_epoch_end(self, trainer, module) -> None: ...
 

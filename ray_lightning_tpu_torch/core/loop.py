@@ -3,29 +3,38 @@
 
 Kept: epochs, ``max_steps``, ``limit_train_batches``/``limit_val_batches``,
 ``log_every_n_steps`` (step logs land in ``callback_metrics`` one log
-interval late, as the JAX package's asynchronous fetch lands them),
-``check_val_every_n_epoch``, the epoch means of the step logs with
-non-finite values left out (``_RunningMeanLogs``), validation, the module
-and callback hooks, ``initial_params`` warm starts, and
-``module.precision = config.precision``.  Gradient accumulation,
-megastep, checkpoints and resume, elastic restart, drain, prefetch threads
-and telemetry are later slices: :class:`FitConfig` refuses them.
+interval late, as the JAX package's asynchronous fetch lands them; a
+megastep stride rounds the boundary to its end), ``check_val_every_n_epoch``,
+the epoch means of the step logs with non-finite values left out
+(``_RunningMeanLogs``), validation, the module and callback hooks,
+``initial_params`` warm starts, ``module.precision = config.precision``,
+gradient accumulation (``accumulate_grad_batches``: ``models.optim.
+multi_steps``, the partial window flushed at epoch end), megastep (K
+micro-steps a dispatch: ``parallel.step_fns.MultiStep``, one CUDA graph
+per stride on the card) and the cheap telemetry tier (``telemetry/``:
+``step_time_ms``, ``dispatch_ms``, ``mfu``... in ``callback_metrics``).
+Checkpoints and resume, elastic restart, drain, prefetch threads and the
+full telemetry tier are later slices.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import itertools
+import os
+import time
 from typing import Any, Dict, List, Optional
 
-import numpy as np
 import torch
 
 from ray_lightning_tpu_torch.core.callbacks import Callback
 from ray_lightning_tpu_torch.core.data import TpuDataModule
 from ray_lightning_tpu_torch.core.module import TrainModule, TrainState
-from ray_lightning_tpu_torch.models.optim import tree_map
+from ray_lightning_tpu_torch.models.optim import (
+    apply_updates, multi_steps, multi_steps_flush, tree_map,
+)
 from ray_lightning_tpu_torch.parallel import step_fns
+from ray_lightning_tpu_torch.telemetry.runtime import Telemetry
 
 __all__ = ["FitConfig", "LoopContext", "init_train_state", "run_fit"]
 
@@ -36,8 +45,7 @@ _PRECISION_ALIASES = {"32": "f32", "32-true": "f32", "float32": "f32",
 @dataclasses.dataclass
 class FitConfig:
     """The loop's configuration (the JAX package's ``FitConfig`` fields
-    that the single-device loop reads).  ``accumulate_grad_batches`` and
-    ``megastep`` exist to be refused until their slice."""
+    that the single-device loop reads)."""
 
     max_epochs: int = 1
     max_steps: int = -1
@@ -65,14 +73,57 @@ class FitConfig:
             raise ValueError(
                 f"precision {self.precision!r} unsupported: use 'f32' or "
                 f"'bf16' (accepted aliases: {sorted(_PRECISION_ALIASES)})")
-        if self.accumulate_grad_batches != 1:
-            raise NotImplementedError(
-                "gradient accumulation is not supported by the PyTorch "
-                "port yet (a later slice); use accumulate_grad_batches=1")
-        if self.megastep not in (None, "off", 1):
-            raise NotImplementedError(
-                "megastep is not supported by the PyTorch port yet (a "
-                "later slice ports it as CUDA-graph capture); leave it off")
+        # A typo'd megastep fails at construction; "auto" resolves at fit
+        # time, against the fit's device.
+        _normalize_megastep(self.megastep)
+
+
+def _normalize_megastep(value: Any) -> Optional[Any]:
+    """Validate a megastep knob value and return its normal form:
+    None, "auto", "off" or an int >= 1 (numeric strings become ints;
+    resolution to a concrete K happens at fit time)."""
+    if value is None:
+        return None
+    if isinstance(value, str):
+        s = value.strip().lower()
+        if s in ("auto", "off", ""):
+            return "off" if s == "" else s
+        try:
+            value = int(s)
+        except ValueError:
+            raise ValueError(
+                f"megastep={value!r}: expected 'auto', 'off' or an "
+                "integer K >= 1"
+            ) from None
+    if isinstance(value, bool) or not isinstance(value, int):
+        raise TypeError(
+            f"megastep must be None, 'auto', 'off' or an int >= 1; got "
+            f"{type(value).__name__}"
+        )
+    if value < 1:
+        raise ValueError(f"megastep must be >= 1, got {value}")
+    return value
+
+
+def _resolve_megastep(config: FitConfig, device: torch.device) -> int:
+    """The concrete stride length K for this fit.
+
+    Strongest first: an explicit ``megastep=`` on the Trainer/strategy →
+    the ``RLT_MEGASTEP`` environment variable (set but empty means "off")
+    → ``"auto"``.  Auto is K = 8 on the card, where the host's per-step
+    issue cost can hold the card back (the JAX package's accelerator
+    rule), and 1 on the CPU, where execution is synchronous and fusing
+    strides buys nothing."""
+    value = config.megastep
+    if value is None:
+        value = os.environ.get("RLT_MEGASTEP")
+        value = "auto" if value is None else value
+    value = _normalize_megastep(value)
+    if value == "off":
+        return 1
+    if value == "auto":
+        return 8 if device.type == "cuda" else 1
+    return int(value)
 
 
 class LoopContext:
@@ -91,6 +142,7 @@ class LoopContext:
         self.callback_metrics: Dict[str, float] = {}
         self.logged_metrics: Dict[str, float] = {}
         self.state: Optional[TrainState] = None
+        self.telemetry: Optional[Telemetry] = None
 
     def log_metrics(self, metrics: Dict[str, Any]) -> None:
         for k, v in metrics.items():
@@ -107,11 +159,14 @@ class _RunningMeanLogs:
     """Epoch means of device-scalar step logs: one f32 running sum and
     finite count per metric on the device (no host sync per step);
     non-finite values are left out of the mean, and a metric whose every
-    value was non-finite reads NaN."""
+    value was non-finite reads NaN.  ``nonfinite_count`` (after
+    :meth:`result`) is how many values were left out."""
 
     def __init__(self) -> None:
         self._sum: Optional[Dict[str, torch.Tensor]] = None
         self._cnt: Optional[Dict[str, torch.Tensor]] = None
+        self._n = 0
+        self.nonfinite_count = 0
 
     def update(self, logs: Dict[str, Any]) -> None:
         if self._sum is None:
@@ -127,21 +182,31 @@ class _RunningMeanLogs:
                 finite = torch.isfinite(v32)
                 self._sum[k] = self._sum[k] + torch.where(finite, v32, 0.0)
                 self._cnt[k] = self._cnt[k] + finite.float()
+        self._n += 1
+
+    def update_stride(self, sums: Dict[str, torch.Tensor],
+                      cnts: Dict[str, torch.Tensor], n: int) -> None:
+        """Fold a megastep stride's device sums and finite counts over its
+        ``n`` inner steps into the epoch mean."""
+        if self._sum is None:
+            self._sum, self._cnt = dict(sums), dict(cnts)
+        else:
+            for k in self._sum:
+                self._sum[k] = self._sum[k] + sums[k]
+                self._cnt[k] = self._cnt[k] + cnts[k]
+        self._n += n
 
     def result(self) -> Dict[str, float]:
         if self._sum is None:
             return {}
         out: Dict[str, float] = {}
+        nonfinite = 0
         for k, s in self._sum.items():
             c = float(self._cnt[k])
+            nonfinite += self._n - int(round(c))
             out[k] = float(s) / c if c else float("nan")
+        self.nonfinite_count = nonfinite
         return out
-
-
-def _place_batch(batch: Any, device: torch.device) -> Any:
-    if isinstance(batch, dict):
-        return {k: _place_batch(v, device) for k, v in batch.items()}
-    return torch.as_tensor(np.asarray(batch)).to(device, non_blocking=True)
 
 
 def init_train_state(module: TrainModule, tx, device: torch.device,
@@ -169,28 +234,106 @@ def _run_validation(eval_step, loader, ctx: LoopContext,
         if limit >= 0 and i >= limit:
             break
         acc.update(eval_step(ctx.state.params,
-                             _place_batch(batch, ctx.device)))
+                             step_fns.place_batch(batch, ctx.device)))
     return acc.result()
 
 
-def _step_generator(device: torch.device, seed: int,
-                    micro_step: int) -> torch.Generator:
-    """The ``rng`` handed to ``training_step``: seeded from the fit seed
-    and the micro-step (the JAX package folds the step into its key)."""
-    return torch.Generator(device=device).manual_seed(
-        seed * 1_000_003 + micro_step)
+def _same_batch_shape(a: Any, b: Any) -> bool:
+    """Structure + leaf-shape congruence: the stacking precondition."""
+    ia, ib = step_fns._batch_items(a), step_fns._batch_items(b)
+    return (list(ia) == list(ib)
+            and all(ia[k].shape == ib[k].shape and ia[k].dtype == ib[k].dtype
+                    for k in ia))
+
+
+def _grouped(loader, stack: int, stack_limit: Optional[int]):
+    """Group a batch stream into megastep strides.
+
+    Yields ``("stride", [b0..b{k-1}])`` for full shape-congruent groups
+    of ``stack`` batches, ``("single", b)`` otherwise.  ``stack_limit``
+    (a multiple of ``stack``, or ``None`` for unlimited) bounds the
+    stream position a stride may extend to: every batch emitted, strided
+    or not, consumes budget, so a ragged single can never push a later
+    stride across the limit/max_steps boundary the caller aligned the
+    budget to."""
+    if stack <= 1:
+        for b in loader:
+            yield ("single", b)
+        return
+    it = iter(loader)
+    emitted = 0
+    pending: List[Any] = []
+    while True:
+        if stack_limit is not None and emitted + stack > stack_limit:
+            for p in pending:
+                yield ("single", p)
+            emitted += len(pending)
+            pending = []
+            for b in it:
+                yield ("single", b)
+            return
+        try:
+            item = next(it)
+        except StopIteration:
+            for p in pending:  # partial tail: per-step
+                yield ("single", p)
+            return
+        if pending and not _same_batch_shape(pending[0], item):
+            for p in pending:
+                yield ("single", p)
+            emitted += len(pending)
+            pending = [item]
+        else:
+            pending.append(item)
+        if len(pending) == stack:
+            yield ("stride", pending)
+            emitted += stack
+            pending = []
+
+
+def _wait_device(device: torch.device) -> None:
+    """A sampled step's wait: a CUDA event after the work just queued,
+    waited for (the CPU runs synchronously)."""
+    if device.type == "cuda":
+        ev = torch.cuda.Event()
+        ev.record()
+        ev.synchronize()
+
+
+def _accum_flush(state: TrainState, inner_tx) -> TrainState:
+    """The partial-window flush (``_build_accum_flush``): one optimizer
+    update from the running mean of the window's micro-gradients."""
+    with torch.no_grad():
+        updates, opt_state = multi_steps_flush(inner_tx, state.opt_state,
+                                               state.params)
+        return TrainState(apply_updates(state.params, updates), opt_state,
+                          state.step + 1)
+
+
+def _examples(batch: Any) -> int:
+    leaves = list(step_fns._batch_items(batch).values())
+    return int(leaves[0].shape[0]) if leaves and leaves[0].ndim else 1
 
 
 def run_fit(module: TrainModule, datamodule: TpuDataModule,
             config: FitConfig, callbacks: List[Callback],
-            device: torch.device) -> Dict[str, Any]:
+            device: torch.device, telemetry: Any = None) -> Dict[str, Any]:
     """The fit loop.  Returns the result package the trainer adopts:
     ``state``, ``callback_metrics``, ``logged_metrics``, ``epochs_run``,
-    ``global_step`` and ``micro_step``."""
+    ``global_step``, ``micro_step`` and ``telemetry`` (the report)."""
+    tel = Telemetry.build(telemetry)
     tx = module.configure_optimizers()
+    accum = max(int(config.accumulate_grad_batches), 1)
+    inner_tx = tx
+    if accum > 1:
+        tx = multi_steps(tx, accum)
     ctx = LoopContext(config, device)
+    ctx.telemetry = tel
     module.trainer = ctx
     module.precision = config.precision
+    tel_stats = tel.step_stats
+    if tel_stats is not None:
+        tel_stats.configure_model(module, device)
 
     module.setup("fit")
     datamodule.set_shard(0, 1)
@@ -200,6 +343,11 @@ def run_fit(module: TrainModule, datamodule: TpuDataModule,
 
     ctx.state = init_train_state(module, tx, device, config.seed)
     train_step = step_fns.single_device_step(module, tx)
+    rng = step_fns.StepRng(device, config.seed)
+    megastep_k = _resolve_megastep(config, device)
+    multi_step = (step_fns.MultiStep(module, tx, megastep_k, device, rng)
+                  if megastep_k > 1 else None)
+    tel.set_meta("megastep", megastep_k)
     val_loader = datamodule.val_dataloader()
     eval_step = (step_fns.eval_step(module) if val_loader is not None
                  else None)
@@ -210,6 +358,10 @@ def run_fit(module: TrainModule, datamodule: TpuDataModule,
     train_loader = datamodule.train_dataloader()
     stop = False
     pending_logs: Optional[Dict[str, Any]] = None
+    # Micro-batches since the last optimizer update (the host mirror of
+    # multi_steps' window: a flush resets it mid-cycle).
+    since_update = 0
+    compiled_kinds: set = set()
     for epoch in range(config.max_epochs):
         ctx.current_epoch = epoch
         if hasattr(train_loader, "set_epoch"):
@@ -221,26 +373,74 @@ def run_fit(module: TrainModule, datamodule: TpuDataModule,
         cap = (config.limit_train_batches
                if config.limit_train_batches >= 0 else None)
         if config.max_steps >= 0:
-            remaining = max(config.max_steps - ctx.global_step, 0)
+            # max_steps counts optimizer steps; the cap micro-batches.
+            remaining = max(
+                (config.max_steps - ctx.global_step) * accum - since_update,
+                0)
             cap = remaining if cap is None else min(cap, remaining)
         src = iter(train_loader)
         source = src if cap is None else itertools.islice(src, cap + 1)
+        # Only full strides lying entirely inside the cap are fused; the
+        # rest runs per step, so the boundary checks stay exact.
+        stack_limit = (0 if megastep_k <= 1 else None if cap is None
+                       else (cap // megastep_k) * megastep_k)
+        last_logs: Dict[str, Any] = {}
+        last_batch_idx = -1
         batch_idx = -1
-        for batch in source:
+        t_mark = time.perf_counter()
+        for kind, item in _grouped(source, megastep_k, stack_limit):
+            t_ready = time.perf_counter()
             if (config.limit_train_batches >= 0
                     and batch_idx + 1 >= config.limit_train_batches):
                 break
             if config.max_steps >= 0 and ctx.global_step >= config.max_steps:
                 stop = True
                 break
-            rng = _step_generator(device, config.seed, ctx.micro_step)
-            ctx.state, logs = train_step(
-                ctx.state, _place_batch(batch, device), rng)
-            epoch_mean.update(logs)
             prev_micro = ctx.micro_step
-            ctx.micro_step += 1
-            ctx.global_step += 1
-            batch_idx += 1
+            first_use = kind not in compiled_kinds
+            compiled_kinds.add(kind)
+            if kind == "single":
+                step_rng = rng.at(ctx.micro_step)
+                t_disp = time.perf_counter()
+                ctx.state, logs = train_step(
+                    ctx.state, step_fns.place_batch(item, device), step_rng)
+                t_disp_end = time.perf_counter()
+                n = 1
+                sampled = tel_stats is not None and tel_stats.should_sample()
+                if sampled:
+                    _wait_device(device)
+                epoch_mean.update(logs)
+                ctx.micro_step += 1
+                since_update += 1
+                if since_update == accum:
+                    ctx.global_step += 1
+                    since_update = 0
+                batch_idx += 1
+                examples = _examples(item)
+            else:
+                n = megastep_k
+                t_disp = time.perf_counter()
+                saux = multi_step(ctx, item, ctx.micro_step)
+                t_disp_end = time.perf_counter()
+                # A stride that captured its graph is booked as compile
+                # time, as the JAX package books a stride that compiled.
+                first_use = first_use or multi_step.captured
+                if multi_step.captured and tel_stats is not None:
+                    tel_stats.record_capture(multi_step.capture_s)
+                sampled = (tel_stats is not None
+                           and tel_stats.should_sample_stride(n))
+                if sampled:
+                    _wait_device(device)
+                epoch_mean.update_stride(saux["sum"], saux["cnt"], n)
+                logs = saux["last"]
+                ctx.micro_step += n
+                since_update += n
+                ctx.global_step += since_update // accum
+                since_update %= accum
+                batch_idx += n
+                examples = _examples(item[0]) * n
+                tel.add_counter("megastep_dispatches", 1)
+            tel.add_counter("train_dispatches", 1)
             n_log = config.log_every_n_steps
             if n_log and ctx.micro_step // n_log > prev_micro // n_log:
                 # The previous boundary's values are long computed by now:
@@ -250,12 +450,50 @@ def run_fit(module: TrainModule, datamodule: TpuDataModule,
                 pending_logs = logs
             _call_hooks(callbacks, "on_train_batch_end", ctx, module, logs,
                         batch_idx)
+            last_logs, last_batch_idx = logs, batch_idx
+            t_end = time.perf_counter()
+            if tel_stats is not None:
+                if n == 1:
+                    tel_stats.record_step(
+                        step_s=t_end - t_mark, data_wait_s=t_ready - t_mark,
+                        dispatch_s=t_disp_end - t_disp, examples=examples,
+                        sampled=sampled, compiled=first_use)
+                else:
+                    tel_stats.record_stride(
+                        stride_s=t_end - t_mark,
+                        data_wait_s=t_ready - t_mark,
+                        dispatch_s=t_disp_end - t_disp, examples=examples,
+                        k=n, sampled=sampled, compiled=first_use)
+            t_mark = t_end
+        if tel_stats is not None:
+            # The epoch's last step or stride waits for the card too: its
+            # wall then covers the work still queued, at any fit length.
+            t_wait = time.perf_counter()
+            _wait_device(device)
+            tel_stats.record_drain(time.perf_counter() - t_wait)
+
+        # Flush a partial accumulation window (the last incomplete window
+        # of an epoch still steps, from the mean of its micro-grads) —
+        # except when stopping at max_steps, which promises exactly
+        # max_steps optimizer updates.
+        if (accum > 1 and not stop
+                and int(ctx.state.opt_state["mini_step"]) > 0):
+            ctx.state = _accum_flush(ctx.state, inner_tx)
+            ctx.global_step += 1
+            since_update = 0
+            _call_hooks(callbacks, "on_accumulation_flush", ctx, module,
+                        last_logs, last_batch_idx)
 
         if pending_logs is not None:
             ctx.log_metrics(pending_logs)
             pending_logs = None
         train_metrics = epoch_mean.result()
         ctx.log_metrics(train_metrics)
+        if tel.enabled:
+            if epoch_mean.nonfinite_count:
+                tel.add_counter("nonfinite_logs",
+                                epoch_mean.nonfinite_count)
+            ctx.log_metrics(tel.headline_metrics())
         module.on_train_epoch_end(epoch, train_metrics)
 
         if (eval_step is not None
@@ -282,4 +520,5 @@ def run_fit(module: TrainModule, datamodule: TpuDataModule,
         "epochs_run": ctx.current_epoch + 1,
         "global_step": ctx.global_step,
         "micro_step": ctx.micro_step,
+        "telemetry": tel.report(),
     }

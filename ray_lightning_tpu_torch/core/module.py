@@ -6,8 +6,10 @@ of labour: the module owns the model math and the optimizer, the trainer
 owns the loop), and :class:`TrainState` of its ``TrainState``.  Step
 methods take the parameters explicitly, as there: ``training_step(params,
 batch, rng)`` returns ``(loss, logs)`` and the loop differentiates it with
-``torch.autograd``.  ``rng`` is a ``torch.Generator`` seeded from the fit
-seed and the step; its draws differ from the JAX package's keys.
+``torch.autograd``.  ``rng`` is a ``torch.Generator`` whose draws are a
+function of the fit seed and the micro-step alone, with megastep on and
+off (``parallel/step_fns.py::StepRng``); they differ from the JAX
+package's keys.
 """
 
 from __future__ import annotations
@@ -24,9 +26,10 @@ Logs = Dict[str, torch.Tensor]
 
 
 class TrainState:
-    """Parameters, optimizer state and the optimizer step count.  The
+    """Parameters, optimizer state and the step count (micro-steps).  The
     optimizer lives with the module (``configure_optimizers``), so the
-    state holds tensors and host ints only."""
+    state holds tensors (the optimizer's counts among them) and the host
+    int ``step``."""
 
     def __init__(self, params: Any, opt_state: Any, step: int = 0):
         self.params = params

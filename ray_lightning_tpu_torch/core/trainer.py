@@ -3,13 +3,16 @@
 ``Trainer(...).fit(module, datamodule)`` runs the fit through its
 strategy and adopts the result: ``callback_metrics``, ``logged_metrics``,
 ``state`` (the final :class:`TrainState`, tensors on the fit's device),
-``global_step``, ``micro_step`` and ``epochs_run``.
+``global_step``, ``micro_step``, ``epochs_run`` and ``telemetry_report``
+(the step stats' summary, counters and ``meta.megastep``; empty when
+telemetry is off).
 
 Departures from the JAX package, each until its slice of the port:
 ``enable_checkpointing`` defaults to False (there it is True, with a
-``ModelCheckpoint``) and True raises; ``resume_from_checkpoint``,
-``accumulate_grad_batches`` other than 1 and ``megastep`` raise; no
-telemetry keys land in ``callback_metrics``.
+``ModelCheckpoint``) and True raises; ``resume_from_checkpoint`` raises;
+telemetry has the cheap tier only (``"full"`` raises) and its report is
+one device's (no fleet merge); ``megastep`` captures K steps into a CUDA
+graph on the card where the JAX package fuses them with ``lax.scan``.
 """
 
 from __future__ import annotations
@@ -76,6 +79,7 @@ class Trainer:
         self.epochs_run = 0
         self.global_step = 0
         self.micro_step = 0
+        self.telemetry_report: Dict[str, Any] = {}
 
     def fit(self, module: TrainModule,
             datamodule: TpuDataModule) -> "Trainer":
@@ -87,4 +91,5 @@ class Trainer:
         self.epochs_run = result["epochs_run"]
         self.global_step = result["global_step"]
         self.micro_step = result["micro_step"]
+        self.telemetry_report = result["telemetry"]
         return self

@@ -322,7 +322,11 @@ class GPT(TrainModule):
             remat_policy_fn(self.remat_policy))
         for p in layers:
             if remat:
+                # A block draws no random numbers, so there is no RNG state
+                # to keep for its recompute (and reading the CUDA RNG state
+                # would stop a CUDA-graph capture of the step).
                 x = checkpoint(block, x, p, use_reentrant=False,
+                               preserve_rng_state=False,
                                context_fn=context_fn)
             else:
                 x = block(x, p)

@@ -27,8 +27,15 @@ with optax 0.2.6's order of operations (``scale_by_adam``,
 
 A transformation is a pair ``init(params) -> state`` and ``update(grads,
 state, params) -> (updates, state)`` over parameter dicts, optax's shape.
-The step counts live in the state as host ints, so a step needs no device
-sync; the clip's trigger stays on the device.
+Everything an update reads lives on the device, as under ``jit``: the
+step count is an int32 tensor of the state, and the schedule, the bias
+corrections and the clip's trigger are computed from it in f32 there.  So
+a step needs no host sync, and a CUDA graph that captured steps replays
+them at the count, learning rate and bias correction each replay reaches
+(a count held on the host would freeze its capture-time value into the
+graph).  :func:`multi_steps` is ``optax.MultiSteps`` (gradient
+accumulation) and :func:`multi_steps_flush` the JAX loop's flush of a
+partial window.
 """
 
 from __future__ import annotations
@@ -36,12 +43,12 @@ from __future__ import annotations
 import math
 from typing import Any, Callable, Dict, NamedTuple
 
-import numpy as np
 import torch
 
 __all__ = ["GradientTransformation", "chain", "clip_by_global_norm",
            "adamw", "warmup_cosine_decay_schedule", "gpt_adamw",
-           "decay_mask", "tree_map", "apply_updates"]
+           "multi_steps", "multi_steps_flush", "decay_mask", "tree_map",
+           "tree_leaves", "tree_unflatten", "apply_updates"]
 
 # Matrix-valued params by naming convention: ``*_w`` projections plus the
 # tied token embedding; biases, LayerNorm gains and ``wpe`` are exempt.
@@ -54,17 +61,30 @@ class GradientTransformation(NamedTuple):
 
 
 def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
-    """``fn`` over the leaves of nested dicts (``rest`` trees alike)."""
+    """``fn`` over the leaves of nested dicts, tuples and lists (``rest``
+    trees alike)."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
     return fn(tree, *rest)
 
 
 def tree_leaves(tree: Any) -> list:
     if isinstance(tree, dict):
         return [leaf for v in tree.values() for leaf in tree_leaves(v)]
+    if isinstance(tree, (tuple, list)):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
     return [tree]
+
+
+def tree_unflatten(template: Any, leaves) -> Any:
+    """``leaves`` (in :func:`tree_leaves` order) in ``template``'s
+    structure."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), template)
 
 
 def decay_mask(params: Dict[str, Any]) -> Dict[str, Any]:
@@ -114,37 +134,52 @@ def clip_by_global_norm(max_norm: float) -> GradientTransformation:
 
 def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
                                  warmup_steps: int, decay_steps: int
-                                 ) -> Callable[[int], float]:
-    """optax's schedule (end value 0): linear from ``init_value`` to
-    ``peak_value`` over ``warmup_steps``, then cosine to 0 at
-    ``decay_steps``."""
+                                 ) -> Callable[[torch.Tensor], torch.Tensor]:
+    """optax's schedule on a device count: ``join_schedules`` of
+    ``linear_schedule(init_value, peak_value, warmup_steps)`` and
+    ``cosine_decay_schedule(peak_value, decay_steps - warmup_steps)`` (end
+    value 0) at ``warmup_steps``.  ``count`` is an int32 tensor; the value
+    is an f32 tensor on its device, computed in optax's order of
+    operations."""
     cos_steps = decay_steps - warmup_steps
 
-    def schedule(count: int) -> float:
-        if count < warmup_steps:
-            frac = count / warmup_steps
-            return (init_value - peak_value) * (1 - frac) + peak_value
-        c = min(count - warmup_steps, cos_steps)
-        return peak_value * 0.5 * (1 + math.cos(math.pi * c / cos_steps))
+    def linear(count):
+        c = torch.clamp(count, 0, warmup_steps)
+        frac = 1 - c / warmup_steps
+        return (init_value - peak_value) * frac + peak_value
+
+    def cosine(count):
+        c = torch.clamp(count.float(), max=float(cos_steps))
+        return peak_value * (0.5 * (1 + torch.cos(math.pi * c / cos_steps)))
+
+    def schedule(count: torch.Tensor) -> torch.Tensor:
+        return torch.where(count < warmup_steps, linear(count),
+                           cosine(count - warmup_steps))
 
     return schedule
 
 
-def _bias_correction(decay: float, count: int) -> float:
-    """``1 - decay**count`` in f32, as optax computes it."""
-    return float(np.float32(1) - np.float32(decay) ** np.float32(count))
+def _bias_correction(decay: float, count: torch.Tensor) -> torch.Tensor:
+    """``1 - decay**count`` in f32 on the count's device, as optax
+    computes it under ``jit``."""
+    return 1 - torch.pow(decay, count.float())
 
 
-def adamw(learning_rate: Callable[[int], float], b1: float, b2: float,
-          weight_decay: float, mask: Callable[[Any], Any],
+def _zero_count(params: Any) -> torch.Tensor:
+    device = tree_leaves(params)[0].device
+    return torch.zeros((), dtype=torch.int32, device=device)
+
+
+def adamw(learning_rate: Callable[[torch.Tensor], torch.Tensor], b1: float,
+          b2: float, weight_decay: float, mask: Callable[[Any], Any],
           mu_dtype: torch.dtype, eps: float = 1e-8) -> GradientTransformation:
     """optax's ``adamw`` = ``scale_by_adam`` → masked
     ``add_decayed_weights`` → ``scale_by_learning_rate``.  State:
-    ``{"count": int, "mu": tree, "nu": tree}``."""
+    ``{"count": int32 tensor, "mu": tree, "nu": tree}``."""
 
     def init(params):
         return {
-            "count": 0,
+            "count": _zero_count(params),
             "mu": tree_map(lambda p: torch.zeros_like(p, dtype=mu_dtype),
                            params),
             "nu": tree_map(torch.zeros_like, params),
@@ -158,23 +193,79 @@ def adamw(learning_rate: Callable[[int], float], b1: float, b2: float,
         c1 = _bias_correction(b1, count)
         c2 = _bias_correction(b2, count)
         lr = learning_rate(state["count"])
-        decay = mask(params)
-
-        def leaf(g, m, v, p, dec):
+        decay = tree_leaves(mask(params))
+        updates, mus, nus = [], [], []
+        for g, m, v, p, dec in zip(tree_leaves(grads),
+                                   tree_leaves(state["mu"]),
+                                   tree_leaves(state["nu"]),
+                                   tree_leaves(params), decay):
             m = (1 - b1) * g + b1_mu * m.float()
             v = (1 - b2) * (g * g) + b2 * v
             u = (m / c1) / (torch.sqrt(v / c2) + eps)
             if dec:
                 u = u + weight_decay * p
-            return (-lr) * u, m.to(mu_dtype), v
-
-        out = tree_map(leaf, grads, state["mu"], state["nu"], params, decay)
-        updates = tree_map(lambda o: o[0], out)
-        mu = tree_map(lambda o: o[1], out)
-        nu = tree_map(lambda o: o[2], out)
-        return updates, {"count": count, "mu": mu, "nu": nu}
+            updates.append((-lr) * u)
+            mus.append(m.to(mu_dtype))
+            nus.append(v)
+        return tree_unflatten(grads, updates), {
+            "count": count, "mu": tree_unflatten(grads, mus),
+            "nu": tree_unflatten(grads, nus)}
 
     return GradientTransformation(init, update)
+
+
+def multi_steps(inner: GradientTransformation,
+                every_k: int) -> GradientTransformation:
+    """``optax.MultiSteps(inner, every_k_schedule=every_k)`` (optax 0.2.6,
+    ``use_grad_mean=True``): each update folds the micro-gradient into the
+    running mean ``acc + (g - acc) / (mini_step + 1)``, runs ``inner`` on
+    it, and keeps the inner result only where the window ends (``emit``);
+    between emits the updates are zero.  Every decision is a device
+    select, as under ``jit``.  State: ``{"mini_step", "gradient_step"``
+    (int32 tensors), ``"inner_opt_state", "acc_grads"}``."""
+
+    def init(params):
+        return {"mini_step": _zero_count(params),
+                "gradient_step": _zero_count(params),
+                "inner_opt_state": inner.init(params),
+                "acc_grads": tree_map(torch.zeros_like, params)}
+
+    def update(grads, state, params=None):
+        n = state["mini_step"]
+        acc = tree_map(lambda g, a: a + (g - a) / (n + 1), grads,
+                       state["acc_grads"])
+        final, inner_new = inner.update(acc, state["inner_opt_state"],
+                                        params)
+        emit = n == every_k - 1
+        keep = 1 - emit.to(torch.int32)
+        new_state = {
+            "mini_step": (n + 1) % every_k,
+            "gradient_step": (emit * (state["gradient_step"] + 1)
+                              + keep * state["gradient_step"]),
+            "inner_opt_state": tree_map(
+                lambda old, new: torch.where(emit, new, old),
+                state["inner_opt_state"], inner_new),
+            "acc_grads": tree_map(lambda a, u: keep * a.to(u.dtype),
+                                  acc, final),
+        }
+        return tree_map(lambda u: emit * u, final), new_state
+
+    return GradientTransformation(init, update)
+
+
+def multi_steps_flush(inner: GradientTransformation, state: Dict[str, Any],
+                      params: Any):
+    """The partial-window flush of the JAX loop (``_build_accum_flush``):
+    one ``inner`` update from the running mean of the window's
+    micro-gradients, the window reset.  Returns ``(updates, state)``."""
+    updates, inner_new = inner.update(state["acc_grads"],
+                                      state["inner_opt_state"], params)
+    return updates, {
+        "mini_step": torch.zeros_like(state["mini_step"]),
+        "gradient_step": state["gradient_step"] + 1,
+        "inner_opt_state": inner_new,
+        "acc_grads": tree_map(torch.zeros_like, state["acc_grads"]),
+    }
 
 
 def gpt_adamw(cfg) -> GradientTransformation:

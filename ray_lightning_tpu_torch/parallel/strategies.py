@@ -5,10 +5,14 @@ the multi-GPU slice)."""
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, List
 
-from ray_lightning_tpu_torch.core.loop import FitConfig, run_fit
+from ray_lightning_tpu_torch.core.loop import (
+    FitConfig, _normalize_megastep, run_fit,
+)
 from ray_lightning_tpu_torch.device import resolve_device
+from ray_lightning_tpu_torch.telemetry.runtime import TelemetryConfig
 
 __all__ = ["LocalStrategy"]
 
@@ -16,16 +20,25 @@ __all__ = ["LocalStrategy"]
 class LocalStrategy:
     """Run the fit in this process on ``device`` (``None`` means
     ``"cuda"``, and raises without a card; pass ``"cpu"`` for the plain
-    PyTorch path).  ``telemetry`` is a later slice: anything but None or
-    ``"off"`` raises."""
+    PyTorch path).
 
-    def __init__(self, device=None, telemetry=None):
-        if telemetry not in (None, "off"):
-            raise NotImplementedError(
-                "telemetry is not supported by the PyTorch port yet (a "
-                "later slice); leave it None")
+    ``telemetry``: ``None`` (the ``RLT_TELEMETRY`` variable, else the
+    cheap tier), ``"cheap"``, ``"off"``, a dict with ``tier`` and
+    ``sample_every``, or a ``TelemetryConfig``; ``"full"`` raises (a later
+    slice).  ``megastep``: K micro-steps a dispatch (``"auto"``, ``"off"``
+    or an int); it fills the Trainer's when that is unset."""
+
+    def __init__(self, device=None, telemetry=None, megastep=None):
+        if telemetry is not None:
+            telemetry = TelemetryConfig.coerce(telemetry)
+        self.telemetry = telemetry
+        _normalize_megastep(megastep)
+        self.megastep = megastep
         self.device = resolve_device(device)
 
     def run(self, module, datamodule, config: FitConfig,
             callbacks: List) -> Dict[str, Any]:
-        return run_fit(module, datamodule, config, callbacks, self.device)
+        if config.megastep is None and self.megastep is not None:
+            config = dataclasses.replace(config, megastep=self.megastep)
+        return run_fit(module, datamodule, config, callbacks, self.device,
+                       telemetry=self.telemetry)

@@ -1,2 +1,4 @@
-"""Telemetry of the port: model FLOP accounting so far (the JAX package's
-step timing, spans and exporters come with a later slice)."""
+"""Telemetry of the port: the cheap tier of the JAX package's
+``telemetry/`` (step-time split, throughput, MFU, capture count) in
+``step_stats.py`` and ``runtime.py``; spans and trace exports (the
+``"full"`` tier) come with a later slice."""

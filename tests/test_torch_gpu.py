@@ -513,3 +513,152 @@ def test_tiny_fit_with_remat_counts_the_ce_launches(cuda):
     assert [c.launches for c in counters] == [
         3 * (4 * L + 1), 3 * (2 * L + 1), 3 * L, 3 * L, 3, 3, 3]
     assert np.isfinite(tr.callback_metrics["train_loss"])
+
+
+# ---------------------------------------------------------------------------
+# Megastep: K steps captured into one CUDA graph
+# ---------------------------------------------------------------------------
+
+class _Hooks(Callback):
+    def __init__(self):
+        self.logs = {}
+
+    def on_train_batch_end(self, trainer, module, logs, batch_idx):
+        self.logs[batch_idx] = {k: float(v) for k, v in logs.items()}
+
+
+def _card_fit(module, megastep, steps, accum=1, epochs=1, batch=4):
+    hooks = _Hooks()
+    tr = Trainer(LocalStrategy(megastep=megastep), max_epochs=epochs,
+                 limit_val_batches=0, accumulate_grad_batches=accum,
+                 callbacks=[hooks])
+    tr.fit(module, SyntheticLMDataModule(module.config, batch_size=batch,
+                                         num_batches=steps))
+    return tr, hooks
+
+
+def _max_param_diff(a, b):
+    from ray_lightning_tpu_torch.models.optim import tree_leaves
+
+    return max(float((x - y).abs().max()) for x, y in
+               zip(tree_leaves(a.state.params), tree_leaves(b.state.params)))
+
+
+_TINY = GPTConfig(vocab_size=512, n_layer=2, n_head=2, d_model=128,
+                  seq_len=128, warmup_steps=2)
+
+
+def test_captured_fit_equals_the_eager_fit(cuda):
+    """12 steps at megastep 4: one eager stride, then two replays of the
+    graph, against 12 eager steps from one init.  f32: the same kernels on
+    the same inputs, so losses within 1e-6 relative and params within
+    1e-6 absolute (the flash backward's dQ atomics sum in a varying
+    order).  The launch counters count Python calls: the eager stride and
+    the capture, not the replays."""
+    init = GPT(_TINY, device="cpu").init_params()
+    runs = {}
+    for mode in ("off", 4):
+        module = GPT(_TINY)
+        module.initial_params = init
+        for c in (ln.ln_fwd, fa.flash_fwd):
+            c.launches = 0
+        tr, hooks = _card_fit(module, mode, 12)
+        runs[mode] = (tr, hooks, ln.ln_fwd.launches, fa.flash_fwd.launches)
+    (e, eh, e_ln, e_fa), (c, ch, c_ln, c_fa) = runs["off"], runs[4]
+    assert sorted(ch.logs) == [3, 7, 11]
+    for i, logs in ch.logs.items():
+        assert logs["train_loss"] == pytest.approx(
+            eh.logs[i]["train_loss"], rel=1e-6)
+    assert c.callback_metrics["train_loss"] == pytest.approx(
+        e.callback_metrics["train_loss"], rel=1e-6)
+    assert _max_param_diff(c, e) <= 1e-6
+    assert (c.global_step, c.micro_step) == (12, 12)
+    assert c.callback_metrics["recompiles"] == 1.0
+    assert e.callback_metrics["recompiles"] == 0.0
+    assert c.telemetry_report["meta"]["megastep"] == 4
+    assert c.telemetry_report["step_stats"]["capture_total_s"] > 0
+    n_ln = 2 * _TINY.n_layer + 1
+    assert (e_ln, c_ln) == (12 * n_ln, 8 * n_ln)
+    assert (e_fa, c_fa) == (12 * _TINY.n_layer, 8 * _TINY.n_layer)
+    assert int(c.state.opt_state[1]["count"]) == 12
+
+
+def test_accumulation_under_capture(cuda):
+    """accumulate 2, megastep 4, 9 batches for 2 epochs: strides of 4
+    (two optimizer steps inside each graph), a single at each epoch's end
+    whose partial window is flushed, then the next epoch's replay from the
+    flushed state; against the eager fit."""
+    init = GPT(_TINY, device="cpu").init_params()
+    fits = {}
+    for mode in ("off", 4):
+        module = GPT(_TINY)
+        module.initial_params = init
+        fits[mode] = _card_fit(module, mode, 9, accum=2, epochs=2)
+    (e, eh), (c, ch) = fits["off"], fits[4]
+    assert (c.global_step, c.micro_step) == (e.global_step, e.micro_step) \
+        == (10, 18)
+    for i, logs in ch.logs.items():
+        assert logs["train_loss"] == pytest.approx(
+            eh.logs[i]["train_loss"], rel=1e-6)
+    assert _max_param_diff(c, e) <= 1e-6
+    assert c.callback_metrics["recompiles"] == 1.0
+
+
+class _ItemGPT(GPT):
+    def training_step(self, params, batch, rng):
+        loss, logs = super().training_step(params, batch, rng)
+        if loss.item() > 1e9:  # a host sync: refused under capture
+            raise AssertionError("unreachable")
+        return loss, logs
+
+
+def test_item_in_training_step_raises_naming_the_capture(cuda):
+    from ray_lightning_tpu_torch.parallel.step_fns import (
+        MegastepCaptureError,
+    )
+
+    with pytest.raises(MegastepCaptureError) as err:
+        _card_fit(_ItemGPT(_TINY), 8, 16)
+    msg = str(err.value)
+    assert "capture" in msg and "megastep='off'" in msg
+    assert "loss.item()" in msg and "training_step" in msg
+    # The same module runs eagerly.
+    tr, _ = _card_fit(_ItemGPT(_TINY), "off", 16)
+    assert tr.global_step == 16
+
+
+class _DrawGPT(GPT):
+    """Logs one uniform draw of its rng a step from its ``first``-th call
+    on (a zero before; adds nothing to the loss)."""
+
+    def __init__(self, cfg, first=0):
+        super().__init__(cfg)
+        self.first, self.calls = first, 0
+
+    def training_step(self, params, batch, rng):
+        loss, logs = super().training_step(params, batch, rng)
+        self.calls += 1
+        draw = (torch.rand((), generator=rng, device=loss.device)
+                if self.calls > self.first
+                else torch.zeros((), device=loss.device))
+        return loss + 0 * draw, {**logs, "draw": draw}
+
+
+@pytest.mark.parametrize("first", [0, 4])
+def test_rng_draws_are_the_same_with_megastep_on_and_off(cuda, first):
+    """The draw at micro-step i is a function of (seed, i): the replayed
+    strides draw what the eager steps draw, also when only the captured
+    steps draw (first = 4: the eager warm-up stride of megastep 4 draws
+    nothing; every capture registers its inner steps' generator
+    states)."""
+    fits = {mode: _card_fit(_DrawGPT(_TINY, first), mode, 12)
+            for mode in ("off", 4)}
+    (e, eh), (c, ch) = fits["off"], fits[4]
+    draws = [eh.logs[i]["draw"] for i in range(first, 12)]
+    assert len(set(draws)) == 12 - first
+    assert sorted(ch.logs) == [3, 7, 11]
+    assert c.callback_metrics["recompiles"] == 1.0
+    for i, logs in ch.logs.items():
+        assert logs["draw"] == eh.logs[i]["draw"]
+    assert c.callback_metrics["draw"] == pytest.approx(
+        e.callback_metrics["draw"], rel=1e-6)

@@ -120,6 +120,28 @@ def test_clip_adamw_chain_matches_optax_over_six_steps():
     assert tstate[1]["count"] == 6
 
 
+def test_schedule_on_a_device_count_matches_optax():
+    """warmup 5, decay to 0 at 50: the linear warmup, the cosine, its end
+    and past it, on an int32 count tensor (as a captured step reads it)
+    against optax's jitted schedule; within 2 f32 ulps of the peak (cos
+    and the division in another library's order)."""
+    from ray_lightning_tpu_torch.models.optim import (
+        warmup_cosine_decay_schedule,
+    )
+
+    counts = np.arange(0, 60, dtype=np.int32)
+    want = np.asarray(jax.jit(jax.vmap(optax.warmup_cosine_decay_schedule(
+        0.0, 3e-4, 5, 50)))(jnp.asarray(counts)))
+    sched = warmup_cosine_decay_schedule(0.0, 3e-4, 5, 50)
+    got = np.array([float(sched(torch.tensor(c, dtype=torch.int32)))
+                    for c in counts], np.float32)
+    assert got.dtype == want.dtype == np.float32
+    np.testing.assert_allclose(got, want, rtol=0, atol=2 * 2 ** -23 * 3e-4)
+    assert got[0] == 0.0 and got[5] == np.float32(3e-4)
+    assert np.all(got[50:] == 0.0)
+    assert np.all(np.diff(got[:6]) > 0) and np.all(np.diff(got[5:51]) < 0)
+
+
 def test_first_update_uses_lr_zero_and_mask_names_matrices():
     cfg = GPTConfig(lr=1.0, warmup_steps=3)
     tx = GPT(cfg, device="cpu").configure_optimizers()
@@ -232,7 +254,14 @@ def test_fit_matches_the_jax_fit_over_five_steps(tmp_path):
     want, got = _flat(jt.state.params), _flat_t(tr.state.params)
     for k in want:
         assert float(np.abs(got[k] - want[k]).max()) < 1e-5, k
-    assert not any(k.endswith("_ms") for k in tr.callback_metrics)
+    # The cheap telemetry tier is the default in both packages: the same
+    # telemetry keys (and the same keys overall) land in callback_metrics.
+    telemetry = {"step_time_ms", "data_wait_ms", "dispatch_ms",
+                 "device_step_ms", "examples_per_sec", "tokens_per_sec",
+                 "mfu", "recompiles"}
+    assert set(tr.callback_metrics) & telemetry == (
+        set(jt.callback_metrics) & telemetry)
+    assert set(tr.callback_metrics) == set(jt.callback_metrics)
 
 
 def test_fit_limits_validation_and_log_cadence():
@@ -264,17 +293,14 @@ def test_entry_points_refuse_what_is_not_ported():
     strat = LocalStrategy(device="cpu")
     with pytest.raises(NotImplementedError, match="checkpoint"):
         Trainer(strat, enable_checkpointing=True)
-    with pytest.raises(NotImplementedError, match="accumulation"):
-        Trainer(strat, accumulate_grad_batches=2)
-    with pytest.raises(NotImplementedError, match="megastep"):
-        Trainer(strat, megastep=4)
     with pytest.raises(NotImplementedError, match="RLTCKPT1"):
         Trainer(strat, resume_from_checkpoint="x.ckpt")
     # remat is ported; an unknown save policy is refused at construction.
     with pytest.raises(ValueError, match="remat_policy"):
         GPT(GPTConfig.tiny(), device="cpu", remat=True,
             remat_policy="everything")
-    with pytest.raises(NotImplementedError, match="telemetry"):
+    # The cheap tier is ported; the full tier (spans) is refused.
+    with pytest.raises(NotImplementedError, match="telemetry tier 'full'"):
         LocalStrategy(device="cpu", telemetry="full")
     moe = GPT(dataclasses.replace(GPTConfig.tiny(), n_experts=4),
               device="cpu")
