@@ -77,7 +77,14 @@ last column of a ragged chunk of k dropped, the d tail past the last
    the captured steps' new state not written back into the graph's
    static state.  Each must fail the parity in both of its
    configurations (the flash kernels, held to 5x the eager-vs-eager
-   spread, and the plain attention).
+   spread, and the plain attention);
+8. phase 10's f32 split-vs-straight parity of checkpoints
+   (``chip_smoke.checkpoint_parity``) for the correct code, which must
+   pass, and for two faults planted in memory (``CHECKPOINT_FAULTS``,
+   ``checkpoint_fault``): the checkpoint's state taken before the
+   epoch's last (captured) stride and its write-back, and the optimizer
+   count not restored on resume.  Each must fail it in both
+   configurations.
 
 The wrappers are routed to a faulty library by replacing the cached ctypes
 functions of ``ops/_build.py``.  Exits 1 if a correct kernel fails a
@@ -495,6 +502,68 @@ def megastep_fault(name):
         setattr(module, attr, saved)
 
 
+CHECKPOINT_FAULTS = ("state_before_the_last_stride", "count_not_restored")
+
+
+@contextlib.contextmanager
+def checkpoint_fault(name):
+    """Plant one of ``CHECKPOINT_FAULTS`` in the port's modules (in memory)
+    for the duration of the block: the checkpoint's state taken before
+    the epoch's last stride (and its write-back) ran, with the counters
+    of after it; or the optimizer's count left at the fresh state's 0
+    when a checkpoint is restored (the schedule and bias corrections
+    restart)."""
+    import torch
+
+    from ray_lightning_tpu_torch.core import loop
+    from ray_lightning_tpu_torch.core.module import TrainState
+    from ray_lightning_tpu_torch.models.optim import tree_map
+    from ray_lightning_tpu_torch.parallel import step_fns
+
+    if name == "state_before_the_last_stride":
+        call = step_fns.MultiStep.__call__
+        payload = loop.LoopContext.checkpoint_payload
+
+        def stride(self, owner, batches, start):
+            s = owner.state
+            owner.stale = TrainState(tree_map(torch.clone, s.params),
+                                     tree_map(torch.clone, s.opt_state),
+                                     s.step)
+            return call(self, owner, batches, start)
+
+        def stale_payload(self):
+            live = self.state
+            self.state = getattr(self, "stale", live)
+            try:
+                return payload(self)
+            finally:
+                self.state = live
+
+        patches = [(step_fns.MultiStep, "__call__", stride),
+                   (loop.LoopContext, "checkpoint_payload", stale_payload)]
+    else:
+        restore = loop._restore_state
+
+        def count_left(template, loaded):
+            out = restore(template, loaded)
+            opt = out.opt_state
+            if isinstance(opt, dict):
+                opt = opt["inner_opt_state"]
+            opt[1]["count"].zero_()
+            return out
+
+        patches = [(loop, "_restore_state", count_left)]
+    saved = [(owner, attr, getattr(owner, attr)) for owner, attr, _ in
+             patches]
+    for owner, attr, fault in patches:
+        setattr(owner, attr, fault)
+    try:
+        yield
+    finally:
+        for owner, attr, value in saved:
+            setattr(owner, attr, value)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -740,6 +809,26 @@ def main() -> int:
                 if name is not None and parity[arm]["ok"]:
                     failures.append(
                         f"megastep fault {name} not caught in {arm}")
+
+        # 8. checkpoints and resume, correct and faulty, by phase 10's f32
+        # split-vs-straight parity
+        summary["checkpoint"] = {}
+        for name in (None, *CHECKPOINT_FAULTS):
+            label = name or "correct"
+            print(f"checkpoint {label}:")
+            if name is None:
+                parity = cs.checkpoint_parity(torch, card)
+            else:
+                with checkpoint_fault(name):
+                    parity = cs.checkpoint_parity(torch, card)
+            summary["checkpoint"][label] = parity
+            if name is None and not parity["ok"]:
+                failures.append("correct checkpoints: phase 10's parity "
+                                "failed")
+            for arm in ("headline", "xla_attention"):
+                if name is not None and parity[arm]["ok"]:
+                    failures.append(
+                        f"checkpoint fault {name} not caught in {arm}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for f in failures:

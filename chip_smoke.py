@@ -68,14 +68,31 @@ under ``remat_policy="dots+flash"``), counted per step.  Phases:
    CUDA events with every 8-step window, tokens/s, MFU, the telemetry's
    ``dispatch_ms`` and ``step_time_ms`` (within 10% of the events), the
    device's idle share over two strides of a profiled fit (whose kernel
-   launches must be 8 x the per-step counts a stride: by profiler kernel
-   name in the replays, by the wrappers' counters in the eager steps),
+   launches must be 8 x the per-step counts a stride: by the captured
+   graph's kernel nodes, each seen by the profiler in the replays, and by
+   the wrappers' counters in the eager steps),
    peak memory (captured <= 1.10x
    eager), one capture per captured fit, the capture's wall time, the
    state write-back's cost, bf16 losses within 1e-4 of eager; then a
    depth-2 f32 fit captured against eager (``megastep_parity``: losses
    within 1e-5; params within 1e-5, or with the flash kernels within 5x
-   the eager-vs-eager difference of the same run).
+   the eager-vs-eager difference of the same run);
+10. checkpoints, resume and the eval surface (``phase_checkpoint``): the
+   headline arm at full width under megastep "auto", one epoch of 16
+   steps with the default ``ModelCheckpoint`` (the file read back equals
+   the live state bitwise), resumed for a second epoch (fresh batches,
+   ``fresh_epochs``) against a straight two-epoch fit (stride-end losses
+   within 1e-4, one capture, the
+   optimizer count restored, the captured stride's kernels by profiler
+   name 8 x phase 9's per-step counts); the same at depth 2 in f32
+   (``checkpoint_parity``: params bitwise with the plain attention,
+   within 5x the straight-vs-straight spread with flash); ``validate``
+   and ``test`` from the checkpoint, card vs CPU (f32 within 1e-5
+   relative, bf16 within 1e-2) with LN fwd 25, flash fwd 12, CE fwd 1
+   and no backward launch a batch; ``predict`` card vs CPU (argmax equal
+   except at a top-2 logit gap < 1e-4); the checkpoint's host copy,
+   encode, write and read + restore times and validate/predict ms a
+   batch.
 
 Any failure raises: the script exits non-zero and prints no result.  The
 line before the last is the kernels' JSON record; the last line is
@@ -84,9 +101,11 @@ line before the last is the kernels' JSON record; the last line is
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import json
+import math
 import re
 import subprocess
 import sys
@@ -1234,7 +1253,8 @@ def train_arm(torch, cfg, gpt_kw, steps, callbacks=()):
     from ray_lightning_tpu_torch.models.gpt import GPT, SyntheticLMDataModule
 
     tr = Trainer(max_steps=steps, limit_val_batches=0, precision="bf16",
-                 seed=SEED, callbacks=list(callbacks), megastep="off")
+                 seed=SEED, callbacks=list(callbacks), megastep="off",
+                 enable_checkpointing=False)
     tr.fit(GPT(cfg, **gpt_kw),
            SyntheticLMDataModule(cfg, batch_size=TRAIN_B, num_batches=steps,
                                  seed=SEED))
@@ -1482,7 +1502,7 @@ def phase_end_to_end(torch, card):
         t0 = time.perf_counter()
         tr = Trainer(LocalStrategy(device=device), max_steps=3,
                      limit_val_batches=0, precision=precision,
-                     callbacks=[Losses()])
+                     callbacks=[Losses()], enable_checkpointing=False)
         tr.fit(module, SyntheticLMDataModule(cfg, batch_size=1,
                                              num_batches=3, seed=SEED + 1))
         launched = (fa.flash_fwd.launches - before[0],
@@ -1569,7 +1589,7 @@ def megastep_fit(torch, cfg, gpt_kw, steps, megastep, precision="bf16",
         module.initial_params = init
     tr = Trainer(LocalStrategy(megastep=megastep), max_steps=steps,
                  limit_val_batches=0, precision=precision, seed=SEED,
-                 callbacks=list(callbacks))
+                 callbacks=list(callbacks), enable_checkpointing=False)
     tr.fit(module, SyntheticLMDataModule(cfg, batch_size=batch,
                                          num_batches=steps, seed=SEED))
     return tr
@@ -1610,13 +1630,66 @@ def booked_ms(clock, first):
     return at[first].elapsed_time(at[last]) / (last - first)
 
 
+# Each training kernel's main launch by its name in a captured graph's
+# kernel nodes (``kernel_name`` of the mangled name).
+GRAPH_NAMES = {"ln_fwd": "ln_fwd_kernel", "ln_bwd": "ln_bwd_rows_kernel",
+               "flash_fwd": "tc_flash_fwd_kernel",
+               "flash_bwd": "tc_flash_bwd_kernel",
+               "ce_fwd": "ce_fwd_wgmma_kernel",
+               "ce_bwd_dx": "ce_grad_cluster_kernel<0>",
+               "ce_bwd_dw": "ce_grad_cluster_kernel<1>"}
+
+
+@contextlib.contextmanager
+def kept_graphs(torch):
+    """CUDA graphs made inside the block keep their ``cudaGraph_t``
+    (``keep_graph``, debug mode) so that :func:`graph_kernels` can read
+    their nodes; yields the list of them."""
+    graphs, base = [], torch.cuda.CUDAGraph
+
+    class Kept(base):
+        def __init__(self, *args, **kwargs):
+            super().__init__(keep_graph=True)
+            self.enable_debug_mode()
+            graphs.append(self)
+
+    torch.cuda.CUDAGraph = Kept
+    try:
+        yield graphs
+    finally:
+        torch.cuda.CUDAGraph = base
+
+
+def graph_kernels(graph):
+    """Each training kernel's nodes in a captured graph (its DOT dump):
+    the launches each replay makes, which the profiler, losing records
+    now and then, cannot count exactly."""
+    import collections
+    import os
+    import tempfile
+    import warnings
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "graph.dot")
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            graph.debug_dump(path)
+        with open(path) as f:
+            names = collections.Counter(
+                kernel_name(m) for m in re.findall(r"\b(_Z\w+)", f.read()))
+    return {k: sum(n for name, n in names.items() if name.startswith(want))
+            for k, want in GRAPH_NAMES.items()}
+
+
 def profiled_strides(torch, cfg, gpt_kw, megastep):
     """A fit profiled over its 3rd and 4th strides of MEGASTEP_K steps
     (two replays when captured): each training kernel's launches
     by name, and the device's idle share over the span from the first
-    kernel's start to the last one's end; and the launches the wrappers'
-    counters saw over the same strides (``counted``; none in a replay).
-    None when the profiler records no CUDA events."""
+    kernel's start to the last one's end; the launches the wrappers'
+    counters saw over the same strides (``counted``; none in a replay);
+    and, captured, each kernel's nodes in the graph (``graph``, the
+    launches of a replay).  None when the profiler records no CUDA
+    events."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     from ray_lightning_tpu_torch.core.callbacks import Callback
@@ -1646,9 +1719,10 @@ def profiled_strides(torch, cfg, gpt_kw, megastep):
 
     # The 2nd stride's last hook call is the profiler's warm-up step: the
     # tracer runs before the window opens.
-    with profile(activities=[ProfilerActivity.CUDA],
-                 schedule=schedule(wait=2 * hooks - 1, warmup=1,
-                                   active=2 * hooks, repeat=1)) as prof:
+    with kept_graphs(torch) as graphs, profile(
+            activities=[ProfilerActivity.CUDA],
+            schedule=schedule(wait=2 * hooks - 1, warmup=1,
+                              active=2 * hooks, repeat=1)) as prof:
         stepper = Stepper(prof)
         megastep_fit(torch, cfg, gpt_kw, PROFILE_STEPS, megastep,
                      callbacks=[stepper])
@@ -1663,6 +1737,7 @@ def profiled_strides(torch, cfg, gpt_kw, megastep):
     counts = {k: sum(1 for e in device if name in e.name)
               for k, name in PROFILE_NAMES.items()}
     return {"launches": counts, "counted": stepper.counted,
+            "graph": graph_kernels(graphs[0]) if len(graphs) == 1 else None,
             "span_ms": (end - start) / 1e3, "busy_ms": busy / 1e3,
             "idle_share": 1 - busy / (end - start), "events": len(device)}
 
@@ -1771,8 +1846,9 @@ def phase_megastep(torch, card):
     7th 8-step windows ÷ 8, CUDA events) with every window, tokens/s, MFU,
     ``dispatch_ms`` and a stride's host issue time, the device's idle share
     over two strides (profiled fit), peak memory, the capture's wall time
-    and the state write-back's cost; gates on the replays' kernel launches
-    by name, one capture per captured fit, peak memory, the bf16 losses
+    and the state write-back's cost; gates on the kernel launches (the
+    captured graph's nodes, the eager steps' counters), one capture per
+    captured fit, peak memory, the bf16 losses
     and ``step_time_ms`` against the events.  Then the f32 parity."""
     import gc
 
@@ -1879,20 +1955,34 @@ def phase_megastep(torch, card):
             gate(all(np.isfinite(list(losses.values()))),
                   f"{label} {name}: finite losses")
             want = per_step_launches(cfg.n_layer, kw.get("remat", False))
-            # A replay's launches are seen only by the profiler, an eager
-            # step's by the wrappers' counters too.  The profiler loses
-            # records now and then (64 or ~1000 of ~23,000 in a window of
-            # two eager strides, on an H100), so the eager arm is gated by
-            # the counters, which count every launch.
-            seen = prof["launches"] if mode != "off" else prof["counted"]
+            # The profiler loses records now and then (64 or ~1000 of
+            # ~23,000 in a window of two eager strides, and up to 15 of a
+            # gated kernel's 784 in two replays, on an H100), so neither
+            # arm is gated by its count: the eager arm by the wrappers'
+            # counters, which count every launch, the captured one by the
+            # graph's kernel nodes (a replay launches each once) and by
+            # the profiler seeing each kernel in the replays.
             print(f"phase 9 {label} {name}: launches in two strides "
-                  f"(profiler / counters): " + ", ".join(
+                  f"(profiler / counters"
+                  + (" / 2 x graph nodes" if prof["graph"] else "") + "): "
+                  + ", ".join(
                       f"{kn} {prof['launches'][kn]} / {prof['counted'][kn]}"
-                      for kn in want))
-            for kn, n in seen.items():
-                gate(n == 2 * k * want[kn],
-                     f"{label} {name}: {kn} {n} launches in two strides = "
-                     f"2 x {k} x {want[kn]}")
+                      + (f" / {2 * prof['graph'][kn]}" if prof["graph"]
+                         else "") for kn in want))
+            if mode == "off":
+                for kn, n in prof["counted"].items():
+                    gate(n == 2 * k * want[kn],
+                         f"{label} {name}: {kn} {n} launches in two strides"
+                         f" = 2 x {k} x {want[kn]}")
+            else:
+                gate(prof["graph"] is not None, f"{label} {name}: one graph")
+                for kn, n in (prof["graph"] or {}).items():
+                    gate(n == k * want[kn],
+                         f"{label} {name}: {kn} {n} kernel nodes in the "
+                         f"graph = {k} x {want[kn]}")
+                    gate(prof["launches"][kn] > 0,
+                         f"{label} {name}: the profiler saw {kn} in the "
+                         f"replays")
             gate(m["recompiles"] == (0 if mode == "off" else 1),
                   f"{label} {name}: captures {m['recompiles']}")
             gate(tel_rel <= 0.10, f"{label} {name}: step_time_ms "
@@ -1923,6 +2013,561 @@ def phase_megastep(torch, card):
     gate(parity["ok"], "f32 parity of the captured fit")
     result["f32_parity"] = parity
     check(not failed, "phase 9: " + "; ".join(failed))
+    return result
+
+
+# -- phase 10: checkpoints, resume and the eval surface ----------------------
+
+# An epoch of the checkpoint fits: megastep "auto" (8 on the card) makes
+# it one eager stride and one captured, so the epoch's last stride is a
+# replay whose write-back the checkpoint must see.
+CKPT_STEPS = 16
+EVAL_BATCHES = 4      # timed validate/test batches at 16 x 1024
+PREDICT_BATCHES = 2   # timed predict batches at 16 x 1024
+# Card vs CPU at full width: the CPU runs the plain versions, so its
+# batches are small (a few seconds each).
+CPU_EVAL_B, CPU_PREDICT_B = 2, 1
+TOP2_GAP = 1e-4       # the serving gate's top-2 logit gap
+BF16_EVAL_TOL = 1e-2  # bf16 activations, as phase 8's bf16 vs f32 losses
+
+
+class EpochSlices:
+    """A loader that yields the ``epoch``-th run of ``n`` batches of
+    ``loader`` (``set_epoch``, as the fit loop calls it): each epoch
+    trains on batches of its own."""
+
+    def __init__(self, loader, n):
+        self.loader, self.n, self.epoch = loader, n, 0
+
+    def set_epoch(self, epoch):
+        self.epoch = epoch
+
+    def __len__(self):
+        return self.n
+
+    def __iter__(self):
+        import itertools
+
+        return itertools.islice(iter(self.loader), self.epoch * self.n,
+                                (self.epoch + 1) * self.n)
+
+
+def fresh_epochs(cfg, batch, epochs):
+    """The synthetic stream with a fresh CKPT_STEPS batches each epoch.
+    On the card a bf16 fit that sees the same 16 batches again in its
+    second epoch does not repeat itself: the flash backward's dQ atomics
+    (1e-6 in the losses) grow to 1e-2 by the epoch's 10th step, while a
+    fit over distinct batches stays within 1e-5 (and with the plain
+    attention both are bitwise)."""
+    from ray_lightning_tpu_torch.models.gpt import SyntheticLMDataModule
+
+    class FreshEpochs(SyntheticLMDataModule):
+        def train_dataloader(self):
+            return EpochSlices(self._loader(), CKPT_STEPS)
+
+    return FreshEpochs(cfg, batch_size=batch,
+                       num_batches=epochs * CKPT_STEPS, seed=SEED)
+
+
+def ckpt_fit(torch, cfg, gpt_kw, root, epochs, precision="bf16", init=None,
+             resume=None, checkpoint=True, callbacks=(), batch=TRAIN_B,
+             data=None):
+    """A fit of ``GPT(cfg, **gpt_kw)`` on the card through the Trainer a
+    user calls: ``megastep="auto"``, CKPT_STEPS steps an epoch (of
+    ``data``, else the synthetic stream, the same batches each epoch),
+    the default ``ModelCheckpoint`` under ``root`` when ``checkpoint``,
+    resumed from ``resume`` when given."""
+    from ray_lightning_tpu_torch.core.trainer import Trainer
+    from ray_lightning_tpu_torch.models.gpt import GPT, SyntheticLMDataModule
+    from ray_lightning_tpu_torch.parallel.strategies import LocalStrategy
+
+    module = GPT(cfg, **gpt_kw)
+    if init is not None:
+        module.initial_params = init
+    tr = Trainer(LocalStrategy(megastep="auto"), max_epochs=epochs,
+                 limit_val_batches=0, precision=precision, seed=SEED,
+                 callbacks=list(callbacks), default_root_dir=str(root),
+                 enable_checkpointing=checkpoint,
+                 resume_from_checkpoint=resume)
+    tr.fit(module, data or SyntheticLMDataModule(
+        cfg, batch_size=batch, num_batches=CKPT_STEPS, seed=SEED))
+    return tr
+
+
+def by_path(tree, path=""):
+    """Leaves by key path (a resumed fit keeps its own dict order)."""
+    if isinstance(tree, dict):
+        return {k2: v for k, sub in tree.items()
+                for k2, v in by_path(sub, f"{path}['{k}']").items()}
+    if isinstance(tree, (tuple, list)):
+        return {k2: v for i, sub in enumerate(tree)
+                for k2, v in by_path(sub, f"{path}[{i}]").items()}
+    return {path: tree}
+
+
+def file_vs_live(torch, path, state):
+    """Leaves of the checkpoint at ``path`` that differ bitwise from the
+    live ``state`` (dtype, shape or any bit; or its step), and the count
+    of leaves and step."""
+    from ray_lightning_tpu_torch.models.convert import train_state_from_jax
+    from ray_lightning_tpu_torch.utils import state_stream as ss
+
+    back = train_state_from_jax(
+        ss.load_state_stream(ss.state_stream_from_file(path))["state"])
+    live = by_path((state.params, state.opt_state))
+    read = by_path((back.params, back.opt_state))
+    bad = [k for k in live if k not in read
+           or live[k].dtype != read[k].dtype
+           or not torch.equal(live[k].cpu(), read[k])]
+    # The step counts as one more leaf.
+    return bad + ([] if back.step == state.step else ["step"]), len(live) + 1
+
+
+def opt_count(state) -> int:
+    """The optimizer's (Adam's) step count of a state."""
+    opt = state.opt_state
+    if isinstance(opt, dict):
+        opt = opt["inner_opt_state"]
+    return int(opt[1]["count"])
+
+
+def stride_losses(clock):
+    return {i: float(x) for i, x in zip(clock.index, clock.losses)}
+
+
+def checkpoint_parity(torch, card):
+    """Phase 10 (2): depth-2 GPT-2-small (full width) in f32, warmup 2, two
+    epochs of CKPT_STEPS steps at batch 2 under megastep "auto": a
+    straight fit against one epoch, its checkpoint, and a resumed second
+    epoch, with the plain attention (``attn_impl="xla"``; the card repeats
+    itself there: params bitwise) and in the headline configuration (the
+    flash backward's dQ atomics: params within PARITY_FLOOR_X times a
+    second straight fit's spread, or 1e-5).  Gates in each: the file
+    equals the one-epoch fit's live state bitwise; the resumed fit's
+    optimizer count is 2 x CKPT_STEPS (restored, not restarted) and its
+    step counters the straight fit's; one capture in the resumed epoch;
+    its stride-end losses within 1e-5 relative of the straight fit's.
+    Returns the readings and ``ok``."""
+    import tempfile
+
+    from ray_lightning_tpu_torch.core.callbacks import Callback
+    from ray_lightning_tpu_torch.models.gpt import GPT, GPTConfig
+
+    cfg = dataclasses.replace(GPTConfig.gpt2_small(), n_layer=2,
+                              warmup_steps=2)
+    init = GPT(cfg, device="cpu").init_params(
+        torch.Generator().manual_seed(SEED + 5))
+    out, ok = {}, True
+    with tempfile.TemporaryDirectory() as root:
+        for label, kw, repeat in (
+                ("xla_attention", {**HEADLINE, "attn_impl": "xla"}, False),
+                ("headline", HEADLINE, True)):
+            def fit(name, epochs, **more):
+                clock = hook_clock(torch, Callback)
+                tr = ckpt_fit(torch, cfg, kw, f"{root}/{label}-{name}",
+                              epochs, precision="f32", init=init,
+                              callbacks=[clock], batch=2, **more)
+                return tr, stride_losses(clock)
+
+            straight, s_loss = fit("straight", 2, checkpoint=False)
+            one, _ = fit("one", 1)
+            bad, n = file_vs_live(torch, one.best_model_path, one.state)
+            split, p_loss = fit("split", 2, checkpoint=False,
+                                resume=one.best_model_path)
+            diff = max_diff(split.state.params, straight.state.params)
+            floor = None
+            if repeat:
+                again, _ = fit("again", 2, checkpoint=False)
+                floor = max_diff(again.state.params, straight.state.params)
+            tol = max(PARITY_FLOOR_X * floor, 1e-5) if repeat else 0.0
+            loss_rel = max(abs(p_loss[i] - s_loss[i]) / abs(s_loss[i])
+                           for i in p_loss)
+            count = opt_count(split.state)
+            good = (not bad and count == 2 * CKPT_STEPS
+                    and (split.global_step, split.micro_step)
+                    == (straight.global_step, straight.micro_step)
+                    and split.callback_metrics["recompiles"] == 1
+                    and sorted(p_loss) == sorted(s_loss)
+                    and math.isfinite(loss_rel) and loss_rel <= 1e-5
+                    and diff <= tol)
+            ok = ok and good
+            print(f"phase 10 parity {label}: depth 2, f32, {CKPT_STEPS} + "
+                  f"{CKPT_STEPS} steps (megastep auto): file vs live "
+                  f"{n - len(bad)}/{n} leaves bitwise"
+                  + (f" (differ: {bad[:3]})" if bad else "")
+                  + f"; resumed optimizer count {count} (want "
+                  f"{2 * CKPT_STEPS}); captures in the resumed epoch "
+                  f"{split.callback_metrics['recompiles']:.0f}; stride-end "
+                  f"losses worst rel {loss_rel:.3e} (tol 1e-5); params max "
+                  f"abs diff {diff:.3e} (tol {tol:.3e}"
+                  + (f" = max({PARITY_FLOOR_X} x straight vs straight "
+                     f"{floor:.3e}, 1e-5))" if repeat else ", bitwise)")
+                  + f"; {'ok' if good else 'FAILED'}; {card}")
+            out[label] = {"file_leaves_differ": len(bad), "leaves": n,
+                          "opt_count": count, "loss_rel": loss_rel,
+                          "param_diff": diff, "floor": floor,
+                          "param_tol": tol, "ok": good}
+            del straight, one, split
+    out["ok"] = ok
+    return out
+
+
+def max_diff(a, b) -> float:
+    """Largest absolute difference between two parameter trees, leaf by
+    key path."""
+    a, b = by_path(a), by_path(b)
+    return max(float((a[k] - b[k]).abs().max()) for k in a)
+
+
+def checkpoint_timing(torch, state, root):
+    """(5): the state's host copy (a ``.cpu()`` of every leaf, the
+    yardstick), the stream's encode (each leaf copied from the card into
+    the stream's buffer), the file write (crc + write), and the read +
+    restore into a template state on the card, in ms, with the file's
+    bytes."""
+    import os
+
+    from ray_lightning_tpu_torch.core.loop import _restore_state
+    from ray_lightning_tpu_torch.core.module import TrainState
+    from ray_lightning_tpu_torch.models.convert import (
+        train_state_from_jax, train_state_to_jax,
+    )
+    from ray_lightning_tpu_torch.models.optim import tree_map
+    from ray_lightning_tpu_torch.utils import state_stream as ss
+
+    def ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, out
+
+    path = os.path.join(str(root), "timed.ckpt")
+    payload = {"state": train_state_to_jax(state), "epoch": 0,
+               "global_step": state.step, "micro_step": state.step,
+               "callback_metrics": {}}
+    copy_ms, host = ms(lambda: tree_map(lambda t: t.cpu(),
+                                        (state.params, state.opt_state)))
+    del host
+    encode_ms, stream = ms(lambda: ss.to_state_stream(payload))
+    write_ms, _ = ms(lambda: ss.state_stream_to_file(stream, path))
+    nbytes = os.path.getsize(path)
+    del stream
+    template = TrainState(tree_map(torch.empty_like, state.params),
+                          tree_map(torch.empty_like, state.opt_state))
+
+    def read():
+        tree = ss.load_state_stream(ss.state_stream_from_file(path),
+                                    device=state.params["wte"].device)
+        return _restore_state(template, train_state_from_jax(tree["state"]))
+
+    read_ms, back = ms(read)
+    same = all(torch.equal(a, b) for a, b in zip(
+        by_path((state.params, state.opt_state)).values(),
+        by_path((back.params, back.opt_state)).values()))
+    os.remove(path)
+    return {"host_copy_ms": copy_ms, "encode_ms": encode_ms,
+            "write_ms": write_ms, "file_bytes": nbytes,
+            "write_gb_s": nbytes / write_ms / 1e6,
+            "encode_gb_s": nbytes / encode_ms / 1e6,
+            "read_restore_ms": read_ms, "read_gb_s": nbytes / read_ms / 1e6,
+            "restored_bitwise": same}
+
+
+def eval_data(cfg, batch, batches, seed=SEED + 7):
+    """The synthetic stream with test and predict loaders too."""
+    from ray_lightning_tpu_torch.models.gpt import SyntheticLMDataModule
+
+    class EvalData(SyntheticLMDataModule):
+        def test_dataloader(self):
+            return self._loader()
+
+        def predict_dataloader(self):
+            return self._loader()
+
+    return EvalData(cfg, batch_size=batch, num_batches=batches, seed=seed)
+
+
+def eval_trainer(device, precision, batches=-1):
+    from ray_lightning_tpu_torch.core.trainer import Trainer
+    from ray_lightning_tpu_torch.parallel.strategies import LocalStrategy
+
+    return Trainer(LocalStrategy(device=device), precision=precision,
+                   limit_val_batches=batches, enable_checkpointing=False,
+                   seed=SEED)
+
+
+def phase_checkpoint(torch, card):
+    """Phase 10: checkpoints, resume and the eval surface.  (1) the headline
+    arm at full width (bf16, remat "dots+flash", megastep "auto"): one
+    epoch of CKPT_STEPS steps with the default ModelCheckpoint, the file
+    read back against the live state bitwise, a resumed second epoch (of
+    batches of its own, ``fresh_epochs``) against a straight two-epoch
+    fit (stride-end losses within
+    BF16_LOSS_TOL, one capture, the optimizer count restored) whose
+    captured stride's kernels the profiler counts by name (8 x phase 9's
+    per-step counts); (2) ``checkpoint_parity``; (3) ``validate`` and
+    ``test`` from the checkpoint: f32 card vs CPU within 1e-5 relative,
+    bf16 card vs f32 CPU within BF16_EVAL_TOL, and per bf16 batch LN fwd
+    2L+1, flash fwd L, CE fwd 1 and no backward kernel by the wrappers'
+    counters; (4) ``predict``: f32 card vs CPU argmax equal except at a
+    top-2 logit gap < TOP2_GAP, on PREDICT_BATCHES batches; (5) timings:
+    ``checkpoint_timing``, validate/test/predict ms a batch and tokens/s
+    (bf16, 16 x 1024)."""
+    import gc
+    import tempfile
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from ray_lightning_tpu_torch.core.callbacks import Callback
+    from ray_lightning_tpu_torch.core.loop import (
+        FitConfig, run_eval, run_predict,
+    )
+    from ray_lightning_tpu_torch.models.convert import (
+        jax_train_state_fields, params_from_jax,
+    )
+    from ray_lightning_tpu_torch.models.gpt import GPT, GPTConfig
+    from ray_lightning_tpu_torch.utils import state_stream as ss
+
+    cfg = GPTConfig.gpt2_small()
+    counters = launch_counters()
+    result, failed = {}, []
+
+    def gate(cond, what):
+        if not cond:
+            print(f"phase 10: FAILED: {what}")
+            failed.append(what)
+
+    with tempfile.TemporaryDirectory() as root:
+        # (1) the headline arm: fit, checkpoint, resume.
+        for c in counters.values():
+            c.launches = 0
+        gc.collect()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one = ckpt_fit(torch, cfg, HEADLINE, f"{root}/one", 1,
+                       data=fresh_epochs(cfg, TRAIN_B, 2))
+        one_wall = time.perf_counter() - t0
+        path = one.best_model_path
+        bad, n = file_vs_live(torch, path, one.state)
+        k = one.telemetry_report["meta"]["megastep"]
+        print(f"phase 10: GPT-2-small headline arm, batch {TRAIN_B} x "
+              f"{TRAIN_T}, bf16, megastep auto ({k}): one epoch of "
+              f"{CKPT_STEPS} steps with the default ModelCheckpoint in "
+              f"{one_wall:.1f} s -> {path.rsplit('/', 1)[-1]}; file vs live "
+              f"state {n - len(bad)}/{n} leaves and step bitwise")
+        gate(not bad, f"the checkpoint holds the live state ({bad[:3]})")
+        timing = checkpoint_timing(torch, one.state, root)
+        gate(timing["restored_bitwise"], "read + restore gives the state")
+        del one
+        gc.collect()
+        s_clock = hook_clock(torch, Callback)
+        straight = ckpt_fit(torch, cfg, HEADLINE, f"{root}/s", 2,
+                            checkpoint=False, callbacks=[s_clock],
+                            data=fresh_epochs(cfg, TRAIN_B, 2))
+        s_loss = stride_losses(s_clock)
+        straight_steps = (straight.global_step, straight.micro_step)
+        del straight
+        gc.collect()
+
+        class Window(Callback):
+            """Profiles the resumed epoch's second (captured) stride."""
+
+            def __init__(self, prof):
+                self.prof = prof
+
+            def on_train_batch_end(self, trainer, module, logs, batch_idx):
+                torch.cuda.synchronize()
+                self.prof.step()
+
+        r_clock = hook_clock(torch, Callback)
+        with kept_graphs(torch) as graphs, profile(
+                activities=[ProfilerActivity.CUDA],
+                schedule=schedule(wait=0, warmup=1, active=1,
+                                  repeat=1)) as prof:
+            split = ckpt_fit(torch, cfg, HEADLINE, f"{root}/r", 2,
+                             checkpoint=False, resume=path,
+                             callbacks=[r_clock, Window(prof)],
+                             data=fresh_epochs(cfg, TRAIN_B, 2))
+            torch.cuda.synchronize()
+        p_loss = stride_losses(r_clock)
+        device = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        seen = {k: sum(1 for e in device if name in e.name)
+                for k, name in PROFILE_NAMES.items()}
+        nodes = graph_kernels(graphs[0]) if len(graphs) == 1 else {}
+        fit_launches = {k: c.launches for k, c in counters.items()}
+        want = per_step_launches(cfg.n_layer, True)
+        loss_rel = max(abs(p_loss[i] - s_loss[i]) / abs(s_loss[i])
+                       for i in p_loss)
+        count = opt_count(split.state)
+        print(f"phase 10: resumed for a second epoch: stride-end losses "
+              + ", ".join(f"{i}: {p_loss[i]:.6f} / {s_loss[i]:.6f}"
+                          for i in sorted(p_loss))
+              + f" (resumed / straight); worst rel {loss_rel:.3e} (tol "
+              f"{BF16_LOSS_TOL:g}); captures "
+              f"{split.callback_metrics['recompiles']:.0f}; optimizer count "
+              f"{count} (want {2 * CKPT_STEPS}); the captured stride's "
+              f"launches by profiler name / graph nodes "
+              + ", ".join(f"{k} {v} / {nodes.get(k)}" for k, v in seen.items())
+              + f" (want {MEGASTEP_K} x {list(want.values())}); {card}")
+        print("phase 10: launches over the checkpoint path (fit, "
+              "checkpoint, straight and resumed fits; counters): "
+              + json.dumps(fit_launches))
+        gate(all(v > 0 for v in fit_launches.values()),
+             "every training kernel ran on the checkpoint path")
+        gate(sorted(p_loss) == sorted(s_loss)
+             and math.isfinite(loss_rel) and loss_rel <= BF16_LOSS_TOL,
+             f"resumed losses within {BF16_LOSS_TOL:g} of straight")
+        gate(split.callback_metrics["recompiles"] == 1,
+             "one capture in the resumed epoch")
+        gate(count == 2 * CKPT_STEPS, f"optimizer count {count} restored")
+        gate((split.global_step, split.micro_step) == straight_steps,
+             "resumed counters equal straight")
+        # As in phase 9: the graph's nodes count a replay's launches, the
+        # profiler shows the replay ran them.
+        gate(len(graphs) == 1, "one graph in the resumed fit")
+        for k, v in nodes.items():
+            gate(v == MEGASTEP_K * want[k],
+                 f"{k} {v} kernel nodes in the resumed fit's graph = "
+                 f"{MEGASTEP_K} x {want[k]}")
+            gate(seen[k] > 0, f"the profiler saw {k} in the replay")
+        result["headline"] = {"file_leaves_differ": len(bad), "leaves": n,
+                              "loss_rel": loss_rel, "opt_count": count,
+                              "profile_launches": seen, "graph_nodes": nodes,
+                              "launches": fit_launches, **timing}
+        fitted = split.state.params
+        del split
+        gc.collect()
+
+        # (2) f32 parity at depth 2.
+        parity = checkpoint_parity(torch, card)
+        gate(parity["ok"], "phase 10 f32 split-vs-straight parity")
+        result["f32_parity"] = parity
+
+        # (3) validate and test from the checkpoint.
+        def validate(kind, device, precision, batch, batches):
+            dm = eval_data(cfg, batch, batches)
+            tr = eval_trainer(device, precision)
+            run = tr.validate if kind == "validate" else tr.test
+            return run(GPT(cfg, device=device, **HEADLINE), dm,
+                       ckpt_path=path)
+
+        cmp = {}
+        for precision in ("f32", "bf16"):
+            card_m = validate("validate", "cuda", precision, CPU_EVAL_B, 1)
+            cmp[precision] = card_m["val_loss"]
+        cpu_m = validate("validate", "cpu", "f32", CPU_EVAL_B, 1)
+        f32_rel = abs(cmp["f32"] - cpu_m["val_loss"]) / cpu_m["val_loss"]
+        bf_rel = abs(cmp["bf16"] - cpu_m["val_loss"]) / cpu_m["val_loss"]
+        print(f"phase 10: validate from the checkpoint, batch {CPU_EVAL_B} x"
+              f" {TRAIN_T}: val_loss card f32 {cmp['f32']:.7f}, card bf16 "
+              f"{cmp['bf16']:.7f}, CPU f32 {cpu_m['val_loss']:.7f}; rel "
+              f"{f32_rel:.3e} (tol 1e-5), bf16 {bf_rel:.3e} (tol "
+              f"{BF16_EVAL_TOL:g})")
+        gate(f32_rel <= 1e-5, "f32 validate card vs CPU")
+        gate(bf_rel <= BF16_EVAL_TOL, "bf16 validate card vs f32 CPU")
+
+        timed = {}
+        for kind in ("validate", "test"):
+            validate(kind, "cuda", "bf16", TRAIN_B, 1)  # warm-up
+            for c in counters.values():
+                c.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = validate(kind, "cuda", "bf16", TRAIN_B, EVAL_BATCHES)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            per = {k: c.launches / EVAL_BATCHES for k, c in counters.items()}
+            timed[kind] = {"launches_per_batch": per,
+                           "val_loss": m["val_loss"]}
+            print(f"phase 10: {kind} bf16, {EVAL_BATCHES} batches of "
+                  f"{TRAIN_B} x {TRAIN_T} from the checkpoint: {wall:.2f} s "
+                  f"(checkpoint read included); launches a batch "
+                  + json.dumps(per))
+            want_eval = {"ln_fwd": 2 * cfg.n_layer + 1,
+                         "flash_fwd": cfg.n_layer, "ce_fwd": 1}
+            for k, v in per.items():
+                gate(v == want_eval.get(k, 0),
+                     f"{kind}: {k} {v} launches a batch, want "
+                     f"{want_eval.get(k, 0)}")
+
+        # (4) predict, f32 card vs CPU.
+        preds = {}
+        for device in ("cuda", "cpu"):
+            dm = eval_data(cfg, CPU_PREDICT_B, PREDICT_BATCHES)
+            preds[device] = eval_trainer(device, "f32").predict(
+                GPT(cfg, device=device, **HEADLINE), dm, ckpt_path=path)
+        dm = eval_data(cfg, CPU_PREDICT_B, PREDICT_BATCHES)
+        dm.setup("predict")
+        gpt32 = GPT(cfg)
+        tokens = torch.cat([torch.from_numpy(b["tokens"]) for b in
+                            dm.predict_dataloader()]).to(gpt32.device)
+        ckpt_params = params_from_jax(jax_train_state_fields(
+            ss.load_state_stream(ss.state_stream_from_file(path))["state"])[0])
+        with torch.no_grad():
+            top2 = torch.topk(gpt32.forward(ckpt_params, tokens[:, :-1]),
+                              2).values
+        close = ((top2[..., 0] - top2[..., 1]) < TOP2_GAP).cpu().numpy()
+        agree = bool(np.array_equal(preds["cuda"][~close],
+                                    preds["cpu"][~close]))
+        print(f"phase 10: predict f32, {PREDICT_BATCHES} batches of "
+              f"{CPU_PREDICT_B} x {TRAIN_T}: card vs CPU argmax "
+              f"{'equal' if agree else 'DIFFER'} at the "
+              f"{int((~close).sum())} of {close.size} positions whose "
+              f"top-2 gap is >= {TOP2_GAP:g}; dtype {preds['cuda'].dtype}")
+        gate(agree and preds["cuda"].dtype == np.int32
+             and preds["cuda"].shape == (PREDICT_BATCHES * CPU_PREDICT_B,
+                                         TRAIN_T),
+             "predict card vs CPU")
+        del gpt32, top2, ckpt_params
+
+        # (5) eval timings on the fitted state, handed over as it is (no
+        # file read), bf16.
+        def timed_eval(run, batches):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(batches)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3
+
+        module = GPT(cfg, **HEADLINE)
+        dev = module.device
+
+        def val(b):
+            run_eval(module, eval_data(cfg, TRAIN_B, b),
+                     FitConfig(precision="bf16"), [], dev, params=fitted)
+
+        def pred(b):
+            run_predict(module, eval_data(cfg, TRAIN_B, b),
+                        FitConfig(precision="bf16"), dev, params=fitted)
+
+        tokens_batch = TRAIN_B * TRAIN_T
+        for name, run, nb in (("validate", val, EVAL_BATCHES),
+                              ("predict", pred, PREDICT_BATCHES)):
+            run(1)
+            one_ms = timed_eval(run, 1)
+            many_ms = timed_eval(run, 1 + nb)
+            ms_b = (many_ms - one_ms) / nb
+            timed[name + "_ms_per_batch"] = ms_b
+            timed[name + "_tokens_per_s"] = tokens_batch / (ms_b / 1e3)
+            print(f"phase 10: {name} bf16 at {TRAIN_B} x {TRAIN_T}: "
+                  f"{ms_b:.2f} ms a batch ((wall of {1 + nb} batches "
+                  f"{many_ms:.1f} ms - of 1 batch {one_ms:.1f} ms) / {nb}), "
+                  f"{tokens_batch / (ms_b / 1e3):.0f} tokens/s; {card}")
+        print(f"phase 10: checkpoint of the headline state "
+              f"({timing['file_bytes'] / 1e9:.3f} GB file): host copy "
+              f"(.cpu() of every leaf) {timing['host_copy_ms']:.1f} ms; "
+              f"stream encode (each leaf from the card into the stream) "
+              f"{timing['encode_ms']:.1f} ms ({timing['encode_gb_s']:.2f} "
+              f"GB/s); write (crc + file) {timing['write_ms']:.1f} ms "
+              f"({timing['write_gb_s']:.2f} GB/s); read + restore onto the "
+              f"card {timing['read_restore_ms']:.1f} ms "
+              f"({timing['read_gb_s']:.2f} GB/s); {card}")
+        result["eval"] = {"f32_rel": f32_rel, "bf16_rel": bf_rel,
+                          "predict_agree": agree, **timed}
+    check(not failed, "phase 10: " + "; ".join(failed))
     return result
 
 
@@ -2118,6 +2763,7 @@ def main() -> int:
     train = phase_trainer(torch, card)
     e2e = phase_end_to_end(torch, card)
     mega = phase_megastep(torch, card)
+    ckpt = phase_checkpoint(torch, card)
 
     kernels = [{
         "name": "bgmv", "route": "cuda", "source": BGMV_SOURCE,
@@ -2139,6 +2785,7 @@ def main() -> int:
     print("trainer: " + json.dumps({**train, "end_to_end": e2e,
                                     "card": card}))
     print("megastep: " + json.dumps({**mega, "card": card}))
+    print("checkpoint: " + json.dumps({**ckpt, "card": card}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -39,8 +39,43 @@ class TpuDataModule:
     def val_dataloader(self):
         return None
 
+    def test_dataloader(self):
+        return None
+
+    def predict_dataloader(self):
+        return None
+
     def teardown(self, stage: str) -> None:
         ...
+
+
+class _ModuleDataModule(TpuDataModule):
+    """Adapter: a module that builds its own loaders (Lightning-style
+    ``*_dataloader`` methods) as a datamodule; its loaders get the host
+    shard."""
+
+    def __init__(self, module):
+        super().__init__()
+        self._module = module
+
+    def _loader(self, name: str):
+        fn = getattr(self._module, name, None)
+        loader = fn() if fn is not None else None
+        if loader is not None and hasattr(loader, "set_shard"):
+            loader.set_shard(self.shard_index, self.num_shards)
+        return loader
+
+    def train_dataloader(self):
+        return self._loader("train_dataloader")
+
+    def val_dataloader(self):
+        return self._loader("val_dataloader")
+
+    def test_dataloader(self):
+        return self._loader("test_dataloader")
+
+    def predict_dataloader(self):
+        return self._loader("predict_dataloader")
 
 
 class ArrayDataset:

@@ -13,8 +13,13 @@ multi_steps``, the partial window flushed at epoch end), megastep (K
 micro-steps a dispatch: ``parallel.step_fns.MultiStep``, one CUDA graph
 per stride on the card) and the cheap telemetry tier (``telemetry/``:
 ``step_time_ms``, ``dispatch_ms``, ``mfu``... in ``callback_metrics``).
-Checkpoints and resume, elastic restart, drain, prefetch threads and the
-full telemetry tier are later slices.
+Checkpoints (``LoopContext.save_checkpoint``: the JAX package's payload
+``{"state", "epoch", "global_step", "micro_step", "callback_metrics"}``
+in an ``RLTCKPT1`` file, ``utils/state_stream.py``), resume
+(``resume_from_checkpoint``: the state, counters, epoch and metrics of a
+file either package wrote) and the eval loops (:func:`run_eval` for
+validation and test, :func:`run_predict`) are kept.  Elastic restart,
+drain, prefetch threads and the full telemetry tier are later slices.
 """
 
 from __future__ import annotations
@@ -22,21 +27,33 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import os
+import queue
+import threading
 import time
 from typing import Any, Dict, List, Optional
 
+import numpy as np
 import torch
 
-from ray_lightning_tpu_torch.core.callbacks import Callback
+from ray_lightning_tpu_torch.core.callbacks import Callback, ModelCheckpoint
 from ray_lightning_tpu_torch.core.data import TpuDataModule
 from ray_lightning_tpu_torch.core.module import TrainModule, TrainState
+from ray_lightning_tpu_torch.models.convert import (
+    jax_train_state_fields, params_from_jax, train_state_from_jax,
+    train_state_to_jax,
+)
 from ray_lightning_tpu_torch.models.optim import (
     apply_updates, multi_steps, multi_steps_flush, tree_map,
 )
 from ray_lightning_tpu_torch.parallel import step_fns
 from ray_lightning_tpu_torch.telemetry.runtime import Telemetry
+from ray_lightning_tpu_torch.utils.state_stream import (
+    load_state_stream, state_stream_from_file, state_stream_to_file,
+    to_state_stream,
+)
 
-__all__ = ["FitConfig", "LoopContext", "init_train_state", "run_fit"]
+__all__ = ["FitConfig", "LoopContext", "init_train_state", "run_fit",
+           "run_eval", "run_predict"]
 
 _PRECISION_ALIASES = {"32": "f32", "32-true": "f32", "float32": "f32",
                       "bf16-mixed": "bf16", "bfloat16": "bf16"}
@@ -57,6 +74,8 @@ class FitConfig:
     precision: str = "f32"
     accumulate_grad_batches: int = 1
     megastep: Optional[Any] = None
+    default_root_dir: str = "."
+    resume_from_checkpoint: Optional[str] = None
 
     def __post_init__(self):
         if self.limit_train_batches is None:
@@ -143,11 +162,112 @@ class LoopContext:
         self.logged_metrics: Dict[str, float] = {}
         self.state: Optional[TrainState] = None
         self.telemetry: Optional[Telemetry] = None
+        self.default_root_dir = config.default_root_dir
+        # The async checkpoint writer (one thread a fit, made on first
+        # use): its queue, failures, paths in flight and their lock.
+        self._ckpt_queue: Optional[queue.Queue] = None
+        self._ckpt_thread: Optional[threading.Thread] = None
+        self._ckpt_errors: List[BaseException] = []
+        self._ckpt_pending: set = set()
+        self._ckpt_lock = threading.Lock()
+
+    @property
+    def is_global_zero(self) -> bool:
+        return True  # one process, one device
 
     def log_metrics(self, metrics: Dict[str, Any]) -> None:
         for k, v in metrics.items():
             self.logged_metrics[k] = float(v)
             self.callback_metrics[k] = float(v)
+
+    # -- checkpoints ---------------------------------------------------------
+    def checkpoint_payload(self) -> Dict[str, Any]:
+        """The JAX package's checkpoint payload; the state as the JAX
+        ``TrainState`` tree (its tensors still where they live)."""
+        return {"state": train_state_to_jax(self.state),
+                "epoch": self.current_epoch,
+                "global_step": self.global_step,
+                "micro_step": self.micro_step,
+                "callback_metrics": dict(self.callback_metrics)}
+
+    def save_checkpoint(self, path: str, async_write: bool = False) -> None:
+        """Write the state to ``path``.  The stream is built here, each
+        tensor copied from the card straight into it: the copy waits for
+        the steps queued before it (a captured stride's write-back
+        included) and ends before the next step is issued, so the file
+        holds this step's state whatever runs next.  ``async_write``
+        leaves the crc and the file write to a writer thread (at most one
+        stream waits for it); :meth:`flush_checkpoints` joins it and
+        raises its failures."""
+        stream = to_state_stream(self.checkpoint_payload())
+        if self.telemetry is not None:
+            self.telemetry.add_counter("checkpoint_writes", 1)
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        if not async_write:
+            state_stream_to_file(stream, path)
+            return
+        if self._ckpt_queue is None:
+            self._start_writer()
+        with self._ckpt_lock:
+            self._ckpt_pending.add(path)
+        self._ckpt_queue.put((path, stream))
+
+    def _start_writer(self) -> None:
+        # maxsize 1: one stream (a host copy of the whole state) waits at
+        # most; a slow disk holds the loop back instead of piling copies.
+        q: queue.Queue = queue.Queue(maxsize=1)
+        errors, pending, lock = (self._ckpt_errors, self._ckpt_pending,
+                                 self._ckpt_lock)
+
+        def writer():  # holds the queue, not the context or its state
+            while True:
+                item = q.get()
+                try:
+                    if item is None:
+                        return
+                    state_stream_to_file(item[1], item[0])
+                except BaseException as e:  # noqa: BLE001 - raised at flush
+                    errors.append(e)
+                finally:
+                    if item is not None:
+                        with lock:
+                            pending.discard(item[0])
+                    q.task_done()
+
+        self._ckpt_queue = q
+        self._ckpt_thread = threading.Thread(target=writer, daemon=True,
+                                             name="rlt-ckpt-writer")
+        self._ckpt_thread.start()
+
+    def checkpoint_write_pending(self, path: str) -> bool:
+        """True while an async write of ``path`` is queued or running."""
+        with self._ckpt_lock:
+            return path in self._ckpt_pending
+
+    def flush_checkpoints(self) -> None:
+        """Wait for pending async writes; raise the first that failed."""
+        if self._ckpt_queue is None:
+            return
+        self._ckpt_queue.join()
+        if self._ckpt_errors:
+            err = self._ckpt_errors[0]
+            self._ckpt_errors.clear()
+            raise RuntimeError(
+                f"async checkpoint write failed: {err!r}") from err
+
+    def close_checkpoint_writer(self) -> None:
+        """Flush, then retire the writer thread."""
+        try:
+            self.flush_checkpoints()
+        finally:
+            self._retire_writer()
+
+    def _retire_writer(self) -> None:
+        if self._ckpt_queue is None:
+            return
+        self._ckpt_queue.put(None)
+        self._ckpt_thread.join(timeout=30)
+        self._ckpt_queue = self._ckpt_thread = None
 
 
 def _call_hooks(callbacks: List[Callback], hook: str, *args) -> None:
@@ -225,6 +345,77 @@ def init_train_state(module: TrainModule, tx, device: torch.device,
         params = tree_map(lambda t: t.to(device),
                           module.init_params(gen))
     return TrainState.create(params, tx)
+
+
+def _restore_state(template: TrainState, loaded: TrainState) -> TrainState:
+    """``loaded``'s values written into ``template``'s tensors, each cast
+    to the template's dtype (a dtype policy changed between runs must not
+    leak into this one, as the JAX loop casts) on its device; the trees
+    and the shapes must agree."""
+
+    def put(dst, src, path):
+        if isinstance(dst, dict):
+            if not isinstance(src, dict) or set(src) != set(dst):
+                got = sorted(src) if isinstance(src, dict) else type(
+                    src).__name__
+                raise ValueError(
+                    f"resume: {path}: the checkpoint holds {got} where this "
+                    f"fit holds {sorted(dst)}")
+            for k in dst:
+                put(dst[k], src[k], f"{path}['{k}']")
+        elif isinstance(dst, tuple):
+            if not isinstance(src, tuple) or len(src) != len(dst):
+                raise ValueError(
+                    f"resume: {path}: the checkpoint holds "
+                    f"{type(src).__name__} where this fit holds a tuple of "
+                    f"{len(dst)} (accumulate_grad_batches changed?)")
+            for i, (d, x) in enumerate(zip(dst, src)):
+                put(d, x, f"{path}[{i}]")
+        elif tuple(src.shape) != tuple(dst.shape):
+            raise ValueError(
+                f"resume: {path}: shape {tuple(src.shape)} in the checkpoint,"
+                f" {tuple(dst.shape)} in this fit")
+        else:
+            dst.copy_(src)
+
+    with torch.no_grad():
+        put(template.params, loaded.params, "state.params")
+        put(template.opt_state, loaded.opt_state, "state.opt_state")
+    template.step = loaded.step
+    return template
+
+
+def _resume(ctx: LoopContext, callbacks: List[Callback], accum: int):
+    """Load ``config.resume_from_checkpoint`` into the context (state,
+    counters, metrics, callback states); returns ``(start_epoch,
+    skip_batches)``."""
+    payload = load_state_stream(
+        state_stream_from_file(ctx.config.resume_from_checkpoint),
+        device=ctx.device)
+    ctx.state = _restore_state(ctx.state,
+                               train_state_from_jax(payload["state"]))
+    if payload.get("mid_epoch"):
+        # A step-granular checkpoint: resume inside its epoch, skipping
+        # the micro-batches already trained (loaders are epoch-seeded).
+        start_epoch = payload["epoch"]
+        skip = int(payload.get("batch_in_epoch", 0))
+    else:
+        start_epoch, skip = payload["epoch"] + 1, 0
+    # A checkpoint that covers max_epochs runs no epoch; current_epoch
+    # still reports the work done.
+    ctx.current_epoch = max(start_epoch - 1, 0)
+    if "micro_step" in payload:
+        ctx.global_step = payload["global_step"]
+        ctx.micro_step = payload["micro_step"]
+    else:
+        # Legacy streams (and Trainer.save_checkpoint's) store the
+        # micro-batch count as "global_step".
+        ctx.micro_step = payload["global_step"]
+        ctx.global_step = payload["global_step"] // accum
+    ctx.callback_metrics.update(payload.get("callback_metrics", {}))
+    for cb, cb_state in zip(callbacks, payload.get("callback_states", [])):
+        cb.load_state_dict(cb_state)
+    return start_epoch, skip
 
 
 def _run_validation(eval_step, loader, ctx: LoopContext,
@@ -320,14 +511,26 @@ def run_fit(module: TrainModule, datamodule: TpuDataModule,
             device: torch.device, telemetry: Any = None) -> Dict[str, Any]:
     """The fit loop.  Returns the result package the trainer adopts:
     ``state``, ``callback_metrics``, ``logged_metrics``, ``epochs_run``,
-    ``global_step``, ``micro_step`` and ``telemetry`` (the report)."""
+    ``global_step``, ``micro_step``, ``telemetry`` (the report) and
+    ``best_model_path`` (the first ``ModelCheckpoint``'s)."""
+    ctx = LoopContext(config, device)
+    try:
+        return _fit(ctx, module, datamodule, callbacks, telemetry)
+    finally:
+        # A failed fit still retires its writer thread (a finished one
+        # already has).
+        ctx._retire_writer()
+
+
+def _fit(ctx: LoopContext, module: TrainModule, datamodule: TpuDataModule,
+         callbacks: List[Callback], telemetry: Any) -> Dict[str, Any]:
+    config, device = ctx.config, ctx.device
     tel = Telemetry.build(telemetry)
     tx = module.configure_optimizers()
     accum = max(int(config.accumulate_grad_batches), 1)
     inner_tx = tx
     if accum > 1:
         tx = multi_steps(tx, accum)
-    ctx = LoopContext(config, device)
     ctx.telemetry = tel
     module.trainer = ctx
     module.precision = config.precision
@@ -341,7 +544,14 @@ def run_fit(module: TrainModule, datamodule: TpuDataModule,
     datamodule.setup("fit")
     _call_hooks(callbacks, "setup", ctx, module, "fit")
 
+    # On resume this is the template the checkpoint is written into (its
+    # dict order, which orders the clip's norm sum, stays the fit's).
     ctx.state = init_train_state(module, tx, device, config.seed)
+    start_epoch, skip_batches = 0, 0
+    if config.resume_from_checkpoint:
+        # In place before the first stride: a captured graph owns the
+        # state it captured on.
+        start_epoch, skip_batches = _resume(ctx, callbacks, accum)
     train_step = step_fns.single_device_step(module, tx)
     rng = step_fns.StepRng(device, config.seed)
     megastep_k = _resolve_megastep(config, device)
@@ -349,7 +559,7 @@ def run_fit(module: TrainModule, datamodule: TpuDataModule,
                   if megastep_k > 1 else None)
     tel.set_meta("megastep", megastep_k)
     val_loader = datamodule.val_dataloader()
-    eval_step = (step_fns.eval_step(module) if val_loader is not None
+    eval_step = (step_fns.build_eval_step(module) if val_loader is not None
                  else None)
 
     module.on_fit_start()
@@ -360,9 +570,10 @@ def run_fit(module: TrainModule, datamodule: TpuDataModule,
     pending_logs: Optional[Dict[str, Any]] = None
     # Micro-batches since the last optimizer update (the host mirror of
     # multi_steps' window: a flush resets it mid-cycle).
-    since_update = 0
+    since_update = (int(ctx.state.opt_state["mini_step"])
+                    if config.resume_from_checkpoint and accum > 1 else 0)
     compiled_kinds: set = set()
-    for epoch in range(config.max_epochs):
+    for epoch in range(start_epoch, config.max_epochs):
         ctx.current_epoch = epoch
         if hasattr(train_loader, "set_epoch"):
             train_loader.set_epoch(epoch)
@@ -370,7 +581,10 @@ def run_fit(module: TrainModule, datamodule: TpuDataModule,
         _call_hooks(callbacks, "on_train_epoch_start", ctx, module)
 
         epoch_mean = _RunningMeanLogs()
-        cap = (config.limit_train_batches
+        # A mid-epoch checkpoint's batches already trained are skipped;
+        # batch_idx stays the index within the epoch.
+        skip = skip_batches if epoch == start_epoch else 0
+        cap = (max(config.limit_train_batches - skip, 0)
                if config.limit_train_batches >= 0 else None)
         if config.max_steps >= 0:
             # max_steps counts optimizer steps; the cap micro-batches.
@@ -379,6 +593,8 @@ def run_fit(module: TrainModule, datamodule: TpuDataModule,
                 0)
             cap = remaining if cap is None else min(cap, remaining)
         src = iter(train_loader)
+        if skip:
+            src = itertools.islice(src, skip, None)
         source = src if cap is None else itertools.islice(src, cap + 1)
         # Only full strides lying entirely inside the cap are fused; the
         # rest runs per step, so the boundary checks stay exact.
@@ -386,7 +602,7 @@ def run_fit(module: TrainModule, datamodule: TpuDataModule,
                        else (cap // megastep_k) * megastep_k)
         last_logs: Dict[str, Any] = {}
         last_batch_idx = -1
-        batch_idx = -1
+        batch_idx = skip - 1
         t_mark = time.perf_counter()
         for kind, item in _grouped(source, megastep_k, stack_limit):
             t_ready = time.perf_counter()
@@ -508,8 +724,12 @@ def run_fit(module: TrainModule, datamodule: TpuDataModule,
         if stop or ctx.should_stop:
             break
 
+    # Every async write is on disk (or has raised) before on_fit_end,
+    # where a callback may read best_model_path.
+    ctx.flush_checkpoints()
     module.on_fit_end()
     _call_hooks(callbacks, "on_fit_end", ctx, module)
+    ctx.close_checkpoint_writer()
     module.teardown("fit")
     _call_hooks(callbacks, "teardown", ctx, module, "fit")
     datamodule.teardown("fit")
@@ -521,4 +741,74 @@ def run_fit(module: TrainModule, datamodule: TpuDataModule,
         "global_step": ctx.global_step,
         "micro_step": ctx.micro_step,
         "telemetry": tel.report(),
+        "best_model_path": next((cb.best_model_path for cb in callbacks
+                                 if isinstance(cb, ModelCheckpoint)), ""),
     }
+
+
+def _resolve_params(module: TrainModule, config: FitConfig,
+                    device: torch.device, params: Any,
+                    ckpt_path: Optional[str]) -> Any:
+    """The parameters an eval runs on: a checkpoint's (``ckpt_path``),
+    else ``params`` (the trainer's fitted state, handed over as it is),
+    else ``module.init_params`` from a generator seeded ``config.seed``."""
+    if ckpt_path:
+        payload = load_state_stream(state_stream_from_file(ckpt_path))
+        return params_from_jax(jax_train_state_fields(payload["state"])[0],
+                               device)
+    if params is not None:
+        return tree_map(lambda t: t.to(device), params)
+    gen = torch.Generator(device=device).manual_seed(config.seed)
+    return tree_map(lambda t: t.to(device), module.init_params(gen))
+
+
+def run_eval(module: TrainModule, datamodule: TpuDataModule,
+             config: FitConfig, callbacks: List[Callback],
+             device: torch.device, kind: str = "validation", params=None,
+             ckpt_path: Optional[str] = None) -> Dict[str, Any]:
+    """The validation or test loop (``kind``): the epoch means of
+    ``validation_step``/``test_step`` over the loader (at most
+    ``limit_val_batches``), without gradients.  Returns
+    ``{"callback_metrics": metrics}``."""
+    stage = "validate" if kind == "validation" else "test"
+    ctx = LoopContext(config, device)
+    module.trainer = ctx
+    module.precision = config.precision
+    module.setup(stage)
+    datamodule.set_shard(0, 1)
+    datamodule.setup(stage)
+    _call_hooks(callbacks, "setup", ctx, module, stage)
+    ctx.state = TrainState(
+        _resolve_params(module, config, device, params, ckpt_path), None)
+    loader = (datamodule.val_dataloader() if kind == "validation"
+              else datamodule.test_dataloader())
+    if loader is None:
+        raise ValueError(f"datamodule provides no {kind} dataloader")
+    metrics = _run_validation(step_fns.build_eval_step(module, kind), loader,
+                              ctx, config.limit_val_batches)
+    ctx.log_metrics(metrics)
+    module.teardown(stage)
+    _call_hooks(callbacks, "teardown", ctx, module, stage)
+    return {"callback_metrics": metrics}
+
+
+def run_predict(module: TrainModule, datamodule: TpuDataModule,
+                config: FitConfig, device: torch.device, params=None,
+                ckpt_path: Optional[str] = None) -> Dict[str, Any]:
+    """The prediction loop: ``predict_step`` over the predict loader (the
+    test loader when there is none), without gradients.  Returns
+    ``{"prediction_batches": [host numpy array per batch]}``; the outputs
+    stay on the device until the last batch is issued."""
+    module.precision = config.precision
+    module.setup("predict")
+    datamodule.set_shard(0, 1)
+    datamodule.setup("predict")
+    params = _resolve_params(module, config, device, params, ckpt_path)
+    predict_step = step_fns.build_predict_step(module)
+    loader = datamodule.predict_dataloader() or datamodule.test_dataloader()
+    if loader is None:
+        raise ValueError("datamodule provides no predict/test dataloader")
+    outputs = [predict_step(params, step_fns.place_batch(batch, device))
+               for batch in loader]
+    module.teardown("predict")
+    return {"prediction_batches": [np.asarray(o.cpu()) for o in outputs]}

@@ -58,7 +58,8 @@ class TrainModule:
 
     Subclasses implement ``init_params(generator)``, ``training_step``,
     ``validation_step`` and ``configure_optimizers`` (a
-    ``models.optim.GradientTransformation``)."""
+    ``models.optim.GradientTransformation``); ``test_step`` defaults to
+    ``validation_step``, and ``predict_step`` is for ``Trainer.predict``."""
 
     def __init__(self):
         self.hparams: Dict[str, Any] = {}
@@ -84,9 +85,16 @@ class TrainModule:
     def validation_step(self, params: Any, batch: Any) -> Logs:
         raise NotImplementedError
 
+    def test_step(self, params: Any, batch: Any) -> Logs:
+        return self.validation_step(params, batch)
+
+    def predict_step(self, params: Any, batch: Any) -> Any:
+        raise NotImplementedError
+
     # -- lifecycle hooks (inside the fit loop) ------------------------------
     def setup(self, stage: str) -> None:
-        """Called before the loop ('fit')."""
+        """Called before the loop ('fit', 'validate', 'test' or
+        'predict')."""
 
     def on_fit_start(self) -> None:
         ...

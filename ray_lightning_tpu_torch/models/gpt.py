@@ -374,6 +374,12 @@ class GPT(TrainModule):
         loss, _ = self._loss(params, batch["tokens"])
         return {"val_loss": loss, "val_ppl": torch.exp(loss)}
 
+    def predict_step(self, params, batch):
+        """Greedy next tokens of ``batch["tokens"][:, :-1]``: the argmax
+        of the full f32 logits, int32 (the JAX package's)."""
+        return torch.argmax(self.forward(params, batch["tokens"][:, :-1]),
+                            dim=-1).to(torch.int32)
+
     def configure_optimizers(self):
         """Global-norm clip 1.0, then the family's masked warmup-cosine
         AdamW (``models/optim.py``)."""

@@ -18,7 +18,8 @@ import torch
 from ray_lightning_tpu_torch.core.module import TrainModule, TrainState
 from ray_lightning_tpu_torch.models.optim import tree_leaves, tree_map
 
-__all__ = ["loss_and_grads", "single_device_step", "eval_step",
+__all__ = ["loss_and_grads", "single_device_step", "build_eval_step",
+           "build_predict_step",
            "place_batch", "copy_state", "StepRng", "MultiStep",
            "MegastepCaptureError"]
 
@@ -50,10 +51,27 @@ def single_device_step(module: TrainModule, tx
     return step
 
 
-def eval_step(module: TrainModule) -> Callable[[Any, Any], Dict[str, Any]]:
+def build_eval_step(module: TrainModule, kind: str = "validation"
+                    ) -> Callable[[Any, Any], Dict[str, Any]]:
+    """``(params, batch) -> logs`` of ``validation_step`` (``kind``
+    "validation") or ``test_step`` ("test"), without gradients."""
+    step_method = (module.validation_step if kind == "validation"
+                   else module.test_step)
+
     def step(params, batch):
         with torch.no_grad():
-            return module.validation_step(params, batch)
+            return dict(step_method(params, batch))
+
+    return step
+
+
+def build_predict_step(module: TrainModule) -> Callable[[Any, Any], Any]:
+    """``(params, batch) -> outputs`` of ``predict_step``, without
+    gradients."""
+
+    def step(params, batch):
+        with torch.no_grad():
+            return module.predict_step(params, batch)
 
     return step
 

@@ -6,10 +6,10 @@ the multi-GPU slice)."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 from ray_lightning_tpu_torch.core.loop import (
-    FitConfig, _normalize_megastep, run_fit,
+    FitConfig, _normalize_megastep, run_eval, run_fit, run_predict,
 )
 from ray_lightning_tpu_torch.device import resolve_device
 from ray_lightning_tpu_torch.telemetry.runtime import TelemetryConfig
@@ -36,9 +36,22 @@ class LocalStrategy:
         self.megastep = megastep
         self.device = resolve_device(device)
 
-    def run(self, module, datamodule, config: FitConfig,
-            callbacks: List) -> Dict[str, Any]:
+    def run(self, kind: str, module, datamodule, config: FitConfig,
+            callbacks: List, params=None,
+            ckpt_path: Optional[str] = None) -> Dict[str, Any]:
+        """Run stage ``kind`` ("fit", "validation", "test" or "predict")
+        here; the eval stages take ``params`` (a fitted state's, handed
+        over as they are) or ``ckpt_path``."""
         if config.megastep is None and self.megastep is not None:
             config = dataclasses.replace(config, megastep=self.megastep)
-        return run_fit(module, datamodule, config, callbacks, self.device,
-                       telemetry=self.telemetry)
+        if kind == "fit":
+            return run_fit(module, datamodule, config, callbacks,
+                           self.device, telemetry=self.telemetry)
+        if kind in ("validation", "test"):
+            return run_eval(module, datamodule, config, callbacks,
+                            self.device, kind, params, ckpt_path)
+        if kind == "predict":
+            return run_predict(module, datamodule, config, self.device,
+                               params, ckpt_path)
+        raise ValueError(f"unknown stage {kind!r}: expected 'fit', "
+                         f"'validation', 'test' or 'predict'")

@@ -135,7 +135,8 @@ def test_tiny_fit_routes_to_plain_attention_and_matches_jax(tmp_path,
     tm.initial_params = params_from_jax(tree, "cpu")
     cb = _Losses()
     tr = Trainer(LocalStrategy(device="cpu"), max_steps=3,
-                 limit_val_batches=0, callbacks=[cb])
+                 limit_val_batches=0, callbacks=[cb],
+                 enable_checkpointing=False)
     tr.fit(tm, SyntheticLMDataModule(cfg, batch_size=8, num_batches=3,
                                      seed=6))
     assert calls == [] and tfa.flash_fwd is not real

@@ -277,7 +277,8 @@ def test_tiny_fit_on_the_card_counts_every_launch(cuda):
     counters = (ln.ln_fwd, ln.ln_bwd, fa.flash_fwd, fa.flash_bwd)
     for c in counters:
         c.launches = 0
-    tr = Trainer(max_steps=3, limit_val_batches=0)  # LocalStrategy(): card
+    tr = Trainer(max_steps=3, limit_val_batches=0,  # LocalStrategy(): card
+                 enable_checkpointing=False)
     tr.fit(GPT(cfg), SyntheticLMDataModule(cfg, batch_size=4,
                                            num_batches=3))
     n_ln = 2 * cfg.n_layer + 1
@@ -400,7 +401,8 @@ def test_head_dim_32_fit_on_the_card_matches_the_cpu(cuda):
         rec = Losses()
         fa.flash_fwd.launches = fa.flash_bwd.launches = 0
         Trainer(LocalStrategy(device=device), max_steps=3,
-                limit_val_batches=0, callbacks=[rec]).fit(
+                limit_val_batches=0, callbacks=[rec],
+                enable_checkpointing=False).fit(
             module, SyntheticLMDataModule(cfg, batch_size=4, num_batches=3))
         assert (fa.flash_fwd.launches, fa.flash_bwd.launches) == (0, 0)
         losses[device] = np.array(rec.values)
@@ -433,7 +435,8 @@ def test_head_dim_256_fit_on_the_card_matches_the_cpu(cuda):
         rec = Losses()
         fa.flash_fwd.launches = fa.flash_bwd.launches = 0
         Trainer(LocalStrategy(device=device), max_steps=3,
-                limit_val_batches=0, callbacks=[rec]).fit(
+                limit_val_batches=0, callbacks=[rec],
+                enable_checkpointing=False).fit(
             module, SyntheticLMDataModule(cfg, batch_size=2, num_batches=3))
         launched[device] = (fa.flash_fwd.launches, fa.flash_bwd.launches)
         losses[device] = np.array(rec.values)
@@ -468,7 +471,7 @@ def test_bf16_fit_with_ce_kernels_matches_the_scan(cuda):
         rec = Losses()
         ce.ce_bwd_dx.launches = 0
         tr = Trainer(max_steps=4, limit_val_batches=0, precision="bf16",
-                     seed=0, callbacks=[rec])
+                     seed=0, callbacks=[rec], enable_checkpointing=False)
         tr.fit(GPT(cfg, ce_kernel=ce_kernel),
                SyntheticLMDataModule(cfg, batch_size=4, num_batches=4,
                                      seed=0))
@@ -506,7 +509,8 @@ def test_tiny_fit_with_remat_counts_the_ce_launches(cuda):
                 ce.ce_bwd_dx, ce.ce_bwd_dw)
     for c in counters:
         c.launches = 0
-    tr = Trainer(max_steps=3, limit_val_batches=0, precision="bf16")
+    tr = Trainer(max_steps=3, limit_val_batches=0, precision="bf16",
+                 enable_checkpointing=False)
     tr.fit(GPT(cfg, remat=True, remat_policy="dots+flash"),
            SyntheticLMDataModule(cfg, batch_size=4, num_batches=3))
     L = cfg.n_layer
@@ -531,7 +535,7 @@ def _card_fit(module, megastep, steps, accum=1, epochs=1, batch=4):
     hooks = _Hooks()
     tr = Trainer(LocalStrategy(megastep=megastep), max_epochs=epochs,
                  limit_val_batches=0, accumulate_grad_batches=accum,
-                 callbacks=[hooks])
+                 callbacks=[hooks], enable_checkpointing=False)
     tr.fit(module, SyntheticLMDataModule(module.config, batch_size=batch,
                                          num_batches=steps))
     return tr, hooks
@@ -662,3 +666,98 @@ def test_rng_draws_are_the_same_with_megastep_on_and_off(cuda, first):
         assert logs["draw"] == eh.logs[i]["draw"]
     assert c.callback_metrics["draw"] == pytest.approx(
         e.callback_metrics["draw"], rel=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# Checkpoints and the eval surface on the card
+# ---------------------------------------------------------------------------
+
+def _ckpt_fit(root, epochs, resume=None):
+    module = GPT(_TINY)
+    module.initial_params = GPT(_TINY, device="cpu").init_params(
+        torch.Generator().manual_seed(5))
+    hooks = _Hooks()
+    tr = Trainer(LocalStrategy(megastep="auto"), max_epochs=epochs,
+                 limit_val_batches=0, default_root_dir=str(root),
+                 callbacks=[hooks], resume_from_checkpoint=resume)
+    tr.fit(module, SyntheticLMDataModule(_TINY, batch_size=4,
+                                         num_batches=16))
+    return tr, hooks
+
+
+def test_checkpoint_round_trip_under_megastep_auto(cuda, tmp_path):
+    """megastep "auto" (8 on the card): an epoch of 16 steps is one eager
+    stride and one captured.  The file written at the epoch's end holds
+    the live state bitwise (taken after the captured stride's
+    write-back); resumed for a second epoch (an eager stride, a capture),
+    the losses and params agree with a straight 2-epoch fit (a replay
+    there) within 1e-6, the flash backward's dQ atomics' spread."""
+    from ray_lightning_tpu_torch.models.convert import train_state_from_jax
+    from ray_lightning_tpu_torch.utils import state_stream as ss
+
+    one, _ = _ckpt_fit(tmp_path / "one", 1)
+    assert one.telemetry_report["meta"]["megastep"] == 8
+    assert one.callback_metrics["recompiles"] == 1
+    back = train_state_from_jax(ss.load_state_stream(
+        ss.state_stream_from_file(one.best_model_path))["state"])
+    assert back.step == one.state.step == 16
+
+    def walk(a, b):
+        if isinstance(a, dict):
+            for k in a:
+                walk(a[k], b[k])
+        elif isinstance(a, tuple):
+            for x, y in zip(a, b):
+                walk(x, y)
+        else:
+            assert a.dtype == b.dtype and torch.equal(a.cpu(), b)
+    walk((one.state.params, one.state.opt_state),
+         (back.params, back.opt_state))
+    straight, s_hooks = _ckpt_fit(tmp_path / "straight", 2)
+    split, p_hooks = _ckpt_fit(tmp_path / "split", 2,
+                               resume=one.best_model_path)
+    assert split.global_step == straight.global_step == 32
+    assert split.callback_metrics["recompiles"] == 1
+    for i, logs in p_hooks.logs.items():
+        assert logs["train_loss"] == pytest.approx(
+            s_hooks.logs[i]["train_loss"], rel=1e-6)
+    assert _max_param_diff(split, straight) < 1e-6
+
+
+def test_validate_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """One f32 checkpoint validated on the card (kernels) and on the CPU
+    (plain versions): val_loss within 1e-5 relative."""
+    one, _ = _ckpt_fit(tmp_path, 1)
+    dm = SyntheticLMDataModule(_TINY, batch_size=4, num_batches=2, seed=3)
+    got = {}
+    for device in ("cuda", "cpu"):
+        tr = Trainer(LocalStrategy(device=device), enable_checkpointing=False)
+        got[device] = tr.validate(GPT(_TINY, device=device), dm,
+                                  ckpt_path=one.best_model_path)
+    assert got["cuda"]["val_loss"] == pytest.approx(got["cpu"]["val_loss"],
+                                                    rel=1e-5)
+    class Predict(SyntheticLMDataModule):
+        def predict_dataloader(self):
+            return self._loader()
+
+    preds = {}
+    for device in ("cuda", "cpu"):
+        tr = Trainer(LocalStrategy(device=device), enable_checkpointing=False)
+        preds[device] = tr.predict(
+            GPT(_TINY, device=device),
+            Predict(_TINY, batch_size=4, num_batches=2, seed=3),
+            ckpt_path=one.best_model_path)
+    # Argmax equal except where the CPU's top-2 logits are within 1e-4.
+    dm = Predict(_TINY, batch_size=4, num_batches=2, seed=3)
+    dm.setup("predict")
+    tokens = torch.cat([torch.from_numpy(b["tokens"])
+                        for b in dm.predict_dataloader()])
+    from ray_lightning_tpu_torch.models.optim import tree_map
+
+    params = tree_map(lambda t: t.cpu(), one.state.params)
+    with torch.no_grad():
+        top2 = torch.topk(GPT(_TINY, device="cpu").forward(
+            params, tokens[:, :-1]), 2).values
+    close = (top2[..., 0] - top2[..., 1]).numpy() < 1e-4
+    assert preds["cuda"].dtype == np.int32
+    assert np.array_equal(preds["cuda"][~close], preds["cpu"][~close])

@@ -105,7 +105,8 @@ def _port_fit(megastep, accum, num_batches, epochs):
     hooks = _recorder(Callback)
     tr = Trainer(LocalStrategy(device="cpu", megastep=megastep),
                  max_epochs=epochs, limit_val_batches=0,
-                 accumulate_grad_batches=accum, callbacks=[hooks])
+                 accumulate_grad_batches=accum, callbacks=[hooks],
+                 enable_checkpointing=False)
     tr.fit(m, SyntheticLMDataModule(cfg, batch_size=8,
                                     num_batches=num_batches, seed=4))
     return tr, hooks

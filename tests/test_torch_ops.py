@@ -184,7 +184,8 @@ def test_default_device_is_cuda_and_never_falls_back():
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Every module of the port imports in a fresh interpreter without
     loading jax or any module of ray_lightning_tpu (this process has both
-    loaded already, so the check runs in a subprocess)."""
+    loaded already, so the check runs in a subprocess), and a checkpoint
+    round-trips there with jax, msgpack and ml_dtypes blocked."""
     import ray_lightning_tpu_torch
 
     names = sorted(
@@ -192,14 +193,35 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             ray_lightning_tpu_torch.__path__, "ray_lightning_tpu_torch.")
     )
     assert "ray_lightning_tpu_torch.serve.engine" in names
+    assert "ray_lightning_tpu_torch.utils.state_stream" in names
     code = textwrap.dedent(f"""
-        import importlib, sys
+        import importlib, os, sys, tempfile
+        for blocked in ("jax", "msgpack", "ml_dtypes"):
+            sys.modules[blocked] = None  # importing it raises
         for name in {names!r}:
             importlib.import_module(name)
-        assert "jax" not in sys.modules, "jax was imported"
         bad = [m for m in sys.modules if m == "ray_lightning_tpu"
                or m.startswith("ray_lightning_tpu.")]
         assert not bad, bad
+        import torch
+        from ray_lightning_tpu_torch.core.module import TrainState
+        from ray_lightning_tpu_torch.models import convert
+        from ray_lightning_tpu_torch.models.gpt import GPT, GPTConfig
+        from ray_lightning_tpu_torch.utils import state_stream as ss
+        from ray_lightning_tpu_torch.utils import treedef as td
+        m = GPT(GPTConfig.tiny(), device="cpu")
+        state = TrainState.create(m.init_params(), m.configure_optimizers())
+        path = os.path.join(tempfile.mkdtemp(), "a.ckpt")
+        ss.state_stream_to_file(ss.to_state_stream(
+            {{"state": convert.train_state_to_jax(state), "epoch": 0}}), path)
+        back = convert.train_state_from_jax(ss.load_state_stream(
+            ss.state_stream_from_file(path))["state"])
+        # Leaves in JAX's order (dict keys sorted) on both sides.
+        a, b = (td.flatten(convert.train_state_to_jax(s))[1]
+                for s in (state, back))
+        assert len(a) == len(b) == 51 and all(
+            x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(a, b))
+        assert sys.modules["jax"] is None and sys.modules["msgpack"] is None
         print("ok", len({names!r}))
     """)
     env = dict(os.environ, PYTHONPATH=REPO)

@@ -218,7 +218,7 @@ def test_fit_with_remat_and_the_ce_kernel_route_matches_the_jax_fit(
     tm = GPT(cfg, device="cpu", remat=True, remat_policy="dots+flash")
     tm.initial_params = params_from_jax(tree, "cpu")
     tr = Trainer(LocalStrategy(device="cpu"), max_steps=5,
-                 limit_val_batches=0)
+                 limit_val_batches=0, enable_checkpointing=False)
     tr.fit(tm, SyntheticLMDataModule(cfg, batch_size=8, num_batches=5,
                                      seed=4))
     assert len(calls) == 5  # one CE kernel-route forward a step

@@ -40,7 +40,8 @@ def _port_fit(megastep="off", telemetry=None, steps=6):
     cfg = GPTConfig.tiny()
     tr = Trainer(LocalStrategy(device="cpu", telemetry=telemetry,
                                megastep=megastep),
-                 max_steps=steps, limit_val_batches=0)
+                 max_steps=steps, limit_val_batches=0,
+                 enable_checkpointing=False)
     tr.fit(GPT(cfg, device="cpu"),
            SyntheticLMDataModule(cfg, batch_size=8, num_batches=steps))
     return tr

@@ -30,7 +30,7 @@ from ray_lightning_tpu.models.gpt import (
 from ray_lightning_tpu.parallel.strategies import (
     LocalStrategy as JaxLocalStrategy,
 )
-from ray_lightning_tpu_torch.core.callbacks import Callback
+from ray_lightning_tpu_torch.core.callbacks import Callback, ModelCheckpoint
 from ray_lightning_tpu_torch.core.trainer import Trainer
 from ray_lightning_tpu_torch.models.convert import params_from_jax
 from ray_lightning_tpu_torch.models.gpt import (
@@ -244,7 +244,8 @@ def test_fit_matches_the_jax_fit_over_five_steps(tmp_path):
     tm.initial_params = params_from_jax(tree, "cpu")
     cb = _Losses()
     tr = Trainer(LocalStrategy(device="cpu"), max_steps=5,
-                 limit_val_batches=0, callbacks=[cb])
+                 limit_val_batches=0, callbacks=[cb],
+                 enable_checkpointing=False)
     tr.fit(tm, SyntheticLMDataModule(cfg, batch_size=8, num_batches=5,
                                      seed=4))
     assert tr.global_step == jt.global_step == 5
@@ -268,7 +269,7 @@ def test_fit_limits_validation_and_log_cadence():
     cfg = GPTConfig.tiny()
     tr = Trainer(LocalStrategy(device="cpu"), max_epochs=2,
                  limit_train_batches=2, limit_val_batches=1,
-                 log_every_n_steps=1)
+                 log_every_n_steps=1, enable_checkpointing=False)
     tr.fit(GPT(cfg, device="cpu"),
            SyntheticLMDataModule(cfg, batch_size=2, num_batches=3))
     assert (tr.global_step, tr.epochs_run) == (4, 2)
@@ -291,10 +292,17 @@ def test_entry_points_refuse_what_is_not_ported():
             with pytest.raises(RuntimeError, match="no CUDA device"):
                 make()
     strat = LocalStrategy(device="cpu")
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        Trainer(strat, enable_checkpointing=True)
-    with pytest.raises(NotImplementedError, match="RLTCKPT1"):
-        Trainer(strat, resume_from_checkpoint="x.ckpt")
+    # Checkpoints are ported: the default appends ModelCheckpoint(monitor=
+    # None) as the JAX Trainer does, a user's ModelCheckpoint replaces it,
+    # and resume_from_checkpoint reaches the fit's config.
+    (cb,) = Trainer(strat).callbacks
+    assert isinstance(cb, ModelCheckpoint) and cb.monitor is None
+    mine = ModelCheckpoint(monitor="val_loss")
+    assert Trainer(strat, callbacks=[mine]).callbacks == [mine]
+    assert Trainer(strat, enable_checkpointing=False).callbacks == []
+    tr = Trainer(strat, resume_from_checkpoint="x.ckpt")
+    assert tr.config.resume_from_checkpoint == "x.ckpt"
+    assert tr.config.default_root_dir == "rlt_logs"
     # remat is ported; an unknown save policy is refused at construction.
     with pytest.raises(ValueError, match="remat_policy"):
         GPT(GPTConfig.tiny(), device="cpu", remat=True,
