@@ -84,7 +84,17 @@ last column of a ragged chunk of k dropped, the d tail past the last
    ``checkpoint_fault``): the checkpoint's state taken before the
    epoch's last (captured) stride and its write-back, and the optimizer
    count not restored on resume.  Each must fail it in both
-   configurations.
+   configurations;
+9. phase 11's checks at depth 2 (``phase11_check``: the LoRA fit's gates,
+   the clip with forged gradients, the optimizer-state policies' bytes
+   and losses, the int8 codec's sqrt domain through the policy's store,
+   the int8 and cross-policy resumes, the callbacks under
+   megastep 8) for the correct code, which must pass, and for five faults
+   planted in memory (``LORA_FAULTS``, ``lora_fault``): the base's wte
+   labelled "train", the clip over the full model's norm, the second
+   moment quantized linearly, the EMA's decay not compounded over a
+   stride, and a cross-policy resume that skips the reconcile.  Each must
+   fail the check its entry names.
 
 The wrappers are routed to a faulty library by replacing the cached ctypes
 functions of ``ops/_build.py``.  Exits 1 if a correct kernel fails a
@@ -564,6 +574,112 @@ def checkpoint_fault(name):
             setattr(owner, attr, value)
 
 
+# Phase 11's faults, each with the check of phase 11 that must catch it.
+LORA_FAULTS = {"wte_labelled_train": "lora",
+               "clip_over_the_full_model": "clip",
+               "nu_quantized_linearly": "codec",
+               "ema_decay_not_compounded": "callbacks",
+               "resume_skips_the_reconcile": "resume"}
+
+
+@contextlib.contextmanager
+def lora_fault(name):
+    """Plant one of ``LORA_FAULTS`` in the port's modules (in memory) for
+    the duration of the block: the base's ``wte`` labelled "train" (it
+    trains, and its gradient, the CE dW, is computed); the LoRA clip taken
+    before the frozen gradients are zeroed (over the full model's norm);
+    the second moment quantized linearly instead of in the sqrt domain;
+    the EMA blending ``decay`` once a stride instead of
+    ``decay**advanced``; a resume across an ``opt_state_dtype`` change
+    that skips the reconcile."""
+    from ray_lightning_tpu_torch.core import callbacks, loop
+    from ray_lightning_tpu_torch.models import gpt, optim
+
+    if name == "wte_labelled_train":
+        correct = gpt.lora_labels
+
+        def labels(params):
+            out = correct(params)
+            return {**out, "wte": "train"}
+
+        patches = [(gpt, "lora_labels", labels)]
+    elif name == "clip_over_the_full_model":
+        def configure(self):
+            adamw = optim.gpt_adamw(self.config)
+            return optim.chain(
+                optim.clip_by_global_norm(1.0),
+                optim.multi_transform({"train": optim.identity(),
+                                       "freeze": optim.set_to_zero()},
+                                      gpt.lora_labels),
+                optim.multi_transform({"train": adamw,
+                                       "freeze": optim.set_to_zero()},
+                                      gpt.lora_labels))
+
+        patches = [(gpt.GPT, "configure_optimizers", configure)]
+    elif name == "nu_quantized_linearly":
+        correct = optim.quantize_moment
+
+        def linear(v, block_size, sqrt_domain):
+            return correct(v, block_size=block_size, sqrt_domain=False)
+
+        patches = [(optim, "quantize_moment", linear)]
+    elif name == "ema_decay_not_compounded":
+        ema = callbacks.ExponentialMovingAverage
+
+        def update(self, trainer, module, logs, batch_idx):
+            gs = trainer.global_step
+            if gs == 0 or gs == self._last_step:
+                return
+            params = trainer.state.params
+            if self.ema_params is None:
+                self.ema_params = optim.tree_map(
+                    lambda t: t.clone(), params)
+                self._last_step = gs
+                return
+            d = self.decay
+            self.ema_params = optim.tree_map(
+                lambda e, p: e * d + p.to(e.dtype) * (1.0 - d),
+                self.ema_params, params)
+            self._last_step = gs
+
+        patches = [(ema, "on_train_batch_end", update)]
+    else:
+        patches = [(loop, "_reconcile_opt_state_format",
+                    lambda loaded, template: loaded)]
+    saved = [(owner, attr, getattr(owner, attr)) for owner, attr, _ in
+             patches]
+    for owner, attr, fault in patches:
+        setattr(owner, attr, fault)
+    try:
+        yield
+    finally:
+        for owner, attr, value in saved:
+            setattr(owner, attr, value)
+
+
+def phase11_check(torch, card, which, states):
+    """Phase 11's check ``which`` at depth 2 (``states``: the opt-state
+    arms' trainers, kept for the resume check); True when it passes."""
+    if which == "lora":
+        return cs.lora_check(torch, card, n_layer=2, steps=16,
+                             eager=False)[0]["ok"]
+    if which == "clip":
+        return cs.lora_clip_check(torch, card)["ok"]
+    if which == "opt_state":
+        out, arms = cs.opt_state_arms(torch, card, n_layer=2, steps=24)
+        states.setdefault("arms", arms)
+        print(f"opt_state: int8 / bf16 final loss rel of the default's "
+              f"{out['int8']['loss_rel_vs_default']:.3e} / "
+              f"{out['bfloat16']['loss_rel_vs_default']:.3e}")
+        return out["ok"]
+    if which == "codec":
+        return cs.int8_codec_check(torch, card)["ok"]
+    if which == "resume":
+        return cs.int8_resume_check(torch, card, states["arms"], n_layer=2,
+                                    steps=24)["ok"]
+    return cs.callbacks_check(torch, card, cs.MEGASTEP_K)["ok"]
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -829,6 +945,31 @@ def main() -> int:
                 if name is not None and parity[arm]["ok"]:
                     failures.append(
                         f"checkpoint fault {name} not caught in {arm}")
+
+        # 9. phase 11's checks at depth 2, correct and faulty
+        summary["phase11"] = {}
+        states = {}
+        for which in ("lora", "clip", "opt_state", "codec", "resume",
+                      "callbacks"):
+            ok = phase11_check(torch, card, which, states)
+            print(f"phase 11 {which} correct: {'ok' if ok else 'FAILED'}")
+            summary["phase11"][f"correct {which}"] = ok
+            if not ok:
+                failures.append(f"correct phase 11 {which} failed")
+        for name, which in LORA_FAULTS.items():
+            with lora_fault(name):
+                try:
+                    ok = phase11_check(torch, card, which, states)
+                except Exception as e:  # noqa: BLE001 - a raise is a catch
+                    print(f"phase 11 fault {name}: raised "
+                          f"{type(e).__name__}: {e}")
+                    ok = False
+            print(f"phase 11 fault {name}: {which} check "
+                  f"{'passed (NOT caught)' if ok else 'failed (caught)'}")
+            summary["phase11"][name] = not ok
+            if ok:
+                failures.append(f"phase 11 fault {name} not caught by the "
+                                f"{which} check")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for f in failures:

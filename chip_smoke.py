@@ -92,7 +92,37 @@ under ``remat_policy="dots+flash"``), counted per step.  Phases:
    and no backward launch a batch; ``predict`` card vs CPU (argmax equal
    except at a top-2 logit gap < 1e-4); the checkpoint's host copy,
    encode, write and read + restore times and validate/predict ms a
-   batch.
+   batch;
+11. the rest of the Trainer surface (``phase_lora_and_opt_state``): (a) a
+   LoRA fine-tune of GPT-2-small (rank 16, lr 1e-3, warmup 0, random base
+   from seed 0, ``add_lora_adapters``) at 16 x 1024 bf16 in the headline
+   configuration, ``megastep="auto"``, 48 steps (``lora_check``): the base
+   bitwise the starting tree, every adapter B moved, one capture, each
+   kernel's launches a step (the counters over the eager stride and the
+   capture ÷ 16, the captured graph's nodes ÷ 8) equal to the CPU's count
+   for the same step with CE dW at 0, stride-end losses within 1e-4 of an
+   eager fit's, ms/step over the replays, tokens/s, MFU, peak memory, the
+   moments' bytes; the clip with forged gradients (``lora_clip_check``);
+   f32 at depth 2 captured vs eager by phase 9's rules and card vs CPU by
+   phase 8's (``lora_parity``); (b) the tuned adapter (``extract_lora``)
+   served in f32 beside two synthetic tenants over phase 3's requests,
+   every stream equal to ``generate()`` on ``merge_lora`` (divergence only
+   at a top-2 gap < 1e-4), the BGMV launching (``serve_tuned``); (c) the
+   headline arm, captured, 48 steps under ``opt_state_dtype`` None,
+   "bfloat16" and "int8" (``opt_state_arms``): the moments' bytes equal
+   ``opt_state_bytes`` exactly, bf16 and int8 final losses within 1% of
+   the default's, ms/step and peak memory; an int8 checkpoint resumed
+   bitwise and a default-policy checkpoint resumed by an int8 fit,
+   requantized bitwise (``int8_resume_check``); at depth 2 in f32 the int8
+   fit captured vs eager and one optimizer step card vs CPU, moments
+   within one quantization step (``int8_step_check``); the policy's store
+   keeping nu in the sqrt domain (``int8_codec_check``); (d) a depth-2 fit
+   with ``CSVLogger``, ``DeviceStatsCallback``, ``ProfilerCallback``,
+   SWA and EMA under megastep 8 and 1 (``callbacks_check``): rows on the
+   log grid, the peak equal to ``torch.cuda.max_memory_allocated``, the
+   Chrome trace naming ``tc_flash_fwd_kernel``, SWA bitwise its running
+   mean of the epoch-end params, EMA against the stride-boundary params
+   blended with ``decay**K``, no shadow aliasing the live params.
 
 Any failure raises: the script exits non-zero and prints no result.  The
 line before the last is the kernels' JSON record; the last line is
@@ -2571,6 +2601,803 @@ def phase_checkpoint(torch, card):
     return result
 
 
+# -- phase 11: LoRA fine-tuning, optimizer-state precision, callbacks -------
+
+LORA_RANK = 16               # the server cell's tenant rank
+LORA_KW = {"lora_rank": LORA_RANK, "lr": 1e-3, "warmup_steps": 0}
+# 6 strides of MEGASTEP_K: the eager one, the capture, 4 replays (timed).
+LORA_STEPS = 48
+OPT_DTYPES = (None, "bfloat16", "int8")
+# The int8 and bf16 arms' final losses against the default policy's
+# (JAX tests/test_opt_state.py::test_int8_fit_loss_parity_vs_f32).
+OPT_LOSS_REL = 1e-2
+CB_EPOCHS, CB_BATCHES, CB_LOG_EVERY, CB_DECAY = 2, 16, 4, 0.9
+
+
+def lora_init(torch, cfg):
+    """GPT-2-small's base from seed 0 with fresh rank-``cfg.lora_rank``
+    adapters (B = 0) from seed 1, f32 on the CPU."""
+    from ray_lightning_tpu_torch.models.gpt import (
+        GPT, add_lora_adapters,
+    )
+
+    base_cfg = dataclasses.replace(cfg, lora_rank=0)
+    base = GPT(base_cfg, device="cpu").init_params(
+        torch.Generator().manual_seed(SEED))
+    return add_lora_adapters(base, cfg, torch.Generator().manual_seed(1))
+
+
+def fit_memory_start(torch):
+    """Before a fit whose peak is read: the allocator's peaks reset, and
+    the bytes already allocated and reserved (what earlier phases keep
+    resident), which :func:`fit_memory_peak` subtracts."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+
+
+def fit_memory_peak(torch, resident):
+    """The fit's own peak allocated and reserved bytes: the peaks since
+    :func:`fit_memory_start` above what was resident then."""
+    return (torch.cuda.max_memory_allocated() - resident[0],
+            torch.cuda.max_memory_reserved() - resident[1])
+
+
+def cpu_step_launches(torch, cfg, gpt_kw):
+    """Each training kernel's calls in one step on the CPU (batch 1,
+    f32), counted at its plain version, which the wrapper runs there: the
+    launches the same step makes on the card."""
+    from ray_lightning_tpu_torch.models.gpt import GPT
+    from ray_lightning_tpu_torch.ops import cross_entropy as ce
+    from ray_lightning_tpu_torch.ops import flash_attention as fa
+    from ray_lightning_tpu_torch.ops import layer_norm as ln
+    from ray_lightning_tpu_torch.parallel.step_fns import loss_and_grads
+
+    plain = {"ln_fwd": (ln, "ln_fwd_plain"), "ln_bwd": (ln, "ln_bwd_plain"),
+             "flash_fwd": (fa, "flash_fwd_plain"),
+             "flash_bwd": (fa, "flash_bwd_plain"),
+             "ce_fwd": (ce, "ce_fwd_plain"),
+             "ce_bwd_dx": (ce, "ce_bwd_dx_plain"),
+             "ce_bwd_dw": (ce, "ce_bwd_dw_plain")}
+    calls = dict.fromkeys(plain, 0)
+    saved = {k: getattr(m, a) for k, (m, a) in plain.items()}
+
+    def counted(name):
+        def run(*args):
+            calls[name] += 1
+            return saved[name](*args)
+        return run
+
+    for k, (m, a) in plain.items():
+        setattr(m, a, counted(k))
+    try:
+        module = GPT(cfg, device="cpu", **gpt_kw)
+        tokens = torch.randint(0, cfg.vocab_size, (1, cfg.seq_len + 1),
+                               generator=torch.Generator().manual_seed(SEED))
+        loss_and_grads(module, lora_init(torch, cfg) if cfg.lora_rank
+                       else module.init_params(), {"tokens": tokens}, None)
+    finally:
+        for k, (m, a) in plain.items():
+            setattr(m, a, saved[k])
+    return calls
+
+
+def lora_check(torch, card, n_layer=12, steps=LORA_STEPS, eager=True):
+    """Phase 11 (a): a LoRA fine-tune of GPT-2-small (depth ``n_layer``) at
+    16 x 1024, bf16, the headline kernels and remat, ``megastep="auto"``:
+    the base bitwise the starting tree, every adapter B moved, one
+    capture, each kernel's launches a step (the eager stride's and the
+    capture's counted calls ÷ 16, and the captured graph's nodes ÷ 8)
+    equal to the CPU's count for the same step with CE dW at 0; with
+    ``eager``, the captured stride-end losses within BF16_LOSS_TOL of an
+    eager fit's.  Returns the readings, the trainer and ``ok``."""
+    import numpy as np
+
+    from ray_lightning_tpu_torch.core.callbacks import Callback
+    from ray_lightning_tpu_torch.models.gpt import GPTConfig
+    from ray_lightning_tpu_torch.models.optim import moment_bytes
+
+    cfg = dataclasses.replace(GPTConfig.gpt2_small(), n_layer=n_layer,
+                              **LORA_KW)
+    init = lora_init(torch, cfg)
+    cpu = cpu_step_launches(torch, cfg, HEADLINE)
+    counters = launch_counters()
+    for c in counters.values():
+        c.launches = 0
+    clock = hook_clock(torch, Callback)
+    resident = fit_memory_start(torch)
+    with kept_graphs(torch) as graphs:
+        tr = megastep_fit(torch, cfg, HEADLINE, steps, "auto", init=init,
+                          callbacks=[clock])
+        torch.cuda.synchronize()
+    peak = fit_memory_peak(torch, resident)
+    counted = {k: c.launches for k, c in counters.items()}
+    graph = graph_kernels(graphs[0]) if len(graphs) == 1 else None
+    k = MEGASTEP_K
+    per_step = {name: n / (2 * k) for name, n in counted.items()}
+    per_node = ({name: n / k for name, n in graph.items()} if graph
+                else None)
+    params = by_path(tr.state.params)
+    start = by_path(init)
+    frozen_moved = [p for p in start if "lora_" not in p
+                    and not torch.equal(params[p].cpu(), start[p])]
+    unmoved_b = [p for p in start if p.endswith(("lora_qkv_b']",
+                                                 "lora_proj_b']"))
+                 and float(params[p].abs().max()) == 0.0]
+    windows = stride_ms(clock, k)
+    ms = float(np.median(windows[1:])) / k
+    out = {"cpu_launches_per_step": cpu, "launches_per_step": per_step,
+           "graph_nodes_per_step": per_node,
+           "captures": tr.callback_metrics["recompiles"],
+           "frozen_moved": frozen_moved, "adapters_b_unmoved": unmoved_b,
+           "stride_ms": windows, "ms_per_step": ms,
+           "peak_alloc_gib": peak[0] / 2**30,
+           "peak_reserved_gib": peak[1] / 2**30,
+           "opt_state_bytes": moment_bytes(tr.state.opt_state)}
+    ok = (not frozen_moved and not unmoved_b and per_step == cpu
+          and per_node == cpu and cpu["ce_bwd_dw"] == 0
+          and out["captures"] == 1)
+    if eager:
+        ref = hook_clock(torch, Callback)
+        megastep_fit(torch, cfg, HEADLINE, steps, "off", init=init,
+                     callbacks=[ref])
+        want = stride_losses(ref)
+        got = stride_losses(clock)
+        rel = max(abs(got[i] - want[i]) / abs(want[i]) for i in got)
+        out["loss_rel_vs_eager"] = rel
+        ok = ok and bool(np.isfinite(rel)) and rel <= BF16_LOSS_TOL
+    out["ok"] = bool(ok)
+    return out, tr, cfg
+
+
+def lora_clip_check(torch, card):
+    """The LoRA optimizer on the card (depth 2, lr 1e-2) with forged
+    gradients, the base's 1e6 and the adapters' 1e-4: the base's updates
+    are zero and the adapters' a full first step (~lr, > 1e-3): the clip
+    saw the adapters' norm alone.  Over the full model's it would scale
+    their gradients to ~1e-14, under Adam's eps, and the step to ~1e-8."""
+    from ray_lightning_tpu_torch.models.gpt import GPT, GPTConfig
+    from ray_lightning_tpu_torch.models.optim import tree_map
+
+    cfg = dataclasses.replace(GPTConfig.gpt2_small(), n_layer=2,
+                              **{**LORA_KW, "lr": 1e-2})
+    module = GPT(cfg, device="cuda")
+    params = tree_map(lambda t: t.cuda(), lora_init(torch, cfg))
+    tx = module.configure_optimizers()
+    grads = {"blocks": {k: torch.full_like(
+        t, 1e-4 if k.startswith("lora_") else 1e6)
+        for k, t in params["blocks"].items()},
+        **{k: torch.full_like(t, 1e6) for k, t in params.items()
+           if k != "blocks"}}
+    updates, _ = tx.update(grads, tx.init(params), params)
+    base = max(float(u.abs().max()) for k, u in by_path(updates).items()
+               if "lora_" not in k)
+    adapter = min(float(updates["blocks"][k].abs().max())
+                  for k in ("lora_qkv_a", "lora_proj_a"))
+    ok = base == 0.0 and adapter > 1e-3
+    print(f"phase 11a clip: forged grads (base 1e6, adapters 1e-4) on the "
+          f"card: base updates max {base:.3e} (must be 0), adapter A "
+          f"updates max {adapter:.3e} (> 1e-3: the clip saw the adapters' "
+          f"norm alone); {'ok' if ok else 'FAILED'}; {card}")
+    return {"base_update_max": base, "adapter_update_max": adapter,
+            "ok": ok}
+
+
+def lora_parity(torch, card):
+    """Phase 11 (a), f32 at depth 2 (full width, batch 2, 12 steps, the
+    LoRA config): captured (megastep 4) against eager on the card by
+    phase 9's rules, in the headline configuration (params within 5x the
+    eager-vs-eager spread or 1e-5) and with the plain attention (1e-5);
+    and the card against the CPU by phase 8's (per-step losses within
+    1e-5 relative, each leaf's update within 1e-2 relative norm)."""
+    import numpy as np
+
+    from ray_lightning_tpu_torch.core.callbacks import Callback
+    from ray_lightning_tpu_torch.core.trainer import Trainer
+    from ray_lightning_tpu_torch.models.gpt import (
+        GPT, GPTConfig, SyntheticLMDataModule,
+    )
+    from ray_lightning_tpu_torch.models.optim import tree_leaves
+    from ray_lightning_tpu_torch.parallel.strategies import LocalStrategy
+
+    cfg = dataclasses.replace(GPTConfig.gpt2_small(), n_layer=2, **LORA_KW)
+    init = lora_init(torch, cfg)
+
+    def fit(kw, device, mode):
+        clock = []
+
+        class Losses(Callback):
+            def on_train_batch_end(self, trainer, module, logs, batch_idx):
+                clock.append((batch_idx, logs["train_loss"]))
+
+        module = GPT(cfg, device=device, **kw)
+        module.initial_params = init
+        tr = Trainer(LocalStrategy(device=device, megastep=mode),
+                     max_steps=PARITY_STEPS, limit_val_batches=0,
+                     precision="f32", seed=SEED, callbacks=[Losses()],
+                     enable_checkpointing=False)
+        tr.fit(module, SyntheticLMDataModule(cfg, batch_size=2,
+                                             num_batches=PARITY_STEPS,
+                                             seed=SEED + 2))
+        return tr, {i: float(x) for i, x in clock}
+
+    def diff(a, b):
+        return max(float((x.cpu() - y.cpu()).abs().max()) for x, y in zip(
+            tree_leaves(a.state.params), tree_leaves(b.state.params)))
+
+    out, ok = {}, True
+    for label, kw, repeat in (("headline", HEADLINE, True),
+                              ("xla_attention", {**HEADLINE,
+                                                 "attn_impl": "xla"}, False)):
+        eager, e_loss = fit(kw, "cuda", "off")
+        cap, c_loss = fit(kw, "cuda", PARITY_K)
+        d = diff(cap, eager)
+        floor = diff(fit(kw, "cuda", "off")[0], eager) if repeat else None
+        tol = max(PARITY_FLOOR_X * floor, 1e-5) if repeat else 1e-5
+        loss_rel = max(abs(c_loss[i] - e_loss[i]) / abs(e_loss[i])
+                       for i in c_loss)
+        good = (cap.callback_metrics["recompiles"] == 1 and d <= tol
+                and loss_rel <= 1e-5)
+        print(f"phase 11a parity {label}: LoRA depth 2, f32, megastep "
+              f"{PARITY_K} vs off over {PARITY_STEPS} steps: stride-end "
+              f"losses worst rel {loss_rel:.3e} (tol 1e-5); params max abs "
+              f"diff {d:.3e} (tol {tol:.3e}"
+              + (f" = max({PARITY_FLOOR_X} x eager vs eager {floor:.3e}, "
+                 f"1e-5)" if repeat else "") + f"); "
+              f"{'ok' if good else 'FAILED'}; {card}")
+        out[label] = {"loss_rel": loss_rel, "param_diff": d,
+                      "eager_floor": floor, "param_tol": tol, "ok": good}
+        ok = ok and good
+        if not repeat:
+            continue
+        cpu, cpu_loss = fit(kw, "cpu", "off")
+        loss_rel = max(abs(e_loss[i] - cpu_loss[i]) / abs(cpu_loss[i])
+                       for i in cpu_loss)
+        upd_rel = 0.0
+        for p_card, p_cpu, p0 in zip(tree_leaves(eager.state.params),
+                                     tree_leaves(cpu.state.params),
+                                     tree_leaves(init)):
+            d_cpu = p_cpu - p0
+            if float(d_cpu.norm()) == 0.0:
+                continue  # a frozen leaf (held bitwise in phase 11a)
+            upd_rel = max(upd_rel, float((p_card.cpu() - p0 - d_cpu).norm()
+                                         / d_cpu.norm()))
+        good = loss_rel <= 1e-5 and upd_rel <= 1e-2
+        print(f"phase 11a card vs CPU: LoRA depth 2, f32, eager, "
+              f"{PARITY_STEPS} steps: per-step losses worst rel "
+              f"{loss_rel:.3e} (tol 1e-5); adapter updates, largest "
+              f"relative norm of the difference {upd_rel:.3e} (tol 1e-2, "
+              f"phase 8's rule); {'ok' if good else 'FAILED'}; {card}")
+        out["card_vs_cpu"] = {"loss_rel": loss_rel, "update_rel": upd_rel,
+                              "ok": good}
+        ok = ok and good
+    out["ok"] = bool(ok)
+    return out
+
+
+def serve_tuned(torch, np, card, tuned, cfg):
+    """Phase 11 (b): the tuned tree's adapter (``extract_lora``) served in
+    f32 beside two of phase 3's synthetic tenants over phase 3's request
+    set: every stream on it equals ``generate()`` on ``merge_lora``
+    (tuned), divergence only at a top-2 logit gap < 1e-4; the BGMV
+    launches."""
+    from ray_lightning_tpu_torch.models import generate as gen_mod
+    from ray_lightning_tpu_torch.models.gpt import (
+        GPT, extract_lora, merge_lora, synthetic_lora_adapter,
+    )
+    from ray_lightning_tpu_torch.serve.engine import ServeConfig, ServeEngine
+
+    base_cfg = dataclasses.replace(cfg, lora_rank=0)
+    module = GPT(base_cfg, precision="f32", device="cuda")
+    adapter, base = extract_lora(tuned, cfg)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    tenants = {"tuned": adapter}
+    merged = {None: base, "tuned": merge_lora(tuned, cfg)}
+    for i in range(2):
+        tenants[f"tenant{i}"], merged[f"tenant{i}"] = synthetic_lora_adapter(
+            base, dataclasses.replace(cfg, lora_rank=LORA_RANK), gen,
+            scale=0.3)
+    serve_cfg = ServeConfig(num_slots=DECODE_W, block_size=16,
+                            max_adapters=len(tenants),
+                            adapter_rank=LORA_RANK)
+    reqs = make_requests(np, tenants)
+    engine, tokens, wall, launches, peak = serve(
+        torch, ServeEngine, module, base, serve_cfg, tenants, reqs)
+    res = report("phase 11b", engine, tokens, wall, launches, peak,
+                 base_cfg, card)
+    exact, tuned_reqs = 0, 0
+    for (prompt, n, name), got in zip(reqs, tokens):
+        tuned_reqs += name == "tuned"
+        ref = gen_mod.generate(module, merged[name], [prompt], n,
+                               device="cuda")[0, len(prompt):].tolist()
+        if got == ref:
+            exact += 1
+            continue
+        i = next(j for j, (x, y) in enumerate(zip(got, ref)) if x != y)
+        gap = top2_gap(torch, gen_mod, module, merged[name],
+                       prompt + ref[:i])
+        print(f"phase 11b: {name or 'base'} stream diverges from generate() "
+              f"at token {i}; reference top-2 logit gap {gap:.3e}")
+        check(gap < 1e-4, f"divergence at a top-2 gap {gap} >= 1e-4")
+    check(tuned_reqs > 0, "requests on the tuned adapter were served")
+    delta = max(float((merged["tuned"]["blocks"][k] - base["blocks"][k])
+                      .abs().max()) for k in ("qkv_w", "proj_w"))
+    print(f"phase 11b: {exact}/{len(reqs)} streams ({tuned_reqs} on the "
+          f"tuned adapter, whose merged delta reaches {delta:.3e}) equal "
+          f"generate() on the merged weights token for token; the rest "
+          f"diverge only at a near tie; {card}")
+    res.update(exact_streams=exact, tuned_requests=tuned_reqs,
+               tuned_delta_max=delta)
+    return res
+
+
+def state_leaves(state):
+    from ray_lightning_tpu_torch.models.optim import tree_leaves
+
+    return tree_leaves((state.params, state.opt_state))
+
+
+def opt_fit(torch, cfg, steps, root=None, resume=None, callbacks=(),
+            checkpoint=False):
+    """The headline arm under ``cfg``'s ``opt_state_dtype``, captured
+    (``megastep="auto"``), bf16."""
+    from ray_lightning_tpu_torch.core.trainer import Trainer
+    from ray_lightning_tpu_torch.models.gpt import GPT, SyntheticLMDataModule
+
+    tr = Trainer(max_steps=steps, limit_val_batches=0, precision="bf16",
+                 seed=SEED, callbacks=list(callbacks), megastep="auto",
+                 enable_checkpointing=checkpoint, resume_from_checkpoint=resume,
+                 default_root_dir=str(root) if root else "rlt_logs")
+    tr.fit(GPT(cfg, **HEADLINE), SyntheticLMDataModule(
+        cfg, batch_size=TRAIN_B, num_batches=steps, seed=SEED))
+    return tr
+
+
+def opt_state_arms(torch, card, n_layer=12, steps=LORA_STEPS):
+    """Phase 11 (c): the headline arm, captured, under each of OPT_DTYPES:
+    the moments' bytes on the card equal ``opt_state_bytes`` exactly, the
+    bf16 and int8 final losses within OPT_LOSS_REL of the default
+    policy's; ms/step, peak memory.  Returns the readings, the final
+    states and ``ok``."""
+    import numpy as np
+
+    from ray_lightning_tpu_torch.core.callbacks import Callback
+    from ray_lightning_tpu_torch.models.gpt import GPTConfig
+    from ray_lightning_tpu_torch.models.optim import (
+        moment_bytes, opt_state_bytes,
+    )
+
+    out, states, ok = {}, {}, True
+    for dtype in OPT_DTYPES:
+        cfg = dataclasses.replace(GPTConfig.gpt2_small(), n_layer=n_layer,
+                                  opt_state_dtype=dtype)
+        clock = hook_clock(torch, Callback)
+        resident = fit_memory_start(torch)
+        tr = opt_fit(torch, cfg, steps, callbacks=[clock])
+        torch.cuda.synchronize()
+        peak = fit_memory_peak(torch, resident)
+        windows = stride_ms(clock, MEGASTEP_K)
+        got = moment_bytes(tr.state.opt_state)
+        want = opt_state_bytes(tr.state.params, dtype)
+        label = dtype or "default"
+        out[label] = {
+            "ms_per_step": float(np.median(windows[1:])) / MEGASTEP_K,
+            "stride_ms": windows, "moment_bytes": got,
+            "opt_state_bytes": want,
+            "final_loss": float(clock.losses[-1]),
+            "peak_alloc_gib": peak[0] / 2**30,
+            "peak_reserved_gib": peak[1] / 2**30,
+            "captures": tr.callback_metrics["recompiles"]}
+        ok = ok and got == want and out[label]["captures"] == 1
+        states[label] = tr
+        del tr
+    ref = out["default"]["final_loss"]
+    for label in ("bfloat16", "int8"):
+        rel = abs(out[label]["final_loss"] - ref) / abs(ref)
+        out[label]["loss_rel_vs_default"] = rel
+        ok = ok and bool(np.isfinite(rel)) and rel <= OPT_LOSS_REL
+    out["ok"] = bool(ok)
+    return out, states
+
+
+def int8_resume_check(torch, card, states, n_layer=12, steps=LORA_STEPS):
+    """Phase 11 (c): the int8 arm's state written (``save_checkpoint``) and
+    resumed by a fresh int8 fit whose steps are done: bitwise every leaf
+    (payloads and scales included); the default arm's state resumed by an
+    int8 fit: each moment converted, bitwise ``quantize_moment`` of the
+    file's (the cross-policy reconcile)."""
+    import os
+    import tempfile
+    import warnings
+
+    from ray_lightning_tpu_torch.models.gpt import GPTConfig
+    from ray_lightning_tpu_torch.ops.optim_quant import (
+        BlockQuantized, quantize_moment,
+    )
+
+    out = {}
+    cfg = dataclasses.replace(GPTConfig.gpt2_small(), n_layer=n_layer,
+                              opt_state_dtype="int8")
+    with tempfile.TemporaryDirectory() as tmp:
+        path8, path0 = (os.path.join(tmp, n) for n in ("int8.ckpt",
+                                                       "default.ckpt"))
+        states["int8"].save_checkpoint(path8)
+        states["default"].save_checkpoint(path0)
+        back = opt_fit(torch, cfg, steps, root=tmp, resume=path8)
+        a, b = state_leaves(states["int8"].state), state_leaves(back.state)
+        same = len(a) == len(b) and all(
+            x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(a, b))
+        out["int8_resume_bitwise"] = same
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                cross = opt_fit(torch, cfg, steps, root=tmp, resume=path0)
+            warned = any("opt_state_dtype change" in str(w.message)
+                         for w in caught)
+            src = states["default"].state.opt_state[1]
+            dst = cross.state.opt_state[1]
+            match = warned
+            for name, sqrt in (("mu", False), ("nu", True)):
+                for p, leaf in by_path(src[name]).items():
+                    got = by_path_q(dst[name])[p]
+                    if isinstance(got, BlockQuantized):
+                        want = quantize_moment(leaf.float(), sqrt_domain=sqrt)
+                        match = match and torch.equal(got.q, want.q) and \
+                            torch.equal(got.scale, want.scale)
+                    else:
+                        match = match and torch.equal(got, leaf.to(got.dtype))
+            out["cross_policy_resume"] = match
+        except Exception as e:  # noqa: BLE001 - a failed resume is the reading
+            print(f"phase 11c: cross-policy resume raised {type(e).__name__}:"
+                  f" {e}")
+            out["cross_policy_resume"] = False
+    print(f"phase 11c: int8 checkpoint written and resumed: every leaf "
+          f"bitwise {out['int8_resume_bitwise']}; default-policy checkpoint "
+          f"resumed by an int8 fit (warned, each moment requantized "
+          f"bitwise): {out['cross_policy_resume']}; {card}")
+    out["ok"] = out["int8_resume_bitwise"] and out["cross_policy_resume"]
+    return out
+
+
+def int8_codec_check(torch, card):
+    """Phase 11 (c): the int8 policy's own store on the card keeps the
+    second moment in the sqrt domain.  A moment of 2^20 elements whose
+    values span eight orders of magnitude within each block goes through
+    one AdamW step with zero gradients (nu ← b2·nu, no update): the
+    stored nu, decoded, lies within half a quantization step of b2·nu in
+    the sqrt domain (the step of the JAX codec applied to b2·nu), so an
+    element 1e-8 of its block's max is kept; a linear code rounds every
+    element under 1/254 of its block's max to 0."""
+    from ray_lightning_tpu_torch.models.gpt import GPTConfig
+    from ray_lightning_tpu_torch.models.optim import gpt_adamw
+    from ray_lightning_tpu_torch.ops.optim_quant import (
+        dequantize_block_scaled, dequantize_moment, quantize_moment,
+    )
+
+    n = 1 << 20
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    nu = 10.0 ** (-8 * torch.rand(n, generator=gen, device="cuda"))
+    tx = gpt_adamw(dataclasses.replace(GPTConfig.gpt2_small(),
+                                       opt_state_dtype="int8"))
+    params = {"x": torch.zeros(n, device="cuda")}
+    state = tx.init(params)
+    state["nu"]["x"] = quantize_moment(nu, sqrt_domain=True)
+    _, new = tx.update({"x": torch.zeros(n, device="cuda")}, state, params)
+    ref = quantize_moment(0.95 * dequantize_moment(state["nu"]["x"]),
+                          sqrt_domain=True)
+    want = dequantize_block_scaled(ref.q, ref.scale, ref.block_size)
+    got = torch.sqrt(dequantize_moment(new["nu"]["x"]))
+    steps = float(((got - want).abs() / ref.scale.repeat_interleave(
+        ref.block_size)).max())
+    ok = new["nu"]["x"].sqrt_domain and steps <= 0.5 + 1e-3
+    print(f"phase 11c int8 codec: nu of 2^20 elements over 8 orders of "
+          f"magnitude through the policy's store: within {steps:.4f} "
+          f"quantization steps of the JAX codec in the sqrt domain (tol "
+          f"0.5); {'ok' if ok else 'FAILED'}; {card}")
+    return {"sqrt_domain_steps": steps, "ok": bool(ok)}
+
+
+def by_path_q(tree, path=""):
+    """:func:`by_path` with quantized moments as leaves."""
+    if isinstance(tree, dict):
+        return {k2: v for k, sub in tree.items()
+                for k2, v in by_path_q(sub, f"{path}['{k}']").items()}
+    return {path: tree}
+
+
+def int8_step_check(torch, card):
+    """Phase 11 (c), f32 at depth 2: the int8 state after a short card fit,
+    copied to the CPU, takes one optimizer step on each side with the
+    same gradients: every dequantized moment within one quantization step
+    (its block's scale, in the stored domain) of the CPU's, params within
+    1e-6 of their scale; then the int8 fit captured against eager on the
+    card by phase 9's rules (plain attention: params 1e-5)."""
+    from ray_lightning_tpu_torch.core.trainer import Trainer
+    from ray_lightning_tpu_torch.models.gpt import (
+        GPT, GPTConfig, SyntheticLMDataModule,
+    )
+    from ray_lightning_tpu_torch.models.optim import (
+        apply_updates, tree_leaves, tree_map,
+    )
+    from ray_lightning_tpu_torch.ops.optim_quant import (
+        BlockQuantized, dequantize_block_scaled,
+    )
+    from ray_lightning_tpu_torch.parallel.strategies import LocalStrategy
+
+    cfg = dataclasses.replace(GPTConfig.gpt2_small(), n_layer=2,
+                              opt_state_dtype="int8", warmup_steps=2)
+    init = GPT(cfg, device="cpu").init_params(
+        torch.Generator().manual_seed(SEED + 3))
+
+    def fit(mode, kw):
+        module = GPT(cfg, **kw)
+        module.initial_params = init
+        tr = Trainer(LocalStrategy(megastep=mode), max_steps=PARITY_STEPS,
+                     limit_val_batches=0, precision="f32", seed=SEED,
+                     enable_checkpointing=False)
+        tr.fit(module, SyntheticLMDataModule(cfg, batch_size=2,
+                                             num_batches=PARITY_STEPS,
+                                             seed=SEED + 2))
+        return tr
+
+    xla = {**HEADLINE, "attn_impl": "xla"}
+    eager, cap = fit("off", xla), fit(PARITY_K, xla)
+    diff = max(float((a - b).abs().max()) for a, b in zip(
+        tree_leaves(cap.state.params), tree_leaves(eager.state.params)))
+    tx = GPT(cfg).configure_optimizers()
+    gen = torch.Generator().manual_seed(SEED + 4)
+    grads = tree_map(lambda p: torch.randn(p.shape, generator=gen) * 1e-3,
+                     init)
+    sides = {}
+    for device in ("cuda", "cpu"):
+        st = eager.state
+        params = tree_map(lambda t: t.to(device), st.params)
+        opt = tree_map(lambda t: t.to(device), st.opt_state)
+        upd, new = tx.update(tree_map(lambda t: t.to(device), grads), opt,
+                             params)
+        sides[device] = (apply_updates(params, upd), new)
+    worst_steps, worst_param = 0.0, 0.0
+    for name in ("mu", "nu"):
+        card_m = by_path_q(sides["cuda"][1][1][name])
+        cpu_m = by_path_q(sides["cpu"][1][1][name])
+        for p, c in cpu_m.items():
+            g = card_m[p]
+            if isinstance(c, BlockQuantized):
+                a = dequantize_block_scaled(g.q.cpu(), g.scale.cpu(),
+                                            g.block_size)
+                b = dequantize_block_scaled(c.q, c.scale, c.block_size)
+                sa = g.scale.cpu().repeat_interleave(g.block_size)
+                sb = c.scale.repeat_interleave(c.block_size)
+                step = (torch.maximum(sa, sb) + 127 * (sa - sb).abs()) * (
+                    1 + 1e-5)
+            else:
+                a, b = g.cpu(), c
+                step = b.abs().max() * 1e-5 + 1e-30
+            worst_steps = max(worst_steps, float(((a - b).abs() / step)
+                                                 .max()))
+    for a, b in zip(tree_leaves(sides["cuda"][0]),
+                    tree_leaves(sides["cpu"][0])):
+        worst_param = max(worst_param, float((a.cpu() - b).abs().max()
+                                             / b.abs().max()))
+    ok = (diff <= 1e-5 and worst_steps <= 1.0 and worst_param <= 1e-6
+          and cap.callback_metrics["recompiles"] == 1)
+    print(f"phase 11c int8 f32 depth 2: captured vs eager (plain attention) "
+          f"params max abs diff {diff:.3e} (tol 1e-5); one step card vs CPU "
+          f"from the same state and gradients: moments within "
+          f"{worst_steps:.3f} quantization steps (tol 1), params within "
+          f"{worst_param:.3e} of their scale (tol 1e-6); "
+          f"{'ok' if ok else 'FAILED'}; {card}")
+    return {"captured_vs_eager": diff, "moment_steps": worst_steps,
+            "param_rel": worst_param, "ok": ok}
+
+
+def callbacks_check(torch, card, megastep, n_layer=2):
+    """Phase 11 (d): a fit at full width and depth ``n_layer`` (bf16, 16 x
+    1024, CB_EPOCHS epochs of CB_BATCHES) with CSVLogger,
+    DeviceStatsCallback, ProfilerCallback (steps 8 to 24: the capture
+    stride and a replay), SWA and EMA, under ``megastep``: CSV rows on the
+    ``log_every_n_steps`` grid, DeviceStatsCallback's peak equal to
+    ``torch.cuda.max_memory_allocated`` at each epoch's end, the Chrome
+    trace names ``tc_flash_fwd_kernel``, SWA's mean bitwise the running
+    mean of the same fit's epoch-end snapshots, EMA within rtol 1e-5 /
+    atol 1e-6 of the stride-boundary snapshots blended with
+    ``decay**K``, neither shadow sharing memory with the live params."""
+    import json as json_mod
+    import os
+    import tempfile
+
+    from ray_lightning_tpu_torch import core
+    from ray_lightning_tpu_torch.core.trainer import Trainer
+    from ray_lightning_tpu_torch.models.gpt import (
+        GPT, GPTConfig, SyntheticLMDataModule,
+    )
+    from ray_lightning_tpu_torch.models.optim import tree_leaves, tree_map
+    from ray_lightning_tpu_torch.parallel.strategies import LocalStrategy
+
+    k = megastep
+    cfg = dataclasses.replace(GPTConfig.gpt2_small(), n_layer=n_layer)
+    swa = core.StochasticWeightAveraging(0)
+    ema = core.ExponentialMovingAverage(CB_DECAY, swap_at_end=False)
+    dev = core.DeviceStatsCallback(log=False)
+
+    class Probe(core.Callback):
+        """Right after DeviceStatsCallback: the params' snapshots, the
+        peak it must have read, and whether a shadow shares memory with
+        the live params."""
+
+        def __init__(self):
+            self.epoch_params, self.stride_params = [], {}
+            self.peaks, self.shared = [], []
+
+        def _alias(self, trainer):
+            live = {t.data_ptr() for t in tree_leaves(trainer.state.params)}
+            for shadow in (swa._mean, ema.ema_params):
+                if shadow is not None and not live.isdisjoint(
+                        t.data_ptr() for t in tree_leaves(shadow)):
+                    self.shared.append(trainer.global_step)
+
+        def on_train_batch_end(self, trainer, module, logs, batch_idx):
+            if trainer.global_step % k == 0:
+                self.stride_params[trainer.global_step] = tree_map(
+                    torch.clone, trainer.state.params)
+            self._alias(trainer)
+
+        def on_train_epoch_end(self, trainer, module):
+            self.epoch_params.append(tree_map(torch.clone,
+                                              trainer.state.params))
+            self.peaks.append(torch.cuda.max_memory_allocated())
+            self._alias(trainer)
+
+    probe = Probe()
+    with tempfile.TemporaryDirectory() as tmp:
+        csv_cb = core.CSVLogger()
+        prof = core.ProfilerCallback(start_step=8, num_steps=16)
+        tr = Trainer(LocalStrategy(megastep=k if k > 1 else "off"),
+                     max_epochs=CB_EPOCHS, limit_val_batches=0,
+                     log_every_n_steps=CB_LOG_EVERY, precision="bf16",
+                     seed=SEED, enable_checkpointing=False,
+                     default_root_dir=tmp,
+                     callbacks=[csv_cb, dev, probe, prof, swa, ema])
+        tr.fit(GPT(cfg, **HEADLINE), SyntheticLMDataModule(
+            cfg, batch_size=TRAIN_B, num_batches=CB_BATCHES, seed=SEED))
+        # A row at each log boundary a step or stride crosses, then one at
+        # the validation epoch's end (no batches: limit_val_batches=0) and
+        # one at the epoch's end.
+        rows = [(r["epoch"], r["step"]) for r in csv_cb.rows]
+        every = max(k, CB_LOG_EVERY)
+        grid = [(e, e * CB_BATCHES + j) for e in range(CB_EPOCHS)
+                for j in [*range(every, CB_BATCHES + 1, every),
+                          CB_BATCHES, CB_BATCHES]]
+        csv_ok = rows == grid
+        names = set()
+        for path in prof.trace_paths:
+            with open(path) as f:
+                names |= {str(e.get("name", "")) for e in
+                          json_mod.load(f).get("traceEvents", [])}
+        flash_seen = any("tc_flash_fwd_kernel" in n for n in names)
+        trace_ok = (len(prof.trace_paths) == 1 and flash_seen
+                    and os.path.dirname(prof.trace_paths[0]).endswith(
+                        os.path.join("profiler", "rank0")))
+    peak_ok = dev.peak_memories == probe.peaks and len(dev.peak_memories) \
+        == CB_EPOCHS
+    mean = None
+    for n, snap in enumerate(probe.epoch_params, start=1):
+        mean = (tree_map(torch.clone, snap) if mean is None else tree_map(
+            lambda m, p, n=float(n): m + (p - m) / n, mean, snap))
+    swa_ok = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(mean), tree_leaves(tr.state.params)))
+    steps = sorted(probe.stride_params)
+    want = probe.stride_params[steps[0]]
+    d = CB_DECAY ** k
+    for gs in steps[1:]:
+        want = tree_map(lambda e, p: e * d + p * (1.0 - d), want,
+                        probe.stride_params[gs])
+    ema_err = max(float(((a - b).abs() / (1e-6 + 1e-5 * b.abs())).max())
+                  for a, b in zip(tree_leaves(ema.ema_params),
+                                  tree_leaves(want)))
+    ema_ok = ema_err <= 1.0
+    ok = (csv_ok and peak_ok and trace_ok and swa_ok and ema_ok
+          and not probe.shared)
+    print(f"phase 11d callbacks, megastep {k}, depth {n_layer}: CSV rows "
+          f"{len(rows)} on the grid {csv_ok}; DeviceStats peaks "
+          f"{[round(p / 2**30, 3) for p in dev.peak_memories]} GiB = "
+          f"max_memory_allocated {peak_ok}; trace {len(prof.trace_paths)} "
+          f"file(s), tc_flash_fwd_kernel named {flash_seen}; SWA bitwise "
+          f"{swa_ok}; EMA worst |err| / (1e-6 + 1e-5|ref|) {ema_err:.3f} "
+          f"(tol 1); shadows alias the params {probe.shared or 'never'}; "
+          f"{'ok' if ok else 'FAILED'}; {card}")
+    return {"csv_rows": len(rows), "csv_ok": csv_ok, "peak_ok": peak_ok,
+            "trace_ok": trace_ok, "swa_bitwise": swa_ok,
+            "ema_err": ema_err, "ema_ok": ema_ok,
+            "aliased": probe.shared, "ok": ok}
+
+
+def phase_lora_and_opt_state(torch, np, card):
+    """Phase 11: (a) the LoRA fine-tune, its clip and f32 parity; (b) its
+    adapter served; (c) the optimizer-state policies; (d) the callbacks."""
+    import gc
+
+    from ray_lightning_tpu_torch.telemetry.step_stats import (
+        model_flops_per_token,
+    )
+
+    result = {}
+    print(f"phase 11a: LoRA fine-tune of GPT-2-small (rank {LORA_RANK}, "
+          f"alpha 16, lr 1e-3, warmup 0), base random from seed {SEED}, "
+          f"batch {TRAIN_B} x {TRAIN_T}, bf16, remat 'dots+flash', "
+          f"megastep 'auto' ({MEGASTEP_K}), {LORA_STEPS} steps")
+    a, tr, cfg = lora_check(torch, card)
+    flops = model_flops_per_token(cfg, "full")
+    tokens_s = TRAIN_B * TRAIN_T / (a["ms_per_step"] / 1e3)
+    a.update(tokens_per_s=tokens_s, mfu=tokens_s * flops / 989.4e12)
+    print(f"phase 11a: launches a step (eager stride + capture counters "
+          f"/ 16) {a['launches_per_step']}; graph nodes / 8 "
+          f"{a['graph_nodes_per_step']}; the CPU's for the same step "
+          f"{a['cpu_launches_per_step']}; captures {a['captures']:.0f}; "
+          f"frozen leaves moved {a['frozen_moved'] or 'none'}; adapter B "
+          f"unmoved {a['adapters_b_unmoved'] or 'none'}; captured vs eager "
+          f"bf16 stride-end losses worst rel {a['loss_rel_vs_eager']:.3e} "
+          f"(tol {BF16_LOSS_TOL})")
+    print(f"phase 11a: {a['ms_per_step']:.2f} ms/step (median of strides "
+          f"3-6 / {MEGASTEP_K}, CUDA events; windows "
+          + ", ".join(f"{w:.1f}" for w in a["stride_ms"])
+          + f" ms), {tokens_s:.0f} tokens/s, MFU {100 * a['mfu']:.2f}% "
+          f"({flops / 1e6:.1f} MFLOP/token, the full fit's yardstick, "
+          f"against 989.4 TF/s), peak allocated "
+          f"{a['peak_alloc_gib']:.3f} GiB, reserved "
+          f"{a['peak_reserved_gib']:.3f} GiB (above what earlier phases "
+          f"keep resident), optimizer moments "
+          f"{a['opt_state_bytes']} bytes; {card}")
+    check(a["ok"], "phase 11a: the LoRA fit's gates")
+    result["a_lora"] = a
+    result["a_clip"] = lora_clip_check(torch, card)
+    check(result["a_clip"]["ok"], "phase 11a: the clip sees the adapters")
+    tuned = tr.state.params
+    del tr
+    gc.collect()
+    result["b_serve"] = serve_tuned(torch, np, card, tuned, cfg)
+    del tuned
+    gc.collect()
+    torch.cuda.empty_cache()
+    result["a_parity"] = lora_parity(torch, card)
+    check(result["a_parity"]["ok"], "phase 11a: the f32 LoRA parity")
+
+    print(f"phase 11c: the headline arm under opt_state_dtype in "
+          f"{OPT_DTYPES}, captured, {LORA_STEPS} steps")
+    c, states = opt_state_arms(torch, card)
+    for label in ("default", "bfloat16", "int8"):
+        r = c[label]
+        print(f"phase 11c {label}: {r['ms_per_step']:.2f} ms/step (windows "
+              + ", ".join(f"{w:.1f}" for w in r["stride_ms"])
+              + f" ms), peak allocated {r['peak_alloc_gib']:.3f} GiB, "
+              f"reserved {r['peak_reserved_gib']:.3f} GiB (above the "
+              f"resident), moments "
+              f"{r['moment_bytes']} bytes (opt_state_bytes "
+              f"{r['opt_state_bytes']}), final loss {r['final_loss']:.6f}"
+              + (f" ({r['loss_rel_vs_default']:.3e} rel of the default's, "
+                 f"tol {OPT_LOSS_REL})" if label != "default" else "")
+              + f"; {card}")
+    check(c["ok"], "phase 11c: the optimizer-state policies' gates")
+    c["resume"] = int8_resume_check(torch, card, states)
+    del states
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(c["resume"]["ok"], "phase 11c: int8 checkpoints")
+    c["f32"] = int8_step_check(torch, card)
+    check(c["f32"]["ok"], "phase 11c: int8 f32 checks")
+    c["codec"] = int8_codec_check(torch, card)
+    check(c["codec"]["ok"], "phase 11c: the int8 codec's sqrt domain")
+    result["c_opt_state"] = c
+
+    result["d_callbacks"] = {}
+    for k in (MEGASTEP_K, 1):
+        r = callbacks_check(torch, card, k)
+        check(r["ok"], f"phase 11d: callbacks under megastep {k}")
+        result["d_callbacks"][f"megastep_{k}"] = r
+    return result
+
+
 def kernel_name(mangled):
     """``name<args>`` of a kernel: of a demangled name (the profiler's),
     the identifier ending in ``_kernel`` and its template arguments; of a
@@ -2764,6 +3591,7 @@ def main() -> int:
     e2e = phase_end_to_end(torch, card)
     mega = phase_megastep(torch, card)
     ckpt = phase_checkpoint(torch, card)
+    lora_opt = phase_lora_and_opt_state(torch, np, card)
 
     kernels = [{
         "name": "bgmv", "route": "cuda", "source": BGMV_SOURCE,
@@ -2786,6 +3614,7 @@ def main() -> int:
                                     "card": card}))
     print("megastep: " + json.dumps({**mega, "card": card}))
     print("checkpoint: " + json.dumps({**ckpt, "card": card}))
+    print("lora_opt_state: " + json.dumps({**lora_opt, "card": card}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

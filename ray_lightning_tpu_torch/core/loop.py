@@ -17,8 +17,10 @@ Checkpoints (``LoopContext.save_checkpoint``: the JAX package's payload
 ``{"state", "epoch", "global_step", "micro_step", "callback_metrics"}``
 in an ``RLTCKPT1`` file, ``utils/state_stream.py``), resume
 (``resume_from_checkpoint``: the state, counters, epoch and metrics of a
-file either package wrote) and the eval loops (:func:`run_eval` for
-validation and test, :func:`run_predict`) are kept.  Elastic restart,
+file either package wrote; across an ``opt_state_dtype`` change the
+moments are converted, ``_reconcile_opt_state_format``) and the eval
+loops (:func:`run_eval` for validation and test, :func:`run_predict`)
+are kept.  Elastic restart,
 drain, prefetch threads and the full telemetry tier are later slices.
 """
 
@@ -30,6 +32,7 @@ import os
 import queue
 import threading
 import time
+import warnings
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -43,7 +46,10 @@ from ray_lightning_tpu_torch.models.convert import (
     train_state_to_jax,
 )
 from ray_lightning_tpu_torch.models.optim import (
-    apply_updates, multi_steps, multi_steps_flush, tree_map,
+    MaskedNode, apply_updates, multi_steps, multi_steps_flush, tree_map,
+)
+from ray_lightning_tpu_torch.ops.optim_quant import (
+    BlockQuantized, dequantize_moment, quantize_moment,
 )
 from ray_lightning_tpu_torch.parallel import step_fns
 from ray_lightning_tpu_torch.telemetry.runtime import Telemetry
@@ -171,9 +177,11 @@ class LoopContext:
         self._ckpt_pending: set = set()
         self._ckpt_lock = threading.Lock()
 
+    global_rank = 0  # one process, one device
+
     @property
     def is_global_zero(self) -> bool:
-        return True  # one process, one device
+        return True
 
     def log_metrics(self, metrics: Dict[str, Any]) -> None:
         for k, v in metrics.items():
@@ -354,7 +362,22 @@ def _restore_state(template: TrainState, loaded: TrainState) -> TrainState:
     and the shapes must agree."""
 
     def put(dst, src, path):
-        if isinstance(dst, dict):
+        if isinstance(dst, MaskedNode):
+            if not isinstance(src, MaskedNode):
+                raise ValueError(f"resume: {path}: the checkpoint holds "
+                                 f"{type(src).__name__} where this fit "
+                                 f"masks the leaf (lora_rank changed?)")
+        elif isinstance(dst, BlockQuantized):
+            if (not isinstance(src, BlockQuantized)
+                    or src.static() != dst.static()):
+                raise ValueError(f"resume: {path}: the checkpoint holds "
+                                 f"{src!r} where this fit holds {dst!r}")
+            put(dst.q, src.q, f"{path}.q")
+            put(dst.scale, src.scale, f"{path}.scale")
+            # The checkpoint's own static objects: a state written back
+            # pickles as the file did.
+            dst.aux = src.aux
+        elif isinstance(dst, dict):
             if not isinstance(src, dict) or set(src) != set(dst):
                 got = sorted(src) if isinstance(src, dict) else type(
                     src).__name__
@@ -385,6 +408,83 @@ def _restore_state(template: TrainState, loaded: TrainState) -> TrainState:
     return template
 
 
+class _Foreign(Exception):
+    """The trees differ beyond the moments' storage format."""
+
+
+def _structure(tree: Any) -> Any:
+    """A tree's structure with each quantized node's static fields (what
+    a JAX treedef compares)."""
+    if isinstance(tree, dict):
+        return ("dict", tuple((k, _structure(tree[k])) for k in sorted(tree)))
+    if isinstance(tree, (tuple, list)):
+        return (type(tree).__name__, tuple(_structure(v) for v in tree))
+    if isinstance(tree, MaskedNode):
+        return "masked"
+    if isinstance(tree, BlockQuantized):
+        return ("quantized", tree.static())
+    return "leaf"
+
+
+def _reconcile_opt_state_format(loaded: TrainState,
+                                template: TrainState) -> TrainState:
+    """The JAX loop's ``_reconcile_opt_state_format``: a checkpoint's
+    optimizer moments in this fit's storage format across an
+    ``opt_state_dtype`` change.  Float → int8 requantizes (the codec's
+    rounding, once), int8 → float dequantizes, int8 of another block size
+    or sqrt mode goes through float; a same-format state passes through
+    untouched, so an int8 state round-trips bitwise.  Trees that differ
+    otherwise are returned as they are, for :func:`_restore_state` to
+    refuse."""
+    if _structure(loaded.opt_state) == _structure(template.opt_state):
+        return loaded
+    converted = 0
+
+    def coerce(tmpl, ckpt):
+        nonlocal converted
+        t_q = isinstance(tmpl, BlockQuantized)
+        c_q = isinstance(ckpt, BlockQuantized)
+        if t_q and c_q:
+            if tmpl.static() == ckpt.static():
+                return ckpt
+            converted += 1
+            return quantize_moment(dequantize_moment(ckpt),
+                                   block_size=tmpl.block_size,
+                                   sqrt_domain=tmpl.sqrt_domain)
+        if t_q:
+            if not isinstance(ckpt, torch.Tensor):
+                raise _Foreign
+            converted += 1
+            return quantize_moment(ckpt.float(), block_size=tmpl.block_size,
+                                   sqrt_domain=tmpl.sqrt_domain)
+        if c_q:
+            if not isinstance(tmpl, torch.Tensor):
+                raise _Foreign
+            converted += 1
+            return dequantize_moment(ckpt).to(tmpl.dtype)
+        if isinstance(tmpl, dict):
+            if not isinstance(ckpt, dict) or set(ckpt) != set(tmpl):
+                raise _Foreign
+            return {k: coerce(tmpl[k], ckpt[k]) for k in ckpt}
+        if isinstance(tmpl, (tuple, list)):
+            if type(ckpt) is not type(tmpl) or len(ckpt) != len(tmpl):
+                raise _Foreign
+            return type(tmpl)(coerce(t, c) for t, c in zip(tmpl, ckpt))
+        return ckpt
+
+    try:
+        opt_state = coerce(template.opt_state, loaded.opt_state)
+    except _Foreign:
+        return loaded
+    if converted:
+        warnings.warn(
+            f"resume across an opt_state_dtype change: {converted} "
+            "optimizer moment leaves converted to this run's storage format "
+            "(float ↔ block-scaled int8; requantization applies the codec's "
+            "rounding once)")
+    return TrainState(loaded.params, opt_state, loaded.step)
+
+
 def _resume(ctx: LoopContext, callbacks: List[Callback], accum: int):
     """Load ``config.resume_from_checkpoint`` into the context (state,
     counters, metrics, callback states); returns ``(start_epoch,
@@ -392,8 +492,9 @@ def _resume(ctx: LoopContext, callbacks: List[Callback], accum: int):
     payload = load_state_stream(
         state_stream_from_file(ctx.config.resume_from_checkpoint),
         device=ctx.device)
-    ctx.state = _restore_state(ctx.state,
-                               train_state_from_jax(payload["state"]))
+    loaded = _reconcile_opt_state_format(
+        train_state_from_jax(payload["state"]), ctx.state)
+    ctx.state = _restore_state(ctx.state, loaded)
     if payload.get("mid_epoch"):
         # A step-granular checkpoint: resume inside its epoch, skipping
         # the micro-batches already trained (loaders are epoch-seeded).

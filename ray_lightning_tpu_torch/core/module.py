@@ -91,6 +91,13 @@ class TrainModule:
     def predict_step(self, params: Any, batch: Any) -> Any:
         raise NotImplementedError
 
+    def trainable(self, params: Any) -> Any:
+        """Which parameter leaves need a gradient: a tree of bools in the
+        params' structure, or None for every leaf (the default).  A frozen
+        leaf's gradient is never computed; the optimizer must leave it
+        unchanged (GPT under LoRA: ``set_to_zero``)."""
+        return None
+
     # -- lifecycle hooks (inside the fit loop) ------------------------------
     def setup(self, stage: str) -> None:
         """Called before the loop ('fit', 'validate', 'test' or

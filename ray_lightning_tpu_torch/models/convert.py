@@ -9,12 +9,24 @@ carries over as is.
 
 A training state converts both ways between the port's
 :class:`TrainState` and the JAX package's ``TrainState(params, opt_state,
-step, grad_residual)``, for the GPT family's optimizer: the JAX opt state
-``(EmptyState(), (ScaleByAdamState(count, mu, nu),
-MaskedState(EmptyState()), ScaleByScheduleState(count)))`` is the port's
-``((), {"count", "mu", "nu"})`` (``models/optim.py``), and under
-accumulation ``MultiStepsState(mini_step, gradient_step,
-inner_opt_state, acc_grads, skip_state=())`` its ``multi_steps`` dict.
+step, grad_residual)``, for the GPT family's optimizers:
+
+* the plain chain: JAX ``(EmptyState(), (ScaleByAdamState(count, mu,
+  nu), MaskedState(EmptyState()), ScaleByScheduleState(count)))`` is the
+  port's ``((), {"count", "mu", "nu"})`` (``models/optim.py``);
+* the LoRA chain: JAX ``(PartitionState({"freeze":
+  MaskedState(EmptyState()), "train": MaskedState(EmptyState())}),
+  EmptyState(), PartitionState({"freeze": MaskedState(EmptyState()),
+  "train": MaskedState(<the AdamW triple>)}))`` is the port's
+  ``({"freeze": (), "train": ()}, (), {"freeze": (), "train": {...}})``,
+  the frozen leaves of mu and nu ``MaskedNode`` on both sides;
+* under accumulation, ``MultiStepsState(mini_step, gradient_step,
+  inner_opt_state, acc_grads, skip_state=())`` and the port's
+  ``multi_steps`` dict around either;
+* a moment leaf is a tensor, or under ``opt_state_dtype="int8"`` a
+  ``BlockQuantized`` node (``ops/optim_quant.py``; its static fields are
+  the JAX node's aux data, kept as read).
+
 JAX keeps two counts (Adam's and the schedule's) where the port keeps
 one: they advance together, so a read takes Adam's (and refuses a tree
 where they differ) and a write writes it to both.  JAX's step is a 0-d
@@ -31,25 +43,18 @@ import torch
 
 from ray_lightning_tpu_torch.core.module import TrainState
 from ray_lightning_tpu_torch.device import resolve_device
+from ray_lightning_tpu_torch.models.optim import MaskedNode
+from ray_lightning_tpu_torch.ops.optim_quant import BlockQuantized
 from ray_lightning_tpu_torch.utils.treedef import (
-    ADAM_STATE, EMPTY_STATE, MASKED_STATE, MULTI_STEPS_STATE, SCHEDULE_STATE,
-    TRAIN_STATE, JaxNode,
+    ADAM_STATE, BLOCK_QUANTIZED, EMPTY_STATE, MASKED_NODE, MASKED_STATE,
+    MULTI_STEPS_STATE, PARTITION_STATE, SCHEDULE_STATE, TRAIN_STATE, JaxNode,
 )
 
 __all__ = ["params_from_jax", "adapter_from_jax", "jax_train_state_fields",
            "train_state_from_jax", "train_state_to_jax"]
 
 _FACTOR_KEYS = ("qkv_a", "qkv_b", "proj_a", "proj_b")
-# Classes a JAX checkpoint may hold that the port reads but cannot
-# convert yet, and why.
-_LATER = {
-    "BlockQuantized": "a block-quantized int8 opt_state_dtype moment "
-                      "(ops/optim_quant.py, a later slice of the port)",
-    "PartitionState": "the LoRA optimizer's partition (LoRA training is a "
-                      "later slice of the port)",
-    "MaskedNode": "the LoRA optimizer's frozen base (LoRA training is a "
-                  "later slice of the port)",
-}
+_LORA_LABELS = ("freeze", "train")
 
 
 def _tensor(x, device: torch.device) -> torch.Tensor:
@@ -82,22 +87,6 @@ def adapter_from_jax(adapter: Dict[str, Any], device=None) -> Dict[str, Any]:
     return out
 
 
-def _later(node: Any) -> str:
-    """The first class in ``node`` that a later slice converts, and why
-    (or "")."""
-    if isinstance(node, JaxNode):
-        if node.cls.name in _LATER:
-            return f"{node.cls}, {_LATER[node.cls.name]}"
-        kids = node.children
-    elif isinstance(node, dict):
-        kids = tuple(node.values())
-    elif isinstance(node, (tuple, list)):
-        kids = node
-    else:
-        return ""
-    return next((w for w in map(_later, kids) if w), "")
-
-
 def _refuse(node: Any, path: str, wanted: str) -> ValueError:
     if isinstance(node, JaxNode):
         got = str(node.cls)
@@ -105,12 +94,10 @@ def _refuse(node: Any, path: str, wanted: str) -> ValueError:
         got = f"a {type(node).__name__} of {len(node)}"
     else:
         got = type(node).__name__
-    why = _later(node)
     return ValueError(
-        f"{path}: expected {wanted}, got {got}"
-        + (f" holding {why}" if why and not got.startswith(why) else "")
-        + ".  The port converts the GPT family's TrainState (clip + masked "
-        "AdamW, optax.MultiSteps under accumulation)")
+        f"{path}: expected {wanted}, got {got}.  The port converts the GPT "
+        "family's TrainState (clip + masked AdamW, or the LoRA chain; "
+        "optax.MultiSteps under accumulation; float or int8 moments)")
 
 
 def _fields(node: Any, cls, arity: int, path: str) -> Tuple[Any, ...]:
@@ -152,23 +139,83 @@ def jax_train_state_fields(tree: Any, path: str = "state"
     return params, opt_state, step
 
 
-def _adamw_from_jax(tree: Any, path: str) -> Tuple[Any, Dict[str, Any]]:
-    clip, adamw = _fields_tuple(tree, 2, path)
-    _fields(clip, EMPTY_STATE, 0, f"{path}[0]")
-    adam, masked, sched = _fields_tuple(adamw, 3, f"{path}[1]")
-    count, mu, nu = _fields(adam, ADAM_STATE, 3, f"{path}[1][0]")
-    (inner,) = _fields(masked, MASKED_STATE, 1, f"{path}[1][1]")
-    _fields(inner, EMPTY_STATE, 0, f"{path}[1][1].inner_state")
-    (sched_count,) = _fields(sched, SCHEDULE_STATE, 1, f"{path}[1][2]")
-    count = _count(count, f"{path}[1][0].count")
-    sched_count = _count(sched_count, f"{path}[1][2].count")
+def _moments(tree: Any, path: str) -> Any:
+    """A mu/nu tree: tensors, ``BlockQuantized`` nodes and ``MaskedNode``
+    places."""
+    if isinstance(tree, dict):
+        return {k: _moments(v, f"{path}['{k}']") for k, v in tree.items()}
+    if isinstance(tree, JaxNode) and tree.cls == MASKED_NODE:
+        _fields(tree, MASKED_NODE, 0, path)
+        return MaskedNode()
+    if isinstance(tree, JaxNode) and tree.cls == BLOCK_QUANTIZED:
+        q, scale = _fields(tree, BLOCK_QUANTIZED, 2, path)
+        aux = tree.aux
+        if not (tree.custom and isinstance(aux, tuple) and len(aux) == 3
+                and isinstance(aux[0], tuple)):
+            raise _refuse(tree, path, "BlockQuantized aux data (shape, "
+                          "block_size, sqrt_domain)")
+        return BlockQuantized(_leaves(q, f"{path}.q"),
+                              _leaves(scale, f"{path}.scale"), *aux,
+                              aux=aux)
+    return _leaves(tree, path)
+
+
+def _adam_from_jax(adamw: Any, path: str) -> Dict[str, Any]:
+    """The AdamW triple ``(ScaleByAdamState, MaskedState(EmptyState),
+    ScaleByScheduleState)`` → the port's ``{"count", "mu", "nu"}``."""
+    adam, masked, sched = _fields_tuple(adamw, 3, path)
+    count, mu, nu = _fields(adam, ADAM_STATE, 3, f"{path}[0]")
+    (inner,) = _fields(masked, MASKED_STATE, 1, f"{path}[1]")
+    _fields(inner, EMPTY_STATE, 0, f"{path}[1].inner_state")
+    (sched_count,) = _fields(sched, SCHEDULE_STATE, 1, f"{path}[2]")
+    count = _count(count, f"{path}[0].count")
+    sched_count = _count(sched_count, f"{path}[2].count")
     if int(count) != int(sched_count):
         raise ValueError(
             f"{path}: the Adam count {int(count)} and the schedule's count "
             f"{int(sched_count)} differ; the port keeps one count for both")
-    return (), {"count": count.to(torch.int32),
-                "mu": _leaves(mu, f"{path}[1][0].mu"),
-                "nu": _leaves(nu, f"{path}[1][0].nu")}
+    return {"count": count.to(torch.int32),
+            "mu": _moments(mu, f"{path}[0].mu"),
+            "nu": _moments(nu, f"{path}[0].nu")}
+
+
+def _partition(tree: Any, path: str) -> Dict[str, Any]:
+    """A LoRA ``PartitionState`` → ``{label: MaskedState's inner}``."""
+    (inner,) = _fields(tree, PARTITION_STATE, 1, path)
+    if not (isinstance(inner, dict) and sorted(inner) == list(_LORA_LABELS)):
+        raise _refuse(inner, f"{path}.inner_states",
+                      f"a dict of the labels {_LORA_LABELS}")
+    out = {}
+    for label in _LORA_LABELS:
+        (out[label],) = _fields(inner[label], MASKED_STATE, 1,
+                                f"{path}.inner_states['{label}']")
+    return out
+
+
+def _empty(node: Any, path: str) -> Tuple[()]:
+    _fields(node, EMPTY_STATE, 0, path)
+    return ()
+
+
+def _adamw_from_jax(tree: Any, path: str) -> Tuple[Any, ...]:
+    """The GPT family's optimizer state: the plain chain or the LoRA
+    chain."""
+    if isinstance(tree, tuple) and len(tree) == 3:
+        first, clip, second = tree
+        gates = _partition(first, f"{path}[0]")
+        for label in _LORA_LABELS:
+            _empty(gates[label], f"{path}[0].inner_states['{label}']"
+                                 ".inner_state")
+        opt = _partition(second, f"{path}[2]")
+        p = f"{path}[2].inner_states"
+        return ({label: () for label in _LORA_LABELS},
+                _empty(clip, f"{path}[1]"),
+                {"freeze": _empty(opt["freeze"],
+                                  f"{p}['freeze'].inner_state"),
+                 "train": _adam_from_jax(opt["train"],
+                                         f"{p}['train'].inner_state")})
+    clip, adamw = _fields_tuple(tree, 2, path)
+    return _empty(clip, f"{path}[0]"), _adam_from_jax(adamw, f"{path}[1]")
 
 
 def train_state_from_jax(tree: Any) -> TrainState:
@@ -194,12 +241,38 @@ def train_state_from_jax(tree: Any) -> TrainState:
                       int(_count(step, "state.step")))
 
 
-def _adamw_to_jax(opt: Any) -> Tuple[Any, Any]:
+def _moments_to_jax(tree: Any) -> Any:
+    if isinstance(tree, dict):
+        return {k: _moments_to_jax(v) for k, v in tree.items()}
+    if isinstance(tree, MaskedNode):
+        return JaxNode(MASKED_NODE, ())
+    if isinstance(tree, BlockQuantized):
+        aux = tree.aux if tree.aux == tree.static() else tree.static()
+        return JaxNode(BLOCK_QUANTIZED, (tree.q, tree.scale), custom=True,
+                       aux=aux)
+    return tree
+
+
+def _adam_to_jax(adam: Dict[str, Any]) -> Tuple[Any, Any, Any]:
+    count = adam["count"]
+    return (JaxNode(ADAM_STATE, (count, _moments_to_jax(adam["mu"]),
+                                 _moments_to_jax(adam["nu"]))),
+            JaxNode(MASKED_STATE, (JaxNode(EMPTY_STATE, ()),)),
+            JaxNode(SCHEDULE_STATE, (count,)))
+
+
+def _adamw_to_jax(opt: Any) -> Tuple[Any, ...]:
     empty = JaxNode(EMPTY_STATE, ())
-    count = opt[1]["count"]
-    return (empty, (JaxNode(ADAM_STATE, (count, opt[1]["mu"], opt[1]["nu"])),
-                    JaxNode(MASKED_STATE, (empty,)),
-                    JaxNode(SCHEDULE_STATE, (count,))))
+    if len(opt) == 3:  # the LoRA chain
+        def partition(inner):
+            return JaxNode(PARTITION_STATE, ({
+                label: JaxNode(MASKED_STATE, (inner[label],))
+                for label in _LORA_LABELS},))
+
+        return (partition({"freeze": empty, "train": empty}), empty,
+                partition({"freeze": empty,
+                           "train": _adam_to_jax(opt[2]["train"])}))
+    return empty, _adam_to_jax(opt[1])
 
 
 def train_state_to_jax(state: TrainState) -> JaxNode:

@@ -25,9 +25,15 @@ stacked ``blocks`` tensors are unbound per layer, so their gradients come
 back stacked ``(L, ...)``: the optimizer and the tests see the JAX
 package's tree.
 
-LoRA: the adapter helpers (``add_lora_adapters``, ``extract_lora``,
+LoRA (``lora_rank > 0``): each block adds ``(h @ A) @ B · lora_alpha /
+lora_rank`` to qkv and ``(att @ A) @ B`` likewise to proj, in the compute
+dtype, as the JAX ``forward_hidden`` does; the optimizer trains the
+``lora_*`` leaves alone (``configure_optimizers``), and the fit loop asks
+:meth:`GPT.trainable` which leaves need a gradient, so the frozen base's
+weight-gradient products (the CE dW kernel among them) are never
+computed.  The adapter helpers (``add_lora_adapters``, ``extract_lora``,
 ``merge_lora``, ``synthetic_lora_adapter``) keep the JAX package's
-``lora_*`` key names and its ``lora_alpha / lora_rank`` scale.
+``lora_*`` key names and its scale.
 """
 
 from __future__ import annotations
@@ -50,7 +56,8 @@ from ray_lightning_tpu_torch.core.data import (
 from ray_lightning_tpu_torch.core.module import TrainModule
 from ray_lightning_tpu_torch.device import resolve_device
 from ray_lightning_tpu_torch.models.optim import (
-    chain, clip_by_global_norm, gpt_adamw,
+    chain, clip_by_global_norm, gpt_adamw, identity, multi_transform,
+    resolve_opt_state_dtype, set_to_zero, tree_map,
 )
 from ray_lightning_tpu_torch.ops.attention import (
     ATTN_IMPLS, causal_attention,
@@ -67,14 +74,16 @@ from ray_lightning_tpu_torch.ops.matmul import mm_f32
 __all__ = ["GPTConfig", "GPT", "SyntheticLMDataModule", "REMAT_POLICIES",
            "remat_policy_fn", "resolve_weight",
            "has_int8_weights", "has_lora_adapters", "add_lora_adapters",
-           "extract_lora", "merge_lora", "synthetic_lora_adapter"]
+           "extract_lora", "merge_lora", "synthetic_lora_adapter",
+           "lora_labels"]
 
 
 @dataclasses.dataclass(frozen=True)
 class GPTConfig:
     """The JAX package's ``GPTConfig`` for dense models.  ``n_experts``
-    and ``opt_state_dtype`` exist so that a config asking for MoE or a
-    compressed optimizer state is refused (later slices of the port)."""
+    exists so that a config asking for MoE is refused (a later slice of
+    the port).  ``opt_state_dtype``: None (bf16 mu, f32 nu), "float32",
+    "bfloat16" or "int8" AdamW moments (``models/optim.py``)."""
 
     vocab_size: int = 50304  # GPT-2 vocab padded to a multiple of 128
     n_layer: int = 12
@@ -222,7 +231,14 @@ class GPT(TrainModule):
         if remat_policy not in REMAT_POLICIES:
             raise ValueError(
                 f"remat_policy {remat_policy!r} not in {REMAT_POLICIES}")
-        self.config = config or GPTConfig.tiny()
+        config = config or GPTConfig.tiny()
+        if config.lora_rank > 0 and config.n_experts > 0:
+            raise ValueError(
+                "LoRA adapters target the dense attention projections; "
+                "lora_rank > 0 with n_experts > 0 is not supported")
+        # A typo'd state-precision policy fails here, not at the first step.
+        resolve_opt_state_dtype(config.opt_state_dtype)
+        self.config = config
         self.attn_impl = attn_impl
         self.precision = precision
         self.device = resolve_device(device)
@@ -296,11 +312,6 @@ class GPT(TrainModule):
             raise NotImplementedError(
                 "MoE (n_experts > 0) is not supported by the PyTorch port "
                 "yet (a later slice ports ops/moe.py)")
-        if cfg.lora_rank > 0 or has_lora_adapters(params):
-            raise NotImplementedError(
-                "LoRA training is not supported by the PyTorch port yet (a "
-                "later slice); fold adapters with merge_lora, or serve "
-                "them through ServeEngine's adapter pool")
         c = self._compute_dtype()
         x = (params["wte"][tokens.long()] + params["wpe"][:tokens.shape[1]]
              ).to(c)
@@ -344,12 +355,25 @@ class GPT(TrainModule):
             x = x.to(c)
         h = layer_norm(x, p["ln1_g"], p["ln1_b"], use_kernel=True)
         qkv = h @ p["qkv_w"].to(c) + p["qkv_b"].to(c)
+        if cfg.lora_rank > 0:
+            qkv = qkv + self._lora(h, p, "qkv", c)
         q, k, v = (z.reshape(B, T, cfg.n_head, cfg.head_dim)
                    for z in qkv.split(d, dim=-1))
         att = causal_attention(q, k, v, impl=self.attn_impl).reshape(B, T, d)
-        x = x + (att @ p["proj_w"].to(c) + p["proj_b"].to(c))
+        proj = att @ p["proj_w"].to(c) + p["proj_b"].to(c)
+        if cfg.lora_rank > 0:
+            proj = proj + self._lora(att, p, "proj", c)
+        x = x + proj
         x = _mlp_residual(x, p, c, ln_kernel=True)
         return x.to(torch.bfloat16) if bf16r else x
+
+    def _lora(self, z: torch.Tensor, p: Dict[str, torch.Tensor], site: str,
+              c: torch.dtype) -> torch.Tensor:
+        """The adapter term of ``site``: ``(z @ A) @ B · alpha / rank`` in
+        the compute dtype."""
+        cfg = self.config
+        return ((z @ p[f"lora_{site}_a"].to(c)) @ p[f"lora_{site}_b"].to(c)
+                ) * (cfg.lora_alpha / cfg.lora_rank)
 
     # -- steps --------------------------------------------------------------
     def _loss(self, params: Dict[str, Any], tokens: torch.Tensor
@@ -382,11 +406,28 @@ class GPT(TrainModule):
 
     def configure_optimizers(self):
         """Global-norm clip 1.0, then the family's masked warmup-cosine
-        AdamW (``models/optim.py``)."""
+        AdamW (``models/optim.py``).  Under LoRA only the adapters train:
+        ``chain(multi_transform(identity | set_to_zero), clip,
+        multi_transform(adamw | set_to_zero))`` over :func:`lora_labels`.
+        The frozen gradients are zeroed before the clip, so the clip sees
+        the adapters' norm alone, and the base holds no moments."""
+        adamw = gpt_adamw(self.config)
         if self.config.lora_rank > 0:
-            raise NotImplementedError(
-                "LoRA training is not supported by the PyTorch port yet")
-        return chain(clip_by_global_norm(1.0), gpt_adamw(self.config))
+            return chain(
+                multi_transform({"train": identity(),
+                                 "freeze": set_to_zero()}, lora_labels),
+                clip_by_global_norm(1.0),
+                multi_transform({"train": adamw, "freeze": set_to_zero()},
+                                lora_labels))
+        return chain(clip_by_global_norm(1.0), adamw)
+
+    def trainable(self, params: Dict[str, Any]) -> Optional[Dict[str, Any]]:
+        """Which leaves need a gradient: under LoRA, those
+        :func:`lora_labels` labels ``"train"`` (the same labels the
+        optimizer routes by); else None, every leaf."""
+        if self.config.lora_rank <= 0:
+            return None
+        return tree_map(lambda lab: lab == "train", lora_labels(params))
 
 
 class SyntheticLMDataModule(TpuDataModule):
@@ -431,6 +472,18 @@ def _tree_to(tree: Dict[str, Any], device: torch.device) -> Dict[str, Any]:
         else v.to(device=device, dtype=torch.float32)
         for k, v in tree.items()
     }
+
+
+def lora_labels(params: Dict[str, Any]) -> Dict[str, Any]:
+    """``"train"`` for the ``lora_*`` leaves, ``"freeze"`` for the rest
+    (the labels of the JAX LoRA optimizer's ``multi_transform``)."""
+
+    def walk(node, name):
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
+        return "train" if str(name).startswith("lora_") else "freeze"
+
+    return walk(params, "")
 
 
 def has_int8_weights(params: Dict[str, Any]) -> bool:

@@ -36,19 +36,43 @@ them at the count, learning rate and bias correction each replay reaches
 graph).  :func:`multi_steps` is ``optax.MultiSteps`` (gradient
 accumulation) and :func:`multi_steps_flush` the JAX loop's flush of a
 partial window.
+
+LoRA's optimizer (``GPT.configure_optimizers``) needs optax's
+``identity``, ``set_to_zero`` and ``multi_transform``: a transform runs
+on the params of its label with the others masked out (a
+:class:`MaskedNode` in their place, as optax's ``masked`` puts one), so
+the frozen base holds no moments.  A frozen leaf's gradient and update
+are :func:`known_zeros`, a broadcast zero that allocates nothing; the
+clip leaves it out of the norm (adding an exact 0.0 changes no sum) and
+:func:`apply_updates` passes its parameter through.
+
+The optimizer-state precision policy (``opt_state_dtype``) is the JAX
+package's ``models/optim.py``: :func:`quantize_opt_state` stores the
+AdamW moments in bf16 or block-scaled int8 (``ops/optim_quant.py``)
+between steps and updates them on a transient f32 view;
+:func:`opt_state_bytes` is its analytic accounting.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, NamedTuple
+from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import torch
+
+from ray_lightning_tpu_torch.ops.optim_quant import (
+    DEFAULT_BLOCK_SIZE, MIN_QUANT_SIZE, BlockQuantized, dequantize_moment,
+    is_block_quantized, quantize_moment,
+)
 
 __all__ = ["GradientTransformation", "chain", "clip_by_global_norm",
            "adamw", "warmup_cosine_decay_schedule", "gpt_adamw",
            "multi_steps", "multi_steps_flush", "decay_mask", "tree_map",
-           "tree_leaves", "tree_unflatten", "apply_updates"]
+           "tree_leaves", "tree_unflatten", "apply_updates", "MaskedNode",
+           "identity", "set_to_zero", "multi_transform", "known_zeros",
+           "is_known_zeros", "OPT_STATE_DTYPES", "resolve_opt_state_dtype",
+           "quantize_opt_state", "apply_opt_state_dtype", "opt_state_bytes",
+           "moment_bytes"]
 
 # Matrix-valued params by naming convention: ``*_w`` projections plus the
 # tied token embedding; biases, LayerNorm gains and ``wpe`` are exempt.
@@ -60,15 +84,38 @@ class GradientTransformation(NamedTuple):
     update: Callable[..., Any]
 
 
+class MaskedNode:
+    """optax's ``MaskedNode``: the place of a parameter that a masked
+    transform does not see.  A node with no leaves: :func:`tree_map`
+    keeps it, :func:`tree_leaves` skips it."""
+
+    __slots__ = ()
+
+    def __eq__(self, other: Any) -> bool:
+        return isinstance(other, MaskedNode)
+
+    def __hash__(self) -> int:
+        return hash(MaskedNode)
+
+    def __repr__(self) -> str:
+        return "MaskedNode()"
+
+
 def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
-    """``fn`` over the leaves of nested dicts, tuples and lists (``rest``
-    trees alike)."""
+    """``fn`` over the leaves of nested dicts, tuples, lists and
+    :class:`BlockQuantized` nodes (``rest`` trees alike); a
+    :class:`MaskedNode` stays as it is."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):
         return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
                           for i, v in enumerate(tree))
+    if isinstance(tree, MaskedNode):
+        return tree
+    if isinstance(tree, BlockQuantized):
+        return tree.replace(fn(tree.q, *(r.q for r in rest)),
+                            fn(tree.scale, *(r.scale for r in rest)))
     return fn(tree, *rest)
 
 
@@ -77,6 +124,10 @@ def tree_leaves(tree: Any) -> list:
         return [leaf for v in tree.values() for leaf in tree_leaves(v)]
     if isinstance(tree, (tuple, list)):
         return [leaf for v in tree for leaf in tree_leaves(v)]
+    if isinstance(tree, MaskedNode):
+        return []
+    if isinstance(tree, BlockQuantized):
+        return [tree.q, tree.scale]
     return [tree]
 
 
@@ -92,14 +143,38 @@ def decay_mask(params: Dict[str, Any]) -> Dict[str, Any]:
     def walk(node, name):
         if isinstance(node, dict):
             return {k: walk(v, k) for k, v in node.items()}
+        if isinstance(node, MaskedNode):
+            return node
         return name.endswith("_w") or name in _DECAY_EXACT
 
     return walk(params, "")
 
 
+def known_zeros(t: torch.Tensor,
+                zero: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Zeros of ``t``'s shape and dtype that allocate nothing: one zero
+    (``zero``, a 0-d tensor of ``t``'s dtype, or a new one) broadcast as a
+    stride-0 view, marked so :func:`is_known_zeros` can pass it by."""
+    if zero is None:
+        zero = torch.zeros((), dtype=t.dtype, device=t.device)
+    z = zero.expand(t.shape)
+    z.rlt_known_zeros = True
+    return z
+
+
+def is_known_zeros(t: Any) -> bool:
+    """True for a tensor made by :func:`known_zeros` (never for a tensor
+    that merely holds zeros)."""
+    return getattr(t, "rlt_known_zeros", False)
+
+
 def apply_updates(params: Any, updates: Any) -> Any:
-    """``params + updates``, leaf by leaf, in each param's dtype."""
-    return tree_map(lambda p, u: (p + u).to(p.dtype), params, updates)
+    """``params + updates``, leaf by leaf, in each param's dtype; a
+    :func:`known_zeros` update returns the parameter itself (p + 0 = p,
+    and the write-back of a captured step then copies nothing)."""
+    return tree_map(
+        lambda p, u: p if is_known_zeros(u) else (p + u).to(p.dtype),
+        params, updates)
 
 
 def chain(*txs: GradientTransformation) -> GradientTransformation:
@@ -121,12 +196,13 @@ def clip_by_global_norm(max_norm: float) -> GradientTransformation:
     norm is below ``max_norm``, else ``(t / norm)·max_norm``."""
 
     def update(updates, state, params=None):
-        leaves = tree_leaves(updates)
+        # A known-zero leaf adds an exact 0.0 to the norm: left out.
+        leaves = [t for t in tree_leaves(updates) if not is_known_zeros(t)]
         norm = torch.sqrt(sum(torch.sum(t * t) for t in leaves))
         trigger = norm < max_norm
         return tree_map(
-            lambda t: torch.where(trigger, t,
-                                  (t / norm.to(t.dtype)) * max_norm),
+            lambda t: t if is_known_zeros(t) else torch.where(
+                trigger, t, (t / norm.to(t.dtype)) * max_norm),
             updates), state
 
     return GradientTransformation(lambda params: (), update)
@@ -166,8 +242,11 @@ def _bias_correction(decay: float, count: torch.Tensor) -> torch.Tensor:
 
 
 def _zero_count(params: Any) -> torch.Tensor:
-    device = tree_leaves(params)[0].device
-    return torch.zeros((), dtype=torch.int32, device=device)
+    leaves = tree_leaves(params)
+    if not leaves:
+        raise ValueError("an optimizer state needs at least one parameter "
+                         "(every leaf is masked out)")
+    return torch.zeros((), dtype=torch.int32, device=leaves[0].device)
 
 
 def adamw(learning_rate: Callable[[torch.Tensor], torch.Tensor], b1: float,
@@ -268,19 +347,241 @@ def multi_steps_flush(inner: GradientTransformation, state: Dict[str, Any],
     }
 
 
+def identity() -> GradientTransformation:
+    """optax's ``identity``: updates unchanged, empty state."""
+    return GradientTransformation(lambda params: (),
+                                  lambda updates, state, params=None:
+                                  (updates, state))
+
+
+def set_to_zero() -> GradientTransformation:
+    """optax's ``set_to_zero``: every update :func:`known_zeros`, empty
+    state."""
+
+    def update(updates, state, params=None):
+        return tree_map(lambda t: t if is_known_zeros(t) else known_zeros(t),
+                        updates), state
+
+    return GradientTransformation(lambda params: (), update)
+
+
+def _masked(tree: Any, labels: Any, label: str) -> Any:
+    """``tree`` with the leaves of other labels replaced by
+    :class:`MaskedNode` (optax's ``masked`` view)."""
+    return tree_map(lambda t, lab: t if lab == label else MaskedNode(),
+                    tree, labels)
+
+
+def multi_transform(transforms: Dict[str, GradientTransformation],
+                    param_labels: Callable[[Any], Any]
+                    ) -> GradientTransformation:
+    """optax's ``multi_transform``: ``transforms[label]`` runs on the
+    leaves ``param_labels(params)`` gives that label, the others masked
+    out.  State: ``{label: inner state}`` (the JAX package's
+    ``PartitionState`` of ``MaskedState``s, ``models/convert.py``)."""
+
+    def init(params):
+        labels = param_labels(params)
+        return {name: tx.init(_masked(params, labels, name))
+                for name, tx in transforms.items()}
+
+    def update(updates, state, params=None):
+        labels = param_labels(updates if params is None else params)
+        names = list(transforms)
+        parts, new_state = [], {}
+        for name in names:
+            u, new_state[name] = transforms[name].update(
+                _masked(updates, labels, name), state[name],
+                None if params is None else _masked(params, labels, name))
+            parts.append(u)
+        return tree_map(lambda lab, *us: us[names.index(lab)], labels,
+                        *parts), new_state
+
+    return GradientTransformation(init, update)
+
+
+# -- optimizer-state precision ------------------------------------------------
+
+# None is "no policy": the family keeps its mu_dtype first moment.
+OPT_STATE_DTYPES = ("float32", "bfloat16", "int8")
+_OPT_DTYPE_ALIASES = {"f32": "float32", "fp32": "float32",
+                      "bf16": "bfloat16"}
+
+
+def resolve_opt_state_dtype(value: Optional[str]) -> Optional[str]:
+    """The normal name of an ``opt_state_dtype`` value (None stays None);
+    anything else raises."""
+    if value is None:
+        return None
+    name = _OPT_DTYPE_ALIASES.get(str(value), str(value))
+    if name not in OPT_STATE_DTYPES:
+        raise ValueError(
+            f"opt_state_dtype {value!r} not in {OPT_STATE_DTYPES} "
+            f"(aliases: {sorted(_OPT_DTYPE_ALIASES)})")
+    return name
+
+
+_ADAM_KEYS = frozenset({"count", "mu", "nu"})
+
+
+def _is_adam_state(node: Any) -> bool:
+    return isinstance(node, dict) and set(node) == _ADAM_KEYS
+
+
+def _map_moment_leaves(tree: Any, fn: Callable) -> Any:
+    """``fn`` over the moment leaves of a mu/nu tree: tensors and
+    :class:`BlockQuantized` nodes alike; masked places kept."""
+    if isinstance(tree, dict):
+        return {k: _map_moment_leaves(v, fn) for k, v in tree.items()}
+    if isinstance(tree, MaskedNode):
+        return tree
+    return fn(tree)
+
+
+def _map_adam_moments(state: Any, mu_fn: Callable, nu_fn: Callable) -> Any:
+    """``mu_fn``/``nu_fn`` over the moment leaves of every AdamW state in
+    an optimizer-state tree (at any depth: chains, partitions,
+    ``multi_steps``), everything else untouched."""
+    if _is_adam_state(state):
+        return {"count": state["count"],
+                "mu": _map_moment_leaves(state["mu"], mu_fn),
+                "nu": _map_moment_leaves(state["nu"], nu_fn)}
+    if isinstance(state, dict):
+        return {k: _map_adam_moments(v, mu_fn, nu_fn)
+                for k, v in state.items()}
+    if isinstance(state, (tuple, list)):
+        return type(state)(_map_adam_moments(v, mu_fn, nu_fn)
+                           for v in state)
+    return state
+
+
+def _compress_fns(dtype: str, block_size: int, min_quant_size: int):
+    """((store_mu, store_nu), (load_mu, load_nu)) leaf converters."""
+
+    def store_bf16(v):
+        if isinstance(v, torch.Tensor) and v.is_floating_point():
+            return v.to(torch.bfloat16)
+        return v
+
+    def load_bf16(v):
+        if isinstance(v, torch.Tensor) and v.dtype == torch.bfloat16:
+            return v.float()
+        return v
+
+    def make_store_int8(sqrt_domain: bool):
+        def store(v):
+            if (isinstance(v, torch.Tensor) and v.is_floating_point()
+                    and v.numel() >= min_quant_size):
+                return quantize_moment(v, block_size=block_size,
+                                       sqrt_domain=sqrt_domain)
+            return v
+
+        return store
+
+    def load_int8(v):
+        return dequantize_moment(v) if is_block_quantized(v) else v
+
+    if dtype == "bfloat16":
+        return (store_bf16, store_bf16), (load_bf16, load_bf16)
+    return ((make_store_int8(False), make_store_int8(True)),
+            (load_int8, load_int8))
+
+
+def quantize_opt_state(inner: GradientTransformation, dtype: str,
+                       block_size: int = DEFAULT_BLOCK_SIZE,
+                       min_quant_size: int = MIN_QUANT_SIZE
+                       ) -> GradientTransformation:
+    """``inner`` with its AdamW moments stored in ``dtype`` between
+    steps: ``"int8"`` block-scaled (first moment linear, second in the
+    sqrt domain; leaves under ``min_quant_size`` elements stay float),
+    ``"bfloat16"`` cast.  Each update dequantizes, runs ``inner`` in f32
+    and requantizes; the new state's leaves are new tensors, written back
+    leafwise under megastep like any other."""
+    dtype = resolve_opt_state_dtype(dtype)
+    if dtype in (None, "float32"):
+        return inner
+    (store_mu, store_nu), (load_mu, load_nu) = _compress_fns(
+        dtype, block_size, min_quant_size)
+
+    def init(params):
+        return _map_adam_moments(inner.init(params), store_mu, store_nu)
+
+    def update(updates, state, params=None):
+        new_updates, new_state = inner.update(
+            updates, _map_adam_moments(state, load_mu, load_nu), params)
+        return new_updates, _map_adam_moments(new_state, store_mu, store_nu)
+
+    return GradientTransformation(init, update)
+
+
+def apply_opt_state_dtype(adamw_tx: GradientTransformation,
+                          opt_state_dtype: Optional[str],
+                          block_size: int = DEFAULT_BLOCK_SIZE
+                          ) -> GradientTransformation:
+    """``adamw_tx`` under the configured state-precision policy
+    (None/"float32": unchanged)."""
+    dtype = resolve_opt_state_dtype(opt_state_dtype)
+    if dtype in (None, "float32"):
+        return adamw_tx
+    return quantize_opt_state(adamw_tx, dtype, block_size=block_size)
+
+
+def _numel(leaf: Any) -> int:
+    return math.prod(tuple(getattr(leaf, "shape", ())))
+
+
+def opt_state_bytes(params: Any, dtype: Optional[str],
+                    block_size: int = DEFAULT_BLOCK_SIZE,
+                    min_quant_size: int = MIN_QUANT_SIZE) -> int:
+    """Analytic bytes of the persistent AdamW moments of ``params`` (any
+    leaves with a ``shape``: tensors, meta tensors) under a precision
+    policy, both moments a leaf.  ``dtype=None`` is the GPT default (bf16
+    mu, f32 nu); under ``"int8"`` a leaf under ``min_quant_size`` keeps
+    f32 moments."""
+    dtype = resolve_opt_state_dtype(dtype) if dtype is not None else None
+    total = 0
+    for leaf in tree_leaves(params):
+        size = _numel(leaf)
+        if size == 0:
+            continue
+        if dtype == "int8" and size >= min_quant_size:
+            padded = size + ((-size) % block_size)
+            total += 2 * (padded + 4 * (padded // block_size))
+        elif dtype == "bfloat16":
+            total += 2 * 2 * size
+        elif dtype is None:
+            total += (2 + 4) * size
+        else:  # float32, or int8's small-leaf carve-out
+            total += 2 * 4 * size
+    return total
+
+
+def moment_bytes(opt_state: Any) -> int:
+    """The bytes the AdamW moments of ``opt_state`` hold on their device
+    (payloads and scales of quantized leaves included): what
+    :func:`opt_state_bytes` predicts."""
+    total = 0
+
+    def count(v):
+        nonlocal total
+        for t in tree_leaves(v):
+            total += t.numel() * t.element_size()
+        return v
+
+    _map_adam_moments(opt_state, count, count)
+    return total
+
+
 def gpt_adamw(cfg) -> GradientTransformation:
     """The family's scheduled, masked AdamW without the clip
-    (``gpt_adamw`` of the JAX package).  ``cfg.opt_state_dtype`` other
-    than None is refused: int8 and bf16 optimizer state are a later
-    slice of the port."""
-    if getattr(cfg, "opt_state_dtype", None) is not None:
-        raise NotImplementedError(
-            f"opt_state_dtype={cfg.opt_state_dtype!r} is not supported by "
-            f"the PyTorch port yet (int8/bf16 optimizer state is a later "
-            f"slice); leave it None")
+    (``gpt_adamw`` of the JAX package).  An explicit ``opt_state_dtype``
+    policy owns the moments' storage: the inner AdamW then keeps f32
+    moments and ``mu_dtype`` is ignored."""
     schedule = warmup_cosine_decay_schedule(
         0.0, cfg.lr, cfg.warmup_steps, max(10 * cfg.warmup_steps, 1000))
-    mu_dtype = {"bfloat16": torch.bfloat16, "float32": torch.float32}[
-        cfg.mu_dtype]
-    return adamw(schedule, b1=0.9, b2=0.95, weight_decay=cfg.weight_decay,
-                 mask=decay_mask, mu_dtype=mu_dtype)
+    osd = resolve_opt_state_dtype(getattr(cfg, "opt_state_dtype", None))
+    mu_dtype = ({"bfloat16": torch.bfloat16, "float32": torch.float32}[
+        cfg.mu_dtype] if osd is None else torch.float32)
+    return apply_opt_state_dtype(
+        adamw(schedule, b1=0.9, b2=0.95, weight_decay=cfg.weight_decay,
+              mask=decay_mask, mu_dtype=mu_dtype), osd)

@@ -111,8 +111,10 @@ def _ce_fwd(x: torch.Tensor, wte: torch.Tensor, targets: torch.Tensor,
 
 def _ce_bwd(x: torch.Tensor, wte: torch.Tensor, targets: torch.Tensor,
             lse: torch.Tensor, g: torch.Tensor, num_chunks: int,
-            compute_dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(dx (N, d), dwte (V, d)), both f32."""
+            compute_dtype: torch.dtype, want_dw: bool = True
+            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(dx (N, d), dwte (V, d)), both f32; dwte None (its products not
+    computed) unless ``want_dw``."""
     V, d = wte.shape
     chunks, Vc = _chunk_wte(wte, num_chunks)
     g32 = g.float()
@@ -128,8 +130,9 @@ def _ce_bwd(x: torch.Tensor, wte: torch.Tensor, targets: torch.Tensor,
         onehot = ((targets - offset)[:, None] == cols).float()
         dl_c = ((p - onehot) * g32[:, None]).to(compute_dtype)
         dx += mm_f32(dl_c, wc)
-        dw.append(mm_f32(dl_c.T, xc))
-    return dx, torch.cat(dw, dim=0)[:V]
+        if want_dw:
+            dw.append(mm_f32(dl_c.T, xc))
+    return dx, torch.cat(dw, dim=0)[:V] if want_dw else None
 
 
 # -- the kernel route ---------------------------------------------------------
@@ -315,6 +318,8 @@ class _FusedCEKernel(torch.autograd.Function):
         wc = wte.to(ctx.compute_dtype).contiguous()
         g32 = g.float().contiguous()
         dx = ce_bwd_dx(xc, wc, targets, lse, g32)
+        if not ctx.needs_input_grad[1]:  # wte frozen (LoRA): no dW launch
+            return dx.to(x.dtype), None, None, None
         dw = ce_bwd_dw(xc, wc, targets, lse, g32)
         return dx.to(x.dtype), dw.to(wte.dtype), None, None
 
@@ -334,9 +339,11 @@ class _FusedCE(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, wte, targets, lse = ctx.saved_tensors
+        want_dw = ctx.needs_input_grad[1]
         dx, dwte = _ce_bwd(x, wte, targets, lse, g, ctx.num_chunks,
-                           ctx.compute_dtype)
-        return dx.to(x.dtype), dwte.to(wte.dtype), None, None, None
+                           ctx.compute_dtype, want_dw)
+        return (dx.to(x.dtype), dwte.to(wte.dtype) if want_dw else None,
+                None, None, None)
 
 
 def fused_lm_head_cross_entropy(

@@ -16,7 +16,9 @@ import numpy as np
 import torch
 
 from ray_lightning_tpu_torch.core.module import TrainModule, TrainState
-from ray_lightning_tpu_torch.models.optim import tree_leaves, tree_map
+from ray_lightning_tpu_torch.models.optim import (
+    known_zeros, tree_leaves, tree_map,
+)
 
 __all__ = ["loss_and_grads", "single_device_step", "build_eval_step",
            "build_predict_step",
@@ -27,15 +29,38 @@ __all__ = ["loss_and_grads", "single_device_step", "build_eval_step",
 def loss_and_grads(module: TrainModule, params: Any, batch: Any, rng
                    ) -> Tuple[Any, Dict[str, torch.Tensor]]:
     """``(grads, logs)`` of ``module.training_step``: grads in the params'
-    tree, logs detached, with ``loss`` added when the module logs none."""
-    leaves = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    tree, logs detached, with ``loss`` added when the module logs none.
+
+    Only the leaves ``module.trainable(params)`` marks (every leaf when it
+    returns None) require a gradient, so autograd computes nothing for the
+    others (under LoRA the frozen base's weight-gradient products and the
+    CE dW kernel; the JAX package's ``value_and_grad`` leaves that dead
+    work to XLA to drop).  Their gradients are
+    ``models.optim.known_zeros``, which the optimizer's ``set_to_zero``
+    discards."""
+    train = module.trainable(params)
+    if train is None:
+        leaves = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    else:
+        leaves = tree_map(lambda t, on: t.detach().requires_grad_(bool(on)),
+                          params, train)
     with torch.enable_grad():
         loss, logs = module.training_step(leaves, batch, rng)
         flat = tree_leaves(leaves)
-        grads = torch.autograd.grad(loss, flat, allow_unused=True)
-    it = iter(g if g is not None else torch.zeros_like(t)
-              for g, t in zip(grads, flat))
-    grad_tree = tree_map(lambda _: next(it), leaves)
+        wanted = [t for t in flat if t.requires_grad]
+        grads = iter(torch.autograd.grad(loss, wanted, allow_unused=True))
+    zero = {}
+
+    def grad_of(t):
+        if not t.requires_grad:
+            key = (t.dtype, t.device)
+            if key not in zero:
+                zero[key] = t.new_zeros(())
+            return known_zeros(t, zero[key])
+        g = next(grads)
+        return g if g is not None else torch.zeros_like(t)
+
+    grad_tree = tree_map(grad_of, leaves)
     logs = {k: v.detach() for k, v in dict(logs).items()}
     logs.setdefault("loss", loss.detach())
     return grad_tree, logs

@@ -17,8 +17,8 @@ num_leaves, num_nodes)`` each:
 :func:`decode` reads that pickle with an unpickler that imports nothing:
 each class it may name is an inert :class:`JaxClass` stand-in, from an
 allow-list (:data:`CONVERTED`, the classes of a GPT checkpoint's
-``TrainState``, and :data:`KNOWN`, classes of trees the port reads but
-cannot convert yet); any other global raises, naming it.  :func:`encode`
+``TrainState``, int8 moments and the LoRA optimizer's partition among
+them); any other global raises, naming it.  :func:`encode`
 writes the same opcodes under the same globals, so ``pickle.loads`` in
 the JAX package gives the ``PyTreeDef`` JAX builds itself.
 
@@ -35,7 +35,7 @@ import io
 import pickle
 from typing import Any, List, NamedTuple, Tuple
 
-__all__ = ["JaxClass", "JaxNode", "Node", "CONVERTED", "KNOWN",
+__all__ = ["JaxClass", "JaxNode", "Node", "CONVERTED",
            "TRAIN_STATE", "decode", "encode", "flatten", "unflatten"]
 
 LEAF, NONE, TUPLE, NAMEDTUPLE, LIST, DICT, CUSTOM = range(7)
@@ -82,18 +82,17 @@ MASKED_STATE = JaxClass("optax.transforms._masking", "MaskedState")
 SCHEDULE_STATE = JaxClass("optax._src.transform", "ScaleByScheduleState")
 MULTI_STEPS_STATE = JaxClass("optax.transforms._accumulation",
                              "MultiStepsState")
-# The classes of a GPT TrainState with the family's optimizer, under
-# accumulation too: the port converts these (models/convert.py).
+BLOCK_QUANTIZED = JaxClass("ray_lightning_tpu.ops.optim_quant",
+                           "BlockQuantized")
+PARTITION_STATE = JaxClass("optax.transforms._combining", "PartitionState")
+MASKED_NODE = JaxClass("optax.transforms._masking", "MaskedNode")
+# The classes of a GPT TrainState with the family's optimizer (under
+# accumulation, int8 moments and LoRA too): the port converts these
+# (models/convert.py).
 CONVERTED = frozenset({TRAIN_STATE, EMPTY_STATE, ADAM_STATE, MASKED_STATE,
-                       SCHEDULE_STATE, MULTI_STEPS_STATE})
-# Read, and refused where the conversion meets them: a block-quantized
-# int8 opt_state_dtype moment and the LoRA optimizer's partition.
-KNOWN = frozenset({
-    JaxClass("ray_lightning_tpu.ops.optim_quant", "BlockQuantized"),
-    JaxClass("optax.transforms._combining", "PartitionState"),
-    JaxClass("optax.transforms._masking", "MaskedNode"),
-})
-_ALLOWED = CONVERTED | KNOWN | {_REGISTRY}
+                       SCHEDULE_STATE, MULTI_STEPS_STATE, BLOCK_QUANTIZED,
+                       PARTITION_STATE, MASKED_NODE})
+_ALLOWED = CONVERTED | {_REGISTRY}
 
 
 class _TreeDef:

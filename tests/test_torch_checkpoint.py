@@ -471,17 +471,39 @@ def test_restricted_unpickler_refuses_foreign_globals():
 
 
 def test_int8_and_lora_states_raise_naming_the_path():
+    """The int8 and LoRA states convert; a tree that departs from them
+    (a BlockQuantized node without its aux data, a partition of other
+    labels) raises, naming the path."""
     for cfg, what in (
             (dataclasses.replace(JaxGPTConfig.tiny(), opt_state_dtype="int8"),
-             r"state.opt_state\[1\]\[0\].mu\[.*BlockQuantized"),
+             r"state.opt_state\[1\]\[0\].mu\['blocks'\]\['mlp_in_w'\]"
+             r".*BlockQuantized"),
             (dataclasses.replace(JaxGPTConfig.tiny(), lora_rank=4),
-             r"state.opt_state.*(PartitionState|MaskedNode)")):
+             r"state.opt_state\[2\].inner_states.*labels")):
         jm = JaxGPT(cfg)
         state = JaxTrainState.create(jm.init_params(jax.random.PRNGKey(0)),
                                      jm.configure_optimizers())
         tree = ss.load_state_stream(jss.to_state_stream(state))
+        train_state_from_jax(tree)  # converts
+        params, opt, step, res = tree.children
+        if cfg.lora_rank:
+            part = opt[2]
+            inner = dict(part.children[0])
+            inner["other"] = inner.pop("train")
+            opt = (opt[0], opt[1], td.JaxNode(part.cls, (inner,)))
+        else:
+            adam = opt[1][0]
+            mu = dict(adam.children[1])
+            mu["blocks"] = dict(mu["blocks"])
+            bq = mu["blocks"]["mlp_in_w"]
+            mu["blocks"]["mlp_in_w"] = td.JaxNode(bq.cls, bq.children,
+                                                  custom=True, aux=None)
+            opt = (opt[0], (td.JaxNode(adam.cls, (adam.children[0], mu,
+                                                  adam.children[2])),
+                            *opt[1][1:]))
         with pytest.raises(ValueError, match=what):
-            train_state_from_jax(tree)
+            train_state_from_jax(td.JaxNode(tree.cls, (params, opt, step,
+                                                       res), custom=True))
 
 
 def test_no_partial_file_when_a_write_raises(tmp_path, monkeypatch):

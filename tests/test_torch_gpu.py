@@ -761,3 +761,84 @@ def test_validate_on_the_card_matches_the_cpu(cuda, tmp_path):
     close = (top2[..., 0] - top2[..., 1]).numpy() < 1e-4
     assert preds["cuda"].dtype == np.int32
     assert np.array_equal(preds["cuda"][~close], preds["cpu"][~close])
+
+
+# ---------------------------------------------------------------------------
+# LoRA fine-tuning and the optimizer-state policies on the card
+# ---------------------------------------------------------------------------
+
+_LORA_STEP = dict(vocab_size=512, n_layer=2, n_head=4, d_model=256,
+                  seq_len=128, lora_rank=4, warmup_steps=0, lr=1e-2)
+
+
+@pytest.mark.parametrize("lora_rank", [4, 0])
+def test_lora_step_launches_no_ce_dw_on_the_card(cuda, lora_rank):
+    """Per step at d 256 (the CE kernel route, head_dim 64): CE fwd 1,
+    dx 1, dW 0 under LoRA (1 without); LN bwd 2L under LoRA, 2L+1
+    without; flash fwd/bwd L; the counts
+    ``test_torch_lora_train.py::test_ce_dw_never_launches_under_lora``
+    reads on the CPU.  The base stays bitwise; the adapters move."""
+    cfg = GPTConfig(**{**_LORA_STEP, "lora_rank": lora_rank})
+    counted = {"ln_fwd": ln.ln_fwd, "ln_bwd": ln.ln_bwd,
+               "flash_fwd": fa.flash_fwd, "flash_bwd": fa.flash_bwd,
+               "ce_fwd": ce.ce_fwd, "ce_bwd_dx": ce.ce_bwd_dx,
+               "ce_bwd_dw": ce.ce_bwd_dw}
+    module = GPT(cfg)
+    init = GPT(cfg, device="cpu").init_params()
+    module.initial_params = init
+    for fn in counted.values():
+        fn.launches = 0
+    tr = Trainer(LocalStrategy(megastep="off"), max_steps=2,
+                 limit_val_batches=0, enable_checkpointing=False)
+    tr.fit(module, SyntheticLMDataModule(cfg, batch_size=2, num_batches=2))
+    L, lora_on = cfg.n_layer, lora_rank > 0
+    assert {k: fn.launches / 2 for k, fn in counted.items()} == {
+        "ln_fwd": 2 * L + 1, "ln_bwd": 2 * L + (not lora_on),
+        "flash_fwd": L, "flash_bwd": L, "ce_fwd": 1, "ce_bwd_dx": 1,
+        "ce_bwd_dw": 0 if lora_on else 1}
+    if lora_on:
+        got = tr.state.params
+        assert torch.equal(got["wte"].cpu(), init["wte"])
+        assert torch.equal(got["blocks"]["qkv_w"].cpu(),
+                           init["blocks"]["qkv_w"])
+        assert float(got["blocks"]["lora_qkv_b"].abs().max()) > 0
+
+
+@pytest.mark.parametrize("dtype", [None, "bfloat16", "int8"])
+def test_opt_state_bytes_on_the_card(cuda, dtype):
+    """The moments' bytes on the card equal ``opt_state_bytes`` after a
+    captured stride (the write-back keeps each leaf's dtype and size)."""
+    from ray_lightning_tpu_torch.models.optim import (
+        moment_bytes, opt_state_bytes,
+    )
+
+    cfg = dataclasses.replace(GPTConfig.tiny(), opt_state_dtype=dtype)
+    tr = Trainer(LocalStrategy(megastep=2), max_steps=6, limit_val_batches=0,
+                 enable_checkpointing=False)
+    tr.fit(GPT(cfg), SyntheticLMDataModule(cfg, batch_size=2,
+                                           num_batches=6))
+    assert tr.callback_metrics["recompiles"] == 1
+    assert moment_bytes(tr.state.opt_state) == opt_state_bytes(
+        tr.state.params, dtype)
+    assert np.isfinite(tr.callback_metrics["train_loss"])
+
+
+def test_int8_fit_captured_equals_eager(cuda):
+    """int8 moments under capture: every inner step dequantizes, updates
+    and requantizes into the state's own tensors; the captured fit equals
+    the eager one bitwise with the plain attention."""
+    from ray_lightning_tpu_torch.models.optim import tree_leaves
+
+    cfg = dataclasses.replace(GPTConfig.tiny(), opt_state_dtype="int8")
+    init = GPT(cfg, device="cpu").init_params()
+
+    def fit(megastep):
+        m = GPT(cfg, attn_impl="xla")
+        m.initial_params = init
+        tr = Trainer(LocalStrategy(megastep=megastep), max_steps=8,
+                     limit_val_batches=0, enable_checkpointing=False)
+        tr.fit(m, SyntheticLMDataModule(cfg, batch_size=2, num_batches=8))
+        return tree_leaves((tr.state.params, tr.state.opt_state))
+
+    for a, b in zip(fit("off"), fit(4)):
+        assert torch.equal(a, b)

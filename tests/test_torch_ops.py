@@ -184,8 +184,9 @@ def test_default_device_is_cuda_and_never_falls_back():
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Every module of the port imports in a fresh interpreter without
     loading jax or any module of ray_lightning_tpu (this process has both
-    loaded already, so the check runs in a subprocess), and a checkpoint
-    round-trips there with jax, msgpack and ml_dtypes blocked."""
+    loaded already, so the check runs in a subprocess), and checkpoints
+    (the default, an int8 and a LoRA state) round-trip there with jax,
+    msgpack and ml_dtypes blocked."""
     import ray_lightning_tpu_torch
 
     names = sorted(
@@ -209,18 +210,27 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         from ray_lightning_tpu_torch.models.gpt import GPT, GPTConfig
         from ray_lightning_tpu_torch.utils import state_stream as ss
         from ray_lightning_tpu_torch.utils import treedef as td
-        m = GPT(GPTConfig.tiny(), device="cpu")
-        state = TrainState.create(m.init_params(), m.configure_optimizers())
-        path = os.path.join(tempfile.mkdtemp(), "a.ckpt")
-        ss.state_stream_to_file(ss.to_state_stream(
-            {{"state": convert.train_state_to_jax(state), "epoch": 0}}), path)
-        back = convert.train_state_from_jax(ss.load_state_stream(
-            ss.state_stream_from_file(path))["state"])
-        # Leaves in JAX's order (dict keys sorted) on both sides.
-        a, b = (td.flatten(convert.train_state_to_jax(s))[1]
-                for s in (state, back))
-        assert len(a) == len(b) == 51 and all(
-            x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(a, b))
+        import dataclasses
+        # The default state, an int8 one and a LoRA one: leaves, int8
+        # payloads and the LoRA chain's masked places.
+        for kw, n in (({{}}, 51), ({{"opt_state_dtype": "int8"}}, 63),
+                      ({{"lora_rank": 4}}, 31)):
+            m = GPT(dataclasses.replace(GPTConfig.tiny(), **kw),
+                    device="cpu")
+            state = TrainState.create(m.init_params(),
+                                      m.configure_optimizers())
+            path = os.path.join(tempfile.mkdtemp(), "a.ckpt")
+            ss.state_stream_to_file(ss.to_state_stream(
+                {{"state": convert.train_state_to_jax(state), "epoch": 0}}),
+                path)
+            back = convert.train_state_from_jax(ss.load_state_stream(
+                ss.state_stream_from_file(path))["state"])
+            # Leaves in JAX's order (dict keys sorted) on both sides.
+            a, b = (td.flatten(convert.train_state_to_jax(s))[1]
+                    for s in (state, back))
+            assert len(a) == len(b) == n, (kw, len(a))
+            assert all(x.dtype == y.dtype and torch.equal(x, y)
+                       for x, y in zip(a, b))
         assert sys.modules["jax"] is None and sys.modules["msgpack"] is None
         print("ok", len({names!r}))
     """)

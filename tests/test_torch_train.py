@@ -156,9 +156,13 @@ def test_first_update_uses_lr_zero_and_mask_names_matrices():
     assert mask == {"wte": True, "wpe": False, "ln_f_g": False,
                     "blocks": {"qkv_w": True, "qkv_b": False,
                                "ln1_g": False}}
-    with pytest.raises(NotImplementedError, match="opt_state_dtype"):
-        GPT(dataclasses.replace(cfg, opt_state_dtype="int8"),
+    # Every opt_state_dtype policy is ported; a name outside them is
+    # refused at construction.
+    for dtype in (None, "float32", "bfloat16", "int8"):
+        GPT(dataclasses.replace(cfg, opt_state_dtype=dtype),
             device="cpu").configure_optimizers()
+    with pytest.raises(ValueError, match="opt_state_dtype"):
+        GPT(dataclasses.replace(cfg, opt_state_dtype="int4"), device="cpu")
 
 
 # ---------------------------------------------------------------------------
