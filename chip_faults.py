@@ -94,7 +94,18 @@ last column of a ragged chunk of k dropped, the d tail past the last
    labelled "train", the clip over the full model's norm, the second
    moment quantized linearly, the EMA's decay not compounded over a
    stride, and a cross-policy resume that skips the reconcile.  Each must
-   fail the check its entry names.
+   fail the check its entry names;
+10. the flash backward's dQ order and the server's features (``SERVE_FAULTS``,
+   ``serve_fault``): phase 10's repeat arm (``chip_smoke.repeat_fit_check``)
+   and phase 12's checks at one run each (``chip_smoke.feature_int8``,
+   ``feature_early``, ``feature_chunked``, ``feature_prefix``) for the
+   correct code, which must pass, and for six faults: dQ added in a
+   run-dependent order (built from a mutated ``flash_attention.cu``), the
+   int8 scales of the square ``proj_w`` taken over its input axis, the
+   verify accepting one draft past the first disagreement, a prefill
+   chunk written one block off, a prefix claim without its reference, and
+   a removed adapter's chains left claimable (planted in memory).  Each
+   must fail the check its entry names (a raise counts).
 
 The wrappers are routed to a faulty library by replacing the cached ctypes
 functions of ``ops/_build.py``.  Exits 1 if a correct kernel fails a
@@ -575,6 +586,102 @@ def checkpoint_fault(name):
 
 
 # Phase 11's faults, each with the check of phase 11 that must catch it.
+# Step 10: name -> the check that must catch it.
+SERVE_FAULTS = {"dq_any_order": "repeat",
+                "int8_scales_wrong_axis": "int8",
+                "verify_accepts_one_past": "early_exit",
+                "chunk_one_block_off": "chunked",
+                "prefix_claim_without_retain": "prefix",
+                "removed_adapter_chains_claimable": "prefix"}
+# The dQ order fault: each warp adds when its products are ready.
+DQ_ORDER_FAULT = [("      if (nc == 0) dq_turn_wait_warp(turn_row() + qt, "
+                   "qt - kt);\n", "")]
+
+
+@contextlib.contextmanager
+def serve_fault(name):
+    """Plant one of the in-memory ``SERVE_FAULTS`` for the block: int8
+    scales of a square block weight over its input axis (the shape still
+    fits); the verify accepting one draft past the first disagreement; a
+    prefill chunk's k/v written through its block row shifted by one
+    block; a prefix claim that retains nothing (the claiming request's
+    free then drops the index's reference); ``remove_adapter`` leaving the
+    tenant's chains in the cache."""
+    import numpy as np
+
+    from ray_lightning_tpu_torch.models import quant
+    from ray_lightning_tpu_torch.serve import engine, kv_cache
+
+    if name == "int8_scales_wrong_axis":
+        correct = quant._quantize
+
+        def wrong(w, contract_axis):
+            if contract_axis == -2 and w.shape[-1] == w.shape[-2]:
+                contract_axis = -1
+            return correct(w, contract_axis)
+
+        patches = [(quant, "_quantize", wrong)]
+    elif name == "verify_accepts_one_past":
+        correct = engine.accepted_drafts
+
+        def one_past(drafts, target):
+            return min(correct(drafts, target) + 1, len(drafts))
+
+        patches = [(engine, "accepted_drafts", one_past)]
+    elif name == "chunk_one_block_off":
+        correct = engine.ServeEngine._run_chunk
+
+        def shifted(self, req, row, start, end, width):
+            return correct(self, req, np.roll(row, -1), start, end, width)
+
+        patches = [(engine.ServeEngine, "_run_chunk", shifted)]
+    elif name == "prefix_claim_without_retain":
+        correct = kv_cache.PrefixIndex.claim
+
+        def claim(self, key, tokens, max_blocks):
+            ids = correct(self, key, tokens, max_blocks)
+            self.allocator.free(ids)
+            return ids
+
+        patches = [(kv_cache.PrefixIndex, "claim", claim)]
+    else:
+        correct = engine.ServeEngine.remove_adapter
+
+        def remove(self, name):
+            correct(self, name)
+            with self._lock:
+                self._prefix_drops = [n for n in self._prefix_drops
+                                      if n != name]
+
+        patches = [(engine.ServeEngine, "remove_adapter", remove)]
+    saved = [(owner, attr, getattr(owner, attr)) for owner, attr, _ in
+             patches]
+    for owner, attr, fault in patches:
+        setattr(owner, attr, fault)
+    try:
+        yield
+    finally:
+        for owner, attr, value in saved:
+            setattr(owner, attr, value)
+
+
+def serve_check(torch, np, card, which, world, root):
+    """Step 10's check ``which``; True when it passes (a raise fails)."""
+    try:
+        if which == "repeat":
+            return cs.repeat_fit_check(torch, world["cfg"], root,
+                                       card)["bitwise"]
+        run = {"int8": cs.feature_int8, "early_exit": cs.feature_early,
+               "chunked": cs.feature_chunked,
+               "prefix": cs.feature_prefix}[which]
+        run(torch, np, card, world, repeats=1)
+        return True
+    except Exception as e:  # noqa: BLE001 - a raise is a catch
+        print(f"step 10 {which}: raised {type(e).__name__}: "
+              f"{str(e)[:300]}")
+        return False
+
+
 LORA_FAULTS = {"wte_labelled_train": "lora",
                "clip_over_the_full_model": "clip",
                "nu_quantized_linearly": "codec",
@@ -709,7 +816,8 @@ def main() -> int:
              for n, (old, new, _) in FAULTS.items()]
             + [(ce_src, n, subs) for n, (subs, _) in CE_FAULTS.items()]
             + [(ln_src, n, subs) for n, (subs, _) in LN_FAULTS.items()]
-            + [(bgmv_src, n, subs) for n, subs in BGMV_FAULTS.items()])
+            + [(bgmv_src, n, subs) for n, subs in BGMV_FAULTS.items()]
+            + [(flash_src, "dq_any_order", DQ_ORDER_FAULT)])
     tmp = tempfile.mkdtemp(prefix="chip_faults-")
     try:
         t0 = time.perf_counter()
@@ -969,6 +1077,32 @@ def main() -> int:
             summary["phase11"][name] = not ok
             if ok:
                 failures.append(f"phase 11 fault {name} not caught by the "
+                                f"{which} check")
+
+        # 10. the flash backward's dQ order and the server's features
+        summary["serve"] = {}
+        world = cs.server_world(torch, np)
+        for which in ("repeat", "int8", "early_exit", "chunked", "prefix"):
+            ok = serve_check(torch, np, card, which, world, tmp)
+            print(f"step 10 {which} correct: {'ok' if ok else 'FAILED'}")
+            summary["serve"][f"correct {which}"] = ok
+            if not ok:
+                failures.append(f"correct step 10 {which} failed")
+        for name, which in SERVE_FAULTS.items():
+            if name == "dq_any_order":
+                use(_build, "flash_attention", {
+                    "rlt_flash_fwd": fa._FWD_ARGTYPES,
+                    "rlt_flash_bwd": fa._BWD_ARGTYPES}, libs[name])
+                ok = serve_check(torch, np, card, which, world, tmp)
+                use(_build, "flash_attention", {}, None)
+            else:
+                with serve_fault(name):
+                    ok = serve_check(torch, np, card, which, world, tmp)
+            print(f"step 10 fault {name}: {which} check "
+                  f"{'passed (NOT caught)' if ok else 'failed (caught)'}")
+            summary["serve"][name] = not ok
+            if ok:
+                failures.append(f"step 10 fault {name} not caught by the "
                                 f"{which} check")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)

@@ -36,14 +36,14 @@ FWD_ORDER = ("  const int bh = blockIdx.x;\n  const int b = bh / H;\n"
              "  const int h = bh % H;\n  // Heaviest tiles first, across all "
              "heads: the last wave holds the\n  // lightest.\n"
              "  const int qt = gridDim.y - 1 - blockIdx.y;\n")
-BWD_ORDER = ("  const int bh = blockIdx.y;\n  const int b = bh / H;\n"
-             "  const int h = bh % H;\n  const int kt = blockIdx.x;  // key "
-             "tile 0 walks the most query tiles\n  const int k0 = kt * "
-             "kTile;\n  const int n_tiles = S / kTile;\n"
-             "  const int w = threadIdx.x >> 5;\n")
-BWD_GRID = ("  if constexpr (std::is_same<T, bf16>::value) {\n"
-            "    const dim3 grid(S / kTile, B * H);\n"
-            "    constexpr size_t smem = Tc<D>::bwd_bytes;")
+# The bf16 backward's head and key tile from the block's ticket t (the
+# last key tile of a head first).
+BWD_TICKET = ("    place[0] = t / n_tiles / H;\n"
+              "    place[1] = t / n_tiles % H;\n"
+              "    place[2] = n_tiles - 1 - t % n_tiles;\n")
+TICKET_TILE = "    place[2] = n_tiles - 1 - t % n_tiles;\n"
+# The wait for a query tile's dQ turn in the bf16 backward.
+DQ_TURN = "      if (nc == 0) dq_turn_wait_warp(turn_row() + qt, qt - kt);\n"
 # name -> (substitutions, diagnostic: the function changes by design)
 VARIANTS = {
     "as built": ([], False),
@@ -53,13 +53,36 @@ VARIANTS = {
             "gridDim.y - 1 - blockIdx.y", "gridDim.x - 1 - blockIdx.x")),
         ("const dim3 grid(B * H, (S + kFwdRows - 1) / kFwdRows);",
          "const dim3 grid((S + kFwdRows - 1) / kFwdRows, B * H);")], False),
-    # the backward's key tiles heaviest first across all heads
-    "bwd order across heads": ([
-        (BWD_ORDER, BWD_ORDER.replace("blockIdx.y", "blockIdx.z").replace(
-            "blockIdx.x", "blockIdx.y").replace("blockIdx.z", "blockIdx.x")),
-        (BWD_GRID, BWD_GRID.replace("(S / kTile, B * H)",
-                                    "(B * H, S / kTile)"))],
-        False),
+    # the block's (b·h, key tile) from its launch index, the last key tile
+    # first, instead of a ticket (its turns come only while a head's key
+    # tiles all fit on the card at once)
+    "bwd key tiles by launch index": ([
+        (BWD_TICKET, "    place[0] = blockIdx.y / H;\n"
+         "    place[1] = blockIdx.y % H;\n"
+         "    place[2] = n_tiles - 1 - blockIdx.x;\n")], False),
+    # a head's key tile 0 (the longest walk) first, by ticket: its dQ
+    # turns wait on blocks that start after it, so its turns come only
+    # while a head's key tiles all fit on the card at once
+    "bwd key tile 0 first": ([
+        (TICKET_TILE, "    place[2] = t % n_tiles;\n")], False),
+    # dQ added in any order, as before the fixed order (each block adds
+    # when its dS is ready; the sums differ run to run)
+    "bwd dQ in any order": ([(DQ_TURN, "")], False),
+    # the turn passed with a full fence and a relaxed add
+    "bwd dQ turn passed after a fence": ([
+        ('    asm volatile("red.release.gpu.global.add.s32 [%0], 1;\\n"\n'
+         '                 :\n                 : "l"(turn)\n'
+         '                 : "memory");\n',
+         "    __threadfence();\n    atomicAdd(turn, 1);\n")], False),
+    # the turn waited for by the whole block before the dQ products
+    "bwd dQ turn before the products": ([
+        (DQ_TURN, ""),
+        ("    __syncthreads();  // every warp's rows of dSᵀ are written\n",
+         "    dq_turn_wait(turn_row() + qt, qt - kt);\n")], False),
+    # the same, key tile 0 first (the kernel before the fixed order)
+    "bwd dQ in any order, key tile 0 first": ([
+        (DQ_TURN, ""),
+        (TICKET_TILE, "    place[2] = t % n_tiles;\n")], False),
     # forward warps of one m16 tile (8 a block) at D = 64
     "fwd 16-row warps": ([
         ("static constexpr int fwd_mr = D == 64 ? 2 : 1;",
@@ -113,6 +136,39 @@ def build_variant(build, source, tmp, name, subs):
     regs = {k: (r, s) for k, r, s in cs.ptxas_kernels(p.stderr)
             if k.startswith("tc_flash")}
     return name, so, regs
+
+
+def plane_rows(S, block_k):
+    """Query rows of the JAX backward's dQ partial plane that a causal
+    walk writes, per head: key block j reaches rows j·block_k and on."""
+    n = S // block_k
+    return n * S - block_k * n * (n - 1) // 2
+
+
+def dq_plane_yardstick(torch, card):
+    """The other design for a fixed-order dQ: the JAX kernel's plane of
+    per-key-block partials (causal blocks only), written by the backward
+    and read back by a sum.  Its extra traffic is timed here as a copy of
+    the same bytes (a read and a write of each), in a CUDA graph over
+    inputs larger than L2; the design's time is about this plus the
+    backward without its atomics ("bwd dQ products without their
+    atomics")."""
+    B, S, H, D = cs.TRAIN_B, cs.TRAIN_T, 12, 64
+    out = {}
+    for block_k, dtype, es in ((128, "bfloat16", 2), (64, "bfloat16", 2),
+                               (128, "float32", 4), (64, "float32", 4)):
+        nbytes = B * H * plane_rows(S, block_k) * D * es
+        sets = [(torch.empty(nbytes, dtype=torch.uint8, device="cuda"),
+                 torch.empty(nbytes, dtype=torch.uint8, device="cuda"))
+                for _ in range(2)]
+        ms = cs.graph_ms(torch, lambda dst, src: dst.copy_(src), sets,
+                         reps=5)
+        key = f"{dtype} block_k {block_k}"
+        out[key] = {"bytes": nbytes, "copy_us": ms * 1e3}
+        print(f"dQ plane ({key}): {nbytes / 1e6:.1f} MB written and read "
+              f"back, as a copy {ms * 1e3:.1f} us; {card}")
+        del sets
+    return out
 
 
 def main() -> int:
@@ -219,6 +275,7 @@ def main() -> int:
                   f"{cs.FLASH_256} fwd {f2 * 1e3:.1f} us, bwd "
                   f"{b2 * 1e3:.1f} us; {held}; {card}")
         cf.use(_build, "flash_attention", {}, None)
+        summary["dq_plane"] = dq_plane_yardstick(torch, card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for f in failures:

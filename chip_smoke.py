@@ -19,12 +19,14 @@ under ``remat_policy="dots+flash"``), counted per step.  Phases:
 1. BGMV vs plain at the serving path's shapes, f32 and bf16, each also
    as a batch of null-adapter rows whose delta must be exactly 0.0; at
    prefill rows in runs of 100 ids (tiles that straddle two ids), one row,
-   64 mixed rows, rank 128, ragged r, d and k; and a decode batch with an
-   out-of-range id, whose row must be NaN (``bgmv_checks``);
+   64 mixed rows, rank 128, ragged r, d and k, phase 12's verify window
+   (``VERIFY_W`` rows) and prefill chunk (``CHUNK_W`` rows); and a decode
+   batch with an out-of-range id, whose row must be NaN (``bgmv_checks``);
 2. BGMV timing (CUDA graphs of back-to-back launches over rotating inputs
    larger than L2, as the main path finds them) beside the plain version,
    the least time the card could take and the graph floor (a one-element
-   ``add_`` captured the same way), with each shape's launch plan;
+   ``add_`` captured the same way), with each shape's launch plan, at the
+   decode, verify, chunk and prefill widths (``TIMED_WIDTHS``);
 3. the server in f32: GPT-2-small with random weights from a seed, 4
    synthetic rank-16 tenants plus the base model, 10 greedy requests;
 4. the same requests at bf16 (tokens not compared);
@@ -84,7 +86,10 @@ under ``remat_policy="dots+flash"``), counted per step.  Phases:
    ``fresh_epochs``) against a straight two-epoch fit (stride-end losses
    within 1e-4, one capture, the
    optimizer count restored, the captured stride's kernels by profiler
-   name 8 x phase 9's per-step counts); the same at depth 2 in f32
+   name 8 x phase 9's per-step counts); two captured fits over the same
+   16 batches twice, their losses and final params bitwise equal
+   (``repeat_fit_check``: the flash backward's fixed dQ order); the same
+   at depth 2 in f32
    (``checkpoint_parity``: params bitwise with the plain attention,
    within 5x the straight-vs-straight spread with flash); ``validate``
    and ``test`` from the checkpoint, card vs CPU (f32 within 1e-5
@@ -122,7 +127,23 @@ under ``remat_policy="dots+flash"``), counted per step.  Phases:
    log grid, the peak equal to ``torch.cuda.max_memory_allocated``, the
    Chrome trace naming ``tc_flash_fwd_kernel``, SWA bitwise its running
    mean of the epoch-end params, EMA against the stride-boundary params
-   blended with ``decay**K``, no shadow aliasing the live params.
+   blended with ``decay**K``, no shadow aliasing the live params;
+12. the server's features (``phase_server_features``) at GPT-2-small with
+   phase 3's tenants and requests, each arm's TTFT p50, ITL p50 and
+   tokens/s over FEATURE_REPEATS runs with the spread: (a) an int8 tree
+   (``quantize_decode_params``; every dequantized element within half its
+   output channel's step) served in f32, its streams equal to
+   ``generate()`` on the same tree, and in bf16, beside the float tree;
+   (b) speculative decoding (``spec_k=SPEC_K``) on the pad-identity pair,
+   acceptance >= 0.99 on the base model, the tenant mix's streams exact
+   and the BGMV launched 2L times a verify step at ``VERIFY_W`` rows; (c)
+   the early-exit draft of the server's model, greedy streams exact and
+   sampled ones equal to the plain engine's; (d) ``prefill_chunk=CHUNK_W``
+   with a LONG_PROMPT-token prompt admitted over 7 decoding slots, no
+   resident missing a step, against ``prefill_chunk=None``; (e) the
+   prefix cache over 10 requests sharing a SYSTEM_PREFIX-token prefix,
+   streams equal to the cache-off engine's, blocks claimed for every
+   key, a removed adapter's chains dropped.
 
 Any failure raises: the script exits non-zero and prints no result.  The
 line before the last is the kernels' JSON record; the last line is
@@ -177,6 +198,9 @@ RANKS = (8, 16, 64)
 N_TENANTS = 4
 DECODE_W = 8           # ServeConfig.num_slots
 PREFILL_W = 512        # the longest prompt's prefill bucket
+SPEC_K = 4             # phase 12's drafted tokens a tick
+VERIFY_W = DECODE_W * (SPEC_K + 1)  # the verify window's BGMV rows
+CHUNK_W = 128          # phase 12's prefill chunk
 
 
 def check(cond: bool, what: str) -> None:
@@ -322,7 +346,21 @@ BGMV_EXTRA = (("prefill runs of 100", PREFILL_W, D_MODEL, 16, 3 * D_MODEL,
               ("64 rows mixed", 64, D_MODEL, 16, D_MODEL, True, None),
               ("rank 128", DECODE_W, D_MODEL, 128, 3 * D_MODEL, True, None),
               ("ragged r", 3, D_MODEL, 100, 1000, True, None),
-              ("ragged d and k", 5, 100, 16, 1001, True, None))
+              ("ragged d and k", 5, 100, 16, 1001, True, None),
+              ("verify window qkv", VERIFY_W, D_MODEL, 16, 3 * D_MODEL,
+               False, SPEC_K + 1),
+              ("verify window proj", VERIFY_W, D_MODEL, 16, D_MODEL, False,
+               SPEC_K + 1),
+              ("prefill chunk qkv", CHUNK_W, D_MODEL, 16, 3 * D_MODEL,
+               False, None),
+              ("prefill chunk proj", CHUNK_W, D_MODEL, 16, D_MODEL, False,
+               None))
+# Phase 2's timed widths: (W, id pattern as bgmv_inputs' (mixed, run)):
+# decode (every slot its own adapter), the verify window (each slot's
+# SPEC_K + 1 rows one adapter), a prefill chunk and a prefill bucket (one
+# adapter).
+TIMED_WIDTHS = ((DECODE_W, True, None), (VERIFY_W, False, SPEC_K + 1),
+                (CHUNK_W, False, None), (PREFILL_W, False, None))
 
 
 def bgmv_checks(torch, lora, gen):
@@ -378,7 +416,8 @@ def bgmv_checks(torch, lora, gen):
 
 def phase_kernel(torch, lora, card):
     """Phases 1 and 2.  Returns the JSON record fields measured at the
-    main path's most frequent call: decode qkv, f32, rank 16."""
+    main path's most frequent call (decode qkv, f32, rank 16) and every
+    timed width's (``TIMED_WIDTHS``) times and bound."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     checks = bgmv_checks(torch, lora, gen)
     for label, ok, detail in checks:
@@ -387,24 +426,23 @@ def phase_kernel(torch, lora, card):
         check(ok, label)
     print(f"phase 1: {len(checks)} checks passed; null-slot rows gave "
           f"exactly 0.0 at every shape")
-    shapes = [(W, k) for W in (DECODE_W, PREFILL_W) for k in (3 * D_MODEL,
-                                                               D_MODEL)]
     floor = graph_floor_ms(torch)
     print(f"phase 2: graph floor (a one-element add_ captured and replayed "
           f"as each kernel below): {floor * 1e3:.2f} us a call; {card}")
-    record = None
+    record, widths = None, {}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype)[6:]
-        for W, k in shapes:
+        for (W, mixed, run), k in [(w, k) for w in TIMED_WIDTHS
+                                   for k in (3 * D_MODEL, D_MODEL)]:
             r = 16
-            probe = bgmv_inputs(torch, W, k, r, dtype, W == DECODE_W, gen)
+            probe = bgmv_inputs(torch, W, k, r, dtype, mixed, gen, run=run)
             per_call = sum(t.numel() * t.element_size() for t in probe[0])
             # Rotate over inputs adding up to more than the 50 MB L2, as
             # the engine finds them: between two calls of one site a
             # whole model's weights stream through the cache.
             copies = max(2, min(64, -(-64 * 2**20 // per_call)))
-            sets = bgmv_inputs(torch, W, k, r, dtype, W == DECODE_W, gen,
-                               copies)
+            sets = bgmv_inputs(torch, W, k, r, dtype, mixed, gen, copies,
+                               run=run)
             ms = graph_ms(torch, lora.bgmv, sets)
             plain_ms = graph_ms(torch, lora.bgmv_plain, sets)
             eager = eager_ms(torch, lora.bgmv, sets)
@@ -416,13 +454,16 @@ def phase_kernel(torch, lora, card):
                   f" us; bound {bound_ms * 1e3:.3f} us ({bound_by}); floor "
                   f"{floor * 1e3:.2f} us; library none; "
                   f"{bgmv_plan(lora, W, k, r, dtype)}; {card}")
+            widths[f"{name} W={W} k={k}"] = {
+                "ms": ms, "eager_ms": eager, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by}
             if dtype == torch.float32 and W == DECODE_W and k == 3 * D_MODEL:
                 h, a, b, ids = sets[0]
                 err = (lora.bgmv(h, a, b, ids)
                        - lora.bgmv_plain(h, a, b, ids)).abs().max().item()
                 record = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                           "bound_ms": bound_ms, "bound_by": bound_by}
-    return record
+    return record, widths
 
 
 # -- phases 3 and 4: the server --------------------------------------------
@@ -1589,10 +1630,11 @@ PROFILE_STEPS = 32         # the profiled fits: strides 3 and 4
 # graph that froze its capture-time step count would still get the first
 # replay right).
 PARITY_K, PARITY_STEPS = 4, 12
-# With the flash kernels the eager fit does not repeat itself (the f32
-# dQ atomics): the captured fit's params are held to this multiple of the
-# eager-vs-eager difference of the same run (1.40e-5 on an H100; the
-# learning rate frozen at capture reads 1.12e-3), or to 1e-5.
+# With the flash kernels the captured fit's params are held to this
+# multiple of the eager-vs-eager difference of the same run, or to 1e-5
+# (the difference read 1.40e-5 on an H100 while the f32 flash backward
+# added dQ in a run-dependent order, 0 once the order is fixed; the
+# learning rate frozen at capture reads 1.12e-3).
 PARITY_FLOOR_X = 5
 # The bf16 captured-vs-eager losses: sound runs read <= 8.4e-6 on an
 # H100, the state not written back 1.6e-3.
@@ -1802,12 +1844,10 @@ def megastep_parity(torch, card):
     (``attn_impl="xla"``).  The losses the captured fit reports (each
     stride's last step, and the epoch mean) within 1e-5 relative of the
     eager fit's in both; the params within 1e-5 absolute with the plain
-    attention, where the eager fit repeats itself.  With the flash
-    kernels it does not: the f32 flash backward adds dQ with atomics in
-    an order that changes from run to run, and Adam divides each
-    gradient by its own scale, so a second eager fit reads that spread
-    (the floor) and the captured fit's params are held within
-    PARITY_FLOOR_X times it (or 1e-5).  Returns the readings and
+    attention.  With the flash kernels a second eager fit reads the
+    eager fit's run-to-run spread (the floor; 0 since the flash backward
+    adds dQ in a fixed order) and the captured fit's params are held
+    within PARITY_FLOOR_X times it (or 1e-5).  Returns the readings and
     ``ok``."""
     import numpy as np
 
@@ -2084,11 +2124,11 @@ class EpochSlices:
 
 def fresh_epochs(cfg, batch, epochs):
     """The synthetic stream with a fresh CKPT_STEPS batches each epoch.
-    On the card a bf16 fit that sees the same 16 batches again in its
-    second epoch does not repeat itself: the flash backward's dQ atomics
-    (1e-6 in the losses) grow to 1e-2 by the epoch's 10th step, while a
-    fit over distinct batches stays within 1e-5 (and with the plain
-    attention both are bitwise)."""
+    The resume arm has trained on it since the flash backward added dQ
+    in a run-dependent order (two bf16 fits over the same 16 batches
+    twice then drifted 1e-2 apart by the second epoch's 10th step); the
+    repeated batches are ``repeat_fit_check``'s, which holds two fits
+    over them bitwise equal."""
     from ray_lightning_tpu_torch.models.gpt import SyntheticLMDataModule
 
     class FreshEpochs(SyntheticLMDataModule):
@@ -2165,14 +2205,42 @@ def stride_losses(clock):
     return {i: float(x) for i, x in zip(clock.index, clock.losses)}
 
 
+def repeat_fit_check(torch, cfg, root, card):
+    """Phase 10 (1b): two captured bf16 fits of the headline arm over the
+    same CKPT_STEPS batches twice (two epochs of the synthetic stream):
+    their losses at every hook and their final params are bitwise equal
+    (the flash backward adds each query tile's dQ in a fixed order)."""
+    from ray_lightning_tpu_torch.core.callbacks import Callback
+
+    runs = []
+    for i in range(2):
+        clock = hook_clock(torch, Callback)
+        tr = ckpt_fit(torch, cfg, HEADLINE, f"{root}/rep{i}", 2,
+                      checkpoint=False, callbacks=[clock])
+        torch.cuda.synchronize()
+        runs.append(([float(x) for x in clock.losses],
+                     by_path(tr.state.params), tr.callback_metrics))
+        del tr
+    (la, pa, ma), (lb, pb, _) = runs
+    differ = [k for k in pa if not torch.equal(pa[k], pb[k])]
+    worst = max(abs(a - b) for a, b in zip(la, lb))
+    print(f"phase 10: two captured bf16 fits over the same {CKPT_STEPS} "
+          f"batches twice: {len(la)} hook losses ({la[0]:.6f} -> "
+          f"{la[-1]:.6f}), worst difference {worst:.3e}; final params "
+          f"{len(pa) - len(differ)}/{len(pa)} leaves bitwise equal; "
+          f"captures {ma['recompiles']:.0f}; {card}")
+    return {"bitwise": la == lb and not differ, "losses": len(la),
+            "worst_loss_diff": worst, "leaves_differ": len(differ)}
+
+
 def checkpoint_parity(torch, card):
     """Phase 10 (2): depth-2 GPT-2-small (full width) in f32, warmup 2, two
     epochs of CKPT_STEPS steps at batch 2 under megastep "auto": a
     straight fit against one epoch, its checkpoint, and a resumed second
     epoch, with the plain attention (``attn_impl="xla"``; the card repeats
-    itself there: params bitwise) and in the headline configuration (the
-    flash backward's dQ atomics: params within PARITY_FLOOR_X times a
-    second straight fit's spread, or 1e-5).  Gates in each: the file
+    itself there: params bitwise) and in the headline configuration
+    (params within PARITY_FLOOR_X times a second straight fit's spread,
+    or 1e-5).  Gates in each: the file
     equals the one-epoch fit's live state bitwise; the resumed fit's
     optimizer count is 2 x CKPT_STEPS (restored, not restarted) and its
     step counters the straight fit's; one capture in the resumed epoch;
@@ -2469,6 +2537,13 @@ def phase_checkpoint(torch, card):
                               "launches": fit_launches, **timing}
         fitted = split.state.params
         del split
+        gc.collect()
+
+        # (1b) the same batches twice: two captured fits repeat bitwise.
+        repeat = repeat_fit_check(torch, cfg, root, card)
+        gate(repeat["bitwise"], "two bf16 fits over repeated batches are "
+             "bitwise equal")
+        result["repeat"] = repeat
         gc.collect()
 
         # (2) f32 parity at depth 2.
@@ -3398,6 +3473,513 @@ def phase_lora_and_opt_state(torch, np, card):
     return result
 
 
+
+# -- phase 12: the server's features ---------------------------------------
+
+FEATURE_REPEATS = 3      # timed runs of each arm
+LONG_PROMPT = 900        # phase 12 (d): the prompt chunked in
+SYSTEM_PREFIX = 256      # phase 12 (e): the shared system prompt
+EARLY_EXIT_LAYERS = 2    # phase 12 (c): the early-exit draft's depth
+PAD_DRAFT_LAYERS = 4     # phase 12 (b): the pad-identity pair's draft
+# Phase 12 (d): the served prompt's k/v against a static prefill's, f32
+# (relative to max |k/v|; the chunk and the bucket attend in another
+# order of f32 sums).
+KV_REL = 1e-4
+
+
+def with_adapter(params, adapter, lora_cfg):
+    """``merge_lora`` of ``params`` carrying ``adapter``'s factors: the
+    tenant's reference tree for ``generate()``."""
+    from ray_lightning_tpu_torch.models.gpt import merge_lora
+
+    if adapter is None:
+        return params
+    return merge_lora({**params, "blocks": {
+        **params["blocks"], **{f"lora_{k}": adapter[k] for k in
+                               ("qkv_a", "qkv_b", "proj_a", "proj_b")}}},
+        lora_cfg)
+
+
+def streams_equal(torch, module, trees, reqs, tokens, label):
+    """Every stream against ``generate()`` on its tenant's tree
+    (``trees[name]``); a divergence is allowed only at a reference top-2
+    logit gap < TOP2_GAP.  Returns the count of exact streams."""
+    from ray_lightning_tpu_torch.models import generate as gen_mod
+
+    exact = 0
+    for (prompt, n, name), got in zip(reqs, tokens):
+        ref = gen_mod.generate(module, trees[name], [prompt], n,
+                               device="cuda")[0, len(prompt):].tolist()
+        if got == ref:
+            exact += 1
+            continue
+        i = next(j for j, (x, y) in enumerate(zip(got, ref)) if x != y)
+        gap = top2_gap(torch, gen_mod, module, trees[name], prompt + ref[:i])
+        print(f"phase 12 {label}: {name or 'base'} stream diverges from "
+              f"generate() at token {i}; reference top-2 gap {gap:.3e}")
+        check(gap < TOP2_GAP, f"phase 12 {label}: divergence at a top-2 "
+              f"gap {gap} >= {TOP2_GAP}")
+    return exact
+
+
+def timed_runs(torch, make_engine, reqs, label, card,
+               repeats=FEATURE_REPEATS, **submit_kw):
+    """``repeats`` fresh engines over ``reqs`` (all submitted at once);
+    prints and returns each run's TTFT p50, ITL p50 and tokens/s with the
+    spread, the last run's tokens and snapshot."""
+    runs, tokens, snap = [], None, None
+    for _ in range(repeats):
+        engine = make_engine()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        handles = [engine.submit(p, n, adapter=a, **submit_kw)
+                   for p, n, a in reqs]
+        engine.run_until_idle()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        tokens = [h.result(0) for h in handles]
+        snap = engine.snapshot()
+        lat = snap["latency"]
+        runs.append({"ttft_p50_ms": lat["ttft"]["p50_ms"],
+                     "itl_p50_ms": lat["token"]["p50_ms"],
+                     "tokens_per_s": sum(map(len, tokens)) / wall})
+        del engine
+    out = {"runs": runs}
+    for key in ("ttft_p50_ms", "itl_p50_ms", "tokens_per_s"):
+        vals = [r[key] for r in runs]
+        out[key] = sorted(vals)[len(vals) // 2]
+        out[key + "_spread"] = [min(vals), max(vals)]
+    print(f"phase 12 {label}: TTFT p50 {out['ttft_p50_ms']:.1f} ms "
+          f"({out['ttft_p50_ms_spread'][0]:.1f}-"
+          f"{out['ttft_p50_ms_spread'][1]:.1f}), ITL p50 "
+          f"{out['itl_p50_ms']:.2f} ms ({out['itl_p50_ms_spread'][0]:.2f}-"
+          f"{out['itl_p50_ms_spread'][1]:.2f}), {out['tokens_per_s']:.1f} "
+          f"tokens/s ({out['tokens_per_s_spread'][0]:.1f}-"
+          f"{out['tokens_per_s_spread'][1]:.1f}) over {repeats} runs; "
+          f"{card}")
+    return out, tokens, snap
+
+
+def acceptance(snap):
+    c = snap["counters"]
+    return c.get("spec_accepted", 0) / max(c.get("spec_drafted", 0), 1)
+
+
+def feature_int8(torch, np, card, world, repeats=FEATURE_REPEATS):
+    """(a) int8: ``quantize_decode_params`` of the server's f32 weights
+    served in f32 (streams equal ``generate()`` on the same int8 tree,
+    each tenant's factors merged into its dequantized weights) and bf16;
+    beside them the float tree in f32 and bf16."""
+    from ray_lightning_tpu_torch.models.gpt import GPT
+    from ray_lightning_tpu_torch.models.quant import (
+        dequantize_decode_params, quantize_decode_params,
+    )
+    from ray_lightning_tpu_torch.serve.engine import ServeEngine
+
+    cfg, params, tenants, reqs = (world[k] for k in
+                                  ("cfg", "params", "tenants", "reqs"))
+    q8 = quantize_decode_params(params)
+    # Per-output-channel rounding: each dequantized element within half a
+    # step (its channel's amax / 254) of the float weight; wte per row.
+    deq = dequantize_decode_params(q8)
+    worst = 0.0
+    for name, w, got, axis in (
+            [(k, params["blocks"][k], deq["blocks"][k], -2)
+             for k in ("qkv_w", "proj_w", "mlp_in_w", "mlp_out_w")]
+            + [("wte", params["wte"], deq["wte"], -1)]):
+        half = w.abs().amax(dim=axis, keepdim=True) / 254 + 1e-7
+        excess = ((got - w).abs() - half).max().item()
+        worst = max(worst, excess)
+        check(excess <= 0, f"phase 12 (a): {name} dequantized within half "
+              f"a per-channel step of the float weights")
+    n8 = sum(t.numel() for t in [*q8["blocks"].values(), q8["wte_q8"]]
+             if t.dtype == torch.int8)
+    print(f"phase 12 (a): {n8} int8 weights; every dequantized element "
+          f"within its output channel's amax / 254 (worst margin "
+          f"{worst:.3e})")
+    m32 = GPT(cfg, precision="f32", device="cuda")
+    m16 = GPT(cfg, precision="bf16", device="cuda")
+    out = {}
+    for label, module, tree in (("f32", m32, params), ("bf16", m16, params),
+                                ("int8 f32", m32, q8),
+                                ("int8 bf16", m16, q8)):
+        def make(module=module, tree=tree):
+            return ServeEngine(module, tree, world["serve_cfg"],
+                               adapters=tenants, device="cuda")
+
+        out[label], tokens, _ = timed_runs(torch, make, reqs,
+                                           f"(a) {label}", card,
+                                           repeats=repeats)
+        if label == "int8 f32":
+            trees = {None: deq, **{n: with_adapter(deq, a, world["lora_cfg"])
+                                   for n, a in tenants.items()}}
+            exact = streams_equal(torch, m32, trees, reqs, tokens,
+                                  "(a) int8")
+            print(f"phase 12 (a): int8 f32 streams: {exact}/{len(reqs)} "
+                  f"equal generate() on the same int8 tree token for "
+                  f"token; the rest diverge only at a near tie")
+            out["int8_exact_streams"] = exact
+    return out
+
+
+def feature_pad(torch, np, card, world, repeats=FEATURE_REPEATS):
+    """(b) the pad-identity pair: target = a PAD_DRAFT_LAYERS-layer
+    GPT-2-width draft + 12 - PAD_DRAFT_LAYERS identity layers,
+    ``spec_k=SPEC_K``; acceptance >= 0.99 over the requests on the base
+    model; over the tenant mix (adapters on the target) the streams equal
+    ``generate()`` on each tenant's merged target and the BGMV launches
+    2L times a verify step at the verify width."""
+    from ray_lightning_tpu_torch.models.gpt import (
+        GPT, synthetic_lora_adapter,
+    )
+    from ray_lightning_tpu_torch.ops import lora
+    from ray_lightning_tpu_torch.serve.draft import pad_identity_layers
+    from ray_lightning_tpu_torch.serve.engine import ServeEngine
+
+    cfg, reqs = world["cfg"], world["reqs"]
+    out = {}
+    dcfg = dataclasses.replace(cfg, n_layer=PAD_DRAFT_LAYERS)
+    dmod = GPT(dcfg, precision="f32", device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    dparams = dmod.init_params(gen)
+    tmod, tparams = pad_identity_layers(dmod, dparams,
+                                        cfg.n_layer - PAD_DRAFT_LAYERS,
+                                        seed=SEED + 13)
+    tl_cfg = dataclasses.replace(tmod.config, lora_rank=16)
+    tenants, trees = {}, {None: tparams}
+    for i in range(N_TENANTS):
+        adapter, merged = synthetic_lora_adapter(tparams, tl_cfg, gen,
+                                                 scale=0.3)
+        tenants[f"tenant{i}"], trees[f"tenant{i}"] = adapter, merged
+    spec_cfg = dataclasses.replace(world["serve_cfg"], spec_k=SPEC_K)
+
+    def pair():
+        return ServeEngine(tmod, tparams, spec_cfg, adapters=tenants,
+                           device="cuda", draft_module=dmod,
+                           draft_params=dparams)
+
+    base_reqs = [(p, n, None) for p, n, _ in reqs]
+    _, tokens, snap = timed_runs(torch, pair, base_reqs,
+                                 "(b) pad-identity pair, base model", card,
+                                 repeats=1)
+    acc_base = acceptance(snap)
+    print(f"phase 12 (b): acceptance over the base-model requests "
+          f"{acc_base:.4f} (gate >= 0.99), spec counters "
+          + json.dumps({k: v for k, v in snap["counters"].items()
+                        if k.startswith(("spec", "verify", "draft"))}))
+    check(acc_base >= 0.99, f"phase 12 (b): acceptance {acc_base} >= 0.99")
+    lora.bgmv.launches_by_rows.clear()
+    out["pad_identity"], tokens, snap = timed_runs(
+        torch, pair, reqs, "(b) pad-identity pair, tenant mix", card,
+        repeats=repeats)
+    rows = dict(lora.bgmv.launches_by_rows)
+    c = snap["counters"]
+    want = 2 * cfg.n_layer * c["verify_steps"] * repeats
+    print(f"phase 12 (b): acceptance over the tenant mix "
+          f"{acceptance(snap):.4f}; bgmv launches by rows over the "
+          f"{repeats} runs {json.dumps(rows)} (verify width "
+          f"{VERIFY_W}: {rows.get(VERIFY_W, 0)}, 2 x {cfg.n_layer} x "
+          f"verify steps {c['verify_steps']} a run x {repeats} = "
+          f"{want})")
+    check(c["verify_steps"] > 0 and rows.get(VERIFY_W, 0) == want,
+          "phase 12 (b): the BGMV launched at the verify width, 2L a "
+          "verify step")
+    exact = streams_equal(torch, tmod, trees, reqs, tokens, "(b)")
+    print(f"phase 12 (b): {exact}/{len(reqs)} streams equal generate() on "
+          f"each tenant's merged target token for token")
+    out["pad_identity"].update(acceptance_base=acc_base,
+                               acceptance_mix=acceptance(snap),
+                               exact_streams=exact,
+                               bgmv_verify_launches=rows.get(VERIFY_W, 0))
+    return out
+
+
+def feature_early(torch, np, card, world, repeats=FEATURE_REPEATS):
+    """(c) the early-exit draft of EARLY_EXIT_LAYERS layers of the
+    server's 12-layer model, ``spec_k=SPEC_K``: greedy streams exact,
+    sampled (temperature 0.8) equal to the same requests without
+    speculation; the acceptance."""
+    from ray_lightning_tpu_torch.serve.draft import early_exit_draft
+    from ray_lightning_tpu_torch.serve.engine import ServeEngine
+
+    reqs = world["reqs"]
+    spec_cfg = dataclasses.replace(world["serve_cfg"], spec_k=SPEC_K)
+    out = {}
+    module, params, tenants = world["module"], world["params"], \
+        world["tenants"]
+    dmod, dparams = early_exit_draft(module, params, EARLY_EXIT_LAYERS)
+
+    def early(spec=True):
+        extra = dict(draft_module=dmod, draft_params=dparams) if spec \
+            else {}
+        return ServeEngine(module, params,
+                           spec_cfg if spec else world["serve_cfg"],
+                           adapters=tenants, device="cuda", **extra)
+
+    out["early_exit"], tokens, snap = timed_runs(
+        torch, early, reqs, "(c) early-exit draft, greedy", card,
+        repeats=repeats)
+    exact = streams_equal(torch, module, world["trees"], reqs, tokens,
+                          "(c)")
+    acc = acceptance(snap)
+    _, sampled, ssnap = timed_runs(torch, early, reqs,
+                                   "(c) early-exit draft, temperature 0.8",
+                                   card, repeats=1, temperature=0.8)
+    _, plain, _ = timed_runs(torch, lambda: early(False), reqs,
+                             "(c) no speculation, temperature 0.8", card,
+                             repeats=1, temperature=0.8)
+    same = sum(a == b for a, b in zip(sampled, plain))
+    print(f"phase 12 (c): greedy {exact}/{len(reqs)} streams exact, "
+          f"acceptance {acc:.4f} (sampled {acceptance(ssnap):.4f}); "
+          f"sampled streams equal to the same requests without "
+          f"speculation: {same}/{len(reqs)}")
+    check(same == len(reqs), "phase 12 (c): sampled streams under "
+          "speculation equal the plain engine's")
+    out["early_exit"].update(acceptance=acc, exact_streams=exact,
+                             sampled_equal=same,
+                             acceptance_sampled=acceptance(ssnap))
+    return out
+
+
+def feature_chunked(torch, np, card, world, repeats=FEATURE_REPEATS):
+    """(d) one LONG_PROMPT-token prompt admitted while 7 slots decode,
+    ``prefill_chunk=CHUNK_W`` against ``None``: every stream exact, the
+    prompt's k/v in the pool (read through its block table once its
+    first token lands) within KV_REL of a whole-prompt static prefill's,
+    no resident slot missing a step while the prompt is chunked; the
+    residents' step intervals (p50, max) while it is admitted.  (With
+    random weights a token rarely depends on far context, so the k/v are
+    what show a chunk landing in the wrong blocks.)"""
+    from ray_lightning_tpu_torch.models import generate as gen_mod
+    from ray_lightning_tpu_torch.serve.engine import ServeEngine
+
+    rng = np.random.default_rng(SEED + 4)
+    residents = [(p[:128], 48, a) for p, _, a in world["reqs"][1:8]]
+    long_req = (rng.integers(0, 50257, size=(LONG_PROMPT,)).tolist(), 32,
+                None)
+    mcfg = world["cfg"]
+    ref = gen_mod.init_kv_cache(mcfg, 1, LONG_PROMPT, device="cuda")
+    with torch.no_grad():
+        _, ref = gen_mod.prefill(mcfg, world["params"], ref,
+                                 torch.tensor([long_req[0]], device="cuda"))
+
+    def kv_rel(engine, slot):
+        ids = engine.scheduler._blocks[slot]
+        worst = 0.0
+        for key in ("k", "v"):
+            got = engine._pool[key][:, ids].reshape(
+                mcfg.n_layer, -1, mcfg.n_head, mcfg.head_dim)[:, :LONG_PROMPT]
+            want = ref[key][:, 0]
+            worst = max(worst, ((got - want).abs().max()
+                                / want.abs().max()).item())
+        return worst
+
+    out, all_runs, all_tokens = {}, {}, {}
+    # The arms alternate, so that a drift of the shared host over the
+    # phase falls on both.
+    for chunk in [CHUNK_W, None] * repeats:
+        cfg = dataclasses.replace(world["serve_cfg"], prefill_chunk=chunk)
+        runs = all_runs.setdefault(chunk, [])
+        engine = ServeEngine(world["module"], world["params"], cfg,
+                             adapters=world["tenants"], device="cuda")
+        hs = [engine.submit(p, n, adapter=a) for p, n, a in residents]
+        while not all(h.request.generated for h in hs):
+            engine.step()
+        h_long = engine.submit(*long_req[:2])
+        gaps, missed = [], 0
+        while not h_long.request.generated:
+            before = [len(h.request.generated) for h in hs]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            engine.step()
+            gaps.append((time.perf_counter() - t0) * 1e3)
+            missed += sum(len(h.request.generated) == b and not h.done()
+                          for h, b in zip(hs, before))
+        rel = kv_rel(engine, h_long.request.slot)
+        engine.run_until_idle()
+        snap = engine.snapshot()
+        runs.append({"steps": len(gaps), "missed": missed,
+                     "itl_p50_ms": sorted(gaps)[len(gaps) // 2],
+                     "itl_max_ms": max(gaps),
+                     "itl_p50_all_ms": snap["latency"]["token"]["p50_ms"],
+                     "ttft_long_ms": (h_long.request.first_token_t
+                                      - h_long.request.arrival_t) * 1e3,
+                     "kv_rel": rel})
+        all_tokens[chunk] = [h.result(0) for h in hs] + [
+            h_long.result(0)]
+        del engine
+    for chunk in (CHUNK_W, None):
+        label = f"prefill_chunk={chunk}"
+        runs, tokens = all_runs[chunk], all_tokens[chunk]
+        reqs = residents + [long_req]
+        exact = streams_equal(torch, world["module"], world["trees"], reqs,
+                              tokens, f"(d) {label}")
+        missed = sum(r["missed"] for r in runs)
+        print(f"phase 12 (d) {label}: the {LONG_PROMPT}-token prompt took "
+              f"{[r['steps'] for r in runs]} steps; residents' step "
+              f"interval meanwhile p50 "
+              f"{[round(r['itl_p50_ms'], 2) for r in runs]} ms, max "
+              f"{[round(r['itl_max_ms'], 2) for r in runs]} ms; the long "
+              f"prompt's TTFT {[round(r['ttft_long_ms'], 1) for r in runs]}"
+              f" ms; missed resident ticks {missed}; {exact}/{len(reqs)} "
+              f"streams exact; its k/v against a whole-prompt prefill's: "
+              f"{max(r['kv_rel'] for r in runs):.2e} of max|k/v| (limit "
+              f"{KV_REL:g}); {card}")
+        check(max(r["kv_rel"] for r in runs) <= KV_REL,
+              f"phase 12 (d) {label}: the prompt's k/v in the pool")
+        if chunk is not None:
+            check(missed == 0, "phase 12 (d): no resident misses a step "
+                  "while the prompt is chunked")
+        out[label] = {"runs": runs, "exact_streams": exact}
+    return out
+
+
+def feature_prefix(torch, np, card, world, repeats=FEATURE_REPEATS):
+    """(e) 10 requests sharing a SYSTEM_PREFIX-token prefix across two
+    tenants and the base model, ``prefix_cache=True`` against off: one
+    request per key first, the other 7 after it lands; streams equal the
+    cache-off engine's, blocks claimed > 0 for every key; TTFT p50 of
+    the second wave with and without the cache.  Then tenant1 removed
+    (its chains dropped at the next step) and loaded again with other
+    factors: its next request claims nothing and its stream equals
+    ``generate()`` on the new merged weights."""
+    from ray_lightning_tpu_torch.serve.engine import ServeEngine
+
+    rng = np.random.default_rng(SEED + 5)
+    system = rng.integers(0, 50257, size=(SYSTEM_PREFIX,)).tolist()
+    keys = (None, "tenant0", "tenant1")
+    reqs = [(system + rng.integers(0, 50257, size=(int(n),)).tolist(), 32,
+             keys[i % 3])
+            for i, n in enumerate(rng.integers(16, 129, size=10))]
+    out, streams, all_runs = {}, {}, {True: [], False: []}
+    # The arms alternate, so that a drift of the shared host over the
+    # phase falls on both; the last cache-on engine is kept for the drop
+    # check below.
+    for on in [True, False] * repeats:
+        cfg = dataclasses.replace(world["serve_cfg"], prefix_cache=on)
+        engine = ServeEngine(world["module"], world["params"], cfg,
+                             adapters=world["tenants"], device="cuda")
+        first = [engine.submit(p, n, adapter=a) for p, n, a in reqs[:3]]
+        while not all(h.request.generated for h in first):
+            engine.step()
+        t0 = time.perf_counter()
+        rest = [engine.submit(p, n, adapter=a) for p, n, a in reqs[3:]]
+        engine.run_until_idle()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        hs = first + rest
+        ttft = sorted((h.request.first_token_t - h.request.arrival_t)
+                      * 1e3 for h in rest)
+        claimed = {}
+        for h in hs:
+            key = h.request.adapter
+            claimed[key] = claimed.get(key, 0) + \
+                h.request.claimed_tokens // cfg.block_size
+        snap = engine.snapshot()
+        all_runs[on].append({"ttft_p50_ms": ttft[len(ttft) // 2],
+                             "itl_p50_ms": snap["latency"]["token"]["p50_ms"],
+                             "tokens_per_s": sum(len(h.result(0))
+                                                 for h in rest) / wall,
+                             "blocks_claimed": {str(k): v
+                                                for k, v in claimed.items()},
+                             "prefix": snap.get("prefix")})
+        streams[on] = [h.result(0) for h in hs]
+        if on:
+            kept = engine
+        del engine
+    engine = kept
+    del kept
+    # The drop of a removed adapter's chains: gone at the next step, and
+    # after a reload under the same name none claimed.
+    fresh = world["tenants"]["tenant2"]
+    engine.remove_adapter("tenant1")
+    engine.generate(reqs[0][0][:32], 2)
+    left = "tenant1" in engine.prefix_cache._roots
+    print(f"phase 12 (e): tenant1 removed: its chains "
+          f"{'LEFT in the cache' if left else 'dropped'}")
+    check(not left, "phase 12 (e): a removed adapter's chains are dropped")
+    engine.add_adapter("tenant1", fresh)
+    h = engine.submit(reqs[2][0], reqs[2][1], adapter="tenant1")
+    engine.run_until_idle()
+    got = h.result(0)
+    claimed = h.request.claimed_tokens
+    merged = with_adapter(world["params"], fresh, world["lora_cfg"])
+    exact = streams_equal(torch, world["module"], {"new": merged},
+                          [(reqs[2][0], reqs[2][1], "new")], [got],
+                          "(e) after the adapter's reload")
+    print(f"phase 12 (e): tenant1 removed and loaded again with other "
+          f"factors: its request claimed {claimed} tokens (want 0), stream "
+          f"{'exact' if exact else 'near tie'}")
+    check(claimed == 0, "phase 12 (e): a removed adapter's chains are not "
+          "claimed")
+    del engine
+    for on in (True, False):
+        label = "prefix_cache" if on else "cache off"
+        runs = all_runs[on]
+        print(f"phase 12 (e) {label}: the second wave's TTFT p50 "
+              f"{[round(r['ttft_p50_ms'], 1) for r in runs]} ms, ITL p50 "
+              f"{[r['itl_p50_ms'] for r in runs]} ms, "
+              f"{[round(r['tokens_per_s'], 1) for r in runs]} tokens/s; "
+              f"blocks claimed per key {runs[-1]['blocks_claimed']}; "
+              f"{card}")
+        if on:
+            check(all(v > 0 for v in runs[-1]["blocks_claimed"].values())
+                  and len(runs[-1]["blocks_claimed"]) == 3,
+                  "phase 12 (e): blocks claimed for every key")
+        out[label] = runs
+    same = sum(a == b for a, b in zip(streams[True], streams[False]))
+    print(f"phase 12 (e): {same}/{len(reqs)} streams equal the cache-off "
+          f"engine's")
+    check(same == len(reqs), "phase 12 (e): prefix-cache streams equal "
+          "the cache-off engine's")
+    out["equal_streams"] = same
+    return out
+
+
+def server_world(torch, np):
+    """The server cell: GPT-2-small in f32 from SEED, N_TENANTS rank-16
+    tenants and their merged trees, its 10 requests and ServeConfig."""
+    from ray_lightning_tpu_torch.models.gpt import (
+        GPT, GPTConfig, synthetic_lora_adapter,
+    )
+    from ray_lightning_tpu_torch.serve.engine import ServeConfig
+
+    cfg = GPTConfig.gpt2_small()
+    module = GPT(cfg, precision="f32", device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = module.init_params(gen)
+    lora_cfg = dataclasses.replace(cfg, lora_rank=16)
+    tenants, trees = {}, {None: params}
+    for i in range(N_TENANTS):
+        adapter, merged = synthetic_lora_adapter(params, lora_cfg, gen,
+                                                 scale=0.3)
+        tenants[f"tenant{i}"], trees[f"tenant{i}"] = adapter, merged
+    world = {"cfg": cfg, "module": module, "params": params,
+             "lora_cfg": lora_cfg, "tenants": tenants, "trees": trees,
+             "reqs": make_requests(np, tenants),
+             "serve_cfg": ServeConfig(num_slots=DECODE_W, block_size=16,
+                                      max_adapters=N_TENANTS,
+                                      adapter_rank=16)}
+    return world
+
+
+def phase_server_features(torch, np, card):
+    """Phase 12: the server's features at GPT-2-small, 4 rank-16 tenants
+    plus the base, the server cell's 10 requests unless stated: (a) int8,
+    (b) and (c) speculative decoding, (d) chunked prefill, (e) the prefix
+    cache (each arm's docstring has its gates)."""
+    t0 = time.perf_counter()
+    world = server_world(torch, np)
+    out = {"int8": feature_int8(torch, np, card, world)}
+    out.update(feature_pad(torch, np, card, world))
+    out.update(feature_early(torch, np, card, world))
+    out["chunked"] = feature_chunked(torch, np, card, world)
+    out["prefix"] = feature_prefix(torch, np, card, world)
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"phase 12: {out['wall_s']:.1f} s; {card}")
+    return out
+
+
 def kernel_name(mangled):
     """``name<args>`` of a kernel: of a demangled name (the profiler's),
     the identifier ending in ``_kernel`` and its template arguments; of a
@@ -3583,7 +4165,7 @@ def main() -> int:
                                   "ln_bwd_rows_kernel<3, 1, 0>")):
                 check(spilled == 0, f"{kernel} builds with no spills")
 
-    record = phase_kernel(torch, lora, card)
+    record, bgmv_widths = phase_kernel(torch, lora, card)
     f32, bf16 = phase_server(torch, np, card)
     errs = phase_train_kernels(torch)
     timing = phase_train_timing(torch, card)
@@ -3592,6 +4174,7 @@ def main() -> int:
     mega = phase_megastep(torch, card)
     ckpt = phase_checkpoint(torch, card)
     lora_opt = phase_lora_and_opt_state(torch, np, card)
+    features = phase_server_features(torch, np, card)
 
     kernels = [{
         "name": "bgmv", "route": "cuda", "source": BGMV_SOURCE,
@@ -3615,6 +4198,8 @@ def main() -> int:
     print("megastep: " + json.dumps({**mega, "card": card}))
     print("checkpoint: " + json.dumps({**ckpt, "card": card}))
     print("lora_opt_state: " + json.dumps({**lora_opt, "card": card}))
+    print("server_features: " + json.dumps({**features, "bgmv_widths":
+                                            bgmv_widths, "card": card}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -4,8 +4,9 @@ the port's callbacks, resolved on first use (``core.module`` is imported
 by the modules the loop itself imports)."""
 
 _EXPORTS = {
-    "TrainModule": "module", "TrainState": "module",
+    "TrainModule": "module", "TpuModule": "module", "TrainState": "module",
     "TpuDataModule": "data", "ArrayDataset": "data", "NumpyLoader": "data",
+    "RandomDataset": "data",
     "Callback": "callbacks", "ModelCheckpoint": "callbacks",
     "EarlyStopping": "callbacks", "CSVLogger": "callbacks",
     "ProfilerCallback": "callbacks", "DeviceStatsCallback": "callbacks",

@@ -12,7 +12,8 @@ from typing import Dict, Iterator
 
 import numpy as np
 
-__all__ = ["TpuDataModule", "ArrayDataset", "NumpyLoader"]
+__all__ = ["TpuDataModule", "ArrayDataset", "RandomDataset",
+           "NumpyLoader"]
 
 
 class TpuDataModule:
@@ -93,6 +94,17 @@ class ArrayDataset:
 
     def take(self, idx: np.ndarray) -> Dict[str, np.ndarray]:
         return {k: v[idx] for k, v in self.arrays.items()}
+
+
+class RandomDataset(ArrayDataset):
+    """Synthetic regression data: ``length`` rows of ``size`` standard
+    normal f32 features under key ``x``, drawn from ``seed`` (the JAX
+    package's ``RandomDataset``, the same numpy draws)."""
+
+    def __init__(self, size: int = 32, length: int = 64, seed: int = 0):
+        rng = np.random.default_rng(seed)
+        super().__init__(
+            x=rng.standard_normal((length, size), dtype=np.float32))
 
 
 class NumpyLoader:

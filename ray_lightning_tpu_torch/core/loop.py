@@ -82,6 +82,8 @@ class FitConfig:
     megastep: Optional[Any] = None
     default_root_dir: str = "."
     resume_from_checkpoint: Optional[str] = None
+    # One epoch of one train batch and one val batch (a smoke run).
+    fast_dev_run: bool = False
 
     def __post_init__(self):
         if self.limit_train_batches is None:
@@ -101,6 +103,10 @@ class FitConfig:
         # A typo'd megastep fails at construction; "auto" resolves at fit
         # time, against the fit's device.
         _normalize_megastep(self.megastep)
+        if self.fast_dev_run:
+            self.max_epochs = 1
+            self.limit_train_batches = 1
+            self.limit_val_batches = 1
 
 
 def _normalize_megastep(value: Any) -> Optional[Any]:
@@ -344,6 +350,17 @@ def init_train_state(module: TrainModule, tx, device: torch.device,
     ``seed``."""
     preset = getattr(module, "initial_params", None)
     if preset is not None:
+        from ray_lightning_tpu_torch.models.quant import is_quantized
+
+        if isinstance(preset, dict) and is_quantized(preset):
+            # int8 decode storage is inference-only: the optimizer cannot
+            # step int8 weights, and dequantizing here would train an
+            # already-rounded model.
+            raise ValueError(
+                "initial_params are int8-quantized (decode storage); "
+                "training needs the original float tree — keep it, or "
+                "dequantize explicitly before warm-starting"
+            )
         params = tree_map(
             lambda t: torch.as_tensor(t).to(device=device,
                                             dtype=torch.float32).clone(),

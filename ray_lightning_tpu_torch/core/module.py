@@ -20,7 +20,7 @@ import torch
 
 from ray_lightning_tpu_torch.models.optim import apply_updates, tree_leaves
 
-__all__ = ["TrainModule", "TrainState"]
+__all__ = ["TrainModule", "TpuModule", "TrainState"]
 
 Logs = Dict[str, torch.Tensor]
 
@@ -121,3 +121,7 @@ class TrainModule:
 
     def teardown(self, stage: str) -> None:
         ...
+
+
+# The JAX package's name for the module base class.
+TpuModule = TrainModule

@@ -65,6 +65,7 @@ class Trainer:
         megastep=None,
         enable_checkpointing: bool = True,
         resume_from_checkpoint: Optional[str] = None,
+        fast_dev_run: bool = False,
     ):
         from ray_lightning_tpu_torch.parallel.strategies import LocalStrategy
 
@@ -86,6 +87,7 @@ class Trainer:
             megastep=megastep,
             default_root_dir=default_root_dir,
             resume_from_checkpoint=resume_from_checkpoint,
+            fast_dev_run=fast_dev_run,
         )
         self.callback_metrics: Dict[str, float] = {}
         self.logged_metrics: Dict[str, float] = {}

@@ -23,8 +23,10 @@ import torch
 
 from ray_lightning_tpu_torch.device import resolve_device
 from ray_lightning_tpu_torch.models.gpt import (
-    GPT, GPTConfig, _mlp_residual, has_int8_weights, has_lora_adapters,
-    resolve_weight,
+    GPT, GPTConfig, _mlp_residual, has_lora_adapters,
+)
+from ray_lightning_tpu_torch.models.quant import (
+    dequantize_decode_params, is_quantized, resolve_weight,
 )
 from ray_lightning_tpu_torch.ops.attention import _NEG_INF
 from ray_lightning_tpu_torch.ops.matmul import mm_f32
@@ -111,13 +113,19 @@ def _trunk_blocks(cfg, params, cache, x, off, c,
 
 
 def _wte(params, c: torch.dtype) -> torch.Tensor:
-    """Token embedding table in the compute dtype (float trees only)."""
-    return resolve_weight(params, "wte", c)
+    """Token embedding table in the compute dtype (int8-storage aware:
+    per-row scales broadcast over the feature axis)."""
+    if "wte_q8" in params:
+        return params["wte_q8"].to(c) * params["wte_sc"].to(c)[:, None]
+    return params["wte"].to(c)
 
 
 def _embed(params, tokens: torch.Tensor, c: torch.dtype) -> torch.Tensor:
-    """Embedding lookup in the compute dtype: only the looked-up rows are
-    converted."""
+    """Embedding lookup in the compute dtype (int8-storage aware): only
+    the looked-up rows are converted and scaled."""
+    if "wte_q8" in params:
+        return (params["wte_q8"][tokens].to(c)
+                * params["wte_sc"][tokens].to(c)[..., None])
     return params["wte"][tokens].to(c)
 
 
@@ -135,13 +143,7 @@ def _reject_unmerged_lora(params: Dict[str, Any]) -> None:
     """Entry-point gate on the parameter tree.  The base-model decode
     math reads only ``qkv_w``/``proj_w``: a tree carrying LoRA adapters
     would silently generate from the frozen base (fold one tenant in with
-    ``merge_lora``, or serve many through the engine's adapter pool).  An
-    int8 tree (``*_q8`` storage) is not supported by the port yet."""
-    if has_int8_weights(params):
-        raise NotImplementedError(
-            "int8 parameter trees (*_q8 storage) are not supported by the "
-            "PyTorch port yet; pass a float parameter tree"
-        )
+    ``merge_lora``, or serve many through the engine's adapter pool)."""
     if has_lora_adapters(params):
         raise ValueError(
             "params contain LoRA adapters, which the base-model decode "
@@ -272,6 +274,12 @@ def generate(
             f"prompt ({t0}) + max_new_tokens ({max_new_tokens}) exceeds "
             f"the positional table ({cfg.seq_len})"
         )
+    # An int8 tree is dequantized once per call, never per token: no
+    # kernel of the port fuses the convert into the product, so per-token
+    # dequantization would cost more than the bytes it saves (the JAX
+    # package's rule off the TPU).  The int8 rounding stays baked in.
+    if is_quantized(params):
+        params = dequantize_decode_params(params)
     if params["wte"].device != dev:
         raise ValueError(
             f"params are on {params['wte'].device}, generate runs on {dev}"

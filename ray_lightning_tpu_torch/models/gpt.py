@@ -55,6 +55,9 @@ from ray_lightning_tpu_torch.core.data import (
 )
 from ray_lightning_tpu_torch.core.module import TrainModule
 from ray_lightning_tpu_torch.device import resolve_device
+from ray_lightning_tpu_torch.models.quant import (  # noqa: F401
+    is_quantized, resolve_weight,
+)
 from ray_lightning_tpu_torch.models.optim import (
     chain, clip_by_global_norm, gpt_adamw, identity, multi_transform,
     resolve_opt_state_dtype, set_to_zero, tree_map,
@@ -73,7 +76,7 @@ from ray_lightning_tpu_torch.ops.matmul import mm_f32
 
 __all__ = ["GPTConfig", "GPT", "SyntheticLMDataModule", "REMAT_POLICIES",
            "remat_policy_fn", "resolve_weight",
-           "has_int8_weights", "has_lora_adapters", "add_lora_adapters",
+           "is_quantized", "has_lora_adapters", "add_lora_adapters",
            "extract_lora", "merge_lora", "synthetic_lora_adapter",
            "lora_labels"]
 
@@ -116,18 +119,6 @@ class GPTConfig:
     @property
     def head_dim(self) -> int:
         return self.d_model // self.n_head
-
-
-def resolve_weight(tree: Dict[str, Any], name: str,
-                   compute_dtype: torch.dtype) -> torch.Tensor:
-    """``tree[name]`` in ``compute_dtype``.  Float trees only: an int8
-    tree (``<name>_q8`` storage) raises — int8 decode is not ported yet."""
-    if name + "_q8" in tree:
-        raise NotImplementedError(
-            f"int8 weight storage ({name}_q8) is not supported by the "
-            f"PyTorch port yet; pass a float parameter tree"
-        )
-    return tree[name].to(compute_dtype)
 
 
 def _mlp_residual(x: torch.Tensor, p: Dict[str, Any],
@@ -484,13 +475,6 @@ def lora_labels(params: Dict[str, Any]) -> Dict[str, Any]:
         return "train" if str(name).startswith("lora_") else "freeze"
 
     return walk(params, "")
-
-
-def has_int8_weights(params: Dict[str, Any]) -> bool:
-    """True when the tree carries int8 weight storage (``*_q8``)."""
-    return "wte_q8" in params or any(
-        str(k).endswith("_q8") for k in params.get("blocks", {})
-    )
 
 
 def has_lora_adapters(params: Dict[str, Any]) -> bool:

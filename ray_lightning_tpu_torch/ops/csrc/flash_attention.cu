@@ -43,17 +43,30 @@
 //   (the bf16 one also clears the dQ buffer).  Then one block per (b·h, key
 //   tile) walks the query tiles from the diagonal down, recomputing
 //   p = exp(s - lse) and dp = dO·Vᵀ, and keeps dK and dV in registers.  dQ
-//   cannot ride along as the TPU kernel's per-key-block partial planes
-//   without an S/64-fold buffer, so each block adds its dQ contribution
-//   into an f32 buffer with atomics (sums in an order that changes from
-//   run to run); for bf16 a last kernel rounds that buffer to dq.
+//   does not ride along as the TPU kernel's per-key-block partial planes
+//   (an S/64-fold buffer); each block adds its dQ contribution into an f32
+//   buffer with atomics instead, but in a fixed order, so that the sums
+//   give the same bits on every run, as the TPU kernel's fixed-order sum
+//   of its partials does.  A query tile's contributions land from the
+//   diagonal key tile down to key tile 0: a block waits on the tile's turn
+//   counter (one int per (b·h, query tile), cleared before the launch)
+//   until every higher key tile has added its part, adds its own, and
+//   passes the turn on.  A block takes its (b·h, key tile) from a ticket
+//   counter when it starts, heads in order and within a head the last key
+//   tile first, so every block it waits on started before it: the turns
+//   come whatever the occupancy and the order the blocks are dispatched
+//   in (a head's key tiles need not all be resident at once).  The key
+//   tiles of a head then walk down the query tiles in step, so the turn a
+//   block waits for was taken a tile earlier; a turn that never comes
+//   traps the launch.  For bf16 a last kernel rounds the buffer to dq.
 // q, k and v are read in place through their strides, so the per-head
 // views of a fused (B, S, 3·H·D) projection need no copy; every other
 // tensor is contiguous (B, S, H, D).
 //
-// The kernels allocate nothing and do not synchronise (the f32 backward
-// clears its dQ buffer with cudaMemsetAsync).  The C entry points launch on
-// the caller's stream and return cudaGetLastError().
+// The kernels allocate nothing and do not synchronise with the host (the
+// backward clears its turn and ticket counters, and for f32 its dQ
+// buffer, with cudaMemsetAsync).  The C entry points launch on the
+// caller's stream and return cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -117,6 +130,60 @@ constexpr size_t bwd_smem_bytes() {
   constexpr int KT = bwd_keys<D>();
   return sizeof(float) * (2 * KT * (D + 1) + 2 * kTile * (D + 1) +
                           2 * kTile * (KT + 1) + 2 * kTile);
+}
+
+// The turn of one query tile's dQ sum (see the header): thread 0 waits
+// until `want` contributions have landed, then the block goes on.  A turn
+// that does not come within 2^22 polls (seconds; a wait is microseconds)
+// is a fault: the launch traps instead of hanging the card.
+__device__ __forceinline__ void dq_turn_poll(const int* turn, int want) {
+  int seen;
+  for (long long polls = 0;; ++polls) {
+    asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n"
+                 : "=r"(seen)
+                 : "l"(turn)
+                 : "memory");
+    if (seen >= want) break;
+    if (polls > (1LL << 22)) __trap();
+    __nanosleep(32);
+  }
+}
+__device__ __forceinline__ void dq_turn_wait(const int* turn, int want) {
+  if (threadIdx.x == 0) dq_turn_poll(turn, want);
+  __syncthreads();
+}
+// The same for one warp (its lane 0 polls), so the other warps' products
+// go on meanwhile.
+__device__ __forceinline__ void dq_turn_wait_warp(const int* turn,
+                                                  int want) {
+  if ((threadIdx.x & 31) == 0) dq_turn_poll(turn, want);
+  __syncwarp();
+}
+// The block's place in the order of the dQ turns: thread 0 takes the
+// next ticket from `counter` and writes the block's head (b, h) and key
+// tile to `place`, heads in order and within a head the last of its n_k
+// key tiles first.  A block that holds ticket t started after every block
+// with a lower one, so a block that waits only on lower tickets always
+// has its turn come.
+__device__ __forceinline__ void dq_place(int* counter, int n_k, int H,
+                                         int* place) {
+  if (threadIdx.x == 0) {
+    const int t = atomicAdd(counter, 1);
+    place[0] = t / n_k / H;
+    place[1] = t / n_k % H;
+    place[2] = n_k - 1 - t % n_k;
+  }
+  __syncthreads();
+}
+// Pass the turn on: a release add, which the caller's barrier orders
+// after every thread's adds (the acquire load above pairs with it).
+__device__ __forceinline__ void dq_turn_pass(int* turn) {
+  if (threadIdx.x == 0) {
+    asm volatile("red.release.gpu.global.add.s32 [%0], 1;\n"
+                 :
+                 : "l"(turn)
+                 : "memory");
+  }
 }
 
 template <int D>
@@ -261,8 +328,9 @@ flash_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ dout,
                  const float* __restrict__ lse,
                  const float* __restrict__ delta, float* __restrict__ dq_acc,
-                 float* __restrict__ dk, float* __restrict__ dv, Strides sq,
-                 Strides sk, Strides sv, int H, int S, float scale) {
+                 float* __restrict__ dk, float* __restrict__ dv,
+                 int* __restrict__ turns, Strides sq, Strides sk, Strides sv,
+                 int H, int S, float scale) {
   constexpr int P = D + 1;
   constexpr int JD = D / 16;
   constexpr int KT = bwd_keys<D>();
@@ -279,12 +347,17 @@ flash_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* lse_s = dSs + kTile * SP;
   float* delta_s = lse_s + kTile;
 
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh % H;
-  const int kt = blockIdx.x;  // key tile 0 walks the most query tiles
-  const int k0 = kt * KT;
+  // gridDim.x key tiles for each of gridDim.y heads, taken by ticket.
   const int n_tiles = S / kTile;
+  __shared__ int place[3];
+  dq_place(turns + static_cast<long long>(gridDim.y) * n_tiles, gridDim.x,
+           H, place);
+  const int b = place[0];
+  const int h = place[1];
+  const int bh = b * H + h;
+  const int kt = place[2];
+  const int k0 = kt * KT;
+  int* turn_row = turns + static_cast<long long>(bh) * n_tiles;
   const int ty = threadIdx.x >> 4;
   const int tx = threadIdx.x & 15;
   const Strides sc = {static_cast<long long>(S) * H * D,
@@ -400,12 +473,17 @@ flash_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
         for (int i = 0; i < 4; ++i) dq_part[i][jj] += dsv[i] * kv;
       }
     }
+    // The query tile's key tiles (those with KT·j <= q0 + 63) add from the
+    // highest down.
+    dq_turn_wait(turn_row + qt, (q0 + kTile) / KT - 1 - kt);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       float* dst = dq_acc + ((static_cast<long long>(b) * S + q0 + ty * 4 + i) * H + h) * D;
 #pragma unroll
       for (int jj = 0; jj < JD; ++jj) atomicAdd(dst + tx + 16 * jj, dq_part[i][jj]);
     }
+    __syncthreads();
+    dq_turn_pass(turn_row + qt);
   }
 
 #pragma unroll
@@ -800,7 +878,9 @@ tc_flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // fragments, in passes of 32 queries (16 at D >= 128) that keep the
 // registers clear of spills.  dSᵀ also goes to shared memory as bf16:
 // dQ = dS·K needs it transposed, and each warp then adds 16 queries' dQ
-// into the f32 buffer with float4 atomics.
+// into the f32 buffer with float4 atomics when the query tile's turn comes
+// (dq_turn_wait_warp, after the warp's first products; the turn passes on
+// after the next barrier).
 // At D = 256 (bwd_split = 2) two warps share 16 keys, 8 warps a block:
 // warp w owns keys 16·(w/2).. and columns 128·(w%2).. of dK, dV and dQ.
 // Each computes Sᵀ and dPᵀ over its half of D, the pair adds the two
@@ -813,8 +893,9 @@ tc_flash_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta,
                     float* __restrict__ dq_acc, bf16* __restrict__ dk,
-                    bf16* __restrict__ dv, Strides sq, Strides sk,
-                    Strides sv, int H, int S, float scale) {
+                    bf16* __restrict__ dv, int* __restrict__ turns,
+                    Strides sq, Strides sk, Strides sv, int H, int S,
+                    float scale) {
   using L = Tc<D>;
   constexpr int LT = L::LT, KD = D / 16;
   constexpr int QW = D == 64 ? 32 : 16;  // queries a register pass covers
@@ -833,12 +914,30 @@ tc_flash_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float* stats = reinterpret_cast<float*>(dSs + kTile * kLP);  // lse, delta
   float* xch = stats + kStages * 2 * kTile;  // the pairs' partials
 
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh % H;
-  const int kt = blockIdx.x;  // key tile 0 walks the most query tiles
-  const int k0 = kt * kTile;
+  // n_tiles key tiles for each of gridDim.y heads, taken by ticket.  The
+  // head is read back from shared memory where it is used: held in
+  // registers through the walk, it and the addresses made from it push
+  // the fragments into spills.
+  // (dq_place's work written out: through the helper the build spills at
+  // D = 64.)
   const int n_tiles = S / kTile;
+  __shared__ int place[3];  // the head (b and h) and the key tile
+  if (threadIdx.x == 0) {
+    const int t =
+        atomicAdd(turns + static_cast<long long>(gridDim.y) * n_tiles, 1);
+    place[0] = t / n_tiles / H;
+    place[1] = t / n_tiles % H;
+    place[2] = n_tiles - 1 - t % n_tiles;
+  }
+  __syncthreads();
+  const volatile int* vp = place;
+  auto b = [&] { return vp[0]; };
+  auto h = [&] { return vp[1]; };
+  const int kt = vp[2];
+  const int k0 = kt * kTile;
+  auto turn_row = [&] {
+    return turns + static_cast<long long>(vp[0] * H + vp[1]) * n_tiles;
+  };
   const int w = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, tig = lane & 3;
@@ -847,24 +946,24 @@ tc_flash_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int krow = 16 * kw + g;  // the lane's keys: krow and krow + 8
   const Strides sc = {static_cast<long long>(S) * H * D,
                       static_cast<long long>(H) * D, D};
-  const long long srow = static_cast<long long>(bh) * S;
+  auto srow = [&] { return static_cast<long long>(vp[0] * H + vp[1]) * S; };
 
   // Start copying query tile qt's Q, dO, lse and delta into stage
   // (qt - kt) % kStages.
   auto issue = [&](int qt) {
     const int stage = (qt - kt) % kStages;
     bf16* dst = QdO + stage * kStage;
-    cp_tile<D, kThreadsT>(dst, q, sq, b, h, qt * kTile, kTile);
-    cp_tile<D, kThreadsT>(dst + L::tile, dout, sc, b, h, qt * kTile, kTile);
+    cp_tile<D, kThreadsT>(dst, q, sq, b(), h(), qt * kTile, kTile);
+    cp_tile<D, kThreadsT>(dst + L::tile, dout, sc, b(), h(), qt * kTile, kTile);
     if (threadIdx.x < 32) {
       const int part = threadIdx.x >> 4, c = 4 * (threadIdx.x & 15);
       cp_async16(stats + (2 * stage + part) * kTile + c,
-                 (part == 0 ? lse : delta) + srow + qt * kTile + c);
+                 (part == 0 ? lse : delta) + srow() + qt * kTile + c);
     }
   };
 
-  cp_tile<D, kThreadsT>(Ks, k, sk, b, h, k0, kTile);
-  cp_tile<D, kThreadsT>(Vs, v, sv, b, h, k0, kTile);
+  cp_tile<D, kThreadsT>(Ks, k, sk, b(), h(), k0, kTile);
+  cp_tile<D, kThreadsT>(Vs, v, sv, b(), h(), k0, kTile);
 #pragma unroll
   for (int t = 0; t < kStages - 1; ++t) {  // K and V ride in the first group
     if (kt + t < n_tiles) issue(kt + t);
@@ -892,6 +991,7 @@ tc_flash_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // are free.
     cp_async_wait<kStages - 2>();
     __syncthreads();
+    if (i > 0) dq_turn_pass(turn_row() + qt - 1);  // its adds are all issued
     if (qt + kStages - 1 < n_tiles) issue(qt + kStages - 1);
     cp_async_commit();  // possibly empty: one group per iteration
     if constexpr (kHoldKV) {
@@ -1030,8 +1130,8 @@ tc_flash_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     const bool odd = tig & 1;
     float* dq_rows =
-        dq_acc + ((static_cast<long long>(b) * S + qt * kTile + 16 * kw + g +
-                   8 * odd) * H + h) * D + c0 + 4 * (tig >> 1);
+        dq_acc + ((static_cast<long long>(b()) * S + qt * kTile + 16 * kw + g +
+                   8 * odd) * H + h()) * D + c0 + 4 * (tig >> 1);
 #pragma unroll
     for (int nc = 0; nc < DH / 32; ++nc) {
       float dqc[4][4];
@@ -1052,6 +1152,9 @@ tc_flash_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           mma_bf16(dqc[2 * np + 1], dsa[t], kb[2], kb[3]);
         }
       }
+      // The key tiles above this one have added their parts of this
+      // query tile's dQ before the warp's first add.
+      if (nc == 0) dq_turn_wait_warp(turn_row() + qt, qt - kt);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const float s0 = odd ? dqc[j][0] : dqc[j][2];
@@ -1068,6 +1171,7 @@ tc_flash_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   // dK and dV through stage 0's rows of the warp, 16 bytes a store.
   __syncthreads();
+  dq_turn_pass(turn_row() + n_tiles - 1);
   bf16* Dk = QdO + 16 * kw * LT;
   bf16* Dv = Dk + L::tile;
 #pragma unroll
@@ -1087,7 +1191,8 @@ tc_flash_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int r = idx / NDH;
     const int c = c0 + (idx % NDH) * 8;
     const long long off =
-        ((static_cast<long long>(b) * S + k0 + 16 * kw + r) * H + h) * D + c;
+        ((static_cast<long long>(b()) * S + k0 + 16 * kw + r) * H + h()) * D +
+        c;
     *reinterpret_cast<uint4*>(dk + off) =
         *reinterpret_cast<const uint4*>(Dk + r * LT + c);
     *reinterpret_cast<uint4*>(dv + off) =
@@ -1184,12 +1289,15 @@ cudaError_t fwd(const void* q, const void* k, const void* v, void* out,
 template <typename T, int D>
 cudaError_t bwd(const void* q, const void* k, const void* v, const void* out,
                 const void* dout, const float* lse, void* dq, void* dk,
-                void* dv, float* dq_acc, float* delta, Strides sq,
-                Strides sk, Strides sv, int B, int H, int S, float scale,
-                cudaStream_t st) {
+                void* dv, float* dq_acc, float* delta, int* turns,
+                Strides sq, Strides sk, Strides sv, int B, int H, int S,
+                float scale, cudaStream_t st) {
   const long long rows = static_cast<long long>(B) * H * S;
   const long long n = rows * D;
-  cudaError_t err;
+  cudaError_t err = cudaMemsetAsync(
+      turns, 0, (static_cast<size_t>(B) * H * (S / kTile) + 1) * sizeof(int),
+      st);
+  if (err != cudaSuccess) return err;
   if constexpr (std::is_same<T, bf16>::value) {
     const long long threads = rows * (D / 8);
     tc_delta_kernel<D><<<static_cast<unsigned>((threads + 255) / 256), 256, 0,
@@ -1217,8 +1325,8 @@ cudaError_t bwd(const void* q, const void* k, const void* v, const void* out,
     tc_flash_bwd_kernel<D><<<grid, Tc<D>::bwd_threads, smem, st>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k),
         static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse,
-        delta, dq_acc, static_cast<bf16*>(dk), static_cast<bf16*>(dv), sq,
-        sk, sv, H, S, scale);
+        delta, dq_acc, static_cast<bf16*>(dk), static_cast<bf16*>(dv), turns,
+        sq, sk, sv, H, S, scale);
   } else {
     const dim3 grid(S / bwd_keys<D>(), B * H);
     constexpr size_t smem = bwd_smem_bytes<D>();
@@ -1229,8 +1337,8 @@ cudaError_t bwd(const void* q, const void* k, const void* v, const void* out,
     flash_bwd_kernel<D><<<grid, kThreads, smem, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<const float*>(dout), lse,
-        delta, dq_acc, static_cast<float*>(dk), static_cast<float*>(dv), sq,
-        sk, sv, H, S, scale);
+        delta, dq_acc, static_cast<float*>(dk), static_cast<float*>(dv),
+        turns, sq, sk, sv, H, S, scale);
   }
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -1319,11 +1427,12 @@ extern "C" int rlt_flash_fwd(const void* q, const void* k, const void* v,
 
 // out, dout, dq, dk, dv contiguous (B, S, H, D); q, k, v through their
 // strides.  dq_acc: f32 (B, S, H, D) scratch — for f32 pass dq itself.
-// delta: f32 (B·H·S) scratch.
+// delta: f32 (B·H·S) scratch; turns: int32 (B·H·S/64 + 1) scratch.
 extern "C" int rlt_flash_bwd(const void* q, const void* k, const void* v,
                              const void* out, const void* dout,
                              const void* lse, void* dq, void* dk, void* dv,
-                             void* dq_acc, void* delta, long long qb,
+                             void* dq_acc, void* delta, void* turns,
+                             long long qb,
                              long long qs, long long qh, long long kb,
                              long long ks, long long kh, long long vb,
                              long long vs, long long vh, int B, int H, int S,
@@ -1340,24 +1449,25 @@ extern "C" int rlt_flash_bwd(const void* q, const void* k, const void* v,
   const float* l = static_cast<const float*>(lse);
   float* acc = static_cast<float*>(dq_acc);
   float* dl = static_cast<float*>(delta);
+  int* tn = static_cast<int*>(turns);
   if (dtype == 0 && D == 64) {
-    err = bwd<float, 64>(q, k, v, out, dout, l, dq, dk, dv, acc, dl, sq, sk,
-                         sv, B, H, S, scale, st);
+    err = bwd<float, 64>(q, k, v, out, dout, l, dq, dk, dv, acc, dl, tn, sq,
+                         sk, sv, B, H, S, scale, st);
   } else if (dtype == 0 && D == 128) {
-    err = bwd<float, 128>(q, k, v, out, dout, l, dq, dk, dv, acc, dl, sq, sk,
-                          sv, B, H, S, scale, st);
+    err = bwd<float, 128>(q, k, v, out, dout, l, dq, dk, dv, acc, dl, tn, sq,
+                          sk, sv, B, H, S, scale, st);
   } else if (dtype == 1 && D == 64) {
     err = bwd<__nv_bfloat16, 64>(q, k, v, out, dout, l, dq, dk, dv, acc, dl,
-                                 sq, sk, sv, B, H, S, scale, st);
+                                 tn, sq, sk, sv, B, H, S, scale, st);
   } else if (dtype == 1 && D == 128) {
     err = bwd<__nv_bfloat16, 128>(q, k, v, out, dout, l, dq, dk, dv, acc, dl,
-                                  sq, sk, sv, B, H, S, scale, st);
+                                  tn, sq, sk, sv, B, H, S, scale, st);
   } else if (dtype == 0 && D == 256) {
-    err = bwd<float, 256>(q, k, v, out, dout, l, dq, dk, dv, acc, dl, sq, sk,
-                          sv, B, H, S, scale, st);
+    err = bwd<float, 256>(q, k, v, out, dout, l, dq, dk, dv, acc, dl, tn, sq,
+                          sk, sv, B, H, S, scale, st);
   } else if (dtype == 1 && D == 256) {
     err = bwd<__nv_bfloat16, 256>(q, k, v, out, dout, l, dq, dk, dv, acc, dl,
-                                  sq, sk, sv, B, H, S, scale, st);
+                                  tn, sq, sk, sv, B, H, S, scale, st);
   } else {
     err = cudaErrorInvalidValue;
   }

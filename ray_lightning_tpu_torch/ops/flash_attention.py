@@ -41,7 +41,7 @@ KERNEL_TILE = 64  # S must be a multiple of it
 _FWD_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 9
                  + [ctypes.c_int] * 4 + [ctypes.c_float]
                  + [ctypes.c_int] * 2 + [ctypes.c_void_p])
-_BWD_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_longlong] * 9
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 12 + [ctypes.c_longlong] * 9
                  + [ctypes.c_int] * 4 + [ctypes.c_float]
                  + [ctypes.c_int] * 2 + [ctypes.c_void_p])
 
@@ -193,11 +193,17 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq_acc = dq if q.dtype == torch.float32 else torch.empty(
         (B, S, H, D), dtype=torch.float32, device=q.device)
     delta = torch.empty(B * H * S, dtype=torch.float32, device=q.device)
+    # One turn counter per (b·h, 64-query tile), and the blocks' ticket
+    # counter: the kernels add each query tile's dQ parts in a fixed
+    # key-tile order (bitwise repeatable).
+    turns = torch.empty(B * H * (S // 64) + 1, dtype=torch.int32,
+                        device=q.device)
     fn = _build.load_function("flash_attention", "rlt_flash_bwd",
                               _BWD_ARGTYPES)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-             dv.data_ptr(), dq_acc.data_ptr(), delta.data_ptr(), *strides,
+             dv.data_ptr(), dq_acc.data_ptr(), delta.data_ptr(),
+             turns.data_ptr(), *strides,
              B, H, S, D, float(scale), code, q.device.index or 0,
              torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:

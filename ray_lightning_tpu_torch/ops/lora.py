@@ -70,7 +70,7 @@ def bgmv(h: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     CPU tensors run :func:`bgmv_plain`.  CUDA tensors launch the kernel or
     raise: f32 or bf16 ``h``/``a``/``b`` of one dtype, int32 ``ids``, all
     contiguous on one device, ``r <= 128``.  Each launch adds one to
-    ``bgmv.launches``."""
+    ``bgmv.launches`` and to ``bgmv.launches_by_rows[W]``."""
     if h.device.type == "cpu":
         return bgmv_plain(h, a, b, ids)
     if h.device.type != "cuda":
@@ -128,10 +128,12 @@ def bgmv(h: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"bgmv kernel launch failed: CUDA error {err}")
     bgmv.launches += 1
+    bgmv.launches_by_rows[W] = bgmv.launches_by_rows.get(W, 0) + 1
     return out
 
 
 bgmv.launches = 0
+bgmv.launches_by_rows = {}
 
 
 def lora_delta(h: torch.Tensor, a: torch.Tensor, b: torch.Tensor,

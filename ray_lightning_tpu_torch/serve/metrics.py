@@ -73,6 +73,9 @@ class ServeStats:
         # Per-adapter (tenant) accounting, created on first use so
         # engines without an adapter pool carry no "adapters" block.
         self._adapters: Dict[str, Dict[str, int]] = {}
+        # The prefix-cache block, set by set_prefix on engines with the
+        # cache (others carry no "prefix" block).
+        self._prefix: Optional[Dict[str, float]] = None
         self.gauges: Dict[str, float] = {}
 
     def bump(self, name: str, n: int = 1) -> None:
@@ -101,6 +104,21 @@ class ServeStats:
             self.counters["completed"] += 1
             self._e2e.add(e2e_s)
 
+    def note_spec_slot(self, drafted: int, accepted: int,
+                       emitted: int) -> None:
+        """One slot's accounting for one speculative verify tick; the
+        spec counters appear on the first call."""
+        if accepted > drafted:
+            raise ValueError(
+                f"spec accounting bug: accepted {accepted} > drafted "
+                f"{drafted}"
+            )
+        with self._lock:
+            for key, n in (("spec_drafted", drafted),
+                           ("spec_accepted", accepted),
+                           ("spec_emitted", emitted)):
+                self.counters[key] = self.counters.get(key, 0) + n
+
     def note_adapter(self, name: str, tokens: int = 0,
                      completed: int = 0) -> None:
         """Per-tenant accounting for one emission or completion."""
@@ -119,6 +137,12 @@ class ServeStats:
     def set_gauges(self, **gauges: float) -> None:
         with self._lock:
             self.gauges.update(gauges)
+
+    def set_prefix(self, **fields: float) -> None:
+        """Replace the prefix-cache block (the engine feeds
+        ``PrefixIndex.stats()`` at each gauge refresh)."""
+        with self._lock:
+            self._prefix = dict(fields)
 
     def snapshot(self) -> Dict[str, object]:
         with self._lock:
@@ -141,4 +165,6 @@ class ServeStats:
                     name: dict(entry)
                     for name, entry in self._adapters.items()
                 }
+            if self._prefix is not None:
+                out["prefix"] = dict(self._prefix)
             return out

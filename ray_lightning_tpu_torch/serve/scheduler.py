@@ -18,6 +18,14 @@ Between decode steps the scheduler:
 Everything here mutates small numpy arrays (block tables, sequence
 lengths, sampling settings, adapter slots) that the engine hands to each
 step as tensors; admission and eviction never change a shape.
+
+The engine wires three hooks for the prefix cache and chunked prefill:
+``claim_fn`` (shared-prefix blocks retained for a request at admission),
+``reclaim`` (evict resident chains when the pool runs dry, before any
+running request is preempted) and ``chunk_width`` (prompts whose uncovered
+suffix is wider take exact block coverage instead of a prefill bucket).
+Speculative ticks cover a multi-token window (:meth:`Scheduler.cover`) and
+roll it back to what was emitted (:meth:`Scheduler.truncate_slot_to`).
 """
 
 from __future__ import annotations
@@ -32,7 +40,7 @@ from typing import Callable, Deque, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from ray_lightning_tpu_torch.serve.kv_cache import (
-    TRASH_BLOCK, BlockAllocator,
+    TRASH_BLOCK, BlockAllocator, extend_block_coverage, truncate_to,
 )
 
 __all__ = ["Request", "RequestState", "Scheduler", "default_buckets",
@@ -61,6 +69,9 @@ class Request:
     eos_token_id: Optional[int] = None
     # Top-k truncation for temperature sampling (None/0 = off).
     top_k: Optional[int] = None
+    # Speculative decoding: drafted tokens a tick for this request (None =
+    # the engine's spec_k, 0 = plain decode, K = at most K).
+    spec: Optional[int] = None
     # Multi-tenant LoRA: the adapter (tenant) this request decodes
     # through (None = the shared base model).
     adapter: Optional[str] = None
@@ -88,6 +99,9 @@ class Request:
     # slot), stable across requeues: the engine refuses to remove an
     # adapter a queued or active request holds.
     _adapter_slot: int = 0
+    # Prompt tokens covered by a prefix-cache claim at the current
+    # admission (0 = none), derived anew at each admission.
+    claimed_tokens: int = 0
 
     @property
     def prompt_len(self) -> int:
@@ -186,11 +200,19 @@ class Scheduler:
         self.temperatures = np.zeros((num_slots,), np.float32)
         self.top_ks = np.zeros((num_slots,), np.int32)
         self.sample_seeds = np.zeros((num_slots,), np.int32)
+        # Speculative decoding: the draft cache's frontier per slot (the
+        # draft pool shares the block tables, valid through position
+        # draft_lens - 1).  Trails seq_lens by at most one, never leads.
+        self.draft_lens = np.zeros((num_slots,), np.int32)
         # Each slot's adapter-pool slot (0 = the null/base adapter —
         # inactive slots gather a zero delta).
         self.adapter_slots = np.zeros((num_slots,), np.int32)
         self._admit_counter = 0
         self._submit_counter = 0
+        # Prefix cache and chunked prefill (engine-wired; None = off).
+        self.claim_fn: Optional[Callable[[Request], List[int]]] = None
+        self.reclaim: Optional[Callable[[int], int]] = None
+        self.chunk_width: Optional[int] = None
         # Fairness state: the adapter key granted the LAST slot (deficit
         # round robin with a unit quantum cycles grants across tenants
         # with queued work, starting after this key).
@@ -250,10 +272,14 @@ class Scheduler:
     # -- between-steps poll --------------------------------------------------
     def poll(self, now: Optional[float] = None
              ) -> List[Tuple[int, Request, int]]:
-        """Admit while a slot and the bucket's blocks are free.  Returns
+        """Admit while a slot and the blocks are free.  Returns
         ``(slot, request, bucket_len)`` per admission, with blocks
         allocated and the slot row populated — the engine only has to
-        run the bucket's prefill."""
+        run the prefill.  A request with a claimed prefix or a suffix
+        wider than ``chunk_width`` takes exact coverage (``bucket_len``
+        0): its suffix runs through the engine's chunk step, which needs
+        no bucket-shaped blocks, so prompts past the largest bucket
+        admit too."""
         now = time.monotonic() if now is None else now
         admissions: List[Tuple[int, Request, int]] = []
         while self.queue:
@@ -264,10 +290,26 @@ class Scheduler:
                 break
             pick = self._next_grant_index()
             req = self.queue[pick]
-            bucket = self.bucket_for(req.prompt_len)
-            ids = self.allocator.alloc(bucket // self.block_size)
+            claimed: List[int] = []
+            if self.claim_fn is not None:
+                claimed = self.claim_fn(req)
+            c_tokens = len(claimed) * self.block_size
+            chunked = (self.chunk_width is not None
+                       and (req.prompt_len - c_tokens > self.chunk_width
+                            or req.prompt_len > self.buckets[-1]))
+            if claimed or chunked:
+                bucket = 0
+                need = -(-req.prompt_len // self.block_size) - len(claimed)
+            else:
+                bucket = self.bucket_for(req.prompt_len)
+                need = bucket // self.block_size
+            ids = self._alloc(need)
             if ids is None:
+                if claimed:
+                    self.allocator.free(claimed)  # drop the claim
                 break  # pool dry: wait for evictions, keep grant order
+            ids = claimed + ids
+            req.claimed_tokens = c_tokens
             del self.queue[pick]
             if not req.preemptions:
                 # Only rotation grants move the fairness pointer: a
@@ -289,6 +331,7 @@ class Scheduler:
             self.temperatures[slot] = req.temperature
             self.top_ks[slot] = req.top_k or 0
             self.sample_seeds[slot] = req.sample_seed
+            self.draft_lens[slot] = req.prompt_len
             self.adapter_slots[slot] = req._adapter_slot
             admissions.append((slot, req, bucket))
         return admissions
@@ -351,11 +394,22 @@ class Scheduler:
             or (req.eos_token_id is not None and token == req.eos_token_id)
         )
 
-    def needs_block(self, slot: int) -> bool:
-        """True when the next decode write (position ``seq_lens[slot]``)
-        crosses into an unallocated block."""
-        return (int(self.seq_lens[slot]) // self.block_size
-                >= len(self._blocks[slot]))
+    def needs_block(self, slot: int, upto_pos: Optional[int] = None
+                    ) -> bool:
+        """True when a write at ``upto_pos`` (default: the next decode
+        write, ``seq_lens[slot]``) crosses into an unallocated block."""
+        pos = int(self.seq_lens[slot]) if upto_pos is None else int(upto_pos)
+        return pos // self.block_size >= len(self._blocks[slot])
+
+    def _alloc(self, n: int) -> Optional[List[int]]:
+        """:meth:`BlockAllocator.alloc`, retried once after asking the
+        prefix cache (when wired) to evict resident blocks: dropping a
+        cached chain is always cheaper than preempting a request."""
+        ids = self.allocator.alloc(n)
+        if ids is None and self.reclaim is not None:
+            self.reclaim(n - self.allocator.free_blocks)
+            ids = self.allocator.alloc(n)
+        return ids
 
     def grow(self, slot: int) -> bool:
         """Allocate the next block for ``slot``.  False = pool dry."""
@@ -364,12 +418,87 @@ class Scheduler:
                 f"slot {slot} exceeded max_blocks_per_seq "
                 f"{self.max_blocks_per_seq} — engine admission bound bug"
             )
-        ids = self.allocator.alloc(1)
+        ids = self._alloc(1)
         if ids is None:
             return False
         self._blocks[slot].extend(ids)
         self.block_tables[slot, len(self._blocks[slot]) - 1] = ids[0]
         return True
+
+    def append_tokens(self, slot: int, tokens: Sequence[int],
+                      now: Optional[float] = None) -> Tuple[int, bool]:
+        """Record a speculative tick's tokens for ``slot`` (the accepted
+        drafts and the target's own token), stopping at eos or
+        ``max_new_tokens``; returns ``(n_emitted, done)``.  ``on_token``
+        fires per token with its stream index, as on the one-token
+        path."""
+        req = self.slots[slot]
+        if req is None:
+            raise RuntimeError(f"append_tokens on empty slot {slot}")
+        emitted = 0
+        for tok in tokens:
+            if len(req.generated) >= req.max_new_tokens:
+                return emitted, True
+            done = self.append_token(slot, int(tok), now=now)
+            emitted += 1
+            if done:
+                return emitted, True
+        return emitted, len(req.generated) >= req.max_new_tokens
+
+    def truncate_slot_to(self, slot: int, n_tokens: int) -> int:
+        """Roll the slot's coverage back to ``n_tokens`` positions (the
+        frontier after a speculative tick): ``seq_lens`` becomes
+        ``n_tokens`` and the blocks past it go back to the pool.  Returns
+        the blocks freed."""
+        freed = truncate_to(self.allocator, self._blocks[slot],
+                            self.block_tables[slot], n_tokens,
+                            self.block_size)
+        self.seq_lens[slot] = n_tokens
+        self.draft_lens[slot] = min(int(self.draft_lens[slot]), n_tokens)
+        return freed
+
+    def cover(self, slot: int, upto_pos: int) -> bool:
+        """Allocate until position ``upto_pos`` is writable, all or
+        nothing (the multi-block :meth:`grow`).  False = pool dry."""
+        if upto_pos // self.block_size >= self.max_blocks_per_seq:
+            raise RuntimeError(
+                f"slot {slot} coverage request past max_blocks_per_seq "
+                f"{self.max_blocks_per_seq} — engine width-cap bug"
+            )
+        args = (self.allocator, self._blocks[slot], self.block_tables[slot],
+                upto_pos, self.block_size)
+        ok = extend_block_coverage(*args)
+        if not ok and self.reclaim is not None:
+            need = (upto_pos // self.block_size) + 1 \
+                - len(self._blocks[slot])
+            self.reclaim(need - self.allocator.free_blocks)
+            ok = extend_block_coverage(*args)
+        return ok
+
+    def cow_slot(self, slot: int, upto_block: int
+                 ) -> Optional[Tuple[List[int], List[int]]]:
+        """Copy-on-write bookkeeping: every shared block (refcount > 1)
+        among the slot's first ``upto_block`` blocks is swapped for a
+        fresh private one, and the references on the originals dropped.
+        Returns ``(src_ids, dst_ids)`` for :func:`kv_cache.copy_blocks`
+        (empty lists: nothing shared), or ``None`` when the pool cannot
+        cover the copies (nothing changed).  The admission claim cap keeps
+        every write past the shared blocks, so serving never needs it;
+        it is the escape hatch for a path that must write below."""
+        blocks = self._blocks[slot]
+        shared = [i for i in range(min(upto_block, len(blocks)))
+                  if self.allocator.is_shared(blocks[i])]
+        if not shared:
+            return [], []
+        fresh = self._alloc(len(shared))
+        if fresh is None:
+            return None
+        src = [blocks[i] for i in shared]
+        for i, dst in zip(shared, fresh):
+            blocks[i] = dst
+            self.block_tables[slot, i] = dst
+        self.allocator.free(src)
+        return src, fresh
 
     def preempt_youngest(self, protect: Optional[int] = None
                          ) -> Optional[Request]:
@@ -431,6 +560,7 @@ class Scheduler:
         self.temperatures[slot] = 0.0
         self.top_ks[slot] = 0
         self.sample_seeds[slot] = 0
+        self.draft_lens[slot] = 0
         self.adapter_slots[slot] = 0
 
     # -- introspection -------------------------------------------------------

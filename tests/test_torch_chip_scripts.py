@@ -4,8 +4,9 @@
 build mutated copies of the port's CUDA sources by text substitution; a
 substitution whose text no longer occurs exactly once would stop the
 script on the card, after its build.  Here every substitution is applied
-to the checkout's sources, and every script is run without a card, where
-it must exit 1 and print no result.
+to the checkout's sources, and every script (``chip_smoke.py`` and
+``chip_serve_compare.py`` too) is run without a card, where it must exit 1
+and print no result.
 """
 
 import pathlib
@@ -41,6 +42,37 @@ def test_flash_faults_apply_once(scripts):
     assert len(cf.FAULTS) == 9
     assert set(cf.FAULT_SHAPES) <= set(cf.FAULTS)
     assert set(cf.FAULT_SHAPES.values()) <= set(cf.SHAPES)
+
+
+def test_dq_order_fault_applies_once_and_serve_faults_name_a_check(
+        scripts):
+    """Step 10's compiled fault (dQ added in any order) applies once; the
+    in-memory ones each name one of the step's checks and restore what
+    they patch."""
+    cf = scripts[0]
+    source = (CSRC / "flash_attention.cu").read_text()
+    _apply_all(cf.mutate, source, {"dq_any_order": cf.DQ_ORDER_FAULT})
+    assert set(cf.SERVE_FAULTS.values()) <= {
+        "repeat", "int8", "early_exit", "chunked", "prefix"}
+    from ray_lightning_tpu_torch.models import quant
+    from ray_lightning_tpu_torch.serve import engine, kv_cache
+
+    before = (quant._quantize, engine.accepted_drafts,
+              engine.ServeEngine._run_chunk, kv_cache.PrefixIndex.claim,
+              engine.ServeEngine.remove_adapter)
+    for name in cf.SERVE_FAULTS:
+        if name == "dq_any_order":
+            continue
+        with cf.serve_fault(name):
+            during = (quant._quantize, engine.accepted_drafts,
+                      engine.ServeEngine._run_chunk,
+                      kv_cache.PrefixIndex.claim,
+                      engine.ServeEngine.remove_adapter)
+            assert sum(a is not b for a, b in zip(before, during)) == 1
+    assert before == (quant._quantize, engine.accepted_drafts,
+                      engine.ServeEngine._run_chunk,
+                      kv_cache.PrefixIndex.claim,
+                      engine.ServeEngine.remove_adapter)
 
 
 def test_ce_faults_apply_once(scripts):
@@ -108,13 +140,21 @@ def test_a_substitution_that_misses_raises(scripts):
 
 @pytest.mark.parametrize("script", ["chip_smoke.py", "chip_faults.py",
                                     "chip_flash_variants.py",
-                                    "chip_ce_variants.py"])
+                                    "chip_ce_variants.py",
+                                    "chip_serve_compare.py"])
 def test_script_without_a_card_exits_1_and_prints_no_result(script):
     proc = subprocess.run([sys.executable, str(ROOT / script)], cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 1
     assert "no CUDA device" in proc.stderr
     assert '"ok"' not in proc.stdout
+
+
+def test_serve_compare_alternates_the_checkouts():
+    import chip_serve_compare as sc
+
+    assert sc.order(["a", "b"], 3) == ["a", "b", "b", "a", "a", "b"]
+    assert sc.order(["."], 2) == [".", "."]
 
 
 def test_ce_phase_points_apply_once(scripts):

@@ -236,17 +236,31 @@ def test_lora_tree_guards(model):
 
 
 def test_resolve_weight_rejects_int8_trees():
-    tree = {"qkv_w_q8": torch.zeros(2, 2, dtype=torch.int8),
-            "qkv_w_sc": torch.ones(2)}
-    with pytest.raises(NotImplementedError, match="int8"):
-        resolve_weight(tree, "qkv_w", torch.float32)
+    """int8 storage is ported (``models/quant.py``): a payload resolves
+    with its per-output-channel scales; a payload without its scales is
+    refused."""
+    tree = {"qkv_w_q8": torch.tensor([[1, -2], [127, 0]], dtype=torch.int8),
+            "qkv_w_sc": torch.tensor([0.5, 2.0])}
+    w = resolve_weight(tree, "qkv_w", torch.float32)
+    torch.testing.assert_close(w, torch.tensor([[0.5, -4.0], [63.5, 0.0]]),
+                               rtol=0, atol=0)
+    with pytest.raises(KeyError, match="qkv_w_sc"):
+        resolve_weight({"qkv_w_q8": tree["qkv_w_q8"]}, "qkv_w",
+                       torch.float32)
     w = resolve_weight({"qkv_w": torch.ones(2, 2)}, "qkv_w", torch.bfloat16)
     assert w.dtype == torch.bfloat16
 
 
 def test_entry_points_reject_int8_trees(model):
+    """``generate()`` takes an int8 tree (dequantized once per call) and
+    refuses one whose payload lacks its scales."""
+    from ray_lightning_tpu_torch.models.quant import quantize_decode_params
+
     _, _, tm, tp = model
     q8 = {k: v for k, v in tp.items() if k != "wte"}
     q8["wte_q8"] = torch.zeros(tp["wte"].shape, dtype=torch.int8)
-    with pytest.raises(NotImplementedError, match="int8"):
+    with pytest.raises(KeyError, match="wte_sc"):
         tgen.generate(tm, q8, _prompts(0, 1, 3), 2, device="cpu")
+    out = tgen.generate(tm, quantize_decode_params(tp), _prompts(0, 1, 3),
+                        2, device="cpu")
+    assert out.shape == (1, 5)

@@ -104,6 +104,26 @@ def test_bgmv_is_bitwise_repeatable(cuda, dtype, W, d, r, k, run):
     assert torch.equal(first, second)
 
 
+# The speculative verify window of the server cell (8 slots x (spec_k 4 +
+# 1) = 40 rows) and a 128-row prefill chunk, at the qkv and proj widths
+# of GPT-2-small, rank 16, one adapter per slot (runs of 5 rows) or per
+# chunk.
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("W,k,run", [(40, 2304, 5), (40, 768, 5),
+                                     (128, 2304, 128), (128, 768, 128)])
+def test_bgmv_at_verify_and_chunk_widths_matches_plain(cuda, dtype, W, k,
+                                                        run):
+    dt = getattr(torch, dtype)
+    h, a, b, ids = _case(cuda, W, 768, 16, k, 5, dt, run)
+    got = lora.bgmv(h, a, b, ids)
+    ref = lora.bgmv_plain(h, a, b, ids)
+    torch.cuda.synchronize()
+    scale = ref.float().abs().max().item()
+    tol = 1e-5 * scale + 1e-6 if dt == torch.float32 else 2e-2 * scale
+    assert (got.float() - ref.float()).abs().max().item() <= tol
+    assert torch.equal(got, lora.bgmv(h, a, b, ids))
+
+
 def test_out_of_range_id_gives_nan_rows(cuda):
     h, a, b, ids = _case(cuda, 4, 64, 8, 96, 3, torch.float32)
     ids[2] = 7
@@ -250,6 +270,55 @@ def test_flash_kernels_match_plain_on_strided_views(cuda, dtype, B, S, H,
     _assert_close(lse, lsep, torch.float32)
     for got, ref in zip((dq, dk, dv), grads_p):
         assert got.dtype == dt and got.shape == (B, S, H, D)
+        _assert_close(got, ref, dt)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,D", [(16, 1024, 12, 64), (2, 192, 3, 128),
+                                     (4, 1024, 3, 256)])
+def test_flash_backward_is_bitwise_repeatable(cuda, dtype, B, S, H, D):
+    """dQ, dK and dV of repeated launches on the same inputs are bitwise
+    equal: each query tile's dQ parts are added in a fixed key-tile
+    order (the JAX kernel's fixed-order sum of its partials)."""
+    dt = getattr(torch, dtype)
+    qkv = torch.randn(B, S, 3 * H * D, generator=cuda, device="cuda").to(dt)
+    q, k, v = (t.view(B, S, H, D) for t in qkv.split(H * D, dim=-1))
+    do = torch.randn(B, S, H, D, generator=cuda, device="cuda").to(dt)
+    scale = D ** -0.5
+    out, lse = fa.flash_fwd(q, k, v, scale)
+    first = fa.flash_bwd(q, k, v, out, lse, do, scale)
+    for _ in range(4):
+        again = fa.flash_bwd(q, k, v, out, lse, do, scale)
+        torch.cuda.synchronize()
+        for name, x, y in zip(("dq", "dk", "dv"), first, again):
+            assert torch.equal(x, y), name
+    assert torch.isfinite(first[0].float()).all()
+
+
+# One head whose key tiles are more blocks than the card holds at once
+# (132 SMs: the f32 backward fits 2 blocks an SM at D = 64 and 1 above,
+# with 32-key tiles at D = 256; the bf16 one 3, 2 and 1 with 64-key
+# tiles): a key tile's dQ turn waits on blocks that start after some of
+# the head's blocks have finished.
+@pytest.mark.parametrize("dtype,D,S", [("float32", 64, 20480),
+                                       ("float32", 128, 10240),
+                                       ("float32", 256, 8192),
+                                       ("bfloat16", 64, 32768),
+                                       ("bfloat16", 128, 20480),
+                                       ("bfloat16", 256, 16384)])
+def test_flash_backward_past_one_wave_of_blocks(cuda, dtype, D, S):
+    dt = getattr(torch, dtype)
+    q, k, v, do = (torch.randn(1, S, 1, D, generator=cuda,
+                               device="cuda").to(dt) for _ in range(4))
+    scale = D ** -0.5
+    out, lse = fa.flash_fwd(q, k, v, scale)
+    first = fa.flash_bwd(q, k, v, out, lse, do, scale)
+    again = fa.flash_bwd(q, k, v, out, lse, do, scale)
+    torch.cuda.synchronize()
+    for name, x, y in zip(("dq", "dk", "dv"), first, again):
+        assert torch.equal(x, y), name
+    for got, ref in zip(first, fa.flash_bwd_plain(q, k, v, out, lse, do,
+                                                  scale)):
         _assert_close(got, ref, dt)
 
 

@@ -195,6 +195,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     )
     assert "ray_lightning_tpu_torch.serve.engine" in names
     assert "ray_lightning_tpu_torch.utils.state_stream" in names
+    assert "ray_lightning_tpu_torch.models.quant" in names
+    assert "ray_lightning_tpu_torch.serve.draft" in names
     code = textwrap.dedent(f"""
         import importlib, os, sys, tempfile
         for blocked in ("jax", "msgpack", "ml_dtypes"):

@@ -269,6 +269,53 @@ def test_fit_matches_the_jax_fit_over_five_steps(tmp_path):
     assert set(tr.callback_metrics) == set(jt.callback_metrics)
 
 
+def test_fast_dev_run_matches_the_jax_fit(tmp_path):
+    """``fast_dev_run=True`` over ``max_epochs=4``: one epoch of one train
+    batch and one val batch in both packages, from the same initial
+    params and batches; train and val losses within 1e-5 absolute."""
+    jcfg = JaxGPTConfig.tiny()
+    jm = JaxGPT(jcfg)
+    tree = _np_tree(jm.init_params(jax.random.PRNGKey(3)))
+    jm.initial_params = tree
+    jt = JaxTrainer(strategy=JaxLocalStrategy(), fast_dev_run=True,
+                    max_epochs=4, enable_checkpointing=False,
+                    default_root_dir=str(tmp_path))
+    jt.fit(jm, JaxSyntheticLM(jcfg, batch_size=8, num_batches=4, seed=4))
+
+    cfg = GPTConfig.tiny()
+    tm = GPT(cfg, device="cpu")
+    tm.initial_params = params_from_jax(tree, "cpu")
+    cb = _Losses()
+    tr = Trainer(LocalStrategy(device="cpu"), fast_dev_run=True,
+                 max_epochs=4, callbacks=[cb], enable_checkpointing=False)
+    assert (tr.config.max_epochs, tr.config.limit_train_batches,
+            tr.config.limit_val_batches) == (1, 1, 1)
+    tr.fit(tm, SyntheticLMDataModule(cfg, batch_size=8, num_batches=4,
+                                     seed=4))
+    assert tr.global_step == jt.global_step == 1
+    assert tr.epochs_run == 1 and len(cb.losses) == 1
+    for key in ("train_loss", "val_loss"):
+        assert tr.callback_metrics[key] == pytest.approx(
+            jt.callback_metrics[key], abs=1e-5), key
+
+
+def test_core_exports_every_jax_core_name():
+    """The port's ``core`` exports every name of the JAX package's
+    ``core.__all__`` (``TpuModule`` is ``TrainModule``; ``RandomDataset``
+    draws the same rows)."""
+    import ray_lightning_tpu.core as jax_core
+    import ray_lightning_tpu_torch.core as core
+
+    assert set(jax_core.__all__) <= set(core.__all__)
+    for name in jax_core.__all__:
+        assert getattr(core, name) is not None, name
+    assert core.TpuModule is core.TrainModule
+    got = core.RandomDataset(size=5, length=7, seed=3)
+    want = jax_core.RandomDataset(size=5, length=7, seed=3)
+    assert len(got) == len(want) == 7
+    np.testing.assert_array_equal(got.arrays["x"], want.arrays["x"])
+
+
 def test_fit_limits_validation_and_log_cadence():
     cfg = GPTConfig.tiny()
     tr = Trainer(LocalStrategy(device="cpu"), max_epochs=2,
