@@ -105,7 +105,16 @@ last column of a ragged chunk of k dropped, the d tail past the last
    verify accepting one draft past the first disagreement, a prefill
    chunk written one block off, a prefix claim without its reference, and
    a removed adapter's chains left claimable (planted in memory).  Each
-   must fail the check its entry names (a raise counts).
+   must fail the check its entry names (a raise counts);
+11. the serving control plane (``PLANE_FAULTS``, ``plane_fault``): phase
+   13 (``chip_smoke.phase_serve_plane``, one run of each arm) for the
+   correct code, which must pass, and for five faults planted in memory:
+   the client's index dedup off by one (a re-emitted index one below the
+   next is yielded again), a deadline that expires a request after it
+   was preempted, ``decode_adapter`` dropping the scale, the ``expired``
+   counter left out of the OpenMetrics text, and a reply frame dropped on
+   a caught ``OSError`` while its client lives.  Phase 13 must fail on
+   each.
 
 The wrappers are routed to a faulty library by replacing the cached ctypes
 functions of ``ops/_build.py``.  Exits 1 if a correct kernel fails a
@@ -682,6 +691,119 @@ def serve_check(torch, np, card, which, world, root):
         return False
 
 
+# Step 11: the serving control plane's faults, each caught by phase 13.
+PLANE_FAULTS = ("client_dedup_off_by_one", "deadline_expires_preempted",
+                "decode_adapter_drops_scale", "expired_left_out_of_export",
+                "reply_dropped_on_oserror")
+# reply_dropped_on_oserror: every REPLY_DROP_EVERY-th token frame.
+REPLY_DROP_EVERY = 97
+
+
+@contextlib.contextmanager
+def plane_fault(name):
+    """Plant one of ``PLANE_FAULTS`` for the block: ``ServeClient.stream``
+    yielding an index one below the next one it expects (a re-emission
+    after a preemption comes through twice); ``Scheduler.poll`` expiring
+    queued requests past their deadline whether or not they were
+    preempted; ``decode_adapter`` returning the factors without the
+    scale; the OpenMetrics serve section rendered without the
+    ``expired`` counter; ``ServeEngine._reply`` dropping every
+    ``REPLY_DROP_EVERY``-th token frame as on a caught ``OSError``."""
+    import queue as pyqueue
+
+    from ray_lightning_tpu_torch.serve import client, engine, lora, scheduler
+    from ray_lightning_tpu_torch.telemetry import export_prom
+
+    if name == "client_dedup_off_by_one":
+        def stream(self, prompt, max_new_tokens, timeout=60.0, **kw):
+            rid = self.submit(prompt, max_new_tokens, **kw)
+            pend = self._pending[rid]
+            next_idx = 0
+            while True:
+                try:
+                    kind, payload = pend.stream.get(timeout=timeout)
+                except pyqueue.Empty:
+                    raise TimeoutError(f"request {rid}: no stream item "
+                                       f"within {timeout}s") from None
+                if kind == "token":
+                    idx, tok = payload
+                    if idx >= next_idx - 1:
+                        next_idx = idx + 1
+                        yield tok
+                else:
+                    self._check_done(pend)
+                    return
+
+        patches = [(client.ServeClient, "stream", stream)]
+    elif name == "deadline_expires_preempted":
+        correct = scheduler.Scheduler.poll
+
+        def poll(self, now=None):
+            now = time.monotonic() if now is None else now
+            late = [r for r in self.queue if r.deadline_s is not None
+                    and now - r.arrival_t > r.deadline_s]
+            for r in late:
+                self.queue.remove(r)
+                r.state = scheduler.RequestState.EXPIRED
+                r.finished_t = now
+            admissions, expired = correct(self, now)
+            return admissions, late + expired
+
+        patches = [(scheduler.Scheduler, "poll", poll)]
+    elif name == "decode_adapter_drops_scale":
+        correct = lora.decode_adapter
+
+        def decode(item):
+            tree = correct(item)
+            tree.pop("scale")
+            return tree
+
+        patches = [(lora, "decode_adapter", decode)]
+    elif name == "expired_left_out_of_export":
+        correct = export_prom._render_serve
+
+        def render(serve):
+            counters = {k: v for k, v in serve.get("counters", {}).items()
+                        if k != "expired"}
+            return correct(dict(serve, counters=counters))
+
+        patches = [(export_prom, "_render_serve", render)]
+    else:
+        correct = engine.ServeEngine._reply
+        sent = [0]
+
+        def reply(self, addr, item):
+            if item.get("type") == "serve_token":
+                sent[0] += 1
+                if sent[0] % REPLY_DROP_EVERY == 0:
+                    try:
+                        raise OSError("reply send failed")
+                    except OSError:
+                        return  # dropped; the client is still alive
+            correct(self, addr, item)
+
+        patches = [(engine.ServeEngine, "_reply", reply)]
+    saved = [(owner, attr, getattr(owner, attr)) for owner, attr, _ in
+             patches]
+    for owner, attr, fault in patches:
+        setattr(owner, attr, fault)
+    try:
+        yield
+    finally:
+        for owner, attr, value in saved:
+            setattr(owner, attr, value)
+
+
+def plane_check(torch, np, card, world):
+    """Phase 13 at one run an arm; True when it passes (a raise fails)."""
+    try:
+        cs.phase_serve_plane(torch, np, card, world, repeats=1)
+        return True
+    except Exception as e:  # noqa: BLE001 - a raise is a catch
+        print(f"step 11: raised {type(e).__name__}: {str(e)[:300]}")
+        return False
+
+
 LORA_FAULTS = {"wte_labelled_train": "lora",
                "clip_over_the_full_model": "clip",
                "nu_quantized_linearly": "codec",
@@ -1104,6 +1226,23 @@ def main() -> int:
             if ok:
                 failures.append(f"step 10 fault {name} not caught by the "
                                 f"{which} check")
+
+        # 11. the serving control plane
+        summary["plane"] = {}
+        ok = plane_check(torch, np, card, world)
+        print(f"step 11 correct: {'ok' if ok else 'FAILED'}")
+        summary["plane"]["correct"] = ok
+        if not ok:
+            failures.append("correct step 11 failed")
+        for name in PLANE_FAULTS:
+            with plane_fault(name):
+                ok = plane_check(torch, np, card, world)
+            print(f"step 11 fault {name}: phase 13 "
+                  f"{'passed (NOT caught)' if ok else 'failed (caught)'}")
+            summary["plane"][name] = not ok
+            if ok:
+                failures.append(f"step 11 fault {name} not caught by "
+                                f"phase 13")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for f in failures:

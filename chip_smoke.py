@@ -143,11 +143,34 @@ under ``remat_policy="dots+flash"``), counted per step.  Phases:
    resident missing a step, against ``prefill_chunk=None``; (e) the
    prefix cache over 10 requests sharing a SYSTEM_PREFIX-token prefix,
    streams equal to the cache-off engine's, blocks claimed for every
-   key, a removed adapter's chains dropped.
+   key, a removed adapter's chains dropped;
+13. the serving control plane (``phase_serve_plane``) at the server
+   cell's width: the engine started on its serve thread with
+   ``capacity=True, slo=True, export_every_s=0.25``, ``telemetry_dir``,
+   ``prom_file``, ``prom_port`` and ``trace_dir``, reached through
+   ``ServeClient``: (a) the cell's 10 requests from a client process
+   (``chip_smoke.py --serve-client HOST PORT``), every stream equal to
+   phase 3's, the BGMV 2L launches a serve step (counts set to 0 just
+   before each run), TTFT, ITL and tokens/s as the client measures them
+   over PLANE_REPEATS runs alternating with the in-process engine, the
+   device-busy share of a profiled run, the cost of a reply frame on the
+   serve thread, of one export and of the SLO and capacity tick; (b) a
+   tenant (scale 2.0) hot-loaded by a ``serve_adapter_load`` frame in
+   the ``data`` and the ``shm`` form, its stream equal to ``generate()``
+   on its merged weights, 2L launches a step; (c) a burst of BURST
+   requests whose deadlined ones queue and expire (replies = counter =
+   the OpenMetrics line), and deadlined requests admitted, preempted in
+   a PREEMPT_BLOCKS pool and requeued past their deadline, none expired,
+   each stream exact with every index once; (d) a stream cancelled by a
+   ``serve_cancel`` frame, its blocks freed; (e) after ``stop()``:
+   ``serve-live.json`` rendered by ``tools/rlt_top.py --once``, the
+   textfile and an HTTP scrape of ``/metrics``, a span per phase of each
+   request, the capacity block and the SLO snapshot.
 
 Any failure raises: the script exits non-zero and prints no result.  The
 line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1.
+``chip_smoke.py --serve-client HOST PORT`` is phase 13's client process.
 """
 
 from __future__ import annotations
@@ -157,6 +180,7 @@ import ctypes
 import dataclasses
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -573,13 +597,13 @@ def profile_run(torch, engine_cls, module, params, serve_cfg, adapters,
             "bgmv_share_of_device": bgmv_us / busy}
 
 
-def top2_gap(torch, gen_mod, module, params, seq):
+def top2_gap(torch, gen_mod, module, params, seq, device="cuda"):
     """The static reference's top-2 logit gap for the token after
     ``seq``."""
     cfg = module.config
-    cache = gen_mod.init_kv_cache(cfg, 1, len(seq), device="cuda")
+    cache = gen_mod.init_kv_cache(cfg, 1, len(seq), device=device)
     logits, _ = gen_mod.prefill(
-        cfg, params, cache, torch.tensor([seq], device="cuda"),
+        cfg, params, cache, torch.tensor([seq], device=device),
         compute_dtype=module._compute_dtype(),
     )
     top = torch.topk(logits[0], 2).values
@@ -616,6 +640,7 @@ def phase_server(torch, np, card):
     engine, tokens, wall, launches, peak = serve(
         torch, ServeEngine, module, params, serve_cfg, tenants, reqs)
     f32 = report("phase 3", engine, tokens, wall, launches, peak, cfg, card)
+    f32["streams"] = tokens
 
     exact = 0
     for (prompt, n, name), got in zip(reqs, tokens):
@@ -3980,6 +4005,565 @@ def phase_server_features(torch, np, card):
     return out
 
 
+# -- phase 13: the serving control plane ------------------------------------
+
+PLANE_REPEATS = 3        # (a): queue runs, alternating with in-process runs
+PLANE_TIMEOUT_S = 120    # any one request over the queue
+WIRE_ALPHA = 32.0        # (b): the wire tenant's alpha, scale 2.0 at rank 16
+BURST = 24               # (c): requests at t=0, the first DECODE_W without
+BURST_NEW = 32           # a deadline, the rest with BURST_DEADLINE_S
+BURST_DEADLINE_S = 0.001
+# (c): DECODE_W deadlined requests of two blocks each admitted at once into
+# a pool of PREEMPT_BLOCKS (max_model_len PREEMPT_PROMPT + PREEMPT_NEW),
+# where growth runs dry and preempts; their requeues come long after
+# PREEMPT_DEADLINE_S.
+PREEMPT_PROMPT = 32
+PREEMPT_NEW = 64
+PREEMPT_BLOCKS = 23
+PREEMPT_DEADLINE_S = 0.05
+CANCEL_AFTER = 6         # (d): tokens streamed before the serve_cancel frame
+TRACE_PHASES = ("queue_wait", "prefill_compute", "first_token", "request")
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def stream_metrics(starts, times, lengths):
+    """TTFT p50, ITL p50 (ms) and tokens/s of one round as its client
+    sees them: ``starts[i]`` request i's submit time, ``times[i]`` its
+    tokens' arrival times (``time.perf_counter`` seconds)."""
+    ttft = sorted(t[0] - s for s, t in zip(starts, times) if t)
+    gaps = sorted(b - a for t in times for a, b in zip(t, t[1:]))
+    last = max(t[-1] for t in times if t)
+    return {"ttft_p50_ms": 1e3 * ttft[len(ttft) // 2],
+            "itl_p50_ms": 1e3 * gaps[len(gaps) // 2],
+            "tokens_per_s": sum(lengths) / (last - min(starts))}
+
+
+def client_round(client, reqs, timeout=PLANE_TIMEOUT_S, **submit_kw):
+    """Stream every ``(prompt, new, adapter)`` of ``reqs`` through
+    ``client`` at once, one thread each.  Returns the streams, submit
+    times, token arrival times and each request's error (None if it
+    finished)."""
+    import threading
+
+    n = len(reqs)
+    streams, starts = [[] for _ in range(n)], [0.0] * n
+    times, errors = [[] for _ in range(n)], [None] * n
+
+    def one(i):
+        prompt, new, adapter = reqs[i]
+        starts[i] = time.perf_counter()
+        try:
+            for tok in client.stream(prompt, new, adapter=adapter,
+                                     timeout=timeout, **submit_kw):
+                times[i].append(time.perf_counter())
+                streams[i].append(tok)
+        except Exception as e:  # noqa: BLE001 - reported per request
+            errors[i] = f"{type(e).__name__}: {e}"
+
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout + 30)
+    check(not any(t.is_alive() for t in threads),
+          "every client stream ended")
+    return streams, starts, times, errors
+
+
+def serve_client_main(argv) -> int:
+    """Phase 13 (a)'s client process: a ``ServeClient`` on the engine's
+    inbox at ``argv = [host, port]``.  Each line on stdin is a JSON list
+    of ``[prompt, new, adapter]``; it streams them all at once and prints
+    one JSON line: the streams, errors, and its TTFT, ITL and tokens/s.
+    Touches no device; ends at the end of stdin."""
+    from ray_lightning_tpu_torch.cluster.queue import QueueHandle
+    from ray_lightning_tpu_torch.serve.client import RetryPolicy, ServeClient
+
+    client = ServeClient(QueueHandle(argv[0], int(argv[1])),
+                         retry=RetryPolicy(max_attempts=1))
+    try:
+        for line in sys.stdin:
+            reqs = [tuple(r) for r in json.loads(line)]
+            streams, starts, times, errors = client_round(client, reqs)
+            out = {"streams": streams, "errors": errors}
+            if not any(errors):
+                out.update(stream_metrics(starts, times,
+                                          [len(s) for s in streams]))
+            print(json.dumps(out), flush=True)
+    finally:
+        client.close()
+    return 0
+
+
+def inprocess_round(torch, engine, reqs, device):
+    """``reqs`` submitted at once to an engine driven in this thread;
+    tokens timed as they are emitted.  Returns (streams, metrics)."""
+    n = len(reqs)
+    starts, times, handles = [0.0] * n, [[] for _ in range(n)], []
+    for i, (prompt, new, adapter) in enumerate(reqs):
+        starts[i] = time.perf_counter()
+        handles.append(engine.submit(
+            prompt, new, adapter=adapter,
+            on_token=lambda j, tok, i=i: times[i].append(
+                time.perf_counter())))
+    engine.run_until_idle()
+    if device != "cpu":
+        torch.cuda.synchronize()
+    streams = [h.result(0) for h in handles]
+    return streams, stream_metrics(starts, times, [len(s) for s in streams])
+
+
+def same_or_near_tie(torch, module, tree, prompt, got, ref, label, device):
+    """``got`` equals ``ref``, or diverges first where the reference's
+    top-2 logit gap is below TOP2_GAP (same length either way)."""
+    from ray_lightning_tpu_torch.models import generate as gen_mod
+
+    if got == ref:
+        return True
+    if len(got) != len(ref):
+        print(f"phase 13 {label}: {len(got)} tokens, the reference "
+              f"{len(ref)}")
+        return False
+    i = next(j for j, (x, y) in enumerate(zip(got, ref)) if x != y)
+    gap = top2_gap(torch, gen_mod, module, tree, prompt + ref[:i], device)
+    print(f"phase 13 {label}: diverges at token {i}; reference top-2 gap "
+          f"{gap:.3e}")
+    return gap < TOP2_GAP
+
+
+def summarize(runs, label, card):
+    out = {"runs": runs}
+    for key in ("ttft_p50_ms", "itl_p50_ms", "tokens_per_s"):
+        vals = [r[key] for r in runs]
+        out[key] = sorted(vals)[len(vals) // 2]
+        out[key + "_spread"] = [min(vals), max(vals)]
+    print(f"phase 13 (a) {label}: TTFT p50 {out['ttft_p50_ms']:.1f} ms "
+          f"({out['ttft_p50_ms_spread'][0]:.1f}-"
+          f"{out['ttft_p50_ms_spread'][1]:.1f}), ITL p50 "
+          f"{out['itl_p50_ms']:.2f} ms ({out['itl_p50_ms_spread'][0]:.2f}-"
+          f"{out['itl_p50_ms_spread'][1]:.2f}), {out['tokens_per_s']:.1f} "
+          f"tokens/s ({out['tokens_per_s_spread'][0]:.1f}-"
+          f"{out['tokens_per_s_spread'][1]:.1f}) over {len(runs)} runs; "
+          f"{card}")
+    return out
+
+
+def _counted(engine, lora, run):
+    """``run()`` with the BGMV's launch count set to 0 just before and
+    read just after; returns (result, launches, serve steps run)."""
+    c0 = dict(engine.stats.counters)
+    lora.bgmv.launches = 0
+    result = run()
+    launches = lora.bgmv.launches
+    c1 = dict(engine.stats.counters)
+    steps = sum(c1.get(k, 0) - c0.get(k, 0)
+                for k in ("prefills", "decode_steps"))
+    return result, launches, steps
+
+
+def phase_serve_plane(torch, np, card, world, phase3=None,
+                      repeats=PLANE_REPEATS, device="cuda"):
+    """Phase 13: the serving control plane at the server cell's width —
+    an engine started on its serve thread with every export on, reached
+    over the queue plane: (a) the cell's requests from a client process,
+    each stream equal to the in-process engine's (and phase 3's), timed
+    against it in alternating runs; (b) a tenant hot-loaded over the wire
+    in the ``data`` and the ``shm`` form, served through the BGMV exactly;
+    (c) deadlines: a burst whose deadlined requests queue and expire, and
+    deadlined requests admitted, preempted and requeued past their
+    deadline, none expired, every stream exact with each index once;
+    (d) a stream cancelled by a ``serve_cancel`` frame, its blocks freed;
+    (e) the exports after ``stop()``.  ``phase3`` carries phase 3's
+    streams and profile."""
+    import shutil
+    import tempfile
+    import threading
+    import urllib.request
+
+    from ray_lightning_tpu_torch.cluster.rpc import find_free_port
+    from ray_lightning_tpu_torch.cluster.shm import SegmentStore
+    from ray_lightning_tpu_torch.models import generate as gen_mod
+    from ray_lightning_tpu_torch.models.gpt import synthetic_lora_adapter
+    from ray_lightning_tpu_torch.ops import lora
+    from ray_lightning_tpu_torch.serve import (
+        RetryPolicy, ServeClient, ServeEngine, ServeRejected, encode_adapter,
+    )
+
+    t_phase = time.perf_counter()
+    cfg, module, params = world["cfg"], world["module"], world["params"]
+    reqs, trees = world["reqs"], world["trees"]
+    per_step = 2 * cfg.n_layer
+    failed = []
+
+    def gate(ok, what):
+        if not ok:
+            print(f"phase 13: FAILED: {what}")
+            failed.append(what)
+
+    tdir = tempfile.mkdtemp(prefix="rlt-serve-plane-")
+    prom_port = find_free_port("127.0.0.1")
+    engine = ServeEngine(
+        module, params,
+        dataclasses.replace(world["serve_cfg"], capacity=True, slo=True,
+                            export_every_s=0.25),
+        adapters=world["tenants"], device=device, telemetry_dir=tdir,
+        prom_file=os.path.join(tdir, "serve.prom"), prom_port=prom_port,
+        trace_dir=tdir, trace_name="phase13")
+    reply_cost = [0.0, 0]
+    send = engine._reply
+
+    def timed_reply(addr, item):
+        t0 = time.perf_counter()
+        send(addr, item)
+        reply_cost[0] += time.perf_counter() - t0
+        reply_cost[1] += 1
+
+    engine._reply = timed_reply
+    ref = ServeEngine(module, params, world["serve_cfg"],
+                      adapters=world["tenants"], device=device)
+    ref.generate(reqs[1][0][:32], 4, adapter=reqs[1][2])
+    engine.start()
+    client = ServeClient(engine.queue_handle(),
+                         retry=RetryPolicy(max_attempts=1))
+    child = errf = None
+    out = {}
+    try:
+        client.generate(reqs[1][0][:32], 4, adapter=reqs[1][2],
+                        timeout=PLANE_TIMEOUT_S)
+
+        # (a) the cell's requests from a client process, alternating
+        h = engine.queue_handle()
+        errf = open(os.path.join(tdir, "client.err"), "w")
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            p for p in (ROOT, os.environ.get("PYTHONPATH")) if p))
+        child = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--serve-client",
+             h.host, str(h.port)], stdin=subprocess.PIPE,
+            stdout=subprocess.PIPE, stderr=errf, text=True, cwd=ROOT,
+            env=env)
+        wire_reqs = json.dumps([[p, n, a] for p, n, a in reqs])
+
+        def queue_round():
+            child.stdin.write(wire_reqs + "\n")
+            child.stdin.flush()
+            line = child.stdout.readline()
+            if not line:
+                errf.flush()
+                tail = open(errf.name).read()[-2000:]
+                raise RuntimeError(f"the client process ended: {tail}")
+            return json.loads(line)
+
+        want = phase3["streams"] if phase3 else None
+        runs = {"queue": [], "inprocess": []}
+        launches_total = 0
+        reply_cost[:] = [0.0, 0]
+        order = []
+        for i in range(repeats):
+            order += ["inprocess", "queue"] if i % 2 == 0 \
+                else ["queue", "inprocess"]
+        for kind in order:
+            if kind == "inprocess":
+                # The serve thread's idle polls would share the GIL with
+                # the in-process engine: halted for its runs.
+                engine.halt_loop()
+                streams, metrics = inprocess_round(torch, ref, reqs, device)
+                engine.start()
+            else:
+                res, launches, steps = _counted(engine, lora, queue_round)
+                gate(not any(res["errors"]),
+                     f"(a) queue run errors {res['errors']}")
+                streams = res["streams"]
+                metrics = {k: res.get(k, float("nan")) for k in
+                           ("ttft_p50_ms", "itl_p50_ms", "tokens_per_s")}
+                print(f"phase 13 (a) queue run: bgmv launches {launches} "
+                      f"= {per_step} x {steps} serve steps: "
+                      f"{launches == per_step * steps}")
+                # The counters count kernel launches: none on the CPU.
+                gate(device == "cpu"
+                     or 0 < launches == per_step * steps,
+                     "(a) the BGMV launched 2L times a prefill and tick")
+                launches_total += launches
+            if want is None:
+                want = streams
+            exact = sum(a == b for a, b in zip(streams, want))
+            print(f"phase 13 (a) {kind} run: {exact}/{len(reqs)} streams "
+                  f"equal phase 3's; TTFT p50 "
+                  f"{metrics['ttft_p50_ms']:.1f} ms, ITL p50 "
+                  f"{metrics['itl_p50_ms']:.2f} ms, "
+                  f"{metrics['tokens_per_s']:.1f} tokens/s")
+            gate(exact == len(reqs), f"(a) {kind} streams equal phase 3's")
+            runs[kind].append(metrics)
+        frames = reply_cost[1]
+        out["reply_frame_us"] = 1e6 * reply_cost[0] / max(frames, 1)
+        out["reply_frames"] = frames
+        out["bgmv_launches"] = launches_total
+        out["queue"] = summarize(runs["queue"], "over the queue", card)
+        out["inprocess"] = summarize(runs["inprocess"], "in-process", card)
+        print(f"phase 13 (a): {frames} reply frames sent from the serve "
+              f"thread, {out['reply_frame_us']:.1f} us each; {card}")
+        out["profile"] = None
+        if device != "cpu":
+            from torch.profiler import ProfilerActivity, profile
+
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                queue_round()
+                torch.cuda.synchronize()
+                wall_us = (time.perf_counter() - t0) * 1e6
+            busy = sum(e.time_range.elapsed_us() for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
+            base = (phase3 or {}).get("profile") or {}
+            out["profile"] = {"wall_ms": wall_us / 1e3,
+                              "device_busy_ms": busy / 1e3,
+                              "device_busy_share": busy / wall_us,
+                              "phase3_device_busy_share":
+                              base.get("device_busy_share")}
+            print(f"phase 13 (a) profile: over the queue, wall "
+                  f"{wall_us / 1e3:.1f} ms, device busy {busy / 1e3:.1f} ms "
+                  f"({100 * busy / wall_us:.1f}%; phase 3 in-process "
+                  f"{100 * (base.get('device_busy_share') or 0):.1f}%); "
+                  f"{card}")
+
+        engine.halt_loop()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            engine._maybe_export(force=True)
+        out["export_ms"] = (time.perf_counter() - t0) * 1e2
+        cap, slo = engine.capacity_oracle, engine.slo_evaluator
+        t0 = time.perf_counter()
+        for _ in range(10):
+            cap.observe(engine.stats.capacity_view(), recompiles=0)
+            cap.snapshot()
+            slo.evaluate()
+        out["plane_tick_ms"] = (time.perf_counter() - t0) * 1e2
+        engine.start()
+        print(f"phase 13 (a): one export (SLO and capacity tick, "
+              f"OpenMetrics text and file, serve-live.json) "
+              f"{out['export_ms']:.2f} ms; the SLO and capacity tick alone "
+              f"{out['plane_tick_ms']:.2f} ms; {card}")
+
+        # (b) a tenant hot-loaded over the wire, both payload forms
+        gen = torch.Generator(device=device).manual_seed(SEED + 13)
+        wire_cfg = dataclasses.replace(cfg, lora_rank=16,
+                                       lora_alpha=WIRE_ALPHA)
+        wire, merged = synthetic_lora_adapter(params, wire_cfg, gen,
+                                              scale=0.3)
+        check(wire["scale"] == 2.0, "the wire tenant's scale is 2.0")
+        blob = encode_adapter(wire)
+        store = SegmentStore("rlt-seg")
+        prompt, n, _ = reqs[1]
+        ref_stream = gen_mod.generate(module, merged, [prompt], n,
+                                      device=device)[0, len(prompt):].tolist()
+        engine.remove_adapter("tenant3")  # room in the pool
+        out["wire"] = {}
+        for form in ("data", "shm"):
+            name = f"wire_{form}"
+            item = {"type": "serve_adapter_load", "name": name, "rank": 16}
+            item[form] = blob if form == "data" else store.put(blob)
+            t0 = time.perf_counter()
+            client._inbox.put(item)
+            while name not in engine.adapter_names():
+                check(time.perf_counter() - t0 < 60, f"(b) {name} loads")
+                time.sleep(0.001)
+            load_ms = (time.perf_counter() - t0) * 1e3
+            toks, launches, steps = _counted(
+                engine, lora, lambda: client.generate(
+                    prompt, n, adapter=name, timeout=PLANE_TIMEOUT_S))
+            ok = same_or_near_tie(torch, module, merged, prompt, toks,
+                                  ref_stream, f"(b) {form}", device)
+            print(f"phase 13 (b) {form}: {len(blob)} bytes loaded in "
+                  f"{load_ms:.1f} ms; stream = generate() on the merged "
+                  f"weights: {toks == ref_stream} (gate passed: {ok}); "
+                  f"bgmv launches {launches} = {per_step} x {steps} steps")
+            gate(ok, f"(b) the {form}-loaded tenant's stream")
+            gate(steps >= n and (device == "cpu"
+                                 or launches == per_step * steps),
+                 f"(b) {form}: 2L BGMV launches a step over {n} tokens")
+            if form == "shm":
+                gate(not os.path.exists(item["shm"]),
+                     "(b) the segment is unlinked once read")
+            engine.remove_adapter(name)
+            out["wire"][form] = {"bytes": len(blob), "load_ms": load_ms,
+                                 "exact": toks == ref_stream,
+                                 "launches": launches, "steps": steps}
+
+        # (c) deadlines: a burst at t=0 ...
+        e0 = engine.stats.counters["expired"]
+        burst = [(reqs[i % len(reqs)][0][:64], BURST_NEW,
+                  None if i < DECODE_W else BURST_DEADLINE_S)
+                 for i in range(BURST)]
+        rids = [client.submit(p, k, deadline_s=d) for p, k, d in burst]
+        pends = [client._pending[r] for r in rids]
+        status = {}
+        for rid, pend, (_, k, d) in zip(rids, pends, burst):
+            try:
+                toks = client.result(rid, PLANE_TIMEOUT_S)
+                status[rid] = "finished" if len(toks) == k else "short"
+            except ServeRejected as e:
+                status[rid] = "expired" if "expired" in str(e) else str(e)
+                gate(not pend.tokens, f"(c) expired {rid} streamed nothing")
+        deadlined = rids[DECODE_W:]
+        expired = sum(status[r] == "expired" for r in rids)
+        counted = engine.stats.counters["expired"] - e0
+        print(f"phase 13 (c) burst: {BURST} requests, {DECODE_W} without a "
+              f"deadline: {sum(status[r] == 'finished' for r in rids)} "
+              f"finished, {expired} expired replies, the engine's counter "
+              f"+{counted}")
+        gate(all(status[r] == "finished" for r in rids[:DECODE_W]),
+             "(c) the undeadlined requests finish")
+        gate(expired == len(deadlined) == counted,
+             "(c) every queued deadlined request expired, replies = counter")
+        out["burst"] = {"expired": expired, "counter": counted}
+
+        # ... and deadlined requests admitted, preempted, requeued late
+        peng = ServeEngine(module, params, dataclasses.replace(
+            world["serve_cfg"], num_blocks=PREEMPT_BLOCKS,
+            max_model_len=PREEMPT_PROMPT + PREEMPT_NEW),
+            adapters=world["tenants"], device=device)
+        pclient = ServeClient(peng.queue_handle(),
+                              retry=RetryPolicy(max_attempts=1))
+        try:
+            preqs = [(p[:PREEMPT_PROMPT], PREEMPT_NEW, a)
+                     for p, _, a in reqs[:DECODE_W]]
+            pwant, _ = inprocess_round(torch, ref, preqs, device)
+            holder = {}
+
+            def drive():
+                holder["r"] = client_round(pclient, preqs,
+                                           deadline_s=PREEMPT_DEADLINE_S)
+
+            th = threading.Thread(target=drive)
+            th.start()
+            t0 = time.perf_counter()
+            while peng._inbox._items.qsize() < len(preqs):
+                check(time.perf_counter() - t0 < 60, "(c) requests queued")
+                time.sleep(0.001)
+            while th.is_alive():
+                if not peng.step():
+                    time.sleep(0.0005)
+            th.join()
+            streams, _, _, errors = holder["r"]
+            pc = peng.stats.counters
+            good = sum(same_or_near_tie(
+                torch, module, trees[a], p, s, w, "(c) preempted", device)
+                for (p, _, a), s, w in zip(preqs, streams, pwant))
+            print(f"phase 13 (c) preemption: {pc['preempted']} preemptions,"
+                  f" {pc['expired']} expired, {good}/{len(preqs)} streams "
+                  f"equal the full pool's with each index once, "
+                  f"{pclient.re_emitted_tokens} re-emitted tokens deduped; "
+                  f"errors {[e for e in errors if e]}")
+            gate(not any(errors) and pc["expired"] == 0,
+                 "(c) no preempted request expires")
+            gate(pc["preempted"] >= 1 and pclient.re_emitted_tokens > 0,
+                 "(c) requests were preempted and re-emitted")
+            gate(good == len(preqs), "(c) preempted streams exact")
+            out["preempt"] = {"preempted": pc["preempted"],
+                              "re_emitted": pclient.re_emitted_tokens,
+                              "exact": good}
+        finally:
+            peng.stop()
+            pclient.close()
+
+        # (d) a stream cancelled by a serve_cancel frame
+        prompt, n, adapter = reqs[2]
+        free0 = engine.cache.allocator.free_blocks
+        engine.drain_done()
+        re0 = client.re_emitted_tokens
+        stream = client.stream(prompt, n, adapter=adapter,
+                               timeout=PLANE_TIMEOUT_S)
+        got = [next(stream) for _ in range(CANCEL_AFTER)]
+        rid = next(r for r, pend in client._pending.items()
+                   if not pend.done.is_set())
+        client._inbox.put({"type": "serve_cancel", "rid": rid})
+        cancelled = False
+        try:
+            got.extend(stream)
+        except ServeRejected as e:
+            cancelled = "cancelled" in str(e)
+        t0 = time.perf_counter()
+        while engine.cache.allocator.free_blocks != free0 \
+                and time.perf_counter() - t0 < 10:
+            time.sleep(0.001)
+        freed = engine.cache.allocator.free_blocks == free0
+        print(f"phase 13 (d): {len(got)} of {n} tokens streamed, then "
+              f"cancelled: {cancelled}; each index once and equal to the "
+              f"in-process stream: {got == want[2][:len(got)]}; blocks "
+              f"freed: {freed}")
+        gate(cancelled and len(got) < n, "(d) the stream ends cancelled")
+        gate(got == want[2][:len(got)] and client.re_emitted_tokens == re0,
+             "(d) each index once, the in-process tokens")
+        gate(freed and (rid, "cancelled") in engine.drain_done(),
+             "(d) the slot's blocks are freed")
+
+        # (e) the exports
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{prom_port}/metrics", timeout=10) as r:
+            scraped = r.read().decode()
+        engine.stop()
+        text = open(os.path.join(tdir, "serve.prom")).read()
+        live = json.load(open(os.path.join(tdir, "serve-live.json")))
+        m = re.search(r'rlt_serve_requests_total\{kind="expired"\} (\d+)',
+                      text)
+        for label, body in (("textfile", text), ("scrape", scraped)):
+            gate('rlt_serve_requests_total{kind="completed"}' in body
+                 and 'rlt_serve_requests_total{kind="expired"}' in body
+                 and "rlt_serve_token_latency_ms" in body,
+                 f"(e) the {label} holds completed, expired and token "
+                 f"latency")
+        gate(m is not None and int(m.group(1)) == expired
+             == live["serve"]["counters"]["expired"],
+             "(e) the OpenMetrics expired line = the replies = the counter")
+        spans = [json.loads(line) for line in open(
+            os.path.join(tdir, "trace-serve-phase13.jsonl"))]
+        by_rid = {}
+        for s in spans:
+            rid_ = (s.get("args") or {}).get("rid")
+            by_rid.setdefault(rid_, set()).add(s["name"])
+        finished = [r for r in rids if status[r] == "finished"]
+        gate(all(set(TRACE_PHASES) <= by_rid.get(r, set())
+                 for r in finished), "(e) a span per phase of each request")
+        gate(all(("queue_wait" in by_rid.get(r, set()))
+                 == (status[r] == "finished") for r in deadlined),
+             "(c) a deadlined request expired iff it was never admitted")
+        top = subprocess.run(
+            [sys.executable, os.path.join(ROOT, "tools", "rlt_top.py"),
+             "--once", tdir], capture_output=True, text=True, timeout=60)
+        gate(top.returncode == 0 and "serve:" in top.stdout,
+             "(e) rlt_top renders the serve pane")
+        gate(live["serve"].get("capacity", {}).get("type")
+             == "capacity_snapshot", "(e) the capacity block")
+        gate(set(live.get("slo", {})) == {"serve_availability",
+                                          "serve_queue_wait"},
+             "(e) the SLO snapshot")
+        print(f"phase 13 (e): serve-live.json keys {sorted(live)}, "
+              f"{len(text.splitlines())} OpenMetrics lines (expired "
+              f"{m.group(1) if m else None}), {len(spans)} spans "
+              f"({sorted({s['name'] for s in spans})}); rlt_top:")
+        for line in top.stdout.splitlines()[:8]:
+            print(f"phase 13 (e):   {line}")
+        out["spans"] = len(spans)
+        out["capacity"] = live["serve"].get("capacity")
+        out["slo"] = live.get("slo")
+    finally:
+        if child is not None:
+            try:
+                child.stdin.close()
+                child.wait(timeout=30)
+            except Exception:  # noqa: BLE001 - never leave it running
+                child.kill()
+                child.wait()
+        if errf is not None:
+            errf.close()
+        client.close()
+        engine.stop()
+        shutil.rmtree(tdir, ignore_errors=True)
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"phase 13: {out['wall_s']:.1f} s; {card}")
+    check(not failed, "phase 13: " + "; ".join(failed))
+    return out
+
+
 def kernel_name(mangled):
     """``name<args>`` of a kernel: of a demangled name (the profiler's),
     the identifier ending in ``_kernel`` and its template arguments; of a
@@ -4175,6 +4759,9 @@ def main() -> int:
     ckpt = phase_checkpoint(torch, card)
     lora_opt = phase_lora_and_opt_state(torch, np, card)
     features = phase_server_features(torch, np, card)
+    phase3 = {"streams": f32.pop("streams"), "profile": f32["profile"]}
+    plane = phase_serve_plane(torch, np, card, server_world(torch, np),
+                              phase3)
 
     kernels = [{
         "name": "bgmv", "route": "cuda", "source": BGMV_SOURCE,
@@ -4200,6 +4787,7 @@ def main() -> int:
     print("lora_opt_state: " + json.dumps({**lora_opt, "card": card}))
     print("server_features: " + json.dumps({**features, "bgmv_widths":
                                             bgmv_widths, "card": card}))
+    print("serve_plane: " + json.dumps({**plane, "card": card}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -4210,4 +4798,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--serve-client"]:
+        sys.exit(serve_client_main(sys.argv[2:]))
     sys.exit(main())

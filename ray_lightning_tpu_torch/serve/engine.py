@@ -32,18 +32,37 @@ Three features ride the same steps, each off by default:
 An int8 tree (``models/quant.py``) is dequantized once at build, and every
 weight cast to the compute dtype once (:func:`prepare_params`).
 
-The engine is single-threaded over the device: drive it with
-:meth:`step` / :meth:`run_until_idle`, or :meth:`generate` for one
-request.  :meth:`submit` is thread-safe.
+The engine is single-threaded over the device: drive it in-process with
+:meth:`step` / :meth:`run_until_idle` (or :meth:`generate` for one
+request), or :meth:`start` its serve thread and reach it from any process
+through :meth:`queue_handle` and ``serve/client.py::ServeClient``.
+:meth:`submit` is thread-safe.  The queue plane's requests
+(``serve_request``, ``serve_cancel``, ``serve_adapter_load`` frames) are
+drained at the top of every step; replies (a ``serve_token`` frame per
+token, then ``serve_done``) go back over each client's own queue from the
+serve thread.  ``deadline_s`` expires a request still queued past it.
+Exports: ``telemetry_dir`` (``serve-live.json``), ``prom_file`` /
+``prom_port`` (OpenMetrics), ``trace_dir`` (``trace-serve-<name>.jsonl``
+at :meth:`stop`) and, with ``ServeConfig(capacity=True, slo=True)``, the
+headroom oracle and the burn-rate SLOs on the export cadence.  A loop
+that raises marks the engine dead and fails every pending request
+loudly.  The disaggregated plane's frames (``serve_kv_handoff``,
+``serve_migration``) are answered ``invalid``: ``serve/dist`` is not
+ported yet.
 """
 
 from __future__ import annotations
 
+import json
+import logging
+import os
+import queue as _pyqueue
 import threading
 import time
 import uuid
-from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Sequence
+from collections import deque
+from dataclasses import dataclass, replace
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -59,6 +78,12 @@ from ray_lightning_tpu_torch.serve.metrics import ServeStats
 from ray_lightning_tpu_torch.serve.scheduler import (
     Request, Scheduler, derive_geometry,
 )
+from ray_lightning_tpu_torch.telemetry.propagate import (
+    child_context, extract, root_context, trace_args,
+)
+from ray_lightning_tpu_torch.telemetry.spans import SpanTracer
+
+log = logging.getLogger(__name__)
 
 __all__ = ["ServeConfig", "ServeEngine", "ServeHandle", "ServeRejected"]
 
@@ -73,8 +98,9 @@ def accepted_drafts(drafts, target) -> int:
 
 
 class ServeRejected(RuntimeError):
-    """Admission backpressure: the queue is full.  Typed so clients can
-    retry with backoff without string matching."""
+    """Admission backpressure (the queue is full) or a deadline that
+    passed in the queue.  Typed so clients can retry with backoff without
+    string matching."""
 
 
 @dataclass(frozen=True)
@@ -119,6 +145,22 @@ class ServeConfig:
     prefill_chunk: Optional[int] = None
     # Seed of the temperature>0 sampling streams.
     seed: int = 0
+    # The serve thread's sleep between polls when there is no work.
+    idle_wait_s: float = 0.002
+    # Refresh cadence of the live exports (prom textfile, serve-live.json)
+    # and of the SLO and capacity plane.
+    export_every_s: float = 1.0
+    # The headroom oracle (serve/capacity.py) and the burn-rate SLOs
+    # (telemetry/slo.py), ticked on the export cadence; off by default.
+    capacity: bool = False
+    slo: bool = False
+    # Time-series bin width of the plane's store.
+    ts_interval_s: float = 1.0
+    # Queue-wait bound (ms) of the stock serve_queue_wait SLO.
+    slo_queue_wait_ms: float = 500.0
+    # The stock SLOs' (fast_s, slow_s, burn bound) window pairs; None =
+    # telemetry/slo.py's defaults.
+    slo_windows: Optional[Tuple[Tuple[float, float, float], ...]] = None
 
 
 class ServeHandle:
@@ -127,6 +169,7 @@ class ServeHandle:
     def __init__(self, rid: str, request: Request):
         self.rid = rid
         self.request = request
+        self.error: Optional[BaseException] = None  # the loop's, if it died
         self._done = threading.Event()
 
     @property
@@ -142,15 +185,23 @@ class ServeHandle:
 
     def result(self, timeout: Optional[float] = None) -> List[int]:
         """Generated tokens (prompt excluded).  Raises
-        :class:`ServeRejected` on backpressure, ``TimeoutError`` when the
-        request did not finish in time."""
+        :class:`ServeRejected` on backpressure or expiry, ``RuntimeError``
+        (chained to the loop's error) when the engine died with the
+        request pending, ``TimeoutError`` when the request did not finish
+        in time."""
         if not self._done.wait(timeout):
             raise TimeoutError(
                 f"request {self.rid} not finished within {timeout}s "
                 f"(state={self.status})"
             )
-        if self.request.done_reason == "rejected":
-            raise ServeRejected(f"request {self.rid} rejected")
+        if self.error is not None:
+            raise RuntimeError(
+                f"serve engine died with request {self.rid} in flight"
+            ) from self.error
+        if self.request.done_reason in ("rejected", "expired"):
+            raise ServeRejected(
+                f"request {self.rid} {self.request.done_reason}"
+            )
         return list(self.request.generated)
 
 
@@ -178,12 +229,23 @@ class ServeEngine:
             a card).
         draft_module/draft_params: the draft model of speculative
             decoding (needs ``config.spec_k >= 1``; same vocabulary).
+        telemetry_dir: where ``serve-live.json`` is refreshed.
+        prom_file/prom_port: the OpenMetrics textfile and the localhost
+            ``/metrics`` port (0 = ephemeral).
+        trace_dir/trace_name: request spans, exported at :meth:`stop` as
+            ``<trace_dir>/trace-serve-<trace_name>.jsonl``; no tracing
+            without ``trace_dir``.
     """
 
     def __init__(self, module, params: Dict[str, Any],
                  config: Optional[ServeConfig] = None,
                  adapters: Optional[Dict[str, dict]] = None,
-                 device=None, draft_module=None, draft_params=None):
+                 device=None, draft_module=None, draft_params=None,
+                 telemetry_dir: Optional[str] = None,
+                 prom_file: Optional[str] = None,
+                 prom_port: Optional[int] = None,
+                 trace_dir: Optional[str] = None,
+                 trace_name: Optional[str] = None):
         self.device = resolve_device(device)
         self.module = module
         self.cfg = module.config
@@ -314,8 +376,64 @@ class ServeEngine:
                 device=self.device,
             ).init_pool()
         self._cur_tokens = np.zeros((cfg.num_slots,), np.int64)
+        self._started_t = time.monotonic()
+        # Request spans (queue wait, prefill, first token, the request);
+        # off without trace_dir, when record() returns at once.
+        self._trace_dir = trace_dir
+        self._trace_name = trace_name or uuid.uuid4().hex[:6]
+        self.tracer = SpanTracer(enabled=trace_dir is not None,
+                                 maxlen=16384, rank=0)
         self._handles: Dict[str, ServeHandle] = {}  # guarded by self._lock
+        # Terminal (rid, status) pairs since the last drain_done(), bounded
+        # for an engine nobody drains.
+        self._done_feed: deque = deque(maxlen=4096)  # guarded by self._lock
+        self._error: Optional[BaseException] = None
         self._lock = threading.Lock()
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self._inbox = None  # DriverQueue, made at the first queue_handle()
+        # Reply queues by client address.  The serve thread sends through
+        # them and stop() closes them from the caller's thread, hence the
+        # lock.
+        self._reply_handles: Dict[Tuple[str, int], Any] = {}  # self._lock
+        self._exporter = None
+        self._live_path = None
+        self._last_export = 0.0
+        if prom_file or prom_port is not None:
+            from ray_lightning_tpu_torch.telemetry.export_prom import (
+                PromExporter,
+            )
+
+            self._exporter = PromExporter(textfile=prom_file, port=prom_port)
+        if telemetry_dir:
+            os.makedirs(telemetry_dir, exist_ok=True)
+            self._live_path = os.path.join(telemetry_dir, "serve-live.json")
+        # The SLO and capacity plane: host-side folds on the export
+        # cadence, no device work.
+        self._capacity = None
+        self._slo = None
+        self._slo_alerts: deque = deque(maxlen=256)
+        if cfg.capacity or cfg.slo:
+            from ray_lightning_tpu_torch.serve.capacity import CapacityOracle
+
+            self._capacity = CapacityOracle(interval_s=cfg.ts_interval_s,
+                                            clock=time.time)
+            # The derived snapshot (model fit and trends) refreshes at
+            # most once a second; exports in between reuse it.
+            self._capacity_every_s = max(cfg.export_every_s, 1.0)
+            self._last_capacity = 0.0
+        if cfg.slo:
+            from ray_lightning_tpu_torch.telemetry.slo import (
+                SloEvaluator, default_serve_slos,
+            )
+
+            specs = default_serve_slos(cfg.slo_queue_wait_ms)
+            if cfg.slo_windows is not None:
+                windows = tuple(tuple(w) for w in cfg.slo_windows)
+                specs = tuple(replace(s, windows=windows) for s in specs)
+            self._slo = SloEvaluator(self._capacity.store, specs,
+                                     clock=time.time,
+                                     emit=self._slo_alerts.append)
 
     # -- requests ------------------------------------------------------------
     def submit(self, prompt: Sequence[int], max_new_tokens: int,
@@ -324,8 +442,10 @@ class ServeEngine:
                top_k: Optional[int] = None,
                spec: Optional[int] = None,
                adapter: Optional[str] = None,
+               deadline_s: Optional[float] = None,
                sample_seed: Optional[int] = None,
-               on_token=None, rid: Optional[str] = None) -> ServeHandle:
+               on_token=None, rid: Optional[str] = None,
+               _trace_ctx=None) -> ServeHandle:
         """Enqueue one request (thread-safe).  A backpressure rejection
         shows at once as ``handle.status == "rejected"`` (and ``result()``
         raises).  ``adapter`` decodes the request through that tenant's
@@ -333,7 +453,10 @@ class ServeEngine:
         ``ValueError``, never a silent fall back to the base model.
         ``sample_seed`` presets the request's sampling stream (None = the
         submission ordinal).  ``spec`` caps the request's drafted tokens
-        a tick (None = the engine's ``spec_k``, 0 = plain decode)."""
+        a tick (None = the engine's ``spec_k``, 0 = plain decode).
+        ``deadline_s`` expires the request if it is still queued that
+        many seconds after arrival (``ServeRejected`` from ``result()``).
+        A dead engine (its loop raised) refuses with ``RuntimeError``."""
         prompt = [int(t) for t in prompt]
         if not prompt:
             raise ValueError("prompt must contain at least one token")
@@ -388,13 +511,23 @@ class ServeEngine:
             )
         if any(not 0 <= t < self.cfg.vocab_size for t in prompt):
             raise ValueError("prompt token outside the vocab")
+        if self._error is not None:
+            raise RuntimeError(
+                "serve engine is dead (its loop raised; see the chained "
+                "error) — build a fresh ServeEngine"
+            ) from self._error
         rid = rid or uuid.uuid4().hex[:12]
+        trace_ctx, trace_local = _trace_ctx, False
+        if trace_ctx is None and self.tracer.enabled:
+            # No upstream context: this engine owns the trace's root.
+            trace_ctx, trace_local = root_context(rid), True
         req = Request(
             rid=rid, prompt=prompt, max_new_tokens=max_new_tokens,
             temperature=float(temperature), eos_token_id=eos_token_id,
-            top_k=top_k, spec=spec, adapter=adapter,
-            sample_seed=sample_seed, on_token=on_token,
+            top_k=top_k, spec=spec, adapter=adapter, deadline_s=deadline_s,
+            sample_seed=sample_seed, on_token=on_token, trace=trace_ctx,
         )
+        req._trace_local = trace_local
         handle = ServeHandle(rid, req)
         with self._lock:
             if adapter is not None:
@@ -412,6 +545,8 @@ class ServeEngine:
             accepted = self.scheduler.submit(req)
             if accepted:
                 self._handles[rid] = handle
+            else:
+                self._done_feed.append((rid, "rejected"))
         if not accepted:
             self.stats.bump("rejected")
             req.finished_t = time.monotonic()
@@ -419,30 +554,48 @@ class ServeEngine:
         return handle
 
     def generate(self, prompt: Sequence[int], max_new_tokens: int,
-                 **kw) -> List[int]:
-        """Blocking convenience: submit, drive until idle, return the
-        generated tokens."""
+                 timeout: Optional[float] = 60.0, **kw) -> List[int]:
+        """Blocking convenience: submit, drive until idle (when no serve
+        thread runs), return the generated tokens."""
         handle = self.submit(prompt, max_new_tokens, **kw)
-        self.run_until_idle()
-        return handle.result(0)
+        if self._thread is None:
+            self.run_until_idle()
+        return handle.result(timeout)
 
     # -- the loop ------------------------------------------------------------
+    @torch.no_grad()
     def step(self) -> bool:
-        """One serve iteration: admit (one prefill per admission, or a
-        chunk job), one chunk for every chunk job, grow or preempt, one
-        decode or draft → verify tick.  Returns True when any work was
-        done."""
+        """One serve iteration: drain the queue plane, expire and admit
+        (one prefill per admission, or a chunk job), one chunk for every
+        chunk job, grow or preempt, one decode or draft → verify tick,
+        the live exports.  Returns True when any work was done.  Grad
+        mode is per thread, so the step turns it off itself: no served
+        tensor requires grad on any thread."""
+        self._drain_inbox()
         with self._lock:
             if self.prefix_cache is not None and self._prefix_drops:
                 # Replaced or removed tenants' chains go before any claim.
                 for name in self._prefix_drops:
                     self.prefix_cache.drop(name)
                 self._prefix_drops.clear()
-            admissions = self.scheduler.poll()
-        worked = bool(admissions)
+            admissions, expired = self.scheduler.poll()
+        worked = bool(admissions) or bool(expired)
+        for req in expired:
+            self.stats.bump("expired")
+            self._finish_handle(req)
         now = time.monotonic()
+        t_adm = now
+        tr = self.tracer
         for slot, req, bucket in admissions:
-            self.stats.note_admitted(now - req.arrival_t)
+            wait = now - req.arrival_t
+            self.stats.note_admitted(wait)
+            ctx = req.trace if tr.enabled else None
+            if ctx is not None:
+                tr.record("queue_wait", time.time() - wait, wait,
+                          args=trace_args(child_context(ctx), rid=req.rid,
+                                          preemptions=req.preemptions))
+                self.stats.note_phase("queue_wait", wait)
+            t_ph = time.time() if ctx is not None else 0.0
             if bucket == 0:
                 # Claimed and/or chunked: exact coverage, the uncovered
                 # suffix through the chunk step — at once when it fits one
@@ -456,7 +609,24 @@ class ServeEngine:
             else:
                 self.stats.bump("prefills")
                 first = self._prefill(slot, req, bucket)
+            # The first token's read synced the device: the interval
+            # covers the prefill's dispatch and compute.
+            t_first = time.monotonic()
+            self.stats.bump("admit_us", int((t_first - t_adm) * 1e6))
+            t_adm = t_first
+            if ctx is not None:
+                t_sync = time.time()
+                tr.record("prefill_compute", t_ph, max(0.0, t_sync - t_ph),
+                          args=trace_args(child_context(ctx), rid=req.rid,
+                                          bucket=bucket))
+                self.stats.note_phase("prefill_compute", t_sync - t_ph)
             self._first_token(slot, req, first)
+            if ctx is not None:
+                ft_dur = max(0.0, time.time() - t_sync)
+                tr.record("first_token", t_sync, ft_dur,
+                          args=trace_args(child_context(ctx), rid=req.rid,
+                                          token_index=0))
+                self.stats.note_phase("first_token", ft_dur)
 
         # One chunk for every chunked prefill before the decode tick, so
         # resident slots keep a token a step while a long prompt fills in.
@@ -500,6 +670,7 @@ class ServeEngine:
             else:
                 self._decode_tick(active)
         self._refresh_gauges()
+        self._maybe_export()
         return worked
 
     def _decoding(self) -> List[int]:
@@ -736,6 +907,9 @@ class ServeEngine:
         ).tolist()  # the tick's one sync: it must emit tokens
         dt = time.monotonic() - t0
         self.stats.bump("decode_steps")
+        # The tick's wall in µs: with decode_steps and tokens_out the
+        # capacity oracle's tick-cost fit.
+        self.stats.bump("decode_us", int(dt * 1e6))
         self.stats.note_token_latency(dt, n_tokens=len(active))
         for slot in active:
             sch.seq_lens[slot] += 1
@@ -832,6 +1006,8 @@ class ServeEngine:
         ).reshape(W, T).cpu().numpy()  # the verify's sync
         self.stats.bump("verify_steps")
         dt = time.monotonic() - t0
+        # Busy time as on the plain tick, for the capacity oracle.
+        self.stats.bump("decode_us", int(dt * 1e6))
 
         total = 0
         for slot in active:
@@ -881,16 +1057,27 @@ class ServeEngine:
                 self.prefix_cache.insert(req.adapter, toks,
                                          self.scheduler._blocks[slot][:n])
         req = self.scheduler.finish(slot)
-        self.stats.note_completed(req.finished_t - req.arrival_t)
+        e2e = req.finished_t - req.arrival_t
+        self.stats.note_completed(e2e)
         if req.adapter is not None:
             self.stats.note_adapter(req.adapter, completed=1)
+        if (self.tracer.enabled and req.trace is not None
+                and getattr(req, "_trace_local", False)):
+            # A trace this engine owns gets its root span here.
+            self.tracer.record(
+                "request", time.time() - e2e, e2e,
+                args=trace_args(req.trace, rid=req.rid,
+                                status=req.state.value),
+            )
         self._finish_handle(req)
 
     def _finish_handle(self, req: Request) -> None:
         with self._lock:
             handle = self._handles.pop(req.rid, None)
+            self._done_feed.append((req.rid, req.state.value))
         if handle is not None:
             handle._done.set()
+        self._reply_done(req)
 
     # -- multi-tenant LoRA ---------------------------------------------------
     def add_adapter(self, name: str, adapter: dict) -> int:
@@ -936,19 +1123,276 @@ class ServeEngine:
                 self._prefix_drops.append(name)
         self.stats.bump("adapter_unloads")
 
+    def adapter_names(self) -> List[str]:
+        """The loaded tenants' names."""
+        return [] if self.adapters is None else self.adapters.names()
+
+    def drain_done(self) -> List[Tuple[str, str]]:
+        """Terminal ``(rid, status)`` pairs since the last call (the
+        completion feed a router prunes its in-flight tracking from)."""
+        with self._lock:
+            items = list(self._done_feed)
+            self._done_feed.clear()
+        return items
+
     def cancel(self, rid: str) -> bool:
         """Drop one request wherever it is, queued or mid-decode.
-        Idempotent: unknown or finished rids return False."""
+        Idempotent: unknown or finished rids return False.  The terminal
+        status is ``cancelled``, in the done feed and, for a queue-plane
+        request, a ``serve_done`` reply."""
         with self._lock:
             req = self.scheduler.cancel(rid)
             if req is None:
                 return False
             handle = self._handles.pop(rid, None)
+            self._done_feed.append((rid, "cancelled"))
         self.stats.bump("cancelled")
         req.finished_t = time.monotonic()
         if handle is not None:
             handle._done.set()
+        reply = getattr(req, "_reply", None)
+        if reply is not None:
+            self._reply(reply, {
+                "type": "serve_done", "rid": rid,
+                "status": "cancelled", "reason": "cancelled",
+                "tokens": [int(t) for t in req.generated],
+            })
         return True
+
+    # -- the serve thread ----------------------------------------------------
+    def start(self) -> "ServeEngine":
+        """Run :meth:`step` on a background thread until :meth:`stop`."""
+        if self._thread is not None:
+            raise RuntimeError("engine already started")
+        self._stop.clear()
+        self._thread = threading.Thread(
+            target=self._serve_forever, name="rlt-serve", daemon=True
+        )
+        self._thread.start()
+        return self
+
+    def _serve_forever(self) -> None:
+        # The current CUDA device is per thread: serve on the engine's.
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
+        while not self._stop.is_set():
+            try:
+                worked = self.step()
+            except Exception as e:  # noqa: BLE001 - a dying loop fails
+                # its pending work loudly, never strands it
+                self._fail_pending(e)
+                return
+            if not worked:
+                time.sleep(self.config.idle_wait_s)
+
+    def _fail_pending(self, exc: BaseException) -> None:
+        """The serve loop died: mark the engine dead (submit refuses from
+        now on), fail every pending handle with the error and tell each
+        queue-plane client (``serve_done(status="error")``)."""
+        self._error = exc
+        with self._lock:
+            handles = list(self._handles.values())
+            self._handles.clear()
+        log.error("serve loop died: %r — failing %d pending request(s)",
+                  exc, len(handles), exc_info=exc)
+        for handle in handles:
+            handle.error = exc
+            req = handle.request
+            reply = getattr(req, "_reply", None)
+            if reply is not None:
+                self._reply(reply, {
+                    "type": "serve_done", "rid": req.rid,
+                    "status": "error", "error": repr(exc),
+                    "tokens": [int(t) for t in req.generated],
+                })
+            handle._done.set()
+
+    def halt_loop(self) -> None:
+        """Stop the serve thread without tearing the engine down
+        (:meth:`stop` also closes the queues and exporters)."""
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=30)
+            self._thread = None
+
+    def stop(self) -> None:
+        """Stop the serve thread, close the inbox and reply queues, make
+        the last export and write the span file."""
+        self.halt_loop()
+        if self.prefix_cache is not None:
+            self.prefix_cache.drop_all()
+        if self._inbox is not None:
+            self._inbox.shutdown()
+            self._inbox = None
+        with self._lock:
+            reply_handles = list(self._reply_handles.values())
+            self._reply_handles.clear()
+        for h in reply_handles:
+            h.close()
+        # The last export is unthrottled: counters bumped inside the last
+        # export_every_s still reach the files.
+        self._maybe_export(force=True)
+        if self._exporter is not None:
+            self._exporter.close()
+        if self._trace_dir is not None and self.tracer.events():
+            try:
+                os.makedirs(self._trace_dir, exist_ok=True)
+                self.tracer.export_jsonl(os.path.join(
+                    self._trace_dir, f"trace-serve-{self._trace_name}.jsonl"))
+            except OSError:
+                pass  # a full disk must not fail the teardown
+        # Segments of dead producers that no consumer will read (a KV
+        # handoff's producer killed mid-send) are reclaimed here.
+        from ray_lightning_tpu_torch.cluster.shm import sweep_stale_segments
+
+        sweep_stale_segments("rlt-kv")
+
+    # -- the queue plane -----------------------------------------------------
+    def queue_handle(self):
+        """The picklable submission handle a ``ServeClient`` takes (the
+        TCP inbox is made at the first call)."""
+        if self._inbox is None:
+            from ray_lightning_tpu_torch.cluster.queue import DriverQueue
+
+            self._inbox = DriverQueue()
+        return self._inbox.handle
+
+    def _drain_inbox(self) -> None:
+        if self._inbox is None:
+            return
+        while True:
+            try:
+                item = self._inbox.get_nowait()
+            except _pyqueue.Empty:
+                return
+            try:
+                self._handle_queue_request(item)
+            except Exception as e:  # noqa: BLE001 - a bad frame must
+                # never take the serve loop down
+                log.warning("serve: dropped malformed queue request: %s", e)
+
+    def _handle_queue_request(self, item: dict) -> None:
+        if not isinstance(item, dict):
+            raise ValueError(f"not a serve item: {type(item).__name__}")
+        kind = item.get("type")
+        if kind == "serve_adapter_load":
+            # A tenant hot-loaded from the queue plane, on the serve
+            # thread between ticks.
+            self._load_adapter_item(item)
+            return
+        if kind == "serve_cancel":
+            self.cancel(str(item["rid"]))
+            return
+        if kind in ("serve_kv_handoff", "serve_migration"):
+            fields = item.get("req")
+            fields = fields if isinstance(fields, dict) else {}
+            reply = fields.get("reply")
+            rid = str(fields.get("rid", item.get("rid", "")))
+            if reply is None:
+                raise ValueError(f"{kind} without a reply address")
+            reply = tuple(reply)
+            with self._lock:
+                self._done_feed.append((rid, "invalid"))
+            self._reply(reply, {
+                "type": "serve_done", "rid": rid, "status": "invalid",
+                "error": f"{kind} frames need the disaggregated plane "
+                         f"(serve/dist), which this engine does not serve "
+                         f"yet", "tokens": [],
+            })
+            return
+        if kind != "serve_request":
+            raise ValueError(f"not a serve request: {kind!r}")
+        rid = str(item["rid"])
+        reply = tuple(item["reply"])  # (host, port)
+        if item.get("hedge"):
+            # A hedged duplicate reaching a single engine: the first
+            # admission already decodes this rid.
+            with self._lock:
+                if rid in self._handles:
+                    return
+
+        def on_token(i: int, tok: int) -> None:
+            self._reply(reply, {
+                "type": "serve_token", "rid": rid, "index": i,
+                "token": int(tok),
+            })
+
+        try:
+            handle = self.submit(
+                item["prompt"], int(item["max_new_tokens"]),
+                temperature=float(item.get("temperature", 0.0)),
+                eos_token_id=item.get("eos_token_id"),
+                top_k=item.get("top_k"),
+                spec=item.get("spec"),
+                adapter=item.get("adapter"),
+                deadline_s=item.get("deadline_s"),
+                sample_seed=item.get("sample_seed"),
+                on_token=on_token, rid=rid,
+                _trace_ctx=extract(item) if self.tracer.enabled else None,
+            )
+        except (ValueError, TypeError, KeyError) as e:
+            # A bad field once the reply address is known: the typed
+            # "invalid" reply, never a silent drop that leaves the client
+            # waiting for its timeout.
+            with self._lock:
+                self._done_feed.append((rid, "invalid"))
+            self._reply(reply, {
+                "type": "serve_done", "rid": rid, "status": "invalid",
+                "error": str(e), "tokens": [],
+            })
+            return
+        handle.request._reply = reply
+        if handle.status == "rejected":
+            self._reply_done(handle.request)
+
+    def _load_adapter_item(self, item: dict) -> None:
+        """One ``serve_adapter_load`` frame: decode its ``data`` or
+        ``shm`` payload and add the tenant.  A failure raises into
+        ``_drain_inbox``, which logs it; the tenant's requests then come
+        back ``invalid`` ("unknown adapter"), so a failed load is never
+        silent.  Replacing a tenant that requests still use is refused
+        (``add_adapter``): the pool is written in place, and a write must
+        never race a tick that reads the slot."""
+        from ray_lightning_tpu_torch.serve.lora import decode_adapter
+
+        if self.adapters is None:
+            raise ValueError(
+                "serve_adapter_load on an engine without an adapter pool "
+                "(ServeConfig.max_adapters == 0)"
+            )
+        rank = item.get("rank")
+        if rank is not None and int(rank) != self.adapters.rank:
+            raise ValueError(
+                f"serve_adapter_load of rank {rank} into a pool of rank "
+                f"{self.adapters.rank}"
+            )
+        self.add_adapter(str(item["name"]), decode_adapter(item))
+
+    def _reply_done(self, req: Request) -> None:
+        reply = getattr(req, "_reply", None)
+        if reply is None:
+            return
+        self._reply(reply, {
+            "type": "serve_done", "rid": req.rid,
+            "status": req.state.value, "reason": req.done_reason,
+            "tokens": [int(t) for t in req.generated],
+        })
+
+    def _reply(self, addr: Tuple[str, int], item: dict) -> None:
+        """Send one reply frame; a client that went away loses its
+        stream and the engine keeps serving the others."""
+        from ray_lightning_tpu_torch.cluster.queue import QueueHandle
+
+        with self._lock:
+            handle = self._reply_handles.get(addr)
+            if handle is None:
+                handle = QueueHandle(addr[0], addr[1])
+                self._reply_handles[addr] = handle
+        try:
+            handle.put(item)
+        except (OSError, ConnectionError):
+            with self._lock:
+                self._reply_handles.pop(addr, None)
 
     # -- telemetry -----------------------------------------------------------
     def _refresh_gauges(self) -> None:
@@ -964,11 +1408,87 @@ class ServeEngine:
             gauges["lora_fairness_spread"] = (
                 min(counts) / max(counts) if len(counts) > 1 else 1.0
             )
-        self.stats.set_gauges(**gauges)
         if self.prefix_cache is not None:
-            self.stats.set_prefix(**self.prefix_cache.stats())
+            ps = self.prefix_cache.stats()
+            hit_rate = ps["hits"] / ps["lookups"] if ps["lookups"] else 0.0
+            gauges["prefix_cache_hit_rate"] = hit_rate
+            gauges["prefix_cached_blocks"] = ps["cached_blocks"]
+            self.stats.set_prefix(hit_rate=hit_rate, **ps)
+        if self.spec_k > 0:
+            counters = self.stats.counters
+            drafted = counters.get("spec_drafted", 0)
+            gauges["spec_acceptance_rate"] = (
+                counters.get("spec_accepted", 0) / drafted if drafted
+                else 0.0
+            )
+            elapsed = max(time.monotonic() - self._started_t, 1e-9)
+            # Goodput: the emitted tokens a second clients see.
+            gauges["spec_goodput_tokens_per_sec"] = (
+                counters.get("spec_emitted", 0) / elapsed
+            )
+        self.stats.set_gauges(**gauges)
+
+    @property
+    def capacity_oracle(self):
+        """The headroom oracle (``serve/capacity.py``) when the capacity
+        plane is on, else None."""
+        return self._capacity
+
+    @property
+    def slo_evaluator(self):
+        """The burn-rate evaluator (``telemetry/slo.py``) when the SLO
+        plane is on, else None."""
+        return self._slo
+
+    @property
+    def slo_alerts(self) -> List[dict]:
+        """Fired ``slo_alert`` events (a bounded ring, newest last)."""
+        return list(self._slo_alerts)
 
     def snapshot(self) -> dict:
-        """The live serve snapshot: counters, gauges, latency summaries
-        and, on adapter-pool engines, the per-tenant block."""
-        return self.stats.snapshot()
+        """The live serve snapshot: counters, gauges, latency summaries,
+        and where they apply the per-tenant, prefix-cache, phase and
+        ``capacity`` blocks."""
+        snap = self.stats.snapshot()
+        if self._capacity is not None and self._capacity.last is not None:
+            snap["capacity"] = dict(self._capacity.last)
+        return snap
+
+    def _maybe_export(self, force: bool = False) -> None:
+        """On the export cadence: tick the SLO and capacity plane, then
+        refresh the OpenMetrics text and ``serve-live.json``.  The JAX
+        package's ``programs`` key (its program ledger) is not ported."""
+        if self._exporter is None and self._live_path is None \
+                and self._capacity is None:
+            return
+        now = time.monotonic()
+        if not force and now - self._last_export < self.config.export_every_s:
+            return
+        self._last_export = now
+        if self._capacity is not None:
+            # The cheap stats slice; recompiles are CUDA-graph captures on
+            # the port, and the eager server captures none.
+            self._capacity.observe(self.stats.capacity_view(), recompiles=0)
+            if force or now - self._last_capacity >= self._capacity_every_s:
+                self._last_capacity = now
+                self._capacity.snapshot()  # cached on .last
+        if self._slo is not None:
+            fired = self._slo.evaluate()
+            if fired:
+                self.stats.bump("slo_alerts", len(fired))
+        if self._exporter is None and self._live_path is None:
+            return
+        snap = self.snapshot()
+        payload = {"serve": snap}
+        if self._slo is not None:
+            payload["slo"] = self._slo.snapshot()
+        if self._exporter is not None:
+            self._exporter.update(payload)
+        if self._live_path is not None:
+            tmp = self._live_path + ".tmp"
+            try:
+                with open(tmp, "w") as f:
+                    json.dump({"ts": snap["ts"], **payload}, f)
+                os.replace(tmp, self._live_path)
+            except OSError:
+                pass  # a full disk must not take the serve loop down

@@ -10,6 +10,11 @@ dispatch takes a per-row int32 slot id and applies ``y += (x @ A[id]) @
 B[id]`` through ``ops/lora.py``.  Misuse (unknown name, rank drift,
 capacity, a mis-shaped factor) raises a typed error instead of serving
 one tenant garbage.
+
+On the queue plane an adapter rides a ``serve_adapter_load`` frame whose
+bulk payload is :func:`encode_adapter` bytes (the tree codec of
+``mpmd/transfer.py``), in its ``data`` or ``shm`` form; either package
+decodes the other's.
 """
 
 from __future__ import annotations
@@ -23,7 +28,8 @@ import torch
 from ray_lightning_tpu_torch.device import resolve_device
 from ray_lightning_tpu_torch.ops.lora import LORA_IMPLS
 
-__all__ = ["ADAPTER_KEYS", "AdapterPool", "validate_adapter"]
+__all__ = ["ADAPTER_KEYS", "AdapterPool", "decode_adapter",
+           "encode_adapter", "validate_adapter"]
 
 #: The four stacked factor tensors every adapter carries
 #: (``models/gpt.py::extract_lora`` emits exactly these plus "scale").
@@ -55,6 +61,34 @@ def validate_adapter(adapter: Dict[str, Any], cfg, rank: int) -> None:
                 f"{shape} (rank {rank} over L={L}, d={d} — every "
                 f"adapter in a pool shares the stacked-buffer rank)"
             )
+
+
+def encode_adapter(adapter: Dict[str, Any]) -> bytes:
+    """An adapter's factors and scale as the ``serve_adapter_load``
+    frame's payload.  The factors go as float32 numpy arrays (a bf16
+    tensor has no numpy dtype; the pool folds every adapter in f32
+    anyway), the scale as a float32 scalar, as the JAX package sends
+    it."""
+    from ray_lightning_tpu_torch.mpmd.transfer import encode_tree
+
+    tree = {k: _as_f32(adapter[k]).detach().cpu().numpy()
+            for k in ADAPTER_KEYS}
+    tree["scale"] = np.float32(adapter.get("scale", 1.0))
+    return encode_tree(tree)
+
+
+def decode_adapter(item: Dict[str, Any]) -> Dict[str, Any]:
+    """The adapter of a ``serve_adapter_load`` frame (its ``data`` bytes
+    or its ``shm`` segment, read once and unlinked): factors as numpy
+    arrays, or ``torch.bfloat16`` tensors where a JAX sender's leaves
+    were bf16, and the scale as a float."""
+    from ray_lightning_tpu_torch.mpmd.transfer import (
+        decode_tree, resolve_payload,
+    )
+
+    tree = decode_tree(resolve_payload(item))
+    tree["scale"] = float(tree["scale"])
+    return tree
 
 
 def _as_f32(x) -> torch.Tensor:

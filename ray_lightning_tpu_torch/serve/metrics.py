@@ -1,4 +1,5 @@
-"""SLO stats for the serving plane: counters, TTFT and inter-token latency.
+"""SLO stats for the serving plane: counters, TTFT, inter-token latency
+and the critical-path phases.
 
 Latency families are bounded reservoirs (newest N): a serving process
 runs for days, and percentiles over the recent window are what an
@@ -18,8 +19,8 @@ __all__ = ["ServeStats", "percentile"]
 _RESERVOIR = 4096
 
 _COUNTER_KEYS = (
-    "submitted", "admitted", "completed", "rejected", "preempted",
-    "tokens_out", "prefills", "decode_steps",
+    "submitted", "admitted", "completed", "rejected", "expired",
+    "preempted", "tokens_out", "prefills", "decode_steps",
 )
 
 
@@ -58,6 +59,17 @@ class _Reservoir:
             "max_ms": round(max(self._vals) * 1e3, 3),
         }
 
+    def phase_summary_ms(self) -> Optional[Dict[str, float]]:
+        """The per-phase spelling (p50/p95: a p99 over the window is
+        mostly noise for the short phases)."""
+        if not self._vals:
+            return None
+        return {
+            "n": self._n,
+            "p50_ms": round(percentile(self._vals, 50) * 1e3, 3),
+            "p95_ms": round(percentile(self._vals, 95) * 1e3, 3),
+        }
+
 
 class ServeStats:
     """Thread-safe counters, latency reservoirs and gauges, fed by the
@@ -70,6 +82,10 @@ class ServeStats:
         self._token = _Reservoir()       # inter-token latency, decode ticks
         self._queue_wait = _Reservoir()  # arrival → admission
         self._e2e = _Reservoir()         # arrival → finished
+        # Critical-path phase reservoirs (queue_wait, prefill_compute,
+        # first_token), created by note_phase: engines that do not trace
+        # carry no "phases" block.
+        self._phases: Dict[str, _Reservoir] = {}
         # Per-adapter (tenant) accounting, created on first use so
         # engines without an adapter pool carry no "adapters" block.
         self._adapters: Dict[str, Dict[str, int]] = {}
@@ -129,6 +145,15 @@ class ServeStats:
             entry["tokens_out"] += tokens
             entry["completed"] += completed
 
+    def note_phase(self, phase: str, dur_s: float) -> None:
+        """One request's interval in one critical-path phase (fed where
+        the engine records its spans)."""
+        with self._lock:
+            res = self._phases.get(phase)
+            if res is None:
+                res = self._phases[phase] = _Reservoir()
+            res.add(dur_s)
+
     def adapter_token_counts(self) -> Dict[str, int]:
         """Lifetime emitted tokens per adapter (the fairness gauge)."""
         with self._lock:
@@ -143,6 +168,24 @@ class ServeStats:
         ``PrefixIndex.stats()`` at each gauge refresh)."""
         with self._lock:
             self._prefix = dict(fields)
+
+    def capacity_view(self) -> Dict[str, object]:
+        """The cheap slice the SLO and capacity plane reads each export
+        tick: counters, gauges and the queue wait's p50 over the newest
+        512 admissions (``snapshot()`` sorts every reservoir)."""
+        with self._lock:
+            out: Dict[str, object] = {
+                "ts": time.time(),
+                "counters": dict(self.counters),
+                "gauges": {k: float(v) for k, v in self.gauges.items()},
+            }
+            recent = self._queue_wait._vals[-512:]
+        p50 = percentile(recent, 50)
+        out["latency"] = {} if p50 is None else {
+            "queue_wait": {"n": len(recent),
+                           "p50_ms": round(p50 * 1e3, 3)},
+        }
+        return out
 
     def snapshot(self) -> Dict[str, object]:
         with self._lock:
@@ -160,6 +203,13 @@ class ServeStats:
                 if s is not None:
                     latency[name] = s
             out["latency"] = latency
+            if self._phases:
+                phases = {}
+                for name, res in self._phases.items():
+                    s = res.phase_summary_ms()
+                    if s is not None:
+                        phases[name] = s
+                out["phases"] = phases
             if self._adapters:
                 out["adapters"] = {
                     name: dict(entry)

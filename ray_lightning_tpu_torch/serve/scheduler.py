@@ -5,6 +5,9 @@ The host-side control plane of the serving engine, as in
 **slot** — one of ``num_slots`` rows of the fixed-width decode step.
 Between decode steps the scheduler:
 
+0. **expires** queued requests whose deadline passed before they were
+   ever admitted (``deadline_s`` is a time-to-first-token bound at
+   admission: a preempted request requeued has met it already);
 1. **admits** queued requests while a free slot and enough blocks for the
    request's prefill bucket exist (join on arrival: a request never waits
    for the running batch to drain), granting slots fairly across tenants;
@@ -55,6 +58,7 @@ class RequestState(enum.Enum):
     QUEUED = "queued"
     RUNNING = "running"
     FINISHED = "finished"
+    EXPIRED = "expired"     # deadline passed while queued
     REJECTED = "rejected"   # admission-queue backpressure
 
 
@@ -75,6 +79,12 @@ class Request:
     # Multi-tenant LoRA: the adapter (tenant) this request decodes
     # through (None = the shared base model).
     adapter: Optional[str] = None
+    # Seconds from arrival the first token must land by (a bound at
+    # admission; None = no deadline).
+    deadline_s: Optional[float] = None
+    # Brownout shed class of a routed fleet: 0 sheds first, >= 1 keeps
+    # its seat (carried for the router; the engine does not read it).
+    priority: int = 0
     # Called with (token_index, token_id) as tokens stream out; after a
     # preemption the engine re-emits from index 0 — consumers dedup on
     # the index.
@@ -95,6 +105,10 @@ class Request:
     # ordinal, assigned once at submit and kept across preemption
     # requeues, so a recompute replays the same per-position draws.
     sample_seed: Optional[int] = None
+    # The request's trace context (telemetry/propagate.TraceContext), set
+    # once at submit and kept across preemption requeues, so a
+    # recompute's spans land in the same trace.
+    trace: Optional[object] = None
     # The adapter's pool slot (engine-set at submit; 0 = the null/base
     # slot), stable across requeues: the engine refuses to remove an
     # adapter a queued or active request holds.
@@ -115,7 +129,7 @@ class Request:
                 and self.generated
                 and self.generated[-1] == self.eos_token_id
             ) else "length"
-        if self.state is RequestState.REJECTED:
+        if self.state in (RequestState.EXPIRED, RequestState.REJECTED):
             return self.state.value
         return None
 
@@ -271,16 +285,34 @@ class Scheduler:
 
     # -- between-steps poll --------------------------------------------------
     def poll(self, now: Optional[float] = None
-             ) -> List[Tuple[int, Request, int]]:
-        """Admit while a slot and the blocks are free.  Returns
-        ``(slot, request, bucket_len)`` per admission, with blocks
-        allocated and the slot row populated — the engine only has to
-        run the prefill.  A request with a claimed prefix or a suffix
-        wider than ``chunk_width`` takes exact coverage (``bucket_len``
-        0): its suffix runs through the engine's chunk step, which needs
-        no bucket-shaped blocks, so prompts past the largest bucket
-        admit too."""
+             ) -> Tuple[List[Tuple[int, Request, int]], List[Request]]:
+        """Expire, then admit while a slot and the blocks are free.
+        Returns ``(admissions, expired)``: ``(slot, request, bucket_len)``
+        per admission, with blocks allocated and the slot row populated —
+        the engine only has to run the prefill — and the requests whose
+        deadline passed in the queue.  A request with a claimed prefix or
+        a suffix wider than ``chunk_width`` takes exact coverage
+        (``bucket_len`` 0): its suffix runs through the engine's chunk
+        step, which needs no bucket-shaped blocks, so prompts past the
+        largest bucket admit too."""
         now = time.monotonic() if now is None else now
+        expired: List[Request] = []
+        fresh: Deque[Request] = deque()
+        while self.queue:
+            req = self.queue.popleft()
+            # A preempted request was admitted and streamed: its deadline
+            # is met, and expiring it would throw away the latency the
+            # front requeue protects.
+            if (req.deadline_s is not None
+                    and req.preemptions == 0
+                    and now - req.arrival_t > req.deadline_s):
+                req.state = RequestState.EXPIRED
+                req.finished_t = now
+                expired.append(req)
+            else:
+                fresh.append(req)
+        self.queue = fresh
+
         admissions: List[Tuple[int, Request, int]] = []
         while self.queue:
             slot = next(
@@ -334,7 +366,7 @@ class Scheduler:
             self.draft_lens[slot] = req.prompt_len
             self.adapter_slots[slot] = req._adapter_slot
             admissions.append((slot, req, bucket))
-        return admissions
+        return admissions, expired
 
     def _next_grant_index(self) -> int:
         """Queue index of the next slot grant.

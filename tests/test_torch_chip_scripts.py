@@ -186,3 +186,49 @@ def test_ptxas_names_are_read_past_the_namespace_hash(monkeypatch, mangled,
     monkeypatch.syspath_prepend(str(ROOT))
     import chip_smoke
     assert chip_smoke.kernel_name(mangled) == name
+
+
+def test_plane_faults_patch_one_thing_each_and_restore(scripts):
+    """Step 11's in-memory faults each replace exactly one attribute of
+    the port and put it back."""
+    cf = scripts[0]
+    from ray_lightning_tpu_torch.serve import client, engine, lora, scheduler
+    from ray_lightning_tpu_torch.telemetry import export_prom
+
+    def targets():
+        return (client.ServeClient.stream, scheduler.Scheduler.poll,
+                lora.decode_adapter, export_prom._render_serve,
+                engine.ServeEngine._reply)
+
+    before = targets()
+    assert len(cf.PLANE_FAULTS) == 5
+    for name in cf.PLANE_FAULTS:
+        with cf.plane_fault(name):
+            during = targets()
+            assert sum(a is not b for a, b in zip(before, during)) == 1
+    assert targets() == before
+
+
+def test_phase13_client_metrics_and_client_mode(scripts, tmp_path):
+    """Phase 13's client-side metrics, and its client process mode,
+    which answers nothing and exits 0 at the end of its input."""
+    import chip_smoke as cs
+
+    m = cs.stream_metrics([0.0, 0.5], [[0.1, 0.2, 0.4], [0.8, 1.0]],
+                          [3, 2])
+    assert m["ttft_p50_ms"] == pytest.approx(300.0)
+    assert m["itl_p50_ms"] == pytest.approx(200.0)
+    assert m["tokens_per_s"] == pytest.approx(5.0)
+    from ray_lightning_tpu_torch.cluster.queue import DriverQueue
+
+    q = DriverQueue()
+    try:
+        h = q.handle
+        proc = subprocess.run(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--serve-client",
+             h.host, str(h.port)], cwd=ROOT, input="", capture_output=True,
+            text=True, timeout=120)
+        assert proc.returncode == 0, proc.stderr
+        assert proc.stdout == ""
+    finally:
+        q.shutdown()

@@ -11,6 +11,7 @@ shapes max|ref| is many times a typical element.
 """
 
 import dataclasses
+import time
 
 import numpy as np
 import pytest
@@ -911,3 +912,52 @@ def test_int8_fit_captured_equals_eager(cuda):
 
     for a, b in zip(fit("off"), fit(4)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("form", ["data", "shm"])
+def test_queue_plane_engine_serves_a_wire_loaded_tenant(cuda, form):
+    """The engine on its serve thread on the card, reached over the queue
+    plane: a tenant hot-loaded by a ``serve_adapter_load`` frame (scale
+    2.0) is served through the BGMV kernel, its stream equal to
+    ``generate()`` on the merged weights, 2L launches a step."""
+    from ray_lightning_tpu_torch.cluster.shm import SegmentStore
+    from ray_lightning_tpu_torch.serve import ServeClient, encode_adapter
+
+    cfg = GPTConfig(vocab_size=128, n_layer=2, n_head=4, d_model=64,
+                    seq_len=64)
+    module = GPT(cfg)
+    params = module.init_params(cuda)
+    for key in ("qkv_w", "proj_w", "mlp_in_w", "mlp_out_w"):
+        params["blocks"][key] = params["blocks"][key] * 10.0
+    wire_cfg = dataclasses.replace(cfg, lora_rank=4, lora_alpha=8.0)
+    adapter, merged = synthetic_lora_adapter(params, wire_cfg, cuda,
+                                             scale=0.3)
+    assert adapter["scale"] == 2.0
+    engine = ServeEngine(module, params,
+                         ServeConfig(num_slots=3, block_size=8,
+                                     max_adapters=2, adapter_rank=4))
+    client = ServeClient(engine.queue_handle())
+    engine.start()
+    try:
+        blob = encode_adapter(adapter)
+        item = {"type": "serve_adapter_load", "name": "w", "rank": 4}
+        item[form] = blob if form == "data" else \
+            SegmentStore("rlt-seg").put(blob)
+        client._inbox.put(item)
+        prompt = np.random.default_rng(1).integers(1, 128, 11).tolist()
+        for _ in range(1000):
+            if engine.adapter_names() == ["w"]:
+                break
+            time.sleep(0.01)
+        c0 = dict(engine.stats.counters)
+        lora.bgmv.launches = 0
+        got = list(client.stream(prompt, 12, adapter="w", timeout=60))
+        launches = lora.bgmv.launches
+        c1 = engine.stats.counters
+        steps = sum(c1[k] - c0[k] for k in ("prefills", "decode_steps"))
+        ref = generate(module, merged, [prompt], 12)[0, 11:].tolist()
+        assert got == ref
+        assert launches == 2 * cfg.n_layer * steps and steps == 12
+    finally:
+        engine.stop()
+        client.close()

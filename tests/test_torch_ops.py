@@ -186,7 +186,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     loading jax or any module of ray_lightning_tpu (this process has both
     loaded already, so the check runs in a subprocess), and checkpoints
     (the default, an int8 and a LoRA state) round-trip there with jax,
-    msgpack and ml_dtypes blocked."""
+    msgpack, ml_dtypes and cloudpickle blocked; so does an adapter frame
+    of the queue plane."""
     import ray_lightning_tpu_torch
 
     names = sorted(
@@ -197,9 +198,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert "ray_lightning_tpu_torch.utils.state_stream" in names
     assert "ray_lightning_tpu_torch.models.quant" in names
     assert "ray_lightning_tpu_torch.serve.draft" in names
+    for new in ("cluster.rpc", "cluster.queue", "cluster.shm",
+                "mpmd.transfer", "serve.client", "serve.capacity",
+                "telemetry.propagate", "telemetry.spans",
+                "telemetry.timeseries", "telemetry.slo",
+                "telemetry.monitor", "telemetry.export_prom"):
+        assert "ray_lightning_tpu_torch." + new in names, new
     code = textwrap.dedent(f"""
         import importlib, os, sys, tempfile
-        for blocked in ("jax", "msgpack", "ml_dtypes"):
+        for blocked in ("jax", "msgpack", "ml_dtypes", "cloudpickle"):
             sys.modules[blocked] = None  # importing it raises
         for name in {names!r}:
             importlib.import_module(name)
@@ -234,6 +241,16 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             assert all(x.dtype == y.dtype and torch.equal(x, y)
                        for x, y in zip(a, b))
         assert sys.modules["jax"] is None and sys.modules["msgpack"] is None
+        import numpy as np
+        from ray_lightning_tpu_torch.serve import lora
+        adapter = {{k: np.ones(s, np.float32) for k, s in
+                    (("qkv_a", (2, 4, 1)), ("qkv_b", (2, 1, 12)),
+                     ("proj_a", (2, 4, 1)), ("proj_b", (2, 1, 4)))}}
+        back = lora.decode_adapter({{"data": lora.encode_adapter(
+            dict(adapter, scale=0.5))}})
+        assert back["scale"] == 0.5 and all(
+            np.array_equal(back[k], v) for k, v in adapter.items())
+        assert sys.modules["cloudpickle"] is None
         print("ok", len({names!r}))
     """)
     env = dict(os.environ, PYTHONPATH=REPO)

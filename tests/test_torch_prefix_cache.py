@@ -202,8 +202,7 @@ def _sched(S, BA, num_blocks=16, **kw):
 
 
 def _poll(s):
-    got = s.poll()
-    return got[0] if isinstance(got, tuple) else got
+    return s.poll()[0]
 
 
 PAIRS = ((jsched.Scheduler, jsched.Request, jkv.BlockAllocator),

@@ -382,7 +382,7 @@ def test_scheduler_round_robin_across_tenants():
                              adapter=a))
     order = []
     while sched.queue:
-        ((slot, req, bucket),) = sched.poll()
+        ((slot, req, bucket),), _ = sched.poll()
         assert bucket == 4
         order.append(req.rid)
         sched.finish(slot)

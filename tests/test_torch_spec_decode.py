@@ -136,7 +136,7 @@ def test_scheduler_spec_bookkeeping():
     s = Scheduler(2, alloc, 4, 8, [4, 8, 16])
     s.submit(Request(rid="r", prompt=list(range(1, 7)), max_new_tokens=5,
                      spec=2))
-    (slot, req, bucket), = s.poll()
+    ((slot, req, bucket),), _ = s.poll()
     assert s.draft_lens[slot] == 6 and req.spec == 2
     assert s.needs_block(slot, upto_pos=8) and not s.needs_block(slot)
     assert s.cover(slot, 10) and len(s._blocks[slot]) == 3
