@@ -114,7 +114,19 @@ last column of a ragged chunk of k dropped, the d tail past the last
    was preempted, ``decode_adapter`` dropping the scale, the ``expired``
    counter left out of the OpenMetrics text, and a reply frame dropped on
    a caught ``OSError`` while its client lives.  Phase 13 must fail on
-   each.
+   each;
+12. disaggregated serving (``FLEET_FAULTS``, ``fleet_fault``): phase 14
+   (``chip_smoke.phase_serve_fleet``, one timed run an arm) for the
+   correct code, which must pass, and for five faults planted in memory:
+   a KV import into block ids shifted by one, the client's token-index
+   dedup removed (a failover's re-emitted tokens stream again), a drain
+   migration that ships one block too few, a prefill worker that
+   prefills a tenant's prompt without its adapter, and a router that
+   ignores beat loss (a member counts as lost only when its handle reads
+   dead).  Phase 14 must fail on each.
+
+``python3 chip_faults.py --only 12`` builds the kernels and runs step 12
+alone.
 
 The wrappers are routed to a faulty library by replacing the cached ctypes
 functions of ``ops/_build.py``.  Exits 1 if a correct kernel fails a
@@ -804,6 +816,115 @@ def plane_check(torch, np, card, world):
         return False
 
 
+FLEET_FAULTS = ("import_ids_shifted_by_one", "failover_dedup_removed",
+                "migration_one_block_short", "worker_prefill_without_adapter",
+                "router_ignores_beat_loss")
+
+
+@contextlib.contextmanager
+def fleet_fault(name):
+    """Plant one of ``FLEET_FAULTS`` for the block: ``import_blocks``
+    (as the engine calls it) scattering into ids one above the ones it
+    is given; ``ServeClient.stream`` yielding every token frame, its
+    index unchecked; ``ServeEngine.export_resident`` shipping each
+    sequence's blocks but the last; ``PrefillRunner._prefill`` running a
+    tenant's prompt at the base model's pool slot; ``Router._is_lost``
+    reading only the member's handle."""
+    import queue as pyqueue
+
+    import torch
+
+    from ray_lightning_tpu_torch.serve import client, engine
+    from ray_lightning_tpu_torch.serve.dist import prefill, router
+
+    if name == "import_ids_shifted_by_one":
+        correct = engine.import_blocks
+
+        def imp(pool, payload, ids):
+            return correct(pool, payload, torch.as_tensor(ids) + 1)
+
+        patches = [(engine, "import_blocks", imp)]
+    elif name == "failover_dedup_removed":
+        def stream(self, prompt, max_new_tokens, timeout=60.0, **kw):
+            rid = self.submit(prompt, max_new_tokens, **kw)
+            pend = self._pending[rid]
+            while True:
+                try:
+                    kind, payload = pend.stream.get(timeout=timeout)
+                except pyqueue.Empty:
+                    raise TimeoutError(f"request {rid}: no stream item "
+                                       f"within {timeout}s") from None
+                if kind == "token":
+                    yield payload[1]
+                else:
+                    self._check_done(pend)
+                    return
+
+        patches = [(client.ServeClient, "stream", stream)]
+    elif name == "migration_one_block_short":
+        correct = engine.ServeEngine.export_resident
+
+        def export(self):
+            entries = correct(self)
+            for e in entries:
+                e["kv"] = {k: v[:, :-1] for k, v in e["kv"].items()}
+            return entries
+
+        patches = [(engine.ServeEngine, "export_resident", export)]
+    elif name == "worker_prefill_without_adapter":
+        correct = prefill.PrefillRunner._prefill
+
+        def prefill_base(self, prompt, bucket, start, ids, ad, ad_id):
+            if ad_id is not None:
+                ad_id = torch.zeros_like(ad_id)
+            return correct(self, prompt, bucket, start, ids, ad, ad_id)
+
+        patches = [(prefill.PrefillRunner, "_prefill", prefill_base)]
+    else:
+        def is_lost(self, m, now):
+            return not m.handle.is_alive()
+
+        patches = [(router.Router, "_is_lost", is_lost)]
+    saved = [(owner, attr, getattr(owner, attr)) for owner, attr, _ in
+             patches]
+    for owner, attr, fault in patches:
+        setattr(owner, attr, fault)
+    try:
+        yield
+    finally:
+        for owner, attr, value in saved:
+            setattr(owner, attr, value)
+
+
+def fleet_check(torch, np, card, world):
+    """Phase 14 at one timed run an arm; True when it passes (a raise
+    fails)."""
+    try:
+        cs.phase_serve_fleet(torch, np, card, world, repeats=1)
+        return True
+    except Exception as e:  # noqa: BLE001 - a raise is a catch
+        print(f"step 12: raised {type(e).__name__}: {str(e)[:400]}")
+        return False
+
+
+def fleet_step(torch, np, card, world, summary, failures):
+    """Step 12: phase 14 correct, then under each of ``FLEET_FAULTS``."""
+    summary["fleet"] = {}
+    ok = fleet_check(torch, np, card, world)
+    print(f"step 12 correct: {'ok' if ok else 'FAILED'}")
+    summary["fleet"]["correct"] = ok
+    if not ok:
+        failures.append("correct step 12 failed")
+    for name in FLEET_FAULTS:
+        with fleet_fault(name):
+            ok = fleet_check(torch, np, card, world)
+        print(f"step 12 fault {name}: phase 14 "
+              f"{'passed (NOT caught)' if ok else 'failed (caught)'}")
+        summary["fleet"][name] = not ok
+        if ok:
+            failures.append(f"step 12 fault {name} not caught by phase 14")
+
+
 LORA_FAULTS = {"wte_labelled_train": "lora",
                "clip_over_the_full_model": "clip",
                "nu_quantized_linearly": "codec",
@@ -927,6 +1048,18 @@ def main() -> int:
     print(card)
     torch.backends.cuda.matmul.allow_tf32 = False
     failures = []
+    if sys.argv[1:3] == ["--only", "12"]:
+        with ThreadPoolExecutor(4) as pool:
+            list(pool.map(_build.build, ("flash_attention", "layer_norm",
+                                         "cross_entropy", "bgmv")))
+        summary = {}
+        fleet_step(torch, np, card, cs.server_world(torch, np), summary,
+                   failures)
+        for f in failures:
+            print(f"chip_faults: FAILED: {f}")
+        print(card)
+        print(json.dumps({"ok": not failures, **summary}))
+        return 1 if failures else 0
     summary = {"correct": {}, "faults": {}, "step": {}, "ce_correct": {},
                "ce_faults": {}, "ce_f64": {}, "ln_correct": {},
                "ln_faults": {}, "bgmv_faults": {}}
@@ -1243,6 +1376,9 @@ def main() -> int:
             if ok:
                 failures.append(f"step 11 fault {name} not caught by "
                                 f"phase 13")
+
+        # 12. disaggregated serving
+        fleet_step(torch, np, card, world, summary, failures)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for f in failures:

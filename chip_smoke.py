@@ -165,12 +165,35 @@ under ``remat_policy="dots+flash"``), counted per step.  Phases:
    ``serve_cancel`` frame, its blocks freed; (e) after ``stop()``:
    ``serve-live.json`` rendered by ``tools/rlt_top.py --once``, the
    textfile and an HTTP scrape of ``/metrics``, a span per phase of each
-   request, the capacity block and the SLO snapshot.
+   request, the capacity block and the SLO snapshot;
+14. disaggregated serving (``phase_serve_fleet``) at the server cell's
+   width: ``launch_inproc_fleet(n_replicas=2, n_prefill=1)`` on this card
+   (phase 13's engine configuration, the tenants registered with the
+   router), reached through ``ServeClient``: (a) the cell's 10 requests
+   from a client process, every stream equal to phase 3's, every
+   admission a KV import, the BGMV 2L launches a prefill on the worker and
+   a tick on the replicas (counts set to 0 just before), the handoff's
+   export, encode, read and import timed with its bytes and form, then
+   FLEET_REPEATS timed runs alternating with phase 13's engine over the
+   queue (TTFT, ITL, tokens/s as the client measures them); (b) an
+   imported admission equal to the engine's own prefill, blocks and first
+   tokens, bitwise; (c) the replica under a sampled and a greedy stream
+   killed abruptly after KILL_AFTER tokens: a failover booked, both
+   streams equal an undisturbed engine's with the same seeds, re-emitted
+   tokens deduped, the time to recovery; then a replica whose beats are
+   lost while its handle reads alive is declared lost; (d) as (c) with a
+   planned drain: the streams migrate, nothing re-emitted; (e)
+   ``router-live.json`` with ``validate_router_snapshot``'s keys
+   (``ROUTER_LIVE_KEYS``), the OpenMetrics router and fleet-capacity
+   sections, ``rlt_top``'s router pane; (f) a bf16 fleet's streams equal
+   the bf16 monolith's (or leave them where the top-2 logit gap is below
+   one bf16 step of the top logit, ``bf16_ulp``).
 
 Any failure raises: the script exits non-zero and prints no result.  The
 line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1.
-``chip_smoke.py --serve-client HOST PORT`` is phase 13's client process.
+``chip_smoke.py --serve-client HOST PORT`` is phases 13 and 14's client
+process.
 """
 
 from __future__ import annotations
@@ -597,8 +620,8 @@ def profile_run(torch, engine_cls, module, params, serve_cfg, adapters,
             "bgmv_share_of_device": bgmv_us / busy}
 
 
-def top2_gap(torch, gen_mod, module, params, seq, device="cuda"):
-    """The static reference's top-2 logit gap for the token after
+def top2_logits(torch, gen_mod, module, params, seq, device="cuda"):
+    """The static reference's two largest logits for the token after
     ``seq``."""
     cfg = module.config
     cache = gen_mod.init_kv_cache(cfg, 1, len(seq), device=device)
@@ -606,8 +629,19 @@ def top2_gap(torch, gen_mod, module, params, seq, device="cuda"):
         cfg, params, cache, torch.tensor([seq], device=device),
         compute_dtype=module._compute_dtype(),
     )
-    top = torch.topk(logits[0], 2).values
+    return torch.topk(logits[0], 2).values
+
+
+def top2_gap(torch, gen_mod, module, params, seq, device="cuda"):
+    """The static reference's top-2 logit gap for the token after
+    ``seq``."""
+    top = top2_logits(torch, gen_mod, module, params, seq, device)
     return (top[0] - top[1]).item()
+
+
+def bf16_ulp(x):
+    """The spacing of bfloat16 values at ``|x|`` (8 significand bits)."""
+    return 2.0 ** (math.floor(math.log2(abs(x))) - 7)
 
 
 def phase_server(torch, np, card):
@@ -4131,13 +4165,13 @@ def same_or_near_tie(torch, module, tree, prompt, got, ref, label, device):
     return gap < TOP2_GAP
 
 
-def summarize(runs, label, card):
+def summarize(runs, label, card, phase=13):
     out = {"runs": runs}
     for key in ("ttft_p50_ms", "itl_p50_ms", "tokens_per_s"):
         vals = [r[key] for r in runs]
         out[key] = sorted(vals)[len(vals) // 2]
         out[key + "_spread"] = [min(vals), max(vals)]
-    print(f"phase 13 (a) {label}: TTFT p50 {out['ttft_p50_ms']:.1f} ms "
+    print(f"phase {phase} (a) {label}: TTFT p50 {out['ttft_p50_ms']:.1f} ms "
           f"({out['ttft_p50_ms_spread'][0]:.1f}-"
           f"{out['ttft_p50_ms_spread'][1]:.1f}), ITL p50 "
           f"{out['itl_p50_ms']:.2f} ms ({out['itl_p50_ms_spread'][0]:.2f}-"
@@ -4564,6 +4598,699 @@ def phase_serve_plane(torch, np, card, world, phase3=None,
     return out
 
 
+# -- phase 14: disaggregated serving ------------------------------------------
+
+FLEET_REPEATS = 3        # timed runs an arm, fleet and monolith alternating
+FLEET_TIMEOUT_S = 180    # any one request through the fleet
+FLEET_LOST_AFTER_S = 2.0  # the router's beat-loss threshold
+KILL_AFTER = 32          # (c), (d): tokens streamed before the kill
+KILL_NEW = 96            # (c), (d): new tokens a stream
+KILL_TEMPS = (0.7, 0.0)  # (c), (d): one sampled stream, one greedy
+# (f): a bf16 stream may leave the monolith's only where the bf16
+# reference's top-2 logit gap is below one bf16 step (``bf16_ulp``) of its
+# top logit, read at the divergence: two logits that close are a tie the
+# bf16 trunk does not order.
+# (e): the keys the JAX package's validate_router_snapshot requires of
+# router-live.json's snapshot and of each member entry.
+ROUTER_LIVE_KEYS = ("ts", "counters", "replicas", "workers")
+ROUTER_MEMBER_KEYS = {"replicas": ("id", "alive", "inflight"),
+                      "workers": ("id", "alive", "pending")}
+
+
+class ClientProcess:
+    """A ``chip_smoke.py --serve-client`` child on a queue handle: one
+    JSON line of ``[prompt, new, adapter]`` in, the streams and the
+    client's TTFT, ITL and tokens/s out."""
+
+    def __init__(self, handle, errpath):
+        self.errf = open(errpath, "w")
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            p for p in (ROOT, os.environ.get("PYTHONPATH")) if p))
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--serve-client",
+             handle.host, str(handle.port)], stdin=subprocess.PIPE,
+            stdout=subprocess.PIPE, stderr=self.errf, text=True, cwd=ROOT,
+            env=env)
+
+    def round(self, reqs):
+        self.proc.stdin.write(json.dumps([[p, n, a] for p, n, a in reqs])
+                              + "\n")
+        self.proc.stdin.flush()
+        line = self.proc.stdout.readline()
+        if not line:
+            self.errf.flush()
+            tail = open(self.errf.name).read()[-2000:]
+            raise RuntimeError(f"the client process ended: {tail}")
+        res = json.loads(line)
+        check(not any(res["errors"]), f"client errors {res['errors']}")
+        return res
+
+    def close(self):
+        try:
+            self.proc.stdin.close()
+            self.proc.wait(timeout=30)
+        except Exception:  # noqa: BLE001 - never leave it running
+            self.proc.kill()
+            self.proc.wait()
+        self.errf.close()
+
+
+def plane_config(world):
+    """Phase 13's engine configuration: the server cell's with the
+    capacity and SLO planes on, exported every 0.25 s."""
+    return dataclasses.replace(world["serve_cfg"], capacity=True, slo=True,
+                               export_every_s=0.25)
+
+
+def start_fleet(world, module, device, tdir=None):
+    """Two decode replicas and a prefill worker on this card behind a
+    started router, the server cell's tenants registered with it."""
+    from ray_lightning_tpu_torch.serve.dist import launch_inproc_fleet
+
+    kw = {}
+    if tdir is not None:
+        kw = {"telemetry_dir": tdir, "export_every_s": 0.25,
+              "prom_file": os.path.join(tdir, "router.prom")}
+    return launch_inproc_fleet(
+        module, world["params"], plane_config(world), n_replicas=2,
+        n_prefill=1, adapters=world["tenants"], device=device,
+        lost_after_s=FLEET_LOST_AFTER_S, **kw)
+
+
+def fleet_counts(fleet):
+    reps = [dict(r.engine.stats.counters) for r in fleet.replicas]
+    return {"kv_imports": sum(c.get("kv_imports", 0) for c in reps),
+            "prefills": sum(c.get("prefills", 0) for c in reps),
+            "decode_steps": sum(c.get("decode_steps", 0) for c in reps),
+            "migrations_in": sum(c.get("migrations_in", 0) for c in reps),
+            "worker_prefills": sum(w.runner.prefills for w in fleet.workers)}
+
+
+def release_memory(torch, device):
+    import gc
+
+    gc.collect()
+    if device != "cpu":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def handoff_clock(torch, fleet, device, costs):
+    """Time the handoff's legs over the block: the worker's prefill and
+    export (each ends in a host copy), encode, the payload's bytes and
+    form; a replica's read and decode of the frame, and its import
+    (synchronised)."""
+    from ray_lightning_tpu_torch.serve import engine as engine_mod
+    from ray_lightning_tpu_torch.serve.dist import prefill as prefill_mod
+
+    def timed(key, fn, sync=False):
+        def wrapper(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            if sync and device != "cpu":
+                torch.cuda.synchronize()
+            costs.setdefault(key, []).append(
+                1e3 * (time.perf_counter() - t0))
+            return out
+        return wrapper
+
+    encode = prefill_mod.encode_kv_payload
+    make_item = prefill_mod.make_handoff_item
+    imp = engine_mod.import_blocks
+
+    def encode_counted(kv, logits):
+        payload = encode(kv, logits)
+        costs.setdefault("bytes", []).append(len(payload))
+        return payload
+
+    def item_counted(req, bucket, **kw):
+        costs.setdefault("forms", []).append("shm" if kw.get("shm")
+                                             else "data")
+        return make_item(req, bucket, **kw)
+
+    runner = fleet.workers[0].runner
+    saved = [(runner.cache, "export_blocks"), (runner, "_prefill")]
+    runner.cache.export_blocks = timed("export_ms",
+                                       runner.cache.export_blocks)
+    # The worker's prefill ends in the logits' host copy: synced.
+    runner._prefill = timed("prefill_ms", runner._prefill)
+    for r in fleet.replicas:
+        saved.append((r.engine, "_decode_handoff"))
+        r.engine._decode_handoff = timed("read_ms", r.engine._decode_handoff)
+    prefill_mod.encode_kv_payload = timed("encode_ms", encode_counted)
+    prefill_mod.make_handoff_item = item_counted
+    engine_mod.import_blocks = timed("import_ms", imp, sync=True)
+    try:
+        yield
+    finally:
+        prefill_mod.encode_kv_payload = encode
+        prefill_mod.make_handoff_item = make_item
+        engine_mod.import_blocks = imp
+        for owner, attr in saved:
+            owner.__dict__.pop(attr, None)
+
+
+def kill_round(torch, fleet, client, prompt, adapter, hard):
+    """Stream KILL_TEMPS' two requests of ``prompt`` through ``fleet``
+    (prefix affinity seats both on one replica), kill that replica
+    (``hard``: abruptly; else a planned drain) once both have streamed
+    KILL_AFTER tokens, and time the recovery as the JAX package's bench
+    does: from the kill to the first fresh token after the router booked
+    the failover or the migration (fresh: past what the stream held once
+    every frame the victim sent had been read)."""
+    import threading
+
+    counter = "failovers" if hard else "migrations"
+    streams, errors = [[], []], [None, None]
+
+    def one(i):
+        try:
+            for tok in client.stream(prompt, KILL_NEW,
+                                     temperature=KILL_TEMPS[i],
+                                     adapter=adapter,
+                                     timeout=FLEET_TIMEOUT_S):
+                streams[i].append(tok)
+        except Exception as e:  # noqa: BLE001 - reported per stream
+            errors[i] = f"{type(e).__name__}: {e}"
+
+    threads = []
+    for i in range(2):
+        threads.append(threading.Thread(target=one, args=(i,)))
+        threads[-1].start()
+        t0 = time.perf_counter()
+        while len(client._pending) < i + 1:
+            check(time.perf_counter() - t0 < 60, "the streams submit")
+            time.sleep(0.001)
+    rids = list(client._pending)[-2:]
+    router = fleet.router
+    t0 = time.perf_counter()
+    while True:
+        tracks = [router._inflight.get(r) for r in rids]
+        pends = [client._pending.get(r) for r in rids]
+        if all(t is not None and t.replica is not None for t in tracks) \
+                and all(p is not None and len(p.tokens) >= KILL_AFTER
+                        for p in pends):
+            break
+        check(time.perf_counter() - t0 < FLEET_TIMEOUT_S,
+              f"both streams reach {KILL_AFTER} tokens")
+        time.sleep(0.001)
+    seeds = [t.req["sample_seed"] for t in tracks]
+    placed = {t.replica for t in tracks}
+    check(len(placed) == 1, f"both streams on one replica ({placed})")
+    victim = next(r for r in fleet.replicas if r.id in placed)
+    base = router.counters[counter]
+    at_kill = [len(p.tokens) for p in pends]
+    t_kill = time.perf_counter()
+    victim.kill(hard=hard)
+    while router.counters[counter] <= base:
+        check(time.perf_counter() - t_kill < 60,
+              f"the router books a {counter[:-1]}")
+        time.sleep(0.0005)
+    t_book = time.perf_counter()
+    # The victim's last step still sends its tokens: the fresh tokens
+    # counted below come after every frame it sent was read.
+    victim._thread.join(60)
+    while not client._replies.empty():
+        check(time.perf_counter() - t_kill < 60, "the client reads")
+        time.sleep(0.0005)
+    time.sleep(0.005)
+    n_base = len(pends[0].tokens)
+    while len(pends[0].tokens) <= n_base and not pends[0].done.is_set():
+        check(time.perf_counter() - t_kill < FLEET_TIMEOUT_S,
+              "the stream resumes after the recovery")
+        time.sleep(0.0005)
+    ttr = time.perf_counter() - t_kill
+    for th in threads:
+        th.join(FLEET_TIMEOUT_S + 30)
+    check(not any(th.is_alive() for th in threads), "the streams end")
+    return {"streams": streams, "errors": errors, "seeds": seeds,
+            "victim": victim.id, "tokens_at_kill": at_kill,
+            "book_ms": 1e3 * (t_book - t_kill), "ttr_ms": 1e3 * ttr}
+
+
+def reference_streams(torch, world, module, reqs, seeds, device):
+    """``reqs`` = [(prompt, new, temperature, adapter)] through one engine
+    driven in this thread, each with its sample seed."""
+    from ray_lightning_tpu_torch.serve import ServeEngine
+
+    eng = ServeEngine(module, world["params"], world["serve_cfg"],
+                      adapters=world["tenants"], device=device)
+    try:
+        handles = [eng.submit(p, n, temperature=t, adapter=a,
+                              sample_seed=s)
+                   for (p, n, t, a), s in zip(reqs, seeds)]
+        eng.run_until_idle()
+        return [h.result(0) for h in handles]
+    finally:
+        eng.stop()
+
+
+def phase_serve_fleet(torch, np, card, world, phase3=None,
+                      repeats=FLEET_REPEATS, device="cuda"):
+    """Phase 14: disaggregated serving on this card — two decode replicas
+    and a prefill worker (``launch_inproc_fleet``) behind the router, the
+    server cell's model and tenants, reached through a ``ServeClient``:
+    (a) the cell's requests through the fleet from a client process, each
+    stream equal to phase 3's, every admission a KV import, the BGMV run
+    by the worker (2L a prefill) and the replicas (2L a tick), the
+    handoff's legs timed, then FLEET_REPEATS timed runs alternating with
+    phase 13's engine over the queue; (b) an imported admission equal to
+    the engine's own prefill, blocks and first tokens, bitwise; (c) a
+    replica killed abruptly under a sampled and a greedy stream: the
+    router books a failover, both streams equal an undisturbed engine's
+    with the re-emitted tokens deduped, and a replica whose beats are lost
+    while its handle reads alive is declared lost; (d) as (c) with a
+    planned drain: the streams migrate, nothing re-emitted; (e) the
+    router's ``router-live.json`` and OpenMetrics text; (f) a bf16 fleet's
+    streams equal the bf16 monolith's."""
+    import shutil
+    import tempfile
+
+    from ray_lightning_tpu_torch.cluster.queue import DriverQueue
+    from ray_lightning_tpu_torch.models.gpt import GPT
+    from ray_lightning_tpu_torch.ops import lora
+    from ray_lightning_tpu_torch.serve import (
+        RetryPolicy, ServeClient, ServeEngine,
+    )
+    from ray_lightning_tpu_torch.serve.dist import (
+        PrefillRunner, make_dispatch_item, request_fields,
+    )
+
+    t_phase = time.perf_counter()
+    cfg, module, params = world["cfg"], world["module"], world["params"]
+    reqs, trees, tenants = world["reqs"], world["trees"], world["tenants"]
+    per_step = 2 * cfg.n_layer
+    on_card = device != "cpu"
+    failed = []
+    out = {}
+
+    def gate(ok, what):
+        if not ok:
+            print(f"phase 14: FAILED: {what}")
+            failed.append(what)
+
+    def exact_or_tie(streams, want, label, tree_module=module,
+                     bf16=False):
+        """Streams equal to ``want``, or leaving it first where the static
+        reference's top-2 logit gap is below TOP2_GAP (``bf16``: below one
+        bf16 step of the top logit)."""
+        from ray_lightning_tpu_torch.models import generate as gen_mod
+
+        good = 0
+        for (p, _, a), got, ref in zip(reqs, streams, want):
+            if got == ref:
+                good += 1
+            elif len(got) == len(ref):
+                i = next(j for j, (x, y) in enumerate(zip(got, ref))
+                         if x != y)
+                top = top2_logits(torch, gen_mod, tree_module, trees[a],
+                                  p + ref[:i], device)
+                g = (top[0] - top[1]).item()
+                bound = bf16_ulp(top[0].item()) if bf16 else TOP2_GAP
+                print(f"phase 14 {label}: {a or 'base'} diverges at token "
+                      f"{i}; the reference's top-2 gap {g:.3e}, top logit "
+                      f"{top[0].item():.4f}, tie bound {bound:.3e}")
+                good += g < bound
+            else:
+                print(f"phase 14 {label}: {len(got)} tokens, the reference "
+                      f"{len(ref)}")
+        return good
+
+    def resume(engines):
+        for e in engines:
+            if e._thread is None:
+                e.start()
+
+    tdir = tempfile.mkdtemp(prefix="rlt-serve-fleet-")
+    rdir = os.path.join(tdir, "router")
+    mono = ServeEngine(module, params, plane_config(world),
+                       adapters=tenants, device=device,
+                       telemetry_dir=os.path.join(tdir, "mono"),
+                       prom_file=os.path.join(tdir, "mono.prom"))
+    fleet = client = None
+    children = []
+    try:
+        warm = [(reqs[i][0][:32], 4, reqs[i][2]) for i in range(2)]
+        for p, n, a in warm:
+            mono.generate(p, n, adapter=a)
+        mono.start()
+        fleet = start_fleet(world, module, device, rdir)
+        client = ServeClient(fleet.queue_handle(),
+                             retry=RetryPolicy(max_attempts=1))
+        streams, _, _, errors = client_round(client, warm)
+        check(not any(errors), f"the fleet warms: {errors}")
+        cf = ClientProcess(fleet.queue_handle(),
+                           os.path.join(tdir, "fleet.err"))
+        children.append(cf)
+        cm = ClientProcess(mono.queue_handle(),
+                           os.path.join(tdir, "mono.err"))
+        children.append(cm)
+        want = phase3["streams"] if phase3 else None
+
+        # (a) the cell's requests through the fleet, counted and timed
+        c0, r0 = fleet_counts(fleet), dict(fleet.router.counters)
+        costs = {}
+        lora.bgmv.launches = 0
+        lora.bgmv.launches_by_rows = {}
+        with handoff_clock(torch, fleet, device, costs):
+            res = cf.round(reqs)
+        by_rows = dict(lora.bgmv.launches_by_rows)
+        total = lora.bgmv.launches
+        c1, r1 = fleet_counts(fleet), dict(fleet.router.counters)
+        d = {k: c1[k] - c0[k] for k in c1}
+        if want is None:
+            want = cm.round(reqs)["streams"]
+        good = exact_or_tie(res["streams"], want, "(a)")
+        exact = sum(a == b for a, b in zip(res["streams"], want))
+        decode_launches = by_rows.get(DECODE_W, 0)
+        worker_launches = total - decode_launches
+        print(f"phase 14 (a): {exact}/{len(reqs)} fleet streams equal "
+              f"phase 3's ({good} exact or at a near tie); replicas: "
+              f"{d['kv_imports']} KV imports, {d['prefills']} local "
+              f"prefills, {d['decode_steps']} decode ticks; worker: "
+              f"{d['worker_prefills']} prefills; router: "
+              f"{r1['prefill_dispatches'] - r0['prefill_dispatches']} "
+              f"dispatches; bgmv launches {total} = worker {worker_launches}"
+              f" (rows {sorted(k for k in by_rows if k != DECODE_W)}) + "
+              f"replicas {decode_launches}")
+        gate(good == len(reqs), "(a) the fleet's streams equal phase 3's")
+        gate(d["kv_imports"] == len(reqs) and d["prefills"] == 0,
+             "(a) every admission is a KV import")
+        gate(d["worker_prefills"] == len(reqs),
+             "(a) the worker prefilled every request")
+        gate(not on_card or (worker_launches == per_step * len(reqs)
+                             and decode_launches
+                             == per_step * d["decode_steps"] > 0),
+             "(a) the BGMV launched 2L times a worker prefill and a tick")
+        n = len(costs.get("bytes", []))
+        handoff = {k: (sum(v) / len(v) if v else None)
+                   for k, v in costs.items() if k != "forms"}
+        handoff["forms"] = {f: costs.get("forms", []).count(f)
+                            for f in ("shm", "data")}
+        handoff["handoffs"] = n
+        handoff["bytes_total"] = sum(costs.get("bytes", []))
+        out["handoff"] = handoff
+        out["a"] = {"exact": exact, "good": good, **d,
+                    "bgmv_launches": total,
+                    "worker_launches": worker_launches,
+                    "decode_launches": decode_launches}
+        print(f"phase 14 (a) handoff: {n} handoffs, {handoff['forms']}, "
+              f"{handoff['bytes_total'] / max(n, 1) / 1e6:.2f} MB each; "
+              f"means: worker prefill {handoff.get('prefill_ms') or 0:.2f}"
+              f" ms, export {handoff.get('export_ms') or 0:.2f} ms, "
+              f"encode {handoff.get('encode_ms') or 0:.2f} ms, read "
+              f"{handoff.get('read_ms') or 0:.2f} ms, import "
+              f"{handoff.get('import_ms') or 0:.2f} ms; {card}")
+
+        runs = {"fleet": [], "monolith": []}
+        order = []
+        for i in range(repeats):
+            order += ["fleet", "monolith"] if i % 2 == 0 \
+                else ["monolith", "fleet"]
+        for kind in order:
+            # The idle serve loops of the other arm share the GIL: halted
+            # for this arm's run.
+            if kind == "fleet":
+                mono.halt_loop()
+                resume(r.engine for r in fleet.replicas)
+                res = cf.round(reqs)
+            else:
+                for r in fleet.replicas:
+                    r.engine.halt_loop()
+                resume([mono])
+                res = cm.round(reqs)
+            metrics = {k: res[k] for k in
+                       ("ttft_p50_ms", "itl_p50_ms", "tokens_per_s")}
+            exact = sum(a == b for a, b in zip(res["streams"], want))
+            print(f"phase 14 (a) {kind} run: {exact}/{len(reqs)} streams "
+                  f"equal phase 3's; TTFT p50 {metrics['ttft_p50_ms']:.1f}"
+                  f" ms, ITL p50 {metrics['itl_p50_ms']:.2f} ms, "
+                  f"{metrics['tokens_per_s']:.1f} tokens/s")
+            gate(exact_or_tie(res["streams"], want, f"(a) {kind}")
+                 == len(reqs), f"(a) {kind} streams equal phase 3's")
+            runs[kind].append(metrics)
+        mono.halt_loop()
+        resume(r.engine for r in fleet.replicas)
+        for kind in runs:
+            if runs[kind]:
+                out[kind] = summarize(runs[kind], kind, card, phase=14)
+        out["profile"] = None
+        if on_card:
+            from torch.profiler import ProfilerActivity, profile
+
+            # The profiler's teardown holds the GIL for seconds, which
+            # stalls every member's beats: the router must not read that
+            # as deaths.
+            lost_after = fleet.router.lost_after_s
+            fleet.router.lost_after_s = 3600.0
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                cf.round(reqs)
+                torch.cuda.synchronize()
+                wall_us = (time.perf_counter() - t0) * 1e6
+            busy = sum(e.time_range.elapsed_us() for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
+            time.sleep(1.0)  # fresh beats from every member
+            fleet.router.lost_after_s = lost_after
+            out["profile"] = {"wall_ms": wall_us / 1e3,
+                              "device_busy_ms": busy / 1e3,
+                              "device_busy_share": busy / wall_us}
+            print(f"phase 14 (a) profile: through the fleet, wall "
+                  f"{wall_us / 1e3:.1f} ms, device busy {busy / 1e3:.1f} ms"
+                  f" ({100 * busy / wall_us:.1f}%); {card}")
+
+        # (e) the router's exports (its last refresh, then the files)
+        fleet.router.poll()
+        fleet.router._last_export = 0.0
+        fleet.router._maybe_export()
+        live = json.load(open(os.path.join(rdir, "router-live.json")))
+        snap = live.get("router", {})
+        text = open(os.path.join(rdir, "router.prom")).read()
+        missing = [k for k in ROUTER_LIVE_KEYS if k not in snap]
+        for part, keys in ROUTER_MEMBER_KEYS.items():
+            missing += [f"{part}.{k}" for e in snap.get(part, [])
+                        for k in keys if k not in e]
+        bad = [k for k, v in snap.get("counters", {}).items()
+               if not isinstance(v, int) or v < 0]
+        top = subprocess.run(
+            [sys.executable, os.path.join(ROOT, "tools", "rlt_top.py"),
+             "--once", rdir], capture_output=True, text=True, timeout=60)
+        print(f"phase 14 (e): router-live.json keys {sorted(snap)}, missing "
+              f"{missing}; {len(text.splitlines())} OpenMetrics lines; "
+              f"rlt_top exit {top.returncode}")
+        for line in top.stdout.splitlines()[:6]:
+            print(f"phase 14 (e):   {line}")
+        gate(not missing and not bad and len(snap.get("replicas", [])) == 2
+             and len(snap.get("workers", [])) == 1,
+             "(e) router-live.json carries validate_router_snapshot's keys")
+        gate('rlt_serve_router_total{kind="routed"}' in text
+             and 'rlt_serve_replica_inflight{replica="r0"}' in text
+             and 'rlt_serve_prefill_alive{worker="p0"}' in text,
+             "(e) the OpenMetrics router section")
+        gate("rlt_capacity_fleet_replicas_reporting 2" in text,
+             "(e) the OpenMetrics fleet-capacity section")
+        gate(top.returncode == 0 and "router" in top.stdout,
+             "(e) rlt_top renders the router pane")
+        out["e"] = {"counters": snap.get("counters"),
+                    "capacity": snap.get("capacity"),
+                    "prom_lines": len(text.splitlines())}
+
+        # (c) an abrupt death under two streams, then lost beats
+        prompt, _, adapter = next(r for r in reqs if r[2] is not None)
+        re0 = client.re_emitted_tokens
+        kc = kill_round(torch, fleet, client, prompt, adapter, hard=True)
+        ref = reference_streams(
+            torch, world, module,
+            [(prompt, KILL_NEW, t, adapter) for t in KILL_TEMPS],
+            kc["seeds"], device)
+        rc = dict(fleet.router.counters)
+        re_c = client.re_emitted_tokens - re0
+        print(f"phase 14 (c): killed {kc['victim']} at "
+              f"{kc['tokens_at_kill']} tokens; failovers "
+              f"{rc['failovers']}, failed over {rc['failed_over_requests']}"
+              f"; streams equal the undisturbed engine's: "
+              f"{[s == r for s, r in zip(kc['streams'], ref)]}; "
+              f"{re_c} re-emitted tokens deduped; errors {kc['errors']}; "
+              f"booked {kc['book_ms']:.1f} ms, time to recovery "
+              f"{kc['ttr_ms']:.1f} ms; {card}")
+        gate(rc["failovers"] >= 1 and rc["replica_deaths"] >= 1,
+             "(c) the router books a failover")
+        gate(not any(kc["errors"]) and kc["streams"] == ref,
+             "(c) both streams equal the undisturbed engine's")
+        gate(re_c > 0, "(c) the re-emitted tokens were deduped")
+        survivor = next(r for r in fleet.replicas if r.is_alive())
+
+        class _LostBeats:
+            def put(self, item):
+                raise ConnectionError("beats lost")
+
+        deaths = rc["replica_deaths"]
+        survivor._runner._beat_handle = _LostBeats()
+        t0 = time.perf_counter()
+        while fleet.router.counters["replica_deaths"] <= deaths \
+                and time.perf_counter() - t0 < 5 * FLEET_LOST_AFTER_S:
+            time.sleep(0.005)
+        detect = time.perf_counter() - t0
+        lost = fleet.router.counters["replica_deaths"] > deaths
+        print(f"phase 14 (c): {survivor.id}'s beats lost, its handle alive:"
+              f" declared lost {lost} after {detect:.2f} s "
+              f"(lost_after_s {FLEET_LOST_AFTER_S})")
+        gate(lost, "(c) beat loss declares a live-looking replica lost")
+        out["c"] = {**{k: kc[k] for k in ("book_ms", "ttr_ms",
+                                          "tokens_at_kill")},
+                    "re_emitted": re_c, "failovers": rc["failovers"],
+                    "beat_loss_detect_s": detect}
+        client.close()
+        client = None
+        fleet.close()
+        fleet = None
+        release_memory(torch, device)
+
+        # (b) an imported admission equals the engine's own prefill
+        prompt, n, adapter = next(r for r in reqs if r[2] is not None)
+        beats, replies = DriverQueue(), DriverQueue()
+        worker = PrefillRunner("pb", module, params, world["serve_cfg"],
+                               beats.handle, beat_s=3600.0, device=device)
+        local = ServeEngine(module, params, world["serve_cfg"],
+                            adapters=tenants, device=device)
+        imp = ServeEngine(module, params, world["serve_cfg"],
+                          adapters=tenants, device=device)
+        try:
+            worker.adapters.add(adapter, tenants[adapter])
+            local.submit(prompt, n, adapter=adapter, sample_seed=0)
+            local.step()
+            h = imp.queue_handle()
+            lora.bgmv.launches = 0
+            lora.bgmv.launches_by_rows = {}
+            worker._inbox.handle.put(make_dispatch_item(request_fields(
+                "b", prompt, n, reply=(replies.handle.host,
+                                       replies.handle.port),
+                sample_seed=0, adapter=adapter), (h.host, h.port)))
+            check(worker.step(timeout=60), "(b) the worker prefills")
+            b_launches = lora.bgmv.launches
+            t0 = time.perf_counter()
+            while imp._inbox._items.qsize() < 1:
+                check(time.perf_counter() - t0 < 60, "(b) the handoff lands")
+                time.sleep(0.001)
+            imp.step()
+            nb = imp.scheduler.bucket_for(len(prompt)) \
+                // world["serve_cfg"].block_size
+            ids_l = local.scheduler._blocks[0][:nb]
+            ids_i = imp.scheduler._blocks[0][:nb]
+            diffs = [float((local._pool[k][:, ids_l].float()
+                            - imp._pool[k][:, ids_i].float()).abs().max())
+                     for k in ("k", "v")]
+            same = all(torch.equal(local._pool[k][:, ids_l],
+                                   imp._pool[k][:, ids_i])
+                       for k in ("k", "v"))
+            toks_l = local.scheduler.slots[0].generated
+            toks_i = imp.scheduler.slots[0].generated
+            print(f"phase 14 (b): {adapter} prompt of {len(prompt)} tokens "
+                  f"({nb} blocks): imported blocks = the local prefill's "
+                  f"bitwise: {same} (max abs diff k {diffs[0]:.3e}, v "
+                  f"{diffs[1]:.3e}); first tokens {toks_i} = {toks_l}; "
+                  f"worker bgmv launches {b_launches}")
+            gate(same and toks_i == toks_l,
+                 "(b) an import equals the local prefill, bitwise")
+            gate(not on_card or b_launches == per_step,
+                 "(b) the worker's prefill launched the BGMV 2L times")
+            out["b"] = {"bitwise": same, "max_abs_diff": diffs,
+                        "worker_launches": b_launches}
+        finally:
+            worker.close()
+            for e in (local, imp):
+                e.stop()
+            beats.shutdown()
+            replies.shutdown()
+        del worker, local, imp
+        release_memory(torch, device)
+
+        # (d) a planned drain under two streams
+        fleet = start_fleet(world, module, device)
+        client = ServeClient(fleet.queue_handle(),
+                             retry=RetryPolicy(max_attempts=1))
+        prompt, _, adapter = next(r for r in reqs if r[2] is not None)
+        kd = kill_round(torch, fleet, client, prompt, adapter, hard=False)
+        ref = reference_streams(
+            torch, world, module,
+            [(prompt, KILL_NEW, t, adapter) for t in KILL_TEMPS],
+            kd["seeds"], device)
+        rd = dict(fleet.router.counters)
+        mig_in = fleet_counts(fleet)["migrations_in"]
+        print(f"phase 14 (d): drained {kd['victim']} at "
+              f"{kd['tokens_at_kill']} tokens; router migrations "
+              f"{rd['migrations']}, survivor migrations_in {mig_in}, "
+              f"failovers {rd['failovers']}; streams equal the undisturbed "
+              f"engine's: {[s == r for s, r in zip(kd['streams'], ref)]}; "
+              f"{client.re_emitted_tokens} re-emitted; errors "
+              f"{kd['errors']}; booked {kd['book_ms']:.1f} ms, time to "
+              f"recovery {kd['ttr_ms']:.1f} ms; {card}")
+        gate(mig_in >= 1 and rd["migrations"] >= 1,
+             "(d) the survivor adopted the migrated streams")
+        gate(client.re_emitted_tokens == 0 and rd["failovers"] == 0,
+             "(d) nothing re-emitted, no failover")
+        gate(not any(kd["errors"]) and kd["streams"] == ref,
+             "(d) both streams equal the undisturbed engine's")
+        out["d"] = {**{k: kd[k] for k in ("book_ms", "ttr_ms",
+                                          "tokens_at_kill")},
+                    "migrations": rd["migrations"], "migrations_in": mig_in}
+        client.close()
+        client = None
+        fleet.close()
+        fleet = None
+        release_memory(torch, device)
+
+        # (f) bf16: the fleet's streams against the bf16 monolith's
+        module16 = GPT(cfg, precision="bf16", device=device)
+        fleet = start_fleet(world, module16, device)
+        client = ServeClient(fleet.queue_handle(),
+                             retry=RetryPolicy(max_attempts=1))
+        streams16, _, _, errors = client_round(
+            client, reqs, timeout=FLEET_TIMEOUT_S)
+        client.close()
+        client = None
+        fleet.close()
+        fleet = None
+        want16 = reference_streams(
+            torch, world, module16, [(p, n, 0.0, a) for p, n, a in reqs],
+            list(range(len(reqs))), device)
+        exact16 = sum(a == b for a, b in zip(streams16, want16))
+        good16 = exact_or_tie(streams16, want16, "(f) bf16",
+                              tree_module=module16, bf16=True)
+        print(f"phase 14 (f): bf16 fleet: {exact16}/{len(reqs)} streams "
+              f"equal the bf16 monolith's ({good16} exact or at a bf16 "
+              f"tie, gap < one bf16 step of the top logit); errors "
+              f"{[e for e in errors if e]}")
+        gate(not any(errors) and good16 == len(reqs),
+             "(f) the bf16 fleet's streams equal the bf16 monolith's")
+        from ray_lightning_tpu_torch.models import generate as gen_mod
+
+        tops = [top2_logits(torch, gen_mod, module16, trees[a], p,
+                            device)[0].item() for p, _, a in reqs]
+        print(f"phase 14 (f): bf16 top logit at the first token "
+              f"{min(tops):.4f}-{max(tops):.4f} (one bf16 step "
+              f"{bf16_ulp(min(tops)):.3e}-{bf16_ulp(max(tops)):.3e})")
+        out["f"] = {"exact": exact16, "good": good16,
+                    "first_top_logit": [min(tops), max(tops)]}
+    finally:
+        for c in children:
+            c.close()
+        if client is not None:
+            client.close()
+        if fleet is not None:
+            fleet.close()
+        mono.stop()
+        shutil.rmtree(tdir, ignore_errors=True)
+        release_memory(torch, device)
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"phase 14: {out['wall_s']:.1f} s; {card}")
+    check(not failed, "phase 14: " + "; ".join(failed))
+    return out
+
+
+
 def kernel_name(mangled):
     """``name<args>`` of a kernel: of a demangled name (the profiler's),
     the identifier ending in ``_kernel`` and its template arguments; of a
@@ -4760,8 +5487,9 @@ def main() -> int:
     lora_opt = phase_lora_and_opt_state(torch, np, card)
     features = phase_server_features(torch, np, card)
     phase3 = {"streams": f32.pop("streams"), "profile": f32["profile"]}
-    plane = phase_serve_plane(torch, np, card, server_world(torch, np),
-                              phase3)
+    world = server_world(torch, np)
+    plane = phase_serve_plane(torch, np, card, world, phase3)
+    fleet = phase_serve_fleet(torch, np, card, world, phase3)
 
     kernels = [{
         "name": "bgmv", "route": "cuda", "source": BGMV_SOURCE,
@@ -4788,6 +5516,7 @@ def main() -> int:
     print("server_features: " + json.dumps({**features, "bgmv_widths":
                                             bgmv_widths, "card": card}))
     print("serve_plane: " + json.dumps({**plane, "card": card}))
+    print("serve_fleet: " + json.dumps({**fleet, "card": card}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

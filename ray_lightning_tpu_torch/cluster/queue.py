@@ -200,6 +200,12 @@ class DriverQueue:
     def shutdown(self) -> None:
         self._closed.set()
         try:
+            # shutdown wakes the accept loop, which a close alone does not
+            # (its thread would outlive the queue).
+            self._server.shutdown(socket.SHUT_RDWR)
+        except OSError:
+            pass
+        try:
             self._server.close()
         except OSError:
             pass

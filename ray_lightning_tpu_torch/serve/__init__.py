@@ -2,7 +2,10 @@
 allocator, scheduler with request deadlines, LoRA adapter pool and its
 wire codec, sampler, the engine with its queue plane and exports, and
 the client that reaches it from any process (as
-``ray_lightning_tpu/serve/__init__.py`` exports them)."""
+``ray_lightning_tpu/serve/__init__.py`` exports them).  The disaggregated
+fleet (prefill workers, decode replicas, the router) and the brownout
+ladder are imported from their modules: ``from
+ray_lightning_tpu_torch.serve.dist import launch_inproc_fleet``."""
 
 from ray_lightning_tpu_torch.serve.client import (
     RetryPolicy,

@@ -46,9 +46,15 @@ Exports: ``telemetry_dir`` (``serve-live.json``), ``prom_file`` /
 at :meth:`stop`) and, with ``ServeConfig(capacity=True, slo=True)``, the
 headroom oracle and the burn-rate SLOs on the export cadence.  A loop
 that raises marks the engine dead and fails every pending request
-loudly.  The disaggregated plane's frames (``serve_kv_handoff``,
-``serve_migration``) are answered ``invalid``: ``serve/dist`` is not
-ported yet.
+loudly.
+
+The disaggregated plane (``serve/dist``) reaches a decode replica through
+the same inbox: a ``serve_kv_handoff`` frame carries a prefill worker's
+k/v blocks and last-position logits, which admission scatters into this
+engine's own blocks (``import_blocks``) and samples the first token from
+exactly as the local prefill would; a ``serve_migration`` frame seats a
+draining replica's resident sequence mid-decode (:meth:`export_resident`
+is the other end).
 """
 
 from __future__ import annotations
@@ -56,6 +62,7 @@ from __future__ import annotations
 import json
 import logging
 import os
+import pickle
 import queue as _pyqueue
 import threading
 import time
@@ -67,11 +74,12 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ray_lightning_tpu_torch.cluster.shm import SegmentError
 from ray_lightning_tpu_torch.device import resolve_device
 from ray_lightning_tpu_torch.models.generate import _reject_unmerged_lora
 from ray_lightning_tpu_torch.serve.kv_cache import (
-    TRASH_BLOCK, PagedKVCache, PrefixIndex, paged_decode_step, paged_prefill,
-    paged_verify_step, prepare_params, sample_tokens,
+    TRASH_BLOCK, PagedKVCache, PrefixIndex, import_blocks, paged_decode_step,
+    paged_prefill, paged_verify_step, prepare_params, sample_tokens,
 )
 from ray_lightning_tpu_torch.serve.lora import AdapterPool
 from ray_lightning_tpu_torch.serve.metrics import ServeStats
@@ -79,13 +87,21 @@ from ray_lightning_tpu_torch.serve.scheduler import (
     Request, Scheduler, derive_geometry,
 )
 from ray_lightning_tpu_torch.telemetry.propagate import (
-    child_context, extract, root_context, trace_args,
+    child_context, extract, root_context, sent_ts, trace_args,
 )
 from ray_lightning_tpu_torch.telemetry.spans import SpanTracer
 
 log = logging.getLogger(__name__)
 
 __all__ = ["ServeConfig", "ServeEngine", "ServeHandle", "ServeRejected"]
+
+# A torn or vanished handoff payload: the failures of the read and the
+# decode of a frame's bytes.
+_PAYLOAD_ERRORS = (ValueError, TypeError, KeyError, OSError, SegmentError,
+                   pickle.UnpicklingError, EOFError)
+# How long a handoff or migration whose tenant has not landed yet waits
+# for its serve_adapter_load frame (which rides another connection).
+_ADAPTER_WAIT_S = 10.0
 
 
 def accepted_drafts(drafts, target) -> int:
@@ -387,6 +403,15 @@ class ServeEngine:
         # Terminal (rid, status) pairs since the last drain_done(), bounded
         # for an engine nobody drains.
         self._done_feed: deque = deque(maxlen=4096)  # guarded by self._lock
+        # Non-terminal (rid, error) handoff admissions that failed (a torn
+        # or vanished payload), for a replica's beat: the router re-routes
+        # the prefill.  Filled only with report_handoff_failures on (a
+        # replica runner sets it); a standalone engine replies "invalid".
+        self._failed_feed: deque = deque(maxlen=4096)  # guarded by self._lock
+        self.report_handoff_failures = False
+        # Handoff and migration frames waiting for their tenant's
+        # serve_adapter_load frame, retried once a drain.
+        self._deferred_inbox: deque = deque()
         self._error: Optional[BaseException] = None
         self._lock = threading.Lock()
         self._stop = threading.Event()
@@ -445,6 +470,7 @@ class ServeEngine:
                deadline_s: Optional[float] = None,
                sample_seed: Optional[int] = None,
                on_token=None, rid: Optional[str] = None,
+               _handoff: Optional[dict] = None,
                _trace_ctx=None) -> ServeHandle:
         """Enqueue one request (thread-safe).  A backpressure rejection
         shows at once as ``handle.status == "rejected"`` (and ``result()``
@@ -456,7 +482,9 @@ class ServeEngine:
         a tick (None = the engine's ``spec_k``, 0 = plain decode).
         ``deadline_s`` expires the request if it is still queued that
         many seconds after arrival (``ServeRejected`` from ``result()``).
-        A dead engine (its loop raised) refuses with ``RuntimeError``."""
+        A dead engine (its loop raised) refuses with ``RuntimeError``.
+        ``_handoff`` (``serve/dist``) carries a prefill worker's decoded
+        payload: admission imports it instead of prefilling."""
         prompt = [int(t) for t in prompt]
         if not prompt:
             raise ValueError("prompt must contain at least one token")
@@ -528,6 +556,7 @@ class ServeEngine:
             sample_seed=sample_seed, on_token=on_token, trace=trace_ctx,
         )
         req._trace_local = trace_local
+        req._handoff = _handoff
         handle = ServeHandle(rid, req)
         with self._lock:
             if adapter is not None:
@@ -596,6 +625,7 @@ class ServeEngine:
                                           preemptions=req.preemptions))
                 self.stats.note_phase("queue_wait", wait)
             t_ph = time.time() if ctx is not None else 0.0
+            handoff = None
             if bucket == 0:
                 # Claimed and/or chunked: exact coverage, the uncovered
                 # suffix through the chunk step — at once when it fits one
@@ -606,6 +636,14 @@ class ServeEngine:
                     continue
                 self.stats.bump("prefills")
                 first = self._suffix_prefill(slot, req)
+            elif req._handoff is not None:
+                # A prefill worker ran this prompt: its blocks go into this
+                # engine's blocks and the first token is drawn from its
+                # logits, as the local prefill would draw it.  The payload
+                # is dropped here, so a preempted request recomputes.
+                handoff, req._handoff = req._handoff, None
+                self.stats.bump("kv_imports")
+                first = self._import_prefill(slot, req, bucket, handoff)
             else:
                 self.stats.bump("prefills")
                 first = self._prefill(slot, req, bucket)
@@ -616,10 +654,12 @@ class ServeEngine:
             t_adm = t_first
             if ctx is not None:
                 t_sync = time.time()
-                tr.record("prefill_compute", t_ph, max(0.0, t_sync - t_ph),
+                phase = ("decode_admission" if handoff is not None
+                         else "prefill_compute")
+                tr.record(phase, t_ph, max(0.0, t_sync - t_ph),
                           args=trace_args(child_context(ctx), rid=req.rid,
                                           bucket=bucket))
-                self.stats.note_phase("prefill_compute", t_sync - t_ph)
+                self.stats.note_phase(phase, t_sync - t_ph)
             self._first_token(slot, req, first)
             if ctx is not None:
                 ft_dur = max(0.0, time.time() - t_sync)
@@ -764,6 +804,30 @@ class ServeEngine:
             )
         return self._sample_one(logits, req, req.prompt_len - 1)
 
+    def _import_prefill(self, slot: int, req: Request, bucket: int,
+                        handoff: dict) -> int:
+        """Admit a handed-off request: scatter the worker's blocks into
+        the slot's bucket blocks and draw the first token from the shipped
+        logits (the draft still prefills, on a speculative engine).  On a
+        draft-less engine no prompt tokens go to the device."""
+        dev = self.device
+        ids = torch.tensor(
+            self.scheduler._blocks[slot][: bucket // self.config.block_size],
+            dtype=torch.long, device=dev,
+        )
+        self._pool = import_blocks(self._pool, handoff["kv"], ids)
+        if self.draft_module is not None:
+            padded = np.zeros((bucket,), np.int64)
+            padded[: req.prompt_len] = req.prompt
+            _, self._draft_pool = paged_prefill(
+                self.draft_module.config, self.draft_params,
+                self._draft_pool, torch.from_numpy(padded).to(dev),
+                req.prompt_len, ids, compute_dtype=self._draft_c,
+            )
+        logits = torch.tensor(np.asarray(handoff["logits"]),
+                              dtype=torch.float32, device=dev)
+        return self._sample_one(logits, req, req.prompt_len - 1)
+
     def _run_chunk(self, req: Request, row: np.ndarray, start: int,
                    end: int, width: int) -> torch.Tensor:
         """Prompt positions ``[start, end)`` through the verify step at one
@@ -798,7 +862,11 @@ class ServeEngine:
         whole-block shared prefix of ``req``'s prompt.  The cap
         ``(prompt_len - 1) // block_size`` keeps the last prompt token's
         block computed here (it yields the first token's logits), so every
-        later write lands past the claimed blocks."""
+        later write lands past the claimed blocks.  A handoff never
+        claims: its payload covers the whole prompt and scatters into
+        private blocks."""
+        if req._handoff is not None:
+            return []
         cap = (req.prompt_len - 1) // self.config.block_size
         return self.prefix_cache.claim(req.adapter, req.prompt, cap)
 
@@ -1135,6 +1203,16 @@ class ServeEngine:
             self._done_feed.clear()
         return items
 
+    def drain_failed(self) -> List[Tuple[str, str]]:
+        """Non-terminal ``(rid, error)`` handoff admissions that failed
+        since the last call (a replica beat's ``failed`` feed, with
+        ``report_handoff_failures`` on): the router re-dispatches each
+        prefill, never a terminal reply."""
+        with self._lock:
+            items = list(self._failed_feed)
+            self._failed_feed.clear()
+        return items
+
     def cancel(self, rid: str) -> bool:
         """Drop one request wherever it is, queued or mid-decode.
         Idempotent: unknown or finished rids return False.  The terminal
@@ -1215,6 +1293,48 @@ class ServeEngine:
             self._thread.join(timeout=30)
             self._thread = None
 
+    def export_resident(self) -> List[dict]:
+        """Every resident decoding sequence's k/v blocks and position:
+        the payload of a planned drain's live migration.  Call with the
+        loop halted (:meth:`halt_loop`).  Queued requests and chunked
+        prefills in flight are not exported: they have emitted nothing
+        worth moving, and the router's recompute failover covers them.
+        ``seq_len`` is prompt + generated - 1 (the last sampled token's
+        k/v is written by its own tick), so ``ceil(seq_len /
+        block_size)`` blocks hold all a survivor needs.  ``req`` is a
+        ``serve_request`` body (the JAX engine's lacks the ``type`` key,
+        which the JAX package's ``validate_serve_migration`` requires)."""
+        out = []
+        sched = self.scheduler
+        Bs = self.config.block_size
+        for slot, req in enumerate(sched.slots):
+            if req is None or slot in self._chunk_jobs or not req.generated:
+                continue
+            seq_len = int(sched.seq_lens[slot])
+            ids = sched._blocks[slot][: -(-seq_len // Bs)]
+            fields = {
+                "type": "serve_request",
+                "rid": req.rid, "prompt": list(req.prompt),
+                "max_new_tokens": int(req.max_new_tokens),
+                "temperature": float(req.temperature),
+                "eos_token_id": req.eos_token_id,
+                "top_k": req.top_k,
+                "adapter": req.adapter,
+                "priority": int(req.priority),
+                "sample_seed": req.sample_seed,
+            }
+            reply = getattr(req, "_reply", None)
+            if reply is not None:
+                fields["reply"] = list(reply)
+            out.append({
+                "req": fields,
+                "generated": list(req.generated),
+                "cur_token": int(self._cur_tokens[slot]),
+                "seq_len": seq_len,
+                "kv": self.cache.export_blocks(self._pool, ids),
+            })
+        return out
+
     def stop(self) -> None:
         """Stop the serve thread, close the inbox and reply queues, make
         the last export and write the span file."""
@@ -1260,11 +1380,18 @@ class ServeEngine:
     def _drain_inbox(self) -> None:
         if self._inbox is None:
             return
+        items = []
         while True:
             try:
-                item = self._inbox.get_nowait()
+                items.append(self._inbox.get_nowait())
             except _pyqueue.Empty:
-                return
+                break
+        if self._deferred_inbox:
+            # One retry a drain, after this drain's frames: an adapter-load
+            # frame that just landed lets its deferred handoffs through.
+            retry, self._deferred_inbox = self._deferred_inbox, deque()
+            items.extend(retry)
+        for item in items:
             try:
                 self._handle_queue_request(item)
             except Exception as e:  # noqa: BLE001 - a bad frame must
@@ -1284,26 +1411,30 @@ class ServeEngine:
             self.cancel(str(item["rid"]))
             return
         if kind in ("serve_kv_handoff", "serve_migration"):
-            fields = item.get("req")
-            fields = fields if isinstance(fields, dict) else {}
-            reply = fields.get("reply")
-            rid = str(fields.get("rid", item.get("rid", "")))
-            if reply is None:
-                raise ValueError(f"{kind} without a reply address")
-            reply = tuple(reply)
-            with self._lock:
-                self._done_feed.append((rid, "invalid"))
-            self._reply(reply, {
-                "type": "serve_done", "rid": rid, "status": "invalid",
-                "error": f"{kind} frames need the disaggregated plane "
-                         f"(serve/dist), which this engine does not serve "
-                         f"yet", "tokens": [],
-            })
-            return
-        if kind != "serve_request":
-            raise ValueError(f"not a serve request: {kind!r}")
+            fields = dict(item["req"])
+            adapter = fields.get("adapter")
+            if (adapter is not None and self.adapters is not None
+                    and not self.adapters.has(str(adapter))):
+                # The tenant's serve_adapter_load frame rides the
+                # router's lane, the handoff the worker's: it may arrive
+                # first.  Defer on a wall-clock deadline, checked before
+                # the payload is read, so a read-once segment survives.
+                deadline = item.get("_adapter_wait_deadline")
+                if deadline is None:
+                    deadline = time.monotonic() + _ADAPTER_WAIT_S
+                    item["_adapter_wait_deadline"] = deadline
+                if time.monotonic() < deadline:
+                    self._deferred_inbox.append(item)
+                    return
+        elif kind == "serve_request":
+            fields = item
+        else:
+            raise ValueError(f"not a serve request/handoff: {kind!r}")
         rid = str(item["rid"])
-        reply = tuple(item["reply"])  # (host, port)
+        reply = tuple(fields["reply"])  # (host, port)
+        if kind == "serve_migration":
+            self._admit_migration(item, fields, rid, reply)
+            return
         if item.get("hedge"):
             # A hedged duplicate reaching a single engine: the first
             # admission already decodes this rid.
@@ -1318,22 +1449,41 @@ class ServeEngine:
             })
 
         try:
-            handle = self.submit(
-                item["prompt"], int(item["max_new_tokens"]),
-                temperature=float(item.get("temperature", 0.0)),
-                eos_token_id=item.get("eos_token_id"),
-                top_k=item.get("top_k"),
-                spec=item.get("spec"),
-                adapter=item.get("adapter"),
-                deadline_s=item.get("deadline_s"),
-                sample_seed=item.get("sample_seed"),
-                on_token=on_token, rid=rid,
-                _trace_ctx=extract(item) if self.tracer.enabled else None,
+            handoff = (self._decode_handoff(item)
+                       if kind == "serve_kv_handoff" else None)
+            trace_ctx = None
+            if self.tracer.enabled:
+                # The request carries the router's context (the trace
+                # root); a handoff envelope also carries the worker's span
+                # and its send time, booked here at the read, where
+                # queue_wait begins.
+                trace_ctx = extract(fields)
+                h_sent = sent_ts(item) if handoff is not None else None
+                if h_sent is not None and trace_ctx is not None:
+                    h_dur = max(0.0, time.time() - h_sent)
+                    self.tracer.record(
+                        "handoff_transfer", h_sent, h_dur,
+                        args=trace_args(
+                            child_context(extract(item) or trace_ctx),
+                            rid=rid))
+                    self.stats.note_phase("handoff_transfer", h_dur)
+            handle = self._submit_fields(
+                fields, on_token, rid, spec=fields.get("spec"),
+                deadline_s=fields.get("deadline_s"), _handoff=handoff,
+                _trace_ctx=trace_ctx,
             )
-        except (ValueError, TypeError, KeyError) as e:
+        except _PAYLOAD_ERRORS as e:
             # A bad field once the reply address is known: the typed
             # "invalid" reply, never a silent drop that leaves the client
-            # waiting for its timeout.
+            # waiting for its timeout (and a router counting a phantom
+            # request against this replica).
+            if kind == "serve_kv_handoff" and self.report_handoff_failures:
+                # On a replica a torn or vanished payload is the
+                # prefill's failure, not the request's: the beat's failed
+                # feed has the router re-dispatch the prefill.
+                with self._lock:
+                    self._failed_feed.append((rid, repr(e)))
+                return
             with self._lock:
                 self._done_feed.append((rid, "invalid"))
             self._reply(reply, {
@@ -1344,6 +1494,191 @@ class ServeEngine:
         handle.request._reply = reply
         if handle.status == "rejected":
             self._reply_done(handle.request)
+
+    def _submit_fields(self, fields: dict, on_token, rid: str,
+                       **extra) -> ServeHandle:
+        """``submit`` a wire request's fields: a ``serve_request``, a
+        handoff's ``req`` (``extra`` adds its spec, deadline, payload and
+        trace) or a migration's recompute fallback."""
+        return self.submit(
+            fields["prompt"], int(fields["max_new_tokens"]),
+            temperature=float(fields.get("temperature", 0.0)),
+            eos_token_id=fields.get("eos_token_id"),
+            top_k=fields.get("top_k"),
+            adapter=fields.get("adapter"),
+            sample_seed=fields.get("sample_seed"),
+            on_token=on_token, rid=rid, **extra,
+        )
+
+    def _decode_handoff(self, item: dict) -> dict:
+        """The ``{"kv", "logits"}`` payload of a ``serve_kv_handoff``
+        frame (a segment is read once and unlinked).  A worker and a
+        replica whose block geometry differs is a deployment bug: the
+        typed ``ValueError`` fails the request loudly."""
+        from ray_lightning_tpu_torch.serve.dist.handoff import (
+            decode_kv_payload,
+        )
+
+        tree = decode_kv_payload(item)
+        bucket = int(item["bucket"])
+        n_blocks = int(tree["kv"]["k"].shape[1])
+        expect = self.scheduler.bucket_for(int(item["prompt_len"]))
+        if bucket != expect or n_blocks * self.config.block_size != bucket:
+            raise ValueError(
+                f"kv handoff geometry mismatch: worker bucket {bucket} "
+                f"({n_blocks} blocks of {self.config.block_size}) vs "
+                f"replica bucket {expect} — prefill worker and decode "
+                f"replica must share block_size/bucket config"
+            )
+        return tree
+
+    def _admit_migration(self, item: dict, fields: dict, rid: str,
+                         reply: Tuple[str, int]) -> None:
+        """One ``serve_migration`` frame: seat a draining replica's
+        resident sequence mid-decode (its blocks imported, its emitted
+        tokens kept) and continue at the position the source stopped;
+        the position-keyed sampler continues the same stream.  When the
+        adoption fails (no slot, pool dry, a malformed payload) the
+        request is submitted afresh with the same seed: a recompute whose
+        re-emitted indices the client dedups.  A frame with no payload at
+        all is malformed and answered ``invalid`` with the error a handoff
+        without one gets (the JAX engine recomputes it)."""
+        if item.get("shm") is None and "data" not in item:
+            with self._lock:
+                self._done_feed.append((rid, "invalid"))
+            self._reply(reply, {
+                "type": "serve_done", "rid": rid, "status": "invalid",
+                "error": str(KeyError("data")), "tokens": [],
+            })
+            return
+
+        def on_token(i: int, tok: int) -> None:
+            self._reply(reply, {
+                "type": "serve_token", "rid": rid, "index": i,
+                "token": int(tok),
+            })
+
+        try:
+            adopted = self._adopt_migration(item, fields, rid, reply,
+                                            on_token)
+        except _PAYLOAD_ERRORS as e:
+            log.warning("serve: migration adopt failed for %s (%s) — "
+                        "recompute fallback", rid, e)
+            adopted = False
+        if adopted:
+            self.stats.bump("migrations_in")
+            return
+        self.stats.bump("migration_fallbacks")
+        try:
+            handle = self._submit_fields(fields, on_token, rid)
+        except (ValueError, TypeError, KeyError, OSError) as e:
+            with self._lock:
+                self._done_feed.append((rid, "invalid"))
+            self._reply(reply, {
+                "type": "serve_done", "rid": rid, "status": "invalid",
+                "error": str(e), "tokens": [],
+            })
+            return
+        handle.request._reply = reply
+        if handle.status == "rejected":
+            self._reply_done(handle.request)
+
+    def _adopt_migration(self, item: dict, fields: dict, rid: str,
+                         reply: Tuple[str, int], on_token) -> bool:
+        """Seat one migrated sequence.  True = adopted (decode resumes at
+        ``seq_len`` on the next tick); False = no slot or blocks free.  A
+        malformed frame raises."""
+        from ray_lightning_tpu_torch.serve.dist.handoff import (
+            decode_kv_payload,
+        )
+
+        sched = self.scheduler
+        Bs = self.config.block_size
+        prompt = [int(t) for t in fields["prompt"]]
+        generated = [int(t) for t in item["generated"]]
+        max_new = int(fields["max_new_tokens"])
+        seq_len = int(item["seq_len"])
+        cur_token = int(item["cur_token"])
+        if not generated or len(generated) >= max_new:
+            raise ValueError("migration carries no live decode position")
+        if seq_len != len(prompt) + len(generated) - 1:
+            raise ValueError(
+                f"migration position mismatch: seq_len {seq_len} != "
+                f"prompt {len(prompt)} + generated {len(generated)} - 1"
+            )
+        if len(prompt) + max_new > self.max_model_len:
+            raise ValueError(
+                f"migrated request exceeds max_model_len "
+                f"({self.max_model_len})"
+            )
+        sample_seed = fields.get("sample_seed")
+        if sample_seed is None:
+            raise ValueError(
+                "migration without a sample_seed — the continued stream "
+                "would not replay the source's"
+            )
+        n_blocks = -(-seq_len // Bs)
+        kv = decode_kv_payload(item)["kv"]
+        if int(kv["k"].shape[1]) != n_blocks:
+            raise ValueError(
+                f"migration payload carries {int(kv['k'].shape[1])} "
+                f"blocks, position {seq_len} needs {n_blocks} — source "
+                f"and survivor must share block_size"
+            )
+        with self._lock:
+            ids = sched._alloc(n_blocks)
+        if ids is None:
+            return False
+        ok = False
+        try:
+            self._pool = import_blocks(
+                self._pool, kv,
+                torch.tensor(ids, dtype=torch.long, device=self.device))
+            req = Request(
+                rid=rid, prompt=prompt, max_new_tokens=max_new,
+                temperature=float(fields.get("temperature", 0.0)),
+                eos_token_id=fields.get("eos_token_id"),
+                top_k=fields.get("top_k"),
+                # The draft cache never saw this sequence: plain decode
+                # (a width-0 slot of a speculative tick emits exactly the
+                # plain token).
+                spec=0,
+                adapter=fields.get("adapter"),
+                priority=int(fields.get("priority") or 0),
+                sample_seed=int(sample_seed),
+                on_token=on_token,
+            )
+            req.generated = generated
+            handle = ServeHandle(rid, req)
+            with self._lock:
+                if req.adapter is not None:
+                    if self.adapters is None:
+                        raise ValueError(
+                            f"migrated request names adapter "
+                            f"{req.adapter!r} but this engine has no "
+                            f"adapter pool"
+                        )
+                    try:
+                        req._adapter_slot = self.adapters.slot_of(
+                            req.adapter)
+                    except KeyError:
+                        raise ValueError(
+                            f"unknown adapter {req.adapter!r} on the "
+                            f"migration survivor"
+                        ) from None
+                slot = sched.adopt(req, ids, seq_len)
+                if slot is None:
+                    return False
+                self.stats.bump("submitted")
+                self._handles[rid] = handle
+            self._cur_tokens[slot] = cur_token
+            req._reply = reply
+            ok = True
+            return True
+        finally:
+            if not ok:
+                with self._lock:
+                    sched.allocator.free(ids)
 
     def _load_adapter_item(self, item: dict) -> None:
         """One ``serve_adapter_load`` frame: decode its ``data`` or

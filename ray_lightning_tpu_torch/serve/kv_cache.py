@@ -18,9 +18,10 @@ Device functions: :func:`paged_prefill` (one bucket-padded prompt through
 the static path's layer loop, k/v then scattered into whole pool blocks),
 :func:`paged_verify_step` (a window of tokens for every slot: the
 speculative verify and the prefill chunk), :func:`paged_decode_step` (its
-one-token window), :func:`copy_blocks` and
-:func:`sample_tokens`.  They update the pool in place (``index_put_``)
-where JAX returned a new pool from ``.at[].set``.  Numerics match the
+one-token window), :func:`copy_blocks`, :func:`import_blocks` (the
+consumer half of a KV handoff; ``PagedKVCache.export_blocks`` is the
+producer's) and :func:`sample_tokens`.  They update the pool in place
+(``index_put_``) where JAX returned a new pool from ``.at[].set``.  Numerics match the
 static path: a sequence's blocks are gathered back into logical order,
 the mask hides exactly the slots the static causal mask hides, and
 scores/softmax/PV stay f32.  The weights come in the compute dtype
@@ -66,6 +67,7 @@ __all__ = [
     "extend_block_coverage",
     "truncate_to",
     "copy_blocks",
+    "import_blocks",
 ]
 
 # Physical block 0 is never allocated: it is the write target of inactive
@@ -204,6 +206,60 @@ class PagedKVCache:
                  cfg.n_head, cfg.head_dim)
         return {key: torch.zeros(shape, dtype=self.dtype, device=self.device)
                 for key in ("k", "v")}
+
+    def export_blocks(self, pool: Dict[str, torch.Tensor],
+                      block_ids) -> Dict[str, Any]:
+        """Gather the k/v of ``block_ids`` to host numpy, ``(L, n,
+        block_size, H, Dh)`` each: the producer half of a disaggregated KV
+        handoff.  Only block content crosses the wire, never a physical
+        id: the consumer scatters it into whatever blocks its own
+        allocator hands out (:func:`import_blocks`).
+
+        numpy has no bf16, so a bf16 pool is carried as f32: the widening
+        is exact and the import casts back to the pool's dtype, so the
+        round trip is bitwise at twice the bytes.  The copy to the host
+        synchronises the device."""
+        import numpy as np
+
+        ids = [int(b) for b in block_ids]
+        if ids and (min(ids) <= TRASH_BLOCK or max(ids) >= self.num_blocks):
+            raise ValueError(
+                f"export_blocks: ids outside (trash, {self.num_blocks})"
+            )
+        index = torch.tensor(ids, dtype=torch.long,
+                             device=pool["k"].device)
+        out = {}
+        for key in ("k", "v"):
+            blocks = pool[key].index_select(1, index)
+            if blocks.dtype == torch.bfloat16:
+                blocks = blocks.float()
+            out[key] = np.ascontiguousarray(blocks.cpu().numpy())
+        return out
+
+
+def import_blocks(pool: Dict[str, torch.Tensor], payload: Dict[str, Any],
+                  block_ids) -> Dict[str, torch.Tensor]:
+    """Scatter an exported KV payload (numpy arrays or tensors, ``(L, n,
+    block_size, H, Dh)``) into blocks ``block_ids`` of ``pool``, cast to
+    the pool's dtype: the consumer half of a disaggregated handoff.  The
+    ids come from the consumer's own allocator (never the trash block)
+    and the caller points the slot's block table at them.  The host
+    buffer is copied to the device synchronously, so it may be released
+    as soon as this returns."""
+    import numpy as np
+
+    dev = pool["k"].device
+    index = torch.as_tensor(
+        np.asarray([int(b) for b in block_ids], np.int64)).to(dev)
+    for key in ("k", "v"):
+        src = payload[key]
+        if not isinstance(src, torch.Tensor):
+            arr = np.asarray(src)
+            src = torch.from_numpy(arr if arr.flags.writeable
+                                   else arr.copy())
+        pool[key].index_copy_(1, index,
+                              src.to(device=dev, dtype=pool[key].dtype))
+    return pool
 
 
 def copy_blocks(pool: Dict[str, torch.Tensor], src_ids: torch.Tensor,

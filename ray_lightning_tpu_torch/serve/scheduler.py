@@ -116,6 +116,10 @@ class Request:
     # Prompt tokens covered by a prefix-cache claim at the current
     # admission (0 = none), derived anew at each admission.
     claimed_tokens: int = 0
+    # A prefill worker's decoded KV payload (engine-set at submit,
+    # serve/dist), dropped at its import admission: a requeued request
+    # recomputes from its prompt.
+    _handoff: Optional[dict] = field(default=None, repr=False)
 
     @property
     def prompt_len(self) -> int:
@@ -326,7 +330,10 @@ class Scheduler:
             if self.claim_fn is not None:
                 claimed = self.claim_fn(req)
             c_tokens = len(claimed) * self.block_size
+            # A handoff imports the whole prompt into private blocks:
+            # never chunked (and never claimed: the engine's claim hook).
             chunked = (self.chunk_width is not None
+                       and req._handoff is None
                        and (req.prompt_len - c_tokens > self.chunk_width
                             or req.prompt_len > self.buckets[-1]))
             if claimed or chunked:
@@ -555,6 +562,41 @@ class Scheduler:
         req.first_token_t = None
         self.queue.appendleft(req)
         return req
+
+    def adopt(self, req: Request, ids: List[int], seq_len: int,
+              now: Optional[float] = None) -> Optional[int]:
+        """Seat a request that is already decoding (a live migration's
+        import) in a free slot: ``ids`` are blocks the caller allocated
+        from this scheduler's pool and scattered the imported k/v into,
+        ``seq_len`` the cache positions they hold.  The slot is filled as
+        :meth:`poll` fills one, minus the queue and claim bookkeeping the
+        request paid on the replica it left.  Returns the slot, or None
+        when none is free (the caller falls back to recompute)."""
+        now = time.monotonic() if now is None else now
+        slot = next((i for i, r in enumerate(self.slots) if r is None),
+                    None)
+        if slot is None:
+            return None
+        req.state = RequestState.RUNNING
+        req.slot = slot
+        if req.admitted_t is None:
+            req.admitted_t = now
+        if req.first_token_t is None and req.generated:
+            req.first_token_t = now
+        req._seq_no = self._admit_counter
+        self._admit_counter += 1
+        self.slots[slot] = req
+        self._blocks[slot] = list(ids)
+        row = self.block_tables[slot]
+        row[:] = TRASH_BLOCK
+        row[: len(ids)] = ids
+        self.seq_lens[slot] = seq_len
+        self.temperatures[slot] = req.temperature
+        self.top_ks[slot] = req.top_k or 0
+        self.sample_seeds[slot] = req.sample_seed
+        self.draft_lens[slot] = seq_len
+        self.adapter_slots[slot] = req._adapter_slot
+        return slot
 
     def cancel(self, rid: str) -> Optional[Request]:
         """Drop ``rid`` wherever it is — queued (removed) or active (slot

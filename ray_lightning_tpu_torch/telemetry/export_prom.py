@@ -25,11 +25,12 @@ def _esc(value: Any) -> str:
 
 def render_openmetrics(snapshot: Dict[str, Any]) -> str:
     """Render a live snapshot as OpenMetrics text: the fleet and rank
-    gauges, then the ``serve`` block with its ``capacity`` block, then
-    the ``slo`` block.  The JAX renderer's monitor event counts and its
-    ``router``, ``mpmd`` and ``programs`` blocks are not rendered here
-    (their modules are not ported); without them the text is the JAX
-    renderer's byte for byte."""
+    gauges, then the ``serve`` block with its ``capacity`` block, the
+    ``slo`` block, and the ``router`` block with its fleet ``capacity``
+    block.  The JAX renderer's monitor event counts and its ``mpmd`` and
+    ``programs`` blocks are not rendered here (their modules are not
+    ported); without them the text is the JAX renderer's byte for
+    byte."""
     lines = []
 
     def gauge(name: str, help_: str, samples) -> None:
@@ -83,6 +84,12 @@ def render_openmetrics(snapshot: Dict[str, Any]) -> str:
     slo = snapshot.get("slo")
     if slo:
         lines.extend(_render_slo(slo))
+    router = snapshot.get("router")
+    if router:
+        lines.extend(_render_router(router))
+        fleet = router.get("capacity")
+        if fleet:
+            lines.extend(_render_fleet_capacity(fleet))
     lines.append("# EOF")
     return "\n".join(lines) + "\n"
 
@@ -114,6 +121,34 @@ def _render_capacity(capacity: Dict[str, Any]) -> list:
     ]
     for metric, help_, key in metrics:
         value = capacity.get(key)
+        if not isinstance(value, (int, float)):
+            continue
+        lines.append(f"# TYPE {_PREFIX}_{metric} gauge")
+        lines.append(f"# HELP {_PREFIX}_{metric} {help_}")
+        lines.append(f"{_PREFIX}_{metric} {value}")
+    return lines
+
+
+def _render_fleet_capacity(fleet: Dict[str, Any]) -> list:
+    """The router's fleet-wide capacity roll-up
+    (``serve/capacity.py::aggregate_fleet``)."""
+    lines = []
+    metrics = [
+        ("capacity_fleet_replicas_reporting", "members whose beats "
+         "carry a capacity block", "replicas_reporting"),
+        ("capacity_fleet_tokens_per_sec", "fleet emitted tokens/s",
+         "tokens_per_s"),
+        ("capacity_fleet_ceiling_tokens_per_sec", "fleet predicted "
+         "saturation throughput", "capacity_tokens_per_s"),
+        ("capacity_fleet_headroom_tokens_per_sec", "fleet tokens/s "
+         "slack", "headroom_tokens_per_s"),
+        ("capacity_fleet_utilization", "fleet load as a fraction of "
+         "its ceiling", "utilization"),
+        ("capacity_fleet_kv_exhaustion_eta_seconds", "worst member "
+         "KV-exhaustion ETA", "kv_exhaustion_eta_s"),
+    ]
+    for metric, help_, key in metrics:
+        value = fleet.get(key)
         if not isinstance(value, (int, float)):
             continue
         lines.append(f"# TYPE {_PREFIX}_{metric} gauge")
@@ -334,6 +369,86 @@ def _render_serve(serve: Dict[str, Any]) -> list:
                         f'{_PREFIX}_{metric}{{phase="{_esc(phase)}",'
                         f'quantile="{q[:-3]}"}} {summary[q]}'
                     )
+    return lines
+
+
+def _render_router(router: Dict[str, Any]) -> list:
+    """The disaggregated fleet's section (``router-live.json`` shape —
+    ``telemetry/schema.py::validate_router_snapshot``): the
+    ``rlt_serve_*`` family grown PER-REPLICA labels — occupancy,
+    in-flight, block pool, per-replica spec acceptance — plus the
+    router's own counters (routed/failovers/deaths/respawns) and
+    prefill-worker gauges."""
+    lines = []
+    per_replica = [
+        ("serve_replica_alive", "1 if the replica is serving", "alive"),
+        ("serve_replica_inflight",
+         "requests the router holds in flight on this replica",
+         "inflight"),
+        ("serve_replica_slots_active", "decode slots in flight",
+         "slots_active"),
+        ("serve_replica_num_slots", "decode program width", "num_slots"),
+        ("serve_replica_queue_depth", "requests waiting for admission",
+         "queue_depth"),
+        ("serve_replica_blocks_free", "free KV-cache blocks",
+         "blocks_free"),
+        ("serve_replica_spec_acceptance_rate",
+         "accepted / drafted on this replica", "spec_acceptance_rate"),
+        ("serve_replica_prefix_cache_hit_rate",
+         "prefix-cache hit rate on this replica",
+         "prefix_cache_hit_rate"),
+        ("serve_replica_recompiles",
+         "compile events observed in the replica process",
+         "recompiles"),
+    ]
+    replicas = router.get("replicas", [])
+    for metric, help_, key in per_replica:
+        samples = []
+        for entry in replicas:
+            value = entry.get(key)
+            if key == "alive":
+                value = int(bool(value))
+            if isinstance(value, (int, float)) \
+                    and not isinstance(value, bool):
+                samples.append((entry.get("id"), value))
+        if not samples:
+            continue
+        lines.append(f"# TYPE {_PREFIX}_{metric} gauge")
+        lines.append(f"# HELP {_PREFIX}_{metric} {help_}")
+        for replica, value in samples:
+            lines.append(
+                f'{_PREFIX}_{metric}{{replica="{_esc(replica)}"}} {value}'
+            )
+    workers = router.get("workers", [])
+    samples = [
+        (w.get("id"), int(bool(w.get("alive"))), w.get("pending", 0))
+        for w in workers
+    ]
+    if samples:
+        for metric, help_, idx in (
+            ("serve_prefill_alive", "1 if the prefill worker is up", 1),
+            ("serve_prefill_pending",
+             "prompts dispatched and not yet handed off", 2),
+        ):
+            lines.append(f"# TYPE {_PREFIX}_{metric} gauge")
+            lines.append(f"# HELP {_PREFIX}_{metric} {help_}")
+            for row in samples:
+                lines.append(
+                    f'{_PREFIX}_{metric}{{worker="{_esc(row[0])}"}} '
+                    f"{row[idx]}"
+                )
+    counters = router.get("counters", {})
+    if counters:
+        lines.append(f"# TYPE {_PREFIX}_serve_router counter")
+        lines.append(
+            f"# HELP {_PREFIX}_serve_router router events by kind "
+            f"(routed, failovers, deaths, respawns)"
+        )
+        for kind in sorted(counters):
+            lines.append(
+                f'{_PREFIX}_serve_router_total{{kind="{_esc(kind)}"}} '
+                f"{counters[kind]}"
+            )
     return lines
 
 

@@ -26,6 +26,7 @@ __all__ = [
     "child_context",
     "inject",
     "extract",
+    "sent_ts",
     "trace_args",
 ]
 
@@ -92,6 +93,17 @@ def extract(item: Any) -> Optional[TraceContext]:
     parent = trace.get("parent_span_id")
     return TraceContext(trace_id, span_id,
                         parent if isinstance(parent, str) else None)
+
+
+def sent_ts(item: Any) -> Optional[float]:
+    """The producer-stamped wall-clock send time of a traced frame."""
+    if not isinstance(item, dict):
+        return None
+    trace = item.get("trace")
+    if not isinstance(trace, dict):
+        return None
+    ts = trace.get("ts")
+    return float(ts) if isinstance(ts, (int, float)) else None
 
 
 def trace_args(ctx: TraceContext, **extra: Any) -> Dict[str, Any]:

@@ -232,3 +232,74 @@ def test_phase13_client_metrics_and_client_mode(scripts, tmp_path):
         assert proc.stdout == ""
     finally:
         q.shutdown()
+
+
+def test_fleet_faults_patch_one_thing_each_and_restore(scripts):
+    """Step 12's in-memory faults each replace exactly one attribute of
+    the port and put it back."""
+    cf = scripts[0]
+    from ray_lightning_tpu_torch.serve import client, engine
+    from ray_lightning_tpu_torch.serve.dist import prefill, router
+
+    def targets():
+        return (engine.import_blocks, client.ServeClient.stream,
+                engine.ServeEngine.export_resident,
+                prefill.PrefillRunner._prefill, router.Router._is_lost)
+
+    before = targets()
+    assert len(cf.FLEET_FAULTS) == 5
+    for name in cf.FLEET_FAULTS:
+        with cf.fleet_fault(name):
+            during = targets()
+            assert sum(a is not b for a, b in zip(before, during)) == 1
+    assert targets() == before
+
+
+def test_phase14_rehearses_on_the_cpu(scripts, monkeypatch):
+    """Phase 14's control flow and gates at a tiny size on the CPU (one
+    timed run an arm, shorter kill streams): every gate passes."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from ray_lightning_tpu_torch.models.gpt import (
+        GPT, GPTConfig, synthetic_lora_adapter,
+    )
+    from ray_lightning_tpu_torch.serve.engine import ServeConfig
+
+    monkeypatch.setattr(cs, "KILL_NEW", 40)
+    monkeypatch.setattr(cs, "KILL_AFTER", 6)
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        cfg = GPTConfig(vocab_size=512, n_layer=2, n_head=4, d_model=64,
+                        seq_len=256)
+        module = GPT(cfg, device="cpu")
+        gen = torch.Generator().manual_seed(0)
+        params = module.init_params(gen)
+        for key in ("qkv_w", "proj_w", "mlp_in_w", "mlp_out_w"):
+            params["blocks"][key] = params["blocks"][key] * 10.0
+        lora_cfg = dataclasses.replace(cfg, lora_rank=4)
+        tenants, trees = {}, {None: params}
+        for i in range(2):
+            adapter, merged = synthetic_lora_adapter(params, lora_cfg, gen,
+                                                     scale=0.3)
+            tenants[f"tenant{i}"], trees[f"tenant{i}"] = adapter, merged
+        rng = np.random.default_rng(0)
+        names = [None, "tenant0", "tenant1"]
+        reqs = [(rng.integers(0, 512, size=(int(rng.integers(32, 61)),))
+                 .tolist(), int(rng.integers(8, 16)), names[i % 3])
+                for i in range(4)]
+        world = {"cfg": cfg, "module": module, "params": params,
+                 "tenants": tenants, "trees": trees, "reqs": reqs,
+                 "serve_cfg": ServeConfig(num_slots=4, block_size=16,
+                                          max_adapters=2, adapter_rank=4)}
+        out = cs.phase_serve_fleet(torch, np, "cpu", world, repeats=1,
+                                   device="cpu")
+    finally:
+        torch.set_num_threads(n)
+    assert out["a"]["kv_imports"] == len(reqs) and out["a"]["prefills"] == 0
+    assert out["b"]["bitwise"] and out["d"]["migrations_in"] == 2
+    assert out["c"]["re_emitted"] > 0 and out["f"]["exact"] == len(reqs)

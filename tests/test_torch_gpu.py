@@ -961,3 +961,97 @@ def test_queue_plane_engine_serves_a_wire_loaded_tenant(cuda, form):
     finally:
         engine.stop()
         client.close()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_kv_blocks_cross_the_wire_bitwise_on_the_card(cuda, dtype):
+    """Blocks exported from a pool on the card (bf16 carried as f32),
+    encoded, decoded and imported into other ids of another pool on the
+    card are bitwise the same; the trash block stays untouched."""
+    from ray_lightning_tpu_torch.serve.dist.handoff import (
+        decode_kv_payload, encode_kv_payload,
+    )
+    from ray_lightning_tpu_torch.serve.kv_cache import (
+        PagedKVCache, import_blocks,
+    )
+
+    cache = PagedKVCache(GPTConfig.gpt2_small(), 40, 16, dtype=dtype)
+    pool = cache.init_pool()
+    src = [3, 17, 38, 5]
+    for key in ("k", "v"):
+        pool[key][:, src] = torch.randn(pool[key][:, src].shape,
+                                        generator=cuda,
+                                        device="cuda").to(dtype)
+    logits = torch.randn(50304, generator=cuda, device="cuda")
+    blob = encode_kv_payload(cache.export_blocks(pool, src),
+                             logits.cpu().numpy())
+    back = decode_kv_payload({"data": blob})
+    dst = import_blocks(cache.init_pool(), back["kv"], [1, 2, 30, 39])
+    for key in ("k", "v"):
+        assert dst[key].dtype == dtype
+        assert torch.equal(dst[key][:, [1, 2, 30, 39]], pool[key][:, src])
+        assert not dst[key][:, 0].any()
+    assert torch.equal(torch.as_tensor(back["logits"]), logits.cpu())
+
+
+@pytest.mark.parametrize("kill", [None, "hard", "drain"])
+def test_inproc_fleet_on_the_card(cuda, kill):
+    """Two replicas and a prefill worker on the card behind the router:
+    every admission a KV import and the streams the monolith's, greedy
+    and sampled; a replica killed mid-stream (abruptly, or drained)
+    leaves the streams unchanged, a drain with nothing re-emitted."""
+    from ray_lightning_tpu_torch.serve import ServeClient
+    from ray_lightning_tpu_torch.serve.dist import launch_inproc_fleet
+
+    cfg = GPTConfig(vocab_size=128, n_layer=2, n_head=4, d_model=64,
+                    seq_len=128)
+    module = GPT(cfg)
+    params = module.init_params(cuda)
+    for key in ("qkv_w", "proj_w", "mlp_in_w", "mlp_out_w"):
+        params["blocks"][key] = params["blocks"][key] * 10.0
+    adapter, _ = synthetic_lora_adapter(
+        params, dataclasses.replace(cfg, lora_rank=4), cuda, scale=0.3)
+    serve_cfg = ServeConfig(num_slots=3, block_size=8, max_adapters=2,
+                            adapter_rank=4)
+    prompt = np.random.default_rng(2).integers(1, 128, 19).tolist()
+    reqs = [(prompt, 0.7, "t"), (prompt, 0.0, "t"), (prompt[:7], 0.0, None)]
+    new = 60
+    ref_engine = ServeEngine(module, params, serve_cfg,
+                             adapters={"t": adapter})
+    handles = [ref_engine.submit(p, new, temperature=t, adapter=a)
+               for p, t, a in reqs]
+    ref_engine.run_until_idle()
+    ref = [h.result(0) for h in handles]
+    ref_engine.stop()
+    fleet = launch_inproc_fleet(module, params, serve_cfg, n_replicas=2,
+                                n_prefill=0 if kill else 1,
+                                adapters={"t": adapter}, lost_after_s=10.0)
+    client = ServeClient(fleet.queue_handle())
+    try:
+        rids = [client.submit(p, new, temperature=t, adapter=a)
+                for p, t, a in reqs]
+        if kill:
+            deadline = time.monotonic() + 60
+            while not all(len(client._pending[r].tokens) >= 4
+                          for r in rids[:2]):
+                assert time.monotonic() < deadline
+                time.sleep(0.001)
+            victim = next(r for r in fleet.replicas if r.id
+                          == fleet.router._inflight[rids[0]].replica)
+            victim.engine.halt_loop()
+            victim.kill(hard=kill == "hard")
+        out = [client.result(r, timeout=60) for r in rids]
+        counters = dict(fleet.router.counters)
+        imports = sum(r.engine.stats.counters.get("kv_imports", 0)
+                      for r in fleet.replicas)
+    finally:
+        client.close()
+        fleet.close()
+    assert out == ref
+    if kill is None:
+        assert imports == len(reqs)
+    elif kill == "hard":
+        assert counters["failovers"] >= 1 and client.re_emitted_tokens > 0
+    else:
+        assert counters["migrations"] >= 1 and client.re_emitted_tokens == 0

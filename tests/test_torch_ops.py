@@ -202,7 +202,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "mpmd.transfer", "serve.client", "serve.capacity",
                 "telemetry.propagate", "telemetry.spans",
                 "telemetry.timeseries", "telemetry.slo",
-                "telemetry.monitor", "telemetry.export_prom"):
+                "telemetry.monitor", "telemetry.export_prom",
+                "serve.brownout", "serve.dist", "serve.dist.handoff",
+                "serve.dist.prefill", "serve.dist.replica",
+                "serve.dist.router"):
         assert "ray_lightning_tpu_torch." + new in names, new
     code = textwrap.dedent(f"""
         import importlib, os, sys, tempfile
@@ -251,6 +254,24 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         assert back["scale"] == 0.5 and all(
             np.array_equal(back[k], v) for k, v in adapter.items())
         assert sys.modules["cloudpickle"] is None
+        # A KV handoff payload (a bf16 pool's blocks ride as f32) and a
+        # router snapshot, host only.
+        from ray_lightning_tpu_torch.serve.dist import handoff, router
+        from ray_lightning_tpu_torch.serve.kv_cache import (
+            PagedKVCache, import_blocks)
+        cache = PagedKVCache(GPTConfig.tiny(), 4, 8, dtype=torch.bfloat16,
+                             device="cpu")
+        pool = cache.init_pool()
+        pool["k"].normal_()
+        kv = cache.export_blocks(pool, [1, 2])
+        item = {{"data": handoff.encode_kv_payload(
+            kv, np.zeros(3, np.float32))}}
+        back = handoff.decode_kv_payload(item)["kv"]
+        dst = import_blocks(cache.init_pool(), back, [3, 1])
+        assert torch.equal(dst["k"][:, [3, 1]], pool["k"][:, [1, 2]])
+        r = router.Router(lost_after_s=60.0)
+        assert r.snapshot()["counters"]["routed"] == 0
+        r.stop()
         print("ok", len({names!r}))
     """)
     env = dict(os.environ, PYTHONPATH=REPO)

@@ -230,15 +230,16 @@ def test_backpressure_stream_and_max_model_len_over_queue(world,
       "max_new_tokens": 3, "adapter": "nobody"}, "unknown adapter"),
     ({"type": "serve_kv_handoff", "rid": "bad",
       "req": {"rid": "bad", "prompt": [1], "max_new_tokens": 1}},
-     "serve/dist"),
+     "'data'"),
     ({"type": "serve_migration", "rid": "bad",
       "req": {"rid": "bad", "prompt": [1], "max_new_tokens": 1}},
-     "serve/dist"),
+     "'data'"),
 ], ids=["bad_field", "unknown_adapter", "kv_handoff", "migration"])
 def test_bad_frames_get_a_typed_invalid_reply(world, item, needle):
     """Once the reply address is known, a bad request gets
-    ``serve_done(status="invalid")``, never a silent drop; the frames of
-    the disaggregated plane are answered so until it is ported."""
+    ``serve_done(status="invalid")``, never a silent drop; a handoff or a
+    migration frame with neither ``data`` nor a ``shm`` path gets the
+    JAX engine's error for a handoff without a payload."""
     engine = _engine(world)
     replies = DriverQueue()
     try:
