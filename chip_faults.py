@@ -125,8 +125,21 @@ last column of a ragged chunk of k dropped, the d tail past the last
    ignores beat loss (a member counts as lost only when its handle reads
    dead).  Phase 14 must fail on each.
 
+13. multi-GPU training (``DIST_FAULTS``, ``dist_step``): phase 15's arms
+   (``chip_smoke.py --phase15 ARM...``) each fault needs, for the correct
+   code, which must pass, and for five faults planted in a copy of the
+   port written to a temporary directory (its driver and its worker
+   processes import the copy): the ranks skipping the gradient all-reduce
+   (each trains on its own rows), a ZeRO-1 rank updating the slice of the
+   next rank's params with its own gradients and moments, ZeRO leaving
+   the replicated leaves' gradients unsynced (at the trainer cell's width
+   the final LN's gain and bias: only the vector leaves' update measure
+   sees them), the clip's norm summed over the rank's own slices only,
+   and the trainer adopting rank 1's package.  Phase 15 must fail on
+   each.
+
 ``python3 chip_faults.py --only 12`` builds the kernels and runs step 12
-alone.
+alone; ``--only 13`` runs step 13 alone.
 
 The wrappers are routed to a faulty library by replacing the cached ctypes
 functions of ``ops/_build.py``.  Exits 1 if a correct kernel fails a
@@ -1030,6 +1043,97 @@ def phase11_check(torch, card, which, states):
     return cs.callbacks_check(torch, card, cs.MEGASTEP_K)["ok"]
 
 
+# name -> (file under ray_lightning_tpu_torch/, its correct text, the
+# replacement, phase 15's arms that must fail)
+DIST_FAULTS = {
+    "grad_sync_skipped": (
+        "parallel/grad_sync.py",
+        "        dist.all_reduce(flat, op=dist.ReduceOp.SUM)\n"
+        "        flat.div_(world_size)\n",
+        "", ("b_ray",)),
+    "zero1_wrong_slice": (
+        "parallel/sharding.py",
+        "        part = t.narrow(d, self.rank * c, c)\n",
+        "        part = t.narrow(d, (self.rank + 1) % self.world * c, c)\n",
+        ("b_zero1",)),
+    "zero_replicated_unsynced": (
+        "parallel/sharding.py",
+        "                dist.all_reduce(g, op=dist.ReduceOp.SUM)\n"
+        "                out.append(g.div_(self.world))\n",
+        "                out.append(g)\n", ("b_zero1",)),
+    "clip_local_norm": (
+        "parallel/sharding.py",
+        "            dist.all_reduce(stacked, op=dist.ReduceOp.SUM)\n", "",
+        ("e_zero1",)),
+    "result_from_rank1": (
+        "core/trainer.py",
+        'rank0 = next(r for r in results if r.get("rank") == 0)\n'
+        "        self.state",
+        'rank0 = next(r for r in results if r.get("rank") == 1)\n'
+        "        self.state", ("b_ray",)),
+}
+
+
+def phase15_run(root, arms):
+    """``chip_smoke.py --phase15 ARMS`` from ``root``: (exit code, the
+    failed check's line)."""
+    proc = subprocess.run([sys.executable, os.path.join(root, "chip_smoke.py"),
+                           "--phase15", *arms], capture_output=True,
+                          text=True, timeout=900, cwd=root)
+    lines = (proc.stdout + proc.stderr).strip().splitlines()
+    why = next((ln for ln in reversed(lines) if "Error" in ln
+                or "check failed" in ln), lines[-1] if lines else "")
+    for ln in proc.stdout.splitlines():
+        if ln.startswith("phase 15 ("):
+            print("  " + ln[:400])
+    return proc.returncode, why
+
+
+def dist_step(summary, failures):
+    """Step 13: phase 15's arms correct, then each of ``DIST_FAULTS`` from a
+    copy of the port with the fault written in (the workers import it:
+    they take the driver's ``sys.path``).  The copy's ``build`` is a link
+    to the checkout's, so the kernels are not built again."""
+    root = os.path.dirname(os.path.abspath(cs.__file__))
+    arms = sorted({a for *_, need in DIST_FAULTS.values() for a in need})
+    summary["dist"] = {}
+    rc, why = phase15_run(root, arms)
+    print(f"step 13 correct ({' '.join(arms)}): "
+          f"{'ok' if rc == 0 else 'FAILED: ' + why}")
+    summary["dist"]["correct"] = rc == 0
+    if rc != 0:
+        failures.append("correct step 13 failed")
+    for name, (path, old, new, need) in DIST_FAULTS.items():
+        tmp = tempfile.mkdtemp(prefix="chip_faults-dist-")
+        try:
+            shutil.copytree(os.path.join(root, "ray_lightning_tpu_torch"),
+                            os.path.join(tmp, "ray_lightning_tpu_torch"),
+                            ignore=shutil.ignore_patterns("__pycache__"))
+            os.makedirs(os.path.join(tmp, "tests"))
+            shutil.copy(os.path.join(root, "tests", "torch_dist_helpers.py"),
+                        os.path.join(tmp, "tests"))
+            shutil.copy(os.path.join(root, "chip_smoke.py"), tmp)
+            os.symlink(os.path.join(root, "build"), os.path.join(tmp,
+                                                                 "build"))
+            target = os.path.join(tmp, "ray_lightning_tpu_torch", path)
+            text = open(target).read()
+            if text.count(old) != 1:
+                raise RuntimeError(f"step 13: {name}: the text to replace "
+                                   f"is not in {path} once")
+            with open(target, "w") as f:
+                f.write(text.replace(old, new))
+            rc, why = phase15_run(tmp, need)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        caught = rc != 0
+        verdict = ("failed (caught): " + why[:300] if caught
+                   else "passed (NOT caught)")
+        print(f"step 13 fault {name}: phase 15 {' '.join(need)} {verdict}")
+        summary["dist"][name] = caught
+        if not caught:
+            failures.append(f"step 13 fault {name} not caught by phase 15")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1048,6 +1152,17 @@ def main() -> int:
     print(card)
     torch.backends.cuda.matmul.allow_tf32 = False
     failures = []
+    if sys.argv[1:3] == ["--only", "13"]:
+        with ThreadPoolExecutor(4) as pool:
+            list(pool.map(_build.build, ("flash_attention", "layer_norm",
+                                         "cross_entropy", "bgmv")))
+        summary = {}
+        dist_step(summary, failures)
+        for f in failures:
+            print(f"chip_faults: FAILED: {f}")
+        print(card)
+        print(json.dumps({"ok": not failures, **summary}))
+        return 1 if failures else 0
     if sys.argv[1:3] == ["--only", "12"]:
         with ThreadPoolExecutor(4) as pool:
             list(pool.map(_build.build, ("flash_attention", "layer_norm",
@@ -1379,6 +1494,9 @@ def main() -> int:
 
         # 12. disaggregated serving
         fleet_step(torch, np, card, world, summary, failures)
+
+        # 13. multi-GPU training
+        dist_step(summary, failures)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for f in failures:

@@ -201,6 +201,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -5442,6 +5443,416 @@ def ce_occupancy(torch, card):
             check(clusters >= 1, f"ce {name} d={d}: a cluster fits")
 
 
+# -- phase 15: multi-GPU training --------------------------------------------
+
+P15_FLAVORS = ("ray", "horovod", "zero1", "zero3")
+P15_STEPS_A, P15_STEPS_B = 8, 3
+# Per-step losses of a two-rank gloo arm against the one-device fit on the
+# same global batch: the first step's forward sees the same params, and
+# the ranks' mean over their halves is the mean over the whole batch up to
+# f32 rounding; the later steps' params differ by the bf16-rounded
+# gradients' sum order (each rank rounds its half's gradient to bf16
+# before the f32 all-reduce), 1.2e-5 at step 3 in the first run on the
+# card.  The final params are held by the bf16 measures leaf by leaf
+# where a leaf starts away from zero (the matrices and the LN gains), and
+# over the whole model by its relative Frobenius distance: a bias starts
+# at zero, so it is its updates, and AdamW's first steps move each of its
+# elements by ~lr whichever way the gradient's sign goes, a sign that the
+# bf16 rounding flips where the gradient is near zero.  So every vector
+# leaf (each bias and each LN gain, whose updates the bf16 measures of
+# its value, ~1, cannot see) is held by its update instead: the worst
+# leaf's ‖Δgot − Δref‖ / ‖Δref‖, Δ the final params less the initial
+# ones.  Its limit lies between the sound arms' reading, 8.9e-2 (on
+# ``qkv_b``, whose key third has no gradient but rounding noise, a
+# query's scores being blind to a shift of every key; the other leaves
+# <= 3.8e-3), and that of a planted fault that leaves the replicated
+# leaves unsynced, 0.506 on ``ln_f_b`` (``chip_faults.py`` step 13,
+# ``zero_replicated_unsynced``, which every other check passes; PERF.md).
+P15_LOSS_TOL = (1e-5, 2e-4, 2e-4)
+P15_UPDATE_LIMIT = 0.2
+# The clip check (phase 15 (e)): the CPU test's narrow GPT in f32 on two
+# CPU workers against one rank, the only difference the ranks' halves
+# summed by gloo (its tolerances, tests/test_torch_strategies.py).
+P15_CLIP_TOL = {"loss": 1e-6, "param": 5e-7}
+
+
+def p15_strategy(flavor, workers, **kw):
+    from ray_lightning_tpu_torch.parallel import strategies as st
+
+    cls, extra = {"ray": (st.RayStrategy, {}),
+                  "horovod": (st.HorovodRayStrategy, {}),
+                  "zero1": (st.RayShardedStrategy, {"zero_stage": 1}),
+                  "zero3": (st.RayShardedStrategy, {"zero_stage": 3})}[flavor]
+    return cls(num_workers=workers, timeout_s=300.0, **extra, **kw)
+
+
+def p15_fit(strategy, cfg, steps, label, root, precision="bf16",
+            gpt_kw=HEADLINE, module_cls=None, data=None, batch=TRAIN_B):
+    """A Trainer fit of ``steps`` eager steps through ``strategy`` with
+    the probe of ``label`` (``torch_dist_helpers.StepProbe``)."""
+    import torch_dist_helpers as helpers
+    from ray_lightning_tpu_torch.core.trainer import Trainer
+    from ray_lightning_tpu_torch.models.gpt import GPT, SyntheticLMDataModule
+
+    tr = Trainer(strategy, max_steps=steps, limit_val_batches=0,
+                 precision=precision, seed=SEED, megastep="off",
+                 log_every_n_steps=1, enable_checkpointing=False,
+                 default_root_dir=str(root),
+                 callbacks=[helpers.StepProbe(label)])
+    module = (module_cls or GPT)(cfg, **gpt_kw)
+    tr.fit(module, data or SyntheticLMDataModule(
+        cfg, batch_size=batch, num_batches=steps, seed=SEED))
+    return tr
+
+
+def p15_state_bytes(cfg, flavor, world):
+    """The state a rank holds once set up, by the ZeRO leaf rule: f32
+    params, bf16 mu and f32 nu (the family's default), each sharded leaf
+    cut to 1/world under ZeRO (the moments under stage 1, the params too
+    under stage 3)."""
+    from ray_lightning_tpu_torch.parallel.sharding import shard_leaf_spec
+
+    L, d, V, T = cfg.n_layer, cfg.d_model, cfg.vocab_size, cfg.seq_len
+    h = cfg.mlp_ratio * d
+    shapes = [(V, d), (T, d), (d,), (d,)] + [
+        (L, d), (L, d), (L, d, 3 * d), (L, 3 * d), (L, d, d), (L, d),
+        (L, d), (L, d), (L, d, h), (L, h), (L, h, d), (L, d)]
+    total = 0
+    for shape in shapes:
+        n = math.prod(shape)
+        sharded = (flavor.startswith("zero")
+                   and shard_leaf_spec(shape, world) is not None)
+        part = n // world if sharded else n
+        total += (part if flavor == "zero3" else n) * 4 + part * (2 + 4)
+    return total
+
+
+def p15_host_params(tr):
+    return {k: v.detach().cpu() for k, v in by_path(tr.state.params).items()}
+
+
+def p15_ms(rec):
+    """The median step wall time past the first step, ms."""
+    steps = sorted(rec["step_s"][1:] or rec["step_s"])
+    return 1e3 * steps[len(steps) // 2]
+
+
+P15_ARMS = tuple(f"{arm}_{f}" for arm in "ab" for f in P15_FLAVORS) + (
+    "e_zero1", "e_zero3")
+
+
+def nccl_probe_main(argv) -> int:
+    """``chip_smoke.py --nccl-probe RANK PORT``: one of two ranks joining an
+    NCCL group on card 0 and trying one ``all_reduce``; prints one JSON
+    line of what happened (phase 15 (f): why ``backend="nccl"`` refuses
+    more ranks than cards)."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    rank, port = int(argv[0]), int(argv[1])
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=2, rank=rank,
+                            timeout=datetime.timedelta(seconds=60))
+    x = torch.ones(8, device="cuda")
+    try:
+        dist.all_reduce(x)
+        torch.cuda.synchronize()
+        out = {"rank": rank, "ok": True, "sum": float(x[0])}
+    except Exception as e:  # noqa: BLE001 - the refusal is the reading
+        out = {"rank": rank, "ok": False, "error": str(e)}
+    out["nccl"] = ".".join(map(str, torch.cuda.nccl.version()))
+    print(json.dumps(out), flush=True)
+    os._exit(0)
+
+
+def nccl_probe_start():
+    from ray_lightning_tpu_torch.cluster.rpc import find_free_port
+
+    port = find_free_port("127.0.0.1")
+    return [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                              "--nccl-probe", str(rank), str(port)],
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                             text=True, cwd=ROOT) for rank in (0, 1)]
+
+
+def nccl_probe_read(procs, card):
+    """Phase 15 (f): what NCCL says of two ranks on one card."""
+    readings = []
+    for proc in procs:
+        try:
+            stdout, _ = proc.communicate(timeout=120)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            stdout, _ = proc.communicate()
+        lines = stdout.strip().splitlines()
+        readings.append(json.loads(lines[-1]) if lines else
+                        {"ok": None, "error": f"exit {proc.returncode}"})
+    refused = [r for r in readings if r.get("ok") is False]
+    why = refused[0]["error"] if refused else "accepted"
+    last = [ln for ln in why.splitlines() if ln.strip()][-1:] or [why]
+    print(f"phase 15 (f): NCCL {readings[0].get('nccl')} with two ranks "
+          f"on one card: {'refused' if refused else 'NOT refused'} at the "
+          f"first all_reduce: {last[0][:200]}; gloo took all_reduce and "
+          f"broadcast (b ray, horovod), reduce_scatter_tensor and "
+          f"all_gather_into_tensor (b zero1, zero3) on CUDA tensors; {card}")
+    check(len(refused) == 2, "NCCL refuses two ranks on one card (the "
+          "reason backend='nccl' refuses more ranks than cards)")
+    return {"nccl_two_ranks_one_card": last[0][:300]}
+
+
+def phase15_main(arms=P15_ARMS) -> int:
+    """Phase 15's driver, in a process of its own (``chip_smoke.py
+    --phase15 [arm ...]``, every arm of ``P15_ARMS`` by default) that
+    touches CUDA only after every remote arm: (a) one rank over NCCL a
+    flavor, 8 steps, bitwise against ``LocalStrategy``; (b) two ranks
+    sharing the card over gloo a flavor, 3 steps, against
+    ``LocalStrategy`` on the same global batch; (c) each rank's memory;
+    (d) each rank's kernel launches a step; (e) the clip under ZeRO with
+    forged gradient scales (``torch_dist_helpers.SCALES``), on two CPU
+    workers at the CPU test's size; (f) with every arm, two raw NCCL ranks
+    on card 0 (``--nccl-probe``), which NCCL must refuse.  Prints its
+    lines, then one JSON object as its last line."""
+    import tempfile
+
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_dist_helpers as helpers
+    from ray_lightning_tpu_torch.models.gpt import GPTConfig
+    from ray_lightning_tpu_torch.parallel.strategies import LocalStrategy
+
+    unknown = set(arms) - set(P15_ARMS)
+    check(not unknown, f"phase 15 arms {sorted(unknown)} in {P15_ARMS}")
+    t_start = time.perf_counter()
+    card = card_line()
+    root = tempfile.mkdtemp(prefix="rlt-p15-")
+    # The trainer cell, its warmup cut to one step so that steps 2 and 3
+    # train at the full learning rate.
+    cfg = dataclasses.replace(GPTConfig.gpt2_small(), warmup_steps=1)
+    clip_cfg = GPTConfig(vocab_size=256, n_layer=2, n_head=4, d_model=64,
+                         seq_len=32, warmup_steps=2, mu_dtype="float32")
+    clip_data = helpers.scaled_batches(256, 32, 8, 3, seed=5)
+    setups = {
+        "a": dict(cfg=cfg, steps=P15_STEPS_A, workers=1, kw={}),
+        "b": dict(cfg=cfg, steps=P15_STEPS_B, workers=2,
+                  kw={"backend": "gloo"}),
+        "e": dict(cfg=clip_cfg, steps=3, workers=2,
+                  kw={"backend": "gloo", "device": "cpu",
+                      "env_per_worker": {"OMP_NUM_THREADS": "1"}},
+                  local={"device": "cpu"},
+                  fit={"precision": "f32", "gpt_kw": {"device": "cpu"},
+                       "module_cls": helpers.ScaledGPT,
+                       "data": helpers.ArraysDataModule(clip_data, 8)}),
+    }
+    want = per_step_launches(cfg.n_layer, remat=True)
+    out = {"card": card, "a": {}, "b": {}, "e": {}}
+    params = {}
+    # Every arm's workers are spawned at once, at the start: their
+    # init_hook (``torch_dist_helpers.warm_up``) imports the port's model
+    # and, on the card, runs one small step through the kernels; then they
+    # idle until their arm's fit, which leaves it the rendezvous and the
+    # state's build.  Two raw NCCL ranks probe the card meanwhile (f).
+    strategies = []
+    for label in arms:
+        arm, flavor = label.split("_")
+        st = setups[arm]
+        strategies.append(p15_strategy(
+            flavor, st["workers"], **st["kw"],
+            init_hook=functools.partial(helpers.warm_up,
+                                        st["kw"].get("device", "cuda"))))
+    probes = nccl_probe_start() if arms == P15_ARMS else None
+    t_spawn = time.perf_counter()
+    try:
+        with ThreadPoolExecutor(len(strategies)) as spawner:
+            spawned = [spawner.submit(s.setup) for s in strategies]
+            if probes is not None:
+                out["f"] = nccl_probe_read(probes, card)
+            for f in spawned:
+                f.result()
+        out["spawn_s"] = time.perf_counter() - t_spawn
+        n_workers = sum(setups[label[0]]["workers"] for label in arms)
+        print(f"phase 15: {n_workers} workers of {len(arms)} arms spawned "
+              f"and warmed up at once in {out['spawn_s']:.1f} s")
+        for strategy, label in zip(strategies, arms):
+            arm, flavor = label.split("_")
+            st = setups[arm]
+            t0, w0 = time.perf_counter(), time.time()
+            tr = p15_fit(strategy, st["cfg"], st["steps"], label, root,
+                         **st.get("fit", {}))
+            w1 = time.time()
+            check(tr.strategy.backend == ("nccl" if arm == "a" else "gloo"),
+                  f"{label}: the backend asked for")
+            params[label] = p15_host_params(tr)
+            r0 = helpers.RECORDS[label][0]
+            # The wall split: the task shipped, rendezvous and the state's
+            # build before the fit's first hook; the steps; the gather,
+            # the state stream, its adoption and the teardown after its
+            # last.
+            out[arm][flavor] = {"wall_s": time.perf_counter() - t0,
+                                "before_fit_s": r0["fit_start"] - w0,
+                                "fit_s": r0["fit_end"] - r0["fit_start"],
+                                "after_fit_s": w1 - r0["fit_end"]}
+            del tr
+    finally:
+        for strategy in strategies:
+            strategy.teardown()
+    driver_cuda = torch.cuda.is_initialized()
+    print(f"phase 15: the driver ran {len(arms)} remote fits with "
+          f"torch.cuda.is_initialized() = {driver_cuda}")
+    check(not driver_cuda, "the driver never initialises CUDA")
+
+    # The references, in this process (CUDA from here on).
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rec = helpers.RECORDS
+    for arm in sorted({label[0] for label in arms}):
+        st = setups[arm]
+        tr = p15_fit(LocalStrategy(**st.get("local", {})), st["cfg"],
+                     st["steps"], f"{arm}_local", root, **st.get("fit", {}))
+        params[f"{arm}_local"] = p15_host_params(tr)
+        del tr
+        local = rec[f"{arm}_local"][0]
+        print(f"phase 15 ({arm}): LocalStrategy {st['steps']} steps: "
+              f"{p15_ms(local):.2f} ms/step, setup "
+              f"{local['setup_bytes'] / 2**30:.3f} GiB, peak "
+              f"{local['peak_bytes'] / 2**30:.3f} GiB, losses "
+              f"{local['losses']}; {card}")
+    for label in arms:
+        arm, flavor = label.split("_")
+        st = setups[arm]
+        ranks, local = rec[label], rec[f"{arm}_local"][0]
+        check(sorted(ranks) == list(range(st["workers"])),
+              f"{label}: every rank reports ({sorted(ranks)})")
+        got, ref = params[label], params[f"{arm}_local"]
+        r0 = ranks[0]
+        res = out[arm][flavor]
+        res.update({"ms": p15_ms(r0), "local_ms": p15_ms(local),
+                    "losses": r0["losses"], "local_losses": local["losses"]})
+        if arm == "e":
+            dl = max(abs(a - b) for a, b in zip(r0["losses"],
+                                                local["losses"]))
+            dp = max(float((got[k] - ref[k]).abs().max()) for k in ref)
+            res.update({"loss_diff": dl, "param_diff": dp})
+            print(f"phase 15 (e) {flavor}: the clip under ZeRO, forged loss "
+                  f"scales {helpers.SCALES}, the CPU test's GPT in f32 on "
+                  f"two CPU workers vs one rank: "
+                  f"losses {r0['losses']}, worst loss diff {dl:.3e}, params "
+                  f"{dp:.3e} (limits {P15_CLIP_TOL}); {card}")
+            check(dl <= P15_CLIP_TOL["loss"]
+                  and dp <= P15_CLIP_TOL["param"],
+                  f"(e) {flavor}: the clipped updates equal the one-device "
+                  f"fit's")
+            continue
+        for rank, v in sorted(ranks.items()):
+            per_step = {k: n / st["steps"] for k, n in v["launches"].items()}
+            pred = p15_state_bytes(cfg, flavor, st["workers"])
+            res.setdefault("ranks", {})[rank] = {
+                "setup_bytes": v["setup_bytes"], "predicted_bytes": pred,
+                "peak_bytes": v["peak_bytes"],
+                "launches_per_step": per_step}
+            print(f"phase 15 (c, d) {label} rank {rank} on {v['device']}: "
+                  f"setup {v['setup_bytes'] / 2**30:.3f} GiB (predicted "
+                  f"state {pred / 2**30:.3f} GiB, ratio "
+                  f"{v['setup_bytes'] / pred:.3f}), peak "
+                  f"{v['peak_bytes'] / 2**30:.3f} GiB (LocalStrategy "
+                  f"{local['peak_bytes'] / 2**30:.3f}); launches a step "
+                  f"{per_step}")
+            check(per_step == want, f"(d) {label} rank {rank}: launches a "
+                  f"step {per_step} == {want}")
+        if arm == "a":
+            differ = [k for k in ref if not torch.equal(ref[k], got[k])]
+            same = r0["losses"] == local["losses"]
+            res["bitwise"] = same and not differ
+            print(f"phase 15 (a) {flavor}: 1 rank over NCCL, "
+                  f"{st['steps']} steps: params {len(ref) - len(differ)}/"
+                  f"{len(ref)} leaves bitwise equal to LocalStrategy's, "
+                  f"losses {'bitwise equal' if same else 'differ'}; "
+                  f"{p15_ms(r0):.2f} ms/step (LocalStrategy "
+                  f"{p15_ms(local):.2f}); wall {res['wall_s']:.1f} s; "
+                  f"{card}")
+            check(not differ, f"(a) {flavor}: params bitwise {differ[:3]}")
+            check(same, f"(a) {flavor}: losses bitwise {r0['losses']} vs "
+                  f"{local['losses']}")
+            continue
+        diffs = [abs(a - b) for a, b in zip(r0["losses"], local["losses"])]
+        worst = {"row": 0.0, "frob": 0.0, "bias": 0.0}
+        for k in ref:
+            if k.endswith("_b']"):
+                continue  # zero-init: held by its update below
+            m = bf16_measures(torch, got[k], ref[k])
+            worst = {n: max(worst[n], m[n]) for n in worst}
+        sq = sum(float((got[k] - ref[k]).double().square().sum())
+                 for k in ref)
+        model_frob = math.sqrt(sq / sum(float(ref[k].double().square().sum())
+                                        for k in ref))
+        init = local["init_vectors"]
+        check(bool(init) and set(init) <= set(ref),
+              f"(b) {flavor}: the initial vector leaves {sorted(init)[:3]}")
+        updates = {k: float((got[k].double() - ref[k].double()).norm()
+                            / (ref[k].double() - v.double()).norm())
+                   for k, v in init.items()}
+        upd_key = max(updates, key=updates.get)
+        res.update({"loss_diffs": diffs, "param_measures": worst,
+                    "model_frob": model_frob, "vector_updates": updates})
+        print(f"phase 15 (b) {flavor}: 2 ranks sharing the card over gloo "
+              f"(through host memory, not NCCL), 8 x 1024 rows a rank, "
+              f"{st['steps']} steps: losses {r0['losses']} (diffs "
+              f"{', '.join(f'{d:.2e}' for d in diffs)}; tolerances "
+              f"{P15_LOSS_TOL}); final params: worst bf16 measures of a "
+              f"matrix or gain {({k: f'{v:.2e}' for k, v in worst.items()})}"
+              f", the whole model's relative Frobenius distance "
+              f"{model_frob:.2e}, the worst vector leaf's update distance "
+              f"{updates[upd_key]:.3e} ({upd_key}; limit "
+              f"{P15_UPDATE_LIMIT}); "
+              f"{p15_ms(r0):.1f} ms/step (LocalStrategy "
+              f"{p15_ms(local):.2f}); wall {res['wall_s']:.1f} s; {card}")
+        check(all(d <= t for d, t in zip(diffs, P15_LOSS_TOL)),
+              f"(b) {flavor}: losses within {P15_LOSS_TOL}: {diffs}")
+        check(all(worst[k] <= BF16_LIMITS[k] for k in worst)
+              and model_frob <= BF16_LIMITS["frob"],
+              f"(b) {flavor}: params within {BF16_LIMITS}: {worst}, "
+              f"{model_frob}")
+        check(updates[upd_key] <= P15_UPDATE_LIMIT,
+              f"(b) {flavor}: vector leaves' updates within "
+              f"{P15_UPDATE_LIMIT}: {upd_key} {updates[upd_key]}")
+    for label in arms:
+        arm, flavor = label.split("_")
+        w = out[arm][flavor]
+        print(f"phase 15 {label}: wall {w['wall_s']:.1f} s = "
+              f"{w['before_fit_s']:.1f} s to the first hook (the task "
+              f"shipped, rendezvous, the state) + "
+              f"{w['fit_s']:.1f} s of fit "
+              f"+ {w['after_fit_s']:.1f} s after (gather, state stream, "
+              f"adoption, teardown)")
+    out["wall_s"] = time.perf_counter() - t_start
+    print(f"phase 15: wall {out['wall_s']:.1f} s; {card}")
+    print(json.dumps(out))
+    return 0
+
+
+def phase_multi_gpu(card):
+    """Phase 15, run as ``chip_smoke.py --phase15`` in a process of its own
+    (the driver of a remote fit must not have initialised CUDA, and this
+    one has); its lines are echoed, its last line returned."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--phase15"], capture_output=True, text=True,
+                          timeout=600, cwd=ROOT)
+    lines = proc.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        print(line)
+    if proc.returncode != 0:
+        print(proc.stderr[-6000:], file=sys.stderr)
+        raise RuntimeError(f"chip_smoke: phase 15 failed (exit "
+                           f"{proc.returncode})")
+    result = json.loads(lines[-1])
+    print(f"phase 15: {time.perf_counter() - t0:.1f} s in all, the "
+          f"process's start included; {card}")
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -5490,6 +5901,7 @@ def main() -> int:
     world = server_world(torch, np)
     plane = phase_serve_plane(torch, np, card, world, phase3)
     fleet = phase_serve_fleet(torch, np, card, world, phase3)
+    multi = phase_multi_gpu(card)
 
     kernels = [{
         "name": "bgmv", "route": "cuda", "source": BGMV_SOURCE,
@@ -5517,6 +5929,7 @@ def main() -> int:
                                             bgmv_widths, "card": card}))
     print("serve_plane: " + json.dumps({**plane, "card": card}))
     print("serve_fleet: " + json.dumps({**fleet, "card": card}))
+    print("multi_gpu: " + json.dumps(multi))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -5529,4 +5942,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--serve-client"]:
         sys.exit(serve_client_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--nccl-probe"]:
+        sys.exit(nccl_probe_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--phase15"]:
+        sys.exit(phase15_main(tuple(sys.argv[2:]) or P15_ARMS))
     sys.exit(main())

@@ -42,17 +42,21 @@ def send_frame(sock: socket.socket, payload: bytes) -> None:
     sock.sendall(payload)
 
 
-def recv_exact(sock: socket.socket, n: int) -> bytes:
-    buf = bytearray()
-    while len(buf) < n:
-        chunk = sock.recv(n - len(buf))
-        if not chunk:
+def recv_exact(sock: socket.socket, n: int) -> bytearray:
+    """Exactly ``n`` bytes, read into one buffer allocated up front (a
+    worker's result frame carries a whole training state)."""
+    buf = bytearray(n)
+    view = memoryview(buf)
+    got = 0
+    while got < n:
+        k = sock.recv_into(view[got:], n - got)
+        if not k:
             raise ConnectionError("socket closed mid-frame")
-        buf.extend(chunk)
-    return bytes(buf)
+        got += k
+    return buf
 
 
-def recv_frame(sock: socket.socket, max_len: int = 0) -> bytes:
+def recv_frame(sock: socket.socket, max_len: int = 0) -> bytearray:
     """One frame; ``max_len`` (if nonzero) refuses a longer claim before
     allocating."""
     (length,) = _LEN.unpack(recv_exact(sock, _LEN.size))

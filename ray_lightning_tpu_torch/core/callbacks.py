@@ -96,7 +96,11 @@ class ModelCheckpoint(Callback):
     end as always; a writer thread computes the crc and writes the file,
     and the fit joins pending writes at its end.
     ``verify``: read each file back and check its crc (at once, or at
-    fit end for async writes)."""
+    fit end for async writes).
+
+    Under a strategy every rank runs the callback alike: every rank
+    calls ``save_checkpoint`` (its gather is a collective) and keeps the
+    same books, and rank 0 alone writes, verifies and deletes files."""
 
     def __init__(self, dirpath: Optional[str] = None,
                  filename: str = "epoch={epoch}-step={step}",
@@ -141,11 +145,13 @@ class ModelCheckpoint(Callback):
         score = self._score(trainer.callback_metrics)
         if self.monitor is not None and score is None:
             return  # the monitored metric was not produced this epoch
-        os.makedirs(self.dirpath, exist_ok=True)
+        writer = getattr(trainer, "is_global_zero", True)
+        if writer:
+            os.makedirs(self.dirpath, exist_ok=True)
         name = self.filename.format(epoch=epoch, step=trainer.global_step)
         path = os.path.join(self.dirpath, name + ".ckpt")
         trainer.save_checkpoint(path, async_write=self.async_write)
-        if not self.async_write:
+        if writer and not self.async_write:
             self._verify_written(path)
         if score is None:
             # monitor=None: the newest is the best; rank by recency.
@@ -167,6 +173,9 @@ class ModelCheckpoint(Callback):
         keep = {p for _, p in ranked[:self.save_top_k]}
         keep.add(self.best_model_path)
         doomed = [p for _, p in self._saved if p not in keep]
+        self._saved = [(s, p) for s, p in self._saved if p in keep]
+        if not getattr(trainer, "is_global_zero", True):
+            return
         # Never delete a file whose write may still be in flight.
         if any(trainer.checkpoint_write_pending(p) for p in doomed):
             trainer.flush_checkpoints()
@@ -175,7 +184,6 @@ class ModelCheckpoint(Callback):
                 os.remove(path)
             except FileNotFoundError:
                 pass
-        self._saved = [(s, p) for s, p in self._saved if p in keep]
 
     def _verify_written(self, path: str) -> None:
         if not self.verify:
@@ -187,7 +195,7 @@ class ModelCheckpoint(Callback):
 
     def on_fit_end(self, trainer, module) -> None:
         # The loop flushed async writes just before this hook.
-        if self.async_write:
+        if self.async_write and getattr(trainer, "is_global_zero", True):
             for _, path in self._saved:
                 if os.path.exists(path):
                     self._verify_written(path)
@@ -203,7 +211,9 @@ class ModelCheckpoint(Callback):
 
 class EarlyStopping(Callback):
     """Stop the fit when ``monitor`` has not improved by more than
-    ``min_delta`` for ``patience`` validation epochs."""
+    ``min_delta`` for ``patience`` validation epochs.  Under a strategy
+    every rank decides on rank 0's value (``trainer.broadcast_value``), so
+    no rank stops while another waits in a collective."""
 
     def __init__(self, monitor: str = "val_loss", mode: str = "min",
                  patience: int = 3, min_delta: float = 0.0):
@@ -226,6 +236,9 @@ class EarlyStopping(Callback):
 
     def on_validation_epoch_end(self, trainer, module) -> None:
         value = trainer.callback_metrics.get(self.monitor)
+        broadcast = getattr(trainer, "broadcast_value", None)
+        if broadcast is not None:
+            value = broadcast(None if value is None else float(value))
         if value is None:
             return
         value = float(value)

@@ -2,8 +2,10 @@
 
 A copy of ``ray_lightning_tpu/core/data.py`` (numpy only, not imported
 from the JAX package): loaders yield numpy batches; moving them to the
-device is the loop's job.  Host sharding is kept so both packages draw the
-same batches; the port's single-device fit uses one shard.
+device is the loop's job.  Sharding is the JAX package's: every shard
+(a strategy's rank) draws the same global batch order and takes its
+contiguous ``batch_size // num_shards`` rows of each batch; the
+one-device fit uses one shard.
 """
 
 from __future__ import annotations
@@ -129,9 +131,21 @@ class NumpyLoader:
         self.drop_last = drop_last
         self.epoch = 0
 
+    def set_shard(self, shard_index: int, num_shards: int) -> None:
+        if self.batch_size % num_shards != 0:
+            raise ValueError(
+                f"Global batch_size {self.batch_size} must divide evenly "
+                f"over {num_shards} host shards.")
+        self.shard_index = shard_index
+        self.num_shards = num_shards
+
     def set_epoch(self, epoch: int) -> None:
         """≙ ``DistributedSampler.set_epoch``: reshuffle per epoch."""
         self.epoch = epoch
+
+    @property
+    def per_host_batch_size(self) -> int:
+        return self.batch_size // self.num_shards
 
     def __len__(self) -> int:
         n = len(self.dataset) // self.batch_size

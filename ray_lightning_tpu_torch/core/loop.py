@@ -1,5 +1,5 @@
-"""The fit loop on one device: the spine of ``run_fit``
-(``ray_lightning_tpu/core/loop.py``).
+"""The fit loop on one device, or on one rank of a strategy: the spine of
+``run_fit`` (``ray_lightning_tpu/core/loop.py``).
 
 Kept: epochs, ``max_steps``, ``limit_train_batches``/``limit_val_batches``,
 ``log_every_n_steps`` (step logs land in ``callback_metrics`` one log
@@ -22,6 +22,20 @@ moments are converted, ``_reconcile_opt_state_format``) and the eval
 loops (:func:`run_eval` for validation and test, :func:`run_predict`)
 are kept.  Elastic restart,
 drain, prefetch threads and the full telemetry tier are later slices.
+
+Under a strategy's process group (``dist``, a ``parallel.mesh.
+DistContext``; ``parallel/strategies.py``) the loops run on each rank:
+the datamodule is sharded by rank (``set_shard(rank, world_size)``),
+every rank starts from rank 0's params (one broadcast), the step is a
+``parallel.step_fns.DistributedStep`` of the strategy's flavor, logs and
+validation metrics are averaged over the ranks, checkpoints gather the
+state on every rank and rank 0 writes them, and the fit returns the JAX
+package's per-rank result package: rank 0's carries the state stream
+(the ``RLTCKPT1`` bytes of the gathered state), the metrics, the best
+path and the callback states; every rank's carries its telemetry
+snapshot.  Megastep is off there: ``"auto"`` resolves to 1, and an
+explicit K > 1 raises (a CUDA graph of steps with collectives in it is
+ROADMAP Queue 1 item 2).
 """
 
 from __future__ import annotations
@@ -46,7 +60,7 @@ from ray_lightning_tpu_torch.models.convert import (
     train_state_to_jax,
 )
 from ray_lightning_tpu_torch.models.optim import (
-    MaskedNode, apply_updates, multi_steps, multi_steps_flush, tree_map,
+    MaskedNode, multi_steps, tree_leaves, tree_map,
 )
 from ray_lightning_tpu_torch.ops.optim_quant import (
     BlockQuantized, dequantize_moment, quantize_moment,
@@ -136,7 +150,8 @@ def _normalize_megastep(value: Any) -> Optional[Any]:
     return value
 
 
-def _resolve_megastep(config: FitConfig, device: torch.device) -> int:
+def _resolve_megastep(config: FitConfig, device: torch.device,
+                      distributed: bool = False) -> int:
     """The concrete stride length K for this fit.
 
     Strongest first: an explicit ``megastep=`` on the Trainer/strategy →
@@ -144,7 +159,9 @@ def _resolve_megastep(config: FitConfig, device: torch.device) -> int:
     → ``"auto"``.  Auto is K = 8 on the card, where the host's per-step
     issue cost can hold the card back (the JAX package's accelerator
     rule), and 1 on the CPU, where execution is synchronous and fusing
-    strides buys nothing."""
+    strides buys nothing.  Under a strategy's process group
+    (``distributed``) auto is 1 and K > 1 raises: the steps' collectives
+    are not captured into a graph (ROADMAP Queue 1 item 2)."""
     value = config.megastep
     if value is None:
         value = os.environ.get("RLT_MEGASTEP")
@@ -153,17 +170,29 @@ def _resolve_megastep(config: FitConfig, device: torch.device) -> int:
     if value == "off":
         return 1
     if value == "auto":
-        return 8 if device.type == "cuda" else 1
+        return 8 if device.type == "cuda" and not distributed else 1
+    if distributed and int(value) > 1:
+        raise NotImplementedError(
+            f"megastep={value} under a multi-process strategy: a CUDA graph "
+            f"of steps with their collectives captured is not ported yet "
+            f"(ROADMAP Queue 1 item 2, megastep under NCCL capture); use "
+            f"megastep='auto' or 'off' there")
     return int(value)
 
 
 class LoopContext:
     """The ``trainer`` argument of every hook (the JAX package's
-    ``LoopContext``, one device)."""
+    ``LoopContext``; one process, one device, and under a strategy one
+    rank of its process group)."""
 
-    def __init__(self, config: FitConfig, device: torch.device):
+    def __init__(self, config: FitConfig, device: torch.device,
+                 dist: Any = None):
         self.config = config
         self.device = device
+        # The strategy's process group (None: one process) and, under
+        # RayShardedStrategy, the ZeRO plan of the state's leaves.
+        self.dist = dist
+        self.zero_plan = None
         self.current_epoch = 0
         # global_step counts optimizer steps, micro_step micro-batches
         # (equal without accumulation).
@@ -183,11 +212,34 @@ class LoopContext:
         self._ckpt_pending: set = set()
         self._ckpt_lock = threading.Lock()
 
-    global_rank = 0  # one process, one device
+    @property
+    def global_rank(self) -> int:
+        return 0 if self.dist is None else self.dist.rank
+
+    @property
+    def world_size(self) -> int:
+        return 1 if self.dist is None else self.dist.world_size
 
     @property
     def is_global_zero(self) -> bool:
-        return True
+        return self.global_rank == 0
+
+    def broadcast_value(self, value: Optional[float]) -> Optional[float]:
+        """Rank 0's ``value`` (a float or None) on every rank: a decision
+        every rank must take alike (``EarlyStopping``).  A collective."""
+        return value if self.dist is None else self.dist.broadcast_value(
+            value)
+
+    def full_state(self) -> TrainState:
+        """The whole state: under ZeRO gathered from every rank's slices
+        (a collective, on every rank), else the state itself."""
+        plan = self.zero_plan
+        if plan is None:
+            return self.state
+        st = self.state
+        params = plan.all_gather(st.params) if plan.stage == 3 else st.params
+        return TrainState(params, plan.gather_opt_state(st.opt_state),
+                          st.step)
 
     def log_metrics(self, metrics: Dict[str, Any]) -> None:
         for k, v in metrics.items():
@@ -197,8 +249,9 @@ class LoopContext:
     # -- checkpoints ---------------------------------------------------------
     def checkpoint_payload(self) -> Dict[str, Any]:
         """The JAX package's checkpoint payload; the state as the JAX
-        ``TrainState`` tree (its tensors still where they live)."""
-        return {"state": train_state_to_jax(self.state),
+        ``TrainState`` tree (its tensors still where they live; gathered
+        under ZeRO, on every rank)."""
+        return {"state": train_state_to_jax(self.full_state()),
                 "epoch": self.current_epoch,
                 "global_step": self.global_step,
                 "micro_step": self.micro_step,
@@ -212,8 +265,13 @@ class LoopContext:
         holds this step's state whatever runs next.  ``async_write``
         leaves the crc and the file write to a writer thread (at most one
         stream waits for it); :meth:`flush_checkpoints` joins it and
-        raises its failures."""
-        stream = to_state_stream(self.checkpoint_payload())
+        raises its failures.  Under a process group every rank calls it
+        (the gather is a collective) and rank 0 writes."""
+        payload = self.checkpoint_payload()
+        if not self.is_global_zero:
+            return
+        stream = to_state_stream(payload)
+        del payload
         if self.telemetry is not None:
             self.telemetry.add_counter("checkpoint_writes", 1)
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
@@ -348,6 +406,11 @@ def init_train_state(module: TrainModule, tx, device: torch.device,
     """The initial state on ``device``: ``module.initial_params`` when set
     (copied, in f32), else ``module.init_params`` from a generator seeded
     ``seed``."""
+    return TrainState.create(_initial_params(module, device, seed), tx)
+
+
+def _initial_params(module: TrainModule, device: torch.device,
+                    seed: int) -> Any:
     preset = getattr(module, "initial_params", None)
     if preset is not None:
         from ray_lightning_tpu_torch.models.quant import is_quantized
@@ -361,15 +424,51 @@ def init_train_state(module: TrainModule, tx, device: torch.device,
                 "training needs the original float tree — keep it, or "
                 "dequantize explicitly before warm-starting"
             )
-        params = tree_map(
+        return tree_map(
             lambda t: torch.as_tensor(t).to(device=device,
                                             dtype=torch.float32).clone(),
             dict(preset))
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return tree_map(lambda t: t.to(device), module.init_params(gen))
+
+
+def _init_dist_state(ctx: LoopContext, module: TrainModule, tx, make_step,
+                     callbacks: List[Callback], accum: int):
+    """A rank's step and initial state under a strategy: every rank
+    builds the params from the same seed, then takes rank 0's (one
+    broadcast, so a module whose init is not deterministic still starts
+    equal).  Under ZeRO the state keeps this rank's slices
+    (``ctx.zero_plan``); a resume restores the full checkpoint first, then
+    slices it.  Returns ``(step, (start_epoch, skip_batches))``."""
+    config, dist = ctx.config, ctx.dist
+    params = _initial_params(module, ctx.device, config.seed)
+    with torch.no_grad():
+        dist.broadcast_(tree_leaves(params))
+    step = make_step(module, tx, params)
+    plan = step.plan
+    start = (0, 0)
+    if plan is None or config.resume_from_checkpoint:
+        ctx.state = TrainState.create(params, tx)
+        if config.resume_from_checkpoint:
+            start = _resume(ctx, callbacks, accum)
+    if plan is None:
+        return step, start
+    if ctx.state is not None:
+        full = ctx.state
+        params = full.params
+        opt_state = plan.shard_opt_state(full.opt_state)
+        step_count = full.step
     else:
-        gen = torch.Generator(device=device).manual_seed(seed)
-        params = tree_map(lambda t: t.to(device),
-                          module.init_params(gen))
-    return TrainState.create(params, tx)
+        opt_state, step_count = None, 0
+    ctx.state = None
+    shards = plan.shard_tree(params, own=plan.stage == 3)
+    if opt_state is None:
+        opt_state = tx.init(shards)
+        plan.opt_dims(opt_state, sharded=True)  # refuses int8 moments
+    ctx.state = TrainState(shards if plan.stage == 3 else params, opt_state,
+                           step_count)
+    ctx.zero_plan = plan
+    return step, start
 
 
 def _restore_state(template: TrainState, loaded: TrainState) -> TrainState:
@@ -536,14 +635,23 @@ def _resume(ctx: LoopContext, callbacks: List[Callback], accum: int):
     return start_epoch, skip
 
 
-def _run_validation(eval_step, loader, ctx: LoopContext,
-                    limit: int) -> Dict[str, float]:
+def _run_validation(module: TrainModule, eval_step, loader,
+                    ctx: LoopContext, limit: int) -> Dict[str, float]:
+    """The epoch means of ``eval_step``'s logs over ``loader``; under a
+    strategy each batch's logs averaged over the ranks first and the
+    module's derived logs taken from those means (the JAX step's over the
+    global batch), on the full params (gathered once under ZeRO-3)."""
     acc = _RunningMeanLogs()
+    params = ctx.state.params
+    if ctx.zero_plan is not None and ctx.zero_plan.stage == 3:
+        params = ctx.zero_plan.all_gather(params)
     for i, batch in enumerate(loader):
         if limit >= 0 and i >= limit:
             break
-        acc.update(eval_step(ctx.state.params,
-                             step_fns.place_batch(batch, ctx.device)))
+        logs = eval_step(params, step_fns.place_batch(batch, ctx.device))
+        if ctx.dist is not None:
+            logs = module.derive_logs(ctx.dist.mean_logs(logs))
+        acc.update(logs)
     return acc.result()
 
 
@@ -609,16 +717,6 @@ def _wait_device(device: torch.device) -> None:
         ev.synchronize()
 
 
-def _accum_flush(state: TrainState, inner_tx) -> TrainState:
-    """The partial-window flush (``_build_accum_flush``): one optimizer
-    update from the running mean of the window's micro-gradients."""
-    with torch.no_grad():
-        updates, opt_state = multi_steps_flush(inner_tx, state.opt_state,
-                                               state.params)
-        return TrainState(apply_updates(state.params, updates), opt_state,
-                          state.step + 1)
-
-
 def _examples(batch: Any) -> int:
     leaves = list(step_fns._batch_items(batch).values())
     return int(leaves[0].shape[0]) if leaves and leaves[0].ndim else 1
@@ -626,14 +724,20 @@ def _examples(batch: Any) -> int:
 
 def run_fit(module: TrainModule, datamodule: TpuDataModule,
             config: FitConfig, callbacks: List[Callback],
-            device: torch.device, telemetry: Any = None) -> Dict[str, Any]:
+            device: torch.device, telemetry: Any = None, dist: Any = None,
+            make_step: Any = None) -> Dict[str, Any]:
     """The fit loop.  Returns the result package the trainer adopts:
     ``state``, ``callback_metrics``, ``logged_metrics``, ``epochs_run``,
     ``global_step``, ``micro_step``, ``telemetry`` (the report) and
-    ``best_model_path`` (the first ``ModelCheckpoint``'s)."""
-    ctx = LoopContext(config, device)
+    ``best_model_path`` (the first ``ModelCheckpoint``'s).
+
+    Under a strategy, ``dist`` is the rank's ``DistContext`` and
+    ``make_step(module, tx, params)`` builds its ``DistributedStep``; the
+    package is then the per-rank one (:func:`_rank_package`)."""
+    ctx = LoopContext(config, device, dist)
     try:
-        return _fit(ctx, module, datamodule, callbacks, telemetry)
+        return _fit(ctx, module, datamodule, callbacks, telemetry,
+                    make_step)
     finally:
         # A failed fit still retires its writer thread (a finished one
         # already has).
@@ -641,8 +745,9 @@ def run_fit(module: TrainModule, datamodule: TpuDataModule,
 
 
 def _fit(ctx: LoopContext, module: TrainModule, datamodule: TpuDataModule,
-         callbacks: List[Callback], telemetry: Any) -> Dict[str, Any]:
-    config, device = ctx.config, ctx.device
+         callbacks: List[Callback], telemetry: Any,
+         make_step: Any) -> Dict[str, Any]:
+    config, device, dist = ctx.config, ctx.device, ctx.dist
     tel = Telemetry.build(telemetry)
     tx = module.configure_optimizers()
     accum = max(int(config.accumulate_grad_batches), 1)
@@ -657,22 +762,27 @@ def _fit(ctx: LoopContext, module: TrainModule, datamodule: TpuDataModule,
         tel_stats.configure_model(module, device)
 
     module.setup("fit")
-    datamodule.set_shard(0, 1)
+    datamodule.set_shard(ctx.global_rank, ctx.world_size)
     datamodule.prepare_data()
     datamodule.setup("fit")
     _call_hooks(callbacks, "setup", ctx, module, "fit")
 
-    # On resume this is the template the checkpoint is written into (its
-    # dict order, which orders the clip's norm sum, stays the fit's).
-    ctx.state = init_train_state(module, tx, device, config.seed)
     start_epoch, skip_batches = 0, 0
-    if config.resume_from_checkpoint:
-        # In place before the first stride: a captured graph owns the
-        # state it captured on.
-        start_epoch, skip_batches = _resume(ctx, callbacks, accum)
-    train_step = step_fns.single_device_step(module, tx)
+    if dist is not None:
+        train_step, (start_epoch, skip_batches) = _init_dist_state(
+            ctx, module, tx, make_step, callbacks, accum)
+    else:
+        # On resume this is the template the checkpoint is written into
+        # (its dict order, which orders the clip's norm sum, stays the
+        # fit's).
+        ctx.state = init_train_state(module, tx, device, config.seed)
+        if config.resume_from_checkpoint:
+            # In place before the first stride: a captured graph owns the
+            # state it captured on.
+            start_epoch, skip_batches = _resume(ctx, callbacks, accum)
+        train_step = step_fns.single_device_step(module, tx)
     rng = step_fns.StepRng(device, config.seed)
-    megastep_k = _resolve_megastep(config, device)
+    megastep_k = _resolve_megastep(config, device, dist is not None)
     multi_step = (step_fns.MultiStep(module, tx, megastep_k, device, rng)
                   if megastep_k > 1 else None)
     tel.set_meta("megastep", megastep_k)
@@ -812,7 +922,8 @@ def _fit(ctx: LoopContext, module: TrainModule, datamodule: TpuDataModule,
         # max_steps optimizer updates.
         if (accum > 1 and not stop
                 and int(ctx.state.opt_state["mini_step"]) > 0):
-            ctx.state = _accum_flush(ctx.state, inner_tx)
+            ctx.state = (step_fns.accum_flush(ctx.state, inner_tx) if dist is None
+                         else train_step.flush(ctx.state, inner_tx))
             ctx.global_step += 1
             since_update = 0
             _call_hooks(callbacks, "on_accumulation_flush", ctx, module,
@@ -832,7 +943,7 @@ def _fit(ctx: LoopContext, module: TrainModule, datamodule: TpuDataModule,
 
         if (eval_step is not None
                 and (epoch + 1) % config.check_val_every_n_epoch == 0):
-            val_metrics = _run_validation(eval_step, val_loader, ctx,
+            val_metrics = _run_validation(module, eval_step, val_loader, ctx,
                                           config.limit_val_batches)
             ctx.log_metrics(val_metrics)
             module.on_validation_epoch_end(val_metrics)
@@ -851,6 +962,8 @@ def _fit(ctx: LoopContext, module: TrainModule, datamodule: TpuDataModule,
     module.teardown("fit")
     _call_hooks(callbacks, "teardown", ctx, module, "fit")
     datamodule.teardown("fit")
+    if dist is not None:
+        return _rank_package(ctx, callbacks, tel)
     return {
         "state": ctx.state,
         "callback_metrics": dict(ctx.callback_metrics),
@@ -861,6 +974,34 @@ def _fit(ctx: LoopContext, module: TrainModule, datamodule: TpuDataModule,
         "telemetry": tel.report(),
         "best_model_path": next((cb.best_model_path for cb in callbacks
                                  if isinstance(cb, ModelCheckpoint)), ""),
+    }
+
+
+def _rank_package(ctx: LoopContext, callbacks: List[Callback],
+                  tel: Telemetry) -> Dict[str, Any]:
+    """A rank's result package under a strategy (the JAX ``run_fit``'s):
+    every rank gathers the state (a collective under ZeRO) and ships its
+    telemetry snapshot; rank 0's package also carries the state stream
+    (the ``RLTCKPT1`` bytes of the JAX ``TrainState`` tree), the metrics,
+    the best path and the callback states."""
+    gathered = ctx.full_state()
+    snapshot = tel.snapshot(ctx.global_rank)
+    if not ctx.is_global_zero:
+        return {"rank": ctx.global_rank, "telemetry": snapshot}
+    return {
+        "rank": 0,
+        "state_stream": to_state_stream(train_state_to_jax(gathered)),
+        "callback_metrics": {k: float(v)
+                             for k, v in ctx.callback_metrics.items()},
+        "logged_metrics": {k: float(v)
+                           for k, v in ctx.logged_metrics.items()},
+        "best_model_path": next((cb.best_model_path for cb in callbacks
+                                 if isinstance(cb, ModelCheckpoint)), ""),
+        "callback_states": [cb.state_dict() for cb in callbacks],
+        "epochs_run": ctx.current_epoch + 1,
+        "global_step": ctx.global_step,
+        "micro_step": ctx.micro_step,
+        "telemetry": snapshot,
     }
 
 
@@ -883,17 +1024,20 @@ def _resolve_params(module: TrainModule, config: FitConfig,
 def run_eval(module: TrainModule, datamodule: TpuDataModule,
              config: FitConfig, callbacks: List[Callback],
              device: torch.device, kind: str = "validation", params=None,
-             ckpt_path: Optional[str] = None) -> Dict[str, Any]:
+             ckpt_path: Optional[str] = None,
+             dist: Any = None) -> Dict[str, Any]:
     """The validation or test loop (``kind``): the epoch means of
     ``validation_step``/``test_step`` over the loader (at most
     ``limit_val_batches``), without gradients.  Returns
-    ``{"callback_metrics": metrics}``."""
+    ``{"callback_metrics": metrics}`` (under a strategy, with the rank;
+    each rank evaluates its rows on the full params and the metrics are
+    the means over the ranks)."""
     stage = "validate" if kind == "validation" else "test"
-    ctx = LoopContext(config, device)
+    ctx = LoopContext(config, device, dist)
     module.trainer = ctx
     module.precision = config.precision
     module.setup(stage)
-    datamodule.set_shard(0, 1)
+    datamodule.set_shard(ctx.global_rank, ctx.world_size)
     datamodule.setup(stage)
     _call_hooks(callbacks, "setup", ctx, module, stage)
     ctx.state = TrainState(
@@ -902,24 +1046,30 @@ def run_eval(module: TrainModule, datamodule: TpuDataModule,
               else datamodule.test_dataloader())
     if loader is None:
         raise ValueError(f"datamodule provides no {kind} dataloader")
-    metrics = _run_validation(step_fns.build_eval_step(module, kind), loader,
-                              ctx, config.limit_val_batches)
+    metrics = _run_validation(module, step_fns.build_eval_step(module, kind),
+                              loader, ctx, config.limit_val_batches)
     ctx.log_metrics(metrics)
     module.teardown(stage)
     _call_hooks(callbacks, "teardown", ctx, module, stage)
+    if dist is not None:
+        return {"rank": dist.rank, "callback_metrics": metrics}
     return {"callback_metrics": metrics}
 
 
 def run_predict(module: TrainModule, datamodule: TpuDataModule,
                 config: FitConfig, device: torch.device, params=None,
-                ckpt_path: Optional[str] = None) -> Dict[str, Any]:
+                ckpt_path: Optional[str] = None,
+                dist: Any = None) -> Dict[str, Any]:
     """The prediction loop: ``predict_step`` over the predict loader (the
     test loader when there is none), without gradients.  Returns
     ``{"prediction_batches": [host numpy array per batch]}``; the outputs
-    stay on the device until the last batch is issued."""
+    stay on the device until the last batch is issued.  Under a strategy
+    each rank predicts its rows of every batch and its package carries
+    its rank (the driver interleaves them back into row order)."""
     module.precision = config.precision
     module.setup("predict")
-    datamodule.set_shard(0, 1)
+    datamodule.set_shard(*((0, 1) if dist is None
+                           else (dist.rank, dist.world_size)))
     datamodule.setup("predict")
     params = _resolve_params(module, config, device, params, ckpt_path)
     predict_step = step_fns.build_predict_step(module)
@@ -929,4 +1079,7 @@ def run_predict(module: TrainModule, datamodule: TpuDataModule,
     outputs = [predict_step(params, step_fns.place_batch(batch, device))
                for batch in loader]
     module.teardown("predict")
-    return {"prediction_batches": [np.asarray(o.cpu()) for o in outputs]}
+    batches = [np.asarray(o.cpu()) for o in outputs]
+    if dist is not None:
+        return {"rank": dist.rank, "prediction_batches": batches}
+    return {"prediction_batches": batches}

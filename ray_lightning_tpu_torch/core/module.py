@@ -91,6 +91,14 @@ class TrainModule:
     def predict_step(self, params: Any, batch: Any) -> Any:
         raise NotImplementedError
 
+    def derive_logs(self, logs: Logs) -> Logs:
+        """The logs that are not a mean over the batch's rows (a
+        perplexity), computed from those that are; the default has none.
+        A step's own logs may pass through it; under a data-parallel
+        strategy the loop passes the ranks' means through it again, so
+        such a log reads over the global batch as on one device."""
+        return logs
+
     def trainable(self, params: Any) -> Any:
         """Which parameter leaves need a gradient: a tree of bools in the
         params' structure, or None for every leaf (the default).  A frozen

@@ -12,13 +12,19 @@ the fitted state as the JAX package's Trainer does.  Checkpoints are
 ``RLTCKPT1`` files either package reads: ``resume_from_checkpoint`` takes
 one written on a TPU, and the JAX package resumes one written here.
 
-One device and one process: the fitted state and the callbacks' state
-are the loop's own objects, handed over as they are (the JAX package
-streams them from its workers).  Departures from the JAX package, each
-until its slice of the port: telemetry has the cheap tier only
-(``"full"`` raises) and its report is one device's (no fleet merge);
-``megastep`` captures K steps into a CUDA graph on the card where the JAX
-package fuses them with ``lax.scan``.
+Under ``LocalStrategy`` (one device, this process) the fitted state and
+the callbacks' state are the loop's own objects, handed over as they
+are.  Under the data-parallel strategies (``strategy=`` or the
+reference's ``plugins=[RayPlugin(...)]``) the trainer calls the
+strategy's ``setup`` and ``teardown`` around each stage and adopts rank
+0's package as the JAX Trainer does: the state from its ``RLTCKPT1``
+stream (tensors on the CPU: the driver never touches a card), the
+metrics, the best path, the callbacks' states; ``telemetry_report`` is
+every rank's snapshot merged (``telemetry/aggregate.py``), and
+``predict`` interleaves the ranks' rows back into the loader's order.
+Telemetry has the cheap tier only (``"full"`` raises); ``megastep``
+captures K steps into a CUDA graph on the card where the JAX package
+fuses them with ``lax.scan``.
 """
 
 from __future__ import annotations
@@ -32,9 +38,11 @@ from ray_lightning_tpu_torch.core.callbacks import Callback, ModelCheckpoint
 from ray_lightning_tpu_torch.core.data import TpuDataModule, _ModuleDataModule
 from ray_lightning_tpu_torch.core.loop import FitConfig
 from ray_lightning_tpu_torch.core.module import TrainModule
-from ray_lightning_tpu_torch.models.convert import train_state_to_jax
+from ray_lightning_tpu_torch.models.convert import (
+    train_state_from_jax, train_state_to_jax,
+)
 from ray_lightning_tpu_torch.utils.state_stream import (
-    state_stream_to_file, to_state_stream,
+    load_state_stream, state_stream_to_file, to_state_stream,
 )
 
 __all__ = ["Trainer"]
@@ -42,8 +50,9 @@ __all__ = ["Trainer"]
 
 class Trainer:
     """Drive training and evaluation through a strategy (default
-    :class:`LocalStrategy` on the card).  Args mirror the JAX package's
-    Trainer subset that the single-device loop runs;
+    :class:`LocalStrategy` on the card; ``plugins=`` takes the reference's
+    form, the first strategy in the list).  Args mirror the JAX package's
+    Trainer subset that the port's loop runs;
     ``enable_checkpointing`` (the default) appends
     ``ModelCheckpoint(monitor=None)`` unless a ``ModelCheckpoint`` is
     among ``callbacks``, writing under ``default_root_dir``."""
@@ -51,6 +60,7 @@ class Trainer:
     def __init__(
         self,
         strategy=None,
+        plugins=None,
         max_epochs: int = 1,
         max_steps: int = -1,
         callbacks: Optional[List[Callback]] = None,
@@ -67,8 +77,15 @@ class Trainer:
         resume_from_checkpoint: Optional[str] = None,
         fast_dev_run: bool = False,
     ):
-        from ray_lightning_tpu_torch.parallel.strategies import LocalStrategy
+        from ray_lightning_tpu_torch.parallel.strategies import (
+            LocalStrategy, TpuStrategy,
+        )
 
+        if strategy is None and plugins:
+            # The reference's form: Trainer(plugins=[RayPlugin(...)]).
+            strategy = next((p for p in plugins
+                             if isinstance(p, (TpuStrategy, LocalStrategy))),
+                            None)
         self.strategy = strategy or LocalStrategy()
         self.callbacks: List[Callback] = list(callbacks or [])
         if enable_checkpointing and not any(
@@ -110,11 +127,34 @@ class Trainer:
         raise ValueError(
             "Provide a datamodule or implement *_dataloader on the module.")
 
+    def _run_strategy(self, kind: str, *args, **kwargs):
+        """The strategy's ``setup``, ``run`` and ``teardown``: a list of
+        the ranks' packages from a remote strategy, the loop's own result
+        from ``LocalStrategy``."""
+        self.strategy.setup(self)
+        try:
+            return self.strategy.run(kind, *args, **kwargs)
+        finally:
+            self.strategy.teardown()
+
+    def _merge_telemetry(self, results: List[Dict[str, Any]],
+                         replace: bool = False) -> None:
+        from ray_lightning_tpu_torch.telemetry.aggregate import (
+            merge_snapshots,
+        )
+
+        report = merge_snapshots([r.get("telemetry") for r in results])
+        if report or replace:
+            self.telemetry_report = report
+
     def fit(self, module: TrainModule,
             datamodule: Optional[TpuDataModule] = None) -> "Trainer":
-        result = self.strategy.run(
+        result = self._run_strategy(
             "fit", module, self._resolve_datamodule(module, datamodule),
             self.config, self.callbacks)
+        if isinstance(result, list):
+            self._adopt_remote_fit(result)
+            return self
         self.state = result["state"]
         self.callback_metrics.update(result["callback_metrics"])
         self.logged_metrics.update(result["logged_metrics"])
@@ -124,6 +164,22 @@ class Trainer:
         self.micro_step = result["micro_step"]
         self.telemetry_report = result["telemetry"]
         return self
+
+    def _adopt_remote_fit(self, results: List[Dict[str, Any]]) -> None:
+        """Rank 0's package: the state (CPU tensors), metrics, counters,
+        best path and the callbacks' states; every rank's telemetry."""
+        rank0 = next(r for r in results if r.get("rank") == 0)
+        self.state = train_state_from_jax(
+            load_state_stream(rank0["state_stream"]))
+        self.callback_metrics.update(rank0["callback_metrics"])
+        self.logged_metrics.update(rank0["logged_metrics"])
+        self.best_model_path = rank0["best_model_path"]
+        self.epochs_run = rank0["epochs_run"]
+        self.global_step = rank0["global_step"]
+        self.micro_step = rank0["micro_step"]
+        self._merge_telemetry(results, replace=True)
+        for cb, cb_state in zip(self.callbacks, rank0["callback_states"]):
+            cb.load_state_dict(cb_state)
 
     @property
     def params(self):
@@ -136,10 +192,12 @@ class Trainer:
     def _run_eval(self, kind: str, module: TrainModule,
                   datamodule: Optional[TpuDataModule],
                   ckpt_path: Optional[str]) -> Dict[str, float]:
-        result = self.strategy.run(
+        result = self._run_strategy(
             kind, module, self._resolve_datamodule(module, datamodule),
             self.config, self.callbacks, params=self._eval_params(ckpt_path),
             ckpt_path=ckpt_path)
+        if isinstance(result, list):
+            result = next(r for r in result if r.get("rank") == 0)
         metrics = result["callback_metrics"]
         self.callback_metrics.update(metrics)
         return metrics
@@ -158,12 +216,28 @@ class Trainer:
                 datamodule: Optional[TpuDataModule] = None,
                 ckpt_path: Optional[str] = None) -> np.ndarray:
         """``predict_step``'s outputs over the predict (else test) loader,
-        batches concatenated in order, as a host numpy array."""
-        result = self.strategy.run(
+        batches concatenated in order, as a host numpy array.  From a
+        remote strategy each batch is the ranks' rows in rank order (each
+        rank held a contiguous slice of every global batch)."""
+        result = self._run_strategy(
             "predict", module, self._resolve_datamodule(module, datamodule),
             self.config, [], params=self._eval_params(ckpt_path),
             ckpt_path=ckpt_path)
-        self.predictions = np.concatenate(result["prediction_batches"])
+        if isinstance(result, list):
+            per_rank = [r["prediction_batches"]
+                        for r in sorted(result, key=lambda r: r["rank"])]
+            counts = {len(b) for b in per_rank}
+            if len(counts) > 1:
+                raise ValueError(
+                    "Ragged per-rank prediction batch counts "
+                    f"{[len(b) for b in per_rank]}: every rank must see the "
+                    "same number of batches (check the datamodule's "
+                    "sharding / drop_last handling).")
+            batches = [np.concatenate([rank[b] for rank in per_rank])
+                       for b in range(counts.pop() if counts else 0)]
+        else:
+            batches = result["prediction_batches"]
+        self.predictions = np.concatenate(batches)
         return self.predictions
 
     def save_checkpoint(self, path: str) -> None:

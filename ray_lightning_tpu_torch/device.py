@@ -26,6 +26,10 @@ def resolve_device(
             )
         if dev.index is None:
             # Tensors report "cuda:<index>": name the index so device
-            # comparisons hold.
-            dev = torch.device("cuda", torch.cuda.current_device())
+            # comparisons hold.  Before CUDA is initialised the current
+            # device is 0, and asking for it would initialise CUDA (a
+            # driver that only builds a module for remote workers must
+            # not).
+            dev = torch.device("cuda", torch.cuda.current_device()
+                               if torch.cuda.is_initialized() else 0)
     return dev

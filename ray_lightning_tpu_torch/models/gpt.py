@@ -387,7 +387,13 @@ class GPT(TrainModule):
 
     def validation_step(self, params, batch):
         loss, _ = self._loss(params, batch["tokens"])
-        return {"val_loss": loss, "val_ppl": torch.exp(loss)}
+        return self.derive_logs({"val_loss": loss})
+
+    def derive_logs(self, logs):
+        """``val_ppl = exp(val_loss)``, of the mean loss."""
+        if "val_loss" not in logs:
+            return logs
+        return {**logs, "val_ppl": torch.exp(logs["val_loss"])}
 
     def predict_step(self, params, batch):
         """Greedy next tokens of ``batch["tokens"][:, :-1]``: the argmax

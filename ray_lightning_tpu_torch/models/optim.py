@@ -55,6 +55,7 @@ between steps and updates them on a transient f32 view;
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Any, Callable, Dict, NamedTuple, Optional
 
@@ -70,7 +71,8 @@ __all__ = ["GradientTransformation", "chain", "clip_by_global_norm",
            "multi_steps", "multi_steps_flush", "decay_mask", "tree_map",
            "tree_leaves", "tree_unflatten", "apply_updates", "MaskedNode",
            "identity", "set_to_zero", "multi_transform", "known_zeros",
-           "is_known_zeros", "OPT_STATE_DTYPES", "resolve_opt_state_dtype",
+           "is_known_zeros", "global_norm_reduction", "OPT_STATE_DTYPES",
+           "resolve_opt_state_dtype",
            "quantize_opt_state", "apply_opt_state_dtype", "opt_state_bytes",
            "moment_bytes"]
 
@@ -191,14 +193,38 @@ def chain(*txs: GradientTransformation) -> GradientTransformation:
     return GradientTransformation(init, update)
 
 
+# The squared-norm reduction of the clip, when a ZeRO step holds slices of
+# the update (``global_norm_reduction``); None: the sum over the leaves.
+_norm_sq_reduction: Optional[Callable[[list], torch.Tensor]] = None
+
+
+@contextlib.contextmanager
+def global_norm_reduction(fn: Callable[[list], torch.Tensor]):
+    """Within the block, :func:`clip_by_global_norm` takes its squared
+    global norm from ``fn(leaves)``, the update's ``tree_leaves`` (known
+    zeros included), instead of summing the leaves itself: a ZeRO step,
+    whose leaves are this rank's slices, adds the other ranks' squares
+    (``parallel/sharding.py::ZeroPlan.norm_sq``)."""
+    global _norm_sq_reduction
+    saved, _norm_sq_reduction = _norm_sq_reduction, fn
+    try:
+        yield
+    finally:
+        _norm_sq_reduction = saved
+
+
 def clip_by_global_norm(max_norm: float) -> GradientTransformation:
     """optax's ``clip_by_global_norm``: leaves unchanged when the global
     norm is below ``max_norm``, else ``(t / norm)·max_norm``."""
 
     def update(updates, state, params=None):
-        # A known-zero leaf adds an exact 0.0 to the norm: left out.
-        leaves = [t for t in tree_leaves(updates) if not is_known_zeros(t)]
-        norm = torch.sqrt(sum(torch.sum(t * t) for t in leaves))
+        if _norm_sq_reduction is not None:
+            norm = torch.sqrt(_norm_sq_reduction(tree_leaves(updates)))
+        else:
+            # A known-zero leaf adds an exact 0.0 to the norm: left out.
+            leaves = [t for t in tree_leaves(updates)
+                      if not is_known_zeros(t)]
+            norm = torch.sqrt(sum(torch.sum(t * t) for t in leaves))
         trigger = norm < max_norm
         return tree_map(
             lambda t: t if is_known_zeros(t) else torch.where(

@@ -1,1 +1,3 @@
-"""Execution strategies and step functions (one device so far)."""
+"""Execution strategies (one device, and the data-parallel flavors over
+``torch.distributed``), their step functions, the rank layout, ZeRO
+sharding and the gradient sync."""

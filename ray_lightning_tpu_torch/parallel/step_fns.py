@@ -17,11 +17,13 @@ import torch
 
 from ray_lightning_tpu_torch.core.module import TrainModule, TrainState
 from ray_lightning_tpu_torch.models.optim import (
-    known_zeros, tree_leaves, tree_map,
+    apply_updates, global_norm_reduction, known_zeros, multi_steps_flush,
+    tree_leaves, tree_map,
 )
 
-__all__ = ["loss_and_grads", "single_device_step", "build_eval_step",
-           "build_predict_step",
+__all__ = ["loss_and_grads", "single_device_step", "accum_flush",
+           "DistributedStep",
+           "build_eval_step", "build_predict_step",
            "place_batch", "copy_state", "StepRng", "MultiStep",
            "MegastepCaptureError"]
 
@@ -74,6 +76,91 @@ def single_device_step(module: TrainModule, tx
         return state.apply_gradients(grads, tx), logs
 
     return step
+
+
+def accum_flush(state: TrainState, inner_tx) -> TrainState:
+    """The partial-window flush (the JAX loop's ``_build_accum_flush``):
+    one optimizer update from the running mean of the window's
+    micro-gradients."""
+    with torch.no_grad():
+        updates, opt_state = multi_steps_flush(inner_tx, state.opt_state,
+                                               state.params)
+        return TrainState(apply_updates(state.params, updates), opt_state,
+                          state.step + 1)
+
+
+class DistributedStep:
+    """One training step of a rank of a data-parallel strategy: the
+    port's counterpart of the JAX step under a mesh, with the gradient
+    sync as explicit ``torch.distributed`` collectives on the grad tree.
+
+    The rank's loss and gradients are the mean over its own rows; its
+    logs are averaged over the ranks (``DistContext.mean_logs``) and the
+    module's derived logs taken from those means
+    (``TrainModule.derive_logs``), so they read as the JAX step's over the
+    global batch.  Then, by flavor:
+
+    * ``zero_plan`` None: ``sync`` (``grad_sync.BucketSync`` for
+      ``RayStrategy``, ``LeafSync`` for ``HorovodRayStrategy``) averages
+      the gradients, and every rank applies the same update to its full
+      state;
+    * a ``sharding.ZeroPlan``: the gradients are reduce-scattered onto
+      this rank's slices, the optimizer updates the slices of its
+      moments and params, with the clip's norm taken over the whole
+      update (``global_norm_reduction``), and stage 1 all-gathers the
+      params; under stage 3 the state holds only the slices and a step
+      all-gathers the full params for its forward first.
+
+    :meth:`flush` is the partial accumulation window's update
+    (:func:`accum_flush`) under the same rule."""
+
+    def __init__(self, module: TrainModule, tx, dist, sync=None,
+                 zero_plan=None):
+        if (sync is None) == (zero_plan is None):
+            raise ValueError("a DistributedStep takes a gradient sync or a "
+                             "ZeRO plan, one of them")
+        self.module = module
+        self.tx = tx
+        self.dist = dist
+        self.sync = sync
+        self.plan = zero_plan
+
+    def full_params(self, params: Any) -> Any:
+        """The full params of a state's: gathered under ZeRO-3 (a
+        collective), else the state's own."""
+        if self.plan is not None and self.plan.stage == 3:
+            return self.plan.all_gather(params)
+        return params
+
+    def __call__(self, state: TrainState, batch, rng):
+        grads, logs = loss_and_grads(self.module,
+                                     self.full_params(state.params), batch,
+                                     rng)
+        logs = self.module.derive_logs(self.dist.mean_logs(logs))
+        if self.plan is None:
+            return state.apply_gradients(self.sync(grads), self.tx), logs
+        gshards = self.plan.reduce_scatter_grads(grads)
+        del grads
+        return self._sharded_update(
+            state, lambda opt, pview: self.tx.update(gshards, opt, pview)
+        ), logs
+
+    def flush(self, state: TrainState, inner_tx) -> TrainState:
+        if self.plan is None:
+            return accum_flush(state, inner_tx)
+        return self._sharded_update(
+            state, lambda opt, pview: multi_steps_flush(inner_tx, opt, pview))
+
+    def _sharded_update(self, state: TrainState, update) -> TrainState:
+        plan = self.plan
+        pview = (state.params if plan.stage == 3
+                 else plan.shard_tree(state.params))
+        with torch.no_grad(), global_norm_reduction(plan.norm_sq):
+            updates, opt_state = update(state.opt_state, pview)
+            new = apply_updates(pview, updates)
+            if plan.stage == 1:
+                new = plan.all_gather(new)
+        return TrainState(new, opt_state, state.step + 1)
 
 
 def build_eval_step(module: TrainModule, kind: str = "validation"

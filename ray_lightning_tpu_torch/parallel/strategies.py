@@ -1,20 +1,431 @@
-"""Execution strategies: :class:`LocalStrategy`, the in-process fit on one
-device (``ray_lightning_tpu/parallel/strategies.py::LocalStrategy``, which
-there builds a mesh over every local device; here it is one device until
-the multi-GPU slice)."""
+"""Training strategies (``ray_lightning_tpu/parallel/strategies.py``).
+
+:class:`LocalStrategy` runs the fit in this process on one device.  The
+data-parallel strategies run it on ``num_workers`` worker processes
+(``cluster/actor.py``), one device each, joined by one
+``torch.distributed`` process group:
+
+1. ``setup`` spawns the workers through the cluster backend and runs
+   ``init_hook`` on each;
+2. ``run`` brokers the rendezvous (a free port of worker 0's host),
+   ships the task (module, datamodule, config, callbacks) once through the
+   object store, submits :func:`_execute_remote` to every rank and pumps
+   the queue until every rank answers (``util.process_results``: a dead
+   or failed rank raises at once);
+3. the trainer adopts rank 0's package and merges every rank's
+   telemetry; ``teardown`` kills the workers.
+
+The flavors differ in the gradient sync of their step
+(``parallel/step_fns.py::DistributedStep``):
+
+* :class:`RayStrategy` (``mode="gspmd"``): bucketed ``all_reduce``
+  (``grad_sync.BucketSync``, the JAX bucket plan);
+* :class:`HorovodRayStrategy` (``mode="shard_map"``): one ``all_reduce`` a
+  leaf (``grad_sync.LeafSync``);
+* :class:`RayShardedStrategy`: ZeRO-1 or ZeRO-3 (``sharding.ZeroPlan``).
+
+Departures, each raising rather than ignoring: ``backend`` names the
+process group's backend ("nccl", the default for card workers, or
+"gloo", the default for CPU workers; the strategy never switches on its
+own), and NCCL's one rank a card is checked before spawning; the JAX
+``backend`` (the control plane) is the ``RLT_BACKEND`` variable here,
+"local" only.  Restarts, elastic resizing, the run monitor, the int8 gradient
+wire, update sharding and backward-overlapped syncs are later slices
+(ROADMAP Queue 1 items 2 and 6), as is ``MpmdStrategy`` (item 4).
+"""
 
 from __future__ import annotations
 
+import copy
 import dataclasses
-from typing import Any, Dict, List, Optional
+import os
+import warnings
+from typing import Any, Callable, Dict, List, Optional
 
+import torch
+
+from ray_lightning_tpu_torch import session as session_mod
+from ray_lightning_tpu_torch.cluster import backend as backend_mod
+from ray_lightning_tpu_torch.cluster import rpc
+from ray_lightning_tpu_torch.cluster.actor import ActorDiedError, RemoteError
 from ray_lightning_tpu_torch.core.loop import (
     FitConfig, _normalize_megastep, run_eval, run_fit, run_predict,
 )
 from ray_lightning_tpu_torch.device import resolve_device
+from ray_lightning_tpu_torch.parallel import env_bus
+from ray_lightning_tpu_torch.parallel.grad_sync import resolve_grad_comm
+from ray_lightning_tpu_torch.parallel.mesh import MeshSpec, build_mesh
 from ray_lightning_tpu_torch.telemetry.runtime import TelemetryConfig
+from ray_lightning_tpu_torch.util import process_results
 
-__all__ = ["LocalStrategy"]
+__all__ = ["TpuStrategy", "LocalStrategy", "RayStrategy",
+           "HorovodRayStrategy", "RayShardedStrategy", "RayPlugin",
+           "HorovodRayPlugin", "RayShardedPlugin"]
+
+MODES = ("gspmd", "shard_map")
+
+_ZERO2_WARNING = (
+    "zero_stage=2 is equivalent to zero_stage=1 on this framework (GSPMD "
+    "gradients are transient inside the jitted step; XLA reduce-scatters "
+    "them automatically). Normalizing to zero_stage=1 — pass 1 or 3 "
+    "explicitly to silence this warning.")
+
+
+def _check_mode(mode: str, zero_stage: int) -> None:
+    if mode not in MODES:
+        raise ValueError(f"mode {mode!r} not in {MODES}")
+    if zero_stage not in (0, 1, 2, 3):
+        raise ValueError("zero_stage must be 0, 1, 2 or 3")
+
+
+# ---------------------------------------------------------------------------
+# Worker side (top level: shipped to the workers by reference)
+# ---------------------------------------------------------------------------
+
+def _remote_find_free_port() -> int:
+    """A free port on the worker's host (worker 0 hosts the rendezvous)."""
+    return rpc.find_free_port()
+
+
+def _worker_device(device: str, local_rank: int) -> torch.device:
+    """The rank's device, resolved in its own process: card
+    ``local_rank % device_count`` (one rank a card; ranks beyond the
+    count share cards, which gloo allows and NCCL refuses), or the CPU."""
+    if device == "cpu":
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available on this worker; "
+                           "build the strategy with device='cpu'")
+    dev = torch.device("cuda", local_rank % torch.cuda.device_count())
+    torch.cuda.set_device(dev)
+    return dev
+
+
+def _place_module(module: Any, device: torch.device) -> None:
+    """A module built on the driver takes the worker's device (the port's
+    GPT keeps the device its ``init_params`` puts params on)."""
+    if isinstance(getattr(module, "device", None), torch.device):
+        module.device = device
+
+
+def _make_step_builder(task: Dict[str, Any], dist) -> Callable:
+    """``make_step(module, tx, params)`` of the flavor: the loop calls it
+    with the initial params, whose leaves the ZeRO plan is made for."""
+    from ray_lightning_tpu_torch.parallel import grad_sync
+    from ray_lightning_tpu_torch.parallel.sharding import ZeroPlan
+    from ray_lightning_tpu_torch.parallel.step_fns import DistributedStep
+
+    def make(module, tx, params):
+        if task["zero_stage"] >= 1:
+            return DistributedStep(module, tx, dist, zero_plan=ZeroPlan(
+                params, task["zero_stage"], dist.rank, dist.world_size))
+        sync = (grad_sync.BucketSync(dist.world_size)
+                if task["mode"] == "gspmd"
+                else grad_sync.LeafSync(dist.world_size))
+        return DistributedStep(module, tx, dist, sync=sync)
+
+    return make
+
+
+def _execute_remote(task_ref, global_rank: int, queue_handle
+                    ) -> Dict[str, Any]:
+    """One rank's run of a stage: install the session, resolve the
+    device, join the process group, run the stage, return the rank's
+    package."""
+    import torch.distributed as torch_dist
+
+    from ray_lightning_tpu_torch.parallel.mesh import (
+        DistContext, bootstrap_distributed,
+    )
+
+    task = task_ref.get()
+    world = task["world_size"]
+    device = _worker_device(task["device"], global_rank)
+    session_mod.init_session(rank=global_rank, queue=queue_handle,
+                             num_workers=world, device=device)
+    try:
+        bootstrap_distributed(task["coordinator"], world, global_rank,
+                              task["backend"], task["timeout_s"])
+        layout = build_mesh(MeshSpec(task["mesh_axes"]), world)
+        dist = DistContext(global_rank, world, device, task["backend"],
+                           layout)
+        session_mod.get_session().mesh = layout
+        module = task["module"]
+        _place_module(module, device)
+        kind = task["kind"]
+        if kind == "fit":
+            out = run_fit(module, task["datamodule"], task["config"],
+                          task["callbacks"], device,
+                          telemetry=task["telemetry"], dist=dist,
+                          make_step=_make_step_builder(task, dist))
+        elif kind in ("validation", "test"):
+            out = run_eval(module, task["datamodule"], task["config"],
+                           task["callbacks"], device, kind,
+                           task["params"], task["ckpt_path"], dist=dist)
+        elif kind == "predict":
+            out = run_predict(module, task["datamodule"], task["config"],
+                              device, task["params"], task["ckpt_path"],
+                              dist=dist)
+        else:
+            raise ValueError(f"Unknown stage kind {kind!r}")
+        torch_dist.destroy_process_group()
+        return out
+    finally:
+        session_mod.shutdown_session()
+
+
+# ---------------------------------------------------------------------------
+# Strategies
+# ---------------------------------------------------------------------------
+
+class TpuStrategy:
+    """The worker lifecycle and the execution loop of the data-parallel
+    strategies.  Arguments keep the JAX package's names:
+
+    ``num_workers`` ranks, each ``num_cpus_per_worker`` CPUs and, with
+    ``use_gpu`` (the reference's name for the JAX ``use_tpu``), one card;
+    ``resources_per_worker`` overrides both (``"CPU"``, ``"GPU"``; other
+    keys are kept as ``additional_resources_per_worker``).  ``device``:
+    ``"cuda"`` or ``"cpu"`` (each worker takes its own card), by default
+    from ``use_gpu``.  ``backend``: the process group's, ``"nccl"`` (card
+    workers' default) or ``"gloo"`` (CPU workers' default, and the one
+    that lets ranks share a card).  ``timeout_s`` bounds the rendezvous
+    and every collective.  ``init_hook`` runs on every worker after it
+    starts; ``env_per_worker`` and the forwarded ``RLT_*`` knobs
+    (``env_bus``) are set in each worker's environment.  ``mesh_axes``:
+    ``{"data": n}`` or ``{"fsdp": n}`` (-1 infers) over the ranks.
+    ``telemetry`` and ``megastep`` as ``LocalStrategy``'s; ``grad_comm``
+    full width only.  The JAX arguments of later slices raise when set
+    away from their defaults: ``max_restarts`` and the restart governance
+    (``restart_every_n_epochs``, ``restart_window_s``,
+    ``restart_backoff_s``, ``restart_backoff_max_s``), the ``elastic_*``
+    arguments, ``monitor``, ``update_sharding`` other than None/"off",
+    ``grad_overlap_segments``."""
+
+    mode: str = "gspmd"
+    zero_stage: int = 0
+
+    def __init__(
+        self,
+        num_workers: int = 1,
+        num_cpus_per_worker: int = 1,
+        use_gpu: bool = True,
+        init_hook: Optional[Callable[[], None]] = None,
+        resources_per_worker: Optional[Dict[str, float]] = None,
+        backend: Optional[str] = None,
+        mesh_axes: Optional[Dict[str, int]] = None,
+        env_per_worker: Optional[Dict[str, str]] = None,
+        max_restarts: int = 0,
+        restart_every_n_epochs: int = 1,
+        restart_window_s: float = 3600.0,
+        restart_backoff_s: float = 1.0,
+        restart_backoff_max_s: float = 60.0,
+        grad_comm=None,
+        telemetry=None,
+        monitor=None,
+        megastep=None,
+        update_sharding=None,
+        grad_overlap_segments=None,
+        elastic_min_workers: Optional[int] = None,
+        elastic_grow_after_s: Optional[float] = None,
+        elastic_capacity_fn: Optional[Callable[[], int]] = None,
+        device: Optional[str] = None,
+        timeout_s: float = 600.0,
+    ):
+        if num_workers < 1:
+            raise ValueError("num_workers must be >= 1")
+        self.num_workers = num_workers
+        resources = dict(resources_per_worker or {})
+        self.num_cpus_per_worker = int(resources.pop("CPU",
+                                                     num_cpus_per_worker))
+        if "GPU" in resources:
+            use_gpu = resources.pop("GPU") > 0
+        self.use_gpu = bool(use_gpu)
+        self.additional_resources_per_worker = resources
+        self.init_hook = init_hook
+        restarts = ("restarts from the RLTSHRD2 sharded checkpoints, "
+                    "ROADMAP Queue 1 item 2")
+        later = {
+            "max_restarts": (max_restarts, max_restarts != 0, restarts),
+            "restart_every_n_epochs": (restart_every_n_epochs,
+                                       restart_every_n_epochs != 1,
+                                       restarts),
+            "restart_window_s": (restart_window_s,
+                                 restart_window_s != 3600.0, restarts),
+            "restart_backoff_s": (restart_backoff_s,
+                                  restart_backoff_s != 1.0, restarts),
+            "restart_backoff_max_s": (restart_backoff_max_s,
+                                      restart_backoff_max_s != 60.0,
+                                      restarts),
+            "elastic_min_workers": (elastic_min_workers,
+                                    elastic_min_workers is not None,
+                                    "elastic resizing, ROADMAP Queue 1 "
+                                    "item 2"),
+            "elastic_grow_after_s": (elastic_grow_after_s,
+                                     elastic_grow_after_s is not None,
+                                     "elastic resizing, ROADMAP Queue 1 "
+                                     "item 2"),
+            "elastic_capacity_fn": (elastic_capacity_fn,
+                                    elastic_capacity_fn is not None,
+                                    "elastic resizing, ROADMAP Queue 1 "
+                                    "item 2"),
+            "monitor": (monitor, monitor is not None,
+                        "the run monitor, ROADMAP Queue 1 item 6"),
+            "update_sharding": (update_sharding,
+                                update_sharding not in (None, "off"),
+                                "update sharding, ROADMAP Queue 1 item 2"),
+            "grad_overlap_segments": (grad_overlap_segments,
+                                      grad_overlap_segments not in (None,
+                                                                    0),
+                                      "parallel/overlap.py, ROADMAP Queue "
+                                      "1 item 2"),
+        }
+        for name, (value, set_, where) in later.items():
+            if set_:
+                raise NotImplementedError(
+                    f"{name}={value!r} is not ported yet ({where})")
+        resolve_grad_comm(grad_comm)
+        _check_mode(self.mode, self.zero_stage)
+        if telemetry is not None:
+            telemetry = TelemetryConfig.coerce(telemetry)
+        self.telemetry = telemetry
+        _normalize_megastep(megastep)
+        self.megastep = megastep
+        layout = build_mesh(MeshSpec(mesh_axes), num_workers)
+        if self.zero_stage and all(layout.sizes.get(a, 1) > 1
+                                   for a in ("data", "fsdp")):
+            raise NotImplementedError(
+                f"mesh_axes={mesh_axes}: ZeRO over fsdp groups replicated "
+                f"along data (hybrid sharding) is not ported yet (ROADMAP "
+                f"Queue 1 item 2); shard over every rank with one batch "
+                f"axis")
+        self.mesh_axes = mesh_axes
+        self.device = device or ("cuda" if self.use_gpu else "cpu")
+        if self.device not in ("cuda", "cpu"):
+            raise ValueError(
+                f"device {device!r}: a strategy's workers take 'cuda' (each "
+                f"its own card) or 'cpu'")
+        self.use_gpu = self.device == "cuda"
+        self.backend = backend or ("nccl" if self.use_gpu else "gloo")
+        if self.backend not in ("nccl", "gloo"):
+            raise ValueError(
+                f"backend {backend!r}: the process group's backend is "
+                f"'nccl' or 'gloo' (the JAX package's control-plane "
+                f"backend is the RLT_BACKEND variable here)")
+        self._check_devices()
+        self.timeout_s = float(timeout_s)
+        self.env_per_worker = dict(env_per_worker or {})
+        for var in env_bus.forwarded_vars():
+            val = os.environ.get(var)
+            if val is not None:
+                self.env_per_worker.setdefault(var, val)
+        self._backend: Optional[backend_mod.ClusterBackend] = None
+        self._workers: list = []
+
+    def _check_devices(self) -> None:
+        """Raise before any worker exists for what the workers could not
+        run: card workers without a card, NCCL on the CPU, and more NCCL
+        ranks than cards (NCCL refuses two ranks on one device).  Reads
+        the card count without initialising CUDA in this process."""
+        if self.use_gpu and not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' (and "
+                "backend='gloo') to run the workers on the CPU")
+        if self.backend == "nccl" and not self.use_gpu:
+            raise ValueError("backend='nccl' needs card workers; CPU "
+                             "workers take backend='gloo'")
+        if self.backend == "nccl":
+            cards = torch.cuda.device_count()
+            if self.num_workers > cards:
+                raise ValueError(
+                    f"backend='nccl' with num_workers={self.num_workers} on "
+                    f"a host with {cards} card(s): NCCL refuses two ranks "
+                    f"on one device; use num_workers <= {cards}, or "
+                    f"backend='gloo' to let ranks share a card")
+
+    @property
+    def world_size(self) -> int:
+        return self.num_workers
+
+    # -- lifecycle ----------------------------------------------------------
+    def setup(self, trainer=None) -> None:
+        """Spawn the workers and run ``init_hook`` on each."""
+        if self._workers:
+            return
+        self._backend = backend_mod.get_backend()
+        self._spawn_workers()
+
+    def _spawn_workers(self) -> None:
+        for i in range(self.num_workers):
+            self._workers.append(self._backend.create_actor(
+                name=f"rlt-worker-{i}", env=self.env_per_worker or None,
+                num_cpus=self.num_cpus_per_worker,
+                resources=self.additional_resources_per_worker or None))
+        if self.init_hook is not None:
+            for f in [w.submit(self.init_hook) for w in self._workers]:
+                f.result()
+
+    def _broker_coordinator(self) -> str:
+        """Worker 0's host and a free port there: the rendezvous."""
+        port = self._workers[0].execute(_remote_find_free_port)
+        return f"127.0.0.1:{port}"
+
+    def run(self, kind: str, module, datamodule, config: FitConfig,
+            callbacks: List, params=None, ckpt_path: Optional[str] = None
+            ) -> List[Dict[str, Any]]:
+        """Ship, submit, pump, collect: every rank's package of stage
+        ``kind``, in rank order."""
+        if not self._workers:
+            raise RuntimeError("setup() must run first")
+        if config.megastep is None and self.megastep is not None:
+            config = dataclasses.replace(config, megastep=self.megastep)
+        # A module that ran a fit here still points at that fit's loop
+        # context (threads, locks): ship a copy without it.
+        module = copy.copy(module)
+        module.trainer = None
+        task = {
+            "kind": kind, "module": module, "datamodule": datamodule,
+            "config": config, "callbacks": callbacks,
+            "world_size": self.num_workers,
+            "coordinator": self._broker_coordinator(),
+            "mesh_axes": self.mesh_axes, "mode": self.mode,
+            "zero_stage": self.zero_stage, "telemetry": self.telemetry,
+            "device": self.device, "backend": self.backend,
+            "timeout_s": self.timeout_s, "params": params,
+            "ckpt_path": ckpt_path,
+        }
+        task_ref = self._backend.put(task)
+        queue = self._backend.create_queue()
+        futures: list = []
+        try:
+            futures = [w.submit(_execute_remote, task_ref, rank,
+                                queue.handle)
+                       for rank, w in enumerate(self._workers)]
+            return process_results(futures, queue)
+        except (ActorDiedError, RemoteError) as err:
+            self._enrich_failure(err, futures)
+            raise
+        finally:
+            queue.shutdown()
+            task_ref.release()
+
+    def _enrich_failure(self, err, futures) -> None:
+        rank = next((i for i, f in enumerate(futures)
+                     if f.done() and f.exception() is err), None)
+        if isinstance(err, ActorDiedError) and rank is not None:
+            err.enrich(rank=rank, exit_code=self._workers[rank].exit_code)
+
+    def teardown(self) -> None:
+        """Kill the workers and shut the backend down."""
+        if self._backend is not None:
+            self._backend.shutdown()
+        self._workers = []
+        self._backend = None
+
+    # -- introspection ------------------------------------------------------
+    def get_worker_device_info(self) -> List[Dict[str, Any]]:
+        """Each worker's devices, as its own process sees them."""
+        return [w.get_device_info() for w in self._workers]
 
 
 class LocalStrategy:
@@ -26,15 +437,27 @@ class LocalStrategy:
     cheap tier), ``"cheap"``, ``"off"``, a dict with ``tier`` and
     ``sample_every``, or a ``TelemetryConfig``; ``"full"`` raises (a later
     slice).  ``megastep``: K micro-steps a dispatch (``"auto"``, ``"off"``
-    or an int); it fills the Trainer's when that is unset."""
+    or an int); it fills the Trainer's when that is unset.  ``mode`` and
+    ``zero_stage`` are the JAX ``LocalStrategy``'s; on one device they
+    change nothing, but they are checked."""
 
-    def __init__(self, device=None, telemetry=None, megastep=None):
+    def __init__(self, device=None, telemetry=None, megastep=None,
+                 mode: str = "gspmd", zero_stage: int = 0):
         if telemetry is not None:
             telemetry = TelemetryConfig.coerce(telemetry)
         self.telemetry = telemetry
         _normalize_megastep(megastep)
         self.megastep = megastep
+        _check_mode(mode, zero_stage)
+        self.mode = mode
+        self.zero_stage = zero_stage
         self.device = resolve_device(device)
+
+    def setup(self, trainer=None) -> None:
+        pass
+
+    def teardown(self) -> None:
+        pass
 
     def run(self, kind: str, module, datamodule, config: FitConfig,
             callbacks: List, params=None,
@@ -55,3 +478,43 @@ class LocalStrategy:
                                params, ckpt_path)
         raise ValueError(f"unknown stage {kind!r}: expected 'fit', "
                          f"'validation', 'test' or 'predict'")
+
+
+class RayStrategy(TpuStrategy):
+    """Data parallel over worker processes (≙ ``RayPlugin``): bucketed
+    ``all_reduce`` of the gradients (``grad_sync.BucketSync``)."""
+
+    mode = "gspmd"
+    zero_stage = 0
+
+
+class HorovodRayStrategy(TpuStrategy):
+    """The explicit-collective flavor (≙ ``HorovodRayPlugin``): one
+    ``all_reduce`` a gradient leaf (``grad_sync.LeafSync``)."""
+
+    mode = "shard_map"
+    zero_stage = 0
+
+
+class RayShardedStrategy(TpuStrategy):
+    """ZeRO-sharded data parallel (≙ ``RayShardedPlugin``):
+    ``zero_stage=1`` shards the optimizer moments over the ranks,
+    ``zero_stage=3`` the params as well (``sharding.ZeroPlan``).
+    ``zero_stage=2`` is normalized to 1 with the JAX package's warning."""
+
+    mode = "gspmd"
+
+    def __init__(self, *args, zero_stage: int = 1, **kwargs):
+        if zero_stage not in (1, 2, 3):
+            raise ValueError("zero_stage must be 1, 2 or 3")
+        if zero_stage == 2:
+            warnings.warn(_ZERO2_WARNING)
+            zero_stage = 1
+        self.zero_stage = zero_stage
+        super().__init__(*args, **kwargs)
+
+
+# The reference's names.
+RayPlugin = RayStrategy
+HorovodRayPlugin = HorovodRayStrategy
+RayShardedPlugin = RayShardedStrategy

@@ -101,7 +101,6 @@ class MemberOutbox:
         self._sender = CachedSender()
         self._closed = threading.Event()
         self._dead = False
-        self._sending = False
         # The router reaps lanes idle past a threshold (client reply
         # lanes come and go).
         self.last_used = time.monotonic()
@@ -132,7 +131,6 @@ class MemberOutbox:
                 item, on_sent, t_enq = self._q.get(timeout=0.2)
             except _pyqueue.Empty:
                 continue
-            self._sending = True
             try:
                 try:
                     self._sender.put(self.addr, item)
@@ -153,7 +151,7 @@ class MemberOutbox:
                         # kill the lane
                         log.warning("outbox on_sent raised", exc_info=True)
             finally:
-                self._sending = False
+                self._q.task_done()
 
     @property
     def depth(self) -> int:
@@ -161,8 +159,11 @@ class MemberOutbox:
 
     @property
     def pending(self) -> int:
-        """Frames enqueued or being sent (the flush condition)."""
-        return self._q.qsize() + (1 if self._sending else 0)
+        """Frames enqueued and not yet sent or failed (the flush
+        condition): a frame counts from ``put`` until its send returns,
+        including while the thread holds it between the queue and the
+        wire."""
+        return self._q.unfinished_tasks
 
     def close(self, drain_s: float = 2.0) -> None:
         """Stop the thread after a best-effort drain of the queued frames.

@@ -121,3 +121,10 @@ class Telemetry:
             "counters": dict(self.counters),
             "meta": dict(self.meta),
         }
+
+    def snapshot(self, rank: int) -> Dict[str, Any]:
+        """The report with its ``rank``: what a rank's result package
+        carries for the driver's fleet merge (``telemetry/aggregate.py``);
+        empty when the tier is off."""
+        report = self.report()
+        return {**report, "rank": int(rank)} if report else {}

@@ -303,3 +303,16 @@ def test_phase14_rehearses_on_the_cpu(scripts, monkeypatch):
     assert out["a"]["kv_imports"] == len(reqs) and out["a"]["prefills"] == 0
     assert out["b"]["bitwise"] and out["d"]["migrations_in"] == 2
     assert out["c"]["re_emitted"] > 0 and out["f"]["exact"] == len(reqs)
+
+
+def test_dist_faults_apply_once_and_name_phase15_arms(scripts):
+    """Step 13 writes each fault into a copy of the port: its text occurs
+    once in the checkout's file, and the arms it runs are phase 15's."""
+    cf = scripts[0]
+    import chip_smoke
+
+    assert len(cf.DIST_FAULTS) == 5
+    for name, (path, old, new, arms) in cf.DIST_FAULTS.items():
+        text = (ROOT / "ray_lightning_tpu_torch" / path).read_text()
+        assert text.count(old) == 1 and old != new, name
+        assert arms and set(arms) <= set(chip_smoke.P15_ARMS), name

@@ -1055,3 +1055,46 @@ def test_inproc_fleet_on_the_card(cuda, kill):
         assert counters["failovers"] >= 1 and client.re_emitted_tokens > 0
     else:
         assert counters["migrations"] >= 1 and client.re_emitted_tokens == 0
+
+
+@pytest.mark.parametrize("flavor", ["ray", "horovod", "zero1", "zero3"])
+def test_one_rank_nccl_fit_is_bitwise_local(cuda, tmp_path, flavor):
+    """One worker on the card over NCCL, for each flavor, against
+    ``LocalStrategy`` on the same batches, both eager: the final params
+    and the per-step losses bitwise equal (a one-rank mean is exact, and
+    the gradients pass through NCCL's sum of one rank)."""
+    from ray_lightning_tpu_torch.models.optim import tree_leaves
+    from ray_lightning_tpu_torch.parallel.sharding import leaves_with_paths
+    from ray_lightning_tpu_torch.parallel.strategies import (
+        HorovodRayStrategy, RayShardedStrategy, RayStrategy,
+    )
+
+    make = {"ray": lambda: RayStrategy(num_workers=1, timeout_s=120),
+            "horovod": lambda: HorovodRayStrategy(num_workers=1,
+                                                  timeout_s=120),
+            "zero1": lambda: RayShardedStrategy(num_workers=1, zero_stage=1,
+                                                timeout_s=120),
+            "zero3": lambda: RayShardedStrategy(num_workers=1, zero_stage=3,
+                                                timeout_s=120)}[flavor]
+    cfg = dataclasses.replace(GPTConfig.tiny(), n_layer=2)
+
+    def fit(strategy):
+        tr = Trainer(strategy, max_steps=4, limit_val_batches=1,
+                     megastep="off", log_every_n_steps=1,
+                     enable_checkpointing=False,
+                     default_root_dir=str(tmp_path))
+        tr.fit(GPT(cfg), SyntheticLMDataModule(cfg, batch_size=8,
+                                               num_batches=4, seed=2))
+        return tr
+
+    remote = fit(make())
+    local = fit(LocalStrategy())
+    assert remote.strategy.backend == "nccl"
+    assert remote.state.params["wte"].device.type == "cpu"
+    got = dict(leaves_with_paths(remote.state.params))
+    for path, want in leaves_with_paths(local.state.params):
+        assert torch.equal(got[path], want.cpu()), path
+    assert len(tree_leaves(remote.state.opt_state)) == len(
+        tree_leaves(local.state.opt_state))
+    for key in ("train_loss", "val_loss"):
+        assert remote.callback_metrics[key] == local.callback_metrics[key]

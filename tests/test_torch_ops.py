@@ -187,7 +187,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     loaded already, so the check runs in a subprocess), and checkpoints
     (the default, an int8 and a LoRA state) round-trip there with jax,
     msgpack, ml_dtypes and cloudpickle blocked; so does an adapter frame
-    of the queue plane."""
+    of the queue plane, and a two-rank fit of ``RayStrategy`` on the CPU
+    over gloo, whose worker processes load neither jax nor the JAX
+    package either (a callback of theirs lists what they loaded)."""
     import ray_lightning_tpu_torch
 
     names = sorted(
@@ -205,7 +207,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "telemetry.monitor", "telemetry.export_prom",
                 "serve.brownout", "serve.dist", "serve.dist.handoff",
                 "serve.dist.prefill", "serve.dist.replica",
-                "serve.dist.router"):
+                "serve.dist.router", "session", "util", "cluster.actor",
+                "cluster.backend", "parallel.env_bus", "parallel.mesh",
+                "parallel.sharding", "parallel.grad_sync",
+                "telemetry.aggregate"):
         assert "ray_lightning_tpu_torch." + new in names, new
     code = textwrap.dedent(f"""
         import importlib, os, sys, tempfile
@@ -272,6 +277,42 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         r = router.Router(lost_after_s=60.0)
         assert r.snapshot()["counters"]["routed"] == 0
         r.stop()
+        # A two-rank fit; the workers report the modules they loaded.
+        probe_dir = tempfile.mkdtemp()
+        with open(os.path.join(probe_dir, "no_jax_probe.py"), "w") as f:
+            f.write(
+                "import os, sys\\n"
+                "from ray_lightning_tpu_torch.core.callbacks import Callback\\n"
+                "class Loaded(Callback):\\n"
+                "    def on_fit_end(self, trainer, module):\\n"
+                "        bad = sorted(m for m in sys.modules if m == 'jax'\\n"
+                "                     or m.startswith(('jax.', 'cloudpickle',\\n"
+                "                                      'ray_lightning_tpu.')))\\n"
+                "        open(os.path.join(" + repr(probe_dir) + ",\\n"
+                "             'rank%d' % trainer.global_rank), 'w').write(\\n"
+                "            repr(bad))\\n")
+        sys.path.insert(0, probe_dir)
+        import no_jax_probe
+        from ray_lightning_tpu_torch.core.trainer import Trainer
+        from ray_lightning_tpu_torch.models.gpt import SyntheticLMDataModule
+        from ray_lightning_tpu_torch.parallel.strategies import RayStrategy
+        cfg = dataclasses.replace(GPTConfig.tiny(), n_layer=1, d_model=32,
+                                  n_head=2, vocab_size=64, seq_len=16)
+        tr = Trainer(RayStrategy(num_workers=2, device="cpu", timeout_s=60,
+                                 env_per_worker={{"OMP_NUM_THREADS": "1"}}),
+                     max_steps=2, limit_val_batches=0,
+                     enable_checkpointing=False,
+                     callbacks=[no_jax_probe.Loaded()])
+        tr.fit(GPT(cfg, device="cpu"),
+               SyntheticLMDataModule(cfg, batch_size=4, num_batches=2))
+        assert tr.global_step == 2
+        assert tr.state.params["wte"].device.type == "cpu"
+        for rank in (0, 1):
+            seen = open(os.path.join(probe_dir, "rank%d" % rank)).read()
+            assert seen == "[]", (rank, seen)
+        bad = [m for m in sys.modules if m == "ray_lightning_tpu"
+               or m.startswith("ray_lightning_tpu.")]
+        assert not bad, bad
         print("ok", len({names!r}))
     """)
     env = dict(os.environ, PYTHONPATH=REPO)

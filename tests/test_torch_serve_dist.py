@@ -90,6 +90,51 @@ TENANTS = ("t0", "t1")
 TIMEOUT = 60
 
 
+class _ExactJaxOutbox(jax_handoff.MemberOutbox):
+    """The JAX package's outbox with an exact ``pending``.  Its own reads
+    0 while its thread holds a frame taken off the queue but not yet
+    marked as sending, so ``Router.flush_outboxes`` can return before
+    that frame reaches its queue, and a rig's ``collect`` then finds it
+    one call late.  Here a frame counts from ``put`` until its send has
+    returned or raised (the port's ``MemberOutbox.pending``)."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._count_lock = threading.Lock()
+        self._unsettled = 0
+        send = self._sender.put
+
+        def counted_send(addr, item):
+            try:
+                return send(addr, item)
+            finally:
+                with self._count_lock:
+                    self._unsettled -= 1
+
+        self._sender.put = counted_send
+
+    def put(self, item, on_sent=None):
+        with self._count_lock:
+            self._unsettled += 1
+        try:
+            super().put(item, on_sent=on_sent)
+        except BaseException:
+            with self._count_lock:
+                self._unsettled -= 1
+            raise
+
+    @property
+    def pending(self):
+        return self._unsettled
+
+
+@pytest.fixture(autouse=True)
+def exact_jax_flush(monkeypatch):
+    """Every JAX router of this file flushes exactly (``_ExactJaxOutbox``);
+    the port's ``MemberOutbox`` counts the same way itself."""
+    monkeypatch.setattr(jax_router, "MemberOutbox", _ExactJaxOutbox)
+
+
 @pytest.fixture(autouse=True)
 def one_thread():
     """One torch thread: the fleets run several engines on threads, and
