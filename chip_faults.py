@@ -138,8 +138,23 @@ last column of a ragged chunk of k dropped, the d tail past the last
    and the trainer adopting rank 1's package.  Phase 15 must fail on
    each.
 
+14. the data-parallel gradient wire (``GRAD_WIRE_FAULTS``,
+   ``grad_wire_step``): phase 16's arms (``chip_smoke.py --phase16
+   ARM...``) each fault needs, for the correct code, which must pass, and
+   for seven faults planted in a copy of the port as step 13 plants them:
+   the error-feedback error without its phase-2 part, the partials
+   quantized as ``g`` and the sum divided by ``n`` after (instead of ``g /
+   n``; bitwise the same at n = 2, caught at n = 3), a step that reads the
+   taps' buffers before the compute stream waits on the side stream, a
+   trunk segment left untapped, and, for a two-rank fit to catch, the
+   residual never added to the partials, the phase-2 error dropped again,
+   and the state keeping its old residual row.  Phase 16 (g) (one rank
+   over NCCL on the side stream), (h) (three CPU ranks) or (c) (the
+   ``int8_ef`` fit, through its ``WireProbe``) must fail on each, as the
+   entry names.
+
 ``python3 chip_faults.py --only 12`` builds the kernels and runs step 12
-alone; ``--only 13`` runs step 13 alone.
+alone; ``--only 13`` and ``--only 14`` run step 13 or 14 alone.
 
 The wrappers are routed to a faulty library by replacing the cached ctypes
 functions of ``ops/_build.py``.  Exits 1 if a correct kernel fails a
@@ -1074,19 +1089,49 @@ DIST_FAULTS = {
 }
 
 
-def phase15_run(root, arms):
-    """``chip_smoke.py --phase15 ARMS`` from ``root``: (exit code, the
-    failed check's line)."""
+def phase15_run(root, arms, phase=15):
+    """``chip_smoke.py --phase15 ARMS`` (or ``--phase16``) from ``root``:
+    (exit code, the failed check's line)."""
     proc = subprocess.run([sys.executable, os.path.join(root, "chip_smoke.py"),
-                           "--phase15", *arms], capture_output=True,
+                           f"--phase{phase}", *arms], capture_output=True,
                           text=True, timeout=900, cwd=root)
     lines = (proc.stdout + proc.stderr).strip().splitlines()
     why = next((ln for ln in reversed(lines) if "Error" in ln
                 or "check failed" in ln), lines[-1] if lines else "")
     for ln in proc.stdout.splitlines():
-        if ln.startswith("phase 15 ("):
+        if ln.startswith(f"phase {phase} ("):
             print("  " + ln[:400])
     return proc.returncode, why
+
+
+@contextlib.contextmanager
+def faulty_copy(root, path, subs, step):
+    """A temporary copy of the port (and the test helpers and
+    ``chip_smoke.py``) with each ``(old, new)`` of ``subs`` written into
+    ``path`` under ``ray_lightning_tpu_torch/``; its ``build`` is a link
+    to the checkout's, so the kernels are not built again."""
+    tmp = tempfile.mkdtemp(prefix="chip_faults-dist-")
+    try:
+        shutil.copytree(os.path.join(root, "ray_lightning_tpu_torch"),
+                        os.path.join(tmp, "ray_lightning_tpu_torch"),
+                        ignore=shutil.ignore_patterns("__pycache__"))
+        os.makedirs(os.path.join(tmp, "tests"))
+        shutil.copy(os.path.join(root, "tests", "torch_dist_helpers.py"),
+                    os.path.join(tmp, "tests"))
+        shutil.copy(os.path.join(root, "chip_smoke.py"), tmp)
+        os.symlink(os.path.join(root, "build"), os.path.join(tmp, "build"))
+        target = os.path.join(tmp, "ray_lightning_tpu_torch", path)
+        text = open(target).read()
+        for old, new in subs:
+            if text.count(old) != 1:
+                raise RuntimeError(f"step {step}: the text to replace is "
+                                   f"not in {path} once: {old[:60]!r}")
+            text = text.replace(old, new)
+        with open(target, "w") as f:
+            f.write(text)
+        yield tmp
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def dist_step(summary, failures):
@@ -1104,27 +1149,8 @@ def dist_step(summary, failures):
     if rc != 0:
         failures.append("correct step 13 failed")
     for name, (path, old, new, need) in DIST_FAULTS.items():
-        tmp = tempfile.mkdtemp(prefix="chip_faults-dist-")
-        try:
-            shutil.copytree(os.path.join(root, "ray_lightning_tpu_torch"),
-                            os.path.join(tmp, "ray_lightning_tpu_torch"),
-                            ignore=shutil.ignore_patterns("__pycache__"))
-            os.makedirs(os.path.join(tmp, "tests"))
-            shutil.copy(os.path.join(root, "tests", "torch_dist_helpers.py"),
-                        os.path.join(tmp, "tests"))
-            shutil.copy(os.path.join(root, "chip_smoke.py"), tmp)
-            os.symlink(os.path.join(root, "build"), os.path.join(tmp,
-                                                                 "build"))
-            target = os.path.join(tmp, "ray_lightning_tpu_torch", path)
-            text = open(target).read()
-            if text.count(old) != 1:
-                raise RuntimeError(f"step 13: {name}: the text to replace "
-                                   f"is not in {path} once")
-            with open(target, "w") as f:
-                f.write(text.replace(old, new))
+        with faulty_copy(root, path, [(old, new)], 13) as tmp:
             rc, why = phase15_run(tmp, need)
-        finally:
-            shutil.rmtree(tmp, ignore_errors=True)
         caught = rc != 0
         verdict = ("failed (caught): " + why[:300] if caught
                    else "passed (NOT caught)")
@@ -1132,6 +1158,98 @@ def dist_step(summary, failures):
         summary["dist"][name] = caught
         if not caught:
             failures.append(f"step 13 fault {name} not caught by phase 15")
+
+
+# name -> (file under ray_lightning_tpu_torch/, its (correct text,
+# replacement) pairs, phase 16's arms that must fail)
+GRAD_WIRE_FAULTS = {
+    "ef_error_without_phase2": (
+        "ops/collective_quant.py",
+        [("    err[idx * chunk:(idx + 1) * chunk] += _fused_sub("
+          "reduced_chunk, q2, s2,\n"
+          "                                                     "
+          "block_size)\n", "")],
+        ("g_nccl",)),
+    "partials_not_divided": (
+        "parallel/grad_sync.py",
+        [("        grads, logs = loss_and_grads(self.module, params, batch, "
+          "rng,\n                                     "
+          "loss_div=self.n_shards)\n"
+          "        grads, new_resid = self.sync_tree(grads, residual)\n"
+          "        return grads, logs, new_resid\n",
+          "        grads, logs = loss_and_grads(self.module, params, batch, "
+          "rng)\n"
+          "        grads, new_resid = self.sync_tree(grads, residual)\n"
+          "        return tree_unflatten(grads, [\n"
+          "            g / self.n_shards for g in tree_leaves(grads)]), "
+          "logs, new_resid\n")],
+        ("h_cpu_wire",)),
+    "side_stream_not_waited": (
+        "parallel/overlap.py",
+        [("        if self._side is not None:\n"
+          "            torch.cuda.current_stream(self.synced.device)"
+          ".wait_stream(\n                self._side)\n", "")],
+        ("g_nccl",)),
+    "segment_untapped": (
+        "models/gpt.py",
+        [("            subs.append(plane.tap(f\"seg{g}\", {k: v[b:e] for k, "
+          "v in\n                                              "
+          "blocks.items()}))\n",
+          "            sub = {k: v[b:e] for k, v in blocks.items()}\n"
+          "            subs.append(plane.tap(f\"seg{g}\", sub)\n"
+          "                        if g + 2 < len(bounds) else sub)\n")],
+        ("h_cpu_wire",)),
+    # The faults a two-rank fit on the card catches (phase 16's
+    # ``torch_dist_helpers.WireProbe``): the residual never added to the
+    # partials (int8_ef running as int8), the phase-2 error dropped, and
+    # the state keeping its old residual row.
+    "ef_residual_dropped": (
+        "parallel/grad_sync.py",
+        [("        if resid is not None:\n"
+          "            flat = flat + resid[b.offset:b.offset + b.padded]\n",
+          "")],
+        ("a_full", "c_int8_ef")),
+    "ef_error_without_phase2_fit": (
+        "ops/collective_quant.py",
+        [("    err[idx * chunk:(idx + 1) * chunk] += _fused_sub("
+          "reduced_chunk, q2, s2,\n"
+          "                                                     "
+          "block_size)\n", "")],
+        ("a_full", "c_int8_ef")),
+    "ef_residual_stale": (
+        "parallel/step_fns.py",
+        [("            new = state.apply_gradients(grads, self.tx)\n"
+          "            new.grad_residual = resid\n",
+          "            new = state.apply_gradients(grads, self.tx)\n"
+          "            new.grad_residual = state.grad_residual\n")],
+        ("a_full", "c_int8_ef")),
+}
+
+
+def grad_wire_step(summary, failures):
+    """Step 14: phase 16's arms (g) and (h) correct, then each of
+    ``GRAD_WIRE_FAULTS`` from a copy of the port with the fault written
+    in (:func:`faulty_copy`)."""
+    root = os.path.dirname(os.path.abspath(cs.__file__))
+    arms = sorted({a for *_, need in GRAD_WIRE_FAULTS.values()
+                   for a in need})
+    summary["grad_wire"] = {}
+    rc, why = phase15_run(root, arms, phase=16)
+    print(f"step 14 correct ({' '.join(arms)}): "
+          f"{'ok' if rc == 0 else 'FAILED: ' + why}")
+    summary["grad_wire"]["correct"] = rc == 0
+    if rc != 0:
+        failures.append("correct step 14 failed")
+    for name, (path, subs, need) in GRAD_WIRE_FAULTS.items():
+        with faulty_copy(root, path, subs, 14) as tmp:
+            rc, why = phase15_run(tmp, need, phase=16)
+        caught = rc != 0
+        verdict = ("failed (caught): " + why[:300] if caught
+                   else "passed (NOT caught)")
+        print(f"step 14 fault {name}: phase 16 {' '.join(need)} {verdict}")
+        summary["grad_wire"][name] = caught
+        if not caught:
+            failures.append(f"step 14 fault {name} not caught by phase 16")
 
 
 def main() -> int:
@@ -1152,12 +1270,13 @@ def main() -> int:
     print(card)
     torch.backends.cuda.matmul.allow_tf32 = False
     failures = []
-    if sys.argv[1:3] == ["--only", "13"]:
+    if sys.argv[1:3] in (["--only", "13"], ["--only", "14"]):
         with ThreadPoolExecutor(4) as pool:
             list(pool.map(_build.build, ("flash_attention", "layer_norm",
                                          "cross_entropy", "bgmv")))
         summary = {}
-        dist_step(summary, failures)
+        (dist_step if sys.argv[2] == "13" else grad_wire_step)(summary,
+                                                               failures)
         for f in failures:
             print(f"chip_faults: FAILED: {f}")
         print(card)
@@ -1497,6 +1616,9 @@ def main() -> int:
 
         # 13. multi-GPU training
         dist_step(summary, failures)
+
+        # 14. the data-parallel gradient wire
+        grad_wire_step(summary, failures)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for f in failures:

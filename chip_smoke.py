@@ -189,6 +189,34 @@ under ``remat_policy="dots+flash"``), counted per step.  Phases:
    the bf16 monolith's (or leave them where the top-2 logit gap is below
    one bf16 step of the top logit, ``bf16_ulp``).
 
+15. multi-GPU training (``phase_multi_gpu``, ``chip_smoke.py --phase15``
+   in a process of its own): the trainer cell (warmup cut to one step)
+   under ``RayStrategy``, ``HorovodRayStrategy`` and
+   ``RayShardedStrategy`` ZeRO-1 and ZeRO-3: (a) one rank over NCCL, 8
+   steps, bitwise against ``LocalStrategy``; (b) two ranks sharing the
+   card over gloo, 3 steps, against ``LocalStrategy`` on the same global
+   batch (the ray flavor takes the sharded weight update there, "auto",
+   and says so; ``b_rayrep`` is the ray flavor with its replicated
+   update); (c) each rank's memory; (d) its launches a step; (e) the
+   clip under ZeRO on two CPU workers; (f) two raw NCCL ranks on one card,
+   which NCCL refuses;
+16. the data-parallel gradient wire (``phase_grad_wire``, ``chip_smoke.py
+   --phase16`` in a process of its own): two ranks sharing the card over
+   gloo, GPT-2-small at full width, bf16, 3 steps on one global batch:
+   (a) full width (the reference), (b) ``grad_comm="int8"``, (c)
+   ``"int8_ef"``, (d) ``"int8_ef"`` with ``grad_overlap_segments=2``, (e)
+   ``RayShardedStrategy(zero_stage=1, grad_comm="int8_ef")``, (f)
+   ``update_sharding="on"`` at full width; each arm's per-step losses
+   against (a) (``int8_ef`` 1%, ``int8`` 10% relative, (f)
+   ``P15_LOSS_TOL``), the ranks' final params bitwise equal, the wire
+   in each int8 fit bitwise against its plain version on every call with
+   its residual threaded (``torch_dist_helpers.WireProbe``), the wire's
+   bytes (ratio >= 3.5; (d) within 2% of (c)) and ms/step; (g) the taps'
+   sync at one rank over NCCL on its side stream, at GPT-2-small's
+   overlap plan, bitwise against ``int8_all_reduce_reference``; (h) the
+   CPU wire checks of ``tests/test_torch_grad_comm.py`` on three CPU
+   ranks, then two (``torch_dist_helpers.wire_rank``).
+
 Any failure raises: the script exits non-zero and prints no result.  The
 line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1.
@@ -5480,6 +5508,7 @@ def p15_strategy(flavor, workers, **kw):
     from ray_lightning_tpu_torch.parallel import strategies as st
 
     cls, extra = {"ray": (st.RayStrategy, {}),
+                  "rayrep": (st.RayStrategy, {"update_sharding": "off"}),
                   "horovod": (st.HorovodRayStrategy, {}),
                   "zero1": (st.RayShardedStrategy, {"zero_stage": 1}),
                   "zero3": (st.RayShardedStrategy, {"zero_stage": 3})}[flavor]
@@ -5487,9 +5516,11 @@ def p15_strategy(flavor, workers, **kw):
 
 
 def p15_fit(strategy, cfg, steps, label, root, precision="bf16",
-            gpt_kw=HEADLINE, module_cls=None, data=None, batch=TRAIN_B):
+            gpt_kw=HEADLINE, module_cls=None, data=None, batch=TRAIN_B,
+            callbacks=()):
     """A Trainer fit of ``steps`` eager steps through ``strategy`` with
-    the probe of ``label`` (``torch_dist_helpers.StepProbe``)."""
+    the probe of ``label`` (``torch_dist_helpers.StepProbe``) and
+    ``callbacks``."""
     import torch_dist_helpers as helpers
     from ray_lightning_tpu_torch.core.trainer import Trainer
     from ray_lightning_tpu_torch.models.gpt import GPT, SyntheticLMDataModule
@@ -5498,18 +5529,18 @@ def p15_fit(strategy, cfg, steps, label, root, precision="bf16",
                  precision=precision, seed=SEED, megastep="off",
                  log_every_n_steps=1, enable_checkpointing=False,
                  default_root_dir=str(root),
-                 callbacks=[helpers.StepProbe(label)])
+                 callbacks=[helpers.StepProbe(label), *callbacks])
     module = (module_cls or GPT)(cfg, **gpt_kw)
     tr.fit(module, data or SyntheticLMDataModule(
         cfg, batch_size=batch, num_batches=steps, seed=SEED))
     return tr
 
 
-def p15_state_bytes(cfg, flavor, world):
+def p15_state_bytes(cfg, flavor, world, update_sharding=False):
     """The state a rank holds once set up, by the ZeRO leaf rule: f32
     params, bf16 mu and f32 nu (the family's default), each sharded leaf
-    cut to 1/world under ZeRO (the moments under stage 1, the params too
-    under stage 3)."""
+    cut to 1/world under ZeRO (the moments under stage 1 and under the
+    sharded weight update, the params too under stage 3)."""
     from ray_lightning_tpu_torch.parallel.sharding import shard_leaf_spec
 
     L, d, V, T = cfg.n_layer, cfg.d_model, cfg.vocab_size, cfg.seq_len
@@ -5520,7 +5551,7 @@ def p15_state_bytes(cfg, flavor, world):
     total = 0
     for shape in shapes:
         n = math.prod(shape)
-        sharded = (flavor.startswith("zero")
+        sharded = ((flavor.startswith("zero") or update_sharding)
                    and shard_leaf_spec(shape, world) is not None)
         part = n // world if sharded else n
         total += (part if flavor == "zero3" else n) * 4 + part * (2 + 4)
@@ -5537,8 +5568,10 @@ def p15_ms(rec):
     return 1e3 * steps[len(steps) // 2]
 
 
+# b_rayrep: the ray flavor with its replicated update (update_sharding
+# "off"), which "auto" replaces on the card by the sharded one.
 P15_ARMS = tuple(f"{arm}_{f}" for arm in "ab" for f in P15_FLAVORS) + (
-    "e_zero1", "e_zero3")
+    "b_rayrep", "e_zero1", "e_zero3")
 
 
 def nccl_probe_main(argv) -> int:
@@ -5691,10 +5724,15 @@ def phase15_main(arms=P15_ARMS) -> int:
             # build before the fit's first hook; the steps; the gather,
             # the state stream, its adoption and the teardown after its
             # last.
+            # Which update ran: "auto" shards it for the ray flavor's two
+            # ranks on the card (core/loop.py::_resolve_update_sharding).
+            shard = tr.telemetry_report.get("meta", {}).get(
+                "update_sharding")
             out[arm][flavor] = {"wall_s": time.perf_counter() - t0,
                                 "before_fit_s": r0["fit_start"] - w0,
                                 "fit_s": r0["fit_end"] - r0["fit_start"],
-                                "after_fit_s": w1 - r0["fit_end"]}
+                                "after_fit_s": w1 - r0["fit_end"],
+                                "update_sharding": shard}
             del tr
     finally:
         for strategy in strategies:
@@ -5747,7 +5785,8 @@ def phase15_main(arms=P15_ARMS) -> int:
             continue
         for rank, v in sorted(ranks.items()):
             per_step = {k: n / st["steps"] for k, n in v["launches"].items()}
-            pred = p15_state_bytes(cfg, flavor, st["workers"])
+            pred = p15_state_bytes(cfg, flavor, st["workers"],
+                                   res["update_sharding"] == "on")
             res.setdefault("ranks", {})[rank] = {
                 "setup_bytes": v["setup_bytes"], "predicted_bytes": pred,
                 "peak_bytes": v["peak_bytes"],
@@ -5797,7 +5836,8 @@ def phase15_main(arms=P15_ARMS) -> int:
         res.update({"loss_diffs": diffs, "param_measures": worst,
                     "model_frob": model_frob, "vector_updates": updates})
         print(f"phase 15 (b) {flavor}: 2 ranks sharing the card over gloo "
-              f"(through host memory, not NCCL), 8 x 1024 rows a rank, "
+              f"(through host memory, not NCCL), update sharding "
+              f"{res['update_sharding']}, 8 x 1024 rows a rank, "
               f"{st['steps']} steps: losses {r0['losses']} (diffs "
               f"{', '.join(f'{d:.2e}' for d in diffs)}; tolerances "
               f"{P15_LOSS_TOL}); final params: worst bf16 measures of a "
@@ -5853,6 +5893,395 @@ def phase_multi_gpu(card):
     return result
 
 
+# -- phase 16: the data-parallel gradient wire --------------------------------
+
+P16_STEPS = 3
+P16_SEGMENTS = 2
+# Per-step losses against arm (a), relative: the JAX tests' bounds for the
+# int8 wire with error feedback and without (tests/test_grad_sync.py,
+# tests/test_grad_overlap.py); the sharded update (f) within phase 15's
+# absolute P15_LOSS_TOL.
+P16_EF_REL, P16_INT8_REL = 0.01, 0.10
+P16_MIN_RATIO = 3.5           # full-width bytes over the int8 wire's
+P16_OVERLAP_BYTES = 0.02      # (d)'s bytes against (c)'s
+# (g): the side stream held back before the taps' chain (~200 ms at the
+# H100's 1.98 GHz, far longer than the host takes to issue the backward),
+# so a read that does not wait for it finds the plane's buffers unwritten.
+# A first, unheld run sets up NCCL's communicator (~1 s that blocks the
+# host inside the first tap: a hold taken then would have run out before
+# the read; with a 10 ms hold in that run a step that skipped the wait
+# passed once on the card).
+P16_HOLD_CYCLES = 400_000_000
+# arm -> (strategy, its keyword arguments, relative loss bound or None for
+# P15_LOSS_TOL); (a)-(d) keep the replicated update, which "auto" would
+# shard on the card, so that each isolates its wire.
+P16_FITS = {
+    "a_full": ("ray", {"update_sharding": "off"}, 0.0),
+    "b_int8": ("ray", {"grad_comm": "int8", "update_sharding": "off"},
+               P16_INT8_REL),
+    "c_int8_ef": ("ray", {"grad_comm": "int8_ef",
+                          "update_sharding": "off"}, P16_EF_REL),
+    "d_int8_ef_overlap": ("ray", {"grad_comm": "int8_ef",
+                                  "update_sharding": "off",
+                                  "grad_overlap_segments": P16_SEGMENTS},
+                          P16_EF_REL),
+    "e_zero1_int8_ef": ("zero1", {"grad_comm": "int8_ef"}, P16_EF_REL),
+    "f_update_sharding": ("ray", {"update_sharding": "on"}, None),
+}
+P16_ARMS = tuple(P16_FITS) + ("g_nccl", "h_cpu_wire")
+# (h): the CPU tests' narrow GPT on three CPU ranks over gloo.
+P16_WIRE_CFG = dict(vocab_size=256, n_layer=2, n_head=4, d_model=64,
+                    seq_len=32, warmup_steps=2, mu_dtype="float32")
+
+
+def p16_wire_payload():
+    """(h)'s payload for ``torch_dist_helpers.wire_rank``: the narrow
+    GPT's params from the port's seeded init (numpy), three batches of 6
+    rows, random partials at n = 2 and 3."""
+    import numpy as np
+    import torch
+
+    from ray_lightning_tpu_torch.models.gpt import GPT, GPTConfig
+    from ray_lightning_tpu_torch.models.optim import tree_map
+
+    params = GPT(GPTConfig(**P16_WIRE_CFG), device="cpu").init_params(
+        torch.Generator().manual_seed(SEED))
+    rng = np.random.default_rng(SEED)
+    return {
+        "block_size": 256, "bucket_bytes": 4 * 2 ** 20,
+        "cfg": P16_WIRE_CFG, "tree": tree_map(lambda t: t.numpy(), params),
+        "modes": ["int8", "int8_ef"], "segments": P16_SEGMENTS,
+        "partials": {n: (rng.standard_normal((n, n * 256 * 6))
+                         * np.logspace(-3, 2, n * 256 * 6)).astype(
+                             np.float32) for n in (2, 3)},
+        "batches": [rng.integers(0, 256, size=(6, 33)).astype(np.int32)
+                    for _ in range(3)],
+    }
+
+
+def p16_nccl_side_stream(card):
+    """(g): the taps' sync at one rank over NCCL on the side stream, at
+    GPT-2-small's overlap plan (G = 2, the default 4 MiB buckets): random
+    cotangents through the ``TapPlane`` of a real backward, the side
+    stream held back first, then the plane's buffers read after
+    ``finish()`` as a step reads them, and the gradient tree put
+    together; every bucket bitwise against ``int8_all_reduce_reference``
+    (reduced and error, the residual row added), the residual row
+    likewise.  A run before it sets up NCCL; one after it, unheld, times
+    the backward's sync."""
+    import torch
+    import torch.distributed as dist
+
+    from ray_lightning_tpu_torch.cluster.rpc import find_free_port
+    from ray_lightning_tpu_torch.models.gpt import GPT, GPTConfig
+    from ray_lightning_tpu_torch.models.optim import tree_leaves, tree_map
+    from ray_lightning_tpu_torch.ops.collective_quant import (
+        int8_all_reduce_reference,
+    )
+    from ray_lightning_tpu_torch.parallel import overlap as ovl
+    from ray_lightning_tpu_torch.parallel.grad_sync import GradCommConfig
+    from ray_lightning_tpu_torch.parallel.pipeline import layer_splits
+
+    port = find_free_port("127.0.0.1")
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0)
+    out = {}
+    try:
+        cfg = GPTConfig.gpt2_small()
+        module = GPT(cfg)
+        gen = torch.Generator("cuda").manual_seed(SEED)
+        params = module.init_params(gen)
+        wire = GradCommConfig("int8_ef")
+        oplan = ovl.build_overlap_plan(
+            module.grad_overlap_groups(params, P16_SEGMENTS), 1,
+            wire.bucket_bytes, wire.block_size)
+        cot = tree_map(lambda t: torch.randn(t.shape, generator=gen,
+                                             device="cuda"), params)
+        resid = 1e-3 * torch.randn(oplan.total_padded, generator=gen,
+                                   device="cuda")
+        # The plain version: each group's buckets, packed as the wire
+        # packs them, the residual's slice added.
+        want = torch.zeros(oplan.total_padded, device="cuda")
+        want_resid = torch.zeros_like(want)
+        for grp, leaves in zip(oplan.groups,
+                               ovl.split_groups(cot, oplan).values()):
+            for b in grp.plan.buckets:
+                flat = torch.cat([leaves[i].reshape(-1) for i in b.indices])
+                flat = torch.nn.functional.pad(flat, (0, b.padded - b.size))
+                at = grp.resid_offset + b.offset
+                red, err = int8_all_reduce_reference(
+                    [flat + resid[at:at + b.padded]], wire.block_size)[0]
+                want[at:at + b.padded] = red
+                want_resid[at:at + b.padded] = err
+        # The same buffer as the tree a step reads: entry leaves its views,
+        # trunk leaves their segments' rows put together.
+        want_tree = ovl.join_groups(cot, oplan, {
+            grp.name: ovl._leaf_views(
+                want[grp.resid_offset:
+                     grp.resid_offset + grp.plan.total_padded],
+                grp.plan, [t.shape for t in leaves],
+                [t.dtype for t in leaves])
+            for grp, leaves in zip(oplan.groups, ovl.split_groups(
+                cot, oplan).values())})
+        side = torch.cuda.Stream()
+
+        def run(hold):
+            plane = ovl.TapPlane(oplan, 1, True, torch.device("cuda"),
+                                 resid_row=resid, side_stream=side)
+            leaves = tree_map(lambda t: t.detach().requires_grad_(True),
+                              params)
+            tapped = plane.apply_entry_taps(leaves)
+            bounds = layer_splits(cfg.n_layer, P16_SEGMENTS)
+            loss = sum((tapped[k] * cot[k]).sum() for k in tapped
+                       if k != "blocks")
+            for g in range(P16_SEGMENTS):
+                b, e = bounds[g], bounds[g + 1]
+                sub = plane.tap(f"seg{g}", {k: v[b:e] for k, v in
+                                            leaves["blocks"].items()})
+                loss = loss + sum((sub[k] * cot["blocks"][k][b:e]).sum()
+                                  for k in sub)
+            plane.check_consumed()
+            if hold:
+                with torch.cuda.stream(side):
+                    torch.cuda._sleep(P16_HOLD_CYCLES)
+            start, end = torch.cuda.Event(True), torch.cuda.Event(True)
+            start.record()
+            torch.autograd.grad(loss, tree_leaves(leaves), allow_unused=True)
+            parts, new_resid = plane.finish()
+            # Read as a step reads: the buffers, then the tree.
+            same = (torch.equal(plane.synced, want)
+                    and torch.equal(new_resid, want_resid))
+            grads = ovl.join_groups(leaves, oplan, parts)
+            end.record()
+            same = same and all(torch.equal(g, w) for g, w in zip(
+                tree_leaves(grads), tree_leaves(want_tree)))
+            torch.cuda.synchronize()
+            return same, start.elapsed_time(end)
+
+        warm, _ = run(False)
+        held, held_ms = run(True)
+        free, free_ms = run(False)
+        buckets = [b.padded for g in oplan.groups for b in g.plan.buckets]
+        out = {"bitwise_held": held, "bitwise": free, "ms": free_ms,
+               "held_ms": held_ms, "buckets": len(buckets),
+               "elements": oplan.total_padded,
+               "bucket_elements": sorted(set(buckets))}
+        print(f"phase 16 (g): 1 rank over NCCL {'.'.join(map(str, torch.cuda.nccl.version()))}, "
+              f"the taps' sync on a side stream at GPT-2-small's overlap "
+              f"plan (G = {P16_SEGMENTS}: {len(oplan.groups)} groups, "
+              f"{len(buckets)} buckets of {sorted(set(buckets))} elements, "
+              f"{oplan.total_padded} in all): synced gradients and the "
+              f"residual row bitwise the plain version's: held side stream "
+              f"{held}, unheld {free}; the backward with its sync "
+              f"{free_ms:.2f} ms ({held_ms:.2f} held); {card}")
+        check(warm and held and free, "(g) the NCCL side-stream sync "
+              "equals int8_all_reduce_reference bitwise")
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def p16_cpu_wire(strategy, card):
+    """(h): ``torch_dist_helpers.wire_rank`` on three CPU ranks over gloo,
+    then on two of them, each a world of its own: the collective and each
+    ``GradSync`` step (int8, int8_ef) bitwise against the plain version
+    applied to the ranks' own partials of ``loss / n``, and the taps
+    (G = 2) bitwise against the step-end sync over the same plan."""
+    import torch_dist_helpers as helpers
+
+    ranks = helpers.wire_worlds(strategy._workers, p16_wire_payload(), 300)
+    out = {}
+    for n in (3, 2):
+        res = ranks[n]
+        out[n] = {
+            "collective": all(x["collective_equal"] for x in res),
+            "sync": {m: all(s["ref_equal"] for x in res for s in x[m])
+                     for m in ("int8", "int8_ef")},
+            "overlap": all(x["overlap_equal"] for x in res)}
+        print(f"phase 16 (h): {n} CPU ranks over gloo, the narrow GPT: "
+              f"collective = plain {out[n]['collective']}, GradSync = "
+              f"plain on the ranks' partials {out[n]['sync']}, taps = "
+              f"step-end {out[n]['overlap']}; {card}")
+        check(out[n]["collective"] and all(out[n]["sync"].values())
+              and out[n]["overlap"], f"(h) the CPU wire at n = {n}")
+    return out
+
+
+def phase16_main(arms=P16_ARMS) -> int:
+    """Phase 16's driver, in a process of its own (``chip_smoke.py
+    --phase16 [arm ...]``), touching CUDA only after every remote arm:
+    the fits (a)-(f) of ``P16_FITS``, each two ranks sharing the card over
+    gloo, GPT-2-small at full width, P16_STEPS steps on the same global
+    batch, their losses against (a), the ranks' final params bitwise
+    equal, the wire's accounting and each arm's ms/step; (h) the CPU wire
+    checks; then (g) in this process over NCCL.  Prints its lines, then
+    one JSON object as its last line."""
+    import tempfile
+
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_dist_helpers as helpers
+    from ray_lightning_tpu_torch.models.gpt import GPTConfig
+    from ray_lightning_tpu_torch.parallel.strategies import RayStrategy
+
+    unknown = set(arms) - set(P16_ARMS)
+    check(not unknown, f"phase 16 arms {sorted(unknown)} in {P16_ARMS}")
+    fits = [a for a in arms if a in P16_FITS]
+    check(not fits or "a_full" in fits, "phase 16's fits need arm a_full")
+    t_start = time.perf_counter()
+    card = card_line()
+    root = tempfile.mkdtemp(prefix="rlt-p16-")
+    cfg = dataclasses.replace(GPTConfig.gpt2_small(), warmup_steps=1)
+    out = {"card": card, "fits": {}}
+    strategies = {}
+    for label in fits:
+        flavor, kw, _ = P16_FITS[label]
+        strategies[label] = p15_strategy(
+            flavor, 2, backend="gloo", **kw,
+            init_hook=functools.partial(helpers.warm_up, "cuda"))
+    if "h_cpu_wire" in arms:
+        strategies["h_cpu_wire"] = RayStrategy(
+            num_workers=3, device="cpu", timeout_s=300.0,
+            env_per_worker={"OMP_NUM_THREADS": "1"})
+    t_spawn = time.perf_counter()
+    try:
+        if strategies:
+            with ThreadPoolExecutor(len(strategies)) as spawner:
+                for f in [spawner.submit(s.setup)
+                          for s in strategies.values()]:
+                    f.result()
+        out["spawn_s"] = time.perf_counter() - t_spawn
+        print(f"phase 16: {sum(s.num_workers for s in strategies.values())}"
+              f" workers of {len(strategies)} arms spawned and warmed up at "
+              f"once in {out['spawn_s']:.1f} s")
+        for label in fits:
+            t0 = time.perf_counter()
+            st = strategies[label]
+            probes = ([helpers.WireProbe(label + "_wire")]
+                      if "grad_comm" in P16_FITS[label][1] else [])
+            tr = p15_fit(st, cfg, P16_STEPS, label, root,
+                         callbacks=[helpers.FinalDigest(label + "_digest"),
+                                    *probes])
+            meta = tr.telemetry_report.get("meta", {})
+            out["fits"][label] = {
+                "wall_s": time.perf_counter() - t0,
+                "comm_stats": dict(tr.comm_stats),
+                "update_sharding": meta.get("update_sharding"),
+                "grad_overlap_segments": meta.get("grad_overlap_segments")}
+            del tr
+        if "h_cpu_wire" in arms:
+            out["h"] = p16_cpu_wire(strategies["h_cpu_wire"], card)
+    finally:
+        for s in strategies.values():
+            s.teardown()
+    driver_cuda = torch.cuda.is_initialized()
+    check(not driver_cuda, "the driver never initialises CUDA before (g)")
+    rec = helpers.RECORDS
+    ref = rec["a_full"][0]["losses"] if fits else None
+    for label in fits:
+        _, kw, bound = P16_FITS[label]
+        res = out["fits"][label]
+        digests = {r["digest"] for r in rec[label + "_digest"].values()}
+        ranks = rec[label]
+        losses = ranks[0]["losses"]
+        ms = p15_ms(ranks[0])
+        if bound is None:
+            diffs = [abs(a - b) for a, b in zip(losses, ref)]
+            ok = all(d <= t for d, t in zip(diffs, P15_LOSS_TOL))
+            limit = f"absolute {P15_LOSS_TOL}"
+        else:
+            diffs = [abs(a - b) / abs(b) for a, b in zip(losses, ref)]
+            ok = all(d <= bound for d in diffs)
+            limit = f"relative {bound}"
+        stats = res["comm_stats"]
+        res.update({"losses": losses, "loss_diffs": diffs, "ms": ms,
+                    "ranks_bitwise": len(digests) == 1,
+                    "rank_ms": {r: p15_ms(v) for r, v in ranks.items()}})
+        wire = stats.get("grad_sync_mode", "full")
+        ratio = stats.get("grad_sync_compression_ratio")
+        print(f"phase 16 ({label[0]}) {label}: 2 ranks sharing the card "
+              f"over gloo, GPT-2-small bf16, 8 x 1024 rows a rank, "
+              f"{P16_STEPS} steps: wire {wire}, update sharding "
+              f"{res['update_sharding']}, overlap segments "
+              f"{res['grad_overlap_segments']}; losses {losses} (diffs "
+              f"against (a) {', '.join(f'{d:.2e}' for d in diffs)}, "
+              f"{limit}); ranks' final params bitwise equal "
+              f"{len(digests) == 1}; bytes a step "
+              f"{stats.get('grad_sync_bytes')} of "
+              f"{stats.get('grad_sync_bytes_full_width')} (ratio {ratio}, "
+              f"{stats.get('grad_sync_buckets')} buckets); {ms:.1f} ms/step"
+              f" (ranks {', '.join(f'{v:.1f}' for v in res['rank_ms'].values())}); wall "
+              f"{res['wall_s']:.1f} s; {card}")
+        check(len(ranks) == 2 and len(digests) == 1,
+              f"({label}) the two ranks' final params bitwise equal")
+        check(ok, f"({label}) losses within {limit} of (a): {diffs}")
+        want_us = "on" if kw.get("update_sharding") == "on" else "off"
+        check(res["update_sharding"] == want_us,
+              f"({label}) update sharding {res['update_sharding']}")
+        if "grad_comm" in kw:
+            check(wire == kw["grad_comm"] and ratio >= P16_MIN_RATIO,
+                  f"({label}) the {kw['grad_comm']} wire at ratio >= "
+                  f"{P16_MIN_RATIO}: {stats}")
+            # The wire inside the fit (torch_dist_helpers.WireProbe): on
+            # every call each rank's probed bucket bitwise the plain
+            # version on the ranks' gathered inputs, and under EF each
+            # residual slice handed in the one the previous step wrote.
+            probe = rec[label + "_wire"]
+            ef = kw["grad_comm"] == "int8_ef"
+            res["wire_probe"] = probe
+            print(f"phase 16 ({label[0]}) {label}: the wire in the fit, "
+                  f"each rank's smallest bucket a call against "
+                  f"int8_all_reduce_reference: "
+                  + "; ".join(f"rank {r}: {c['equal']}/{c['calls']} calls "
+                              f"bitwise, residual threaded "
+                              f"{c['threaded']}/{c['thread_checks']}"
+                              for r, c in sorted(probe.items())))
+            check(len(probe) == 2 and all(
+                c["calls"] >= P16_STEPS and c["equal"] == c["calls"]
+                and c["threaded"] == c["thread_checks"]
+                and (c["thread_checks"] > 0) == ef
+                for c in probe.values()),
+                f"({label}) the wire in the fit equals its plain version "
+                f"and threads its residual: {probe}")
+    if "d_int8_ef_overlap" in out["fits"] and "c_int8_ef" in out["fits"]:
+        c = out["fits"]["c_int8_ef"]["comm_stats"]["grad_sync_bytes"]
+        d = out["fits"]["d_int8_ef_overlap"]["comm_stats"][
+            "grad_sync_bytes"]
+        print(f"phase 16 (d): the taps' bytes a step {d} against the "
+              f"step-end sync's {c} ({(d - c) / c:+.3%}; limit "
+              f"{P16_OVERLAP_BYTES:.0%}); {card}")
+        check(abs(d - c) <= P16_OVERLAP_BYTES * c, "(d) bytes within 2% "
+              "of (c)")
+    if "g_nccl" in arms:
+        out["g"] = p16_nccl_side_stream(card)
+    out["wall_s"] = time.perf_counter() - t_start
+    print(f"phase 16: wall {out['wall_s']:.1f} s; {card}")
+    print(json.dumps(out))
+    return 0
+
+
+def phase_grad_wire(card):
+    """Phase 16, run as ``chip_smoke.py --phase16`` in a process of its
+    own (the remote fits' driver must not have initialised CUDA); its
+    lines are echoed, its last line returned."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--phase16"], capture_output=True, text=True,
+                          timeout=600, cwd=ROOT)
+    lines = proc.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        print(line)
+    if proc.returncode != 0:
+        print(proc.stderr[-6000:], file=sys.stderr)
+        raise RuntimeError(f"chip_smoke: phase 16 failed (exit "
+                           f"{proc.returncode})")
+    result = json.loads(lines[-1])
+    print(f"phase 16: {time.perf_counter() - t0:.1f} s in all, the "
+          f"process's start included; {card}")
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -5902,6 +6331,7 @@ def main() -> int:
     plane = phase_serve_plane(torch, np, card, world, phase3)
     fleet = phase_serve_fleet(torch, np, card, world, phase3)
     multi = phase_multi_gpu(card)
+    wire = phase_grad_wire(card)
 
     kernels = [{
         "name": "bgmv", "route": "cuda", "source": BGMV_SOURCE,
@@ -5930,6 +6360,7 @@ def main() -> int:
     print("serve_plane: " + json.dumps({**plane, "card": card}))
     print("serve_fleet: " + json.dumps({**fleet, "card": card}))
     print("multi_gpu: " + json.dumps(multi))
+    print("grad_wire: " + json.dumps(wire))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -5946,4 +6377,6 @@ if __name__ == "__main__":
         sys.exit(nccl_probe_main(sys.argv[2:]))
     if sys.argv[1:2] == ["--phase15"]:
         sys.exit(phase15_main(tuple(sys.argv[2:]) or P15_ARMS))
+    if sys.argv[1:2] == ["--phase16"]:
+        sys.exit(phase16_main(tuple(sys.argv[2:]) or P16_ARMS))
     sys.exit(main())

@@ -36,6 +36,16 @@ path and the callback states; every rank's carries its telemetry
 snapshot.  Megastep is off there: ``"auto"`` resolves to 1, and an
 explicit K > 1 raises (a CUDA graph of steps with collectives in it is
 ROADMAP Queue 1 item 2).
+
+The gradient wire is resolved against the real world size, flavor and
+ZeRO stage, as the JAX ``run_fit`` resolves it against its mesh
+(:func:`_resolve_comm`): ``grad_comm`` (``parallel/grad_sync.py``;
+``LocalStrategy``'s one device keeps full width), ``grad_overlap_segments``
+(``parallel/overlap.py``) and
+``update_sharding`` (:func:`_resolve_update_sharding`); ``comm_stats``
+and the telemetry meta say what was taken.  The EF residual is attached
+to the state after it is built and reconciled on resume; it never enters
+a checkpoint or the rank-0 package.
 """
 
 from __future__ import annotations
@@ -66,6 +76,9 @@ from ray_lightning_tpu_torch.ops.optim_quant import (
     BlockQuantized, dequantize_moment, quantize_moment,
 )
 from ray_lightning_tpu_torch.parallel import step_fns
+from ray_lightning_tpu_torch.parallel.overlap import (
+    normalize_grad_overlap, resolve_grad_overlap,
+)
 from ray_lightning_tpu_torch.telemetry.runtime import Telemetry
 from ray_lightning_tpu_torch.utils.state_stream import (
     load_state_stream, state_stream_from_file, state_stream_to_file,
@@ -94,6 +107,13 @@ class FitConfig:
     precision: str = "f32"
     accumulate_grad_batches: int = 1
     megastep: Optional[Any] = None
+    # The sharded weight update (arXiv:2004.13336): None (the
+    # RLT_UPDATE_SHARDING variable, else "auto"), "auto" (on for eligible
+    # ranks on the card, off on the CPU), "on", "off" or a bool.
+    update_sharding: Optional[Any] = None
+    # The backward-overlapped gradient sync: None (RLT_GRAD_OVERLAP, else
+    # off), "off"/""/0, or G >= 1 trunk segments.
+    grad_overlap_segments: Optional[Any] = None
     default_root_dir: str = "."
     resume_from_checkpoint: Optional[str] = None
     # One epoch of one train batch and one val batch (a smoke run).
@@ -114,9 +134,11 @@ class FitConfig:
             raise ValueError(
                 f"precision {self.precision!r} unsupported: use 'f32' or "
                 f"'bf16' (accepted aliases: {sorted(_PRECISION_ALIASES)})")
-        # A typo'd megastep fails at construction; "auto" resolves at fit
-        # time, against the fit's device.
+        # A typo'd knob fails at construction; "auto" resolves at fit
+        # time, against the fit's device and world.
         _normalize_megastep(self.megastep)
+        _normalize_update_sharding(self.update_sharding)
+        normalize_grad_overlap(self.grad_overlap_segments)
         if self.fast_dev_run:
             self.max_epochs = 1
             self.limit_train_batches = 1
@@ -148,6 +170,63 @@ def _normalize_megastep(value: Any) -> Optional[Any]:
     if value < 1:
         raise ValueError(f"megastep must be >= 1, got {value}")
     return value
+
+
+def _normalize_update_sharding(value: Any) -> Optional[str]:
+    """Validate an ``update_sharding`` value: None, "auto", "on" or "off"
+    (bools as on/off); resolution happens at fit time
+    (:func:`_resolve_update_sharding`)."""
+    if value is None:
+        return None
+    if isinstance(value, bool):
+        return "on" if value else "off"
+    if isinstance(value, str):
+        s = value.strip().lower()
+        if s == "":
+            return "off"
+        if s in ("auto", "on", "off"):
+            return s
+    raise ValueError(
+        f"update_sharding={value!r}: expected 'auto', 'on', 'off' or a "
+        "bool"
+    )
+
+
+def _resolve_update_sharding(config: FitConfig, world: Optional[int],
+                             mode: str, zero_stage: int,
+                             device: torch.device,
+                             axes: Optional[tuple] = None) -> bool:
+    """Whether this fit shards the weight update over the ranks (the JAX
+    ``_resolve_update_sharding``): the knob, else ``RLT_UPDATE_SHARDING``,
+    else ``"auto"``.  Eligible: more than one rank (``world``; None is
+    ``LocalStrategy``'s one device), the gspmd flavor and
+    ``zero_stage == 0`` (the port's ranks are batch-parallel only).  "on"
+    outside that warns with the JAX words and stays off; "auto" is on
+    where eligible and on the card (the JAX rule's TPU backend), off on
+    the CPU.  On, the step is ZeRO-1's (``step_fns.build_dist_step``):
+    the gradients reduce-scattered onto each rank's slices (or the int8
+    wire's synced ones sliced), its slices of the moments and params
+    updated, then the params all-gathered."""
+    value = _normalize_update_sharding(config.update_sharding)
+    if value is None:
+        value = _normalize_update_sharding(
+            os.environ.get("RLT_UPDATE_SHARDING", "auto"))
+    if value == "off":
+        return False
+    eligible = (world is not None and world > 1 and mode == "gspmd"
+                and zero_stage == 0)
+    if value == "on":
+        if not eligible:
+            warnings.warn(
+                "update_sharding='on' needs a multi-device batch-only "
+                "(data/fsdp) gspmd mesh with zero_stage=0 (ZeRO already "
+                f"shards the update); got mesh={axes}, "
+                f"mode={mode!r}, zero_stage={zero_stage} — running with "
+                "a replicated update instead"
+            )
+            return False
+        return True
+    return eligible and device.type == "cuda"
 
 
 def _resolve_megastep(config: FitConfig, device: torch.device,
@@ -193,6 +272,11 @@ class LoopContext:
         # RayShardedStrategy, the ZeRO plan of the state's leaves.
         self.dist = dist
         self.zero_plan = None
+        # The gradient wire of the fit (``_resolve_comm``): its
+        # accounting and the tap plane of the differentiation in flight
+        # (which the module's forward reads).
+        self.comm_stats: Dict[str, Any] = {}
+        self.grad_tap_plane = None
         self.current_epoch = 0
         # global_step counts optimizer steps, micro_step micro-batches
         # (equal without accumulation).
@@ -432,32 +516,73 @@ def _initial_params(module: TrainModule, device: torch.device,
     return tree_map(lambda t: t.to(device), module.init_params(gen))
 
 
-def _init_dist_state(ctx: LoopContext, module: TrainModule, tx, make_step,
-                     callbacks: List[Callback], accum: int):
+def _resolve_comm(ctx: LoopContext, module: TrainModule, tel: Telemetry,
+                  params: Any, mode: str, zero_stage: int, grad_comm: Any):
+    """The fit's gradient wire against its real world (``dist``'s size;
+    ``LocalStrategy`` resolves as one device), flavor and ZeRO stage, as
+    the JAX ``run_fit`` does: the int8 sync or None
+    (``grad_sync.maybe_build_grad_sync``, its downgrades warned), the
+    trunk segments, and the sharded weight update; recorded in
+    ``ctx.comm_stats`` and the telemetry.  Returns ``(grad_sync,
+    shard_update)``."""
+    from ray_lightning_tpu_torch.parallel import grad_sync as gsync
+
+    dist = ctx.dist
+    world = 1 if dist is None else dist.world_size
+    overlap_segments = resolve_grad_overlap(ctx.config.grad_overlap_segments)
+    grad_sync = gsync.maybe_build_grad_sync(
+        module, grad_comm, world, mode=mode, zero_stage=zero_stage,
+        params=params, overlap_segments=overlap_segments)
+    tel.set_meta("grad_overlap_segments", overlap_segments)
+    if grad_sync is not None:
+        grad_sync.register_telemetry(tel)
+        ctx.comm_stats = grad_sync.stats()
+    else:
+        tel.set_meta("grad_sync_mode", "full")
+        ctx.comm_stats = {"grad_sync_mode": "full"}
+    shard_update = _resolve_update_sharding(
+        ctx.config, None if dist is None else dist.world_size, mode,
+        zero_stage, ctx.device,
+        None if dist is None else dist.layout.axis_names)
+    tel.set_meta("update_sharding", "on" if shard_update else "off")
+    return grad_sync, shard_update
+
+
+def _init_dist_state(ctx: LoopContext, module: TrainModule, tx, tel,
+                     callbacks: List[Callback], accum: int, mode: str,
+                     zero_stage: int, grad_comm: Any):
     """A rank's step and initial state under a strategy: every rank
     builds the params from the same seed, then takes rank 0's (one
     broadcast, so a module whose init is not deterministic still starts
-    equal).  Under ZeRO the state keeps this rank's slices
-    (``ctx.zero_plan``); a resume restores the full checkpoint first, then
-    slices it.  Returns ``(step, (start_epoch, skip_batches))``."""
+    equal).  Under ZeRO or the sharded update the state keeps this rank's
+    slices (``ctx.zero_plan``); a resume restores the full checkpoint
+    first, then slices it.  Under EF the state carries a zero residual
+    row.  Returns ``(step, (start_epoch, skip_batches))``."""
     config, dist = ctx.config, ctx.dist
     params = _initial_params(module, ctx.device, config.seed)
     with torch.no_grad():
         dist.broadcast_(tree_leaves(params))
-    step = make_step(module, tx, params)
+    grad_sync, shard_update = _resolve_comm(ctx, module, tel, params, mode,
+                                            zero_stage, grad_comm)
+    step = step_fns.build_dist_step(module, tx, dist, params, mode,
+                                    zero_stage, grad_sync, shard_update)
     plan = step.plan
     start = (0, 0)
     if plan is None or config.resume_from_checkpoint:
         ctx.state = TrainState.create(params, tx)
+        if grad_sync is not None:
+            ctx.state = grad_sync.attach_residual(ctx.state)
         if config.resume_from_checkpoint:
-            start = _resume(ctx, callbacks, accum)
+            start = _resume(ctx, callbacks, accum, grad_sync)
     if plan is None:
         return step, start
+    resid = None
     if ctx.state is not None:
         full = ctx.state
         params = full.params
         opt_state = plan.shard_opt_state(full.opt_state)
         step_count = full.step
+        resid = full.grad_residual
     else:
         opt_state, step_count = None, 0
     ctx.state = None
@@ -466,7 +591,9 @@ def _init_dist_state(ctx: LoopContext, module: TrainModule, tx, make_step,
         opt_state = tx.init(shards)
         plan.opt_dims(opt_state, sharded=True)  # refuses int8 moments
     ctx.state = TrainState(shards if plan.stage == 3 else params, opt_state,
-                           step_count)
+                           step_count, resid)
+    if grad_sync is not None and resid is None:
+        ctx.state = grad_sync.attach_residual(ctx.state)
     ctx.zero_plan = plan
     return step, start
 
@@ -520,6 +647,10 @@ def _restore_state(template: TrainState, loaded: TrainState) -> TrainState:
     with torch.no_grad():
         put(template.params, loaded.params, "state.params")
         put(template.opt_state, loaded.opt_state, "state.opt_state")
+        if (template.grad_residual is not None
+                and loaded.grad_residual is not None):
+            put(template.grad_residual, loaded.grad_residual,
+                "state.grad_residual")
     template.step = loaded.step
     return template
 
@@ -601,15 +732,20 @@ def _reconcile_opt_state_format(loaded: TrainState,
     return TrainState(loaded.params, opt_state, loaded.step)
 
 
-def _resume(ctx: LoopContext, callbacks: List[Callback], accum: int):
+def _resume(ctx: LoopContext, callbacks: List[Callback], accum: int,
+            grad_sync: Any = None):
     """Load ``config.resume_from_checkpoint`` into the context (state,
     counters, metrics, callback states); returns ``(start_epoch,
-    skip_batches)``."""
+    skip_batches)``.  Under the int8 wire the loaded state's residual is
+    reconciled with this run's layout first
+    (``GradSync.reconcile_resumed_state``)."""
     payload = load_state_stream(
         state_stream_from_file(ctx.config.resume_from_checkpoint),
         device=ctx.device)
-    loaded = _reconcile_opt_state_format(
-        train_state_from_jax(payload["state"]), ctx.state)
+    loaded = train_state_from_jax(payload["state"])
+    if grad_sync is not None:
+        loaded = grad_sync.reconcile_resumed_state(loaded)
+    loaded = _reconcile_opt_state_format(loaded, ctx.state)
     ctx.state = _restore_state(ctx.state, loaded)
     if payload.get("mid_epoch"):
         # A step-granular checkpoint: resume inside its epoch, skipping
@@ -725,19 +861,22 @@ def _examples(batch: Any) -> int:
 def run_fit(module: TrainModule, datamodule: TpuDataModule,
             config: FitConfig, callbacks: List[Callback],
             device: torch.device, telemetry: Any = None, dist: Any = None,
-            make_step: Any = None) -> Dict[str, Any]:
+            mode: str = "gspmd", zero_stage: int = 0,
+            grad_comm: Any = None) -> Dict[str, Any]:
     """The fit loop.  Returns the result package the trainer adopts:
     ``state``, ``callback_metrics``, ``logged_metrics``, ``epochs_run``,
-    ``global_step``, ``micro_step``, ``telemetry`` (the report) and
-    ``best_model_path`` (the first ``ModelCheckpoint``'s).
+    ``global_step``, ``micro_step``, ``telemetry`` (the report),
+    ``comm_stats`` and ``best_model_path`` (the first
+    ``ModelCheckpoint``'s).
 
-    Under a strategy, ``dist`` is the rank's ``DistContext`` and
-    ``make_step(module, tx, params)`` builds its ``DistributedStep``; the
-    package is then the per-rank one (:func:`_rank_package`)."""
+    Under a strategy, ``dist`` is the rank's ``DistContext``, and the
+    flavor (``mode``, ``zero_stage``) and ``grad_comm`` build its
+    ``DistributedStep`` (``step_fns.build_dist_step``); the package is
+    then the per-rank one (:func:`_rank_package`)."""
     ctx = LoopContext(config, device, dist)
     try:
-        return _fit(ctx, module, datamodule, callbacks, telemetry,
-                    make_step)
+        return _fit(ctx, module, datamodule, callbacks, telemetry, mode,
+                    zero_stage, grad_comm)
     finally:
         # A failed fit still retires its writer thread (a finished one
         # already has).
@@ -745,8 +884,8 @@ def run_fit(module: TrainModule, datamodule: TpuDataModule,
 
 
 def _fit(ctx: LoopContext, module: TrainModule, datamodule: TpuDataModule,
-         callbacks: List[Callback], telemetry: Any,
-         make_step: Any) -> Dict[str, Any]:
+         callbacks: List[Callback], telemetry: Any, mode: str,
+         zero_stage: int, grad_comm: Any) -> Dict[str, Any]:
     config, device, dist = ctx.config, ctx.device, ctx.dist
     tel = Telemetry.build(telemetry)
     tx = module.configure_optimizers()
@@ -770,12 +909,17 @@ def _fit(ctx: LoopContext, module: TrainModule, datamodule: TpuDataModule,
     start_epoch, skip_batches = 0, 0
     if dist is not None:
         train_step, (start_epoch, skip_batches) = _init_dist_state(
-            ctx, module, tx, make_step, callbacks, accum)
+            ctx, module, tx, tel, callbacks, accum, mode, zero_stage,
+            grad_comm)
     else:
         # On resume this is the template the checkpoint is written into
         # (its dict order, which orders the clip's norm sum, stays the
         # fit's).
         ctx.state = init_train_state(module, tx, device, config.seed)
+        # One device: full width and a replicated update (the JAX rule
+        # for a one-device mesh, its warnings included).
+        _resolve_comm(ctx, module, tel, ctx.state.params, mode, zero_stage,
+                      grad_comm)
         if config.resume_from_checkpoint:
             # In place before the first stride: a captured graph owns the
             # state it captured on.
@@ -972,6 +1116,7 @@ def _fit(ctx: LoopContext, module: TrainModule, datamodule: TpuDataModule,
         "global_step": ctx.global_step,
         "micro_step": ctx.micro_step,
         "telemetry": tel.report(),
+        "comm_stats": dict(ctx.comm_stats),
         "best_model_path": next((cb.best_model_path for cb in callbacks
                                  if isinstance(cb, ModelCheckpoint)), ""),
     }
@@ -1001,6 +1146,7 @@ def _rank_package(ctx: LoopContext, callbacks: List[Callback],
         "epochs_run": ctx.current_epoch + 1,
         "global_step": ctx.global_step,
         "micro_step": ctx.micro_step,
+        "comm_stats": dict(ctx.comm_stats),
         "telemetry": snapshot,
     }
 

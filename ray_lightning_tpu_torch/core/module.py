@@ -29,12 +29,17 @@ class TrainState:
     """Parameters, optimizer state and the step count (micro-steps).  The
     optimizer lives with the module (``configure_optimizers``), so the
     state holds tensors (the optimizer's counts among them) and the host
-    int ``step``."""
+    int ``step``.  ``grad_residual``: under the int8 gradient wire with
+    error feedback (``grad_comm="int8_ef"``, ``parallel/grad_sync.py``)
+    this rank's own f32 residual row, on its device; else None.  It never
+    enters a checkpoint or the package a rank sends the driver."""
 
-    def __init__(self, params: Any, opt_state: Any, step: int = 0):
+    def __init__(self, params: Any, opt_state: Any, step: int = 0,
+                 grad_residual: Any = None):
         self.params = params
         self.opt_state = opt_state
         self.step = step
+        self.grad_residual = grad_residual
 
     @classmethod
     def create(cls, params: Any, tx) -> "TrainState":
@@ -45,7 +50,8 @@ class TrainState:
             updates, new_opt_state = tx.update(grads, self.opt_state,
                                                self.params)
             new_params = apply_updates(self.params, updates)
-        return TrainState(new_params, new_opt_state, self.step + 1)
+        return TrainState(new_params, new_opt_state, self.step + 1,
+                          self.grad_residual)
 
     def __repr__(self) -> str:
         n = sum(t.numel() for t in tree_leaves(self.params))
@@ -104,6 +110,14 @@ class TrainModule:
         params' structure, or None for every leaf (the default).  A frozen
         leaf's gradient is never computed; the optimizer must leave it
         unchanged (GPT under LoRA: ``set_to_zero``)."""
+        return None
+
+    def grad_overlap_groups(self, params: Any, segments: int) -> Any:
+        """The param partition of the backward-overlapped gradient sync
+        (``parallel/overlap.py``): ``[(name, subtree, entry), ...]`` in the
+        order the groups' gradients complete in the backward, or None (the
+        default: the module cannot be tapped, and the sync stays at the
+        step end)."""
         return None
 
     # -- lifecycle hooks (inside the fit loop) ------------------------------

@@ -3,9 +3,11 @@
 ``Trainer(...).fit(module, datamodule)`` runs the fit through its
 strategy and adopts the result: ``callback_metrics``, ``logged_metrics``,
 ``state`` (the final :class:`TrainState`, tensors on the fit's device),
-``global_step``, ``micro_step``, ``epochs_run``, ``best_model_path`` and
+``global_step``, ``micro_step``, ``epochs_run``, ``best_model_path``,
 ``telemetry_report`` (the step stats' summary, counters and
-``meta.megastep``; empty when telemetry is off).  ``validate``, ``test``
+``meta.megastep``; empty when telemetry is off) and ``comm_stats`` (the
+gradient wire's accounting, ``{"grad_sync_mode": "full"}`` at full
+width; under a strategy rank 0's).  ``validate``, ``test``
 and ``predict`` run on a checkpoint's parameters (``ckpt_path``), else on
 the fitted state's, else on the seed's init; ``save_checkpoint`` writes
 the fitted state as the JAX package's Trainer does.  Checkpoints are
@@ -73,6 +75,8 @@ class Trainer:
         log_every_n_steps: int = 50,
         accumulate_grad_batches: int = 1,
         megastep=None,
+        update_sharding=None,
+        grad_overlap_segments=None,
         enable_checkpointing: bool = True,
         resume_from_checkpoint: Optional[str] = None,
         fast_dev_run: bool = False,
@@ -102,6 +106,8 @@ class Trainer:
             precision=precision,
             accumulate_grad_batches=accumulate_grad_batches,
             megastep=megastep,
+            update_sharding=update_sharding,
+            grad_overlap_segments=grad_overlap_segments,
             default_root_dir=default_root_dir,
             resume_from_checkpoint=resume_from_checkpoint,
             fast_dev_run=fast_dev_run,
@@ -115,6 +121,9 @@ class Trainer:
         self.global_step = 0
         self.micro_step = 0
         self.telemetry_report: Dict[str, Any] = {}
+        # The gradient wire's accounting (grad_sync_mode, grad_sync_bytes,
+        # the compression ratio: parallel/grad_sync.py).
+        self.comm_stats: Dict[str, Any] = {}
 
     def _resolve_datamodule(self, module: TrainModule,
                             datamodule: Optional[TpuDataModule]
@@ -163,6 +172,7 @@ class Trainer:
         self.global_step = result["global_step"]
         self.micro_step = result["micro_step"]
         self.telemetry_report = result["telemetry"]
+        self.comm_stats = dict(result.get("comm_stats", {}))
         return self
 
     def _adopt_remote_fit(self, results: List[Dict[str, Any]]) -> None:
@@ -177,6 +187,7 @@ class Trainer:
         self.epochs_run = rank0["epochs_run"]
         self.global_step = rank0["global_step"]
         self.micro_step = rank0["micro_step"]
+        self.comm_stats = dict(rank0.get("comm_stats", {}))
         self._merge_telemetry(results, replace=True)
         for cb, cb_state in zip(self.callbacks, rank0["callback_states"]):
             cb.load_state_dict(cb_state)

@@ -41,7 +41,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -73,6 +73,7 @@ from ray_lightning_tpu_torch.ops.cross_entropy import (
 )
 from ray_lightning_tpu_torch.ops.layer_norm import layer_norm
 from ray_lightning_tpu_torch.ops.matmul import mm_f32
+from ray_lightning_tpu_torch.parallel.pipeline import layer_splits
 
 __all__ = ["GPTConfig", "GPT", "SyntheticLMDataModule", "REMAT_POLICIES",
            "remat_policy_fn", "resolve_weight",
@@ -315,8 +316,9 @@ class GPT(TrainModule):
         # unbind, not indexing: its backward stacks the per-layer grads in
         # one op, so they come back in the (L, ...) layout.
         names = list(params["blocks"])
-        layers = [dict(zip(names, ts)) for ts in zip(
-            *(params["blocks"][k].unbind(0) for k in names))]
+        layers = [dict(zip(names, ts)) for sub in self._trunk_segments(
+            params["blocks"]) for ts in zip(*(sub[k].unbind(0)
+                                              for k in names))]
         block = functools.partial(self._block, c=c, bf16r=bf16r)
         remat = self.remat and torch.is_grad_enabled()
         context_fn = functools.partial(
@@ -336,6 +338,57 @@ class GPT(TrainModule):
             x = x.to(c)
         x = layer_norm(x, params["ln_f_g"], params["ln_f_b"], use_kernel=True)
         return x, torch.zeros((), device=x.device)
+
+    def _trunk_segments(self, blocks: Dict[str, torch.Tensor]
+                        ) -> List[Dict[str, torch.Tensor]]:
+        """The stacked ``blocks`` as the trunk runs them: whole, or, under
+        the backward-overlapped gradient sync (``trainer.grad_tap_plane``),
+        cut into G row ranges at ``layer_splits`` bounds, each routed
+        through the plane's tap ``seg{g}`` outside any remat wrapper.  The
+        cut is bitwise neutral: the same layers run, and a slice's
+        backward adds zeros outside its rows."""
+        plane = getattr(getattr(self, "trainer", None), "grad_tap_plane",
+                        None)
+        if plane is None:
+            return [blocks]
+        cfg = self.config
+        bounds = layer_splits(cfg.n_layer, min(plane.trunk_segments,
+                                               max(cfg.n_layer, 1)))
+        subs = []
+        for g in range(len(bounds) - 1):
+            b, e = bounds[g], bounds[g + 1]
+            subs.append(plane.tap(f"seg{g}", {k: v[b:e] for k, v in
+                                              blocks.items()}))
+        return subs
+
+    def grad_overlap_groups(self, params: Dict[str, Any], segments: int):
+        """The param partition of the backward-overlapped gradient sync
+        (the JAX ``grad_overlap_groups``), in the order the backward
+        completes the groups: ``head`` (the final LN), ``seg0`` ..
+        ``seg{G-1}`` (the trunk at ``layer_splits`` bounds, tapped by
+        :meth:`_trunk_segments`), ``embed`` (``wte``, ``wpe``; an entry
+        group, so the tied head's read of ``wte`` is tapped too).  The
+        subtrees hold meta tensors of the groups' shapes."""
+        if segments < 1:
+            return None
+        cfg = self.config
+        bounds = layer_splits(cfg.n_layer,
+                              min(int(segments), max(cfg.n_layer, 1)))
+
+        def meta(t, rows=None):
+            shape = tuple(t.shape) if rows is None else (
+                (rows,) + tuple(t.shape[1:]))
+            return torch.empty(shape, dtype=t.dtype, device="meta")
+
+        groups = [("head", {k: meta(params[k]) for k in ("ln_f_g", "ln_f_b")},
+                   True)]
+        for g in range(len(bounds) - 1):
+            rows = bounds[g + 1] - bounds[g]
+            groups.append((f"seg{g}", {k: meta(v, rows) for k, v in
+                                       params["blocks"].items()}, False))
+        groups.append(("embed", {k: meta(params[k]) for k in ("wte", "wpe")},
+                       True))
+        return groups
 
     def _block(self, x: torch.Tensor, p: Dict[str, torch.Tensor], *,
                c: torch.dtype, bf16r: bool) -> torch.Tensor:

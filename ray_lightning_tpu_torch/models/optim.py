@@ -55,7 +55,6 @@ between steps and updates them on a transient f32 view;
 
 from __future__ import annotations
 
-import contextlib
 import math
 from typing import Any, Callable, Dict, NamedTuple, Optional
 
@@ -71,7 +70,7 @@ __all__ = ["GradientTransformation", "chain", "clip_by_global_norm",
            "multi_steps", "multi_steps_flush", "decay_mask", "tree_map",
            "tree_leaves", "tree_unflatten", "apply_updates", "MaskedNode",
            "identity", "set_to_zero", "multi_transform", "known_zeros",
-           "is_known_zeros", "global_norm_reduction", "OPT_STATE_DTYPES",
+           "is_known_zeros", "OPT_STATE_DTYPES",
            "resolve_opt_state_dtype",
            "quantize_opt_state", "apply_opt_state_dtype", "opt_state_bytes",
            "moment_bytes"]
@@ -82,8 +81,27 @@ _DECAY_EXACT = {"wte"}
 
 
 class GradientTransformation(NamedTuple):
+    """optax's pair.  ``update(updates, state, params=None)``; the
+    transformations here also take ``norm_sq``, the squared global norm
+    of an update tree's leaves (``fn(tree_leaves(updates))``) that
+    :func:`clip_by_global_norm` uses in place of its own sum: a ZeRO or
+    sharded-update step, whose leaves are this rank's slices, passes one
+    that adds the other ranks' squares
+    (``parallel/sharding.py::ZeroPlan.norm_sq``).  The composites forward
+    it (:func:`_update`)."""
+
     init: Callable[[Any], Any]
     update: Callable[..., Any]
+
+
+def _update(tx: GradientTransformation, updates, state, params,
+            norm_sq: Optional[Callable[[list], torch.Tensor]]):
+    """``tx.update``, with ``norm_sq`` passed on only when given (so a
+    user's transformation that does not take it still runs on one
+    device)."""
+    if norm_sq is None:
+        return tx.update(updates, state, params)
+    return tx.update(updates, state, params, norm_sq=norm_sq)
 
 
 class MaskedNode:
@@ -183,43 +201,25 @@ def chain(*txs: GradientTransformation) -> GradientTransformation:
     def init(params):
         return tuple(tx.init(params) for tx in txs)
 
-    def update(updates, state, params=None):
+    def update(updates, state, params=None, norm_sq=None):
         new_state = []
         for tx, s in zip(txs, state):
-            updates, s = tx.update(updates, s, params)
+            updates, s = _update(tx, updates, s, params, norm_sq)
             new_state.append(s)
         return updates, tuple(new_state)
 
     return GradientTransformation(init, update)
 
 
-# The squared-norm reduction of the clip, when a ZeRO step holds slices of
-# the update (``global_norm_reduction``); None: the sum over the leaves.
-_norm_sq_reduction: Optional[Callable[[list], torch.Tensor]] = None
-
-
-@contextlib.contextmanager
-def global_norm_reduction(fn: Callable[[list], torch.Tensor]):
-    """Within the block, :func:`clip_by_global_norm` takes its squared
-    global norm from ``fn(leaves)``, the update's ``tree_leaves`` (known
-    zeros included), instead of summing the leaves itself: a ZeRO step,
-    whose leaves are this rank's slices, adds the other ranks' squares
-    (``parallel/sharding.py::ZeroPlan.norm_sq``)."""
-    global _norm_sq_reduction
-    saved, _norm_sq_reduction = _norm_sq_reduction, fn
-    try:
-        yield
-    finally:
-        _norm_sq_reduction = saved
-
-
 def clip_by_global_norm(max_norm: float) -> GradientTransformation:
     """optax's ``clip_by_global_norm``: leaves unchanged when the global
-    norm is below ``max_norm``, else ``(t / norm)·max_norm``."""
+    norm is below ``max_norm``, else ``(t / norm)·max_norm``.  The norm
+    is ``sqrt(norm_sq(tree_leaves(updates)))`` (known zeros included)
+    when the caller passes ``norm_sq``, else the sum over the leaves."""
 
-    def update(updates, state, params=None):
-        if _norm_sq_reduction is not None:
-            norm = torch.sqrt(_norm_sq_reduction(tree_leaves(updates)))
+    def update(updates, state, params=None, norm_sq=None):
+        if norm_sq is not None:
+            norm = torch.sqrt(norm_sq(tree_leaves(updates)))
         else:
             # A known-zero leaf adds an exact 0.0 to the norm: left out.
             leaves = [t for t in tree_leaves(updates)
@@ -293,7 +293,7 @@ def adamw(learning_rate: Callable[[torch.Tensor], torch.Tensor], b1: float,
     # b1 as JAX's weak-typed scalar becomes next to the stored mu.
     b1_mu = float(torch.tensor(b1, dtype=mu_dtype))
 
-    def update(grads, state, params):
+    def update(grads, state, params, norm_sq=None):
         count = state["count"] + 1
         c1 = _bias_correction(b1, count)
         c2 = _bias_correction(b2, count)
@@ -335,12 +335,12 @@ def multi_steps(inner: GradientTransformation,
                 "inner_opt_state": inner.init(params),
                 "acc_grads": tree_map(torch.zeros_like, params)}
 
-    def update(grads, state, params=None):
+    def update(grads, state, params=None, norm_sq=None):
         n = state["mini_step"]
         acc = tree_map(lambda g, a: a + (g - a) / (n + 1), grads,
                        state["acc_grads"])
-        final, inner_new = inner.update(acc, state["inner_opt_state"],
-                                        params)
+        final, inner_new = _update(inner, acc, state["inner_opt_state"],
+                                   params, norm_sq)
         emit = n == every_k - 1
         keep = 1 - emit.to(torch.int32)
         new_state = {
@@ -359,12 +359,12 @@ def multi_steps(inner: GradientTransformation,
 
 
 def multi_steps_flush(inner: GradientTransformation, state: Dict[str, Any],
-                      params: Any):
+                      params: Any, norm_sq=None):
     """The partial-window flush of the JAX loop (``_build_accum_flush``):
     one ``inner`` update from the running mean of the window's
     micro-gradients, the window reset.  Returns ``(updates, state)``."""
-    updates, inner_new = inner.update(state["acc_grads"],
-                                      state["inner_opt_state"], params)
+    updates, inner_new = _update(inner, state["acc_grads"],
+                                 state["inner_opt_state"], params, norm_sq)
     return updates, {
         "mini_step": torch.zeros_like(state["mini_step"]),
         "gradient_step": state["gradient_step"] + 1,
@@ -375,16 +375,16 @@ def multi_steps_flush(inner: GradientTransformation, state: Dict[str, Any],
 
 def identity() -> GradientTransformation:
     """optax's ``identity``: updates unchanged, empty state."""
-    return GradientTransformation(lambda params: (),
-                                  lambda updates, state, params=None:
-                                  (updates, state))
+    return GradientTransformation(
+        lambda params: (),
+        lambda updates, state, params=None, norm_sq=None: (updates, state))
 
 
 def set_to_zero() -> GradientTransformation:
     """optax's ``set_to_zero``: every update :func:`known_zeros`, empty
     state."""
 
-    def update(updates, state, params=None):
+    def update(updates, state, params=None, norm_sq=None):
         return tree_map(lambda t: t if is_known_zeros(t) else known_zeros(t),
                         updates), state
 
@@ -411,14 +411,16 @@ def multi_transform(transforms: Dict[str, GradientTransformation],
         return {name: tx.init(_masked(params, labels, name))
                 for name, tx in transforms.items()}
 
-    def update(updates, state, params=None):
+    def update(updates, state, params=None, norm_sq=None):
         labels = param_labels(updates if params is None else params)
         names = list(transforms)
         parts, new_state = [], {}
         for name in names:
-            u, new_state[name] = transforms[name].update(
-                _masked(updates, labels, name), state[name],
-                None if params is None else _masked(params, labels, name))
+            u, new_state[name] = _update(
+                transforms[name], _masked(updates, labels, name),
+                state[name],
+                None if params is None else _masked(params, labels, name),
+                norm_sq)
             parts.append(u)
         return tree_map(lambda lab, *us: us[names.index(lab)], labels,
                         *parts), new_state
@@ -532,9 +534,10 @@ def quantize_opt_state(inner: GradientTransformation, dtype: str,
     def init(params):
         return _map_adam_moments(inner.init(params), store_mu, store_nu)
 
-    def update(updates, state, params=None):
-        new_updates, new_state = inner.update(
-            updates, _map_adam_moments(state, load_mu, load_nu), params)
+    def update(updates, state, params=None, norm_sq=None):
+        new_updates, new_state = _update(
+            inner, updates, _map_adam_moments(state, load_mu, load_nu),
+            params, norm_sq)
         return new_updates, _map_adam_moments(new_state, store_mu, store_nu)
 
     return GradientTransformation(init, update)

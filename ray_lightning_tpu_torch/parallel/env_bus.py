@@ -22,11 +22,20 @@ class EnvKnob(NamedTuple):
 
 
 KNOBS: Tuple[EnvKnob, ...] = (
+    # -- the gradient wire (parallel/grad_sync.py, worker-side) -----------
+    EnvKnob("RLT_GRAD_COMM", True, "grad compression mode (int8_ef/full)"),
+    EnvKnob("RLT_GRAD_BUCKET_MB", True, "all-reduce bucket size"),
+    EnvKnob("RLT_GRAD_BLOCK", True, "int8 quantization block length"),
+    EnvKnob("RLT_GRAD_DCN_ONLY", True, "compress only across processes"),
+    EnvKnob("RLT_GRAD_OVERLAP", True,
+            "backward-overlapped grad sync: trunk segment count G "
+            "(0/empty = step-end sync; parallel/overlap.py)"),
     # -- the fit loop and its telemetry (worker-side) ---------------------
     EnvKnob("RLT_TELEMETRY", True, "telemetry tier: off/cheap"),
     EnvKnob("RLT_TELEMETRY_SAMPLE", True, "step-stats sampling period"),
     EnvKnob("RLT_TELEMETRY_PEAK", True, "device peak for MFU"),
     EnvKnob("RLT_MEGASTEP", True, "fused micro-steps per dispatch"),
+    EnvKnob("RLT_UPDATE_SHARDING", True, "cross-replica sharded update"),
     # -- driver- and process-local knobs ----------------------------------
     EnvKnob("RLT_BACKEND", False, "cluster backend selector (driver)"),
     EnvKnob("RLT_SEGMENT_MIN_BYTES", False, "shm threshold (per process)"),

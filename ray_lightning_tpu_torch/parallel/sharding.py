@@ -14,7 +14,13 @@ that both stages use:
   the params and all-gathers them;
 * stage 3: every rank holds only its slices of the params as well; a
   step all-gathers the full params, runs, reduce-scatters the gradients
-  and updates the slices.
+  and updates the slices;
+* the sharded weight update (``update_sharding``) is stage 1's step;
+* gradients already synced in full (the int8 wire under ZeRO-1 or the
+  sharded update): each rank takes its slices of them
+  (:meth:`ZeroPlan.slice_grads`, no collective), then as stage 1.  The
+  JAX package's ZeRO-1 step likewise shards the int8 island's replicated
+  output for the update.
 
 A rank's slice of a leaf sharded along dim ``d`` is the contiguous run
 ``[rank·c, (rank+1)·c)`` of ``d`` (``c = shape[d] / world``), stored as a
@@ -194,9 +200,22 @@ class ZeroPlan:
             out.append(part if d == 0 else part.movedim(0, d).contiguous())
         return tree_unflatten(grads, out)
 
+    def slice_grads(self, grads: Any) -> Any:
+        """This rank's slices of gradients every rank holds in full,
+        synced already: no collective (a frozen leaf's ``known_zeros``
+        becomes a slice-shaped one)."""
+        leaves = tree_leaves(grads)
+        self._check_len(leaves, "gradient tree")
+        return tree_unflatten(grads, [
+            g if d is None else (
+                known_zeros(g.narrow(d, 0, g.shape[d] // self.world))
+                if is_known_zeros(g) else self._slice(g, d))
+            for g, d in zip(leaves, self.dims)])
+
     def norm_sq(self, leaves: List[torch.Tensor]) -> torch.Tensor:
         """The clip's squared global norm over an update tree of slices
-        (``models.optim.global_norm_reduction``): each leaf's sum of
+        (the ``norm_sq`` a ZeRO step hands ``models.optim``'s
+        transformations): each leaf's sum of
         squares in order, the sharded leaves' summed over the ranks by one
         all-reduce, then added up in leaf order as the one-device clip
         adds them."""

@@ -17,21 +17,23 @@ import torch
 
 from ray_lightning_tpu_torch.core.module import TrainModule, TrainState
 from ray_lightning_tpu_torch.models.optim import (
-    apply_updates, global_norm_reduction, known_zeros, multi_steps_flush,
-    tree_leaves, tree_map,
+    apply_updates, known_zeros, multi_steps_flush, tree_leaves, tree_map,
 )
 
 __all__ = ["loss_and_grads", "single_device_step", "accum_flush",
-           "DistributedStep",
+           "DistributedStep", "build_dist_step",
            "build_eval_step", "build_predict_step",
            "place_batch", "copy_state", "StepRng", "MultiStep",
            "MegastepCaptureError"]
 
 
-def loss_and_grads(module: TrainModule, params: Any, batch: Any, rng
+def loss_and_grads(module: TrainModule, params: Any, batch: Any, rng,
+                   loss_div: int = 1
                    ) -> Tuple[Any, Dict[str, torch.Tensor]]:
     """``(grads, logs)`` of ``module.training_step``: grads in the params'
-    tree, logs detached, with ``loss`` added when the module logs none.
+    tree (of ``loss / loss_div``: the int8 gradient wire's partial, as the
+    JAX island differentiates it), logs detached, with ``loss`` added when
+    the module logs none.
 
     Only the leaves ``module.trainable(params)`` marks (every leaf when it
     returns None) require a gradient, so autograd computes nothing for the
@@ -50,7 +52,8 @@ def loss_and_grads(module: TrainModule, params: Any, batch: Any, rng
         loss, logs = module.training_step(leaves, batch, rng)
         flat = tree_leaves(leaves)
         wanted = [t for t in flat if t.requires_grad]
-        grads = iter(torch.autograd.grad(loss, wanted, allow_unused=True))
+        target = loss if loss_div == 1 else loss / loss_div
+        grads = iter(torch.autograd.grad(target, wanted, allow_unused=True))
     zero = {}
 
     def grad_of(t):
@@ -86,7 +89,7 @@ def accum_flush(state: TrainState, inner_tx) -> TrainState:
         updates, opt_state = multi_steps_flush(inner_tx, state.opt_state,
                                                state.params)
         return TrainState(apply_updates(state.params, updates), opt_state,
-                          state.step + 1)
+                          state.step + 1, state.grad_residual)
 
 
 class DistributedStep:
@@ -94,36 +97,49 @@ class DistributedStep:
     port's counterpart of the JAX step under a mesh, with the gradient
     sync as explicit ``torch.distributed`` collectives on the grad tree.
 
-    The rank's loss and gradients are the mean over its own rows; its
-    logs are averaged over the ranks (``DistContext.mean_logs``) and the
-    module's derived logs taken from those means
+    The rank's logs are averaged over the ranks (``DistContext.mean_logs``)
+    and the module's derived logs taken from those means
     (``TrainModule.derive_logs``), so they read as the JAX step's over the
-    global batch.  Then, by flavor:
+    global batch.  The gradients, by ``sync``:
 
-    * ``zero_plan`` None: ``sync`` (``grad_sync.BucketSync`` for
-      ``RayStrategy``, ``LeafSync`` for ``HorovodRayStrategy``) averages
-      the gradients, and every rank applies the same update to its full
-      state;
-    * a ``sharding.ZeroPlan``: the gradients are reduce-scattered onto
-      this rank's slices, the optimizer updates the slices of its
-      moments and params, with the clip's norm taken over the whole
-      update (``global_norm_reduction``), and stage 1 all-gathers the
-      params; under stage 3 the state holds only the slices and a step
-      all-gathers the full params for its forward first.
+    * a full-width sync (``grad_sync.BucketSync`` for ``RayStrategy``,
+      ``LeafSync`` for ``HorovodRayStrategy``): the gradients of the
+      rank's mean loss, averaged over the ranks;
+    * a ``grad_sync.GradSync`` (the int8 wire): the gradients of
+      ``loss / n`` summed over the ranks (:meth:`GradSync.step`, at the
+      step end or inside the backward), the EF residual threaded through
+      the state (``TrainState.grad_residual``) and the wire's bytes
+      logged as ``grad_sync_bytes`` (the JAX step's log);
+    * none (ZeRO, and the sharded weight update at full width):
+      reduce-scattered onto this rank's slices.
+
+    Then the update: with no ``zero_plan`` every rank applies the same
+    update to its full state; with one (ZeRO, or the sharded weight
+    update) the optimizer updates this rank's slices of its moments and
+    params, the int8 wire's synced gradients sliced
+    (``ZeroPlan.slice_grads``), else the gradients reduce-scattered, the
+    clip's norm taken over the whole update (the
+    plan's ``norm_sq`` handed to the optimizer), and stage 1 all-gathers
+    the params; under stage 3 the state holds only the slices and a step
+    all-gathers the full params for its forward first.  Each micro-step
+    under accumulation is synced, as the JAX island syncs each one.
 
     :meth:`flush` is the partial accumulation window's update
     (:func:`accum_flush`) under the same rule."""
 
     def __init__(self, module: TrainModule, tx, dist, sync=None,
                  zero_plan=None):
-        if (sync is None) == (zero_plan is None):
-            raise ValueError("a DistributedStep takes a gradient sync or a "
-                             "ZeRO plan, one of them")
+        if sync is None and zero_plan is None:
+            raise ValueError("a DistributedStep takes a gradient sync, a "
+                             "ZeRO plan or both")
         self.module = module
         self.tx = tx
         self.dist = dist
         self.sync = sync
         self.plan = zero_plan
+        self._wire = hasattr(sync, "step")
+        self._wire_bytes = (float(sync.bytes_per_step) if self._wire
+                            else None)
 
     def full_params(self, params: Any) -> Any:
         """The full params of a state's: gathered under ZeRO-3 (a
@@ -133,34 +149,76 @@ class DistributedStep:
         return params
 
     def __call__(self, state: TrainState, batch, rng):
-        grads, logs = loss_and_grads(self.module,
-                                     self.full_params(state.params), batch,
-                                     rng)
+        params = self.full_params(state.params)
+        resid = state.grad_residual
+        if self._wire:
+            grads, logs, resid = self.sync.step(params, resid, batch, rng)
+        else:
+            grads, logs = loss_and_grads(self.module, params, batch, rng)
+            if self.sync is not None:
+                grads = self.sync(grads)
         logs = self.module.derive_logs(self.dist.mean_logs(logs))
+        if self._wire:
+            logs["grad_sync_bytes"] = torch.tensor(
+                self._wire_bytes, dtype=torch.float32,
+                device=tree_leaves(params)[0].device)
         if self.plan is None:
-            return state.apply_gradients(self.sync(grads), self.tx), logs
-        gshards = self.plan.reduce_scatter_grads(grads)
+            new = state.apply_gradients(grads, self.tx)
+            new.grad_residual = resid
+            return new, logs
+        gshards = (self.plan.reduce_scatter_grads(grads) if self.sync is None
+                   else self.plan.slice_grads(grads))
         del grads
-        return self._sharded_update(
-            state, lambda opt, pview: self.tx.update(gshards, opt, pview)
-        ), logs
+        new = self._sharded_update(
+            state, lambda opt, pview, norm_sq: self.tx.update(
+                gshards, opt, pview, norm_sq=norm_sq))
+        new.grad_residual = resid
+        return new, logs
 
     def flush(self, state: TrainState, inner_tx) -> TrainState:
         if self.plan is None:
             return accum_flush(state, inner_tx)
-        return self._sharded_update(
-            state, lambda opt, pview: multi_steps_flush(inner_tx, opt, pview))
+        new = self._sharded_update(
+            state, lambda opt, pview, norm_sq: multi_steps_flush(
+                inner_tx, opt, pview, norm_sq=norm_sq))
+        new.grad_residual = state.grad_residual
+        return new
 
     def _sharded_update(self, state: TrainState, update) -> TrainState:
         plan = self.plan
         pview = (state.params if plan.stage == 3
                  else plan.shard_tree(state.params))
-        with torch.no_grad(), global_norm_reduction(plan.norm_sq):
-            updates, opt_state = update(state.opt_state, pview)
+        with torch.no_grad():
+            updates, opt_state = update(state.opt_state, pview, plan.norm_sq)
             new = apply_updates(pview, updates)
             if plan.stage == 1:
                 new = plan.all_gather(new)
         return TrainState(new, opt_state, state.step + 1)
+
+
+def build_dist_step(module: TrainModule, tx, dist, params: Any, mode: str,
+                    zero_stage: int, grad_sync=None,
+                    shard_update: bool = False) -> DistributedStep:
+    """The flavor's :class:`DistributedStep`: under ZeRO (``zero_stage``
+    1 or 3) and for the sharded weight update (``shard_update``, as
+    stage 1) a ``ZeroPlan`` of ``params``, its gradients reduce-scattered
+    or, with the int8 wire (``grad_sync``, whose output every rank holds
+    in full), synced and sliced; else the int8 sync or the flavor's
+    full-width one (bucketed for ``"gspmd"``, a leaf at a time for
+    ``"shard_map"``).  The sharded update at full width is ZeRO-1's
+    step: the JAX package's GSPMD likewise turns its all-reduce into a
+    reduce-scatter."""
+    from ray_lightning_tpu_torch.parallel.grad_sync import BucketSync, LeafSync
+    from ray_lightning_tpu_torch.parallel.sharding import ZeroPlan
+
+    if zero_stage >= 1 or shard_update:
+        return DistributedStep(module, tx, dist, sync=grad_sync,
+                               zero_plan=ZeroPlan(params, zero_stage or 1,
+                                                  dist.rank,
+                                                  dist.world_size))
+    sync = grad_sync or (BucketSync(dist.world_size) if mode == "gspmd"
+                         else LeafSync(dist.world_size))
+    return DistributedStep(module, tx, dist, sync=sync)
 
 
 def build_eval_step(module: TrainModule, kind: str = "validation"

@@ -16,7 +16,8 @@ data-parallel strategies run it on ``num_workers`` worker processes
    telemetry; ``teardown`` kills the workers.
 
 The flavors differ in the gradient sync of their step
-(``parallel/step_fns.py::DistributedStep``):
+(``parallel/step_fns.py::DistributedStep``, built by
+``step_fns.build_dist_step``):
 
 * :class:`RayStrategy` (``mode="gspmd"``): bucketed ``all_reduce``
   (``grad_sync.BucketSync``, the JAX bucket plan);
@@ -24,14 +25,21 @@ The flavors differ in the gradient sync of their step
   leaf (``grad_sync.LeafSync``);
 * :class:`RayShardedStrategy`: ZeRO-1 or ZeRO-3 (``sharding.ZeroPlan``).
 
+The gradient wire's knobs, resolved on the workers against the real
+world as the JAX package resolves them (``core/loop.py::_resolve_comm``):
+``grad_comm`` (the int8 wire with or without error feedback,
+``grad_sync.GradSync``; the Horovod flavor and ZeRO-3 keep full width,
+warned), ``grad_overlap_segments`` (the sync inside the backward,
+``parallel/overlap.py``) and ``update_sharding`` (the sharded weight
+update of the ``RayStrategy`` flavor).
+
 Departures, each raising rather than ignoring: ``backend`` names the
 process group's backend ("nccl", the default for card workers, or
 "gloo", the default for CPU workers; the strategy never switches on its
 own), and NCCL's one rank a card is checked before spawning; the JAX
 ``backend`` (the control plane) is the ``RLT_BACKEND`` variable here,
-"local" only.  Restarts, elastic resizing, the run monitor, the int8 gradient
-wire, update sharding and backward-overlapped syncs are later slices
-(ROADMAP Queue 1 items 2 and 6), as is ``MpmdStrategy`` (item 4).
+"local" only.  Restarts, elastic resizing and the run monitor are later
+slices (ROADMAP Queue 1 items 2 and 6), as is ``MpmdStrategy`` (item 4).
 """
 
 from __future__ import annotations
@@ -49,12 +57,14 @@ from ray_lightning_tpu_torch.cluster import backend as backend_mod
 from ray_lightning_tpu_torch.cluster import rpc
 from ray_lightning_tpu_torch.cluster.actor import ActorDiedError, RemoteError
 from ray_lightning_tpu_torch.core.loop import (
-    FitConfig, _normalize_megastep, run_eval, run_fit, run_predict,
+    FitConfig, _normalize_megastep, _normalize_update_sharding, run_eval,
+    run_fit, run_predict,
 )
 from ray_lightning_tpu_torch.device import resolve_device
 from ray_lightning_tpu_torch.parallel import env_bus
-from ray_lightning_tpu_torch.parallel.grad_sync import resolve_grad_comm
+from ray_lightning_tpu_torch.parallel.grad_sync import GradCommConfig
 from ray_lightning_tpu_torch.parallel.mesh import MeshSpec, build_mesh
+from ray_lightning_tpu_torch.parallel.overlap import normalize_grad_overlap
 from ray_lightning_tpu_torch.telemetry.runtime import TelemetryConfig
 from ray_lightning_tpu_torch.util import process_results
 
@@ -108,25 +118,6 @@ def _place_module(module: Any, device: torch.device) -> None:
         module.device = device
 
 
-def _make_step_builder(task: Dict[str, Any], dist) -> Callable:
-    """``make_step(module, tx, params)`` of the flavor: the loop calls it
-    with the initial params, whose leaves the ZeRO plan is made for."""
-    from ray_lightning_tpu_torch.parallel import grad_sync
-    from ray_lightning_tpu_torch.parallel.sharding import ZeroPlan
-    from ray_lightning_tpu_torch.parallel.step_fns import DistributedStep
-
-    def make(module, tx, params):
-        if task["zero_stage"] >= 1:
-            return DistributedStep(module, tx, dist, zero_plan=ZeroPlan(
-                params, task["zero_stage"], dist.rank, dist.world_size))
-        sync = (grad_sync.BucketSync(dist.world_size)
-                if task["mode"] == "gspmd"
-                else grad_sync.LeafSync(dist.world_size))
-        return DistributedStep(module, tx, dist, sync=sync)
-
-    return make
-
-
 def _execute_remote(task_ref, global_rank: int, queue_handle
                     ) -> Dict[str, Any]:
     """One rank's run of a stage: install the session, resolve the
@@ -157,7 +148,8 @@ def _execute_remote(task_ref, global_rank: int, queue_handle
             out = run_fit(module, task["datamodule"], task["config"],
                           task["callbacks"], device,
                           telemetry=task["telemetry"], dist=dist,
-                          make_step=_make_step_builder(task, dist))
+                          mode=task["mode"], zero_stage=task["zero_stage"],
+                          grad_comm=task["grad_comm"])
         elif kind in ("validation", "test"):
             out = run_eval(module, task["datamodule"], task["config"],
                            task["callbacks"], device, kind,
@@ -194,13 +186,17 @@ class TpuStrategy:
     starts; ``env_per_worker`` and the forwarded ``RLT_*`` knobs
     (``env_bus``) are set in each worker's environment.  ``mesh_axes``:
     ``{"data": n}`` or ``{"fsdp": n}`` (-1 infers) over the ranks.
-    ``telemetry`` and ``megastep`` as ``LocalStrategy``'s; ``grad_comm``
-    full width only.  The JAX arguments of later slices raise when set
-    away from their defaults: ``max_restarts`` and the restart governance
-    (``restart_every_n_epochs``, ``restart_window_s``,
-    ``restart_backoff_s``, ``restart_backoff_max_s``), the ``elastic_*``
-    arguments, ``monitor``, ``update_sharding`` other than None/"off",
-    ``grad_overlap_segments``."""
+    ``telemetry`` and ``megastep`` as ``LocalStrategy``'s.  ``grad_comm``
+    (None: ``RLT_GRAD_COMM``, else full width; ``"int8"``, ``"int8_ef"``,
+    a dict or a ``GradCommConfig``), ``update_sharding`` (None, "auto",
+    "on", "off") and ``grad_overlap_segments`` (None, "off", G) are
+    validated here and resolved on the workers; the last two fill the
+    Trainer's when that leaves them None.  The JAX arguments of later
+    slices raise when set away from their defaults: ``max_restarts`` and
+    the restart governance (``restart_every_n_epochs``,
+    ``restart_window_s``, ``restart_backoff_s``,
+    ``restart_backoff_max_s``), the ``elastic_*`` arguments and
+    ``monitor``."""
 
     mode: str = "gspmd"
     zero_stage: int = 0
@@ -271,20 +267,20 @@ class TpuStrategy:
                                     "item 2"),
             "monitor": (monitor, monitor is not None,
                         "the run monitor, ROADMAP Queue 1 item 6"),
-            "update_sharding": (update_sharding,
-                                update_sharding not in (None, "off"),
-                                "update sharding, ROADMAP Queue 1 item 2"),
-            "grad_overlap_segments": (grad_overlap_segments,
-                                      grad_overlap_segments not in (None,
-                                                                    0),
-                                      "parallel/overlap.py, ROADMAP Queue "
-                                      "1 item 2"),
         }
         for name, (value, set_, where) in later.items():
             if set_:
                 raise NotImplementedError(
                     f"{name}={value!r} is not ported yet ({where})")
-        resolve_grad_comm(grad_comm)
+        # Validated here, so a typo fails at construction, not on a
+        # worker; resolved against the real world on the workers.
+        if grad_comm is not None:
+            grad_comm = GradCommConfig.coerce(grad_comm)
+        self.grad_comm = grad_comm
+        _normalize_update_sharding(update_sharding)
+        self.update_sharding = update_sharding
+        normalize_grad_overlap(grad_overlap_segments)
+        self.grad_overlap_segments = grad_overlap_segments
         _check_mode(self.mode, self.zero_stage)
         if telemetry is not None:
             telemetry = TelemetryConfig.coerce(telemetry)
@@ -377,8 +373,7 @@ class TpuStrategy:
         ``kind``, in rank order."""
         if not self._workers:
             raise RuntimeError("setup() must run first")
-        if config.megastep is None and self.megastep is not None:
-            config = dataclasses.replace(config, megastep=self.megastep)
+        config = _fill_config(config, self)
         # A module that ran a fit here still points at that fit's loop
         # context (threads, locks): ship a copy without it.
         module = copy.copy(module)
@@ -389,7 +384,8 @@ class TpuStrategy:
             "world_size": self.num_workers,
             "coordinator": self._broker_coordinator(),
             "mesh_axes": self.mesh_axes, "mode": self.mode,
-            "zero_stage": self.zero_stage, "telemetry": self.telemetry,
+            "zero_stage": self.zero_stage, "grad_comm": self.grad_comm,
+            "telemetry": self.telemetry,
             "device": self.device, "backend": self.backend,
             "timeout_s": self.timeout_s, "params": params,
             "ckpt_path": ckpt_path,
@@ -428,6 +424,17 @@ class TpuStrategy:
         return [w.get_device_info() for w in self._workers]
 
 
+def _fill_config(config: FitConfig, strategy) -> FitConfig:
+    """The strategy's ``megastep``, ``update_sharding`` and
+    ``grad_overlap_segments`` where the Trainer's config leaves them None
+    (an explicit Trainer knob wins)."""
+    for name in ("megastep", "update_sharding", "grad_overlap_segments"):
+        value = getattr(strategy, name)
+        if getattr(config, name) is None and value is not None:
+            config = dataclasses.replace(config, **{name: value})
+    return config
+
+
 class LocalStrategy:
     """Run the fit in this process on ``device`` (``None`` means
     ``"cuda"``, and raises without a card; pass ``"cpu"`` for the plain
@@ -439,10 +446,16 @@ class LocalStrategy:
     slice).  ``megastep``: K micro-steps a dispatch (``"auto"``, ``"off"``
     or an int); it fills the Trainer's when that is unset.  ``mode`` and
     ``zero_stage`` are the JAX ``LocalStrategy``'s; on one device they
-    change nothing, but they are checked."""
+    change nothing, but they are checked.  ``grad_comm``,
+    ``update_sharding`` and ``grad_overlap_segments`` are checked as the
+    data-parallel strategies check them; on one device they resolve as
+    the JAX rule does for one: full width, a replicated update
+    (``update_sharding="on"`` warns), and the trunk cut G ways when G is
+    set."""
 
     def __init__(self, device=None, telemetry=None, megastep=None,
-                 mode: str = "gspmd", zero_stage: int = 0):
+                 mode: str = "gspmd", zero_stage: int = 0, grad_comm=None,
+                 update_sharding=None, grad_overlap_segments=None):
         if telemetry is not None:
             telemetry = TelemetryConfig.coerce(telemetry)
         self.telemetry = telemetry
@@ -451,6 +464,13 @@ class LocalStrategy:
         _check_mode(mode, zero_stage)
         self.mode = mode
         self.zero_stage = zero_stage
+        if grad_comm is not None:
+            grad_comm = GradCommConfig.coerce(grad_comm)
+        self.grad_comm = grad_comm
+        _normalize_update_sharding(update_sharding)
+        self.update_sharding = update_sharding
+        normalize_grad_overlap(grad_overlap_segments)
+        self.grad_overlap_segments = grad_overlap_segments
         self.device = resolve_device(device)
 
     def setup(self, trainer=None) -> None:
@@ -465,11 +485,12 @@ class LocalStrategy:
         """Run stage ``kind`` ("fit", "validation", "test" or "predict")
         here; the eval stages take ``params`` (a fitted state's, handed
         over as they are) or ``ckpt_path``."""
-        if config.megastep is None and self.megastep is not None:
-            config = dataclasses.replace(config, megastep=self.megastep)
+        config = _fill_config(config, self)
         if kind == "fit":
             return run_fit(module, datamodule, config, callbacks,
-                           self.device, telemetry=self.telemetry)
+                           self.device, telemetry=self.telemetry,
+                           mode=self.mode, zero_stage=self.zero_stage,
+                           grad_comm=self.grad_comm)
         if kind in ("validation", "test"):
             return run_eval(module, datamodule, config, callbacks,
                             self.device, kind, params, ckpt_path)
@@ -482,7 +503,8 @@ class LocalStrategy:
 
 class RayStrategy(TpuStrategy):
     """Data parallel over worker processes (≙ ``RayPlugin``): bucketed
-    ``all_reduce`` of the gradients (``grad_sync.BucketSync``)."""
+    ``all_reduce`` of the gradients (``grad_sync.BucketSync``), or the
+    int8 wire (``grad_comm``); ``update_sharding`` shards the update."""
 
     mode = "gspmd"
     zero_stage = 0

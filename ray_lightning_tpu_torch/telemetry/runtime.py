@@ -101,6 +101,10 @@ class Telemetry:
         if self.enabled:
             self.counters[name] = self.counters.get(name, 0) + value
 
+    def set_counter(self, name: str, value: float) -> None:
+        if self.enabled:
+            self.counters[name] = value
+
     def set_meta(self, name: str, value: Any) -> None:
         if self.enabled:
             self.meta[name] = value

@@ -316,3 +316,18 @@ def test_dist_faults_apply_once_and_name_phase15_arms(scripts):
         text = (ROOT / "ray_lightning_tpu_torch" / path).read_text()
         assert text.count(old) == 1 and old != new, name
         assert arms and set(arms) <= set(chip_smoke.P15_ARMS), name
+
+
+def test_grad_wire_faults_apply_once_and_name_phase16_arms(scripts):
+    """Step 14 writes each fault into a copy of the port: each of its
+    texts occurs once in the checkout's file, and the arms it runs are
+    phase 16's."""
+    cf = scripts[0]
+    import chip_smoke
+
+    assert len(cf.GRAD_WIRE_FAULTS) == 7
+    for name, (path, subs, arms) in cf.GRAD_WIRE_FAULTS.items():
+        text = (ROOT / "ray_lightning_tpu_torch" / path).read_text()
+        for old, new in subs:
+            assert text.count(old) == 1 and old != new, name
+        assert arms and set(arms) <= set(chip_smoke.P16_ARMS), name

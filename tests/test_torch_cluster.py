@@ -195,7 +195,9 @@ def test_env_bus_registers_every_knob_the_port_reads(monkeypatch):
         env_bus.registered_names())
     assert set(env_bus.forwarded_vars()) == {
         "RLT_TELEMETRY", "RLT_TELEMETRY_SAMPLE", "RLT_TELEMETRY_PEAK",
-        "RLT_MEGASTEP"}
+        "RLT_MEGASTEP", "RLT_GRAD_COMM", "RLT_GRAD_BUCKET_MB",
+        "RLT_GRAD_BLOCK", "RLT_GRAD_DCN_ONLY", "RLT_GRAD_OVERLAP",
+        "RLT_UPDATE_SHARDING"}
     monkeypatch.setenv("RLT_MEGASTEP", "off")
     monkeypatch.setenv("RLT_BACKEND", "local")
     s = RayStrategy(num_workers=1, device="cpu",

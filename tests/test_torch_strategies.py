@@ -80,6 +80,9 @@ LIMIT_S = 300
 
 FLAVORS = {
     "ray": (RayStrategy, {}, "gspmd", 0),
+    # The sharded weight update: ZeRO-1's step (the gradients
+    # reduce-scattered, the moments and the update sliced over the ranks).
+    "ray_update": (RayStrategy, {"update_sharding": "on"}, "gspmd", 0),
     "horovod": (HorovodRayStrategy, {}, "shard_map", 0),
     "zero1": (RayShardedStrategy, {"zero_stage": 1}, "gspmd", 1),
     "zero3": (RayShardedStrategy, {"zero_stage": 3}, "gspmd", 3),
@@ -177,14 +180,15 @@ def _port_fit(world, strategy, callbacks=(), root=".", ckpt=False):
     return tr, log.losses
 
 
-def _jax_fit(world, mode, zero_stage, root):
-    key = (mode, zero_stage)
+def _jax_fit(world, mode, zero_stage, root, update_sharding=None):
+    key = (mode, zero_stage, update_sharding)
     if key not in world["jax"]:
         m = JaxScaledGPT(JaxGPTConfig(**CFG))
         m.initial_params = world["tree"]
         log = JaxLossLog()
-        tr = JaxTrainer(strategy=JaxLocalStrategy(mode=mode,
-                                                  zero_stage=zero_stage),
+        tr = JaxTrainer(strategy=JaxLocalStrategy(
+                            mode=mode, zero_stage=zero_stage,
+                            update_sharding=update_sharding),
                         max_steps=STEPS, limit_val_batches=1,
                         callbacks=[log], enable_checkpointing=False,
                         log_every_n_steps=1, default_root_dir=str(root))
@@ -221,7 +225,10 @@ def test_two_rank_fit_matches_jax_and_one_rank(flavor, world, tmp_path,
     (``RankProbe``); under ZeRO each rank holds its slices (1/2 of every
     sharded leaf of the moments, and of the params under stage 3); the
     default checkpoint of the ZeRO-3 fit, read by the JAX package's
-    reader, is bitwise the gathered state the trainer adopted."""
+    reader, is bitwise the gathered state the trainer adopted.  The
+    sharded weight update (``update_sharding="on"``) is held against the
+    JAX ``LocalStrategy(update_sharding="on")`` and, like ZeRO-1, holds
+    half of every sharded moment leaf."""
     cls, kw, mode, zero = FLAVORS[flavor]
     probe_dir = tmp_path / "probe"
     probe_dir.mkdir()
@@ -231,7 +238,8 @@ def test_two_rank_fit_matches_jax_and_one_rank(flavor, world, tmp_path,
                    init_hook=functools.partial(write_marker, str(hook_dir)))
     tr, losses = _port_fit(world, strategy, [RankProbe(str(probe_dir))],
                            root=tmp_path, ckpt=(flavor == "zero3"))
-    jparams, jlosses, jmetrics = _jax_fit(world, mode, zero, tmp_path)
+    jparams, jlosses, jmetrics = _jax_fit(world, mode, zero, tmp_path,
+                                          kw.get("update_sharding"))
     one, one_losses = _one_rank_fit(world, mode, zero)
 
     assert tr.global_step == one.global_step == STEPS
@@ -280,7 +288,7 @@ def test_two_rank_fit_matches_jax_and_one_rank(flavor, world, tmp_path,
         moments = [np.prod(s) for s in records[rank]["opt"]]
         one_moments = [int(t.numel())
                        for t in tree_leaves(one.state.opt_state)]
-        if zero:
+        if zero or flavor == "ray_update":
             assert sum(moments) < 0.6 * sum(one_moments)
         else:
             assert moments == one_moments
@@ -509,10 +517,6 @@ def test_zero_stage_two_warns_with_the_jax_words():
     ({"elastic_grow_after_s": 1.0}, "item 2"),
     ({"elastic_capacity_fn": lambda: 1}, "item 2"),
     ({"monitor": {"hang_intervals": 2}}, "item 6"),
-    ({"update_sharding": "on"}, "item 2"),
-    ({"grad_overlap_segments": 2}, "item 2"),
-    ({"grad_comm": "int8_ef"}, "item 2"),
-    ({"grad_comm": {"mode": "int8"}}, "item 2"),
     ({"RLT_BACKEND": "ray"}, "item 6"),
 ])
 def test_later_slices_raise_naming_roadmap(kwargs, where, monkeypatch):
@@ -527,6 +531,48 @@ def test_later_slices_raise_naming_roadmap(kwargs, where, monkeypatch):
                 restart_window_s=3600, restart_backoff_s=1,
                 restart_backoff_max_s=60, update_sharding="off",
                 grad_overlap_segments=None, grad_comm="full", **WORKER)
+
+
+@pytest.mark.parametrize("kwargs", [
+    {"update_sharding": "on"},
+    {"grad_overlap_segments": 2},
+    {"grad_comm": "int8_ef"},
+    {"grad_comm": {"mode": "int8"}},
+])
+def test_wire_knobs_are_accepted_and_resolve_as_jax(kwargs):
+    """The gradient wire's knobs (once raising as later slices) are taken
+    by every strategy and the Trainer, validated as the JAX package
+    validates them, and handed to the fit as it hands them."""
+    from ray_lightning_tpu.core import loop as jax_loop
+    from ray_lightning_tpu.parallel import overlap as jax_overlap
+    from ray_lightning_tpu_torch.core import loop
+    from ray_lightning_tpu_torch.parallel import overlap
+
+    (name, value), = kwargs.items()
+    for cls, kw in ((RayStrategy, {}), (HorovodRayStrategy, {}),
+                    (RayShardedStrategy, {"zero_stage": 1})):
+        s = cls(num_workers=2, **kw, **WORKER, **kwargs)
+        got = getattr(s, name)
+        if name == "grad_comm":
+            assert dataclasses.asdict(got) == dataclasses.asdict(
+                jax_grad_sync.GradCommConfig.coerce(value))
+        else:
+            assert got == value
+    local = LocalStrategy(device="cpu", **kwargs)
+    if name == "update_sharding":
+        assert loop._normalize_update_sharding(value) == \
+            jax_loop._normalize_update_sharding(value)
+        tr = Trainer(local, update_sharding=value, enable_checkpointing=False)
+        assert tr.config.update_sharding == value
+    elif name == "grad_overlap_segments":
+        assert overlap.normalize_grad_overlap(value) == \
+            jax_overlap.normalize_grad_overlap(value)
+        tr = Trainer(local, grad_overlap_segments=value,
+                     enable_checkpointing=False)
+        assert tr.config.grad_overlap_segments == value
+    else:
+        assert local.grad_comm.mode == jax_grad_sync.GradCommConfig.coerce(
+            value).mode
 
 
 def test_backend_is_explicit_and_nccl_ranks_fit_the_cards(monkeypatch):
