@@ -153,8 +153,22 @@ last column of a ragged chunk of k dropped, the d tail past the last
    ``int8_ef`` fit, through its ``WireProbe``) must fail on each, as the
    entry names.
 
+15. restarts (``RESTART_FAULTS``, ``restart_step``): for the correct code,
+   which must pass, ``torch_dist_helpers.restart_unit_checks`` (one
+   process, no card) and phase 17 (``chip_smoke.py --phase17``); then six
+   faults planted in a copy of the port as step 13 plants them, each of
+   which the check its entry names must fail: META written before the
+   barrier (``write_order``), restart discovery that does not verify, so
+   a newest checkpoint with a flipped shard byte is resumed instead of
+   walked past (``walk_back``), the selective reader off by one rank's
+   slice (``selective_slices``, and phase 17 (a)'s bitwise gate), accum
+   not re-derived at N -> M (``accum_rederived``, and phase 17 (c)),
+   failures counted outside ``restart_window_s`` (``window``), and the
+   error-feedback residual kept across a world change (``ef_dropped``).
+
 ``python3 chip_faults.py --only 12`` builds the kernels and runs step 12
-alone; ``--only 13`` and ``--only 14`` run step 13 or 14 alone.
+alone; ``--only 13``, ``--only 14`` and ``--only 15`` run that step
+alone.
 
 The wrappers are routed to a faulty library by replacing the cached ctypes
 functions of ``ops/_build.py``.  Exits 1 if a correct kernel fails a
@@ -1073,9 +1087,9 @@ DIST_FAULTS = {
         ("b_zero1",)),
     "zero_replicated_unsynced": (
         "parallel/sharding.py",
-        "                dist.all_reduce(g, op=dist.ReduceOp.SUM)\n"
-        "                out.append(g.div_(self.world))\n",
-        "                out.append(g)\n", ("b_zero1",)),
+        "            synced = sync_leaf_buckets([leaves[i] for i in repl],\n"
+        "                                       repl_buckets, self.world)\n",
+        "            synced = [leaves[i] for i in repl]\n", ("b_zero1",)),
     "clip_local_norm": (
         "parallel/sharding.py",
         "            dist.all_reduce(stacked, op=dist.ReduceOp.SUM)\n", "",
@@ -1252,6 +1266,106 @@ def grad_wire_step(summary, failures):
             failures.append(f"step 14 fault {name} not caught by phase 16")
 
 
+# name -> (file under ray_lightning_tpu_torch/, its (correct text, faulty
+# text) pairs, the unit check of ``torch_dist_helpers.restart_unit_checks``
+# that must turn False, whether phase 17 must fail too).
+RESTART_FAULTS = {
+    "meta_before_barrier": (
+        "core/loop.py", [
+            ("    sharded_ckpt.save_shard(tree, tag, rank, world)\n"
+             "    if ctx.dist is not None:\n"
+             "        ctx.dist.barrier()\n",
+             "    sharded_ckpt.save_shard(tree, tag, rank, world)\n"),
+            ("        _prune_restart_dir(config.restart_dir, keep=2)\n",
+             "        _prune_restart_dir(config.restart_dir, keep=2)\n"
+             "    if ctx.dist is not None:\n"
+             "        ctx.dist.barrier()\n")],
+        "write_order", False),
+    "discovery_unverified": (
+        "parallel/strategies.py", [
+            ("        problems = verify_checkpoint(path)\n",
+             "        problems = []\n")],
+        "walk_back", False),
+    "selective_off_by_one_rank": (
+        "utils/sharded_ckpt.py", [
+            ("    if isinstance(target, Shard) and target.shape == shape:\n"
+             "        return target.index\n",
+             "    if isinstance(target, Shard) and target.shape == shape:\n"
+             "        return tuple((b % s, b % s + b - a) if b - a < s "
+             "else (a, b)\n"
+             "                     for (a, b), s in zip(target.index, "
+             "shape))\n")],
+        "selective_slices", True),
+    "accum_not_rederived": (
+        "core/loop.py", [
+            ("    if resize_info is not None:\n"
+             "        accum = resize_info[\"accum\"]\n", "")],
+        "accum_rederived", True),
+    "window_ignored": (
+        "parallel/strategies.py", [
+            ("        fail_times[:] = [t for t in fail_times\n"
+             "                         if now - t <= "
+             "self.restart_window_s]\n", "")],
+        "window", False),
+    "ef_residual_kept": (
+        "core/loop.py", [
+            ("        elif resid.dim() == 2 and tuple(resid.shape[:1]) == "
+             "(world,) \\\n"
+             "                and recorded_world == world:\n",
+             "        elif resid.dim() == 2 and resid.shape[0] > "
+             "ctx.global_rank:\n")],
+        "ef_dropped", False),
+}
+
+
+def restart_unit_run(root):
+    """``torch_dist_helpers.restart_unit_checks`` of the port under
+    ``root``, in a process of its own: {check: passed}."""
+    code = ("import json, sys, tempfile; "
+            f"sys.path[:0] = [{root!r}, {os.path.join(root, 'tests')!r}]; "
+            "import torch; torch.set_num_threads(4); "
+            "import torch_dist_helpers as h; "
+            "print(json.dumps(h.restart_unit_checks(tempfile.mkdtemp())))")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=600, cwd=root)
+    if proc.returncode != 0:
+        return {"error": proc.stderr.strip().splitlines()[-1:]}
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def restart_step(summary, failures):
+    """Step 15: the unit checks and phase 17 correct, then each of
+    ``RESTART_FAULTS`` from a copy of the port with the fault written in
+    (:func:`faulty_copy`): its unit check must fail, and phase 17 where
+    the entry says so."""
+    root = os.path.dirname(os.path.abspath(cs.__file__))
+    summary["restart"] = {}
+    checks = restart_unit_run(root)
+    ok = bool(checks) and all(v is True for v in checks.values())
+    print(f"step 15 correct unit checks: {checks}")
+    rc, why = phase15_run(root, [], phase=17)
+    print(f"step 15 correct phase 17: "
+          f"{'ok' if rc == 0 else 'FAILED: ' + why}")
+    summary["restart"]["correct"] = ok and rc == 0
+    if not (ok and rc == 0):
+        failures.append("correct step 15 failed")
+    for name, (path, subs, check_name, phase17) in RESTART_FAULTS.items():
+        with faulty_copy(root, path, subs, 15) as tmp:
+            got = restart_unit_run(tmp)
+            unit = got.get(check_name) is False
+            caught = {"unit": unit}
+            if phase17:
+                rc, why = phase15_run(tmp, [], phase=17)
+                caught["phase17"] = rc != 0
+        verdict = ", ".join(f"{k} {'caught' if v else 'NOT caught'}"
+                            for k, v in caught.items())
+        print(f"step 15 fault {name}: {check_name} {got.get(check_name)} "
+              f"({verdict}){'; ' + why[:300] if phase17 else ''}")
+        summary["restart"][name] = all(caught.values())
+        if not all(caught.values()):
+            failures.append(f"step 15 fault {name} not caught: {caught}")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1270,13 +1384,14 @@ def main() -> int:
     print(card)
     torch.backends.cuda.matmul.allow_tf32 = False
     failures = []
-    if sys.argv[1:3] in (["--only", "13"], ["--only", "14"]):
+    if sys.argv[1:3] in (["--only", "13"], ["--only", "14"],
+                         ["--only", "15"]):
         with ThreadPoolExecutor(4) as pool:
             list(pool.map(_build.build, ("flash_attention", "layer_norm",
                                          "cross_entropy", "bgmv")))
         summary = {}
-        (dist_step if sys.argv[2] == "13" else grad_wire_step)(summary,
-                                                               failures)
+        {"13": dist_step, "14": grad_wire_step,
+         "15": restart_step}[sys.argv[2]](summary, failures)
         for f in failures:
             print(f"chip_faults: FAILED: {f}")
         print(card)
@@ -1619,6 +1734,9 @@ def main() -> int:
 
         # 14. the data-parallel gradient wire
         grad_wire_step(summary, failures)
+
+        # 15. restarts
+        restart_step(summary, failures)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for f in failures:

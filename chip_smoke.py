@@ -98,7 +98,8 @@ under ``remat_policy="dots+flash"``), counted per step.  Phases:
    except at a top-2 logit gap < 1e-4); the checkpoint's host copy,
    encode, write and read + restore times and validate/predict ms a
    batch;
-11. the rest of the Trainer surface (``phase_lora_and_opt_state``): (a) a
+11. the rest of the Trainer surface (``phase_lora_and_opt_state``; its
+   fits at ``P11_LAYERS`` layers of GPT-2-small's width): (a) a
    LoRA fine-tune of GPT-2-small (rank 16, lr 1e-3, warmup 0, random base
    from seed 0, ``add_lora_adapters``) at 16 x 1024 bf16 in the headline
    configuration, ``megastep="auto"``, 48 steps (``lora_check``): the base
@@ -190,8 +191,8 @@ under ``remat_policy="dots+flash"``), counted per step.  Phases:
    one bf16 step of the top logit, ``bf16_ulp``).
 
 15. multi-GPU training (``phase_multi_gpu``, ``chip_smoke.py --phase15``
-   in a process of its own): the trainer cell (warmup cut to one step)
-   under ``RayStrategy``, ``HorovodRayStrategy`` and
+   in a process of its own): the trainer cell (warmup cut to one step,
+   GPT-2-small's width at ``P15_LAYERS`` layers) under ``RayStrategy``, ``HorovodRayStrategy`` and
    ``RayShardedStrategy`` ZeRO-1 and ZeRO-3: (a) one rank over NCCL, 8
    steps, bitwise against ``LocalStrategy``; (b) two ranks sharing the
    card over gloo, 3 steps, against ``LocalStrategy`` on the same global
@@ -202,7 +203,8 @@ under ``remat_policy="dots+flash"``), counted per step.  Phases:
    which NCCL refuses;
 16. the data-parallel gradient wire (``phase_grad_wire``, ``chip_smoke.py
    --phase16`` in a process of its own): two ranks sharing the card over
-   gloo, GPT-2-small at full width, bf16, 3 steps on one global batch:
+   gloo, GPT-2-small's width at ``P15_LAYERS`` layers, bf16, 3 steps on
+   one global batch:
    (a) full width (the reference), (b) ``grad_comm="int8"``, (c)
    ``"int8_ef"``, (d) ``"int8_ef"`` with ``grad_overlap_segments=2``, (e)
    ``RayShardedStrategy(zero_stage=1, grad_comm="int8_ef")``, (f)
@@ -215,7 +217,18 @@ under ``remat_policy="dots+flash"``), counted per step.  Phases:
    sync at one rank over NCCL on its side stream, at GPT-2-small's
    overlap plan, bitwise against ``int8_all_reduce_reference``; (h) the
    CPU wire checks of ``tests/test_torch_grad_comm.py`` on three CPU
-   ranks, then two (``torch_dist_helpers.wire_rank``).
+   ranks, then two (``torch_dist_helpers.wire_rank``);
+17. restarts (``phase_restarts``, ``chip_smoke.py --phase17`` in a process
+   of its own): GPT-2-small at full width, bf16: (a) a ZeRO-3 fit on two
+   gloo ranks sharing the card with ``max_restarts=1``, rank 1 killed at
+   epoch 1, bitwise an uninterrupted fit from the same call (losses,
+   params, moments), one restart, the seconds to recover; (b) each rank's
+   restart file under 0.75 of the two, each resumed rank's selective read
+   about half the checkpoint, the full reassembly bitwise the gathered
+   state; (c) the uninterrupted fit's oldest kept checkpoint resumed on
+   one NCCL rank (accum 1 -> 2, the resize warned and counted), and an
+   ``int8_ef`` two-rank checkpoint resumed at one rank dropping its
+   residual loudly.
 
 Any failure raises: the script exits non-zero and prints no result.  The
 line before the last is the kernels' JSON record; the last line is
@@ -2770,6 +2783,10 @@ LORA_RANK = 16               # the server cell's tenant rank
 LORA_KW = {"lora_rank": LORA_RANK, "lr": 1e-3, "warmup_steps": 0}
 # 6 strides of MEGASTEP_K: the eager one, the capture, 4 replays (timed).
 LORA_STEPS = 48
+# Phase 11's fits (the LoRA fine-tune, the optimizer-state arms and the
+# int8 resume) at GPT-2-small's width and this depth: the script's time
+# limit is shared by every phase.
+P11_LAYERS = 6
 OPT_DTYPES = (None, "bfloat16", "int8")
 # The int8 and bf16 arms' final losses against the default policy's
 # (JAX tests/test_opt_state.py::test_int8_fit_loss_parity_vs_f32).
@@ -3486,11 +3503,12 @@ def phase_lora_and_opt_state(torch, np, card):
     )
 
     result = {}
-    print(f"phase 11a: LoRA fine-tune of GPT-2-small (rank {LORA_RANK}, "
+    print(f"phase 11a: LoRA fine-tune of GPT-2-small's width at "
+          f"{P11_LAYERS} layers (rank {LORA_RANK}, "
           f"alpha 16, lr 1e-3, warmup 0), base random from seed {SEED}, "
           f"batch {TRAIN_B} x {TRAIN_T}, bf16, remat 'dots+flash', "
           f"megastep 'auto' ({MEGASTEP_K}), {LORA_STEPS} steps")
-    a, tr, cfg = lora_check(torch, card)
+    a, tr, cfg = lora_check(torch, card, n_layer=P11_LAYERS)
     flops = model_flops_per_token(cfg, "full")
     tokens_s = TRAIN_B * TRAIN_T / (a["ms_per_step"] / 1e3)
     a.update(tokens_per_s=tokens_s, mfu=tokens_s * flops / 989.4e12)
@@ -3526,9 +3544,10 @@ def phase_lora_and_opt_state(torch, np, card):
     result["a_parity"] = lora_parity(torch, card)
     check(result["a_parity"]["ok"], "phase 11a: the f32 LoRA parity")
 
-    print(f"phase 11c: the headline arm under opt_state_dtype in "
+    print(f"phase 11c: the headline arm at {P11_LAYERS} layers under "
+          f"opt_state_dtype in "
           f"{OPT_DTYPES}, captured, {LORA_STEPS} steps")
-    c, states = opt_state_arms(torch, card)
+    c, states = opt_state_arms(torch, card, n_layer=P11_LAYERS)
     for label in ("default", "bfloat16", "int8"):
         r = c[label]
         print(f"phase 11c {label}: {r['ms_per_step']:.2f} ms/step (windows "
@@ -3542,7 +3561,8 @@ def phase_lora_and_opt_state(torch, np, card):
                  f"tol {OPT_LOSS_REL})" if label != "default" else "")
               + f"; {card}")
     check(c["ok"], "phase 11c: the optimizer-state policies' gates")
-    c["resume"] = int8_resume_check(torch, card, states)
+    c["resume"] = int8_resume_check(torch, card, states,
+                                    n_layer=P11_LAYERS)
     del states
     gc.collect()
     torch.cuda.empty_cache()
@@ -5474,6 +5494,11 @@ def ce_occupancy(torch, card):
 # -- phase 15: multi-GPU training --------------------------------------------
 
 P15_FLAVORS = ("ray", "horovod", "zero1", "zero3")
+# Phases 15 and 16 train GPT-2-small's width at this depth: the script's
+# time limit is shared by every phase (phase 17, this slice's path, keeps
+# all 12 layers), and a rank's collectives, memory and launches scale
+# with the layers they hold against one rank at the same depth.
+P15_LAYERS = 4
 P15_STEPS_A, P15_STEPS_B = 8, 3
 # Per-step losses of a two-rank gloo arm against the one-device fit on the
 # same global batch: the first step's forward sees the same params, and
@@ -5662,9 +5687,10 @@ def phase15_main(arms=P15_ARMS) -> int:
     t_start = time.perf_counter()
     card = card_line()
     root = tempfile.mkdtemp(prefix="rlt-p15-")
-    # The trainer cell, its warmup cut to one step so that steps 2 and 3
-    # train at the full learning rate.
-    cfg = dataclasses.replace(GPTConfig.gpt2_small(), warmup_steps=1)
+    # The trainer cell at P15_LAYERS, its warmup cut to one step so that
+    # steps 2 and 3 train at the full learning rate.
+    cfg = dataclasses.replace(GPTConfig.gpt2_small(), warmup_steps=1,
+                              n_layer=P15_LAYERS)
     clip_cfg = GPTConfig(vocab_size=256, n_layer=2, n_head=4, d_model=64,
                          seq_len=32, warmup_steps=2, mu_dtype="float32")
     clip_data = helpers.scaled_batches(256, 32, 8, 3, seed=5)
@@ -5805,6 +5831,7 @@ def phase15_main(arms=P15_ARMS) -> int:
             same = r0["losses"] == local["losses"]
             res["bitwise"] = same and not differ
             print(f"phase 15 (a) {flavor}: 1 rank over NCCL, "
+                  f"{cfg.n_layer} layers, "
                   f"{st['steps']} steps: params {len(ref) - len(differ)}/"
                   f"{len(ref)} leaves bitwise equal to LocalStrategy's, "
                   f"losses {'bitwise equal' if same else 'differ'}; "
@@ -5836,7 +5863,8 @@ def phase15_main(arms=P15_ARMS) -> int:
         res.update({"loss_diffs": diffs, "param_measures": worst,
                     "model_frob": model_frob, "vector_updates": updates})
         print(f"phase 15 (b) {flavor}: 2 ranks sharing the card over gloo "
-              f"(through host memory, not NCCL), update sharding "
+              f"(through host memory, not NCCL), {cfg.n_layer} layers, "
+              f"update sharding "
               f"{res['update_sharding']}, 8 x 1024 rows a rank, "
               f"{st['steps']} steps: losses {r0['losses']} (diffs "
               f"{', '.join(f'{d:.2e}' for d in diffs)}; tolerances "
@@ -6132,7 +6160,8 @@ def phase16_main(arms=P16_ARMS) -> int:
     t_start = time.perf_counter()
     card = card_line()
     root = tempfile.mkdtemp(prefix="rlt-p16-")
-    cfg = dataclasses.replace(GPTConfig.gpt2_small(), warmup_steps=1)
+    cfg = dataclasses.replace(GPTConfig.gpt2_small(), warmup_steps=1,
+                              n_layer=P15_LAYERS)
     out = {"card": card, "fits": {}}
     strategies = {}
     for label in fits:
@@ -6201,7 +6230,8 @@ def phase16_main(arms=P16_ARMS) -> int:
         wire = stats.get("grad_sync_mode", "full")
         ratio = stats.get("grad_sync_compression_ratio")
         print(f"phase 16 ({label[0]}) {label}: 2 ranks sharing the card "
-              f"over gloo, GPT-2-small bf16, 8 x 1024 rows a rank, "
+              f"over gloo, GPT-2-small's width at {cfg.n_layer} layers, "
+              f"bf16, 8 x 1024 rows a rank, "
               f"{P16_STEPS} steps: wire {wire}, update sharding "
               f"{res['update_sharding']}, overlap segments "
               f"{res['grad_overlap_segments']}; losses {losses} (diffs "
@@ -6282,6 +6312,320 @@ def phase_grad_wire(card):
     return result
 
 
+# -- phase 17: restarts on the card -------------------------------------------
+
+P17_EPOCHS, P17_PER_EPOCH = 3, 2
+# (b): each rank's shard file against the two together (the JAX
+# multi-worker test's bound), and each rank's selective read of the
+# checkpoint it resumed against that checkpoint's shard files.
+P17_FILE_SHARE = 0.75
+P17_READ_SHARE = (0.4, 0.6)
+
+
+def p17_fit(strategy, cfg, root, label, epochs=P17_EPOCHS,
+            per_epoch=P17_PER_EPOCH, callbacks=(), device="cuda",
+            **trainer_kw):
+    """A Trainer fit of GPT-2-small (the headline kernels, bf16) through
+    ``strategy``, ``per_epoch`` batches of TRAIN_B x TRAIN_T an epoch, its
+    per-step losses (``LossLog``, whose state rides a restart
+    checkpoint), the epochs trained (``EpochRecorder``, likewise), and
+    each rank's checkpoint reads and first step (``LoadStatsProbe``)."""
+    import torch_dist_helpers as helpers
+    from ray_lightning_tpu_torch.core.trainer import Trainer
+    from ray_lightning_tpu_torch.models.gpt import GPT, SyntheticLMDataModule
+
+    log, rec = helpers.LossLog(), helpers.EpochRecorder()
+    tr = Trainer(strategy, max_epochs=epochs, limit_train_batches=per_epoch,
+                 limit_val_batches=0, precision="bf16", seed=SEED,
+                 megastep="off", log_every_n_steps=1,
+                 enable_checkpointing=False, default_root_dir=str(root),
+                 callbacks=[log, rec, helpers.LoadStatsProbe(label),
+                            *callbacks], **trainer_kw)
+    t0 = time.perf_counter()
+    tr.fit(GPT(cfg, device=device, **HEADLINE), SyntheticLMDataModule(
+        cfg, batch_size=TRAIN_B, num_batches=per_epoch, seed=SEED))
+    return {"trainer": tr, "losses": log.losses, "epochs": rec.epochs,
+            "wall_s": time.perf_counter() - t0}
+
+
+def p17_shard_bytes(tag):
+    """Each rank's shard-file bytes of a checkpoint directory."""
+    names = sorted(n for n in os.listdir(tag)
+                   if n.startswith("shard-") and n.endswith(".ckpt"))
+    return [os.path.getsize(os.path.join(tag, n)) for n in names]
+
+
+def p17_counter(tr, name):
+    """A counter of the fit's telemetry, summed over its ranks."""
+    return sum(r.get("counters", {}).get(name, 0)
+               for r in tr.telemetry_report.get("per_rank", []))
+
+
+def phase17_main(device="cuda", cfg=None) -> int:
+    """Phase 17's driver, in a process of its own (``chip_smoke.py
+    --phase17``; the driver of remote fits must not initialise CUDA):
+    GPT-2-small at full width, bf16, the kernels on, TRAIN_B x TRAIN_T
+    rows a step.  (a) ``RayShardedStrategy(num_workers=2, zero_stage=3,
+    max_restarts=1)`` over gloo (two ranks sharing the card), 3 epochs of
+    2 steps, rank 1 killed at the start of epoch 1
+    (``torch_dist_helpers.CrashOnce``), beside the same fit uninterrupted
+    with an explicit ``restart_dir`` that is kept: one restart, the epochs
+    [0, 1, 2], every per-step loss and the final params and moments
+    bitwise, the scratch directory gone; the seconds from the death to the
+    resumed first step, each rank's shard bytes, the write time an epoch,
+    each resumed rank's reads.  (b) each rank's file under 0.75 of the
+    two, each resumed rank's selective read about half the checkpoint's
+    bytes, the full reassembly of the newest kept checkpoint bitwise the
+    gathered state.  (c) the oldest kept checkpoint resumed on one NCCL
+    rank (accum 1 -> 2, the resize warned and counted, finite losses); a
+    two-rank ``grad_comm="int8_ef"`` checkpoint (two layers at full width)
+    resumed at one rank drops its residual loudly.  Prints its lines, then one JSON object as its
+    last line.  ``device="cpu"`` and a small ``cfg`` rehearse it on the
+    CPU (its one-rank fits then over gloo)."""
+    import tempfile
+
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_dist_helpers as helpers
+    from ray_lightning_tpu_torch.core.module import TrainState
+    from ray_lightning_tpu_torch.models.convert import train_state_from_jax
+    from ray_lightning_tpu_torch.models.gpt import GPTConfig
+    from ray_lightning_tpu_torch.parallel import strategies as st
+    from ray_lightning_tpu_torch.utils import sharded_ckpt
+
+    t_start = time.perf_counter()
+    card = card_line()
+    root = tempfile.mkdtemp(prefix="rlt-p17-")
+    cfg = cfg or dataclasses.replace(GPTConfig.gpt2_small(), warmup_steps=1)
+    warned = os.path.join(root, "worker-warnings.txt")
+    one_rank = "nccl" if device == "cuda" else "gloo"
+    common = dict(device=device, timeout_s=300.0,
+                  init_hook=functools.partial(helpers.warm_up, device,
+                                              warned),
+                  env_per_worker=({} if device == "cuda"
+                                  else {"OMP_NUM_THREADS": "1"}))
+    zero3 = dict(num_workers=2, zero_stage=3, backend="gloo", **common)
+    strategies = {
+        "crash": st.RayShardedStrategy(max_restarts=1,
+                                       restart_backoff_s=0.5, **zero3),
+        "straight": st.RayShardedStrategy(max_restarts=1, **zero3),
+        "nm": st.RayStrategy(num_workers=1, backend=one_rank, **common),
+        "ef": st.RayStrategy(num_workers=2, backend="gloo",
+                             grad_comm="int8_ef", update_sharding="off",
+                             **common),
+        "ef_one": st.RayStrategy(num_workers=1, backend=one_rank,
+                                 grad_comm="int8_ef", **common),
+    }
+    out = {"card": card}
+    kept = os.path.join(root, "kept")
+    ef_dir = os.path.join(root, "ef")
+    marker = os.path.join(root, "crash-marker")
+    t_spawn = time.perf_counter()
+    try:
+        with ThreadPoolExecutor(len(strategies)) as spawner:
+            for f in [spawner.submit(s.setup) for s in strategies.values()]:
+                f.result()
+        out["spawn_s"] = time.perf_counter() - t_spawn
+        print(f"phase 17: {sum(s.num_workers for s in strategies.values())}"
+              f" workers of {len(strategies)} fits spawned and warmed up at "
+              f"once in {out['spawn_s']:.1f} s")
+        crash = p17_fit(strategies["crash"], cfg, root, "p17_crash",
+                        callbacks=[helpers.CrashOnce(marker)],
+                        device=device)
+        straight = p17_fit(strategies["straight"], cfg, root,
+                           "p17_straight", restart_dir=kept, device=device)
+        tags = sorted(os.listdir(kept))
+        oldest = os.path.join(kept, tags[0])
+        nm = p17_fit(strategies["nm"], cfg, root, "p17_nm",
+                     resume_from_checkpoint=oldest, device=device)
+        # The residual's drop needs no depth: two layers at full width.
+        ef_cfg = dataclasses.replace(cfg, n_layer=min(cfg.n_layer, 2))
+        p17_fit(strategies["ef"], ef_cfg, root, "p17_ef", epochs=1,
+                per_epoch=1, restart_dir=ef_dir, device=device)
+        ef_tag = os.path.join(ef_dir, "restart-epoch-000000.ckpt")
+        ef_one = p17_fit(strategies["ef_one"], ef_cfg, root, "p17_ef_one",
+                         epochs=2, per_epoch=1,
+                         resume_from_checkpoint=ef_tag, device=device)
+    finally:
+        for s in strategies.values():
+            s.teardown()
+    check(not torch.cuda.is_initialized(),
+          "the driver never initialises CUDA")
+
+    # (a) the restart.
+    tc, ts = crash["trainer"], straight["trainer"]
+    with open(marker) as f:
+        died = float(f.read())
+    resumed = helpers.RECORDS["p17_crash"]
+    recover_s = min(r["first_step"] for r in resumed.values()) - died
+    check(all(r["resumed"] for r in resumed.values()),
+          "(a) the crash fit's last attempt resumed on every rank")
+    differ = [k for k, v in by_path(ts.state.params).items()
+              if not torch.equal(v, by_path(tc.state.params)[k])]
+    differ_opt = [k for k, v in by_path(ts.state.opt_state).items()
+                  if not torch.equal(v, by_path(tc.state.opt_state)[k])]
+    sizes = p17_shard_bytes(os.path.join(kept, tags[-1]))
+    state_bytes = sum(t.numel() * t.element_size() for t in
+                      by_path((ts.state.params, ts.state.opt_state)).values())
+    writes = p17_counter(ts, "restart_checkpoint_writes")
+    write_s = p17_counter(ts, "restart_checkpoint_write_s")
+    reads = {r: v["load_stats"] for r, v in sorted(resumed.items())}
+    leftovers = [d for d in os.listdir(root) if d.startswith(".rlt-restart-")]
+    kinds = [e["kind"] for e in tc.recovery_events]
+    out["a"] = {"restarts_used": tc.strategy.restarts_used,
+                "epochs": crash["epochs"], "losses": crash["losses"],
+                "straight_losses": straight["losses"],
+                "params_differ": differ, "opt_differ": differ_opt,
+                "recover_s": recover_s, "shard_bytes": sizes,
+                "state_bytes": state_bytes,
+                "write_s_per_epoch_per_rank": write_s / max(writes, 1),
+                "reads": reads, "events": kinds,
+                "wall_s": crash["wall_s"], "straight_wall_s":
+                straight["wall_s"]}
+    verdict = ("bitwise" if crash["losses"] == straight["losses"]
+               else "DIFFER")
+    print(f"phase 17 (a): ZeRO-3 on 2 gloo ranks sharing the card, "
+          f"GPT (d {cfg.d_model}, {cfg.n_layer} layers, vocab "
+          f"{cfg.vocab_size}) bf16, {TRAIN_B} x {cfg.seq_len} rows a step, "
+          f"{P17_EPOCHS} epochs of {P17_PER_EPOCH} steps, rank 1 killed at "
+          f"epoch 1: restarts_used {tc.strategy.restarts_used}, events "
+          f"{kinds}, epochs {crash['epochs']}; losses {crash['losses']} vs "
+          f"uninterrupted {straight['losses']} "
+          f"({verdict}"
+          f"); params {len(differ)} leaves differ, moments "
+          f"{len(differ_opt)}; from the death to the resumed first step "
+          f"{recover_s:.2f} s; wall {crash['wall_s']:.1f} s (uninterrupted "
+          f"{straight['wall_s']:.1f} s); {card}")
+    print(f"phase 17 (a): each rank's shard file {sizes} bytes of a state of "
+          f"{state_bytes} bytes ({sum(sizes) / state_bytes:.4f}x); "
+          f"{writes:.0f} restart writes, {1e3 * write_s / max(writes, 1):.1f}"
+          f" ms a write a rank; the resumed ranks read {reads}; {card}")
+    check(tc.strategy.restarts_used == 1, "(a) restarts_used == 1")
+    check(crash["epochs"] == straight["epochs"] == [0, 1, 2],
+          f"(a) the epochs {crash['epochs']}, {straight['epochs']}")
+    check(len(crash["losses"]) == P17_EPOCHS * P17_PER_EPOCH
+          and crash["losses"] == straight["losses"],
+          "(a) the per-step losses bitwise the uninterrupted fit's")
+    check(not differ and not differ_opt,
+          f"(a) final params and moments bitwise: {differ[:3]} "
+          f"{differ_opt[:3]}")
+    check(not leftovers, f"(a) the scratch directory is gone: {leftovers}")
+
+    # (b) the layout.
+    newest = os.path.join(kept, tags[-1])
+    ckpt_bytes = sum(p17_shard_bytes(oldest))
+    shares = {r: v["bytes_read"] / ckpt_bytes for r, v in reads.items()}
+    t0 = time.perf_counter()
+    full = train_state_from_jax(sharded_ckpt.load_sharded(newest)["state"])
+    load_s = time.perf_counter() - t0
+    same = (all(torch.equal(v, by_path(full.params)[k])
+                for k, v in by_path(ts.state.params).items())
+            and all(torch.equal(v, by_path(full.opt_state)[k])
+                    for k, v in by_path(ts.state.opt_state).items()))
+    out["b"] = {"file_shares": [b / sum(sizes) for b in sizes],
+                "read_shares": shares, "full_equal": same,
+                "full_read_s": load_s}
+    shares_txt = [f"{b / sum(sizes):.4f}" for b in sizes]
+    print(f"phase 17 (b): each rank's file {shares_txt} "
+          f"of the two (limit {P17_FILE_SHARE}); each resumed rank read "
+          f"{ {r: f'{v:.4f}' for r, v in shares.items()} } of the "
+          f"checkpoint's shard bytes (limits {P17_READ_SHARE}), selectively "
+          f"{ {r: v['selective'] for r, v in reads.items()} }; the full "
+          f"reassembly of {tags[-1]} ({load_s:.2f} s on the host) bitwise "
+          f"the gathered state: {same}; {card}")
+    check(all(b < P17_FILE_SHARE * sum(sizes) for b in sizes),
+          f"(b) each rank's file under {P17_FILE_SHARE} of the two")
+    check(all(v["selective"] for v in reads.values())
+          and all(P17_READ_SHARE[0] < v < P17_READ_SHARE[1]
+                  for v in shares.values()),
+          f"(b) each rank read about half the checkpoint: {shares}")
+    check(same, "(b) the full reassembly equals the gathered state")
+
+    # (c) N -> M.
+    tn = nm["trainer"]
+    with open(warned) as f:
+        lines = f.read().splitlines()
+    resize_lines = [ln for ln in lines if "elastic resume: checkpoint from "
+                    "world size 2 (accum 1) resuming on 1 with accum 2" in ln]
+    resize_events = [(e["kind"], e["old_world"], e["new_world"])
+                     for e in tn.recovery_events]
+    finite = all(math.isfinite(x) for x in nm["losses"])
+    nm_read = helpers.RECORDS["p17_nm"][0]["load_stats"]
+    out["c"] = {"losses": nm["losses"], "global_step": tn.global_step,
+                "micro_step": tn.micro_step,
+                "elastic_resizes": p17_counter(tn, "elastic_resizes"),
+                "events": resize_events, "backend": tn.strategy.backend,
+                "read": nm_read}
+    print(f"phase 17 (c): {tags[0]} (2 ZeRO-3 ranks) resumed on 1 "
+          f"{one_rank} rank: "
+          f"the warning {len(resize_lines)} time(s), elastic_resizes "
+          f"{out['c']['elastic_resizes']}, events {resize_events}; "
+          f"global_step {tn.global_step}, micro_step {tn.micro_step} (epoch "
+          f"2 at accum 2); losses {nm['losses'][-P17_PER_EPOCH:]}; read "
+          f"{nm_read}; {card}")
+    check(tn.strategy.backend == one_rank, f"(c) one {one_rank} rank")
+    check(nm_read["selective"], "(c) the resize's resume read selectively "
+          "(its accum crossed 1)")
+    check(len(resize_lines) >= 1 and out["c"]["elastic_resizes"] == 1
+          and resize_events == [("resize", 2, 1)],
+          "(c) the resize warned, counted and booked")
+    check((tn.global_step, tn.micro_step) == (
+        straight["trainer"].global_step - P17_PER_EPOCH + 1,
+        P17_EPOCHS * P17_PER_EPOCH),
+        f"(c) counters at accum 2: {tn.global_step}, {tn.micro_step}")
+    check(finite, f"(c) finite losses {nm['losses']}")
+    header, _ = sharded_ckpt._read_shard_header(os.path.join(
+        ef_tag, "shard-00001-of-00002.ckpt"))
+    resid = header["leaves"][-1]
+    dropped = p17_counter(ef_one["trainer"], "grad_residual_dropped")
+    ef_read = helpers.RECORDS["p17_ef_one"][0]["load_stats"]
+    drop_lines = [ln for ln in lines if "error-feedback residual has shape"
+                  in ln]
+    out["c"]["ef"] = {"residual_shape": resid["s"],
+                      "residual_index": resid["e"][0]["i"],
+                      "grad_residual_dropped": dropped,
+                      "losses": ef_one["losses"], "read": ef_read}
+    print(f"phase 17 (c): an int8_ef checkpoint of 2 ranks (rank 1's "
+          f"residual row at {resid['e'][0]['i']} of {resid['s']}) resumed "
+          f"at 1 rank: grad_residual_dropped {dropped}, the warning "
+          f"{len(drop_lines)} time(s) ({drop_lines[:1]}); losses "
+          f"{ef_one['losses']}; read {ef_read}; {card}")
+    print(f"phase 17 (c): the int8_ef pair at {ef_cfg.n_layer} layers of "
+          f"width {ef_cfg.d_model}")
+    check(resid["s"][0] == 2 and resid["e"][0]["i"][0] == [1, 2],
+          "(c) the residual rows written at their index")
+    check(dropped == 1 and drop_lines, "(c) the residual dropped loudly")
+    check(ef_read["selective"], "(c) the int8_ef resume read selectively "
+          "(a residual on one side only)")
+    check(all(math.isfinite(x) for x in ef_one["losses"]),
+          "(c) the int8_ef resume's losses are finite")
+    out["wall_s"] = time.perf_counter() - t_start
+    print(f"phase 17: wall {out['wall_s']:.1f} s; {card}")
+    print(json.dumps(out))
+    return 0
+
+
+def phase_restarts(card):
+    """Phase 17, run as ``chip_smoke.py --phase17`` in a process of its
+    own; its lines are echoed, its last line returned."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--phase17"], capture_output=True, text=True,
+                          timeout=600, cwd=ROOT)
+    lines = proc.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        print(line)
+    if proc.returncode != 0:
+        print(proc.stderr[-6000:], file=sys.stderr)
+        raise RuntimeError(f"chip_smoke: phase 17 failed (exit "
+                           f"{proc.returncode})")
+    result = json.loads(lines[-1])
+    print(f"phase 17: {time.perf_counter() - t0:.1f} s in all, the "
+          f"process's start included; {card}")
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -6316,22 +6660,34 @@ def main() -> int:
                                   "ln_bwd_rows_kernel<3, 1, 0>")):
                 check(spilled == 0, f"{kernel} builds with no spills")
 
-    record, bgmv_widths = phase_kernel(torch, lora, card)
-    f32, bf16 = phase_server(torch, np, card)
-    errs = phase_train_kernels(torch)
-    timing = phase_train_timing(torch, card)
-    train = phase_trainer(torch, card)
-    e2e = phase_end_to_end(torch, card)
-    mega = phase_megastep(torch, card)
-    ckpt = phase_checkpoint(torch, card)
-    lora_opt = phase_lora_and_opt_state(torch, np, card)
-    features = phase_server_features(torch, np, card)
+    walls = {}
+
+    def timed(fn, *args):
+        """``fn(*args)``, its wall seconds kept under its name (the
+        script's time limit is shared by every phase)."""
+        t = time.perf_counter()
+        out = fn(*args)
+        walls[fn.__name__] = round(time.perf_counter() - t, 1)
+        print(f"{fn.__name__}: {walls[fn.__name__]} s wall")
+        return out
+
+    record, bgmv_widths = timed(phase_kernel, torch, lora, card)
+    f32, bf16 = timed(phase_server, torch, np, card)
+    errs = timed(phase_train_kernels, torch)
+    timing = timed(phase_train_timing, torch, card)
+    train = timed(phase_trainer, torch, card)
+    e2e = timed(phase_end_to_end, torch, card)
+    mega = timed(phase_megastep, torch, card)
+    ckpt = timed(phase_checkpoint, torch, card)
+    lora_opt = timed(phase_lora_and_opt_state, torch, np, card)
+    features = timed(phase_server_features, torch, np, card)
     phase3 = {"streams": f32.pop("streams"), "profile": f32["profile"]}
     world = server_world(torch, np)
-    plane = phase_serve_plane(torch, np, card, world, phase3)
-    fleet = phase_serve_fleet(torch, np, card, world, phase3)
-    multi = phase_multi_gpu(card)
-    wire = phase_grad_wire(card)
+    plane = timed(phase_serve_plane, torch, np, card, world, phase3)
+    fleet = timed(phase_serve_fleet, torch, np, card, world, phase3)
+    multi = timed(phase_multi_gpu, card)
+    wire = timed(phase_grad_wire, card)
+    restarts = timed(phase_restarts, card)
 
     kernels = [{
         "name": "bgmv", "route": "cuda", "source": BGMV_SOURCE,
@@ -6361,6 +6717,9 @@ def main() -> int:
     print("serve_fleet: " + json.dumps({**fleet, "card": card}))
     print("multi_gpu: " + json.dumps(multi))
     print("grad_wire: " + json.dumps(wire))
+    print("restarts: " + json.dumps(restarts))
+    print("walls: " + json.dumps({**walls, "total_s": round(
+        time.perf_counter() - t0, 1)}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -6379,4 +6738,6 @@ if __name__ == "__main__":
         sys.exit(phase15_main(tuple(sys.argv[2:]) or P15_ARMS))
     if sys.argv[1:2] == ["--phase16"]:
         sys.exit(phase16_main(tuple(sys.argv[2:]) or P16_ARMS))
+    if sys.argv[1:2] == ["--phase17"]:
+        sys.exit(phase17_main())
     sys.exit(main())

@@ -23,7 +23,6 @@ import torch
 
 from ray_lightning_tpu_torch.core.module import TrainState
 from ray_lightning_tpu_torch.models.optim import tree_map
-from ray_lightning_tpu_torch.utils.state_stream import verify_stream_file
 
 __all__ = ["Callback", "ModelCheckpoint", "EarlyStopping", "CSVLogger",
            "ProfilerCallback", "DeviceStatsCallback",
@@ -95,8 +94,9 @@ class ModelCheckpoint(Callback):
     ``async_write``: the state is copied into its stream at the epoch's
     end as always; a writer thread computes the crc and writes the file,
     and the fit joins pending writes at its end.
-    ``verify``: read each file back and check its crc (at once, or at
-    fit end for async writes).
+    ``verify``: read each file back and check it
+    (``sharded_ckpt.verify_checkpoint``, the JAX callback's check; at
+    once, or at fit end for async writes).
 
     Under a strategy every rank runs the callback alike: every rank
     calls ``save_checkpoint`` (its gather is a collective) and keeps the
@@ -188,7 +188,9 @@ class ModelCheckpoint(Callback):
     def _verify_written(self, path: str) -> None:
         if not self.verify:
             return
-        problems = verify_stream_file(path)
+        from ray_lightning_tpu_torch.utils import sharded_ckpt
+
+        problems = sharded_ckpt.verify_checkpoint(path)
         if problems:
             raise RuntimeError(f"checkpoint {path} failed post-write "
                                f"verification: " + "; ".join(problems))

@@ -20,22 +20,30 @@ in an ``RLTCKPT1`` file, ``utils/state_stream.py``), resume
 file either package wrote; across an ``opt_state_dtype`` change the
 moments are converted, ``_reconcile_opt_state_format``) and the eval
 loops (:func:`run_eval` for validation and test, :func:`run_predict`)
-are kept.  Elastic restart,
-drain, prefetch threads and the full telemetry tier are later slices.
+are kept.  Restart checkpoints too (``restart_dir``,
+``restart_every_n_epochs``: at each such epoch end every rank writes its
+pieces of the live state into one ``RLTSHRD2`` directory,
+``utils/sharded_ckpt.py``, no gather, then rank 0 its META after a
+barrier: :func:`_write_restart`), and resuming from them at the same or
+another world (the index-selective reader onto this rank's slices; the
+accumulation factor re-derived, :func:`_elastic_resume_info`).  Drain
+checkpoints in the middle of an epoch, prefetch threads and the full
+telemetry tier are later slices (ROADMAP Queue 1 item 6).
 
 Under a strategy's process group (``dist``, a ``parallel.mesh.
 DistContext``; ``parallel/strategies.py``) the loops run on each rank:
 the datamodule is sharded by rank (``set_shard(rank, world_size)``),
 every rank starts from rank 0's params (one broadcast), the step is a
 ``parallel.step_fns.DistributedStep`` of the strategy's flavor, logs and
-validation metrics are averaged over the ranks, checkpoints gather the
-state on every rank and rank 0 writes them, and the fit returns the JAX
+validation metrics are averaged over the ranks, a ``ModelCheckpoint``
+file gathers the state on every rank (under ZeRO) and rank 0 writes it
+(a restart checkpoint gathers nothing), and the fit returns the JAX
 package's per-rank result package: rank 0's carries the state stream
 (the ``RLTCKPT1`` bytes of the gathered state), the metrics, the best
 path and the callback states; every rank's carries its telemetry
 snapshot.  Megastep is off there: ``"auto"`` resolves to 1, and an
 explicit K > 1 raises (a CUDA graph of steps with collectives in it is
-ROADMAP Queue 1 item 2).
+ROADMAP Queue 1 item 2.2).
 
 The gradient wire is resolved against the real world size, flavor and
 ZeRO stage, as the JAX ``run_fit`` resolves it against its mesh
@@ -44,8 +52,9 @@ ZeRO stage, as the JAX ``run_fit`` resolves it against its mesh
 (``parallel/overlap.py``) and
 ``update_sharding`` (:func:`_resolve_update_sharding`); ``comm_stats``
 and the telemetry meta say what was taken.  The EF residual is attached
-to the state after it is built and reconciled on resume; it never enters
-a checkpoint or the rank-0 package.
+to the state after it is built and reconciled on resume; each rank's row
+enters its restart checkpoint (as the JAX restart state carries it),
+never an ``RLTCKPT1`` file or the rank-0 package.
 """
 
 from __future__ import annotations
@@ -54,6 +63,7 @@ import dataclasses
 import itertools
 import os
 import queue
+import shutil
 import threading
 import time
 import warnings
@@ -118,6 +128,12 @@ class FitConfig:
     resume_from_checkpoint: Optional[str] = None
     # One epoch of one train batch and one val batch (a smoke run).
     fast_dev_run: bool = False
+    # Restart checkpoints: every restart_every_n_epochs (None: 1) epochs
+    # each rank writes its pieces of the state under restart_dir
+    # (utils/sharded_ckpt.py); a strategy with max_restarts > 0 sets a
+    # scratch directory of its own when this is None.
+    restart_dir: Optional[str] = None
+    restart_every_n_epochs: Optional[int] = None
 
     def __post_init__(self):
         if self.limit_train_batches is None:
@@ -139,6 +155,9 @@ class FitConfig:
         _normalize_megastep(self.megastep)
         _normalize_update_sharding(self.update_sharding)
         normalize_grad_overlap(self.grad_overlap_segments)
+        if (self.restart_every_n_epochs is not None
+                and self.restart_every_n_epochs < 1):
+            raise ValueError("restart_every_n_epochs must be >= 1")
         if self.fast_dev_run:
             self.max_epochs = 1
             self.limit_train_batches = 1
@@ -240,7 +259,7 @@ def _resolve_megastep(config: FitConfig, device: torch.device,
     rule), and 1 on the CPU, where execution is synchronous and fusing
     strides buys nothing.  Under a strategy's process group
     (``distributed``) auto is 1 and K > 1 raises: the steps' collectives
-    are not captured into a graph (ROADMAP Queue 1 item 2)."""
+    are not captured into a graph (ROADMAP Queue 1 item 2.2)."""
     value = config.megastep
     if value is None:
         value = os.environ.get("RLT_MEGASTEP")
@@ -254,7 +273,7 @@ def _resolve_megastep(config: FitConfig, device: torch.device,
         raise NotImplementedError(
             f"megastep={value} under a multi-process strategy: a CUDA graph "
             f"of steps with their collectives captured is not ported yet "
-            f"(ROADMAP Queue 1 item 2, megastep under NCCL capture); use "
+            f"(ROADMAP Queue 1 item 2.2, megastep under NCCL capture); use "
             f"megastep='auto' or 'off' there")
     return int(value)
 
@@ -287,6 +306,9 @@ class LoopContext:
         self.logged_metrics: Dict[str, float] = {}
         self.state: Optional[TrainState] = None
         self.telemetry: Optional[Telemetry] = None
+        # Recovery events of this fit (an elastic resume's ``resize``),
+        # carried back in the result package.
+        self.events: List[Dict[str, Any]] = []
         self.default_root_dir = config.default_root_dir
         # The async checkpoint writer (one thread a fit, made on first
         # use): its queue, failures, paths in flight and their lock.
@@ -550,14 +572,15 @@ def _resolve_comm(ctx: LoopContext, module: TrainModule, tel: Telemetry,
 
 def _init_dist_state(ctx: LoopContext, module: TrainModule, tx, tel,
                      callbacks: List[Callback], accum: int, mode: str,
-                     zero_stage: int, grad_comm: Any):
+                     zero_stage: int, grad_comm: Any,
+                     resize_info: Optional[Dict[str, Any]] = None):
     """A rank's step and initial state under a strategy: every rank
     builds the params from the same seed, then takes rank 0's (one
     broadcast, so a module whose init is not deterministic still starts
     equal).  Under ZeRO or the sharded update the state keeps this rank's
-    slices (``ctx.zero_plan``); a resume restores the full checkpoint
-    first, then slices it.  Under EF the state carries a zero residual
-    row.  Returns ``(step, (start_epoch, skip_batches))``."""
+    slices (``ctx.zero_plan``); under EF it carries a zero residual row.
+    A resume writes the checkpoint into that state (:func:`_resume`).
+    Returns ``(step, (start_epoch, skip_batches))``."""
     config, dist = ctx.config, ctx.dist
     params = _initial_params(module, ctx.device, config.seed)
     with torch.no_grad():
@@ -567,42 +590,44 @@ def _init_dist_state(ctx: LoopContext, module: TrainModule, tx, tel,
     step = step_fns.build_dist_step(module, tx, dist, params, mode,
                                     zero_stage, grad_sync, shard_update)
     plan = step.plan
-    start = (0, 0)
-    if plan is None or config.resume_from_checkpoint:
-        ctx.state = TrainState.create(params, tx)
-        if grad_sync is not None:
-            ctx.state = grad_sync.attach_residual(ctx.state)
-        if config.resume_from_checkpoint:
-            start = _resume(ctx, callbacks, accum, grad_sync)
     if plan is None:
-        return step, start
-    resid = None
-    if ctx.state is not None:
-        full = ctx.state
-        params = full.params
-        opt_state = plan.shard_opt_state(full.opt_state)
-        step_count = full.step
-        resid = full.grad_residual
+        ctx.state = TrainState.create(params, tx)
     else:
-        opt_state, step_count = None, 0
-    ctx.state = None
-    shards = plan.shard_tree(params, own=plan.stage == 3)
-    if opt_state is None:
+        shards = plan.shard_tree(params, own=plan.stage == 3)
         opt_state = tx.init(shards)
         plan.opt_dims(opt_state, sharded=True)  # refuses int8 moments
-    ctx.state = TrainState(shards if plan.stage == 3 else params, opt_state,
-                           step_count, resid)
-    if grad_sync is not None and resid is None:
+        ctx.state = TrainState(shards if plan.stage == 3 else params,
+                               opt_state, 0)
+        ctx.zero_plan = plan
+    del params
+    if grad_sync is not None:
         ctx.state = grad_sync.attach_residual(ctx.state)
-    ctx.zero_plan = plan
+    start = (0, 0)
+    if config.resume_from_checkpoint:
+        start = _resume(ctx, callbacks, accum, grad_sync, resize_info)
     return step, start
 
 
-def _restore_state(template: TrainState, loaded: TrainState) -> TrainState:
+def _restore_state(template: TrainState, loaded: TrainState,
+                   plan: Any = None) -> TrainState:
     """``loaded``'s values written into ``template``'s tensors, each cast
     to the template's dtype (a dtype policy changed between runs must not
     leak into this one, as the JAX loop casts) on its device; the trees
-    and the shapes must agree."""
+    must agree, and the shapes too, but that under a ZeRO ``plan`` a full
+    leaf where the template holds this rank's slice (a whole ``RLTCKPT1``
+    state, a moment converted from int8) gives its slice."""
+    cuts = set() if plan is None else {
+        (s, d) for s, d in zip(plan.full_shapes, plan.dims) if d is not None}
+
+    def fit(src, dst):
+        if src.dim() != dst.dim():
+            return None
+        diff = [k for k in range(src.dim()) if src.shape[k] != dst.shape[k]]
+        if len(diff) != 1 or (tuple(src.shape), diff[0]) not in cuts:
+            return None
+        d, c = diff[0], dst.shape[diff[0]]
+        return (src.narrow(d, plan.rank * c, c)
+                if src.shape[d] == c * plan.world else None)
 
     def put(dst, src, path):
         if isinstance(dst, MaskedNode):
@@ -638,9 +663,12 @@ def _restore_state(template: TrainState, loaded: TrainState) -> TrainState:
             for i, (d, x) in enumerate(zip(dst, src)):
                 put(d, x, f"{path}[{i}]")
         elif tuple(src.shape) != tuple(dst.shape):
-            raise ValueError(
-                f"resume: {path}: shape {tuple(src.shape)} in the checkpoint,"
-                f" {tuple(dst.shape)} in this fit")
+            part = fit(src, dst)
+            if part is None:
+                raise ValueError(
+                    f"resume: {path}: shape {tuple(src.shape)} in the "
+                    f"checkpoint, {tuple(dst.shape)} in this fit")
+            dst.copy_(part)
         else:
             dst.copy_(src)
 
@@ -729,24 +757,256 @@ def _reconcile_opt_state_format(loaded: TrainState,
             "optimizer moment leaves converted to this run's storage format "
             "(float ↔ block-scaled int8; requantization applies the codec's "
             "rounding once)")
-    return TrainState(loaded.params, opt_state, loaded.step)
+    return TrainState(loaded.params, opt_state, loaded.step,
+                      loaded.grad_residual)
+
+
+def _prune_restart_dir(restart_dir: str, keep: int = 2) -> None:
+    """Keep the ``keep`` newest complete restart checkpoints (two: a
+    corrupt newest one falls back to its predecessor), by the enumeration
+    restart discovery uses (``sharded_ckpt.list_restart_candidates``)."""
+    from ray_lightning_tpu_torch.utils.sharded_ckpt import (
+        list_restart_candidates,
+    )
+
+    for _, _, _, stale in list_restart_candidates(restart_dir)[keep:]:
+        shutil.rmtree(stale, ignore_errors=True)
+        if os.path.isfile(stale):
+            try:
+                os.unlink(stale)
+            except OSError:
+                pass
+
+
+def _write_restart(ctx: LoopContext, callbacks: List[Callback], accum: int,
+                   epoch: int) -> None:
+    """The epoch's restart checkpoint (the JAX loop's, per rank, no
+    gather): every rank writes its pieces of the live state
+    (``sharded_ckpt.save_shard``: its ZeRO slices, the replicated leaves,
+    its residual row), a barrier, then rank 0 writes META with the loop's
+    counters and the callbacks' states and prunes the directory."""
+    from ray_lightning_tpu_torch.utils import sharded_ckpt
+
+    t0 = time.perf_counter()
+    config, tel = ctx.config, ctx.telemetry
+    rank, world = ctx.global_rank, ctx.world_size
+    tag = os.path.join(config.restart_dir, f"restart-epoch-{epoch:06d}.ckpt")
+    tree = sharded_ckpt.state_tree(ctx.state, ctx.zero_plan, rank, world,
+                                   residual=ctx.state.grad_residual)
+    sharded_ckpt.save_shard(tree, tag, rank, world)
+    if ctx.dist is not None:
+        ctx.dist.barrier()
+    if ctx.is_global_zero:
+        sharded_ckpt.save_meta(tree, tag, world, extra={
+            "epoch": ctx.current_epoch,
+            "global_step": ctx.global_step,
+            "micro_step": ctx.micro_step,
+            "world_size": world,
+            "accum": accum,
+            "callback_metrics": dict(ctx.callback_metrics),
+            "callback_states": [cb.state_dict() for cb in callbacks],
+        })
+        _prune_restart_dir(config.restart_dir, keep=2)
+    tel.add_counter("restart_checkpoint_writes", 1)
+    tel.add_counter("restart_checkpoint_write_s", time.perf_counter() - t0)
+
+
+def _rederive_accum(old_world: int, old_accum: int,
+                    new_world: int) -> Optional[int]:
+    """The accumulation factor that keeps the global batch of an optimizer
+    step, ``world × accum × rows``, across a world-size change (the JAX
+    ``_rederive_accum``); None where it does not divide."""
+    rows = int(old_world) * int(old_accum)
+    if new_world <= 0 or rows % int(new_world):
+        return None
+    return rows // int(new_world)
+
+
+def _elastic_resume_info(path: str, world_size: int,
+                         cfg_accum: int) -> Optional[Dict[str, Any]]:
+    """The JAX ``_elastic_resume_info``: a sharded checkpoint's recorded
+    world and accum against this fit's, from META alone; None when it
+    records no world or nothing changed.  At the same world a recorded
+    accum that differs from the config's wins (a previous resize set
+    it)."""
+    from ray_lightning_tpu_torch.utils import sharded_ckpt
+
+    try:
+        extra = sharded_ckpt.load_meta(path).get("extra", {})
+    except Exception:  # noqa: BLE001 - a corrupt META fails in the load
+        return None
+    old_world = extra.get("world_size")
+    if not old_world:
+        return None
+    old_world = int(old_world)
+    recorded_accum = extra.get("accum")
+    old_accum = int(recorded_accum or cfg_accum)
+    if old_world == int(world_size):
+        if recorded_accum is None or int(recorded_accum) == int(cfg_accum):
+            return None
+        return {"old_world": old_world, "new_world": int(world_size),
+                "old_accum": int(recorded_accum),
+                "accum": int(recorded_accum), "exact": True, "ckpt": path}
+    new_accum = _rederive_accum(old_world, old_accum, world_size)
+    return {"old_world": old_world, "new_world": int(world_size),
+            "old_accum": old_accum,
+            "accum": new_accum if new_accum is not None else old_accum,
+            "exact": new_accum is not None, "ckpt": path}
+
+
+def _announce_resize(info: Dict[str, Any], ctx: LoopContext,
+                     tel: Telemetry) -> None:
+    """An elastic resume, loudly (the JAX ``_announce_resize``): a warning
+    on every rank, the ``elastic_resizes`` counter, and on rank 0 a
+    ``resize`` event in the fit's recovery events.  At the same world (a
+    recorded accum kept) only the warning."""
+    from ray_lightning_tpu_torch.telemetry.monitor import make_event
+
+    if info["old_world"] == info["new_world"]:
+        warnings.warn(
+            f"elastic resume: honoring the checkpoint's recorded accum "
+            f"{info['accum']} over the configured value — the state's "
+            f"optimizer trajectory (and the global batch per optimizer "
+            f"step) continues what a previous elastic resize established")
+        return
+    msg = (f"elastic resume: checkpoint from world size {info['old_world']}"
+           f" (accum {info['old_accum']}) resuming on {info['new_world']}"
+           f" with accum {info['accum']}")
+    if not info["exact"]:
+        msg += (" — old_world*accum does not divide the new world size; the"
+                " GLOBAL batch per optimizer step changes and the LR"
+                " schedule is no longer step-equivalent")
+    warnings.warn(msg)
+    tel.add_counter("elastic_resizes", 1)
+    if ctx.is_global_zero:
+        ctx.events.append(make_event(
+            "resize", ctx.global_rank, old_world=info["old_world"],
+            new_world=info["new_world"], message=msg, ckpt=info["ckpt"]))
+
+
+def _reconcile_multisteps(loaded: TrainState,
+                          template: TrainState) -> TrainState:
+    """The JAX ``_reconcile_multisteps``: a re-derived accum that crosses 1
+    wraps or unwraps the optimizer state.  Bare → ``multi_steps``: a fresh
+    window (``mini_step`` 0, zero ``acc_grads``, ``gradient_step`` the
+    step count); ``multi_steps`` → bare: the inner state, a partial
+    window dropped with a warning."""
+    have = isinstance(loaded.opt_state, dict)
+    want = isinstance(template.opt_state, dict)
+    if have == want:
+        return loaded
+    if want:
+        step32 = torch.tensor(int(loaded.step), dtype=torch.int32)
+        opt = {"mini_step": torch.zeros((), dtype=torch.int32),
+               "gradient_step": step32,
+               "inner_opt_state": loaded.opt_state,
+               "acc_grads": tree_map(torch.zeros_like, loaded.params)}
+        return TrainState(loaded.params, opt, loaded.step,
+                          loaded.grad_residual)
+    mini = int(loaded.opt_state["mini_step"])
+    if mini:
+        warnings.warn(
+            f"elastic resume collapsed accum to 1: the checkpoint's partial "
+            f"accumulation window ({mini} micro-grad(s)) is dropped")
+    return TrainState(loaded.params, loaded.opt_state["inner_opt_state"],
+                      loaded.step, loaded.grad_residual)
+
+
+def _as_multisteps(state: TrainState, wrapped: bool,
+                   plan: Any = None) -> TrainState:
+    """``state`` with its optimizer state in ``multi_steps`` (``wrapped``)
+    or bare, as a checkpoint of another accum holds it: the selective
+    reader's targets, whose leaves give only shapes and places (the
+    accumulators are this rank's slices of meta tensors, as ``tx.init``
+    of the slices makes them)."""
+    if isinstance(state.opt_state, dict) == wrapped:
+        return state
+    if not wrapped:
+        return TrainState(state.params, state.opt_state["inner_opt_state"],
+                          state.step, state.grad_residual)
+    acc = tree_map(lambda t: torch.empty_like(t, device="meta"),
+                   state.params)
+    if plan is not None and plan.stage == 1:
+        acc = plan.shard_tree(acc)
+    count = torch.zeros((), dtype=torch.int32)
+    return TrainState(state.params, {
+        "mini_step": count, "gradient_step": count,
+        "inner_opt_state": state.opt_state, "acc_grads": acc},
+        state.step, state.grad_residual)
+
+
+def _loaded_state(tree: Any, ctx: LoopContext,
+                  recorded_world: Optional[int]) -> TrainState:
+    """A checkpoint's JAX ``TrainState`` tree as the port's, with its
+    error-feedback residual as this rank's row where the checkpoint's
+    world is this one's (its row read alone, or row ``rank`` of the
+    whole leaf); else the whole leaf, for the reconciliation to drop."""
+    loaded = train_state_from_jax(tree)
+    resid = tree.children[3]
+    if isinstance(resid, torch.Tensor):
+        world = ctx.world_size
+        if recorded_world == world and resid.shape[0] == 1:
+            resid = resid.reshape(-1)
+        elif resid.dim() == 2 and tuple(resid.shape[:1]) == (world,) \
+                and recorded_world == world:
+            resid = resid[ctx.global_rank].clone()
+        loaded.grad_residual = resid
+    return loaded
 
 
 def _resume(ctx: LoopContext, callbacks: List[Callback], accum: int,
-            grad_sync: Any = None):
-    """Load ``config.resume_from_checkpoint`` into the context (state,
-    counters, metrics, callback states); returns ``(start_epoch,
-    skip_batches)``.  Under the int8 wire the loaded state's residual is
-    reconciled with this run's layout first
-    (``GradSync.reconcile_resumed_state``)."""
-    payload = load_state_stream(
-        state_stream_from_file(ctx.config.resume_from_checkpoint),
-        device=ctx.device)
-    loaded = train_state_from_jax(payload["state"])
+            grad_sync: Any = None,
+            resize_info: Optional[Dict[str, Any]] = None):
+    """Load ``config.resume_from_checkpoint`` into the context's state
+    (state, counters, metrics, callback states); returns
+    ``(start_epoch, skip_batches)``.
+
+    An ``RLTCKPT1`` file is read whole.  A sharded restart directory is
+    read by the index-selective reader onto this rank's state
+    (``sharded_ckpt.state_tree`` over this world's ``ZeroPlan``), its
+    optimizer state in the checkpoint's accumulation wrapper
+    (:func:`_as_multisteps`): each rank reads only its slices, and whole
+    only what the checkpoint holds in another form (a residual on one side
+    only, moments in another storage format).  :func:`_restore_state`
+    slices whatever came back whole.  Then, in the JAX loop's order: the
+    residual
+    (``GradSync.reconcile_resumed_state``; without the wire a residual
+    is shed, loudly where the world changed), the accumulation wrapper
+    (:func:`_reconcile_multisteps`, on an elastic resume), the moments'
+    format (:func:`_reconcile_opt_state_format`), and the dtypes (cast
+    into this fit's tensors, :func:`_restore_state`)."""
+    from ray_lightning_tpu_torch.parallel.grad_sync import (
+        warn_residual_dropped,
+    )
+    from ray_lightning_tpu_torch.utils import sharded_ckpt
+
+    path = ctx.config.resume_from_checkpoint
+    plan = ctx.zero_plan
+    recorded_world = None
+    if sharded_ckpt.is_sharded_ckpt(path):
+        shaped = ctx.state if resize_info is None else _as_multisteps(
+            ctx.state, resize_info["old_accum"] > 1, plan)
+        targets = sharded_ckpt.state_tree(
+            shaped, plan, ctx.global_rank, ctx.world_size,
+            residual=ctx.state.grad_residual)
+        payload = sharded_ckpt.load_sharded(path, targets=targets,
+                                            device=ctx.device)
+        recorded_world = payload.get("world_size")
+    else:
+        payload = load_state_stream(state_stream_from_file(path),
+                                    device=ctx.device)
+    loaded = _loaded_state(payload["state"], ctx, recorded_world)
     if grad_sync is not None:
         loaded = grad_sync.reconcile_resumed_state(loaded)
+    elif loaded.grad_residual is not None:
+        if recorded_world is not None and recorded_world != ctx.world_size:
+            warn_residual_dropped(tuple(loaded.grad_residual.shape),
+                                  ctx.world_size, None, ctx.telemetry)
+        loaded = TrainState(loaded.params, loaded.opt_state, loaded.step)
+    if resize_info is not None:
+        loaded = _reconcile_multisteps(loaded, ctx.state)
     loaded = _reconcile_opt_state_format(loaded, ctx.state)
-    ctx.state = _restore_state(ctx.state, loaded)
+    ctx.state = _restore_state(ctx.state, loaded, plan)
     if payload.get("mid_epoch"):
         # A step-granular checkpoint: resume inside its epoch, skipping
         # the micro-batches already trained (loaders are epoch-seeded).
@@ -890,6 +1150,17 @@ def _fit(ctx: LoopContext, module: TrainModule, datamodule: TpuDataModule,
     tel = Telemetry.build(telemetry)
     tx = module.configure_optimizers()
     accum = max(int(config.accumulate_grad_batches), 1)
+    # An elastic resume re-derives accum from the checkpoint's recorded
+    # world before the optimizer is wrapped (global-batch invariance).
+    resize_info = None
+    if config.resume_from_checkpoint:
+        from ray_lightning_tpu_torch.utils import sharded_ckpt
+
+        if sharded_ckpt.is_sharded_ckpt(config.resume_from_checkpoint):
+            resize_info = _elastic_resume_info(
+                config.resume_from_checkpoint, ctx.world_size, accum)
+    if resize_info is not None:
+        accum = resize_info["accum"]
     inner_tx = tx
     if accum > 1:
         tx = multi_steps(tx, accum)
@@ -899,6 +1170,8 @@ def _fit(ctx: LoopContext, module: TrainModule, datamodule: TpuDataModule,
     tel_stats = tel.step_stats
     if tel_stats is not None:
         tel_stats.configure_model(module, device)
+    if resize_info is not None:
+        _announce_resize(resize_info, ctx, tel)
 
     module.setup("fit")
     datamodule.set_shard(ctx.global_rank, ctx.world_size)
@@ -910,7 +1183,7 @@ def _fit(ctx: LoopContext, module: TrainModule, datamodule: TpuDataModule,
     if dist is not None:
         train_step, (start_epoch, skip_batches) = _init_dist_state(
             ctx, module, tx, tel, callbacks, accum, mode, zero_stage,
-            grad_comm)
+            grad_comm, resize_info)
     else:
         # On resume this is the template the checkpoint is written into
         # (its dict order, which orders the clip's norm sum, stays the
@@ -923,7 +1196,8 @@ def _fit(ctx: LoopContext, module: TrainModule, datamodule: TpuDataModule,
         if config.resume_from_checkpoint:
             # In place before the first stride: a captured graph owns the
             # state it captured on.
-            start_epoch, skip_batches = _resume(ctx, callbacks, accum)
+            start_epoch, skip_batches = _resume(ctx, callbacks, accum,
+                                                resize_info=resize_info)
         train_step = step_fns.single_device_step(module, tx)
     rng = step_fns.StepRng(device, config.seed)
     megastep_k = _resolve_megastep(config, device, dist is not None)
@@ -1094,6 +1368,9 @@ def _fit(ctx: LoopContext, module: TrainModule, datamodule: TpuDataModule,
             _call_hooks(callbacks, "on_validation_epoch_end", ctx, module)
 
         _call_hooks(callbacks, "on_train_epoch_end", ctx, module)
+        if (config.restart_dir
+                and (epoch + 1) % (config.restart_every_n_epochs or 1) == 0):
+            _write_restart(ctx, callbacks, accum, epoch)
         if stop or ctx.should_stop:
             break
 
@@ -1119,6 +1396,7 @@ def _fit(ctx: LoopContext, module: TrainModule, datamodule: TpuDataModule,
         "comm_stats": dict(ctx.comm_stats),
         "best_model_path": next((cb.best_model_path for cb in callbacks
                                  if isinstance(cb, ModelCheckpoint)), ""),
+        "events": list(ctx.events),
     }
 
 
@@ -1148,6 +1426,7 @@ def _rank_package(ctx: LoopContext, callbacks: List[Callback],
         "micro_step": ctx.micro_step,
         "comm_stats": dict(ctx.comm_stats),
         "telemetry": snapshot,
+        "events": list(ctx.events),
     }
 
 

@@ -80,11 +80,16 @@ class Trainer:
         enable_checkpointing: bool = True,
         resume_from_checkpoint: Optional[str] = None,
         fast_dev_run: bool = False,
+        restart_dir: Optional[str] = None,
+        restart_every_n_epochs: Optional[int] = None,
     ):
         from ray_lightning_tpu_torch.parallel.strategies import (
             LocalStrategy, TpuStrategy,
         )
 
+        if (restart_every_n_epochs is not None
+                and restart_every_n_epochs < 1):
+            raise ValueError("restart_every_n_epochs must be >= 1")
         if strategy is None and plugins:
             # The reference's form: Trainer(plugins=[RayPlugin(...)]).
             strategy = next((p for p in plugins
@@ -111,6 +116,11 @@ class Trainer:
             default_root_dir=default_root_dir,
             resume_from_checkpoint=resume_from_checkpoint,
             fast_dev_run=fast_dev_run,
+            # Restart checkpoints (utils/sharded_ckpt.py): written here
+            # and kept after the fit; None under a strategy with
+            # max_restarts > 0 is a scratch directory it removes.
+            restart_dir=restart_dir,
+            restart_every_n_epochs=restart_every_n_epochs,
         )
         self.callback_metrics: Dict[str, float] = {}
         self.logged_metrics: Dict[str, float] = {}
@@ -124,6 +134,10 @@ class Trainer:
         # The gradient wire's accounting (grad_sync_mode, grad_sync_bytes,
         # the compression ratio: parallel/grad_sync.py).
         self.comm_stats: Dict[str, Any] = {}
+        # The fit's recovery events: the strategy's (backoffs, restarts,
+        # corrupt checkpoints walked past, resizes) and the loop's (an
+        # elastic resume's resize).
+        self.recovery_events: List[Dict[str, Any]] = []
 
     def _resolve_datamodule(self, module: TrainModule,
                             datamodule: Optional[TpuDataModule]
@@ -173,6 +187,7 @@ class Trainer:
         self.micro_step = result["micro_step"]
         self.telemetry_report = result["telemetry"]
         self.comm_stats = dict(result.get("comm_stats", {}))
+        self.recovery_events = list(result.get("events", []))
         return self
 
     def _adopt_remote_fit(self, results: List[Dict[str, Any]]) -> None:
@@ -188,6 +203,9 @@ class Trainer:
         self.global_step = rank0["global_step"]
         self.micro_step = rank0["micro_step"]
         self.comm_stats = dict(rank0.get("comm_stats", {}))
+        self.recovery_events = [
+            *getattr(self.strategy, "recovery_events", []),
+            *rank0.get("events", [])]
         self._merge_telemetry(results, replace=True)
         for cb, cb_state in zip(self.callbacks, rank0["callback_states"]):
             cb.load_state_dict(cb_state)

@@ -38,6 +38,8 @@ KNOBS: Tuple[EnvKnob, ...] = (
     EnvKnob("RLT_UPDATE_SHARDING", True, "cross-replica sharded update"),
     # -- driver- and process-local knobs ----------------------------------
     EnvKnob("RLT_BACKEND", False, "cluster backend selector (driver)"),
+    EnvKnob("RLT_ELASTIC_MIN_WORKERS", False, "governor floor (driver)"),
+    EnvKnob("RLT_ELASTIC_GROW_AFTER_S", False, "grow-back arm (driver)"),
     EnvKnob("RLT_SEGMENT_MIN_BYTES", False, "shm threshold (per process)"),
     EnvKnob("RLT_HEADROOM_ROUTING", False,
             "router placement tie-break on headroom (router-local)"),

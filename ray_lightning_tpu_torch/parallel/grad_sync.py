@@ -52,6 +52,7 @@ from ray_lightning_tpu_torch.models.optim import (
 __all__ = ["GradCommConfig", "Bucket", "BucketPlan", "build_bucket_plan",
            "jax_order", "sync_leaf_buckets", "sync_leaf_buckets_int8",
            "BucketSync", "LeafSync", "GradSync", "maybe_build_grad_sync",
+           "warn_residual_dropped",
            "DEFAULT_BUCKET_BYTES"]
 
 DEFAULT_BUCKET_BYTES = 4 * 2 ** 20
@@ -343,6 +344,24 @@ def sync_leaf_buckets_int8(leaves: List[torch.Tensor],
     return synced, (resid_out if resid is not None else None)
 
 
+def warn_residual_dropped(got: Tuple[int, ...], n_shards: int,
+                          want: Optional[Tuple[int, ...]],
+                          telemetry: Any = None) -> None:
+    """A checkpoint's error-feedback residual dropped at a world-size
+    change, loudly: the JAX package's warning (``want`` in its layout,
+    one row a device; None where this run keeps no residual) and the
+    ``grad_residual_dropped`` counter."""
+    warnings.warn(
+        f"checkpoint error-feedback residual has shape {got} "
+        f"but this run syncs over {n_shards} devices "
+        f"(want {want}) — the per-device residual does not "
+        "survive an elastic world-size change; resetting to "
+        "zero (at most one step of compression error is lost)"
+    )
+    if telemetry is not None:
+        telemetry.add_counter("grad_residual_dropped", 1)
+
+
 class GradSync:
     """A resolved int8 gradient wire for one (module, world): built by
     :func:`maybe_build_grad_sync`, run by ``step_fns.DistributedStep``
@@ -427,11 +446,12 @@ class GradSync:
 
     def reconcile_resumed_state(self, state):
         """A resumed state against this run's residual layout: a state
-        without a residual (every checkpoint: the row never enters one)
-        gets zeros under EF; one with a residual sheds it without EF; a
-        residual of another length (another world size or overlap
-        layout) is dropped, loudly (a warning and the
-        ``grad_residual_dropped`` counter), and reset to zeros, never
+        without a residual (an ``RLTCKPT1`` file never holds one) gets
+        zeros under EF; one with a residual sheds it without EF; this
+        rank's row of a restart checkpoint of the same world and layout
+        resumes as it was; a residual of another shape (another world
+        size or overlap layout) is dropped, loudly
+        (:func:`warn_residual_dropped`), and reset to zeros, never
         applied as another rank's error history."""
         from ray_lightning_tpu_torch.core.module import TrainState
 
@@ -440,20 +460,13 @@ class GradSync:
             if resid is None:
                 return state
             return TrainState(state.params, state.opt_state, state.step)
-        want = (self.plan.total_padded,)
         got = tuple(getattr(resid, "shape", ()))
-        if resid is not None and got == want:
+        if resid is not None and got == (self.plan.total_padded,):
             return state
         if resid is not None:
-            warnings.warn(
-                f"checkpoint error-feedback residual has shape {got} "
-                f"but this run syncs over {self.n_shards} devices "
-                f"(want {want}) — the per-device residual does not "
-                "survive an elastic world-size change; resetting to "
-                "zero (at most one step of compression error is lost)"
-            )
-            if self._telemetry is not None:
-                self._telemetry.add_counter("grad_residual_dropped", 1)
+            warn_residual_dropped(got, self.n_shards,
+                                  (self.n_shards, self.plan.total_padded),
+                                  self._telemetry)
         device = tree_leaves(state.params)[0].device
         return TrainState(state.params, state.opt_state, state.step,
                           self.init_residual(device))

@@ -152,6 +152,12 @@ class DistContext:
             pos += n
         return out
 
+    def barrier(self) -> None:
+        """Every rank reaches this point before any leaves it."""
+        import torch.distributed as dist
+
+        dist.barrier()
+
     def broadcast_(self, tensors, src: int = 0) -> None:
         """Rank ``src``'s values written into every rank's ``tensors``."""
         import torch.distributed as dist

@@ -22,6 +22,18 @@ that both stages use:
   JAX package's ZeRO-1 step likewise shards the int8 island's replicated
   output for the update.
 
+The step's collectives go a bucket at a time, not a leaf at a time: the
+sharded leaves, in the JAX package's tree order, are packed into the
+gradient wire's buckets (``grad_sync.build_bucket_plan``, 4 MiB of f32 a
+bucket), one plan a dtype.  A bucket is laid out rank-major (rank r's
+slices of every leaf in the bucket, in order, then rank r+1's), so one
+``reduce_scatter_tensor`` hands each rank its slices of every leaf in
+it and one ``all_gather_into_tensor`` returns them; the replicated
+leaves' gradients go through ``grad_sync.sync_leaf_buckets``, one
+``all_reduce`` a bucket.  Every element is summed over the same ranks as
+a collective a leaf would sum it, so at two ranks (where a sum of two
+addends has one order) the bucketed step is bitwise the per-leaf one.
+
 A rank's slice of a leaf sharded along dim ``d`` is the contiguous run
 ``[rank·c, (rank+1)·c)`` of ``d`` (``c = shape[d] / world``), stored as a
 contiguous tensor; a collective along ``d`` moves ``d`` to the front
@@ -125,6 +137,14 @@ class ZeroPlan:
                      for s in self.full_shapes]
         self.min_leaf_size = min_leaf_size
         self._by_path = {p: i for i, p in enumerate(self.paths)}
+        self._order = sorted(range(len(self.paths)), key=lambda i: tuple(
+            str(k) for k in self.paths[i]))
+        # (the frozen leaves' mask, the leaves' dtypes) -> the step's
+        # bucket plans: the sharded leaves' reduce-scatter buckets and the
+        # replicated leaves' all-reduce buckets.  (The leaves' dtypes) ->
+        # the all-gather's buckets.  A bucket never mixes dtypes.
+        self._grad_plans: dict = {}
+        self._gather_plans: dict = {}
 
     # -- shapes -------------------------------------------------------------
     def shard_shape(self, i: int) -> Tuple[int, ...]:
@@ -164,40 +184,124 @@ class ZeroPlan:
             out, x)
         return out if d == 0 else out.movedim(0, d).contiguous()
 
+    def _buckets(self, indices: List[int], shapes, dtypes
+                 ) -> List[List[int]]:
+        """``indices`` (in JAX tree order) packed into buckets of one
+        dtype each by the gradient wire's plan over ``shapes``."""
+        from ray_lightning_tpu_torch.parallel.grad_sync import (
+            DEFAULT_BUCKET_BYTES, build_bucket_plan,
+        )
+
+        out: List[List[int]] = []
+        for dt in dict.fromkeys(dtypes[i] for i in indices):
+            group = [i for i in indices if dtypes[i] == dt]
+            plan = build_bucket_plan([shapes[i] for i in group], self.world,
+                                     DEFAULT_BUCKET_BYTES)
+            out += [[group[j] for j in b.indices] for b in plan.buckets]
+        return out
+
+    def _rank_major(self, ts: List[torch.Tensor], dims: List[int]
+                    ) -> torch.Tensor:
+        """A bucket's leaves laid out rank-major: rank r's run of every
+        leaf (along its dim), in order, then rank r+1's."""
+        parts = [(t if d == 0 else t.movedim(d, 0)).reshape(self.world, -1)
+                 for t, d in zip(ts, dims)]
+        return torch.cat(parts, dim=1).reshape(-1)
+
+    def _unpack_slices(self, flat: torch.Tensor, idx: List[int]
+                       ) -> List[torch.Tensor]:
+        """This rank's slices of a bucket's leaves out of its flat run."""
+        out, pos = [], 0
+        for i in idx:
+            d = self.dims[i]
+            shape = list(self.full_shapes[i])
+            shape[d] //= self.world
+            moved = [shape[d]] + shape[:d] + shape[d + 1:]
+            n = math.prod(moved)
+            part = flat[pos:pos + n].view(moved)
+            out.append(part if d == 0 else part.movedim(0, d).contiguous())
+            pos += n
+        return out
+
     def all_gather(self, shards: Any) -> Any:
-        """Full leaves from every rank's slices (a params-shaped tree)."""
+        """Full leaves from every rank's slices (a params-shaped tree): one
+        ``all_gather_into_tensor`` a bucket of the sharded leaves."""
         leaves = tree_leaves(shards)
         self._check_len(leaves, "tree")
-        return tree_unflatten(shards, [
-            s if d is None else self._gather(s, d)
-            for s, d in zip(leaves, self.dims)])
+        dtypes = tuple(t.dtype for t in leaves)
+        plan = self._gather_plans.get(dtypes)
+        if plan is None:
+            sharded = [i for i in self._order if self.dims[i] is not None]
+            plan = self._gather_plans[dtypes] = self._buckets(
+                sharded, self.full_shapes, dtypes)
+        out = list(leaves)
+        gather = _collective("all_gather_single", "all_gather_into_tensor")
+        for idx in plan:
+            parts = [leaves[i] for i in idx]
+            dims = [self.dims[i] for i in idx]
+            mine = torch.cat([(t if d == 0 else t.movedim(d, 0)).reshape(-1)
+                              for t, d in zip(parts, dims)])
+            full = torch.empty(mine.numel() * self.world, dtype=mine.dtype,
+                               device=mine.device)
+            gather(full, mine)
+            rows = full.view(self.world, -1)
+            pos = 0
+            for i, t, d in zip(idx, parts, dims):
+                n = t.numel()
+                shape = list(self.full_shapes[i])
+                moved = [shape[d]] + shape[:d] + shape[d + 1:]
+                leaf = rows[:, pos:pos + n].reshape(moved)
+                out[i] = leaf if d == 0 else leaf.movedim(0, d).contiguous()
+                pos += n
+        return tree_unflatten(shards, out)
 
     def reduce_scatter_grads(self, grads: Any) -> Any:
-        """Gradients averaged over the ranks, each sharded leaf reduced
-        onto this rank's slice (``reduce_scatter_tensor``), each
-        replicated one all-reduced in full; a frozen leaf's
+        """Gradients averaged over the ranks: the sharded leaves reduced
+        onto this rank's slices, one ``reduce_scatter_tensor`` a bucket;
+        the replicated ones all-reduced in full, one ``all_reduce`` a
+        bucket (``grad_sync.sync_leaf_buckets``); a frozen leaf's
         ``known_zeros`` becomes a slice-shaped one, no collective."""
         import torch.distributed as dist
 
+        from ray_lightning_tpu_torch.parallel.grad_sync import (
+            DEFAULT_BUCKET_BYTES, build_bucket_plan, sync_leaf_buckets,
+        )
+
         leaves = tree_leaves(grads)
         self._check_len(leaves, "gradient tree")
-        out = []
-        for g, d in zip(leaves, self.dims):
-            if is_known_zeros(g):
-                out.append(g if d is None else known_zeros(
-                    g.narrow(d, 0, g.shape[d] // self.world)))
-                continue
-            if d is None:
-                dist.all_reduce(g, op=dist.ReduceOp.SUM)
-                out.append(g.div_(self.world))
-                continue
-            x = (g if d == 0 else g.movedim(d, 0)).contiguous()
-            part = torch.empty((x.shape[0] // self.world, *x.shape[1:]),
-                               dtype=x.dtype, device=x.device)
-            _collective("reduce_scatter_single", "reduce_scatter_tensor")(
-                part, x, op=dist.ReduceOp.SUM)
+        frozen = tuple(is_known_zeros(g) for g in leaves)
+        dtypes = tuple(g.dtype for g in leaves)
+        plans = self._grad_plans.get((frozen, dtypes))
+        if plans is None:
+            live = [i for i in self._order if not frozen[i]]
+            sharded = [i for i in live if self.dims[i] is not None]
+            repl = [i for i in live if self.dims[i] is None]
+            plans = self._grad_plans[frozen, dtypes] = (
+                self._buckets(sharded, self.full_shapes, dtypes),
+                repl, build_bucket_plan(
+                    [self.full_shapes[i] for i in repl], self.world,
+                    DEFAULT_BUCKET_BYTES).buckets)
+        rs_buckets, repl, repl_buckets = plans
+        out = list(leaves)
+        for i, (g, d) in enumerate(zip(leaves, self.dims)):
+            if frozen[i] and d is not None:
+                out[i] = known_zeros(g.narrow(d, 0, g.shape[d] // self.world))
+        scatter = _collective("reduce_scatter_single",
+                              "reduce_scatter_tensor")
+        for idx in rs_buckets:
+            flat = self._rank_major([leaves[i] for i in idx],
+                                    [self.dims[i] for i in idx])
+            part = torch.empty(flat.numel() // self.world, dtype=flat.dtype,
+                               device=flat.device)
+            scatter(part, flat, op=dist.ReduceOp.SUM)
             part.div_(self.world)
-            out.append(part if d == 0 else part.movedim(0, d).contiguous())
+            for i, s in zip(idx, self._unpack_slices(part, idx)):
+                out[i] = s
+        if repl:
+            synced = sync_leaf_buckets([leaves[i] for i in repl],
+                                       repl_buckets, self.world)
+            for i, g in zip(repl, synced):
+                out[i] = g
         return tree_unflatten(grads, out)
 
     def slice_grads(self, grads: Any) -> Any:
@@ -242,7 +346,7 @@ class ZeroPlan:
             raise NotImplementedError(
                 "int8 optimizer moments under ZeRO are not ported: a rank's "
                 "slice of a param does not hold whole codec blocks of the "
-                "flat moment (ROADMAP Queue 1 item 2); use opt_state_dtype "
+                "flat moment (ROADMAP Queue 1 item 2.3); use opt_state_dtype "
                 "None, 'float32' or 'bfloat16' with RayShardedStrategy")
         dims = []
         for path, leaf in leaves_with_paths(opt_state):
@@ -263,7 +367,7 @@ class ZeroPlan:
                     raise NotImplementedError(
                         f"optimizer-state leaf {path} of shape {shape} has "
                         f"no parameter twin; ZeRO shards only moments that "
-                        f"mirror a parameter (ROADMAP Queue 1 item 2)")
+                        f"mirror a parameter (ROADMAP Queue 1 item 2.3)")
             dims.append(dim)
         return dims
 

@@ -33,13 +33,32 @@ warned), ``grad_overlap_segments`` (the sync inside the backward,
 ``parallel/overlap.py``) and ``update_sharding`` (the sharded weight
 update of the ``RayStrategy`` flavor).
 
+Restarts (the JAX ``TpuStrategy.run``'s governor): with
+``max_restarts > 0`` a fit whose worker dies (``ActorDiedError``; a
+``RemoteError`` from user code is raised, not retried) respawns the whole
+worker set, after an exponential, jittered, capped backoff, within a
+budget of ``max_restarts`` failures a sliding ``restart_window_s``, and
+resumes from the newest verified restart checkpoint (each rank's
+``RLTSHRD2`` pieces, written every ``restart_every_n_epochs`` epochs
+under ``restart_dir``, else under a scratch directory
+``<default_root_dir>/.rlt-restart-<8 hex>`` removed after the fit), which
+worker 0 finds (the driver where it cannot), walking back past corrupt
+ones.  With ``elastic_min_workers`` the governor shrinks the world to the
+capacity ``elastic_capacity_fn`` reports when a worker dies (without
+spending the budget, stopped by a flap guard) and grows back at a
+restart; a resume at another world re-derives the accumulation factor.
+``restarts_used``, ``resizes_used`` and ``recovery_events`` record it.
+
 Departures, each raising rather than ignoring: ``backend`` names the
 process group's backend ("nccl", the default for card workers, or
 "gloo", the default for CPU workers; the strategy never switches on its
 own), and NCCL's one rank a card is checked before spawning; the JAX
 ``backend`` (the control plane) is the ``RLT_BACKEND`` variable here,
-"local" only.  Restarts, elastic resizing and the run monitor are later
-slices (ROADMAP Queue 1 items 2 and 6), as is ``MpmdStrategy`` (item 4).
+"local" only.  Without ``elastic_capacity_fn`` the capacity is
+``num_workers`` (the JAX default reads the fault plane's lost-worker
+markers).  Preemption drains (``PreemptedError``, the drain-driven grow
+of ``elastic_grow_after_s``, SIGTERM forwarding) and the run monitor are
+ROADMAP Queue 1 item 6, as ``MpmdStrategy`` is item 4.
 """
 
 from __future__ import annotations
@@ -47,6 +66,10 @@ from __future__ import annotations
 import copy
 import dataclasses
 import os
+import random
+import shutil
+import time
+import uuid
 import warnings
 from typing import Any, Callable, Dict, List, Optional
 
@@ -65,6 +88,7 @@ from ray_lightning_tpu_torch.parallel import env_bus
 from ray_lightning_tpu_torch.parallel.grad_sync import GradCommConfig
 from ray_lightning_tpu_torch.parallel.mesh import MeshSpec, build_mesh
 from ray_lightning_tpu_torch.parallel.overlap import normalize_grad_overlap
+from ray_lightning_tpu_torch.telemetry.monitor import make_event
 from ray_lightning_tpu_torch.telemetry.runtime import TelemetryConfig
 from ray_lightning_tpu_torch.util import process_results
 
@@ -73,6 +97,12 @@ __all__ = ["TpuStrategy", "LocalStrategy", "RayStrategy",
            "HorovodRayPlugin", "RayShardedPlugin"]
 
 MODES = ("gspmd", "shard_map")
+
+# The flap guard's "no resize yet", distinct from a resize that resumed
+# from scratch (None).
+_RESIZE_CKPT_UNSET = object()
+# How long a peer's collective error waits for a dead worker's future.
+_DEATH_GRACE_S = 10.0
 
 _ZERO2_WARNING = (
     "zero_stage=2 is equivalent to zero_stage=1 on this framework (GSPMD "
@@ -91,6 +121,27 @@ def _check_mode(mode: str, zero_stage: int) -> None:
 # ---------------------------------------------------------------------------
 # Worker side (top level: shipped to the workers by reference)
 # ---------------------------------------------------------------------------
+
+def _remote_latest_restart_checkpoint(restart_dir: str) -> Dict[str, Any]:
+    """The newest complete and verified restart checkpoint in
+    ``restart_dir`` (run on worker 0, the writer's filesystem, or in the
+    driver): candidates newest first
+    (``sharded_ckpt.list_restart_candidates``), each verified
+    (``sharded_ckpt.verify_checkpoint``); a corrupt one is walked past to
+    the one before it.  ``{"path": the checkpoint or None, "corrupt":
+    [{"path", "problems"}, ...]}``."""
+    from ray_lightning_tpu_torch.utils.sharded_ckpt import (
+        list_restart_candidates, verify_checkpoint,
+    )
+
+    corrupt: List[Dict[str, Any]] = []
+    for _, _, _, path in list_restart_candidates(restart_dir):
+        problems = verify_checkpoint(path)
+        if not problems:
+            return {"path": path, "corrupt": corrupt}
+        corrupt.append({"path": path, "problems": problems[:3]})
+    return {"path": None, "corrupt": corrupt}
+
 
 def _remote_find_free_port() -> int:
     """A free port on the worker's host (worker 0 hosts the rendezvous)."""
@@ -191,12 +242,16 @@ class TpuStrategy:
     a dict or a ``GradCommConfig``), ``update_sharding`` (None, "auto",
     "on", "off") and ``grad_overlap_segments`` (None, "off", G) are
     validated here and resolved on the workers; the last two fill the
-    Trainer's when that leaves them None.  The JAX arguments of later
-    slices raise when set away from their defaults: ``max_restarts`` and
-    the restart governance (``restart_every_n_epochs``,
-    ``restart_window_s``, ``restart_backoff_s``,
-    ``restart_backoff_max_s``), the ``elastic_*`` arguments and
-    ``monitor``."""
+    Trainer's when that leaves them None.  ``max_restarts``,
+    ``restart_every_n_epochs`` (it fills the Trainer's when that is
+    unset), ``restart_window_s``, ``restart_backoff_s``,
+    ``restart_backoff_max_s``, ``elastic_min_workers`` (else the
+    ``RLT_ELASTIC_MIN_WORKERS`` variable, clamped into ``[1,
+    num_workers]``) and ``elastic_capacity_fn`` govern restarts, as the
+    module says.  The JAX arguments of later slices raise when set:
+    ``elastic_grow_after_s`` (or ``RLT_ELASTIC_GROW_AFTER_S``), whose
+    grow is driven by a drain, and ``monitor`` (ROADMAP Queue 1 item
+    6)."""
 
     mode: str = "gspmd"
     zero_stage: int = 0
@@ -239,39 +294,53 @@ class TpuStrategy:
         self.use_gpu = bool(use_gpu)
         self.additional_resources_per_worker = resources
         self.init_hook = init_hook
-        restarts = ("restarts from the RLTSHRD2 sharded checkpoints, "
-                    "ROADMAP Queue 1 item 2")
+        if elastic_grow_after_s is None:
+            env = os.environ.get("RLT_ELASTIC_GROW_AFTER_S")
+            elastic_grow_after_s = float(env) if env else None
         later = {
-            "max_restarts": (max_restarts, max_restarts != 0, restarts),
-            "restart_every_n_epochs": (restart_every_n_epochs,
-                                       restart_every_n_epochs != 1,
-                                       restarts),
-            "restart_window_s": (restart_window_s,
-                                 restart_window_s != 3600.0, restarts),
-            "restart_backoff_s": (restart_backoff_s,
-                                  restart_backoff_s != 1.0, restarts),
-            "restart_backoff_max_s": (restart_backoff_max_s,
-                                      restart_backoff_max_s != 60.0,
-                                      restarts),
-            "elastic_min_workers": (elastic_min_workers,
-                                    elastic_min_workers is not None,
-                                    "elastic resizing, ROADMAP Queue 1 "
-                                    "item 2"),
-            "elastic_grow_after_s": (elastic_grow_after_s,
-                                     elastic_grow_after_s is not None,
-                                     "elastic resizing, ROADMAP Queue 1 "
-                                     "item 2"),
-            "elastic_capacity_fn": (elastic_capacity_fn,
-                                    elastic_capacity_fn is not None,
-                                    "elastic resizing, ROADMAP Queue 1 "
-                                    "item 2"),
-            "monitor": (monitor, monitor is not None,
-                        "the run monitor, ROADMAP Queue 1 item 6"),
+            "elastic_grow_after_s": elastic_grow_after_s,
+            "monitor": monitor,
         }
-        for name, (value, set_, where) in later.items():
-            if set_:
+        for name, value in later.items():
+            if value is not None:
                 raise NotImplementedError(
-                    f"{name}={value!r} is not ported yet ({where})")
+                    f"{name}={value!r} is not ported yet (the drain plane "
+                    f"and the run monitor, ROADMAP Queue 1 item 6)")
+        if max_restarts < 0:
+            raise ValueError("max_restarts must be >= 0")
+        if restart_every_n_epochs < 1:
+            raise ValueError("restart_every_n_epochs must be >= 1")
+        if restart_window_s <= 0:
+            raise ValueError("restart_window_s must be > 0")
+        if restart_backoff_s < 0 or restart_backoff_max_s < 0:
+            raise ValueError("restart backoff times must be >= 0")
+        self.max_restarts = max_restarts
+        self.restart_every_n_epochs = restart_every_n_epochs
+        self.restart_window_s = restart_window_s
+        self.restart_backoff_s = restart_backoff_s
+        self.restart_backoff_max_s = restart_backoff_max_s
+        self.restarts_used = 0
+        # Drains are not ported (item 6): this stays 0.
+        self.preempt_restarts_used = 0
+        if elastic_min_workers is None:
+            env = os.environ.get("RLT_ELASTIC_MIN_WORKERS")
+            if env:
+                elastic_min_workers = min(max(int(env), 1), num_workers)
+        if elastic_min_workers is not None and not (
+                1 <= elastic_min_workers <= num_workers):
+            raise ValueError(
+                f"elastic_min_workers must be in [1, num_workers="
+                f"{num_workers}], got {elastic_min_workers}")
+        self.elastic_min_workers = elastic_min_workers
+        self.elastic_grow_after_s = elastic_grow_after_s
+        self.elastic_capacity_fn = elastic_capacity_fn
+        # The world the governor runs: num_workers is the ceiling.
+        self.active_workers = num_workers
+        self.resizes_used = 0
+        self.last_resize_recover_s: Optional[float] = None
+        self._last_resize_ckpt: Any = _RESIZE_CKPT_UNSET
+        self._resize_streak = 0
+        self.recovery_events: List[Dict[str, Any]] = []
         # Validated here, so a typo fails at construction, not on a
         # worker; resolved against the real world on the workers.
         if grad_comm is not None:
@@ -293,7 +362,7 @@ class TpuStrategy:
             raise NotImplementedError(
                 f"mesh_axes={mesh_axes}: ZeRO over fsdp groups replicated "
                 f"along data (hybrid sharding) is not ported yet (ROADMAP "
-                f"Queue 1 item 2); shard over every rank with one batch "
+                f"Queue 1 item 2.4); shard over every rank with one batch "
                 f"axis")
         self.mesh_axes = mesh_axes
         self.device = device or ("cuda" if self.use_gpu else "cpu")
@@ -341,7 +410,9 @@ class TpuStrategy:
 
     @property
     def world_size(self) -> int:
-        return self.num_workers
+        """The governor's current world: ``num_workers`` unless an elastic
+        resize changed it."""
+        return self.active_workers
 
     # -- lifecycle ----------------------------------------------------------
     def setup(self, trainer=None) -> None:
@@ -352,14 +423,34 @@ class TpuStrategy:
         self._spawn_workers()
 
     def _spawn_workers(self) -> None:
-        for i in range(self.num_workers):
+        # Names unique a generation: a respawned set never reuses one.
+        gen = getattr(self, "_spawn_generation", 0)
+        self._spawn_generation = gen + 1
+        suffix = "" if gen == 0 else f"-r{gen}"
+        for i in range(self.active_workers):
             self._workers.append(self._backend.create_actor(
-                name=f"rlt-worker-{i}", env=self.env_per_worker or None,
+                name=f"rlt-worker-{i}{suffix}",
+                env=self.env_per_worker or None,
                 num_cpus=self.num_cpus_per_worker,
                 resources=self.additional_resources_per_worker or None))
         if self.init_hook is not None:
             for f in [w.submit(self.init_hook) for w in self._workers]:
                 f.result()
+
+    def _kill_workers(self) -> None:
+        """Kill every current worker (a dead rank's peers may be stuck in a
+        collective); one already dead is fine."""
+        for w in self._workers:
+            try:
+                w.kill()
+            except Exception:  # noqa: BLE001 - already dead
+                pass
+        self._workers = []
+
+    def _respawn_workers(self) -> None:
+        """A fresh worker set of ``active_workers``."""
+        self._kill_workers()
+        self._spawn_workers()
 
     def _broker_coordinator(self) -> str:
         """Worker 0's host and a free port there: the rendezvous."""
@@ -369,11 +460,129 @@ class TpuStrategy:
     def run(self, kind: str, module, datamodule, config: FitConfig,
             callbacks: List, params=None, ckpt_path: Optional[str] = None
             ) -> List[Dict[str, Any]]:
-        """Ship, submit, pump, collect: every rank's package of stage
-        ``kind``, in rank order."""
+        """Every rank's package of stage ``kind``, in rank order.  With
+        ``max_restarts > 0`` a fit survives worker death: the governor of
+        the module docstring respawns the worker set and resumes from the
+        newest verified restart checkpoint (at most
+        ``restart_every_n_epochs`` epochs of work lost)."""
         if not self._workers:
             raise RuntimeError("setup() must run first")
         config = _fill_config(config, self)
+        elastic = self.max_restarts > 0 and kind == "fit"
+        if elastic and config.restart_every_n_epochs is None:
+            config = dataclasses.replace(
+                config, restart_every_n_epochs=self.restart_every_n_epochs)
+        restart_dir = None
+        if elastic and config.restart_dir is None:
+            restart_dir = os.path.join(
+                config.default_root_dir,
+                f".rlt-restart-{uuid.uuid4().hex[:8]}")
+            config = dataclasses.replace(config, restart_dir=restart_dir)
+        if kind == "fit":
+            self.recovery_events = []
+            self._resize_streak = 0
+            self._last_resize_ckpt = _RESIZE_CKPT_UNSET
+        fail_times: List[float] = []
+        try:
+            while True:
+                try:
+                    return self._run_once(kind, module, datamodule, config,
+                                          callbacks, params, ckpt_path)
+                # Only process death is retried: an exception in user
+                # code (RemoteError) would only raise again.
+                except ActorDiedError as err:
+                    if not elastic:
+                        raise
+                    config = self._recover(err, config, fail_times)
+        finally:
+            if restart_dir is not None:
+                shutil.rmtree(restart_dir, ignore_errors=True)
+
+    def _recover(self, err: ActorDiedError, config: FitConfig,
+                 fail_times: List[float]) -> FitConfig:
+        """One worker death of an elastic fit: the next attempt's config
+        (resuming from the newest verified checkpoint), or ``err``
+        raised with its note."""
+        t_recover = time.monotonic()
+        target, rejected = self._elastic_resize_decision()
+        if rejected:
+            self._record_resize_rejected(target)
+            err.enrich(note=(
+                f"fleet capacity {target} below elastic_min_workers="
+                f"{self.elastic_min_workers} — shrink rejected, restart "
+                f"abandoned"))
+            raise err
+        if target is not None and target < self.active_workers:
+            # Capacity loss explains the death: respawn the survivors
+            # without spending the budget, flap-guarded by the resume
+            # point's progress.  The doomed set goes first (its peers may
+            # be wedged in a collective).
+            self._kill_workers()
+            resume = self._discover_resume(config)["path"]
+            self._resize_streak = (self._resize_streak + 1
+                                   if resume == self._last_resize_ckpt
+                                   else 0)
+            self._last_resize_ckpt = resume
+            if self._resize_streak >= 2:
+                err.enrich(note="no forward progress across consecutive "
+                                "elastic resizes — flap guard stopped the "
+                                "shrink loop")
+                raise err
+            warnings.warn(
+                f"Worker loss with reduced fleet capacity ({err}); elastic "
+                f"shrink to {target} survivors (budget untouched), resuming "
+                f"from {resume or 'scratch'}.")
+            self._respawn_resized(target, t_recover, resume,
+                                  why="capacity loss")
+            return _resume_config(config, resume)
+        now = time.monotonic()
+        fail_times[:] = [t for t in fail_times
+                         if now - t <= self.restart_window_s]
+        if len(fail_times) >= self.max_restarts:
+            err.enrich(note=(
+                f"restart budget exhausted: {self.max_restarts} failure(s) "
+                f"within {self.restart_window_s:.0f}s"))
+            raise err
+        fail_times.append(now)
+        self.restarts_used += 1
+        # The backoff's exponent: the failures in the window.
+        streak = len(fail_times)
+        delay = self._backoff_delay(streak)
+        if delay > 0:
+            self._record_recovery(
+                "backoff", delay_s=round(delay, 3), attempt=streak,
+                message=(f"waiting {delay:.2f}s before respawn #{streak} "
+                         f"(exponential backoff with jitter)"))
+            time.sleep(delay)
+        t_recover = time.monotonic()
+        # A restart is also the chance to grow back to the capacity.
+        old = self.active_workers
+        grew = target is not None and target != old
+        if grew:
+            self.active_workers = int(target)
+        self._respawn_workers()
+        resume = self._discover_resume(config)["path"]
+        if grew:
+            self._record_resize(old, int(target), t_recover, resume,
+                                why="restart")
+        self._record_recovery(
+            "elastic_restart", attempt=streak,
+            recover_s=round(time.monotonic() - t_recover, 3),
+            ckpt=resume or "",
+            message=(f"worker failure; elastic restart {len(fail_times)}/"
+                     f"{self.max_restarts} in window, resuming from "
+                     f"{resume or 'scratch'}"))
+        warnings.warn(
+            f"Worker failure ({err}); elastic restart {len(fail_times)}/"
+            f"{self.max_restarts} (window {self.restart_window_s:.0f}s), "
+            f"resuming from {resume or 'scratch'}.")
+        return _resume_config(config, resume)
+
+    def _run_once(self, kind: str, module, datamodule, config: FitConfig,
+                  callbacks: List, params=None,
+                  ckpt_path: Optional[str] = None) -> List[Dict[str, Any]]:
+        """Ship, submit, pump, collect: one attempt over the current
+        worker set."""
         # A module that ran a fit here still points at that fit's loop
         # context (threads, locks): ship a copy without it.
         module = copy.copy(module)
@@ -381,7 +590,7 @@ class TpuStrategy:
         task = {
             "kind": kind, "module": module, "datamodule": datamodule,
             "config": config, "callbacks": callbacks,
-            "world_size": self.num_workers,
+            "world_size": self.active_workers,
             "coordinator": self._broker_coordinator(),
             "mesh_axes": self.mesh_axes, "mode": self.mode,
             "zero_stage": self.zero_stage, "grad_comm": self.grad_comm,
@@ -398,12 +607,127 @@ class TpuStrategy:
                                 queue.handle)
                        for rank, w in enumerate(self._workers)]
             return process_results(futures, queue)
-        except (ActorDiedError, RemoteError) as err:
+        except RemoteError as err:
+            # Over gloo a peer's collective fails at once when a rank's
+            # process dies, which can reach the driver first: the death
+            # is the failure.
+            died = self._dead_peer(futures)
+            if died is None:
+                raise
+            self._enrich_failure(died, futures)
+            raise died from err
+        except ActorDiedError as err:
             self._enrich_failure(err, futures)
             raise
         finally:
             queue.shutdown()
             task_ref.release()
+
+    def _dead_peer(self, futures) -> Optional[ActorDiedError]:
+        """The ``ActorDiedError`` of a worker whose process exited, once
+        its future resolves (within ``_DEATH_GRACE_S``); None while every
+        worker process lives."""
+        deadline = time.monotonic() + _DEATH_GRACE_S
+        while True:
+            for f in futures:
+                if f.done() and isinstance(f.exception(), ActorDiedError):
+                    return f.exception()
+            if (all(w.is_alive() for w in self._workers)
+                    or time.monotonic() > deadline):
+                return None
+            time.sleep(0.05)
+
+    # -- restart discovery and bookkeeping -----------------------------------
+    def _latest_restart_checkpoint(self, restart_dir: Optional[str]
+                                   ) -> Dict[str, Any]:
+        """The newest verified restart checkpoint, looked up on worker 0
+        (the writer's filesystem), in the driver when worker 0 cannot
+        answer."""
+        if restart_dir is None:
+            return {"path": None, "corrupt": []}
+        if self._workers:
+            try:
+                return self._workers[0].execute(
+                    _remote_latest_restart_checkpoint, restart_dir)
+            except (ActorDiedError, RemoteError):
+                pass
+        return _remote_latest_restart_checkpoint(restart_dir)
+
+    def _discover_resume(self, config: FitConfig) -> Dict[str, Any]:
+        """Discovery, with each checkpoint walked past booked as a
+        ``ckpt_corrupt`` event and a warning."""
+        info = self._latest_restart_checkpoint(config.restart_dir)
+        for item in info.get("corrupt", []):
+            problems = "; ".join(str(p) for p in item.get("problems", []))
+            self._record_recovery(
+                "ckpt_corrupt", ckpt=item.get("path", ""),
+                message=(f"checkpoint failed verification, falling back to "
+                         f"an older one: {problems}"))
+            warnings.warn(f"corrupt restart checkpoint skipped: "
+                          f"{item.get('path')} ({problems})")
+        return info
+
+    def _record_recovery(self, kind: str, **fields: Any) -> None:
+        """A fleet-wide recovery event (``telemetry.monitor.make_event``,
+        rank -1), kept in ``recovery_events``."""
+        self.recovery_events.append(make_event(kind, -1, **fields))
+
+    def _backoff_delay(self, streak: int) -> float:
+        """``restart_backoff_s · 2^(streak-1)``, capped at
+        ``restart_backoff_max_s``, plus up to 25% jitter."""
+        if self.restart_backoff_s <= 0:
+            return 0.0
+        base = min(self.restart_backoff_s * (2 ** max(streak - 1, 0)),
+                   self.restart_backoff_max_s)
+        return base * (1.0 + 0.25 * random.random())
+
+    # -- elastic world sizing ------------------------------------------------
+    def _fleet_capacity(self) -> int:
+        """The workers the fleet can host now: ``elastic_capacity_fn()``,
+        else ``num_workers``."""
+        if self.elastic_capacity_fn is not None:
+            return int(self.elastic_capacity_fn())
+        return self.num_workers
+
+    def _elastic_resize_decision(self):
+        """``(target world, rejected)``: None without
+        ``elastic_min_workers`` (a fixed world); ``rejected`` where the
+        capacity is below that floor."""
+        if self.elastic_min_workers is None:
+            return None, False
+        target = max(min(self._fleet_capacity(), self.num_workers), 0)
+        return target, target < self.elastic_min_workers
+
+    def _record_resize_rejected(self, target: int) -> None:
+        self._record_recovery(
+            "resize_rejected", old_world=self.active_workers,
+            new_world=target,
+            message=(f"fleet capacity {target} below elastic_min_workers="
+                     f"{self.elastic_min_workers}; shrink rejected"))
+
+    def _respawn_resized(self, target: Optional[int], t_recover: float,
+                         resume: Optional[str], why: str) -> None:
+        old = self.active_workers
+        changed = target is not None and target != old
+        if changed:
+            self.active_workers = int(target)
+        self._respawn_workers()
+        if changed:
+            self._record_resize(old, int(target), t_recover, resume, why)
+
+    def _record_resize(self, old: int, new: int, t_recover: float,
+                       resume: Optional[str], why: str) -> None:
+        """One applied resize: the ``resize`` event with the old and new
+        world and the seconds it took, and a warning."""
+        recover_s = round(time.monotonic() - t_recover, 3)
+        self.resizes_used += 1
+        self.last_resize_recover_s = recover_s
+        self._record_recovery(
+            "resize", old_world=old, new_world=new, recover_s=recover_s,
+            ckpt=resume or "",
+            message=(f"elastic resize: world {old} → {new} ({why}); "
+                     f"recovered in {recover_s}s"))
+        warnings.warn(f"elastic resize: world {old} → {new} ({why})")
 
     def _enrich_failure(self, err, futures) -> None:
         rank = next((i for i, f in enumerate(futures)
@@ -422,6 +746,13 @@ class TpuStrategy:
     def get_worker_device_info(self) -> List[Dict[str, Any]]:
         """Each worker's devices, as its own process sees them."""
         return [w.get_device_info() for w in self._workers]
+
+
+def _resume_config(config: FitConfig, resume: Optional[str]) -> FitConfig:
+    """The next attempt resumes from ``resume`` (from scratch when None)."""
+    if resume is None:
+        return config
+    return dataclasses.replace(config, resume_from_checkpoint=resume)
 
 
 def _fill_config(config: FitConfig, strategy) -> FitConfig:

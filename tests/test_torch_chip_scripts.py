@@ -10,6 +10,7 @@ and print no result.
 """
 
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -331,3 +332,22 @@ def test_grad_wire_faults_apply_once_and_name_phase16_arms(scripts):
         for old, new in subs:
             assert text.count(old) == 1 and old != new, name
         assert arms and set(arms) <= set(chip_smoke.P16_ARMS), name
+
+
+def test_restart_faults_apply_once_and_name_unit_checks(scripts):
+    """Step 15 writes each fault into a copy of the port: each of its
+    texts occurs once in the checkout's file, and the check it names is
+    one of ``torch_dist_helpers.restart_unit_checks``'s."""
+    cf = scripts[0]
+    import inspect
+
+    import torch_dist_helpers as helpers
+
+    names = set(re.findall(r"out\[\"(\w+)\"\]", inspect.getsource(
+        helpers.restart_unit_checks)))
+    assert len(cf.RESTART_FAULTS) == 6
+    assert {c for _, _, c, _ in cf.RESTART_FAULTS.values()} == names
+    for name, (path, subs, check, _) in cf.RESTART_FAULTS.items():
+        text = (ROOT / "ray_lightning_tpu_torch" / path).read_text()
+        for old, new in subs:
+            assert text.count(old) == 1 and old != new, name

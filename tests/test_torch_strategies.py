@@ -508,29 +508,29 @@ def test_zero_stage_two_warns_with_the_jax_words():
 
 
 @pytest.mark.parametrize("kwargs,where", [
-    ({"max_restarts": 1}, "item 2"),
-    ({"restart_every_n_epochs": 2}, "item 2"),
-    ({"restart_window_s": 60.0}, "item 2"),
-    ({"restart_backoff_s": 5}, "item 2"),
-    ({"restart_backoff_max_s": 10.0}, "item 2"),
-    ({"elastic_min_workers": 1}, "item 2"),
-    ({"elastic_grow_after_s": 1.0}, "item 2"),
-    ({"elastic_capacity_fn": lambda: 1}, "item 2"),
+    ({"elastic_grow_after_s": 1.0}, "item 6"),
+    ({"RLT_ELASTIC_GROW_AFTER_S": "2.5"}, "item 6"),
     ({"monitor": {"hang_intervals": 2}}, "item 6"),
     ({"RLT_BACKEND": "ray"}, "item 6"),
 ])
 def test_later_slices_raise_naming_roadmap(kwargs, where, monkeypatch):
-    for name, value in list(kwargs.items()):
-        if name.startswith("RLT_"):
-            monkeypatch.setenv(name, kwargs.pop(name))
+    env = [name for name in kwargs if name.startswith("RLT_")]
+    for name in env:
+        monkeypatch.setenv(name, kwargs.pop(name))
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {where}"):
         s = RayStrategy(num_workers=1, **{**WORKER, **kwargs})
         s.setup()
-    # Their inert values pass.
+    for name in env:
+        monkeypatch.delenv(name)
+    # Their inert values pass, and the restart governance is ported.
     RayStrategy(num_workers=1, max_restarts=0, restart_every_n_epochs=1,
                 restart_window_s=3600, restart_backoff_s=1,
                 restart_backoff_max_s=60, update_sharding="off",
                 grad_overlap_segments=None, grad_comm="full", **WORKER)
+    RayStrategy(num_workers=2, max_restarts=1, restart_every_n_epochs=2,
+                restart_window_s=60.0, restart_backoff_s=5,
+                restart_backoff_max_s=10.0, elastic_min_workers=1,
+                elastic_capacity_fn=lambda: 1, **WORKER)
 
 
 @pytest.mark.parametrize("kwargs", [

@@ -236,13 +236,28 @@ class StepProbe(Callback):
             record(self.label, 0, payload)
 
 
-def warm_up(device: str) -> None:
+def warm_up(device: str, warnings_to: str = None) -> None:
     """An ``init_hook``: import the port's model (torch, the kernels'
     wrappers and all) before the worker's first task, and on a card run
     one bf16 step of a one-layer GPT of GPT-2-small's width (the kernels,
     remat "dots+flash", CE over the 50304-token vocabulary) on 2 x 1024
     tokens, so the CUDA context, the kernels' libraries and PyTorch's
-    own kernels are loaded before the fit's first step."""
+    own kernels are loaded before the fit's first step.  With
+    ``warnings_to`` every warning the worker shows from then on is also
+    appended to that file, one line each."""
+    if warnings_to is not None:
+        import warnings
+
+        show = warnings.showwarning
+
+        def tee(message, category, filename, lineno, file=None, line=None):
+            with open(warnings_to, "a") as f:
+                f.write(f"pid {os.getpid()}: {category.__name__}: "
+                        f"{message}\n".replace("\n", " ") + "\n")
+            show(message, category, filename, lineno, file, line)
+
+        warnings.simplefilter("always")
+        warnings.showwarning = tee
     gpt = importlib.import_module("ray_lightning_tpu_torch.models.gpt")
     if device != "cuda":
         return
@@ -426,16 +441,16 @@ def wire_rank(rank: int, world: int, port: int, payload: Dict[str, Any]
 
 
 def wire_worlds(workers, payload: Dict[str, Any], timeout: float,
-                worlds=(3, 2)) -> Dict[int, List[Dict[str, Any]]]:
-    """:func:`wire_rank` on the first ``n`` of ``workers`` (CPU workers of
-    a strategy) for each ``n`` of ``worlds`` in turn, each a world of its
-    own: ``{n: [rank 0's results, ...]}``."""
+                worlds=(3, 2), fn=None) -> Dict[int, List[Dict[str, Any]]]:
+    """``fn`` (:func:`wire_rank` by default) on the first ``n`` of
+    ``workers`` (CPU workers of a strategy) for each ``n`` of ``worlds`` in
+    turn, each a world of its own: ``{n: [rank 0's results, ...]}``."""
     from ray_lightning_tpu_torch.cluster.rpc import find_free_port
 
     out = {}
     for n in worlds:
         port = find_free_port()
-        futures = [w.submit(wire_rank, rank, n, port, payload)
+        futures = [w.submit(fn or wire_rank, rank, n, port, payload)
                    for rank, w in enumerate(workers[:n])]
         out[n] = [f.result(timeout=timeout) for f in futures]
     return out
@@ -557,3 +572,439 @@ class FinalDigest(Callback):
                 record, self.label, trainer.global_rank, payload))
         else:
             record(self.label, 0, payload)
+
+
+# -- ZeRO's bucketed collectives against the per-leaf ones (tests/
+# test_torch_zero_buckets.py) -------------------------------------------------
+
+def per_leaf_plan(params, stage: int, rank: int, world: int):
+    """A ``ZeroPlan`` whose step collectives go one leaf at a time (the
+    plan's first form): one ``reduce_scatter_tensor`` or ``all_gather_
+    into_tensor`` a sharded leaf and one ``all_reduce`` a replicated one,
+    the reference the bucketed collectives are held against."""
+    from ray_lightning_tpu_torch.models.optim import (
+        is_known_zeros, known_zeros, tree_leaves, tree_unflatten,
+    )
+    from ray_lightning_tpu_torch.parallel import sharding
+
+    class PerLeafPlan(sharding.ZeroPlan):
+        def all_gather(self, shards):
+            leaves = tree_leaves(shards)
+            return tree_unflatten(shards, [
+                s if d is None else self._gather(s, d)
+                for s, d in zip(leaves, self.dims)])
+
+        def reduce_scatter_grads(self, grads):
+            import torch.distributed as dist
+
+            leaves = tree_leaves(grads)
+            out = []
+            for g, d in zip(leaves, self.dims):
+                if is_known_zeros(g):
+                    out.append(g if d is None else known_zeros(
+                        g.narrow(d, 0, g.shape[d] // self.world)))
+                    continue
+                if d is None:
+                    dist.all_reduce(g, op=dist.ReduceOp.SUM)
+                    out.append(g.div_(self.world))
+                    continue
+                x = (g if d == 0 else g.movedim(d, 0)).contiguous()
+                part = torch.empty((x.shape[0] // self.world, *x.shape[1:]),
+                                   dtype=x.dtype, device=x.device)
+                sharding._collective("reduce_scatter_single",
+                                     "reduce_scatter_tensor")(
+                    part, x, op=dist.ReduceOp.SUM)
+                part.div_(self.world)
+                out.append(part if d == 0 else
+                           part.movedim(0, d).contiguous())
+            return tree_unflatten(grads, out)
+
+    return PerLeafPlan(params, stage, rank, world)
+
+
+class _Counted:
+    """``torch.distributed``'s step collectives wrapped to count their
+    calls while the context is open."""
+
+    NAMES = ("all_reduce", "reduce_scatter_tensor", "reduce_scatter_single",
+             "all_gather_into_tensor", "all_gather_single")
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        self.counts = {n: 0 for n in self.NAMES}
+        self._orig = {n: getattr(dist, n) for n in self.NAMES
+                      if hasattr(dist, n)}
+
+        def wrap(name, fn):
+            def counted(*a, **k):
+                self.counts[name] += 1
+                return fn(*a, **k)
+            return counted
+
+        for n, fn in self._orig.items():
+            setattr(dist, n, wrap(n, fn))
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        for n, fn in self._orig.items():
+            setattr(dist, n, fn)
+
+    def summary(self) -> Dict[str, int]:
+        c = self.counts
+        return {"all_reduce": c["all_reduce"],
+                "reduce_scatter": c["reduce_scatter_tensor"]
+                + c["reduce_scatter_single"],
+                "all_gather": c["all_gather_into_tensor"]
+                + c["all_gather_single"]}
+
+
+def _zero_checks(rank: int, n: int, payload: Dict[str, Any]
+                 ) -> Dict[str, Any]:
+    """Three steps of ZeRO-1, ZeRO-3 and the sharded update (ZeRO-1's step)
+    from the same params and batches, once with the bucketed plan and
+    once with :func:`per_leaf_plan`: each arm's final state (full params
+    and moments, gathered) and its collectives a step."""
+    from ray_lightning_tpu_torch.core.module import TrainState
+    from ray_lightning_tpu_torch.models.convert import params_from_jax
+    from ray_lightning_tpu_torch.models.gpt import GPTConfig
+    from ray_lightning_tpu_torch.parallel import sharding
+    from ray_lightning_tpu_torch.parallel.grad_sync import build_bucket_plan
+    from ray_lightning_tpu_torch.parallel.mesh import DistContext
+    from ray_lightning_tpu_torch.parallel.step_fns import DistributedStep
+
+    dist_ctx = DistContext(rank, n, torch.device("cpu"), "gloo")
+    module = ScaledGPT(GPTConfig(**payload["cfg"]), device="cpu")
+    arrays = payload["arrays"]
+    rows = payload["batch"] // n
+    out: Dict[str, Any] = {}
+    for stage in (1, 3):
+        for kind in ("bucketed", "per_leaf"):
+            params = params_from_jax(payload["tree"], "cpu")
+            plan = (sharding.ZeroPlan(params, stage, rank, n)
+                    if kind == "bucketed"
+                    else per_leaf_plan(params, stage, rank, n))
+            tx = module.configure_optimizers()
+            shards = plan.shard_tree(params, own=True)
+            state = TrainState(shards if stage == 3 else params,
+                               tx.init(shards), 0)
+            step = DistributedStep(module, tx, dist_ctx, zero_plan=plan)
+            counts = []
+            for s in range(payload["steps"]):
+                lo = s * payload["batch"] + rank * rows
+                batch = {k: torch.from_numpy(np.ascontiguousarray(
+                    v[lo:lo + rows])) for k, v in arrays.items()}
+                with _Counted() as c:
+                    state, _ = step(state, batch, None)
+                counts.append(c.summary())
+            full = plan.all_gather(state.params) if stage == 3 \
+                else state.params
+            out[f"zero{stage}_{kind}"] = {
+                "params": _flat(full),
+                "opt": _flat(plan.gather_opt_state(state.opt_state)),
+                "counts": counts}
+        order = plan._order
+        sharded = [i for i in order if plan.dims[i] is not None]
+        repl = [i for i in order if plan.dims[i] is None]
+        out[f"zero{stage}_buckets"] = {
+            "sharded": build_bucket_plan(
+                [plan.full_shapes[i] for i in sharded], n).num_buckets,
+            "replicated": build_bucket_plan(
+                [plan.full_shapes[i] for i in repl], n).num_buckets,
+            "sharded_leaves": len(sharded), "replicated_leaves": len(repl)}
+    return out
+
+
+def zero_rank(rank: int, world: int, port: int, payload: Dict[str, Any]
+              ) -> Dict[str, Any]:
+    """One CPU rank of the bucketed ZeRO checks (submitted to a
+    strategy's worker): joins a gloo group of ``world`` ranks, runs
+    :func:`_zero_checks` over it and leaves it."""
+    import datetime
+
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    torch.use_deterministic_algorithms(True)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        return _zero_checks(rank, world, payload)
+    finally:
+        dist.destroy_process_group()
+
+
+# -- restarts (tests/test_torch_restart.py, chip_smoke.py phase 17) -----------
+
+class CrashOnce(Callback):
+    """Hard-kills rank ``crash_rank`` at the start of epoch
+    ``crash_epoch``, on the first attempt only: a marker file records that
+    it happened, so the respawned worker set trains through."""
+
+    def __init__(self, marker: str, crash_rank: int = 1,
+                 crash_epoch: int = 1):
+        self.marker = marker
+        self.crash_rank = crash_rank
+        self.crash_epoch = crash_epoch
+
+    def on_train_epoch_start(self, trainer, module) -> None:
+        import time
+
+        if (trainer.global_rank == self.crash_rank
+                and trainer.current_epoch == self.crash_epoch
+                and not os.path.exists(self.marker)):
+            with open(self.marker, "w") as f:
+                f.write(repr(time.time()))
+            os._exit(1)
+
+
+class AlwaysCrash(CrashOnce):
+    """As :class:`CrashOnce`, on every attempt."""
+
+    def on_train_epoch_start(self, trainer, module) -> None:
+        if (trainer.global_rank == self.crash_rank
+                and trainer.current_epoch == self.crash_epoch):
+            os._exit(1)
+
+
+class BadHook(Callback):
+    """Raises in user code at the first epoch's start."""
+
+    def on_train_epoch_start(self, trainer, module) -> None:
+        raise ValueError("deterministic user bug")
+
+
+class EpochRecorder(Callback):
+    """The epochs trained, a state that rides the restart checkpoints."""
+
+    def __init__(self):
+        self.epochs = []
+
+    def on_train_epoch_end(self, trainer, module) -> None:
+        self.epochs.append(trainer.current_epoch)
+
+    def state_dict(self):
+        return {"epochs": list(self.epochs)}
+
+    def load_state_dict(self, state):
+        self.epochs = list(state["epochs"])
+
+
+class LoadStatsProbe(Callback):
+    """Each rank's ``sharded_ckpt.LOAD_STATS`` at the fit's start (after a
+    resume read its checkpoint) and the wall-clock time of its first
+    step's end (the card synchronised), delivered to the driver's
+    :data:`RECORDS` under ``label`` (a later attempt's replace an earlier
+    one's)."""
+
+    def __init__(self, label: str):
+        self.label = label
+
+    def on_fit_start(self, trainer, module) -> None:
+        from ray_lightning_tpu_torch.utils import sharded_ckpt
+
+        self._stats = dict(sharded_ckpt.LOAD_STATS)
+        self._first = None
+        self._resumed = bool(trainer.config.resume_from_checkpoint)
+
+    def on_train_batch_end(self, trainer, module, logs, batch_idx) -> None:
+        import functools
+        import time
+
+        from ray_lightning_tpu_torch import session
+
+        if self._first is not None:
+            return
+        if trainer.device.type == "cuda":
+            torch.cuda.synchronize()
+        self._first = time.time()
+        payload = {"load_stats": self._stats, "first_step": self._first,
+                   "resumed": self._resumed}
+        if session.is_session_enabled():
+            session.put_queue(functools.partial(
+                record, self.label, trainer.global_rank, payload))
+        else:
+            record(self.label, 0, payload)
+
+
+def restart_unit_checks(directory: str) -> Dict[str, bool]:
+    """The restart plane's invariants checked in one process, without a
+    card or JAX (``tests/test_torch_restart.py`` holds each True;
+    ``chip_faults.py`` step 15 runs them on copies of the port with a fault
+    planted, each of which must turn its check False):
+
+    * ``write_order``: a rank's restart write is its shard, the barrier,
+      then (rank 0) META;
+    * ``walk_back``: discovery skips a newest checkpoint with a flipped
+      byte and resumes the one before it;
+    * ``selective_slices``: each rank's selective read of a two-rank
+      ZeRO-3 directory is its own slices, bitwise;
+    * ``accum_rederived``: a one-rank fit resuming a two-rank checkpoint
+      trains at accum 2 (2 micro-steps, 1 optimizer step an epoch);
+    * ``window``: a death older than ``restart_window_s`` does not count
+      against ``max_restarts``;
+    * ``ef_dropped``: a residual written at world 2 is dropped loudly (and
+      zeroed) when resumed at world 4, even where its rows are as long
+      as the new world's."""
+    import types
+    import warnings
+
+    from ray_lightning_tpu_torch.cluster.actor import ActorDiedError
+    from ray_lightning_tpu_torch.core import loop
+    from ray_lightning_tpu_torch.core.module import TrainState
+    from ray_lightning_tpu_torch.core.trainer import Trainer
+    from ray_lightning_tpu_torch.models.gpt import (
+        GPTConfig, SyntheticLMDataModule,
+    )
+    from ray_lightning_tpu_torch.parallel import strategies
+    from ray_lightning_tpu_torch.parallel.grad_sync import (
+        maybe_build_grad_sync,
+    )
+    from ray_lightning_tpu_torch.parallel.sharding import ZeroPlan
+    from ray_lightning_tpu_torch.telemetry.runtime import Telemetry
+    from ray_lightning_tpu_torch.utils import sharded_ckpt as sc
+    from ray_lightning_tpu_torch.utils import treedef as td
+
+    out: Dict[str, bool] = {}
+    cfg = GPTConfig.tiny()
+    module = GPT(cfg, device="cpu")
+    tx = module.configure_optimizers()
+    state = TrainState.create(module.init_params(
+        torch.Generator().manual_seed(0)), tx)
+
+    def trees(world, **kw):
+        out_trees = []
+        for r in range(world):
+            plan = ZeroPlan(state.params, 3, r, world)
+            mine = TrainState(plan.shard_tree(state.params),
+                              plan.shard_opt_state(state.opt_state),
+                              state.step)
+            out_trees.append(sc.state_tree(mine, plan, r, world, **kw))
+        return out_trees
+
+    def write(tag, ranks, extra):
+        for r, tree in enumerate(ranks):
+            sc.save_shard(tree, tag, r, len(ranks))
+        sc.save_meta(ranks[0], tag, len(ranks), extra=extra)
+
+    # write_order
+    calls: List[str] = []
+
+    class FakeDist:
+        rank, world_size = 0, 2
+
+        def barrier(self):
+            calls.append("barrier")
+
+    ctx = loop.LoopContext(loop.FitConfig(restart_dir=os.path.join(
+        directory, "order")), torch.device("cpu"), FakeDist())
+    ctx.telemetry = Telemetry.build("off")
+    ctx.state = state
+    saved = sc.save_shard, sc.save_meta
+    sc.save_shard = lambda *a, **k: calls.append("shard")
+    sc.save_meta = lambda *a, **k: calls.append("meta")
+    try:
+        loop._write_restart(ctx, [], 1, 0)
+    finally:
+        sc.save_shard, sc.save_meta = saved
+    out["write_order"] = calls == ["shard", "barrier", "meta"]
+
+    # walk_back
+    rdir = os.path.join(directory, "walk")
+    tags = [os.path.join(rdir, f"restart-epoch-{e:06d}.ckpt")
+            for e in (0, 1)]
+    for e, tag in enumerate(tags):
+        write(tag, trees(1), {"epoch": e})
+        os.utime(os.path.join(tag, "META.ckpt"), (e + 1, e + 1))
+    path = os.path.join(tags[1], "shard-00000-of-00001.ckpt")
+    with open(path, "r+b") as f:
+        f.seek(-7, 2)
+        b = f.read(1)
+        f.seek(-7, 2)
+        f.write(bytes([b[0] ^ 0x10]))
+    info = strategies._remote_latest_restart_checkpoint(rdir)
+    out["walk_back"] = (info["path"] == tags[0]
+                        and [c["path"] for c in info["corrupt"]]
+                        == [tags[1]])
+
+    # selective_slices
+    tag = os.path.join(directory, "zero3.ckpt")
+    ranks = trees(2)
+    write(tag, ranks, {"epoch": 0, "global_step": 2, "micro_step": 2,
+                       "world_size": 2, "accum": 1})
+    same = True
+    for tree in ranks:
+        got = td.flatten(sc.load_sharded(tag, targets=tree)["state"])[1]
+        want = [x.data if isinstance(x, sc.Shard) else x
+                for x in td.flatten(tree)[1]]
+        same = same and sc.LOAD_STATS["selective"] and all(
+            torch.equal(a, w) for a, w in zip(got, want))
+    out["selective_slices"] = bool(same)
+
+    # accum_rederived: epoch 1 of 2 batches, resumed at world 1.
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        tr = Trainer(strategies.LocalStrategy(device="cpu"), max_epochs=2,
+                     limit_train_batches=2, limit_val_batches=0,
+                     enable_checkpointing=False,
+                     default_root_dir=os.path.join(directory, "fit"),
+                     resume_from_checkpoint=tag)
+        tr.fit(GPT(cfg, device="cpu"), SyntheticLMDataModule(
+            cfg, batch_size=2, num_batches=2, seed=0))
+    out["accum_rederived"] = (tr.micro_step, tr.global_step) == (4, 3)
+
+    # window
+    clock = [1000.0]
+    s = strategies.RayStrategy(num_workers=1, device="cpu", max_restarts=1,
+                               restart_window_s=60.0, restart_backoff_s=0.0)
+    s._workers = [object()]
+    s._respawn_workers = s._kill_workers = lambda: None
+    s._latest_restart_checkpoint = lambda d: {"path": None, "corrupt": []}
+    attempts = [0]
+
+    def run_once(*a):
+        attempts[0] += 1
+        if attempts[0] == 2:
+            clock[0] += 61.0
+        if attempts[0] <= 2:
+            raise ActorDiedError(f"death {attempts[0]}")
+        return [{"rank": 0}]
+
+    s._run_once = run_once
+    real_time = strategies.time
+    strategies.time = types.SimpleNamespace(monotonic=lambda: clock[0],
+                                            sleep=real_time.sleep)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            s.run("fit", None, None, loop.FitConfig(
+                default_root_dir=os.path.join(directory, "gov")), [])
+        out["window"] = s.restarts_used == 2
+    except ActorDiedError:
+        out["window"] = False
+    finally:
+        strategies.time = real_time
+
+    # ef_dropped
+    params = {"w": torch.zeros(1024)}
+    small = TrainState.create(params, tx)
+    rows = [torch.full((1024,), float(r + 1)) for r in range(2)]
+    tag = os.path.join(directory, "ef.ckpt")
+    write(tag, [sc.state_tree(small, None, r, 2, residual=rows[r])
+                for r in range(2)], {"epoch": 0, "world_size": 2})
+    payload = sc.load_sharded(tag)
+    gs = maybe_build_grad_sync(None, {"mode": "int8_ef"}, 4, params=params)
+    fake = types.SimpleNamespace(world_size=4, global_rank=1)
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        loaded = loop._loaded_state(payload["state"], fake,
+                                    payload["world_size"])
+        new = gs.reconcile_resumed_state(loaded)
+    out["ef_dropped"] = (
+        gs.plan.total_padded == 1024
+        and not bool(new.grad_residual.abs().sum())
+        and any("does not survive" in str(x.message) for x in w))
+    return out
