@@ -166,9 +166,21 @@ last column of a ragged chunk of k dropped, the d tail past the last
    failures counted outside ``restart_window_s`` (``window``), and the
    error-feedback residual kept across a world change (``ef_dropped``).
 
+16. the rest of multi-GPU training (``MULTI_FAULTS``, ``multi_step``):
+   four faults planted in a copy of the port as step 13 plants them, one
+   a part, each failing the phase 18 arm its entry names
+   (``chip_smoke.py --phase18 ARM``): a captured stride that skips its
+   last bucket's all-reduce on replay (``a_megastep``: the collectives
+   captured against the eager steps'), a straddling block requantized
+   from one rank's half, the MAX all-reduce of the block maxima dropped
+   (``b_int8_zero``: the moments against the replicated update's), the
+   ``data``-group all-reduce of a hybrid mesh's slices dropped
+   (``c_hybrid``: the losses against ``LocalStrategy``), and the island
+   summing ``dwte`` twice (``d_island``).
+
 ``python3 chip_faults.py --only 12`` builds the kernels and runs step 12
-alone; ``--only 13``, ``--only 14`` and ``--only 15`` run that step
-alone.
+alone; ``--only 13``, ``--only 14``, ``--only 15`` and ``--only 16`` run
+that step alone.
 
 The wrappers are routed to a faulty library by replacing the cached ctypes
 functions of ``ops/_build.py``.  Exits 1 if a correct kernel fails a
@@ -1088,11 +1100,12 @@ DIST_FAULTS = {
     "zero_replicated_unsynced": (
         "parallel/sharding.py",
         "            synced = sync_leaf_buckets([leaves[i] for i in repl],\n"
-        "                                       repl_buckets, self.world)\n",
+        "                                       repl_buckets, total)\n",
         "            synced = [leaves[i] for i in repl]\n", ("b_zero1",)),
     "clip_local_norm": (
         "parallel/sharding.py",
-        "            dist.all_reduce(stacked, op=dist.ReduceOp.SUM)\n", "",
+        "            dist.all_reduce(stacked, op=dist.ReduceOp.SUM, "
+        "group=self.group)\n", "",
         ("e_zero1",)),
     "result_from_rank1": (
         "core/trainer.py",
@@ -1366,6 +1379,59 @@ def restart_step(summary, failures):
             failures.append(f"step 15 fault {name} not caught: {caught}")
 
 
+# name -> (file under ray_lightning_tpu_torch/, its (correct text,
+# replacement) pairs, phase 18's arm that must fail)
+MULTI_FAULTS = {
+    "captured_bucket_skipped": (
+        "parallel/grad_sync.py", [
+            ("        dist.all_reduce(flat, op=dist.ReduceOp.SUM)\n"
+             "        flat.div_(world_size)\n",
+             "        if not (torch.cuda.is_current_stream_capturing()\n"
+             "                and b is buckets[-1]):\n"
+             "            dist.all_reduce(flat, op=dist.ReduceOp.SUM)\n"
+             "        flat.div_(world_size)\n")],
+        "a_megastep"),
+    "straddle_from_one_half": (
+        "ops/optim_quant.py", [
+            ("        sh.sync_amax(full)\n", "")],
+        "b_int8_zero"),
+    "data_allreduce_dropped": (
+        "parallel/sharding.py", [
+            ("            if self.data_group is not None:\n"
+             "                dist.all_reduce(part, op=dist.ReduceOp.SUM,\n"
+             "                                group=self.data_group)\n", "")],
+        "c_hybrid"),
+    "island_dwte_twice": (
+        "ops/cross_entropy.py", [
+            ("        dist.all_reduce(g, op=dist.ReduceOp.SUM, "
+             "group=ctx.group)\n",
+             "        dist.all_reduce(g, op=dist.ReduceOp.SUM, "
+             "group=ctx.group)\n"
+             "        dist.all_reduce(g, op=dist.ReduceOp.SUM, "
+             "group=ctx.group)\n")],
+        "d_island"),
+}
+
+
+def multi_step(summary, failures):
+    """Step 16: each of ``MULTI_FAULTS`` from a copy of the port with the
+    fault written in (:func:`faulty_copy`), caught where phase 18's arm
+    it names fails (the correct arms run in ``chip_smoke.py``'s own
+    phase 18)."""
+    root = os.path.dirname(os.path.abspath(cs.__file__))
+    summary["multi"] = {}
+    for name, (path, subs, arm) in MULTI_FAULTS.items():
+        with faulty_copy(root, path, subs, 16) as tmp:
+            rc, why = phase15_run(tmp, [arm], phase=18)
+        caught = rc != 0
+        verdict = ("failed (caught): " + why[:300] if caught
+                   else "passed (NOT caught)")
+        print(f"step 16 fault {name}: phase 18 {arm} {verdict}")
+        summary["multi"][name] = caught
+        if not caught:
+            failures.append(f"step 16 fault {name} not caught by phase 18")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1385,13 +1451,14 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     failures = []
     if sys.argv[1:3] in (["--only", "13"], ["--only", "14"],
-                         ["--only", "15"]):
+                         ["--only", "15"], ["--only", "16"]):
         with ThreadPoolExecutor(4) as pool:
             list(pool.map(_build.build, ("flash_attention", "layer_norm",
                                          "cross_entropy", "bgmv")))
         summary = {}
         {"13": dist_step, "14": grad_wire_step,
-         "15": restart_step}[sys.argv[2]](summary, failures)
+         "15": restart_step, "16": multi_step}[sys.argv[2]](summary,
+                                                             failures)
         for f in failures:
             print(f"chip_faults: FAILED: {f}")
         print(card)

@@ -190,21 +190,25 @@ under ``remat_policy="dots+flash"``), counted per step.  Phases:
    the bf16 monolith's (or leave them where the top-2 logit gap is below
    one bf16 step of the top logit, ``bf16_ulp``).
 
-15. multi-GPU training (``phase_multi_gpu``, ``chip_smoke.py --phase15``
-   in a process of its own): the trainer cell (warmup cut to one step,
-   GPT-2-small's width at ``P15_LAYERS`` layers) under ``RayStrategy``, ``HorovodRayStrategy`` and
-   ``RayShardedStrategy`` ZeRO-1 and ZeRO-3: (a) one rank over NCCL, 8
+Phases 15-18 run in one process of their own (``phase_multi``,
+``chip_smoke.py --multi``; each alone as ``chip_smoke.py --phaseN``): the
+workers they need spawned and warmed up once, all at once, and kept
+across their fits (``run_staged``); every phase's remote fits first, the
+driver never touching the card, then each phase's references and checks.
+
+15. multi-GPU training (``phase15_steps``): the trainer cell (warmup cut
+   to one step, GPT-2-small's width at ``P15_LAYERS`` layers) under
+   ``RayStrategy``, ``HorovodRayStrategy`` and ``RayShardedStrategy``
+   ZeRO-1 and ZeRO-3: (a) one rank over NCCL, 8
    steps, bitwise against ``LocalStrategy``; (b) two ranks sharing the
    card over gloo, 3 steps, against ``LocalStrategy`` on the same global
-   batch (the ray flavor takes the sharded weight update there, "auto",
-   and says so; ``b_rayrep`` is the ray flavor with its replicated
-   update); (c) each rank's memory; (d) its launches a step; (e) the
+   batch (the ray flavor's "auto" keeps the replicated update over gloo,
+   and says so); (c) each rank's memory; (d) its launches a step; (e) the
    clip under ZeRO on two CPU workers; (f) two raw NCCL ranks on one card,
    which NCCL refuses;
-16. the data-parallel gradient wire (``phase_grad_wire``, ``chip_smoke.py
-   --phase16`` in a process of its own): two ranks sharing the card over
-   gloo, GPT-2-small's width at ``P15_LAYERS`` layers, bf16, 3 steps on
-   one global batch:
+16. the data-parallel gradient wire (``phase16_steps``): two ranks
+   sharing the card over gloo, GPT-2-small's width at ``P15_LAYERS``
+   layers, bf16, 3 steps on one global batch:
    (a) full width (the reference), (b) ``grad_comm="int8"``, (c)
    ``"int8_ef"``, (d) ``"int8_ef"`` with ``grad_overlap_segments=2``, (e)
    ``RayShardedStrategy(zero_stage=1, grad_comm="int8_ef")``, (f)
@@ -218,8 +222,9 @@ under ``remat_policy="dots+flash"``), counted per step.  Phases:
    overlap plan, bitwise against ``int8_all_reduce_reference``; (h) the
    CPU wire checks of ``tests/test_torch_grad_comm.py`` on three CPU
    ranks, then two (``torch_dist_helpers.wire_rank``);
-17. restarts (``phase_restarts``, ``chip_smoke.py --phase17`` in a process
-   of its own): GPT-2-small at full width, bf16: (a) a ZeRO-3 fit on two
+17. restarts (``phase17_steps``, the crash fit on workers of its own):
+   GPT-2-small's width at ``P15_LAYERS`` layers, bf16: (a) a ZeRO-3 fit on
+   two
    gloo ranks sharing the card with ``max_restarts=1``, rank 1 killed at
    epoch 1, bitwise an uninterrupted fit from the same call (losses,
    params, moments), one restart, the seconds to recover; (b) each rank's
@@ -228,7 +233,23 @@ under ``remat_policy="dots+flash"``), counted per step.  Phases:
    state; (c) the uninterrupted fit's oldest kept checkpoint resumed on
    one NCCL rank (accum 1 -> 2, the resize warned and counted), and an
    ``int8_ef`` two-rank checkpoint resumed at one rank dropping its
-   residual loudly.
+   residual loudly;
+18. the rest of multi-GPU training (``phase18_steps``): (a) megastep
+   K = 8 captured with its collectives on a one-rank NCCL world,
+   GPT-2-small at 12 layers, bf16, 24 steps: ``RayStrategy`` and
+   ``RayShardedStrategy(zero_stage=3)`` each bitwise its eager fit, the
+   ``RayStrategy`` arm bitwise ``LocalStrategy`` captured, every step's
+   collectives issued into the graph, its training kernels 8 x a step's,
+   ms/step captured against eager, peak memory; (b) int8 moments under
+   ZeRO-1 and ZeRO-3 on two gloo ranks sharing the card (``P15_LAYERS``),
+   losses and dequantized moments against the replicated update, the
+   moments' bytes a rank against f32's; (c) ZeRO-3 over ``{"data": 2,
+   "fsdp": 2}`` on four gloo ranks sharing the card, losses against
+   ``LocalStrategy`` on the global batch, memory a rank, each slice held
+   alike by its data replicas; (d) the CE island on two gloo ranks
+   against the one-rank fused CE (f32 kernels).  ``--phase16 p_full
+   p_update_sharding`` (not run by default) traces one step of phase 16
+   (a) and (f) on both ranks into its parts (PERF.md §5).
 
 Any failure raises: the script exits non-zero and prints no result.  The
 line before the last is the kernels' JSON record; the last line is
@@ -3584,7 +3605,7 @@ def phase_lora_and_opt_state(torch, np, card):
 
 # -- phase 12: the server's features ---------------------------------------
 
-FEATURE_REPEATS = 3      # timed runs of each arm
+FEATURE_REPEATS = 1      # timed runs of each arm
 LONG_PROMPT = 900        # phase 12 (d): the prompt chunked in
 SYSTEM_PREFIX = 256      # phase 12 (e): the shared system prompt
 EARLY_EXIT_LAYERS = 2    # phase 12 (c): the early-exit draft's depth
@@ -4090,7 +4111,7 @@ def phase_server_features(torch, np, card):
 
 # -- phase 13: the serving control plane ------------------------------------
 
-PLANE_REPEATS = 3        # (a): queue runs, alternating with in-process runs
+PLANE_REPEATS = 1        # (a): queue runs, alternating with in-process runs
 PLANE_TIMEOUT_S = 120    # any one request over the queue
 WIRE_ALPHA = 32.0        # (b): the wire tenant's alpha, scale 2.0 at rank 16
 BURST = 24               # (c): requests at t=0, the first DECODE_W without
@@ -4649,7 +4670,7 @@ def phase_serve_plane(torch, np, card, world, phase3=None,
 
 # -- phase 14: disaggregated serving ------------------------------------------
 
-FLEET_REPEATS = 3        # timed runs an arm, fleet and monolith alternating
+FLEET_REPEATS = 1        # timed runs an arm, fleet and monolith alternating
 FLEET_TIMEOUT_S = 180    # any one request through the fleet
 FLEET_LOST_AFTER_S = 2.0  # the router's beat-loss threshold
 KILL_AFTER = 32          # (c), (d): tokens streamed before the kill
@@ -5491,13 +5512,127 @@ def ce_occupancy(torch, card):
             check(clusters >= 1, f"ce {name} d={d}: a cluster fits")
 
 
+# -- phases 15-18: one driver process, one set of workers --------------------
+#
+# Each of phases 15-18 is a generator of three stages (``run_staged``):
+# before the spawn it yields what it needs, ``({pool: workers}, [its own
+# strategies])``; sent the spawned pools, it runs its remote arms and
+# yields; then, the workers gone, it runs its references and checks in
+# the driver (CUDA from there on) and returns its result.  So the remote
+# arms of every phase run before the driver touches the card, and every
+# worker is spawned and warmed up once, all at once.
+
+MULTI_PHASES = (15, 16, 17, 18)
+
+
+def kept_strategy(strategy_cls, pool, n, **kw):
+    """``strategy_cls`` over the first ``n`` workers of ``pool`` (their
+    warm-up paid once for the run), on the pool's device; a fit's
+    teardown leaves them to the pool."""
+    s = strategy_cls(num_workers=n, timeout_s=300.0, device=pool.device,
+                     **kw)
+    s._backend, s._workers = pool._backend, pool._workers[:n]
+    s.teardown = lambda: None
+    return s
+
+
+def multi_pools(need, device="cuda"):
+    """The shared workers, unspawned: ``need`` maps a pool to its worker
+    count.  "nccl": one rank on the card for the one-rank worlds; "gloo":
+    ranks on ``device`` for the gloo worlds; "cpu": CPU ranks."""
+    import torch_dist_helpers as helpers
+    from ray_lightning_tpu_torch.parallel.strategies import RayStrategy
+
+    one = {"OMP_NUM_THREADS": "1"}
+    pools = {}
+    if need.get("nccl"):
+        pools["nccl"] = RayStrategy(
+            num_workers=need["nccl"], timeout_s=300.0,
+            init_hook=functools.partial(helpers.warm_up, "cuda"))
+    if need.get("gloo"):
+        pools["gloo"] = RayStrategy(
+            num_workers=need["gloo"], backend="gloo", device=device,
+            timeout_s=300.0, env_per_worker=one,
+            init_hook=functools.partial(helpers.warm_up, device))
+    if need.get("cpu"):
+        pools["cpu"] = RayStrategy(
+            num_workers=need["cpu"], backend="gloo", device="cpu",
+            timeout_s=300.0, env_per_worker=one,
+            init_hook=functools.partial(helpers.warm_up, "cpu"))
+    return pools
+
+
+def run_staged(gens, device="cuda"):
+    """Run the staged phases ``gens`` ({phase: generator}): their needs
+    spawned at once, every remote stage, the workers torn down, the
+    driver checked off the card, then every check stage.  Returns
+    {phase: result, "spawn_s": seconds}; each result's ``wall_s`` is its
+    two stages' seconds."""
+    import torch
+
+    asks = {n: next(g) for n, g in gens.items()}
+    card = card_line()
+    need = {}
+    for want, _ in asks.values():
+        for pool, n in want.items():
+            need[pool] = max(need.get(pool, 0), n)
+    pools = multi_pools(need, device)
+    spawn = [*pools.values(), *(s for _, own in asks.values() for s in own)]
+    walls = dict.fromkeys(gens, 0.0)
+    out = {}
+    t0 = time.perf_counter()
+    try:
+        with ThreadPoolExecutor(max(len(spawn), 1)) as spawner:
+            for f in [spawner.submit(s.setup) for s in spawn]:
+                f.result()
+        out["spawn_s"] = time.perf_counter() - t0
+        print(f"phases {', '.join(map(str, gens))}: "
+              f"{sum(s.num_workers for s in spawn)} workers "
+              f"({json.dumps({k: p.num_workers for k, p in pools.items()})}"
+              f" shared, {sum(len(own) for _, own in asks.values())} "
+              f"strategies of their own) spawned and warmed up at once in "
+              f"{out['spawn_s']:.1f} s")
+        for n, g in gens.items():
+            t = time.perf_counter()
+            g.send(pools)
+            walls[n] += time.perf_counter() - t
+    finally:
+        for s in spawn:
+            s.teardown()
+    check(not torch.cuda.is_initialized(), f"the driver ran the remote "
+          f"fits of phases {tuple(gens)} with CUDA never initialised")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for n, g in gens.items():
+        t = time.perf_counter()
+        try:
+            next(g)
+        except StopIteration as stop:
+            out[n] = stop.value
+        else:
+            raise RuntimeError(f"chip_smoke: phase {n} has a fourth stage")
+        walls[n] += time.perf_counter() - t
+        out[n]["wall_s"] = walls[n]
+        print(f"phase {n}: wall {walls[n]:.1f} s (remote arms and checks, "
+              f"the shared spawn apart); {card}")
+    return out
+
+
+def staged_main(n, gen, device="cuda") -> int:
+    """One staged phase alone (``chip_smoke.py --phaseN``): its lines,
+    then its result with the spawn's seconds as one JSON line."""
+    out = run_staged({n: gen}, device)
+    print(json.dumps({**out[n], "spawn_s": out["spawn_s"]}, default=str))
+    return 0
+
+
 # -- phase 15: multi-GPU training --------------------------------------------
 
 P15_FLAVORS = ("ray", "horovod", "zero1", "zero3")
-# Phases 15 and 16 train GPT-2-small's width at this depth: the script's
-# time limit is shared by every phase (phase 17, this slice's path, keeps
-# all 12 layers), and a rank's collectives, memory and launches scale
-# with the layers they hold against one rank at the same depth.
+# Phases 15-17 and 18 (b)-(c) train GPT-2-small's width at this depth: the
+# script's time limit is shared by every phase (phase 18 (a), one rank
+# captured, keeps all 12 layers), and a rank's collectives, memory and
+# launches scale with the layers they hold against one rank at the same
+# depth.
 P15_LAYERS = 4
 P15_STEPS_A, P15_STEPS_B = 8, 3
 # Per-step losses of a two-rank gloo arm against the one-device fit on the
@@ -5529,15 +5664,16 @@ P15_UPDATE_LIMIT = 0.2
 P15_CLIP_TOL = {"loss": 1e-6, "param": 5e-7}
 
 
-def p15_strategy(flavor, workers, **kw):
+def p15_strategy(flavor, pool, workers, **kw):
+    """The strategy of ``flavor`` over the first ``workers`` of ``pool``
+    (``kept_strategy``)."""
     from ray_lightning_tpu_torch.parallel import strategies as st
 
     cls, extra = {"ray": (st.RayStrategy, {}),
-                  "rayrep": (st.RayStrategy, {"update_sharding": "off"}),
                   "horovod": (st.HorovodRayStrategy, {}),
                   "zero1": (st.RayShardedStrategy, {"zero_stage": 1}),
                   "zero3": (st.RayShardedStrategy, {"zero_stage": 3})}[flavor]
-    return cls(num_workers=workers, timeout_s=300.0, **extra, **kw)
+    return kept_strategy(cls, pool, workers, **extra, **kw)
 
 
 def p15_fit(strategy, cfg, steps, label, root, precision="bf16",
@@ -5593,10 +5729,8 @@ def p15_ms(rec):
     return 1e3 * steps[len(steps) // 2]
 
 
-# b_rayrep: the ray flavor with its replicated update (update_sharding
-# "off"), which "auto" replaces on the card by the sharded one.
 P15_ARMS = tuple(f"{arm}_{f}" for arm in "ab" for f in P15_FLAVORS) + (
-    "b_rayrep", "e_zero1", "e_zero3")
+    "e_zero1", "e_zero3")
 
 
 def nccl_probe_main(argv) -> int:
@@ -5662,17 +5796,21 @@ def nccl_probe_read(procs, card):
 
 
 def phase15_main(arms=P15_ARMS) -> int:
-    """Phase 15's driver, in a process of its own (``chip_smoke.py
-    --phase15 [arm ...]``, every arm of ``P15_ARMS`` by default) that
-    touches CUDA only after every remote arm: (a) one rank over NCCL a
+    """Phase 15 alone (``chip_smoke.py --phase15 [arm ...]``, every arm of
+    ``P15_ARMS`` by default): its lines, then one JSON object as its last
+    line."""
+    return staged_main(15, phase15_steps(arms))
+
+
+def phase15_steps(arms=P15_ARMS):
+    """Phase 15's stages (``run_staged``): (a) one rank over NCCL a
     flavor, 8 steps, bitwise against ``LocalStrategy``; (b) two ranks
     sharing the card over gloo a flavor, 3 steps, against
     ``LocalStrategy`` on the same global batch; (c) each rank's memory;
     (d) each rank's kernel launches a step; (e) the clip under ZeRO with
     forged gradient scales (``torch_dist_helpers.SCALES``), on two CPU
     workers at the CPU test's size; (f) with every arm, two raw NCCL ranks
-    on card 0 (``--nccl-probe``), which NCCL must refuse.  Prints its
-    lines, then one JSON object as its last line."""
+    on card 0 (``--nccl-probe``), which NCCL must refuse."""
     import tempfile
 
     import torch
@@ -5684,7 +5822,6 @@ def phase15_main(arms=P15_ARMS) -> int:
 
     unknown = set(arms) - set(P15_ARMS)
     check(not unknown, f"phase 15 arms {sorted(unknown)} in {P15_ARMS}")
-    t_start = time.perf_counter()
     card = card_line()
     root = tempfile.mkdtemp(prefix="rlt-p15-")
     # The trainer cell at P15_LAYERS, its warmup cut to one step so that
@@ -5695,13 +5832,12 @@ def phase15_main(arms=P15_ARMS) -> int:
                          seq_len=32, warmup_steps=2, mu_dtype="float32")
     clip_data = helpers.scaled_batches(256, 32, 8, 3, seed=5)
     setups = {
-        "a": dict(cfg=cfg, steps=P15_STEPS_A, workers=1, kw={}),
-        "b": dict(cfg=cfg, steps=P15_STEPS_B, workers=2,
+        "a": dict(cfg=cfg, steps=P15_STEPS_A, workers=1, pool="nccl",
+                  kw={}),
+        "b": dict(cfg=cfg, steps=P15_STEPS_B, workers=2, pool="gloo",
                   kw={"backend": "gloo"}),
-        "e": dict(cfg=clip_cfg, steps=3, workers=2,
-                  kw={"backend": "gloo", "device": "cpu",
-                      "env_per_worker": {"OMP_NUM_THREADS": "1"}},
-                  local={"device": "cpu"},
+        "e": dict(cfg=clip_cfg, steps=3, workers=2, pool="cpu",
+                  kw={"backend": "gloo"}, local={"device": "cpu"},
                   fit={"precision": "f32", "gpt_kw": {"device": "cpu"},
                        "module_cls": helpers.ScaledGPT,
                        "data": helpers.ArraysDataModule(clip_data, 8)}),
@@ -5709,67 +5845,47 @@ def phase15_main(arms=P15_ARMS) -> int:
     want = per_step_launches(cfg.n_layer, remat=True)
     out = {"card": card, "a": {}, "b": {}, "e": {}}
     params = {}
-    # Every arm's workers are spawned at once, at the start: their
-    # init_hook (``torch_dist_helpers.warm_up``) imports the port's model
-    # and, on the card, runs one small step through the kernels; then they
-    # idle until their arm's fit, which leaves it the rendezvous and the
-    # state's build.  Two raw NCCL ranks probe the card meanwhile (f).
-    strategies = []
+    # The arms' fits run one after another on the shared workers, whose
+    # init_hook (``torch_dist_helpers.warm_up``) imported the port's model
+    # and, on the card, ran one small step through the kernels; each fit
+    # is left the rendezvous and the state's build.  Two raw NCCL ranks
+    # probe the card during the spawn (f).
+    need = {}
+    for label in arms:
+        st = setups[label.split("_")[0]]
+        need[st["pool"]] = max(need.get(st["pool"], 0), st["workers"])
+    probes = nccl_probe_start() if arms == P15_ARMS else None
+    pools = yield need, []
+    if probes is not None:
+        out["f"] = nccl_probe_read(probes, card)
     for label in arms:
         arm, flavor = label.split("_")
         st = setups[arm]
-        strategies.append(p15_strategy(
-            flavor, st["workers"], **st["kw"],
-            init_hook=functools.partial(helpers.warm_up,
-                                        st["kw"].get("device", "cuda"))))
-    probes = nccl_probe_start() if arms == P15_ARMS else None
-    t_spawn = time.perf_counter()
-    try:
-        with ThreadPoolExecutor(len(strategies)) as spawner:
-            spawned = [spawner.submit(s.setup) for s in strategies]
-            if probes is not None:
-                out["f"] = nccl_probe_read(probes, card)
-            for f in spawned:
-                f.result()
-        out["spawn_s"] = time.perf_counter() - t_spawn
-        n_workers = sum(setups[label[0]]["workers"] for label in arms)
-        print(f"phase 15: {n_workers} workers of {len(arms)} arms spawned "
-              f"and warmed up at once in {out['spawn_s']:.1f} s")
-        for strategy, label in zip(strategies, arms):
-            arm, flavor = label.split("_")
-            st = setups[arm]
-            t0, w0 = time.perf_counter(), time.time()
-            tr = p15_fit(strategy, st["cfg"], st["steps"], label, root,
-                         **st.get("fit", {}))
-            w1 = time.time()
-            check(tr.strategy.backend == ("nccl" if arm == "a" else "gloo"),
-                  f"{label}: the backend asked for")
-            params[label] = p15_host_params(tr)
-            r0 = helpers.RECORDS[label][0]
-            # The wall split: the task shipped, rendezvous and the state's
-            # build before the fit's first hook; the steps; the gather,
-            # the state stream, its adoption and the teardown after its
-            # last.
-            # Which update ran: "auto" shards it for the ray flavor's two
-            # ranks on the card (core/loop.py::_resolve_update_sharding).
-            shard = tr.telemetry_report.get("meta", {}).get(
-                "update_sharding")
-            out[arm][flavor] = {"wall_s": time.perf_counter() - t0,
-                                "before_fit_s": r0["fit_start"] - w0,
-                                "fit_s": r0["fit_end"] - r0["fit_start"],
-                                "after_fit_s": w1 - r0["fit_end"],
-                                "update_sharding": shard}
-            del tr
-    finally:
-        for strategy in strategies:
-            strategy.teardown()
-    driver_cuda = torch.cuda.is_initialized()
-    print(f"phase 15: the driver ran {len(arms)} remote fits with "
-          f"torch.cuda.is_initialized() = {driver_cuda}")
-    check(not driver_cuda, "the driver never initialises CUDA")
+        strategy = p15_strategy(flavor, pools[st["pool"]], st["workers"],
+                                **st["kw"])
+        t0, w0 = time.perf_counter(), time.time()
+        tr = p15_fit(strategy, st["cfg"], st["steps"], label, root,
+                     **st.get("fit", {}))
+        w1 = time.time()
+        check(tr.strategy.backend == ("nccl" if arm == "a" else "gloo"),
+              f"{label}: the backend asked for")
+        params[label] = p15_host_params(tr)
+        r0 = helpers.RECORDS[label][0]
+        # The wall split: the task shipped, rendezvous and the state's
+        # build before the fit's first hook; the steps; the gather, the
+        # state stream and its adoption after its last.
+        # Which update ran: "auto" keeps the ray flavor's replicated over
+        # gloo (core/loop.py::_resolve_update_sharding).
+        shard = tr.telemetry_report.get("meta", {}).get("update_sharding")
+        out[arm][flavor] = {"wall_s": time.perf_counter() - t0,
+                            "before_fit_s": r0["fit_start"] - w0,
+                            "fit_s": r0["fit_end"] - r0["fit_start"],
+                            "after_fit_s": w1 - r0["fit_end"],
+                            "update_sharding": shard}
+        del tr
+    yield
 
     # The references, in this process (CUDA from here on).
-    torch.backends.cuda.matmul.allow_tf32 = False
     rec = helpers.RECORDS
     for arm in sorted({label[0] for label in arms}):
         st = setups[arm]
@@ -5893,32 +6009,8 @@ def phase15_main(arms=P15_ARMS) -> int:
               f"shipped, rendezvous, the state) + "
               f"{w['fit_s']:.1f} s of fit "
               f"+ {w['after_fit_s']:.1f} s after (gather, state stream, "
-              f"adoption, teardown)")
-    out["wall_s"] = time.perf_counter() - t_start
-    print(f"phase 15: wall {out['wall_s']:.1f} s; {card}")
-    print(json.dumps(out))
-    return 0
-
-
-def phase_multi_gpu(card):
-    """Phase 15, run as ``chip_smoke.py --phase15`` in a process of its own
-    (the driver of a remote fit must not have initialised CUDA, and this
-    one has); its lines are echoed, its last line returned."""
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                           "--phase15"], capture_output=True, text=True,
-                          timeout=600, cwd=ROOT)
-    lines = proc.stdout.strip().splitlines()
-    for line in lines[:-1]:
-        print(line)
-    if proc.returncode != 0:
-        print(proc.stderr[-6000:], file=sys.stderr)
-        raise RuntimeError(f"chip_smoke: phase 15 failed (exit "
-                           f"{proc.returncode})")
-    result = json.loads(lines[-1])
-    print(f"phase 15: {time.perf_counter() - t0:.1f} s in all, the "
-          f"process's start included; {card}")
-    return result
+              f"adoption)")
+    return out
 
 
 # -- phase 16: the data-parallel gradient wire --------------------------------
@@ -5957,6 +6049,11 @@ P16_FITS = {
     "f_update_sharding": ("ray", {"update_sharding": "on"}, None),
 }
 P16_ARMS = tuple(P16_FITS) + ("g_nccl", "h_cpu_wire")
+# The sharded update's cost traced (``--phase16 p_full p_update_sharding``,
+# not run by default): the fit of (a) and of (f), PROFILE_STEP profiled on
+# both ranks and cut into its parts (``torch_dist_helpers.StepSplit``).
+P16_PROFILES = {"p_full": "a_full", "p_update_sharding": "f_update_sharding"}
+P16_PROFILE_STEP = 2
 # (h): the CPU tests' narrow GPT on three CPU ranks over gloo.
 P16_WIRE_CFG = dict(vocab_size=256, n_layer=2, n_head=4, d_model=64,
                     seq_len=32, warmup_steps=2, mu_dtype="float32")
@@ -6136,76 +6233,69 @@ def p16_cpu_wire(strategy, card):
 
 
 def phase16_main(arms=P16_ARMS) -> int:
-    """Phase 16's driver, in a process of its own (``chip_smoke.py
-    --phase16 [arm ...]``), touching CUDA only after every remote arm:
-    the fits (a)-(f) of ``P16_FITS``, each two ranks sharing the card over
-    gloo, GPT-2-small at full width, P16_STEPS steps on the same global
-    batch, their losses against (a), the ranks' final params bitwise
-    equal, the wire's accounting and each arm's ms/step; (h) the CPU wire
-    checks; then (g) in this process over NCCL.  Prints its lines, then
-    one JSON object as its last line."""
-    import tempfile
+    """Phase 16 alone (``chip_smoke.py --phase16 [arm ...]``): its lines,
+    then one JSON object as its last line."""
+    return staged_main(16, phase16_steps(arms))
 
-    import torch
+
+def phase16_steps(arms=P16_ARMS):
+    """Phase 16's stages (``run_staged``): the fits (a)-(f) of
+    ``P16_FITS``, each two ranks sharing the card over gloo, GPT-2-small's
+    width, P16_STEPS steps on the same global batch, their losses against
+    (a), the ranks' final params bitwise equal, the wire's accounting and
+    each arm's ms/step; (h) the CPU wire checks; then (g) in the driver
+    over NCCL."""
+    import tempfile
 
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     import torch_dist_helpers as helpers
     from ray_lightning_tpu_torch.models.gpt import GPTConfig
-    from ray_lightning_tpu_torch.parallel.strategies import RayStrategy
 
-    unknown = set(arms) - set(P16_ARMS)
-    check(not unknown, f"phase 16 arms {sorted(unknown)} in {P16_ARMS}")
+    unknown = set(arms) - set(P16_ARMS) - set(P16_PROFILES)
+    check(not unknown, f"phase 16 arms {sorted(unknown)} in {P16_ARMS} "
+          f"or {tuple(P16_PROFILES)}")
     fits = [a for a in arms if a in P16_FITS]
+    profiles = [a for a in arms if a in P16_PROFILES]
     check(not fits or "a_full" in fits, "phase 16's fits need arm a_full")
-    t_start = time.perf_counter()
     card = card_line()
     root = tempfile.mkdtemp(prefix="rlt-p16-")
     cfg = dataclasses.replace(GPTConfig.gpt2_small(), warmup_steps=1,
                               n_layer=P15_LAYERS)
     out = {"card": card, "fits": {}}
-    strategies = {}
-    for label in fits:
-        flavor, kw, _ = P16_FITS[label]
-        strategies[label] = p15_strategy(
-            flavor, 2, backend="gloo", **kw,
-            init_hook=functools.partial(helpers.warm_up, "cuda"))
+    need = {"gloo": 2} if fits or profiles else {}
     if "h_cpu_wire" in arms:
-        strategies["h_cpu_wire"] = RayStrategy(
-            num_workers=3, device="cpu", timeout_s=300.0,
-            env_per_worker={"OMP_NUM_THREADS": "1"})
-    t_spawn = time.perf_counter()
-    try:
-        if strategies:
-            with ThreadPoolExecutor(len(strategies)) as spawner:
-                for f in [spawner.submit(s.setup)
-                          for s in strategies.values()]:
-                    f.result()
-        out["spawn_s"] = time.perf_counter() - t_spawn
-        print(f"phase 16: {sum(s.num_workers for s in strategies.values())}"
-              f" workers of {len(strategies)} arms spawned and warmed up at "
-              f"once in {out['spawn_s']:.1f} s")
-        for label in fits:
-            t0 = time.perf_counter()
-            st = strategies[label]
-            probes = ([helpers.WireProbe(label + "_wire")]
-                      if "grad_comm" in P16_FITS[label][1] else [])
-            tr = p15_fit(st, cfg, P16_STEPS, label, root,
-                         callbacks=[helpers.FinalDigest(label + "_digest"),
-                                    *probes])
-            meta = tr.telemetry_report.get("meta", {})
-            out["fits"][label] = {
-                "wall_s": time.perf_counter() - t0,
-                "comm_stats": dict(tr.comm_stats),
-                "update_sharding": meta.get("update_sharding"),
-                "grad_overlap_segments": meta.get("grad_overlap_segments")}
-            del tr
-        if "h_cpu_wire" in arms:
-            out["h"] = p16_cpu_wire(strategies["h_cpu_wire"], card)
-    finally:
-        for s in strategies.values():
-            s.teardown()
-    driver_cuda = torch.cuda.is_initialized()
-    check(not driver_cuda, "the driver never initialises CUDA before (g)")
+        need["cpu"] = 3
+    pools = yield need, []
+    for label in fits:
+        t0 = time.perf_counter()
+        flavor, kw, _ = P16_FITS[label]
+        probes = ([helpers.WireProbe(label + "_wire")]
+                  if "grad_comm" in kw else [])
+        tr = p15_fit(p15_strategy(flavor, pools["gloo"], 2, backend="gloo",
+                                  **kw), cfg, P16_STEPS, label, root,
+                     callbacks=[helpers.FinalDigest(label + "_digest"),
+                                *probes])
+        meta = tr.telemetry_report.get("meta", {})
+        out["fits"][label] = {
+            "wall_s": time.perf_counter() - t0,
+            "comm_stats": dict(tr.comm_stats),
+            "update_sharding": meta.get("update_sharding"),
+            "grad_overlap_segments": meta.get("grad_overlap_segments")}
+        del tr
+    for label in profiles:
+        flavor, kw, _ = P16_FITS[P16_PROFILES[label]]
+        tr = p15_fit(p15_strategy(flavor, pools["gloo"], 2, backend="gloo",
+                                  **kw), cfg, P16_PROFILE_STEP + 2,
+                     label, root, callbacks=[helpers.StepSplit(
+                         label + "_split", P16_PROFILE_STEP)])
+        out.setdefault("profiles", {})[label] = {
+            "update_sharding": tr.telemetry_report.get(
+                "meta", {}).get("update_sharding")}
+        del tr
+    if "h_cpu_wire" in arms:
+        out["h"] = p16_cpu_wire(pools["cpu"], card)
+    yield
+
     rec = helpers.RECORDS
     ref = rec["a_full"][0]["losses"] if fits else None
     for label in fits:
@@ -6283,33 +6373,29 @@ def phase16_main(arms=P16_ARMS) -> int:
               f"{P16_OVERLAP_BYTES:.0%}); {card}")
         check(abs(d - c) <= P16_OVERLAP_BYTES * c, "(d) bytes within 2% "
               "of (c)")
+    for label in profiles:
+        res = out["profiles"][label]
+        res["ranks"] = helpers.RECORDS[label + "_split"]
+        for r, rec in sorted(res["ranks"].items()):
+            sp = rec["split"]
+            print(f"phase 16 ({label}) step {P16_PROFILE_STEP} of "
+                  f"{P16_PROFILES[label]} traced on rank {r} (update "
+                  f"sharding {res['update_sharding']}; each part "
+                  f"synchronised at its edges): wall {rec['wall_ms']:.1f} "
+                  f"ms = forward+backward {sp['grads']:.1f} + collectives "
+                  f"{sp['collectives']:.1f} + update {sp['update']:.1f} + "
+                  f"bucket copies {sp['copies']:.1f} + logs' mean "
+                  f"{sp['mean_logs']:.1f} + host gaps {sp['gaps']:.1f}; "
+                  f"ranges {json.dumps({k: round(v, 2) for k, v in rec['ms'].items()})}"
+                  f", calls {json.dumps(rec['calls'])}; profiler device "
+                  f"kernels {rec['device_kernel_ms']:.1f} ms, host-device "
+                  f"copies {rec['device_copy_ms']:.1f} ms; {card}")
+        check(len(res["ranks"]) == 2 and all(
+            rec["device_kernel_ms"] > 0 for rec in res["ranks"].values()),
+            f"({label}) both ranks traced, with device time")
     if "g_nccl" in arms:
         out["g"] = p16_nccl_side_stream(card)
-    out["wall_s"] = time.perf_counter() - t_start
-    print(f"phase 16: wall {out['wall_s']:.1f} s; {card}")
-    print(json.dumps(out))
-    return 0
-
-
-def phase_grad_wire(card):
-    """Phase 16, run as ``chip_smoke.py --phase16`` in a process of its
-    own (the remote fits' driver must not have initialised CUDA); its
-    lines are echoed, its last line returned."""
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                           "--phase16"], capture_output=True, text=True,
-                          timeout=600, cwd=ROOT)
-    lines = proc.stdout.strip().splitlines()
-    for line in lines[:-1]:
-        print(line)
-    if proc.returncode != 0:
-        print(proc.stderr[-6000:], file=sys.stderr)
-        raise RuntimeError(f"chip_smoke: phase 16 failed (exit "
-                           f"{proc.returncode})")
-    result = json.loads(lines[-1])
-    print(f"phase 16: {time.perf_counter() - t0:.1f} s in all, the "
-          f"process's start included; {card}")
-    return result
+    return out
 
 
 # -- phase 17: restarts on the card -------------------------------------------
@@ -6362,10 +6448,17 @@ def p17_counter(tr, name):
 
 
 def phase17_main(device="cuda", cfg=None) -> int:
-    """Phase 17's driver, in a process of its own (``chip_smoke.py
-    --phase17``; the driver of remote fits must not initialise CUDA):
-    GPT-2-small at full width, bf16, the kernels on, TRAIN_B x TRAIN_T
-    rows a step.  (a) ``RayShardedStrategy(num_workers=2, zero_stage=3,
+    """Phase 17 alone (``chip_smoke.py --phase17``): its lines, then one
+    JSON object as its last line.  ``device="cpu"`` and a small ``cfg``
+    rehearse it on the CPU (its one-rank fits then over gloo)."""
+    return staged_main(17, phase17_steps(device, cfg), device)
+
+
+def phase17_steps(device="cuda", cfg=None):
+    """Phase 17's stages (``run_staged``), the crash fit on workers of its
+    own (its restart kills and respawns them): GPT-2-small's width at
+    ``P15_LAYERS`` layers, bf16, the kernels on, TRAIN_B x TRAIN_T rows a
+    step.  (a) ``RayShardedStrategy(num_workers=2, zero_stage=3,
     max_restarts=1)`` over gloo (two ranks sharing the card), 3 epochs of
     2 steps, rank 1 killed at the start of epoch 1
     (``torch_dist_helpers.CrashOnce``), beside the same fit uninterrupted
@@ -6379,79 +6472,67 @@ def phase17_main(device="cuda", cfg=None) -> int:
     gathered state.  (c) the oldest kept checkpoint resumed on one NCCL
     rank (accum 1 -> 2, the resize warned and counted, finite losses); a
     two-rank ``grad_comm="int8_ef"`` checkpoint (two layers at full width)
-    resumed at one rank drops its residual loudly.  Prints its lines, then one JSON object as its
-    last line.  ``device="cpu"`` and a small ``cfg`` rehearse it on the
-    CPU (its one-rank fits then over gloo)."""
+    resumed at one rank drops its residual loudly."""
     import tempfile
 
     import torch
 
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     import torch_dist_helpers as helpers
-    from ray_lightning_tpu_torch.core.module import TrainState
     from ray_lightning_tpu_torch.models.convert import train_state_from_jax
     from ray_lightning_tpu_torch.models.gpt import GPTConfig
     from ray_lightning_tpu_torch.parallel import strategies as st
     from ray_lightning_tpu_torch.utils import sharded_ckpt
 
-    t_start = time.perf_counter()
     card = card_line()
     root = tempfile.mkdtemp(prefix="rlt-p17-")
-    cfg = cfg or dataclasses.replace(GPTConfig.gpt2_small(), warmup_steps=1)
+    cfg = cfg or dataclasses.replace(GPTConfig.gpt2_small(), warmup_steps=1,
+                                     n_layer=P15_LAYERS)
     warned = os.path.join(root, "worker-warnings.txt")
     one_rank = "nccl" if device == "cuda" else "gloo"
-    common = dict(device=device, timeout_s=300.0,
-                  init_hook=functools.partial(helpers.warm_up, device,
-                                              warned),
-                  env_per_worker=({} if device == "cuda"
-                                  else {"OMP_NUM_THREADS": "1"}))
-    zero3 = dict(num_workers=2, zero_stage=3, backend="gloo", **common)
-    strategies = {
-        "crash": st.RayShardedStrategy(max_restarts=1,
-                                       restart_backoff_s=0.5, **zero3),
-        "straight": st.RayShardedStrategy(max_restarts=1, **zero3),
-        "nm": st.RayStrategy(num_workers=1, backend=one_rank, **common),
-        "ef": st.RayStrategy(num_workers=2, backend="gloo",
-                             grad_comm="int8_ef", update_sharding="off",
-                             **common),
-        "ef_one": st.RayStrategy(num_workers=1, backend=one_rank,
-                                 grad_comm="int8_ef", **common),
-    }
+    # The crash fit kills and respawns its workers, so they are its own;
+    # the other fits run on the shared workers, which tee their warnings
+    # to ``warned`` from this phase on, as the crash fit's do.
+    crash = st.RayShardedStrategy(
+        num_workers=2, zero_stage=3, backend="gloo", max_restarts=1,
+        restart_backoff_s=0.5, device=device, timeout_s=300.0,
+        init_hook=functools.partial(helpers.warm_up, device, warned),
+        env_per_worker=({} if device == "cuda"
+                        else {"OMP_NUM_THREADS": "1"}))
+    need = {"gloo": 2, **({"nccl": 1} if one_rank == "nccl" else {})}
     out = {"card": card}
     kept = os.path.join(root, "kept")
     ef_dir = os.path.join(root, "ef")
     marker = os.path.join(root, "crash-marker")
-    t_spawn = time.perf_counter()
-    try:
-        with ThreadPoolExecutor(len(strategies)) as spawner:
-            for f in [spawner.submit(s.setup) for s in strategies.values()]:
-                f.result()
-        out["spawn_s"] = time.perf_counter() - t_spawn
-        print(f"phase 17: {sum(s.num_workers for s in strategies.values())}"
-              f" workers of {len(strategies)} fits spawned and warmed up at "
-              f"once in {out['spawn_s']:.1f} s")
-        crash = p17_fit(strategies["crash"], cfg, root, "p17_crash",
-                        callbacks=[helpers.CrashOnce(marker)],
-                        device=device)
-        straight = p17_fit(strategies["straight"], cfg, root,
-                           "p17_straight", restart_dir=kept, device=device)
-        tags = sorted(os.listdir(kept))
-        oldest = os.path.join(kept, tags[0])
-        nm = p17_fit(strategies["nm"], cfg, root, "p17_nm",
-                     resume_from_checkpoint=oldest, device=device)
-        # The residual's drop needs no depth: two layers at full width.
-        ef_cfg = dataclasses.replace(cfg, n_layer=min(cfg.n_layer, 2))
-        p17_fit(strategies["ef"], ef_cfg, root, "p17_ef", epochs=1,
-                per_epoch=1, restart_dir=ef_dir, device=device)
-        ef_tag = os.path.join(ef_dir, "restart-epoch-000000.ckpt")
-        ef_one = p17_fit(strategies["ef_one"], ef_cfg, root, "p17_ef_one",
-                         epochs=2, per_epoch=1,
-                         resume_from_checkpoint=ef_tag, device=device)
-    finally:
-        for s in strategies.values():
-            s.teardown()
-    check(not torch.cuda.is_initialized(),
-          "the driver never initialises CUDA")
+    pools = yield need, [crash]
+    for pool in {pools["gloo"], pools[one_rank]}:
+        for w in pool._workers:
+            w.execute(functools.partial(helpers.tee_warnings, warned))
+    gloo, one = pools["gloo"], pools[one_rank]
+    crash = p17_fit(crash, cfg, root, "p17_crash",
+                    callbacks=[helpers.CrashOnce(marker)],
+                    device=device)
+    straight = p17_fit(
+        kept_strategy(st.RayShardedStrategy, gloo, 2, zero_stage=3,
+                      backend="gloo", max_restarts=1),
+        cfg, root, "p17_straight", restart_dir=kept, device=device)
+    tags = sorted(os.listdir(kept))
+    oldest = os.path.join(kept, tags[0])
+    nm = p17_fit(kept_strategy(st.RayStrategy, one, 1, backend=one_rank),
+                 cfg, root, "p17_nm", resume_from_checkpoint=oldest,
+                 device=device)
+    # The residual's drop needs no depth: two layers at full width.
+    ef_cfg = dataclasses.replace(cfg, n_layer=min(cfg.n_layer, 2))
+    p17_fit(kept_strategy(st.RayStrategy, gloo, 2, backend="gloo",
+                          grad_comm="int8_ef", update_sharding="off"),
+            ef_cfg, root, "p17_ef", epochs=1, per_epoch=1,
+            restart_dir=ef_dir, device=device)
+    ef_tag = os.path.join(ef_dir, "restart-epoch-000000.ckpt")
+    ef_one = p17_fit(kept_strategy(st.RayStrategy, one, 1, backend=one_rank,
+                                   grad_comm="int8_ef"),
+                     ef_cfg, root, "p17_ef_one", epochs=2, per_epoch=1,
+                     resume_from_checkpoint=ef_tag, device=device)
+    yield
 
     # (a) the restart.
     tc, ts = crash["trainer"], straight["trainer"]
@@ -6600,29 +6681,483 @@ def phase17_main(device="cuda", cfg=None) -> int:
           "(a residual on one side only)")
     check(all(math.isfinite(x) for x in ef_one["losses"]),
           "(c) the int8_ef resume's losses are finite")
-    out["wall_s"] = time.perf_counter() - t_start
-    print(f"phase 17: wall {out['wall_s']:.1f} s; {card}")
-    print(json.dumps(out))
+    return out
+
+
+# -- phase 18: the rest of multi-GPU training ---------------------------------
+
+P18_K = 8
+# (a): an eager stride, the captured one (replayed at once), one replay.
+P18_STEPS = 3 * P18_K
+P18_ARMS = ("a_megastep", "b_int8_zero", "c_hybrid", "d_island")
+P18_HYBRID = {"data": 2, "fsdp": 2}
+# (b): each dequantized moment leaf against the replicated-update fit's,
+# relative Frobenius: the two fits differ only by the clip's norm, summed a
+# slice at a time under ZeRO (a payload element on a rounding boundary may
+# take the neighbouring step), where a leaf whose replicated scale went
+# unsynced reads ~1 (half its blocks scaled by 1.0).
+P18_MOMENT_REL = 1e-2
+# (d): the island's tokens a rank (its share of TRAIN_B x TRAIN_T) at
+# GPT-2-small's width and padded vocabulary, f32 (the kernels' f32 route);
+# loss and dwte relative to the one-rank CE's, dx absolute against its
+# largest element.
+P18_ISLAND = {"B": TRAIN_B // 2, "T": TRAIN_T, "d": D_MODEL, "V": VOCAB}
+P18_ISLAND_TOL = 1e-5
+
+
+def p18_fit(strategy, cfg, steps, label, root, megastep="off",
+            callbacks=(), batch=TRAIN_B, device="cuda"):
+    """A bf16 fit of GPT-2-small's kernels (HEADLINE) through ``strategy``
+    (a ``kept_strategy``'s workers outlive the fit), with ``StepProbe(label)`` and
+    ``FinalDigest(label + "_digest")``."""
+    import torch_dist_helpers as helpers
+    from ray_lightning_tpu_torch.core.trainer import Trainer
+    from ray_lightning_tpu_torch.models.gpt import GPT, SyntheticLMDataModule
+
+    tr = Trainer(strategy, max_steps=steps, limit_val_batches=0,
+                 precision="bf16", seed=SEED, megastep=megastep,
+                 log_every_n_steps=1, enable_checkpointing=False,
+                 default_root_dir=str(root),
+                 callbacks=[helpers.StepProbe(label),
+                            helpers.FinalDigest(label + "_digest"),
+                            *callbacks])
+    tr.fit(GPT(cfg, device=device, **HEADLINE), SyntheticLMDataModule(
+        cfg, batch_size=batch, num_batches=steps, seed=SEED))
+    return tr
+
+
+def p18_graph_counts(nodes):
+    """A captured graph's training kernels (``GRAPH_NAMES``) and NCCL
+    kernels among its nodes (``GraphProbe``'s mangled names)."""
+    counts = {k: 0 for k in GRAPH_NAMES}
+    nccl = 0
+    for mangled, n in nodes.items():
+        if "nccl" in mangled.lower():
+            nccl += n
+            continue
+        name = kernel_name(mangled)
+        for k, want in GRAPH_NAMES.items():
+            if name.startswith(want):
+                counts[k] += n
+    return counts, nccl
+
+
+def p18_megastep(pools, cfg, root, card, out):
+    """(a): K = P18_K on a one-rank NCCL world, GPT-2-small at 12 layers,
+    bf16: ``RayStrategy`` and ``RayShardedStrategy(zero_stage=3)`` each
+    captured against its eager fit (losses at the strides' ends and the
+    final params bitwise); the graph's collectives, kernel nodes and
+    memory.  The captured ``RayStrategy`` against ``LocalStrategy``
+    captured comes after the remote arms (:func:`p18_megastep_local`)."""
+    import torch_dist_helpers as helpers
+    from ray_lightning_tpu_torch.parallel.strategies import (
+        RayShardedStrategy, RayStrategy,
+    )
+
+    for flavor, cls, kw in (("ray", RayStrategy, {}),
+                            ("zero3", RayShardedStrategy,
+                             {"zero_stage": 3})):
+        for mode, k in (("eager", "off"), ("captured", P18_K)):
+            label = f"p18_{flavor}_{mode}"
+            t0 = time.perf_counter()
+            tr = p18_fit(kept_strategy(cls, pools["nccl"], 1, **kw), cfg,
+                         P18_STEPS, label, root, megastep=k,
+                         callbacks=[helpers.GraphProbe(label + "_graph")])
+            out[label] = {"wall_s": time.perf_counter() - t0,
+                          "megastep": tr.telemetry_report.get(
+                              "meta", {}).get("megastep"),
+                          "backend": tr.strategy.backend}
+            del tr
+
+
+def p18_megastep_check(cfg, card, out):
+    import torch_dist_helpers as helpers
+
+    rec = helpers.RECORDS
+    want = {k: P18_K * v for k, v in per_step_launches(
+        cfg.n_layer, True).items()}
+    res = {}
+    for flavor in ("ray", "zero3"):
+        eager, cap = (f"p18_{flavor}_eager", f"p18_{flavor}_captured")
+        e, c = rec[eager][0], rec[cap][0]
+        ge, gc = rec[eager + "_graph"][0], rec[cap + "_graph"][0]
+        same = (rec[eager + "_digest"][0]["digest"]
+                == rec[cap + "_digest"][0]["digest"])
+        losses_same = c["losses"] == e["losses"][P18_K - 1::P18_K]
+        # Collectives a step: between the eager fit's first and last step
+        # ends; the captured fit's first stride eager, its second issued
+        # into the graph, its third a replay (none issued).
+        m = ge["marks"]
+        per_step = (m[-1]["eager"] - m[0]["eager"]) / (len(m) - 1)
+        mc = gc["marks"]
+        captured_calls = mc[1]["captured"] - mc[0]["captured"]
+        replay_calls = (mc[2]["eager"] + mc[2]["captured"]
+                        - mc[1]["eager"] - mc[1]["captured"])
+        counts, nccl = (p18_graph_counts(gc["graphs"][0]) if gc["graphs"]
+                        else ({}, 0))
+        eager_ms = 1e3 * sorted(e["step_s"][1:])[len(e["step_s"][1:]) // 2]
+        cap_ms = 1e3 * c["step_s"][-1] / P18_K
+        res[flavor] = {
+            "bitwise_params": same, "bitwise_losses": losses_same,
+            "captures": len(gc["graphs"]), "eager_ms_per_step": eager_ms,
+            "captured_ms_per_step": cap_ms,
+            "collectives_per_step_eager": per_step,
+            "collectives_captured": captured_calls,
+            "graph_kernels": counts, "graph_nccl_nodes": nccl,
+            "peak_bytes": {"eager": ge["peak_bytes"],
+                           "captured": gc["peak_bytes"]},
+            "reserved_bytes": {"eager": ge["reserved_bytes"],
+                               "captured": gc["reserved_bytes"]},
+            "megastep": out[cap]["megastep"], "backend": out[cap]["backend"]}
+        print(f"phase 18 (a) {flavor}: one NCCL rank, GPT-2-small "
+              f"{cfg.n_layer} layers bf16, {P18_STEPS} steps, K {P18_K}: "
+              f"captures {len(gc['graphs'])}; captured vs eager params "
+              f"bitwise {same}, stride-end losses bitwise {losses_same} "
+              f"({c['losses']}); {cap_ms:.2f} ms/step captured (the "
+              f"replay stride) vs {eager_ms:.2f} eager; collectives a step "
+              f"{per_step:g} eager, {captured_calls} captured into the "
+              f"stride's graph; graph kernel nodes {counts} (want "
+              f"{want}), NCCL nodes {nccl}; peak "
+              f"{gc['peak_bytes'] / 2**30:.3f} GiB captured vs "
+              f"{ge['peak_bytes'] / 2**30:.3f} eager, reserved "
+              f"{gc['reserved_bytes'] / 2**30:.3f} vs "
+              f"{ge['reserved_bytes'] / 2**30:.3f} GiB; {card}")
+        check(out[cap]["backend"] == "nccl" and out[cap]["megastep"] == P18_K,
+              f"(a) {flavor}: megastep {P18_K} over NCCL")
+        check(len(gc["graphs"]) == 1 and not ge["graphs"],
+              f"(a) {flavor}: one capture, none eager")
+        check(same and losses_same, f"(a) {flavor}: captured bitwise eager")
+        check(len(m) == P18_STEPS and len(mc) == P18_STEPS // P18_K,
+              f"(a) {flavor}: a step end a step, a stride end a stride")
+        check(per_step == int(per_step) and per_step > 0
+              and captured_calls == P18_K * per_step
+              and mc[0]["eager"] == P18_K * per_step and replay_calls == 0,
+              f"(a) {flavor}: every step's collectives in the graph "
+              f"({captured_calls} vs {P18_K} x {per_step}; the replay "
+              f"issued {replay_calls})")
+        check(counts == want, f"(a) {flavor}: graph kernels {counts} == "
+              f"{want}")
+    return res
+
+
+def p18_megastep_local(cfg, root, card, res):
+    """(a), in this process after the remote arms: ``LocalStrategy``
+    captured, against the captured one-rank ``RayStrategy``."""
+    import torch_dist_helpers as helpers
+    from ray_lightning_tpu_torch.parallel.strategies import LocalStrategy
+
+    p18_fit(LocalStrategy(), cfg, P18_STEPS, "p18_local_captured", root,
+            megastep=P18_K)
+    rec = helpers.RECORDS
+    same = (rec["p18_local_captured_digest"][0]["digest"]
+            == rec["p18_ray_captured_digest"][0]["digest"])
+    losses = (rec["p18_local_captured"][0]["losses"]
+              == rec["p18_ray_captured"][0]["losses"])
+    res["ray"]["bitwise_local_captured"] = same and losses
+    print(f"phase 18 (a) ray: captured one-rank RayStrategy against "
+          f"LocalStrategy captured: params bitwise {same}, losses bitwise "
+          f"{losses}; {card}")
+    check(same and losses, "(a) captured RayStrategy bitwise LocalStrategy "
+          "captured")
+
+
+def p18_int8(pools, cfg, root, out, device="cuda"):
+    """(b): int8 moments under ZeRO-1 and ZeRO-3 and the replicated update
+    (the reference), two gloo ranks sharing the card."""
+    import torch_dist_helpers as helpers
+    from ray_lightning_tpu_torch.parallel.strategies import (
+        RayShardedStrategy, RayStrategy,
+    )
+
+    icfg = dataclasses.replace(cfg, opt_state_dtype="int8")
+    for label, cls, kw in (
+            ("p18_int8_rep", RayStrategy, {"update_sharding": "off"}),
+            ("p18_int8_zero1", RayShardedStrategy, {"zero_stage": 1}),
+            ("p18_int8_zero3", RayShardedStrategy, {"zero_stage": 3})):
+        probes = ([helpers.PlanProbe(label + "_plan")]
+                  if "zero" in label else [])
+        tr = p18_fit(kept_strategy(cls, pools["gloo"], 2, backend="gloo",
+                                   **kw),
+                     icfg, P16_STEPS, label, root, callbacks=probes,
+                     device=device)
+        out[label] = {"opt": p18_moments(tr.state.opt_state)}
+        del tr
+
+
+def p18_moments(opt_state):
+    """An optimizer state's leaves by key path, each int8 moment
+    dequantized."""
+    from ray_lightning_tpu_torch.models.optim import _map_adam_moments
+    from ray_lightning_tpu_torch.ops.optim_quant import (
+        dequantize_moment, is_block_quantized,
+    )
+    from ray_lightning_tpu_torch.parallel.sharding import leaves_with_paths
+
+    def deq(v):
+        return dequantize_moment(v) if is_block_quantized(v) else v
+
+    return {str(p): t for p, t in leaves_with_paths(
+        _map_adam_moments(opt_state, deq, deq))}
+
+
+def p18_int8_check(cfg, card, out):
+    import torch
+
+    import torch_dist_helpers as helpers
+
+    rec = helpers.RECORDS
+    ref = rec["p18_int8_rep"][0]["losses"]
+    ref_opt = out.pop("p18_int8_rep")["opt"]
+    res = {}
+    for stage in (1, 3):
+        label = f"p18_int8_zero{stage}"
+        losses = rec[label][0]["losses"]
+        diffs = [abs(a - b) for a, b in zip(losses, ref)]
+        opt = out.pop(label)["opt"]
+        worst, worst_k = 0.0, None
+        for k, v in ref_opt.items():
+            a, b = opt[k].float(), v.float()
+            rel = float(torch.linalg.vector_norm(a - b)
+                        / max(float(torch.linalg.vector_norm(b)), 1e-30))
+            if rel > worst:
+                worst, worst_k = rel, k
+        plans = rec[label + "_plan"]
+        bytes_rank = {r: p["moment_bytes"] for r, p in plans.items()}
+        f32_rank = {r: p["f32_moment_bytes"] for r, p in plans.items()}
+        res[f"zero{stage}"] = {"losses": losses, "loss_diffs": diffs,
+                               "moment_rel": worst, "worst_leaf": worst_k,
+                               "moment_bytes": bytes_rank,
+                               "f32_moment_bytes": f32_rank}
+        print(f"phase 18 (b) int8 moments under ZeRO-{stage}: 2 gloo ranks "
+              f"sharing the card, GPT-2-small's width at {cfg.n_layer} "
+              f"layers, {P16_STEPS} steps: losses {losses} (diffs against "
+              f"the replicated update {', '.join(f'{d:.2e}' for d in diffs)}"
+              f", limits {P15_LOSS_TOL}); worst moment leaf {worst_k} rel "
+              f"{worst:.3e} (limit {P18_MOMENT_REL}); moments a rank "
+              f"{bytes_rank} bytes against f32's {f32_rank} "
+              f"(ratio {f32_rank[0] / bytes_rank[0]:.2f}); {card}")
+        check(all(d <= t for d, t in zip(diffs, P15_LOSS_TOL)),
+              f"(b) zero{stage}: losses within {P15_LOSS_TOL}")
+        check(worst <= P18_MOMENT_REL, f"(b) zero{stage}: moments within "
+              f"{P18_MOMENT_REL} ({worst_k} {worst:.3e})")
+        check(sorted(plans) == [0, 1] and all(
+            f32_rank[r] > 3.5 * bytes_rank[r] for r in plans),
+            f"(b) zero{stage}: int8 moments under 1/3.5 of f32's a rank")
+    return res
+
+
+def p18_hybrid(pools, cfg, root, out, device="cuda"):
+    """(c): a data x fsdp ZeRO-3 fit on four gloo ranks sharing the
+    card."""
+    import torch_dist_helpers as helpers
+    from ray_lightning_tpu_torch.parallel.strategies import (
+        RayShardedStrategy,
+    )
+
+    t0 = time.perf_counter()
+    tr = p18_fit(kept_strategy(RayShardedStrategy, pools["gloo"], 4,
+                          backend="gloo", zero_stage=3,
+                          mesh_axes=P18_HYBRID),
+                 cfg, P16_STEPS, "p18_hybrid", root,
+                 callbacks=[helpers.PlanProbe("p18_hybrid_plan")],
+                 device=device)
+    out["p18_hybrid"] = {"wall_s": time.perf_counter() - t0}
+    del tr
+
+
+def p18_hybrid_check(cfg, root, card, out, device="cuda"):
+    """(c), in this process after the remote arms: the hybrid fit's losses
+    against ``LocalStrategy`` on the same global batches."""
+    import torch_dist_helpers as helpers
+    from ray_lightning_tpu_torch.parallel.strategies import LocalStrategy
+
+    p18_fit(LocalStrategy(device=device), cfg, P16_STEPS,
+            "p18_hybrid_local", root, device=device)
+    rec = helpers.RECORDS
+    ranks, plans = rec["p18_hybrid"], rec["p18_hybrid_plan"]
+    local = rec["p18_hybrid_local"][0]
+    losses = ranks[0]["losses"]
+    diffs = [abs(a - b) for a, b in zip(losses, local["losses"])]
+    layout = [(plans[r]["rank"], plans[r]["world"], plans[r]["replicas"])
+              for r in sorted(plans)]
+    mem = {r: {"setup": v["setup_bytes"], "peak": v["peak_bytes"]}
+           for r, v in sorted(ranks.items())}
+    digests = [plans[r]["digest"] for r in sorted(plans)]
+    print(f"phase 18 (c) ZeRO-3 over {P18_HYBRID}: 4 gloo ranks sharing the "
+          f"card, GPT-2-small's width at {cfg.n_layer} layers, bf16, "
+          f"{TRAIN_B // 4} x {TRAIN_T} rows a rank, {P16_STEPS} steps: "
+          f"losses {losses} (diffs against LocalStrategy on the global "
+          f"batch {', '.join(f'{d:.2e}' for d in diffs)}, limits "
+          f"{P15_LOSS_TOL}); (fsdp index, fsdp size, data replicas) a rank "
+          f"{layout}; memory a rank (setup, peak GiB) "
+          + ", ".join(f"{r}: {m['setup'] / 2**30:.3f}/"
+                      f"{m['peak'] / 2**30:.3f}" for r, m in mem.items())
+          + f" (LocalStrategy peak {local['peak_bytes'] / 2**30:.3f}); "
+          f"{p15_ms(ranks[0]):.1f} ms/step; {card}")
+    check(sorted(ranks) == [0, 1, 2, 3], "(c) every rank reports")
+    check(layout == [(0, 2, 2), (1, 2, 2), (0, 2, 2), (1, 2, 2)],
+          f"(c) the fsdp groups {layout}")
+    check(digests[0] == digests[2] and digests[1] == digests[3]
+          and digests[0] != digests[1],
+          "(c) each slice held alike by its data replicas")
+    check(all(d <= t for d, t in zip(diffs, P15_LOSS_TOL)),
+          f"(c) losses within {P15_LOSS_TOL} of LocalStrategy: {diffs}")
+    return {"losses": losses, "loss_diffs": diffs, "layout": layout,
+            "memory": mem, "ms": p15_ms(ranks[0]),
+            "local_peak_bytes": local["peak_bytes"]}
+
+
+def p18_island(pools, out, device="cuda", shape=P18_ISLAND):
+    """(d): the island on two gloo ranks sharing the card (its inputs made
+    on each rank from one seed)."""
+    import torch_dist_helpers as helpers
+
+    payload = {"seed": SEED + 18, "shape": shape, "device": device,
+               "use_kernel": True, "compute_dtype": "float32"}
+    out["p18_island"] = helpers.wire_worlds(
+        pools["gloo"]._workers, payload, 300, worlds=(2,),
+        fn=helpers.island_rank)[2]
+
+
+def p18_island_check(card, out, device="cuda", shape=P18_ISLAND):
+    """(d), in this process: the one-rank fused CE on the whole batch."""
+    import numpy as np
+    import torch
+
+    import torch_dist_helpers as helpers
+    from ray_lightning_tpu_torch.ops.cross_entropy import (
+        fused_lm_head_cross_entropy,
+    )
+
+    x, wte, t = helpers.island_inputs(
+        {"seed": SEED + 18, "shape": shape}, device, ranks=2)
+    x.requires_grad_(True)
+    wte.requires_grad_(True)
+    loss = fused_lm_head_cross_entropy(
+        x, wte, t, compute_dtype=torch.float32, use_kernel=True).sum() \
+        / t.numel()
+    loss.backward()
+    ref_dx, ref_dw = x.grad.cpu().numpy(), wte.grad.cpu().numpy()
+    ranks = out.pop("p18_island")
+    rows = ref_dx.shape[0] // 2
+    ref_loss = float(loss.detach())
+    loss_rel = max(abs(r["loss"] - ref_loss) / abs(ref_loss) for r in ranks)
+    dx_err = max(float(np.abs(r["dx"] - ref_dx[i * rows:(i + 1) * rows])
+                       .max()) for i, r in enumerate(ranks)) / float(
+        np.abs(ref_dx).max())
+    dw_rel = max(float(np.linalg.norm(r["dwte"] - ref_dw)
+                       / np.linalg.norm(ref_dw)) for r in ranks)
+    colls = [r["collectives"] for r in ranks]
+    print(f"phase 18 (d) the CE island: 2 gloo ranks sharing the card, "
+          f"a rank's tokens {shape['B']} x {shape['T']} at d "
+          f"{shape['d']}, vocab {shape['V']}, f32 kernels, against the one-rank fused CE "
+          f"on both ranks' rows: loss rel {loss_rel:.3e}, dx {dx_err:.3e} "
+          f"of max|dx|, dwte rel Frobenius {dw_rel:.3e} (limit "
+          f"{P18_ISLAND_TOL}); the backward's collectives {colls}; {card}")
+    check(max(loss_rel, dx_err, dw_rel) <= P18_ISLAND_TOL,
+          "(d) the island equals the one-rank CE")
+    check(all(c == {"all_reduce": 1, "reduce_scatter": 0, "all_gather": 0}
+              for c in colls), "(d) one all-reduce in the backward")
+    check(all("not divisible" in r["refused"] for r in ranks),
+          "(d) a batch that does not split is refused")
+    return {"loss_rel": loss_rel, "dx_err": dx_err, "dwte_rel": dw_rel,
+            "collectives": colls}
+
+
+def phase18_main(arms=P18_ARMS, device="cuda", cfg=None, island=None
+                 ) -> int:
+    """Phase 18 alone (``chip_smoke.py --phase18 [arm ...]``): its lines,
+    then one JSON object as its last line.  A CPU rehearsal of (b)-(d):
+    ``device="cpu"``, a narrow ``cfg`` and ``island`` shape (arm (a)
+    captures on the card only)."""
+    return staged_main(18, phase18_steps(arms, device, cfg, island), device)
+
+
+def phase18_steps(arms=P18_ARMS, device="cuda", cfg=None, island=None):
+    """Phase 18's stages (``run_staged``): (a) captured megastep on a
+    one-rank NCCL world, (b) int8 moments under ZeRO on two gloo ranks,
+    (c) a data x fsdp ZeRO-3 fit on four gloo ranks, (d) the CE island on
+    two gloo ranks; then their references in the driver."""
+    import tempfile
+
+    from ray_lightning_tpu_torch.models.gpt import GPTConfig
+
+    island = island or P18_ISLAND
+    check(device == "cuda" or "a_megastep" not in arms,
+          "phase 18 (a) captures on the card")
+    unknown = set(arms) - set(P18_ARMS)
+    check(not unknown, f"phase 18 arms {sorted(unknown)} in {P18_ARMS}")
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    card = card_line()
+    root = tempfile.mkdtemp(prefix="rlt-p18-")
+    full = dataclasses.replace(GPTConfig.gpt2_small(), warmup_steps=1)
+    cfg = cfg or dataclasses.replace(full, n_layer=P15_LAYERS)
+    need = {}
+    if "a_megastep" in arms:
+        need["nccl"] = 1
+    if {"b_int8_zero", "c_hybrid", "d_island"} & set(arms):
+        need["gloo"] = 4 if "c_hybrid" in arms else 2
+    out, result = {"card": card}, {"card": card}
+    pools = yield need, []
+    walls = {}
+    for arm, fn, args in (
+            ("a_megastep", p18_megastep, (pools, full, root, card, out)),
+            ("b_int8_zero", p18_int8, (pools, cfg, root, out, device)),
+            ("c_hybrid", p18_hybrid, (pools, cfg, root, out, device)),
+            ("d_island", p18_island, (pools, out, device, island))):
+        if arm in arms:
+            t0 = time.perf_counter()
+            fn(*args)
+            walls[arm] = time.perf_counter() - t0
+    yield
+    if "a_megastep" in arms:
+        result["a"] = p18_megastep_check(full, card, out)
+        p18_megastep_local(full, root, card, result["a"])
+    if "b_int8_zero" in arms:
+        result["b"] = p18_int8_check(cfg, card, out)
+    if "c_hybrid" in arms:
+        result["c"] = p18_hybrid_check(cfg, root, card, out, device)
+    if "d_island" in arms:
+        result["d"] = p18_island_check(card, out, device, island)
+    result["arm_walls_s"] = walls
+    print(f"phase 18: remote arms "
+          f"{json.dumps({k: round(v, 1) for k, v in walls.items()})} s; "
+          f"{card}")
+    return result
+
+
+def multi_main() -> int:
+    """Phases 15-18 in one process (``chip_smoke.py --multi``): every
+    worker spawned once, every phase's remote arms, then every phase's
+    references and checks (``run_staged``).  Prints their lines, then
+    {phase: result, "spawn_s": seconds} as one JSON line."""
+    steps = (phase15_steps, phase16_steps, phase17_steps, phase18_steps)
+    out = run_staged({n: f() for n, f in zip(MULTI_PHASES, steps)})
+    print(json.dumps(out, default=str))
     return 0
 
 
-def phase_restarts(card):
-    """Phase 17, run as ``chip_smoke.py --phase17`` in a process of its
-    own; its lines are echoed, its last line returned."""
+def phase_multi(card):
+    """Phases 15-18, run as ``chip_smoke.py --multi`` in a process of its
+    own (the driver of remote fits must not have initialised CUDA, and
+    this one has); its lines are echoed, its last line returned with the
+    process's seconds as ``all_s``."""
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                           "--phase17"], capture_output=True, text=True,
-                          timeout=600, cwd=ROOT)
+                           "--multi"], capture_output=True, text=True,
+                          timeout=900, cwd=ROOT)
     lines = proc.stdout.strip().splitlines()
     for line in lines[:-1]:
         print(line)
     if proc.returncode != 0:
         print(proc.stderr[-6000:], file=sys.stderr)
-        raise RuntimeError(f"chip_smoke: phase 17 failed (exit "
+        raise RuntimeError(f"chip_smoke: phases 15-18 failed (exit "
                            f"{proc.returncode})")
     result = json.loads(lines[-1])
-    print(f"phase 17: {time.perf_counter() - t0:.1f} s in all, the "
-          f"process's start included; {card}")
+    result["all_s"] = time.perf_counter() - t0
+    print(f"phases 15-18: {result['all_s']:.1f} s in all, the process's "
+          f"start and the shared spawn ({result['spawn_s']:.1f} s) "
+          f"included; {card}")
     return result
 
 
@@ -6685,9 +7220,14 @@ def main() -> int:
     world = server_world(torch, np)
     plane = timed(phase_serve_plane, torch, np, card, world, phase3)
     fleet = timed(phase_serve_fleet, torch, np, card, world, phase3)
-    multi = timed(phase_multi_gpu, card)
-    wire = timed(phase_grad_wire, card)
-    restarts = timed(phase_restarts, card)
+    staged = timed(phase_multi, card)
+    multi, wire, restarts, rest = (staged[str(n)] for n in MULTI_PHASES)
+    # Within phase_multi: the shared spawn, then each phase's remote arms
+    # and checks (the process's start is the rest).
+    walls["phase_multi_parts"] = {"spawn": round(staged["spawn_s"], 1), **{
+        name: round(staged[str(n)]["wall_s"], 1) for n, name in zip(
+            MULTI_PHASES, ("phase_multi_gpu", "phase_grad_wire",
+                           "phase_restarts", "phase_multi_gpu_rest"))}}
 
     kernels = [{
         "name": "bgmv", "route": "cuda", "source": BGMV_SOURCE,
@@ -6718,6 +7258,7 @@ def main() -> int:
     print("multi_gpu: " + json.dumps(multi))
     print("grad_wire: " + json.dumps(wire))
     print("restarts: " + json.dumps(restarts))
+    print("multi_gpu_rest: " + json.dumps(rest))
     print("walls: " + json.dumps({**walls, "total_s": round(
         time.perf_counter() - t0, 1)}))
     print(card)
@@ -6740,4 +7281,8 @@ if __name__ == "__main__":
         sys.exit(phase16_main(tuple(sys.argv[2:]) or P16_ARMS))
     if sys.argv[1:2] == ["--phase17"]:
         sys.exit(phase17_main())
+    if sys.argv[1:2] == ["--phase18"]:
+        sys.exit(phase18_main(tuple(sys.argv[2:]) or P18_ARMS))
+    if sys.argv[1:2] == ["--multi"]:
+        sys.exit(multi_main())
     sys.exit(main())

@@ -86,6 +86,7 @@ from ray_lightning_tpu_torch.ops.optim_quant import (
     BlockQuantized, dequantize_moment, quantize_moment,
 )
 from ray_lightning_tpu_torch.parallel import step_fns
+from ray_lightning_tpu_torch.parallel.sharding import has_quantized
 from ray_lightning_tpu_torch.parallel.overlap import (
     normalize_grad_overlap, resolve_grad_overlap,
 )
@@ -214,7 +215,8 @@ def _normalize_update_sharding(value: Any) -> Optional[str]:
 def _resolve_update_sharding(config: FitConfig, world: Optional[int],
                              mode: str, zero_stage: int,
                              device: torch.device,
-                             axes: Optional[tuple] = None) -> bool:
+                             axes: Optional[tuple] = None,
+                             backend: Optional[str] = None) -> bool:
     """Whether this fit shards the weight update over the ranks (the JAX
     ``_resolve_update_sharding``): the knob, else ``RLT_UPDATE_SHARDING``,
     else ``"auto"``.  Eligible: more than one rank (``world``; None is
@@ -222,8 +224,14 @@ def _resolve_update_sharding(config: FitConfig, world: Optional[int],
     ``zero_stage == 0`` (the port's ranks are batch-parallel only).  "on"
     outside that warns with the JAX words and stays off; "auto" is on
     where eligible and on the card (the JAX rule's TPU backend), off on
-    the CPU.  On, the step is ZeRO-1's (``step_fns.build_dist_step``):
-    the gradients reduce-scattered onto each rank's slices (or the int8
+    the CPU, and off over gloo (``backend``) on the card: gloo stages a
+    card's tensors through the host, where its reduce-scatter costs what
+    its all-reduce does and the all-gather comes on top (a traced
+    GPT-2-small step on two ranks sharing an H100: 505 ms of collectives
+    against the replicated update's 304 ms; PERF.md §5), so the JAX rule's
+    premise, a sharded update no dearer on the wire, holds over NCCL
+    only.  On, the step is ZeRO-1's (``step_fns.build_dist_step``): the
+    gradients reduce-scattered onto each rank's slices (or the int8
     wire's synced ones sliced), its slices of the moments and params
     updated, then the params all-gathered."""
     value = _normalize_update_sharding(config.update_sharding)
@@ -245,11 +253,11 @@ def _resolve_update_sharding(config: FitConfig, world: Optional[int],
             )
             return False
         return True
-    return eligible and device.type == "cuda"
+    return eligible and device.type == "cuda" and backend != "gloo"
 
 
 def _resolve_megastep(config: FitConfig, device: torch.device,
-                      distributed: bool = False) -> int:
+                      backend: Optional[str] = None) -> int:
     """The concrete stride length K for this fit.
 
     Strongest first: an explicit ``megastep=`` on the Trainer/strategy →
@@ -257,9 +265,13 @@ def _resolve_megastep(config: FitConfig, device: torch.device,
     → ``"auto"``.  Auto is K = 8 on the card, where the host's per-step
     issue cost can hold the card back (the JAX package's accelerator
     rule), and 1 on the CPU, where execution is synchronous and fusing
-    strides buys nothing.  Under a strategy's process group
-    (``distributed``) auto is 1 and K > 1 raises: the steps' collectives
-    are not captured into a graph (ROADMAP Queue 1 item 2.2)."""
+    strides buys nothing.  Under a strategy's process group (``backend``,
+    None without one) a stride on the card is captured with its
+    collectives, which NCCL's can be and gloo's cannot (gloo stages a
+    card's tensors through the host, and a capture may not wait for the
+    card): over NCCL auto is 8, over gloo on the card auto is 1 and
+    K > 1 raises.  On CPU workers K > 1 runs its steps eagerly, as on one
+    CPU device (the JAX megastep runs on a CPU mesh)."""
     value = config.megastep
     if value is None:
         value = os.environ.get("RLT_MEGASTEP")
@@ -267,14 +279,16 @@ def _resolve_megastep(config: FitConfig, device: torch.device,
     value = _normalize_megastep(value)
     if value == "off":
         return 1
+    gloo_card = device.type == "cuda" and backend == "gloo"
     if value == "auto":
-        return 8 if device.type == "cuda" and not distributed else 1
-    if distributed and int(value) > 1:
+        return 8 if device.type == "cuda" and not gloo_card else 1
+    if gloo_card and int(value) > 1:
         raise NotImplementedError(
-            f"megastep={value} under a multi-process strategy: a CUDA graph "
-            f"of steps with their collectives captured is not ported yet "
-            f"(ROADMAP Queue 1 item 2.2, megastep under NCCL capture); use "
-            f"megastep='auto' or 'off' there")
+            f"megastep={value} on the card over gloo: a stride's CUDA graph "
+            f"would capture its collectives, and gloo's cannot be captured "
+            f"(gloo copies a card's tensors to the host and waits for "
+            f"them); use backend='nccl' (one rank a card), or megastep="
+            f"'auto' or 'off'")
     return int(value)
 
 
@@ -565,7 +579,8 @@ def _resolve_comm(ctx: LoopContext, module: TrainModule, tel: Telemetry,
     shard_update = _resolve_update_sharding(
         ctx.config, None if dist is None else dist.world_size, mode,
         zero_stage, ctx.device,
-        None if dist is None else dist.layout.axis_names)
+        None if dist is None else dist.layout.axis_names,
+        None if dist is None else dist.backend)
     tel.set_meta("update_sharding", "on" if shard_update else "off")
     return grad_sync, shard_update
 
@@ -595,7 +610,11 @@ def _init_dist_state(ctx: LoopContext, module: TrainModule, tx, tel,
     else:
         shards = plan.shard_tree(params, own=plan.stage == 3)
         opt_state = tx.init(shards)
-        plan.opt_dims(opt_state, sharded=True)  # refuses int8 moments
+        if has_quantized(opt_state):
+            # An int8 moment is quantized whole, then cut into runs of
+            # its flat payload (the JAX layout).
+            opt_state = plan.shard_opt_state(tx.init(params))
+        plan.set_moment_layout(opt_state)
         ctx.state = TrainState(shards if plan.stage == 3 else params,
                                opt_state, 0)
         ctx.zero_plan = plan
@@ -640,8 +659,18 @@ def _restore_state(template: TrainState, loaded: TrainState,
                     or src.static() != dst.static()):
                 raise ValueError(f"resume: {path}: the checkpoint holds "
                                  f"{src!r} where this fit holds {dst!r}")
-            put(dst.q, src.q, f"{path}.q")
-            put(dst.scale, src.scale, f"{path}.scale")
+            q, scale = src.q, src.scale
+            if dst.shard is not None:
+                # A whole moment where this rank holds a run of it.
+                if q.numel() != dst.q.numel():
+                    q = q.reshape(-1).narrow(0, dst.shard.start,
+                                             dst.q.numel())
+                if scale.numel() != dst.scale.numel():
+                    scale = scale.narrow(
+                        0, dst.shard.start // dst.block_size,
+                        dst.scale.numel())
+            put(dst.q, q, f"{path}.q")
+            put(dst.scale, scale, f"{path}.scale")
             # The checkpoint's own static objects: a state written back
             # pickles as the file did.
             dst.aux = src.aux
@@ -1200,9 +1229,12 @@ def _fit(ctx: LoopContext, module: TrainModule, datamodule: TpuDataModule,
                                                 resize_info=resize_info)
         train_step = step_fns.single_device_step(module, tx)
     rng = step_fns.StepRng(device, config.seed)
-    megastep_k = _resolve_megastep(config, device, dist is not None)
-    multi_step = (step_fns.MultiStep(module, tx, megastep_k, device, rng)
-                  if megastep_k > 1 else None)
+    megastep_k = _resolve_megastep(config, device,
+                                   None if dist is None else dist.backend)
+    multi_step = (step_fns.MultiStep(
+        module, tx, megastep_k, device, rng,
+        step=None if dist is None else train_step)
+        if megastep_k > 1 else None)
     tel.set_meta("megastep", megastep_k)
     val_loader = datamodule.val_dataloader()
     eval_step = (step_fns.build_eval_step(module) if val_loader is not None

@@ -425,7 +425,16 @@ class GPT(TrainModule):
         """Mean next-token CE of ``tokens (B, T+1)`` through the fused tied
         head: on its kernel route unless ``ce_kernel`` is off (the JAX
         package's one-chip program; the JAX gate on ``d`` sends other
-        widths to the scan)."""
+        widths to the scan).
+
+        Under a strategy (``parallel.step_fns.DistributedStep``) this is
+        still the rank-local CE, where the JAX package dispatches a
+        batch-only mesh to its multi-device island: the port's step syncs
+        every gradient after the backward (``grad_sync``, or ZeRO's
+        reduce-scatter), ``dwte``'s among them, so a psum inside the CE
+        would sum it twice.  The island stands alone as
+        ``ops.cross_entropy.fused_lm_head_cross_entropy_sharded``, for a
+        loss written over a process group by hand."""
         inputs, targets = tokens[:, :-1], tokens[:, 1:]
         x, aux = self.forward_hidden(params, inputs)
         loss = fused_lm_head_cross_entropy(

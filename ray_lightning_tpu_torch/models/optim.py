@@ -62,7 +62,7 @@ import torch
 
 from ray_lightning_tpu_torch.ops.optim_quant import (
     DEFAULT_BLOCK_SIZE, MIN_QUANT_SIZE, BlockQuantized, dequantize_moment,
-    is_block_quantized, quantize_moment,
+    is_block_quantized, quantize_moment, quantize_moment_run,
 )
 
 __all__ = ["GradientTransformation", "chain", "clip_by_global_norm",
@@ -524,7 +524,11 @@ def quantize_opt_state(inner: GradientTransformation, dtype: str,
     sqrt domain; leaves under ``min_quant_size`` elements stay float),
     ``"bfloat16"`` cast.  Each update dequantizes, runs ``inner`` in f32
     and requantizes; the new state's leaves are new tensors, written back
-    leafwise under megastep like any other."""
+    leafwise under megastep like any other.  A ZeRO rank's moment
+    (``BlockQuantized.shard``) dequantizes to its run of the flat padded
+    tensor, which ``inner`` updates against the gradient and param runs
+    the ZeRO step hands it, and requantizes as that run
+    (``ops.optim_quant.quantize_moment_run``)."""
     dtype = resolve_opt_state_dtype(dtype)
     if dtype in (None, "float32"):
         return inner
@@ -535,10 +539,31 @@ def quantize_opt_state(inner: GradientTransformation, dtype: str,
         return _map_adam_moments(inner.init(params), store_mu, store_nu)
 
     def update(updates, state, params=None, norm_sq=None):
+        # Each moment leaf as loaded, in the order both walks visit them.
+        olds: list = []
+
+        def loading(load):
+            def fn(v):
+                olds.append(v)
+                return load(v)
+            return fn
+
         new_updates, new_state = _update(
-            inner, updates, _map_adam_moments(state, load_mu, load_nu),
+            inner, updates,
+            _map_adam_moments(state, loading(load_mu), loading(load_nu)),
             params, norm_sq)
-        return new_updates, _map_adam_moments(new_state, store_mu, store_nu)
+        it = iter(olds)
+
+        def storing(store):
+            def fn(v):
+                old = next(it)
+                if is_block_quantized(old) and old.shard is not None:
+                    return quantize_moment_run(v, old)
+                return store(v)
+            return fn
+
+        return new_updates, _map_adam_moments(new_state, storing(store_mu),
+                                              storing(store_nu))
 
     return GradientTransformation(init, update)
 

@@ -20,6 +20,13 @@ cross_entropy.py``), chosen by :func:`fused_lm_head_cross_entropy`:
 
 Both autograd Functions save only ``(x, wte, targets, lse)``.
 
+:func:`fused_lm_head_cross_entropy_sharded` is the JAX package's
+multi-device island (``fused_lm_head_cross_entropy_sharded``, a
+``shard_map`` over the batch axes) over a ``torch.distributed`` process
+group: each rank runs the fused CE above on its own rows against the
+whole vocabulary, and the backward's one collective is the all-reduce
+(sum) of the ranks' ``dwte`` partials.
+
 Numerics: the products take compute-dtype operands and give f32 results
 (the JAX ``preferred_element_type=f32``: a bf16·bf16 product is exact in
 f32, so only the sums' order differs); statistics, the loss and both
@@ -44,6 +51,7 @@ from ray_lightning_tpu_torch.ops.attention import _NEG_INF
 from ray_lightning_tpu_torch.ops.matmul import mm_f32
 
 __all__ = ["fused_lm_head_cross_entropy", "naive_lm_head_cross_entropy",
+           "fused_lm_head_cross_entropy_sharded",
            "ce_fwd", "ce_bwd_dx", "ce_bwd_dw", "ce_fwd_plain",
            "ce_bwd_dx_plain", "ce_bwd_dw_plain", "kernel_route_ok"]
 
@@ -369,6 +377,68 @@ def fused_lm_head_cross_entropy(
             num_chunks = _pick_num_chunks(wte.shape[0])
         loss = _FusedCE.apply(x2, wte, t1, int(num_chunks), compute_dtype)
     return loss.reshape(lead)
+
+
+class _SumOverRanks(torch.autograd.Function):
+    """Identity forward; the backward sums the cotangent over ``group``'s
+    ranks (one ``all_reduce``): the island's ``dwte`` psum."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+
+        g = g.contiguous()
+        dist.all_reduce(g, op=dist.ReduceOp.SUM, group=ctx.group)
+        return g, None
+
+
+def fused_lm_head_cross_entropy_sharded(
+    x: torch.Tensor, wte: torch.Tensor, targets: torch.Tensor,
+    group=None, *, global_batch: Optional[int] = None,
+    num_chunks: Optional[int] = None,
+    compute_dtype: torch.dtype = torch.bfloat16,
+    use_kernel: bool = False,
+) -> torch.Tensor:
+    """The multi-device fused CE island (the JAX
+    ``fused_lm_head_cross_entropy_sharded``) over ``group`` (None: the
+    default process group): every rank calls it at the same point with its
+    own rows ``x (b, ..., d)`` and ``targets (b, ...)`` of the global
+    batch, batch-sharded on dim 0, and the whole ``wte (V, d)``, which
+    every rank holds alike (a replicated head: pure data parallelism or
+    ZeRO-1, not ZeRO-3's param slices).  It returns this rank's per-token
+    f32 losses, each through :func:`fused_lm_head_cross_entropy` (the
+    kernels with ``use_kernel`` where the gate admits ``d``, else the
+    scan); the backward's one collective is the all-reduce (sum) of the
+    ranks' ``dwte`` partials, so every rank gets the gradient of the sum
+    of every rank's loss.  Reduce the losses to the rank's share of the
+    global mean (``losses.sum() / global_tokens``; ``losses.mean() /
+    world`` where the shares are equal) for the global mean's gradient,
+    as the JAX island's ``.mean()`` over the global array gives it.
+
+    ``global_batch``: the global batch the rows are a share of (the JAX
+    island's ``x.shape[0]``); one that does not split over the ranks
+    raises with the JAX island's words, and so does a share of another
+    size than this rank's rows."""
+    import torch.distributed as dist
+
+    n_shards = dist.get_world_size(group)
+    if global_batch is not None:
+        if global_batch % n_shards:
+            raise ValueError(
+                f"batch dim {global_batch} not divisible by the group's "
+                f"ranks={n_shards}")
+        if global_batch // n_shards != x.shape[0]:
+            raise ValueError(
+                f"rank rows {x.shape[0]} are not a 1/{n_shards} share of "
+                f"the global batch {global_batch}")
+    return fused_lm_head_cross_entropy(
+        x, _SumOverRanks.apply(wte, group), targets, num_chunks=num_chunks,
+        compute_dtype=compute_dtype, use_kernel=use_kernel)
 
 
 def naive_lm_head_cross_entropy(

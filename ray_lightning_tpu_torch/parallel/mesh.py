@@ -7,9 +7,12 @@ collectives are compiled into the step.  The port runs one process per
 rank and one card per process, joined by one ``torch.distributed``
 process group (:func:`bootstrap_distributed`, an explicit backend and
 timeout), and keeps the mesh as a record of the rank layout
-(:class:`RankLayout`).  Only the batch-parallel axes that the JAX
-``sharding.data_axes`` reads (``data``, ``fsdp``) are taken; any other
-axis (``tensor``, ``sp``, ...) raises, naming ROADMAP Queue 1 item 3.
+(:class:`RankLayout`: rank r at device r's place in the JAX mesh).  Only
+the batch-parallel axes that the JAX ``sharding.data_axes`` reads
+(``data``, ``fsdp``) are taken; any other axis (``tensor``, ``sp``, ...)
+raises, naming ROADMAP Queue 1 item 3.  ZeRO over a ``data`` x ``fsdp``
+mesh shards over each ``fsdp`` group and replicates along ``data``
+(:func:`zero_groups`, ``torch.distributed`` subgroups).
 """
 
 from __future__ import annotations
@@ -19,7 +22,8 @@ import datetime
 from typing import Any, Dict, Optional, Tuple
 
 __all__ = ["bootstrap_distributed", "MeshSpec",
-           "RankLayout", "build_mesh", "BATCH_AXES", "DistContext"]
+           "RankLayout", "build_mesh", "BATCH_AXES", "DistContext",
+           "zero_groups"]
 
 # The mesh axes a batch shards over (JAX ``sharding.data_axes``).
 BATCH_AXES = ("data", "fsdp")
@@ -97,6 +101,51 @@ class RankLayout:
             n *= v
         return n
 
+    def coords(self, rank: int) -> Dict[str, int]:
+        """Rank ``rank``'s index along each axis: the JAX mesh's device
+        order (the devices reshaped to the axes' sizes, row-major), so
+        rank r sits where device r does and holds its batch rows."""
+        out = {}
+        for name in reversed(self.axis_names):
+            out[name] = rank % self.sizes[name]
+            rank //= self.sizes[name]
+        return {name: out[name] for name in self.axis_names}
+
+    def rank_of(self, coords: Dict[str, int]) -> int:
+        rank = 0
+        for name in self.axis_names:
+            rank = rank * self.sizes[name] + coords[name]
+        return rank
+
+    @property
+    def zero_axis(self) -> str:
+        """The axis ZeRO shards the state over (the JAX
+        ``default_zero_axis``): ``fsdp`` where the mesh has one, else
+        ``data``."""
+        return "fsdp" if "fsdp" in self.sizes else "data"
+
+    def groups_along(self, axes: Tuple[str, ...]) -> list:
+        """Every group of ranks that differ only along ``axes``, each a
+        sorted rank list, in the order of their first rank."""
+        seen, out = set(), []
+        for r in range(self.world_size):
+            if r in seen:
+                continue
+            c = self.coords(r)
+            members = sorted({self.rank_of({**c, **dict(zip(axes, idx))})
+                              for idx in _product(
+                                  [range(self.sizes[a]) for a in axes])})
+            seen.update(members)
+            out.append(members)
+        return out
+
+
+def _product(ranges) -> list:
+    out = [()]
+    for rng in ranges:
+        out = [p + (i,) for p in out for i in rng]
+    return out
+
 
 def build_mesh(spec: Optional[MeshSpec], world_size: int) -> RankLayout:
     """The rank layout of ``spec`` over ``world_size`` ranks.  Axes other
@@ -110,6 +159,35 @@ def build_mesh(spec: Optional[MeshSpec], world_size: int) -> RankLayout:
             f"shard the batch over {BATCH_AXES} only (tensor, sequence and "
             f"pipeline parallelism are ROADMAP Queue 1 item 3)")
     return RankLayout(spec.resolve(world_size))
+
+
+def zero_groups(dist: Any) -> Dict[str, Any]:
+    """The ZeRO plan's group keywords for the rank of ``dist`` (a
+    :class:`DistContext`; ``sharding.ZeroPlan``): the state sharded over
+    the ranks along the ZeRO axis (``RankLayout.zero_axis``).  Where that
+    axis spans every rank (or ``dist`` carries no layout: one ``data``
+    axis), over the default group; on a ``data`` x ``fsdp`` mesh over the
+    rank's ``fsdp`` group, replicated across its ``data`` group.  The
+    subgroups are made here by every rank, every one in the same order
+    (``torch.distributed.new_group`` is a collective of the default
+    group): a collective."""
+    layout = getattr(dist, "layout", None)
+    if layout is None or layout.sizes[layout.zero_axis] == layout.world_size:
+        return {"rank": dist.rank, "world_size": dist.world_size}
+    import torch.distributed as tdist
+
+    axis = layout.zero_axis
+    size = layout.sizes[axis]
+    others = tuple(a for a in layout.axis_names if a != axis)
+    mine = {}
+    for key, axes in (("group", (axis,)), ("data_group", others)):
+        for members in layout.groups_along(axes):
+            g = tdist.new_group(members)
+            if dist.rank in members:
+                mine[key] = g
+    return {"rank": layout.coords(dist.rank)[axis], "world_size": size,
+            "group": mine["group"], "replicas": layout.world_size // size,
+            "data_group": mine["data_group"]}
 
 
 class DistContext:

@@ -39,7 +39,13 @@ A rank's slice of a leaf sharded along dim ``d`` is the contiguous run
 contiguous tensor; a collective along ``d`` moves ``d`` to the front
 first.  Optimizer-state leaves take their parameter's rule by key-path
 suffix, as the JAX ``state_shardings_for_module`` matches them (the
-moments ``mu``/``nu`` and ``multi_steps``' ``acc_grads`` of a param).
+moments ``mu``/``nu`` and ``multi_steps``' ``acc_grads`` of a param); an
+int8 moment's payload ``q`` and ``scale`` have no twin and take the leaf
+rule themselves, so a rank holds a contiguous run of the flat payload.
+Such a param is updated as its flat padded vector (the plan's update
+layout, :meth:`ZeroPlan.set_moment_layout`): the rank's run of its
+gradient, param and moments is one range.  On a ``data`` x ``fsdp`` mesh
+the plan shards over the rank's ``fsdp`` group (``mesh.zero_groups``).
 The JAX ``make_global_batch`` has no counterpart: each rank's loader
 yields its own rows (``core.data.NumpyLoader.set_shard``).
 """
@@ -55,10 +61,12 @@ import torch
 from ray_lightning_tpu_torch.models.optim import (
     MaskedNode, is_known_zeros, known_zeros, tree_leaves, tree_unflatten,
 )
-from ray_lightning_tpu_torch.ops.optim_quant import BlockQuantized
+from ray_lightning_tpu_torch.ops.optim_quant import (
+    BlockQuantized, MomentShard,
+)
 
 __all__ = ["MIN_LEAF_SIZE", "shard_leaf_spec", "leaves_with_paths",
-           "ZeroPlan"]
+           "has_quantized", "ZeroPlan"]
 
 MIN_LEAF_SIZE = 2 ** 12
 
@@ -107,44 +115,100 @@ def _collective(new: str, old: str):
     return getattr(dist, new, None) or getattr(dist, old)
 
 
-def _has_quantized(tree: Any) -> bool:
+def _quantized_nodes(tree: Any, path: Tuple = ()
+                     ) -> Iterator[Tuple[Tuple, BlockQuantized]]:
+    """``(key path, node)`` of each ``BlockQuantized`` node of ``tree``."""
     if isinstance(tree, BlockQuantized):
-        return True
-    if isinstance(tree, dict):
-        return any(_has_quantized(v) for v in tree.values())
-    if isinstance(tree, (tuple, list)):
-        return any(_has_quantized(v) for v in tree)
-    return False
+        yield path, tree
+    elif isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _quantized_nodes(v, path + (k,))
+    elif isinstance(tree, (tuple, list)):
+        for i, v in enumerate(tree):
+            yield from _quantized_nodes(v, path + (i,))
+
+
+def has_quantized(tree: Any) -> bool:
+    """Whether ``tree`` holds an int8 ``BlockQuantized`` moment."""
+    return next(_quantized_nodes(tree), None) is not None
+
+
+def _opt_leaves(tree: Any, path: Tuple = ()
+                ) -> Iterator[Tuple[Tuple, Any, Optional[BlockQuantized]]]:
+    """``(key path, leaf, its BlockQuantized node or None)`` in
+    :func:`leaves_with_paths` order."""
+    if isinstance(tree, BlockQuantized):
+        yield path + ("q",), tree.q, tree
+        yield path + ("scale",), tree.scale, tree
+    elif isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _opt_leaves(v, path + (k,))
+    elif isinstance(tree, (tuple, list)):
+        for i, v in enumerate(tree):
+            yield from _opt_leaves(v, path + (i,))
+    elif not isinstance(tree, MaskedNode):
+        yield path, tree, None
 
 
 class ZeroPlan:
     """The per-leaf ZeRO plan of one params tree over a process group:
     ``dims[i]``, the dim leaf ``i`` (in ``tree_leaves`` order) shards
     along, or None.  ``stage`` 1 or 3.  Every collective method is run by
-    every rank at the same point."""
+    every rank at the same point.
+
+    ``rank`` and ``world_size`` are this rank's place in, and the size
+    of, the group the state is sharded over: ``group`` (None, the
+    default group: every rank), or on a ``data`` × ``fsdp`` mesh the
+    rank's ``fsdp`` group, each slice then held alike by the
+    ``replicas`` ranks of its ``data_group`` (the JAX
+    ``default_zero_axis``: ZeRO shards over ``fsdp``, replicated along
+    ``data``).  A gradient is the mean over every rank: reduce-scattered
+    within the ``fsdp`` group, its slices all-reduced across the ``data``
+    group, then divided by ``world_size · replicas``.
+
+    The update layout (:meth:`set_moment_layout`): a param whose AdamW
+    moments are int8 (``ops.optim_quant.BlockQuantized``) and whose
+    payload shards (``flat[i]``) is updated as its flat padded vector,
+    ``ushapes[i] = (padded,)`` along ``udims[i] = 0``, so a rank's run of
+    the gradient, the param and the moments is one range; one whose
+    payload does not shard is updated whole (``udims[i]`` None).  Every
+    other leaf is updated in its stored layout (``udims == dims``)."""
 
     def __init__(self, params: Any, stage: int, rank: int, world_size: int,
-                 min_leaf_size: int = MIN_LEAF_SIZE):
+                 min_leaf_size: int = MIN_LEAF_SIZE, group: Any = None,
+                 replicas: int = 1, data_group: Any = None):
         if stage not in (1, 3):
             raise ValueError(f"zero stage must be 1 or 3, got {stage}")
         self.stage = stage
         self.rank = rank
         self.world = world_size
+        self.group = group
+        self.replicas = replicas
+        self.data_group = data_group
         pairs = list(leaves_with_paths(params))
         self.paths = [p for p, _ in pairs]
         self.full_shapes = [tuple(t.shape) for _, t in pairs]
         self.dims = [shard_leaf_spec(s, world_size, min_leaf_size)
                      for s in self.full_shapes]
+        self.udims = list(self.dims)
+        self.ushapes = list(self.full_shapes)
+        self.flat = [False] * len(self.dims)
         self.min_leaf_size = min_leaf_size
         self._by_path = {p: i for i, p in enumerate(self.paths)}
         self._order = sorted(range(len(self.paths)), key=lambda i: tuple(
             str(k) for k in self.paths[i]))
         # (the frozen leaves' mask, the leaves' dtypes) -> the step's
         # bucket plans: the sharded leaves' reduce-scatter buckets and the
-        # replicated leaves' all-reduce buckets.  (The leaves' dtypes) ->
-        # the all-gather's buckets.  A bucket never mixes dtypes.
+        # replicated leaves' all-reduce buckets.  (The layout, the leaves'
+        # dtypes) -> the all-gather's buckets.  A bucket never mixes
+        # dtypes.
         self._grad_plans: dict = {}
         self._gather_plans: dict = {}
+
+    @property
+    def relayout(self) -> bool:
+        """Whether some leaf is updated in another layout than stored."""
+        return self.udims != self.dims or any(self.flat)
 
     # -- shapes -------------------------------------------------------------
     def shard_shape(self, i: int) -> Tuple[int, ...]:
@@ -175,13 +239,64 @@ class ZeroPlan:
         return tree_unflatten(tree, [self._slice(t, d, own)
                                      for t, d in zip(leaves, self.dims)])
 
+    def _as_update(self, t: torch.Tensor, i: int) -> torch.Tensor:
+        """A whole leaf in its update layout (a flat leaf: flattened and
+        zero-padded to its payload's length)."""
+        if not self.flat[i]:
+            return t
+        flat = t.reshape(-1)
+        pad = self.ushapes[i][0] - flat.numel()
+        return torch.nn.functional.pad(flat, (0, pad)) if pad else flat
+
+    def _from_update(self, t: torch.Tensor, i: int) -> torch.Tensor:
+        """A whole leaf in its update layout back in its own shape."""
+        if not self.flat[i]:
+            return t
+        return t[:math.prod(self.full_shapes[i])].view(self.full_shapes[i])
+
+    def update_view(self, tree: Any) -> Any:
+        """This rank's runs, in the update layout, of a tree of whole
+        leaves."""
+        leaves = tree_leaves(tree)
+        self._check_len(leaves, "tree")
+        return tree_unflatten(tree, [
+            self._slice(self._as_update(t, i), self.udims[i])
+            for i, t in enumerate(leaves)])
+
+    def set_moment_layout(self, opt_state: Any) -> None:
+        """The update layout of the params whose AdamW moments
+        ``opt_state`` (whole or this rank's) holds as int8
+        ``BlockQuantized`` nodes."""
+        for path, bq in _quantized_nodes(opt_state):
+            i = self._param_of(path, bq.shape)
+            if i is None:
+                continue
+            if shard_leaf_spec((bq.padded,), self.world,
+                               self.min_leaf_size) == 0:
+                self.flat[i] = True
+                self.ushapes[i] = (bq.padded,)
+                self.udims[i] = 0
+            else:
+                self.udims[i] = None
+        self._grad_plans.clear()
+        self._gather_plans.clear()
+
+    def _param_of(self, path: Tuple, shape: Tuple[int, ...]
+                  ) -> Optional[int]:
+        """The param whose key path ``path`` ends with, of ``shape``."""
+        for k in range(len(path)):
+            i = self._by_path.get(path[k:])
+            if i is not None and self.full_shapes[i] == tuple(shape):
+                return i
+        return None
+
     # -- collectives on params-shaped trees ---------------------------------
     def _gather(self, s: torch.Tensor, d: int) -> torch.Tensor:
         x = (s if d == 0 else s.movedim(d, 0)).contiguous()
         out = torch.empty((x.shape[0] * self.world, *x.shape[1:]),
                           dtype=x.dtype, device=x.device)
         _collective("all_gather_single", "all_gather_into_tensor")(
-            out, x)
+            out, x, group=self.group)
         return out if d == 0 else out.movedim(0, d).contiguous()
 
     def _buckets(self, indices: List[int], shapes, dtypes
@@ -210,11 +325,12 @@ class ZeroPlan:
 
     def _unpack_slices(self, flat: torch.Tensor, idx: List[int]
                        ) -> List[torch.Tensor]:
-        """This rank's slices of a bucket's leaves out of its flat run."""
+        """This rank's slices (update layout) of a bucket's leaves out of
+        its flat run."""
         out, pos = [], 0
         for i in idx:
-            d = self.dims[i]
-            shape = list(self.full_shapes[i])
+            d = self.udims[i]
+            shape = list(self.ushapes[i])
             shape[d] //= self.world
             moved = [shape[d]] + shape[:d] + shape[d + 1:]
             n = math.prod(moved)
@@ -223,43 +339,102 @@ class ZeroPlan:
             pos += n
         return out
 
-    def all_gather(self, shards: Any) -> Any:
+    def all_gather(self, shards: Any, update: bool = False) -> Any:
         """Full leaves from every rank's slices (a params-shaped tree): one
-        ``all_gather_into_tensor`` a bucket of the sharded leaves."""
+        ``all_gather_into_tensor`` a bucket of the sharded leaves, over the
+        group.  ``update``: the slices are in the update layout (the
+        update's new params), else in the stored one."""
         leaves = tree_leaves(shards)
         self._check_len(leaves, "tree")
+        dims, shapes = ((self.udims, self.ushapes) if update
+                        else (self.dims, self.full_shapes))
         dtypes = tuple(t.dtype for t in leaves)
-        plan = self._gather_plans.get(dtypes)
+        plan = self._gather_plans.get((update, dtypes))
         if plan is None:
-            sharded = [i for i in self._order if self.dims[i] is not None]
-            plan = self._gather_plans[dtypes] = self._buckets(
-                sharded, self.full_shapes, dtypes)
+            sharded = [i for i in self._order if dims[i] is not None]
+            plan = self._gather_plans[update, dtypes] = self._buckets(
+                sharded, shapes, dtypes)
         out = list(leaves)
         gather = _collective("all_gather_single", "all_gather_into_tensor")
         for idx in plan:
             parts = [leaves[i] for i in idx]
-            dims = [self.dims[i] for i in idx]
+            bdims = [dims[i] for i in idx]
             mine = torch.cat([(t if d == 0 else t.movedim(d, 0)).reshape(-1)
-                              for t, d in zip(parts, dims)])
+                              for t, d in zip(parts, bdims)])
             full = torch.empty(mine.numel() * self.world, dtype=mine.dtype,
                                device=mine.device)
-            gather(full, mine)
+            gather(full, mine, group=self.group)
             rows = full.view(self.world, -1)
             pos = 0
-            for i, t, d in zip(idx, parts, dims):
+            for i, t, d in zip(idx, parts, bdims):
                 n = t.numel()
-                shape = list(self.full_shapes[i])
+                shape = list(shapes[i])
                 moved = [shape[d]] + shape[:d] + shape[d + 1:]
                 leaf = rows[:, pos:pos + n].reshape(moved)
                 out[i] = leaf if d == 0 else leaf.movedim(0, d).contiguous()
                 pos += n
+        if update:
+            out = [self._from_update(t, i) for i, t in enumerate(out)]
         return tree_unflatten(shards, out)
 
+    def to_storage(self, tree: Any) -> Any:
+        """A params-shaped tree in the update layout (a stage-3 update's
+        new params, the accumulators) in the stored layout: a flat leaf's
+        runs gathered over the group (one ``all_gather_into_tensor`` a
+        leaf), a whole leaf sliced; the rest as they are."""
+        leaves = tree_leaves(tree)
+        self._check_len(leaves, "tree")
+        out = list(leaves)
+        for i, t in enumerate(leaves):
+            if self.flat[i]:
+                t = self._from_update(self._gather(t, 0), i)
+            elif self.udims[i] == self.dims[i]:
+                continue
+            out[i] = self._slice(t, self.dims[i], own=True)
+        return tree_unflatten(tree, out)
+
+    def to_update(self, tree: Any) -> Any:
+        """A params-shaped tree of this rank's stored slices in the update
+        layout: a leaf laid out otherwise gathered whole over the group
+        (one ``all_gather_into_tensor`` a leaf), then cut into its run."""
+        leaves = tree_leaves(tree)
+        self._check_len(leaves, "tree")
+        out = list(leaves)
+        for i, t in enumerate(leaves):
+            if not self.flat[i] and self.udims[i] == self.dims[i]:
+                continue
+            if self.dims[i] is not None:
+                t = self._gather(t, self.dims[i])
+            out[i] = self._slice(self._as_update(t, i), self.udims[i],
+                                 own=True)
+        return tree_unflatten(tree, out)
+
+    def opt_to_update(self, opt_state: Any) -> Any:
+        """An optimizer state with ``multi_steps``' accumulators (kept in
+        the params' stored layout, as the JAX package keeps them) in the
+        update layout, for the update; :meth:`opt_to_storage` puts them
+        back."""
+        if (not self.relayout or not isinstance(opt_state, dict)
+                or "acc_grads" not in opt_state):
+            return opt_state
+        return {**opt_state, "acc_grads": self.to_update(
+            opt_state["acc_grads"])}
+
+    def opt_to_storage(self, opt_state: Any) -> Any:
+        if (not self.relayout or not isinstance(opt_state, dict)
+                or "acc_grads" not in opt_state):
+            return opt_state
+        return {**opt_state, "acc_grads": self.to_storage(
+            opt_state["acc_grads"])}
+
     def reduce_scatter_grads(self, grads: Any) -> Any:
-        """Gradients averaged over the ranks: the sharded leaves reduced
-        onto this rank's slices, one ``reduce_scatter_tensor`` a bucket;
-        the replicated ones all-reduced in full, one ``all_reduce`` a
-        bucket (``grad_sync.sync_leaf_buckets``); a frozen leaf's
+        """Gradients averaged over every rank, in the update layout: the
+        sharded leaves reduced onto this rank's slices, one
+        ``reduce_scatter_tensor`` a bucket over the group (and, with
+        replicas along ``data``, one ``all_reduce`` of the slices across
+        the data group); the replicated ones all-reduced in full over
+        every rank, one ``all_reduce`` a bucket
+        (``grad_sync.sync_leaf_buckets``); a frozen leaf's
         ``known_zeros`` becomes a slice-shaped one, no collective."""
         import torch.distributed as dist
 
@@ -269,87 +444,97 @@ class ZeroPlan:
 
         leaves = tree_leaves(grads)
         self._check_len(leaves, "gradient tree")
+        total = self.world * self.replicas
         frozen = tuple(is_known_zeros(g) for g in leaves)
         dtypes = tuple(g.dtype for g in leaves)
         plans = self._grad_plans.get((frozen, dtypes))
         if plans is None:
             live = [i for i in self._order if not frozen[i]]
-            sharded = [i for i in live if self.dims[i] is not None]
-            repl = [i for i in live if self.dims[i] is None]
+            sharded = [i for i in live if self.udims[i] is not None]
+            repl = [i for i in live if self.udims[i] is None]
             plans = self._grad_plans[frozen, dtypes] = (
-                self._buckets(sharded, self.full_shapes, dtypes),
+                self._buckets(sharded, self.ushapes, dtypes),
                 repl, build_bucket_plan(
-                    [self.full_shapes[i] for i in repl], self.world,
+                    [self.ushapes[i] for i in repl], total,
                     DEFAULT_BUCKET_BYTES).buckets)
         rs_buckets, repl, repl_buckets = plans
         out = list(leaves)
-        for i, (g, d) in enumerate(zip(leaves, self.dims)):
+        for i, (g, d) in enumerate(zip(leaves, self.udims)):
             if frozen[i] and d is not None:
                 out[i] = known_zeros(g.narrow(d, 0, g.shape[d] // self.world))
         scatter = _collective("reduce_scatter_single",
                               "reduce_scatter_tensor")
         for idx in rs_buckets:
-            flat = self._rank_major([leaves[i] for i in idx],
-                                    [self.dims[i] for i in idx])
+            flat = self._rank_major([self._as_update(leaves[i], i)
+                                     for i in idx],
+                                    [self.udims[i] for i in idx])
             part = torch.empty(flat.numel() // self.world, dtype=flat.dtype,
                                device=flat.device)
-            scatter(part, flat, op=dist.ReduceOp.SUM)
-            part.div_(self.world)
+            scatter(part, flat, op=dist.ReduceOp.SUM, group=self.group)
+            if self.data_group is not None:
+                dist.all_reduce(part, op=dist.ReduceOp.SUM,
+                                group=self.data_group)
+            part.div_(total)
             for i, s in zip(idx, self._unpack_slices(part, idx)):
                 out[i] = s
         if repl:
             synced = sync_leaf_buckets([leaves[i] for i in repl],
-                                       repl_buckets, self.world)
+                                       repl_buckets, total)
             for i, g in zip(repl, synced):
                 out[i] = g
         return tree_unflatten(grads, out)
 
     def slice_grads(self, grads: Any) -> Any:
-        """This rank's slices of gradients every rank holds in full,
-        synced already: no collective (a frozen leaf's ``known_zeros``
-        becomes a slice-shaped one)."""
+        """This rank's slices (update layout) of gradients every rank
+        holds in full, synced already: no collective (a frozen leaf's
+        ``known_zeros`` becomes a slice-shaped one)."""
         leaves = tree_leaves(grads)
         self._check_len(leaves, "gradient tree")
         return tree_unflatten(grads, [
             g if d is None else (
                 known_zeros(g.narrow(d, 0, g.shape[d] // self.world))
-                if is_known_zeros(g) else self._slice(g, d))
-            for g, d in zip(leaves, self.dims)])
+                if is_known_zeros(g) else self._slice(self._as_update(g, i),
+                                                      d))
+            for i, (g, d) in enumerate(zip(leaves, self.udims))])
 
     def norm_sq(self, leaves: List[torch.Tensor]) -> torch.Tensor:
         """The clip's squared global norm over an update tree of slices
         (the ``norm_sq`` a ZeRO step hands ``models.optim``'s
-        transformations): each leaf's sum of
-        squares in order, the sharded leaves' summed over the ranks by one
-        all-reduce, then added up in leaf order as the one-device clip
-        adds them."""
+        transformations): each leaf's sum of squares in order, the
+        sharded leaves' summed over the group by one all-reduce, then
+        added up in leaf order as the one-device clip adds them."""
         import torch.distributed as dist
 
         self._check_len(leaves, "update tree")
         sums = [None if is_known_zeros(t) else torch.sum(t * t)
                 for t in leaves]
-        shard_idx = [i for i, (s, d) in enumerate(zip(sums, self.dims))
+        shard_idx = [i for i, (s, d) in enumerate(zip(sums, self.udims))
                      if s is not None and d is not None]
         if shard_idx:
             stacked = torch.stack([sums[i] for i in shard_idx])
-            dist.all_reduce(stacked, op=dist.ReduceOp.SUM)
+            dist.all_reduce(stacked, op=dist.ReduceOp.SUM, group=self.group)
             for i, v in zip(shard_idx, stacked.unbind()):
                 sums[i] = v
         return sum(s for s in sums if s is not None)
 
     # -- optimizer state ----------------------------------------------------
+    def _codec_dim(self, bq: BlockQuantized, payload: bool) -> Optional[int]:
+        """The dim a ``BlockQuantized`` moment's ``q`` (``payload``) or
+        ``scale`` shards along: the JAX rule for a leaf with no param twin
+        (``shard_leaf_spec`` of its 1-D global shape)."""
+        n = bq.padded if payload else bq.padded // bq.block_size
+        return shard_leaf_spec((n,), self.world, self.min_leaf_size)
+
     def opt_dims(self, opt_state: Any, sharded: bool) -> List[Optional[int]]:
         """The dim each optimizer-state leaf shards along: its param's, by
         key-path suffix and shape (``sharded``: the state holds slices, so
-        the slice shape must match; else the full shape), else None."""
-        if _has_quantized(opt_state):
-            raise NotImplementedError(
-                "int8 optimizer moments under ZeRO are not ported: a rank's "
-                "slice of a param does not hold whole codec blocks of the "
-                "flat moment (ROADMAP Queue 1 item 2.3); use opt_state_dtype "
-                "None, 'float32' or 'bfloat16' with RayShardedStrategy")
+        the slice shape must match; else the full shape); an int8
+        moment's payload and scale as :meth:`_codec_dim`; else None."""
         dims = []
-        for path, leaf in leaves_with_paths(opt_state):
+        for path, leaf, bq in _opt_leaves(opt_state):
+            if bq is not None:
+                dims.append(self._codec_dim(bq, leaf is bq.q))
+                continue
             shape = tuple(getattr(leaf, "shape", ()))
             dim = None
             for k in range(len(path)):
@@ -367,24 +552,45 @@ class ZeroPlan:
                     raise NotImplementedError(
                         f"optimizer-state leaf {path} of shape {shape} has "
                         f"no parameter twin; ZeRO shards only moments that "
-                        f"mirror a parameter (ROADMAP Queue 1 item 2.3)")
+                        f"mirror a parameter and int8 moments' payloads "
+                        f"and scales")
             dims.append(dim)
         return dims
+
+    def _sync_amax(self, t: torch.Tensor) -> None:
+        import torch.distributed as dist
+
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.group)
+
+    def attach_moment_shards(self, opt_state: Any) -> Any:
+        """Mark each int8 moment of a state of this rank's slices with its
+        run (``BlockQuantized.shard``), where its payload shards."""
+        for _, bq in _quantized_nodes(opt_state):
+            bq.shard = None
+            if self._codec_dim(bq, True) == 0:
+                scale_sharded = self._codec_dim(bq, False) == 0
+                bq.shard = MomentShard(
+                    self.rank * bq.q.numel(), scale_sharded,
+                    None if scale_sharded else self._sync_amax)
+        return opt_state
 
     def shard_opt_state(self, opt_state: Any) -> Any:
         """This rank's slices of a full optimizer state (a resumed one)."""
         dims = self.opt_dims(opt_state, sharded=False)
         leaves = tree_leaves(opt_state)
-        return tree_unflatten(opt_state, [self._slice(t, d, own=True)
-                                          for t, d in zip(leaves, dims)])
+        return self.attach_moment_shards(tree_unflatten(opt_state, [
+            self._slice(t, d, own=True) for t, d in zip(leaves, dims)]))
 
     def gather_opt_state(self, opt_state: Any) -> Any:
         """The full optimizer state from every rank's slices."""
         dims = self.opt_dims(opt_state, sharded=True)
         leaves = tree_leaves(opt_state)
-        return tree_unflatten(opt_state, [
+        full = tree_unflatten(opt_state, [
             t if d is None else self._gather(t, d)
             for t, d in zip(leaves, dims)])
+        for _, bq in _quantized_nodes(full):
+            bq.shard = None
+        return full
 
     def _check_len(self, leaves: Sequence, what: str) -> None:
         if len(leaves) != len(self.dims):

@@ -140,6 +140,9 @@ class DistributedStep:
         self._wire = hasattr(sync, "step")
         self._wire_bytes = (float(sync.bytes_per_step) if self._wire
                             else None)
+        # The wire's bytes as a device tensor, made at the first (eager)
+        # step: a captured step may not copy from the host.
+        self._wire_bytes_t: Optional[torch.Tensor] = None
 
     def full_params(self, params: Any) -> Any:
         """The full params of a state's: gathered under ZeRO-3 (a
@@ -159,9 +162,11 @@ class DistributedStep:
                 grads = self.sync(grads)
         logs = self.module.derive_logs(self.dist.mean_logs(logs))
         if self._wire:
-            logs["grad_sync_bytes"] = torch.tensor(
-                self._wire_bytes, dtype=torch.float32,
-                device=tree_leaves(params)[0].device)
+            if self._wire_bytes_t is None:
+                self._wire_bytes_t = torch.tensor(
+                    self._wire_bytes, dtype=torch.float32,
+                    device=tree_leaves(params)[0].device)
+            logs["grad_sync_bytes"] = self._wire_bytes_t.clone()
         if self.plan is None:
             new = state.apply_gradients(grads, self.tx)
             new.grad_residual = resid
@@ -171,7 +176,7 @@ class DistributedStep:
         del grads
         new = self._sharded_update(
             state, lambda opt, pview, norm_sq: self.tx.update(
-                gshards, opt, pview, norm_sq=norm_sq))
+                gshards, opt, pview, norm_sq=norm_sq), params)
         new.grad_residual = resid
         return new, logs
 
@@ -184,15 +189,27 @@ class DistributedStep:
         new.grad_residual = state.grad_residual
         return new
 
-    def _sharded_update(self, state: TrainState, update) -> TrainState:
+    def _sharded_update(self, state: TrainState, update,
+                        full: Any = None) -> TrainState:
+        """The update of this rank's slices in the plan's update layout
+        (``full``: the step's whole params, gathered already under
+        stage 3), then stage 1's params all-gathered, or stage 3's put
+        back in their stored layout."""
         plan = self.plan
-        pview = (state.params if plan.stage == 3
-                 else plan.shard_tree(state.params))
+        if plan.relayout:
+            if full is None:
+                full = self.full_params(state.params)
+            pview = plan.update_view(full)
+        else:
+            pview = (state.params if plan.stage == 3
+                     else plan.shard_tree(state.params))
         with torch.no_grad():
-            updates, opt_state = update(state.opt_state, pview, plan.norm_sq)
+            updates, opt_state = update(plan.opt_to_update(state.opt_state),
+                                        pview, plan.norm_sq)
+            opt_state = plan.opt_to_storage(opt_state)
             new = apply_updates(pview, updates)
-            if plan.stage == 1:
-                new = plan.all_gather(new)
+            new = (plan.all_gather(new, update=True) if plan.stage == 1
+                   else plan.to_storage(new))
         return TrainState(new, opt_state, state.step + 1)
 
 
@@ -209,13 +226,13 @@ def build_dist_step(module: TrainModule, tx, dist, params: Any, mode: str,
     step: the JAX package's GSPMD likewise turns its all-reduce into a
     reduce-scatter."""
     from ray_lightning_tpu_torch.parallel.grad_sync import BucketSync, LeafSync
+    from ray_lightning_tpu_torch.parallel.mesh import zero_groups
     from ray_lightning_tpu_torch.parallel.sharding import ZeroPlan
 
     if zero_stage >= 1 or shard_update:
         return DistributedStep(module, tx, dist, sync=grad_sync,
                                zero_plan=ZeroPlan(params, zero_stage or 1,
-                                                  dist.rank,
-                                                  dist.world_size))
+                                                  **zero_groups(dist)))
     sync = grad_sync or (BucketSync(dist.world_size) if mode == "gspmd"
                          else LeafSync(dist.world_size))
     return DistributedStep(module, tx, dist, sync=sync)
@@ -255,11 +272,14 @@ def place_batch(batch: Any, device: torch.device) -> Any:
 
 
 def copy_state(dst: TrainState, src: TrainState) -> None:
-    """Write ``src``'s params and optimizer state into ``dst``'s own
-    tensors, leaf by leaf (the write-back of a captured step)."""
+    """Write ``src``'s params, optimizer state and error-feedback residual
+    into ``dst``'s own tensors, leaf by leaf (the write-back of a captured
+    step; under ZeRO the leaves are this rank's slices)."""
     for d, s in zip(tree_leaves((dst.params, dst.opt_state)),
                     tree_leaves((src.params, src.opt_state))):
         d.copy_(s)
+    if dst.grad_residual is not None:
+        dst.grad_residual.copy_(src.grad_residual)
 
 
 class StepRng:
@@ -383,6 +403,11 @@ class _CapturedStride:
 class MultiStep:
     """``make_multi_step``: K micro-steps per call, ``aux = multi(owner,
     host_batches, start)`` with ``start`` the micro-step of the first.
+    ``step`` is the step a micro-step runs: :func:`single_device_step` by
+    default, or a rank's :class:`DistributedStep` under a strategy (the
+    JAX mesh branches' ``lax.scan`` over the sharded step), whose
+    collectives a capture takes into the graph (NCCL's only: the loop's
+    ``_resolve_megastep`` refuses K > 1 over gloo on the card).
     The call takes the state from ``owner.state`` and puts the new state
     there: the owner's reference is dropped while the steps run, so a
     state's memory is freed as soon as its successor exists (the JAX
@@ -407,10 +432,10 @@ class MultiStep:
     falls back to eager steps."""
 
     def __init__(self, module: TrainModule, tx, k: int,
-                 device: torch.device, rng: StepRng):
+                 device: torch.device, rng: StepRng, step=None):
         if k < 2:
             raise ValueError(f"make_multi_step needs k >= 2, got {k}")
-        self.step = single_device_step(module, tx)
+        self.step = step or single_device_step(module, tx)
         self.k = k
         self.device = device
         self.rng = rng

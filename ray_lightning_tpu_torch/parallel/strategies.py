@@ -356,14 +356,7 @@ class TpuStrategy:
         self.telemetry = telemetry
         _normalize_megastep(megastep)
         self.megastep = megastep
-        layout = build_mesh(MeshSpec(mesh_axes), num_workers)
-        if self.zero_stage and all(layout.sizes.get(a, 1) > 1
-                                   for a in ("data", "fsdp")):
-            raise NotImplementedError(
-                f"mesh_axes={mesh_axes}: ZeRO over fsdp groups replicated "
-                f"along data (hybrid sharding) is not ported yet (ROADMAP "
-                f"Queue 1 item 2.4); shard over every rank with one batch "
-                f"axis")
+        build_mesh(MeshSpec(mesh_axes), num_workers)
         self.mesh_axes = mesh_axes
         self.device = device or ("cuda" if self.use_gpu else "cpu")
         if self.device not in ("cuda", "cpu"):

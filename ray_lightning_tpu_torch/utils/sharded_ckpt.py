@@ -790,12 +790,16 @@ def state_tree(state: Any, plan: Any = None, rank: int = 0, world: int = 1,
 
     params, opt = state.params, state.opt_state
     if plan is not None:
+        # A slice's index is its place in the plan's group (on a data x
+        # fsdp mesh, the rank's fsdp index; its data replicas write the
+        # same piece, as every JAX host writes what it holds).
+        at = (plan.rank, plan.world)
         if plan.stage == 3:
             params = tree_unflatten(params, [
-                t if d is None else Shard.along(t, d, rank, world)
+                t if d is None else Shard.along(t, d, *at)
                 for t, d in zip(tree_leaves(params), plan.dims)])
         opt = tree_unflatten(opt, [
-            t if d is None else Shard.along(t, d, rank, world)
+            t if d is None else Shard.along(t, d, *at)
             for t, d in zip(tree_leaves(opt),
                             plan.opt_dims(opt, sharded=True))])
     node = train_state_to_jax(TrainState(params, opt, state.step))

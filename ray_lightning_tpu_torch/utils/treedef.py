@@ -254,6 +254,10 @@ def flatten(tree: Any) -> Tuple[List[Node], List[Any]]:
         return n_leaves, n_nodes
 
     walk(tree)
+    # ``walk`` holds itself through its closure: unbound here, that cycle
+    # does not keep ``leaves`` (a state's tensors, on the card) alive past
+    # the caller's last reference, until the collector happens to run.
+    del walk
     return nodes, leaves
 
 

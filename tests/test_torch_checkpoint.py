@@ -302,6 +302,29 @@ def test_port_stream_round_trips_a_jax_stream_byte_for_byte():
     assert bytes(ss.to_state_stream(ss.load_state_stream(stream))) == stream
 
 
+def test_streamed_leaves_die_with_their_last_reference():
+    """Writing a stream leaves no reference cycle that holds its leaves:
+    with the collector off, a state's tensor is freed once the caller
+    drops it (a rank's gathered state on the card, streamed at every fit's
+    end and checkpoint, would otherwise outlive it until a collection)."""
+    import gc
+    import weakref
+
+    t = torch.zeros(8)
+    ref = weakref.ref(t)
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        ss.to_state_stream({"params": {"w": t}, "step": 1})
+        nodes, leaves = td.flatten({"w": t, "b": [None, 1.0]})
+        assert leaves[-1] is t
+        del nodes, leaves, t
+        assert ref() is None
+    finally:
+        if was:
+            gc.enable()
+
+
 # ---------------------------------------------------------------------------
 # (d) resume across the packages
 # ---------------------------------------------------------------------------

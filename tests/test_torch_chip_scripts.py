@@ -351,3 +351,134 @@ def test_restart_faults_apply_once_and_name_unit_checks(scripts):
         text = (ROOT / "ray_lightning_tpu_torch" / path).read_text()
         for old, new in subs:
             assert text.count(old) == 1 and old != new, name
+
+
+def test_multi_faults_apply_once_and_name_phase18_arms(scripts):
+    """Step 16 writes each fault into a copy of the port: each of its
+    texts occurs once in the checkout's file, each part's fault names the
+    phase 18 arm that must catch it, one a part."""
+    cf = scripts[0]
+    import chip_smoke
+
+    assert len(cf.MULTI_FAULTS) == 4
+    assert sorted(arm for *_, arm in cf.MULTI_FAULTS.values()) == sorted(
+        chip_smoke.P18_ARMS)
+    for name, (path, subs, arm) in cf.MULTI_FAULTS.items():
+        text = (ROOT / "ray_lightning_tpu_torch" / path).read_text()
+        for old, new in subs:
+            assert text.count(old) == 1 and old != new, name
+
+
+@pytest.mark.parametrize("mangled,kernel", [
+    ("_Z13ln_fwd_kernelPKfS0_S0_Pfiif", "ln_fwd"),
+    ("_Z22ce_grad_cluster_kernelILi1EEvPK13__nv_bfloat16S2_PKiPKfS6_Pfiiii",
+     "ce_bwd_dw"),
+    ("_Z22ce_grad_cluster_kernelILi0EEvPK13__nv_bfloat16S2_PKiPKfS6_Pfiiii",
+     "ce_bwd_dx"),
+    ("_ZN12_GLOBAL__N_119tc_flash_fwd_kernelILi64ELb1EEEvv", "flash_fwd"),
+    ("ncclDevKernel_AllReduce_Sum_f32_RING_LL", None),
+])
+def test_phase18_graph_parser_counts_kernels_and_nccl(mangled, kernel):
+    """Phase 18 (a) reads a captured graph's nodes by mangled name: each
+    training kernel under its phase 9 key, NCCL's kernels apart."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+
+    counts, nccl = chip_smoke.p18_graph_counts({mangled: 3, "_Z3foov": 2})
+    assert nccl == (3 if kernel is None else 0)
+    assert counts == {k: (3 if k == kernel else 0)
+                      for k in chip_smoke.GRAPH_NAMES}
+
+
+def test_phase18_refuses_unknown_arms_and_capture_off_the_card():
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+
+    with pytest.raises(RuntimeError, match="phase 18 arms"):
+        chip_smoke.phase18_main(("z_nothing",), device="cpu")
+    with pytest.raises(RuntimeError, match="captures on the card"):
+        chip_smoke.phase18_main(("a_megastep",), device="cpu")
+
+
+def test_staged_phases_run_every_remote_stage_before_any_check(
+        monkeypatch):
+    """Phases 15-18 in one process (``run_staged``): every phase's needs
+    are asked first and merged (the largest count a pool), every remote
+    stage runs before any check stage, each result carries its stages'
+    wall, and a phase with a fourth stage is refused."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+
+    order, asked = [], []
+    monkeypatch.setattr(chip_smoke, "card_line", lambda: "cpu")
+    monkeypatch.setattr(chip_smoke, "multi_pools",
+                        lambda need, device: asked.append(need) or {})
+
+    def phase(n, need, stages=3):
+        order.append((n, "ask"))
+        yield need, []
+        order.append((n, "remote"))
+        yield
+        order.append((n, "check"))
+        if stages > 3:
+            yield
+        return {"n": n}
+
+    out = chip_smoke.run_staged({15: phase(15, {"cpu": 2, "gloo": 2}),
+                                 16: phase(16, {"cpu": 3})}, "cpu")
+    assert asked == [{"cpu": 3, "gloo": 2}]
+    assert order == [(15, "ask"), (16, "ask"), (15, "remote"),
+                     (16, "remote"), (15, "check"), (16, "check")]
+    assert out[15]["n"] == 15 and out[16]["wall_s"] >= 0
+    assert out["spawn_s"] >= 0
+    with pytest.raises(RuntimeError, match="fourth stage"):
+        chip_smoke.run_staged({17: phase(17, {}, stages=4)}, "cpu")
+
+
+def test_phase18_rehearses_on_the_cpu(monkeypatch, capsys):
+    """Phase 18's arms (b)-(d) on CPU workers at a narrow width: its
+    checks pass, its last line is the result the main script reads."""
+    import json
+
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    from ray_lightning_tpu_torch.models.gpt import GPTConfig
+
+    monkeypatch.setattr(chip_smoke, "card_line", lambda: "cpu")
+    cfg = GPTConfig(vocab_size=256, n_layer=2, n_head=4, d_model=128,
+                    seq_len=64, warmup_steps=1)
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        assert chip_smoke.phase18_main(
+            ("b_int8_zero", "c_hybrid", "d_island"), device="cpu", cfg=cfg,
+            island={"B": 2, "T": 64, "d": 128, "V": 512}) == 0
+    finally:
+        torch.set_num_threads(n)
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert set(out) >= {"b", "c", "d", "wall_s", "spawn_s"}
+    assert out["c"]["layout"] == [[0, 2, 2], [1, 2, 2], [0, 2, 2],
+                                  [1, 2, 2]]
+    assert out["d"]["collectives"][0]["all_reduce"] == 1
+    assert all(out["b"][z]["moment_rel"] <= chip_smoke.P18_MOMENT_REL
+               for z in ("zero1", "zero3"))
+
+
+def test_step_split_books_each_part_once():
+    """Phase 16's traced step (``torch_dist_helpers.split_step``): the
+    collectives inside the sync, gather and norm ranges, the update less
+    its gather and norm, the copies as the sync ranges less their
+    collectives, the gaps as the rest of the wall."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    import torch_dist_helpers as helpers
+
+    rec = {"wall_ms": 100.0, "ms": {
+        "grads": 30.0, "mean_logs": 2.0, "collective@mean_logs": 1.5,
+        "reduce_scatter": 20.0, "collective@reduce_scatter": 18.0,
+        "update": 35.0, "all_gather": 15.0, "collective@all_gather": 14.0,
+        "norm_sq": 3.0, "collective@norm_sq": 2.0}}
+    assert helpers.split_step(rec) == {
+        "grads": 30.0, "collectives": 34.0, "update": 17.0, "copies": 4.0,
+        "gaps": 100.0 - 30.0 - 2.0 - 38.0 - 17.0, "mean_logs": 2.0}

@@ -424,8 +424,13 @@ def test_mesh_refuses_model_axes_and_two_minus_ones():
         mesh.MeshSpec({"data": -1, "fsdp": -1})
     with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
         RayStrategy(num_workers=2, mesh_axes={"sp": 2}, **WORKER)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        RayShardedStrategy(num_workers=4, mesh_axes={"data": 2, "fsdp": 2},
+    # ZeRO over a data x fsdp mesh (hybrid sharding) is taken; a model
+    # axis beside it is item 3.
+    assert RayShardedStrategy(num_workers=4, zero_stage=3,
+                              mesh_axes={"data": 2, "fsdp": 2},
+                              **WORKER).world_size == 4
+    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+        RayShardedStrategy(num_workers=4, mesh_axes={"fsdp": 2, "tensor": 2},
                            **WORKER)
     assert RayStrategy(num_workers=4, mesh_axes={"data": 2, "fsdp": 2},
                        **WORKER).world_size == 4
@@ -599,26 +604,92 @@ def test_backend_is_explicit_and_nccl_ranks_fit_the_cards(monkeypatch):
 
 
 def test_megastep_is_off_under_a_process_group():
+    """Megastep under a strategy's process group: over NCCL on the card a
+    stride is captured with its collectives (auto is 8, the JAX
+    accelerator rule, and K > 1 is taken); over gloo on the card it stays
+    off (auto is 1) and K > 1 raises, naming gloo's collectives, which a
+    CUDA graph cannot capture; on CPU workers K > 1 runs eagerly (auto 1,
+    as on one CPU device)."""
     from ray_lightning_tpu_torch.core.loop import FitConfig, _resolve_megastep
 
-    cuda = torch.device("cuda", 0)
+    cuda, cpu = torch.device("cuda", 0), torch.device("cpu")
     assert _resolve_megastep(FitConfig(megastep="auto"), cuda) == 8
-    assert _resolve_megastep(FitConfig(megastep="auto"), cuda, True) == 1
-    assert _resolve_megastep(FitConfig(megastep="off"), cuda, True) == 1
-    assert _resolve_megastep(FitConfig(megastep=1), cuda, True) == 1
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        _resolve_megastep(FitConfig(megastep=4), cuda, True)
+    assert _resolve_megastep(FitConfig(megastep="auto"), cuda, "nccl") == 8
+    assert _resolve_megastep(FitConfig(megastep=4), cuda, "nccl") == 4
+    assert _resolve_megastep(FitConfig(megastep="auto"), cuda, "gloo") == 1
+    assert _resolve_megastep(FitConfig(megastep="off"), cuda, "gloo") == 1
+    assert _resolve_megastep(FitConfig(megastep=1), cuda, "gloo") == 1
+    with pytest.raises(NotImplementedError,
+                       match="gloo's cannot be captured"):
+        _resolve_megastep(FitConfig(megastep=4), cuda, "gloo")
+    assert _resolve_megastep(FitConfig(megastep="auto"), cpu, "gloo") == 1
+    assert _resolve_megastep(FitConfig(megastep=4), cpu, "gloo") == 4
+
+
+def _spec_dim(spec) -> object:
+    dims = [i for i, e in enumerate(spec) if e is not None]
+    return dims[0] if dims else None
 
 
 def test_int8_moments_under_zero_raise():
-    tree = params_from_jax(jax.tree.map(np.asarray, JaxGPT(JaxGPTConfig(
-        **CFG)).init_params(jax.random.PRNGKey(0))), "cpu")
+    """(Once the refusal of int8 moments under ZeRO; now their layout.)
+    An int8 moment's payload and scale shard as the JAX package's
+    ``state_shardings_for_module`` shards them over a 2-device ``data``
+    mesh (``shard_leaf_spec`` of each 1-D leaf: no param twin), leaf for
+    leaf; a rank's slices of the state are its runs (the payload's run
+    marked on its node, ``BlockQuantized.shard``), and gathered back they
+    are the whole state, bitwise."""
+    from jax.sharding import Mesh
+
+    from ray_lightning_tpu.core.module import TrainState as JaxTrainState
+    from ray_lightning_tpu.ops import optim_quant as joq
+
+    jmodule = JaxGPT(JaxGPTConfig(**{**CFG, "opt_state_dtype": "int8"}))
+    jtree = jmodule.init_params(jax.random.PRNGKey(0))
+    jstate = JaxTrainState.create(jtree, jmodule.configure_optimizers())
+    mesh = Mesh(np.asarray(jax.devices()[:2]), ("data",))
+    specs = jax_sharding.state_shardings_for_module(jmodule, jstate, mesh,
+                                                    zero_stage=1)
+
+    def quantized(state, spec_tree):
+        nodes = jax.tree_util.tree_leaves(
+            state.opt_state, is_leaf=lambda x: isinstance(
+                x, joq.BlockQuantized))
+        shs = jax.tree_util.tree_leaves(
+            spec_tree.opt_state, is_leaf=lambda x: isinstance(
+                x, joq.BlockQuantized))
+        return sorted(
+            (tuple(n.shape), n.sqrt_domain, _spec_dim(sq.spec),
+             _spec_dim(ss.spec))
+            for n, (sq, ss) in zip(
+                [n for n in nodes if isinstance(n, joq.BlockQuantized)],
+                [(s.q, s.scale) for s in shs
+                 if isinstance(s, joq.BlockQuantized)]))
+
+    want = quantized(jstate, specs)
+    tree = params_from_jax(jax.tree.map(np.asarray, jtree), "cpu")
     m = ScaledGPT(GPTConfig(**{**CFG, "opt_state_dtype": "int8"}),
                   device="cpu")
-    tx = m.configure_optimizers()
+    full = m.configure_optimizers().init(tree)
     plan = sharding.ZeroPlan(tree, 1, 0, 2)
-    with pytest.raises(NotImplementedError, match="whole codec blocks"):
-        plan.opt_dims(tx.init(plan.shard_tree(tree)), sharded=True)
+    dims = plan.opt_dims(full, sharded=False)
+    nodes = [bq for _, bq in sharding._quantized_nodes(full)]
+    got = sorted((bq.shape, bq.sqrt_domain,
+                  plan._codec_dim(bq, True), plan._codec_dim(bq, False))
+                 for bq in nodes)
+    assert want and got == want
+    assert len(dims) == len(tree_leaves(full))
+    parts = [sharding.ZeroPlan(tree, 1, r, 2).shard_opt_state(full)
+             for r in (0, 1)]
+    for i, (_, whole) in enumerate(sharding._quantized_nodes(full)):
+        runs = [list(sharding._quantized_nodes(p))[i][1] for p in parts]
+        c = whole.q.numel() // 2
+        assert [bq.shard.start for bq in runs] == [0, c]
+        assert torch.equal(torch.cat([bq.q for bq in runs]), whole.q)
+        scale_dim = plan._codec_dim(whole, False)
+        assert torch.equal(torch.cat([bq.scale for bq in runs])
+                           if scale_dim == 0 else runs[1].scale, whole.scale)
+        assert all(bq.shard.scale_sharded == (scale_dim == 0) for bq in runs)
 
 
 @pytest.mark.parametrize("flavor", ["ray", "zero3"])

@@ -9,6 +9,7 @@ unpickles it loads only the port.
 from __future__ import annotations
 
 import importlib
+import math
 import os
 from typing import Any, Dict, List
 
@@ -236,6 +237,24 @@ class StepProbe(Callback):
             record(self.label, 0, payload)
 
 
+def tee_warnings(path: str) -> None:
+    """Every warning this process shows from now on is also appended to
+    ``path``, one line each (a worker's warnings, for the driver to
+    read)."""
+    import warnings
+
+    show = warnings.showwarning
+
+    def tee(message, category, filename, lineno, file=None, line=None):
+        with open(path, "a") as f:
+            f.write(f"pid {os.getpid()}: {category.__name__}: "
+                    f"{message}\n".replace("\n", " ") + "\n")
+        show(message, category, filename, lineno, file, line)
+
+    warnings.simplefilter("always")
+    warnings.showwarning = tee
+
+
 def warm_up(device: str, warnings_to: str = None) -> None:
     """An ``init_hook``: import the port's model (torch, the kernels'
     wrappers and all) before the worker's first task, and on a card run
@@ -243,21 +262,9 @@ def warm_up(device: str, warnings_to: str = None) -> None:
     remat "dots+flash", CE over the 50304-token vocabulary) on 2 x 1024
     tokens, so the CUDA context, the kernels' libraries and PyTorch's
     own kernels are loaded before the fit's first step.  With
-    ``warnings_to`` every warning the worker shows from then on is also
-    appended to that file, one line each."""
+    ``warnings_to``, :func:`tee_warnings` to that file."""
     if warnings_to is not None:
-        import warnings
-
-        show = warnings.showwarning
-
-        def tee(message, category, filename, lineno, file=None, line=None):
-            with open(warnings_to, "a") as f:
-                f.write(f"pid {os.getpid()}: {category.__name__}: "
-                        f"{message}\n".replace("\n", " ") + "\n")
-            show(message, category, filename, lineno, file, line)
-
-        warnings.simplefilter("always")
-        warnings.showwarning = tee
+        tee_warnings(warnings_to)
     gpt = importlib.import_module("ray_lightning_tpu_torch.models.gpt")
     if device != "cuda":
         return
@@ -588,7 +595,8 @@ def per_leaf_plan(params, stage: int, rank: int, world: int):
     from ray_lightning_tpu_torch.parallel import sharding
 
     class PerLeafPlan(sharding.ZeroPlan):
-        def all_gather(self, shards):
+        def all_gather(self, shards, update=False):
+            # (No int8 moments here: the update layout is the stored one.)
             leaves = tree_leaves(shards)
             return tree_unflatten(shards, [
                 s if d is None else self._gather(s, d)
@@ -1008,3 +1016,446 @@ def restart_unit_checks(directory: str) -> Dict[str, bool]:
         and not bool(new.grad_residual.abs().sum())
         and any("does not survive" in str(x.message) for x in w))
     return out
+
+
+# -- the sharded update's cost, split (chip_smoke.py --phase16 p_*) -----------
+
+# The parts a profiled step is cut into: the wrapped callable, the range
+# it records.  Each wrapped call synchronises the card at its entry and its
+# exit, so a part's wall time is its launches and its device work, not the
+# queue it found.
+_SPLIT_TARGETS = (
+    ("ray_lightning_tpu_torch.parallel.step_fns", None, "loss_and_grads",
+     "grads"),
+    ("ray_lightning_tpu_torch.parallel.grad_sync", "BucketSync", "__call__",
+     "sync"),
+    ("ray_lightning_tpu_torch.parallel.sharding", "ZeroPlan",
+     "reduce_scatter_grads", "reduce_scatter"),
+    ("ray_lightning_tpu_torch.parallel.sharding", "ZeroPlan", "all_gather",
+     "all_gather"),
+    ("ray_lightning_tpu_torch.parallel.sharding", "ZeroPlan", "norm_sq",
+     "norm_sq"),
+    ("ray_lightning_tpu_torch.parallel.step_fns", "DistributedStep",
+     "_sharded_update", "update"),
+    ("ray_lightning_tpu_torch.core.module", "TrainState", "apply_gradients",
+     "update"),
+    ("ray_lightning_tpu_torch.parallel.mesh", "DistContext", "mean_logs",
+     "mean_logs"),
+)
+_SPLIT_COLLECTIVES = ("all_reduce", "reduce_scatter_tensor",
+                      "all_gather_into_tensor", "reduce_scatter_single",
+                      "all_gather_single")
+
+
+class StepSplit(Callback):
+    """One training step of the rank (the ``step``-th, 0-based) profiled
+    with ``torch.profiler`` and cut into parts: the card synchronised at
+    the entry and exit of each part (:data:`_SPLIT_TARGETS`, and every
+    ``torch.distributed`` collective inside them, the range
+    ``collective``), each part's wall ms booked under its range.  On
+    the driver's :data:`RECORDS` under ``label``: the ranges' ms, the
+    step's wall ms, the profiler's device ms of kernels and of host-device
+    copies, and the split of the step (:func:`split_step`)."""
+
+    def __init__(self, label: str, step: int = 2):
+        self.label = label
+        self.step = step
+
+    def on_train_batch_end(self, trainer, module, logs, batch_idx) -> None:
+        import time
+
+        if batch_idx == self.step - 1:
+            self._sync = (torch.cuda.synchronize
+                          if trainer.device.type == "cuda" else lambda: None)
+            self._sync()
+            self._install()
+            self._prof = torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA])
+            self._prof.__enter__()
+            self._t0 = time.perf_counter()
+        elif batch_idx == self.step:
+            self._sync()
+            wall = time.perf_counter() - self._t0
+            self._prof.__exit__(None, None, None)
+            self._uninstall()
+            self._deliver(trainer, wall)
+
+    def _install(self) -> None:
+        import time
+
+        import torch.distributed as dist
+
+        self.ms: Dict[str, float] = {}
+        self.calls: Dict[str, int] = {}
+        self._saved = []
+        stack: List[str] = []
+
+        def wrap(fn, name):
+            def inner(*a, **kw):
+                # A collective is booked under the part it runs in.
+                key = (f"{name}@{stack[-1] if stack else 'step'}"
+                       if name == "collective" else name)
+                self._sync()
+                t = time.perf_counter()
+                stack.append(name)
+                try:
+                    with torch.profiler.record_function("rlt." + name):
+                        out = fn(*a, **kw)
+                        self._sync()
+                finally:
+                    stack.pop()
+                self.ms[key] = self.ms.get(key, 0.0) + 1e3 * (
+                    time.perf_counter() - t)
+                self.calls[key] = self.calls.get(key, 0) + 1
+                return out
+            return inner
+
+        for mod_name, cls_name, attr, name in _SPLIT_TARGETS:
+            owner = importlib.import_module(mod_name)
+            if cls_name is not None:
+                owner = getattr(owner, cls_name)
+            fn = owner.__dict__[attr] if cls_name else getattr(owner, attr)
+            self._saved.append((owner, attr, fn))
+            setattr(owner, attr, wrap(fn, name))
+        for attr in _SPLIT_COLLECTIVES:
+            fn = getattr(dist, attr, None)
+            if fn is not None:
+                self._saved.append((dist, attr, fn))
+                setattr(dist, attr, wrap(fn, "collective"))
+
+    def _uninstall(self) -> None:
+        for owner, attr, fn in reversed(self._saved):
+            setattr(owner, attr, fn)
+        self._saved = []
+
+    def _deliver(self, trainer, wall_s: float) -> None:
+        import functools
+
+        from ray_lightning_tpu_torch import session
+
+        kernel_us = copy_us = 0.0
+        for e in self._prof.key_averages():
+            dev = float(getattr(e, "self_device_time_total",
+                                getattr(e, "self_cuda_time_total", 0.0)))
+            if e.key.startswith(("rlt.", "ProfilerStep")):
+                continue  # a range's device time is its kernels'
+            if e.key.startswith("Memcpy"):
+                copy_us += dev
+            else:
+                kernel_us += dev
+        payload = {"wall_ms": 1e3 * wall_s, "ms": dict(self.ms),
+                   "calls": dict(self.calls),
+                   "device_kernel_ms": kernel_us / 1e3,
+                   "device_copy_ms": copy_us / 1e3}
+        payload["split"] = split_step(payload)
+        if session.is_session_enabled():
+            session.put_queue(functools.partial(
+                record, self.label, trainer.global_rank, payload))
+        else:
+            record(self.label, 0, payload)
+
+
+def split_step(rec: Dict[str, Any]) -> Dict[str, float]:
+    """A profiled step (:class:`StepSplit`'s payload) in the four parts of
+    the sharded update's cost, ms: ``collectives`` (the gradient sync's
+    and the param gather's collectives, the clip's norm all-reduce among
+    them), ``update`` (the optimizer on the state it updates, the slicing
+    included), ``copies`` (into and out of the buckets: the sync ranges
+    less their collectives), and ``gaps`` (the rest of the step past the
+    forward and backward, ``grads``, and the logs' mean)."""
+    ms = rec["ms"]
+    parts = ("sync", "reduce_scatter", "all_gather", "norm_sq")
+    coll = sum(ms.get(f"collective@{p}", 0.0) for p in parts)
+    sync = sum(ms.get(p, 0.0) for p in parts)
+    update = ms.get("update", 0.0) - ms.get("all_gather", 0.0) - ms.get(
+        "norm_sq", 0.0)
+    mean_logs = ms.get("mean_logs", 0.0)
+    return {"grads": ms.get("grads", 0.0), "collectives": coll,
+            "update": update, "copies": sync - coll,
+            "gaps": (rec["wall_ms"] - ms.get("grads", 0.0) - mean_logs
+                     - sync - update),
+            "mean_logs": mean_logs}
+
+
+# -- int8 moments under ZeRO (tests/test_torch_zero_int8.py) ------------------
+
+def _int8_zero_checks(rank: int, n: int, payload: Dict[str, Any]
+                      ) -> Dict[str, Any]:
+    """Two AdamW updates with int8 moments of a params dict of
+    ``payload["shapes"]``, from the same seeded params and gradients:
+    once whole, as one device runs them, and once as this rank's ZeRO
+    stage-1 update of its runs (``ZeroPlan.update_view``, the moments
+    sharded with ``shard_opt_state``), its new params all-gathered and
+    its moments gathered.  Returns both, and each param's update layout
+    and each moment's run."""
+    from ray_lightning_tpu_torch.models import optim as topt
+    from ray_lightning_tpu_torch.parallel import sharding
+
+    rng = np.random.default_rng(payload["seed"])
+    shapes = payload["shapes"]
+
+    def tree(scale):
+        return {f"p{i}_w": torch.from_numpy(
+            (rng.standard_normal(s) * scale).astype(np.float32))
+            for i, s in enumerate(shapes)}
+
+    params = tree(1.0)
+    grads = [tree(1e-2), tree(1e-3)]
+    tx = topt.quantize_opt_state(topt.adamw(
+        lambda c: torch.tensor(1e-3), b1=0.9, b2=0.95, weight_decay=0.1,
+        mask=topt.decay_mask, mu_dtype=torch.float32), "int8")
+    whole_p, whole_s = params, tx.init(params)
+    for g in grads:
+        upd, whole_s = tx.update(g, whole_s, whole_p)
+        whole_p = topt.apply_updates(whole_p, upd)
+    plan = sharding.ZeroPlan(params, 1, rank, n)
+    state = plan.shard_opt_state(tx.init(params))
+    plan.set_moment_layout(state)
+    p = params
+    for g in grads:
+        view = plan.update_view(p)
+        upd, state = tx.update(plan.update_view(g), state, view)
+        p = plan.all_gather(topt.apply_updates(view, upd), update=True)
+    runs = {str(path): (bq.shard.start, bq.q.numel(), bq.shard.scale_sharded)
+            for path, bq in sharding._quantized_nodes(state)
+            if bq.shard is not None}
+    return {"whole": {"params": _flat(whole_p), "opt": _flat(whole_s)},
+            "zero": {"params": _flat(p),
+                     "opt": _flat(plan.gather_opt_state(state))},
+            "udims": list(plan.udims), "flat": list(plan.flat),
+            "dims": list(plan.dims), "runs": runs}
+
+
+def int8_zero_rank(rank: int, world: int, port: int,
+                   payload: Dict[str, Any]) -> Dict[str, Any]:
+    """One CPU rank of the int8-moment ZeRO update checks (submitted to a
+    strategy's worker): joins a gloo group of ``world`` ranks, runs
+    :func:`_int8_zero_checks` over it and leaves it."""
+    import datetime
+
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        return _int8_zero_checks(rank, world, payload)
+    finally:
+        dist.destroy_process_group()
+
+
+class PlanProbe(Callback):
+    """Each rank's ZeRO plan at the fit's end (its place in the group it
+    shards over, the group's size, the slice's replicas) and a digest of
+    its state's slices, delivered to the driver's :data:`RECORDS` under
+    ``label``: ranks holding the same slices hold the same digest."""
+
+    def __init__(self, label: str):
+        self.label = label
+
+    def on_fit_end(self, trainer, module) -> None:
+        import functools
+        import hashlib
+
+        from ray_lightning_tpu_torch import session
+        from ray_lightning_tpu_torch.models.optim import tree_leaves
+
+        plan = trainer.zero_plan
+        h = hashlib.sha256()
+        for t in tree_leaves((trainer.state.params,
+                              trainer.state.opt_state)):
+            h.update(t.detach().cpu().reshape(-1).contiguous()
+                     .view(torch.uint8).numpy().tobytes())
+        from ray_lightning_tpu_torch.models.optim import moment_bytes
+
+        f32 = sum(8 * math.prod(plan.shard_shape(i))
+                  for i in range(len(plan.dims)))
+        payload = {"rank": plan.rank, "world": plan.world,
+                   "replicas": plan.replicas, "digest": h.hexdigest(),
+                   "moment_bytes": moment_bytes(trainer.state.opt_state),
+                   "f32_moment_bytes": f32,
+                   "peak_bytes": (torch.cuda.max_memory_allocated()
+                                  if trainer.device.type == "cuda" else 0)}
+        if session.is_session_enabled():
+            session.put_queue(functools.partial(
+                record, self.label, trainer.global_rank, payload))
+        else:
+            record(self.label, 0, payload)
+
+
+# -- the sharded CE island (tests/test_torch_ce_island.py, chip_smoke.py
+# phase 18 (d)) ---------------------------------------------------------------
+
+def island_checks(rank: int, n: int, payload: Dict[str, Any],
+                  device: str = "cpu") -> Dict[str, Any]:
+    """This rank's rows of ``payload``'s global ``x``/``targets`` through
+    ``ops.cross_entropy.fused_lm_head_cross_entropy_sharded`` (its share
+    of the global mean, ``sum / global tokens``), differentiated: the
+    share, its ``dx`` rows, ``dwte`` and the collectives the backward
+    issued; and the island's refusal of a global batch that does not
+    split."""
+    import torch.distributed as dist
+
+    from ray_lightning_tpu_torch.ops.cross_entropy import (
+        fused_lm_head_cross_entropy_sharded,
+    )
+
+    device = payload.get("device", device)
+    if "seed" in payload:
+        x, wte, t = island_inputs(payload, device, n)
+    else:
+        x = torch.from_numpy(payload["x"]).to(device)
+        wte = torch.from_numpy(payload["wte"]).to(device)
+        t = torch.from_numpy(payload["targets"]).to(device)
+    B = x.shape[0]
+    rows = slice(rank * B // n, (rank + 1) * B // n)
+    xr = x[rows].clone().requires_grad_(True)
+    w = wte.clone().requires_grad_(True)
+    dtype = getattr(torch, payload.get("compute_dtype", "float32"))
+    losses = fused_lm_head_cross_entropy_sharded(
+        xr, w, t[rows], global_batch=B, compute_dtype=dtype,
+        use_kernel=payload["use_kernel"])
+    share = losses.sum() / t.numel()
+    with _Counted() as c:
+        share.backward()
+    try:
+        fused_lm_head_cross_entropy_sharded(xr, w, t[rows],
+                                            global_batch=B - 1)
+        refused = ""
+    except ValueError as e:
+        refused = str(e)
+    total = share.detach().clone()
+    dist.all_reduce(total)
+    return {"share": float(share.detach()), "loss": float(total),
+            "dx": xr.grad.float().cpu().numpy(),
+            "dwte": w.grad.float().cpu().numpy(),
+            "collectives": c.summary(), "refused": refused}
+
+
+def island_inputs(payload: Dict[str, Any], device: str, ranks: int):
+    """The global ``x (ranks·B, T, d)``, ``wte (V, d)`` and targets of
+    ``payload["shape"]`` (a rank's ``B``), made on ``device`` from
+    ``payload["seed"]``: the same tensors on every rank and in the
+    driver."""
+    sh = payload["shape"]
+    g = torch.Generator(device=device).manual_seed(payload["seed"])
+    B = ranks * sh["B"]
+    x = torch.randn((B, sh["T"], sh["d"]), generator=g, device=device)
+    wte = torch.randn((sh["V"], sh["d"]), generator=g, device=device) * 0.1
+    t = torch.randint(0, sh["V"], (B, sh["T"]), generator=g, device=device,
+                      dtype=torch.int32)
+    return x, wte, t
+
+
+def island_rank(rank: int, world: int, port: int, payload: Dict[str, Any]
+                ) -> Dict[str, Any]:
+    """One CPU rank of the island checks (submitted to a strategy's
+    worker): joins a gloo group of ``world`` ranks, runs
+    :func:`island_checks` over it and leaves it."""
+    import datetime
+
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        return island_checks(rank, world, payload)
+    finally:
+        dist.destroy_process_group()
+
+
+# -- captured megastep under a process group (chip_smoke.py phase 18 (a)) -----
+
+class GraphProbe(Callback):
+    """The rank's CUDA graphs of the fit (a captured megastep stride's):
+    from the fit's start every ``torch.cuda.CUDAGraph`` keeps its graph
+    (``keep_graph``, debug mode), and every ``torch.distributed``
+    collective the rank issues is counted, apart for the calls made while
+    its stream captures (the collectives a stride's graph holds, whether
+    NCCL makes them nodes or, at one rank, nothing at all), the counts
+    taken at each step's (or stride's) end.  At the fit's end: each
+    graph's kernel nodes by mangled name (its DOT dump), the collectives
+    issued eagerly and under capture, the peak memory and what the
+    allocator holds; delivered to the driver's :data:`RECORDS` under
+    ``label``."""
+
+    NAMES = ("all_reduce", "reduce_scatter_tensor", "reduce_scatter_single",
+             "all_gather_into_tensor", "all_gather_single", "broadcast")
+
+    def __init__(self, label: str):
+        self.label = label
+
+    def on_fit_start(self, trainer, module) -> None:
+        import torch.distributed as dist
+
+        self.graphs: list = []
+        self.calls = {"eager": 0, "captured": 0}
+        # The counts at each step's (or stride's) end: the collectives of
+        # the steps between two ends, apart from the fit's own around them.
+        self.marks: list = []
+        base = self._base = torch.cuda.CUDAGraph
+        graphs = self.graphs
+
+        class Kept(base):
+            def __init__(self, *args, **kwargs):
+                super().__init__(keep_graph=True)
+                self.enable_debug_mode()
+                graphs.append(self)
+
+        torch.cuda.CUDAGraph = Kept
+        self._orig = {n: getattr(dist, n) for n in self.NAMES
+                      if hasattr(dist, n)}
+
+        def wrap(fn):
+            def counted(*a, **k):
+                key = ("captured" if torch.cuda.is_current_stream_capturing()
+                       else "eager")
+                self.calls[key] += 1
+                return fn(*a, **k)
+            return counted
+
+        for n, fn in self._orig.items():
+            setattr(dist, n, wrap(fn))
+
+    def on_train_batch_end(self, trainer, module, logs, batch_idx) -> None:
+        self.marks.append(dict(self.calls))
+
+    def on_fit_end(self, trainer, module) -> None:
+        import collections
+        import functools
+        import re
+        import tempfile
+        import warnings
+
+        import torch.distributed as dist
+
+        from ray_lightning_tpu_torch import session
+
+        torch.cuda.CUDAGraph = self._base
+        for n, fn in self._orig.items():
+            setattr(dist, n, fn)
+        nodes = []
+        with tempfile.TemporaryDirectory() as tmp:
+            for i, g in enumerate(self.graphs):
+                path = os.path.join(tmp, f"g{i}.dot")
+                with warnings.catch_warnings():
+                    warnings.simplefilter("ignore")
+                    g.debug_dump(path)
+                with open(path) as f:
+                    text = f.read()
+                nodes.append(dict(collections.Counter(
+                    re.findall(r"\b(_Z\w+|nccl\w+)", text))))
+        torch.cuda.synchronize()
+        payload = {"graphs": nodes, "calls": dict(self.calls),
+                   "marks": self.marks,
+                   "peak_bytes": torch.cuda.max_memory_allocated(),
+                   "reserved_bytes": torch.cuda.memory_reserved()}
+        if session.is_session_enabled():
+            session.put_queue(functools.partial(
+                record, self.label, trainer.global_rank, payload))
+        else:
+            record(self.label, 0, payload)
