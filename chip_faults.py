@@ -178,8 +178,22 @@ last column of a ragged chunk of k dropped, the d tail past the last
    (``c_hybrid``: the losses against ``LocalStrategy``), and the island
    summing ``dwte`` twice (``d_island``).
 
+17. long context and model parallelism (``MODEL_FAULTS``,
+   ``model_step``): five faults planted in a copy of the port as step 13
+   plants them, each failing the phase 19 arm its entry names
+   (``chip_smoke.py --phase19 ARM``): the ring's hop sent to the wrong
+   neighbour (``a_ring``: the op check's ring of four against
+   ``ring_attention_local``), the zig-zag positions off by one chunk
+   (``a_ring``: the zig-zag fit's losses against ``LocalStrategy``), the
+   copy-in before MoE's combine dropped (``c_moe``: ``gate_w`` then
+   differs between the expert ranks that hold it whole), ``qkv_w`` split
+   contiguously instead of by heads (``b_tensor``: the losses), and the
+   clip's norm counting each replicated leaf once per tensor rank
+   (``d_clip``: the forged-scale fit against one rank).
+
 ``python3 chip_faults.py --only 12`` builds the kernels and runs step 12
-alone; ``--only 13``, ``--only 14``, ``--only 15`` and ``--only 16`` run
+alone; ``--only 13``, ``--only 14``, ``--only 15``, ``--only 16`` and
+``--only 17`` run
 that step alone.
 
 The wrappers are routed to a faulty library by replacing the cached ctypes
@@ -1089,7 +1103,7 @@ def phase11_check(torch, card, which, states):
 DIST_FAULTS = {
     "grad_sync_skipped": (
         "parallel/grad_sync.py",
-        "        dist.all_reduce(flat, op=dist.ReduceOp.SUM)\n"
+        "        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)\n"
         "        flat.div_(world_size)\n",
         "", ("b_ray",)),
     "zero1_wrong_slice": (
@@ -1100,7 +1114,8 @@ DIST_FAULTS = {
     "zero_replicated_unsynced": (
         "parallel/sharding.py",
         "            synced = sync_leaf_buckets([leaves[i] for i in repl],\n"
-        "                                       repl_buckets, total)\n",
+        "                                       repl_buckets, total,\n"
+        "                                       self.replica_group)\n",
         "            synced = [leaves[i] for i in repl]\n", ("b_zero1",)),
     "clip_local_norm": (
         "parallel/sharding.py",
@@ -1245,10 +1260,10 @@ GRAD_WIRE_FAULTS = {
         ("a_full", "c_int8_ef")),
     "ef_residual_stale": (
         "parallel/step_fns.py",
-        [("            new = state.apply_gradients(grads, self.tx)\n"
-          "            new.grad_residual = resid\n",
-          "            new = state.apply_gradients(grads, self.tx)\n"
-          "            new.grad_residual = state.grad_residual\n")],
+        [("            new.grad_residual = resid\n"
+          "            return new, logs\n",
+          "            new.grad_residual = state.grad_residual\n"
+          "            return new, logs\n")],
         ("a_full", "c_int8_ef")),
 }
 
@@ -1384,11 +1399,12 @@ def restart_step(summary, failures):
 MULTI_FAULTS = {
     "captured_bucket_skipped": (
         "parallel/grad_sync.py", [
-            ("        dist.all_reduce(flat, op=dist.ReduceOp.SUM)\n"
+            ("        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)\n"
              "        flat.div_(world_size)\n",
              "        if not (torch.cuda.is_current_stream_capturing()\n"
              "                and b is buckets[-1]):\n"
-             "            dist.all_reduce(flat, op=dist.ReduceOp.SUM)\n"
+             "            dist.all_reduce(flat, op=dist.ReduceOp.SUM,\n"
+             "                            group=group)\n"
              "        flat.div_(world_size)\n")],
         "a_megastep"),
     "straddle_from_one_half": (
@@ -1432,6 +1448,62 @@ def multi_step(summary, failures):
             failures.append(f"step 16 fault {name} not caught by phase 18")
 
 
+# name -> (file under ray_lightning_tpu_torch/, its (correct text,
+# replacement) pairs, phase 19's arm that must fail)
+MODEL_FAULTS = {
+    "ring_hop_to_the_wrong_neighbour": (
+        "ops/ring_attention.py", [
+            ("        return _exchange(x, group, group.rank_at(group.index + 1),"
+             "\n                         group.rank_at(group.index - 1))\n",
+             "        return _exchange(x, group, group.rank_at(group.index - 1),"
+             "\n                         group.rank_at(group.index + 1))\n"),
+            ("        return _exchange(grad, g, g.rank_at(g.index - 1),\n"
+             "                         g.rank_at(g.index + 1)), None\n",
+             "        return _exchange(grad, g, g.rank_at(g.index + 1),\n"
+             "                         g.rank_at(g.index - 1)), None\n")],
+        "a_ring"),
+    "zigzag_positions_off_by_one_chunk": (
+        "ops/ring_attention.py", [
+            ("        lo, hi = index * c, (2 * n_shards - 1 - index) * c\n",
+             "        lo, hi = index * c, (2 * n_shards - 2 - index) * c\n")],
+        "a_ring"),
+    "moe_combine_without_copy_in": (
+        "ops/moe.py", [
+            ("    combine = copy_in(combine, expert_tensor)\n", "")],
+        "c_moe"),
+    "qkv_split_contiguously": (
+        "parallel/sharding.py", [
+            ("        self.head = [p[-1] in HEAD_ALIGNED for p in self.paths]\n",
+             "        self.head = [False for p in self.paths]\n")],
+        "b_tensor"),
+    "clip_counts_replicated_leaves_t_times": (
+        "parallel/sharding.py", [
+            ("        return self.mp.axis(axes.pop()) if axes else None\n",
+             "        return self.mp.axis(axes.pop()) if axes else "
+             "self.mp.tensor\n")],
+        "d_clip"),
+}
+
+
+def model_step(summary, failures):
+    """Step 17: each of ``MODEL_FAULTS`` from a copy of the port with the
+    fault written in (:func:`faulty_copy`), caught where phase 19's arm
+    it names fails (the correct arms run in ``chip_smoke.py``'s own
+    phase 19)."""
+    root = os.path.dirname(os.path.abspath(cs.__file__))
+    summary["model"] = {}
+    for name, (path, subs, arm) in MODEL_FAULTS.items():
+        with faulty_copy(root, path, subs, 17) as tmp:
+            rc, why = phase15_run(tmp, [arm], phase=19)
+        caught = rc != 0
+        verdict = ("failed (caught): " + why[:300] if caught
+                   else "passed (NOT caught)")
+        print(f"step 17 fault {name}: phase 19 {arm} {verdict}")
+        summary["model"][name] = caught
+        if not caught:
+            failures.append(f"step 17 fault {name} not caught by phase 19")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1451,14 +1523,15 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     failures = []
     if sys.argv[1:3] in (["--only", "13"], ["--only", "14"],
-                         ["--only", "15"], ["--only", "16"]):
+                         ["--only", "15"], ["--only", "16"],
+                         ["--only", "17"]):
         with ThreadPoolExecutor(4) as pool:
             list(pool.map(_build.build, ("flash_attention", "layer_norm",
                                          "cross_entropy", "bgmv")))
         summary = {}
-        {"13": dist_step, "14": grad_wire_step,
-         "15": restart_step, "16": multi_step}[sys.argv[2]](summary,
-                                                             failures)
+        {"13": dist_step, "14": grad_wire_step, "15": restart_step,
+         "16": multi_step, "17": model_step}[sys.argv[2]](summary,
+                                                          failures)
         for f in failures:
             print(f"chip_faults: FAILED: {f}")
         print(card)

@@ -190,7 +190,7 @@ under ``remat_policy="dots+flash"``), counted per step.  Phases:
    the bf16 monolith's (or leave them where the top-2 logit gap is below
    one bf16 step of the top logit, ``bf16_ulp``).
 
-Phases 15-18 run in one process of their own (``phase_multi``,
+Phases 15-19 run in one process of their own (``phase_multi``,
 ``chip_smoke.py --multi``; each alone as ``chip_smoke.py --phaseN``): the
 workers they need spawned and warmed up once, all at once, and kept
 across their fits (``run_staged``); every phase's remote fits first, the
@@ -249,7 +249,25 @@ driver never touching the card, then each phase's references and checks.
    alike by its data replicas; (d) the CE island on two gloo ranks
    against the one-rank fused CE (f32 kernels).  ``--phase16 p_full
    p_update_sharding`` (not run by default) traces one step of phase 16
-   (a) and (f) on both ranks into its parts (PERF.md §5).
+   (a) and (f) on both ranks into its parts (PERF.md §5);
+19. long context and model parallelism (``phase19_steps``), GPT-2-small's
+   width at ``P15_LAYERS`` layers, bf16, 3 steps, each arm's losses
+   against ``LocalStrategy`` on the same global batch: (a) ring attention
+   at ``seq_len`` 4096 over ``{"data": 2, "sp": 2}`` on four gloo ranks
+   sharing the card, both layouts, with each rank's peak memory beside
+   the fold's predicted bytes and ms/step; one layer's ring forward and
+   input gradients on two ranks against ``ring_attention_local``, the
+   hop's route, what gloo's ``isend`` does with a card tensor and the
+   ms of a hop; (b) Megatron tensor parallelism at seq 1024 over
+   ``{"data": 2, "tensor": 2}`` and ZeRO-3 over ``{"fsdp": 2, "tensor":
+   2}``: the gathered final params against ``LocalStrategy``'s, each
+   rank's param bytes, the flash kernels' launches at 6 heads; (c) MoE
+   (4 experts, capacity factor 4) on one NCCL rank bitwise
+   ``LocalStrategy``, over ``{"data": 2, "expert": 2}`` with
+   ``moe_aux_loss``, and greedy MoE decode equal to the argmax rollout of
+   full forwards; (d) the clip under ``{"data": 2, "tensor": 2}`` on four
+   CPU workers with forged loss scales against one CPU rank.  In (a)-(c)
+   each leaf is bitwise alike on every rank that holds the same slice.
 
 Any failure raises: the script exits non-zero and prints no result.  The
 line before the last is the kernels' JSON record; the last line is
@@ -5512,9 +5530,9 @@ def ce_occupancy(torch, card):
             check(clusters >= 1, f"ce {name} d={d}: a cluster fits")
 
 
-# -- phases 15-18: one driver process, one set of workers --------------------
+# -- phases 15-19: one driver process, one set of workers --------------------
 #
-# Each of phases 15-18 is a generator of three stages (``run_staged``):
+# Each of phases 15-19 is a generator of three stages (``run_staged``):
 # before the spawn it yields what it needs, ``({pool: workers}, [its own
 # strategies])``; sent the spawned pools, it runs its remote arms and
 # yields; then, the workers gone, it runs its references and checks in
@@ -5522,7 +5540,7 @@ def ce_occupancy(torch, card):
 # arms of every phase run before the driver touches the card, and every
 # worker is spawned and warmed up once, all at once.
 
-MULTI_PHASES = (15, 16, 17, 18)
+MULTI_PHASES = (15, 16, 17, 18, 19)
 
 
 def kept_strategy(strategy_cls, pool, n, **kw):
@@ -5628,12 +5646,12 @@ def staged_main(n, gen, device="cuda") -> int:
 # -- phase 15: multi-GPU training --------------------------------------------
 
 P15_FLAVORS = ("ray", "horovod", "zero1", "zero3")
-# Phases 15-17 and 18 (b)-(c) train GPT-2-small's width at this depth: the
-# script's time limit is shared by every phase (phase 18 (a), one rank
-# captured, keeps all 12 layers), and a rank's collectives, memory and
+# Phases 15-19 (but phase 18 (a), the captured megastep, at GPT-2-small's
+# 12 layers) train GPT-2-small's width at this depth: the script's time
+# limit is shared by every phase, and a rank's collectives, memory and
 # launches scale with the layers they hold against one rank at the same
-# depth.
-P15_LAYERS = 4
+# depth (4 layers until phase 19 took the script's wall near the limit).
+P15_LAYERS = 2
 P15_STEPS_A, P15_STEPS_B = 8, 3
 # Per-step losses of a two-rank gloo arm against the one-device fit on the
 # same global batch: the first step's forward sees the same params, and
@@ -7126,19 +7144,616 @@ def phase18_steps(arms=P18_ARMS, device="cuda", cfg=None, island=None):
     return result
 
 
+# -- phase 19: long context and model parallelism ---------------------------
+
+P19_ARMS = ("a_ring", "b_tensor", "c_moe", "d_clip")
+P19_STEPS = 3
+# (a): bench_long_context.py's length over {"data": 2, "sp": 2}, two rows
+# a data shard (a rank: 2 x 2048 tokens).
+P19_RING_T, P19_RING_B = 4096, 4
+P19_RING_AXES = {"data": 2, "sp": 2}
+# (a)'s op check: one layer's heads at the fit's length, one sequence, f32
+# (shape (1, seq_len, n_head, head_dim) of the ring's config).
+P19_RING_OP_SEED = SEED + 19
+P19_RING_OP_TOL = {"out": 1e-5, "grad": 1e-4}
+# (b): the trainer cell's length, 4 rows a data (or fsdp) shard.
+P19_TP_B = 8
+P19_TP_AXES = ({"data": 2, "tensor": 2}, {"fsdp": 2, "tensor": 2})
+# (c): tiny_moe's expert count at GPT-2-small's width, drop-free capacity
+# (factor = E, as tests/test_moe.py), one row a data shard (the dense
+# one-hot dispatch is quadratic in a group's tokens).
+P19_MOE = {"n_experts": 4, "moe_capacity_factor": 4.0}
+P19_MOE_B = 2
+P19_MOE_AXES = {"data": 2, "expert": 2}
+P19_DECODE = {"prompt": (2, 8), "new": 8}
+# Per-step losses of a model-parallel arm against LocalStrategy on the same
+# global batch, bf16: the products' partial sums (the tensor ranks', the
+# experts', the ring's f32 fold against the flash kernels) are added in
+# another order before the bf16 rounding (measured on an H100: at most
+# 7.5e-05 at step 1, 2.7e-04 later, a rerouted MoE token).
+P19_LOSS_TOL = (5e-4, 1e-3, 1e-3)
+# (c)'s moe_aux_loss against LocalStrategy's: a bf16 near-tie that routes
+# one of the 2 x 2048 dispatches of a step elsewhere moves the loss by
+# ~E · p̄ / 4096 ~ 2.4e-4; two such flips.
+P19_AUX_TOL = 5e-4
+# (d): the clip under tensor parallelism, phase 15 (e)'s fit (the CPU
+# test's narrow GPT in f32, forged loss scales that make the clip bind at
+# the first and third steps) on four CPU workers over {"data": 2,
+# "tensor": 2} against one CPU rank, within P15_CLIP_TOL.
+P19_CLIP_AXES = {"data": 2, "tensor": 2}
+
+
+def p19_fit(strategy, cfg, label, root, batch, model_kw=None, callbacks=(),
+            device="cuda"):
+    """A bf16 fit of ``P19_STEPS`` eager steps of ``cfg`` (HEADLINE, and
+    ``model_kw``) through ``strategy``, with ``StepProbe(label)`` and
+    ``ShapeProbe(label + "_shapes")``."""
+    import torch_dist_helpers as helpers
+    from ray_lightning_tpu_torch.core.trainer import Trainer
+    from ray_lightning_tpu_torch.models.gpt import GPT, SyntheticLMDataModule
+
+    tr = Trainer(strategy, max_steps=P19_STEPS, limit_val_batches=0,
+                 precision="bf16", seed=SEED, megastep="off",
+                 log_every_n_steps=1, enable_checkpointing=False,
+                 default_root_dir=str(root),
+                 callbacks=[helpers.StepProbe(label),
+                            helpers.ShapeProbe(label + "_shapes"),
+                            *callbacks])
+    tr.fit(GPT(cfg, device=device, **HEADLINE, **(model_kw or {})),
+           SyntheticLMDataModule(cfg, batch_size=batch,
+                                 num_batches=P19_STEPS, seed=SEED))
+    return tr
+
+
+def p19_configs(full, ring_t=P19_RING_T):
+    ring = dataclasses.replace(full, n_layer=P15_LAYERS, seq_len=ring_t)
+    tp = dataclasses.replace(full, n_layer=P15_LAYERS)
+    moe = dataclasses.replace(tp, **P19_MOE)
+    return ring, tp, moe
+
+
+def p19_remote(pools, cfgs, root, out, arms, device="cuda"):
+    """The remote arms: (a) the ring fits in both layouts and the ring's op
+    check on two gloo ranks; (b) the tensor fits; (c) the MoE fit on one
+    NCCL rank and the expert fit on four gloo ranks."""
+    import torch_dist_helpers as helpers
+    from ray_lightning_tpu_torch.parallel.strategies import (
+        RayShardedStrategy, RayStrategy,
+    )
+
+    ring, tp, moe = cfgs
+    gloo = pools["gloo"]
+    walls = out.setdefault("walls", {})
+
+    def timed(label, fn):
+        t0 = time.perf_counter()
+        res = fn()
+        walls[label] = time.perf_counter() - t0
+        return res
+
+    if "a_ring" in arms:
+        for layout in ("contiguous", "zigzag"):
+            label = f"p19_ring_{layout}"
+            timed(label, lambda: p19_fit(
+                kept_strategy(RayStrategy, gloo, 4, backend="gloo",
+                              mesh_axes=P19_RING_AXES),
+                ring, label, root, P19_RING_B,
+                {"attn_impl": "ring", "ring_layout": layout},
+                device=device))
+        s_loc = ring.seq_len // 2
+        hop = (2, P19_RING_B // 2, s_loc, ring.n_head, ring.head_dim)
+        for layout in ("contiguous", "zigzag"):
+            # The fit's ring of two, and a ring of four, where a hop sent to
+            # the wrong neighbour shows.
+            out[f"p19_ring_op_{layout}"] = timed(
+                f"p19_ring_op_{layout}", lambda: helpers.wire_worlds(
+                    gloo._workers, {**p19_ring_op(ring), "layout": layout,
+                                    "hop_shape": hop, "device": device},
+                    300, worlds=(2, 4), fn=helpers.ring_card_rank))
+    if "b_tensor" in arms:
+        for axes in P19_TP_AXES:
+            label = "p19_tp_" + "_".join(axes)
+            zero = "fsdp" in axes
+            cls = RayShardedStrategy if zero else RayStrategy
+            tr = timed(label, lambda: p19_fit(
+                kept_strategy(cls, gloo, 4, backend="gloo", mesh_axes=axes,
+                              **({"zero_stage": 3} if zero else {})),
+                tp, label, root, P19_TP_B, device=device))
+            out[label + "_params"] = p15_host_params(tr)
+            del tr
+    if "d_clip" in arms:
+        ccfg, cdata = p19_clip_setup()
+        tr = timed("p19_clip", lambda: p15_fit(
+            kept_strategy(RayStrategy, pools["cpu"], 4, backend="gloo",
+                          mesh_axes=P19_CLIP_AXES),
+            ccfg, 3, "p19_clip", root, precision="f32",
+            gpt_kw={"device": "cpu"}, module_cls=helpers.ScaledGPT,
+            data=helpers.ArraysDataModule(cdata, 8)))
+        out["p19_clip_params"] = p15_host_params(tr)
+        del tr
+    if "c_moe" in arms:
+        for label, strategy in (
+                ("p19_moe_nccl", lambda: kept_strategy(
+                    RayStrategy, pools["nccl" if device == "cuda"
+                                       else "gloo"], 1)),
+                ("p19_moe_expert", lambda: kept_strategy(
+                    RayStrategy, gloo, 4, backend="gloo",
+                    mesh_axes=P19_MOE_AXES))):
+            tr = timed(label, lambda: p19_fit(strategy(), moe, label, root,
+                                              P19_MOE_B, device=device))
+            out[label + "_params"] = p15_host_params(tr)
+            del tr
+
+
+def ring_peak_bytes(batch, heads, s_loc, n_shards, layers):
+    """``(per hop and layer, whole trunk)`` bytes of the f32 (B, H, s, s)
+    tensors the ring's fold keeps for the backward: the masked logits'
+    exponent and the masked probabilities, for each of the ``n_shards``
+    blocks a layer folds."""
+    one = 2 * batch * heads * s_loc * s_loc * 4
+    return one, one * n_shards * layers
+
+
+def p19_clip_setup():
+    import torch_dist_helpers as helpers
+    from ray_lightning_tpu_torch.models.gpt import GPTConfig
+
+    return (GPTConfig(vocab_size=256, n_layer=2, n_head=4, d_model=64,
+                      seq_len=32, warmup_steps=2, mu_dtype="float32"),
+            helpers.scaled_batches(256, 32, 8, 3, seed=5))
+
+
+def p19_clip_check(root, card, out):
+    import torch_dist_helpers as helpers
+    from ray_lightning_tpu_torch.parallel.strategies import LocalStrategy
+
+    ccfg, cdata = p19_clip_setup()
+    tr = p15_fit(LocalStrategy(device="cpu"), ccfg, 3, "p19_clip_local",
+                 root, precision="f32", gpt_kw={"device": "cpu"},
+                 module_cls=helpers.ScaledGPT,
+                 data=helpers.ArraysDataModule(cdata, 8))
+    ref = p15_host_params(tr)
+    del tr
+    got = out.pop("p19_clip_params")
+    rec = helpers.RECORDS
+    losses, local = rec["p19_clip"][0]["losses"], rec["p19_clip_local"][0]
+    dl = max(abs(a - b) for a, b in zip(losses, local["losses"]))
+    dp = max(float((got[k] - ref[k]).abs().max()) for k in ref)
+    print(f"phase 19 (d) the clip under {P19_CLIP_AXES}: forged loss scales "
+          f"{helpers.SCALES}, the CPU test's GPT in f32 on four CPU workers "
+          f"vs one rank: losses {losses}, worst loss diff {dl:.3e}, params "
+          f"{dp:.3e} (limits {P15_CLIP_TOL}); {card}")
+    check(dl <= P15_CLIP_TOL["loss"] and dp <= P15_CLIP_TOL["param"],
+          "(d) the clipped updates under tensor parallelism equal the "
+          "one-device fit's")
+    return {"losses": losses, "loss_diff": dl, "param_diff": dp}
+
+
+def p19_replicas_check(label, cfg, axes, shapes, model_kw=None):
+    """Every rank's final leaves: a leaf is bitwise alike on every rank
+    that holds the same slice of it (the ranks whose coordinates agree on
+    the model axes its spec names; all of them for a replicated leaf).
+    Returns the number of leaves compared."""
+    from ray_lightning_tpu_torch.models.convert import spec_of
+    from ray_lightning_tpu_torch.models.gpt import GPT
+    from ray_lightning_tpu_torch.parallel.mesh import RankLayout
+
+    specs = GPT(cfg, device="cpu", **(model_kw or {})).param_partition_specs()
+    layout = RankLayout(dict(axes))
+    keys = sorted(shapes[0]["digests"])
+    for k in keys:
+        named = [a for a in spec_of(specs, tuple(k.split("/")))
+                 if a in layout.sizes]
+        groups = {}
+        for r in sorted(shapes):
+            c = layout.coords(r)
+            groups.setdefault(tuple(c[a] for a in named), set()).add(
+                shapes[r]["digests"][k])
+        check(all(len(d) == 1 for d in groups.values()),
+              f"{label}: {k} differs between the ranks that hold the same "
+              f"slice of it ({len(groups)} slices)")
+    return len(keys)
+
+
+def p19_ring_op(cfg):
+    return {"seed": P19_RING_OP_SEED,
+            "shape": (1, cfg.seq_len, cfg.n_head, cfg.head_dim)}
+
+
+def p19_launch_check(label, ranks, cfg, flash=True, device="cuda"):
+    """Every rank's kernel launches a step: the headline's (remat
+    "dots+flash"), without flash on the ring (on the card: the counters
+    count kernel launches)."""
+    want = per_step_launches(cfg.n_layer, True)
+    if not flash:
+        want.update(flash_fwd=0, flash_bwd=0)
+    if device != "cuda":
+        return want
+    for rank, v in sorted(ranks.items()):
+        per = {k: n / P19_STEPS for k, n in v["launches"].items()}
+        check(per == want, f"{label} rank {rank}: launches a step {per} == "
+              f"{want}")
+    print(f"phase 19 {label}: launches a step on each of {len(ranks)} "
+          f"rank(s) {json.dumps(want)}")
+    return want
+
+
+def p19_params_check(label, got, ref, init):
+    """A fit's gathered params against LocalStrategy's (phase 15 (b)'s
+    measures): the worst bf16 measures of a matrix or gain, the model's
+    relative Frobenius distance, the worst vector leaf's update
+    distance."""
+    import torch
+
+    check(set(got) == set(ref), f"{label}: the gathered params' leaves "
+          f"{sorted(set(got) ^ set(ref))[:4]}")
+    worst = {"row": 0.0, "frob": 0.0, "bias": 0.0}
+    for k in ref:
+        check(got[k].shape == ref[k].shape, f"{label}: {k} gathered to "
+              f"{tuple(got[k].shape)}, LocalStrategy {tuple(ref[k].shape)}")
+        if k.endswith("_b']"):
+            continue
+        m = bf16_measures(torch, got[k], ref[k])
+        worst = {n: max(worst[n], m[n]) for n in worst}
+    sq = sum(float((got[k] - ref[k]).double().square().sum()) for k in ref)
+    frob = math.sqrt(sq / sum(float(ref[k].double().square().sum())
+                              for k in ref))
+    def moved(k, t):
+        # The key bias's gradient is zero in exact arithmetic (a query's
+        # softmax does not see a shift of every key), so its update is
+        # AdamW's normalisation of rounding noise in any two fits: held
+        # on the query and value thirds of qkv_b.
+        if k.endswith("['qkv_b']"):
+            third = t.shape[-1] // 3
+            return torch.cat([t[..., :third], t[..., 2 * third:]], -1)
+        return t
+
+    updates = {k: float((moved(k, got[k].double() - ref[k].double())).norm()
+                        / moved(k, ref[k].double() - v.double()).norm())
+               for k, v in init.items()}
+    key = max(updates, key=updates.get)
+    check(all(worst[k] <= BF16_LIMITS[k] for k in worst)
+          and frob <= BF16_LIMITS["frob"],
+          f"{label}: params within {BF16_LIMITS}: {worst}, {frob}")
+    check(updates[key] <= P15_UPDATE_LIMIT, f"{label}: vector leaves' "
+          f"updates within {P15_UPDATE_LIMIT}: {key} {updates[key]}")
+    return {"measures": worst, "model_frob": frob,
+            "worst_update": [key, updates[key]]}
+
+
+def p19_losses(label, ranks, local, tol=P19_LOSS_TOL):
+    check(sorted(ranks) == [0, 1, 2, 3] or sorted(ranks) == [0],
+          f"{label}: every rank reports ({sorted(ranks)})")
+    losses = ranks[0]["losses"]
+    diffs = [abs(a - b) for a, b in zip(losses, local["losses"])]
+    check(len(losses) == P19_STEPS and all(
+        d <= t for d, t in zip(diffs, tol)),
+        f"{label}: losses {losses} within {tol} of LocalStrategy's "
+        f"{local['losses']}: {diffs}")
+    return losses, diffs
+
+
+def p19_memory(ranks):
+    return {r: {"setup": v["setup_bytes"], "peak": v["peak_bytes"]}
+            for r, v in sorted(ranks.items())}
+
+
+def p19_ring_check(cfg, root, card, out, device):
+    import numpy as np
+    import torch
+
+    import torch_dist_helpers as helpers
+    from ray_lightning_tpu_torch.ops.attention import xla_causal_attention
+    from ray_lightning_tpu_torch.ops.ring_attention import (
+        ring_attention_local,
+    )
+    from ray_lightning_tpu_torch.parallel.strategies import LocalStrategy
+
+    rec = helpers.RECORDS
+    p19_fit(LocalStrategy(device=device), cfg, "p19_ring_local", root,
+            P19_RING_B, device=device)
+    local = rec["p19_ring_local"][0]
+    res = {"local_ms": p15_ms(local), "local_peak": local["peak_bytes"],
+           "local_losses": local["losses"]}
+    s_loc = cfg.seq_len // 2
+    per_hop, trunk = ring_peak_bytes(P19_RING_B // 2, cfg.n_head, s_loc, 2,
+                                     cfg.n_layer)
+    # Under remat one layer's fold is alive at a time (its recompute).
+    res["fold_bytes_predicted"] = {"per_hop_layer": per_hop,
+                                   "one_layer": per_hop * 2,
+                                   "no_remat_trunk": trunk}
+    for layout in ("contiguous", "zigzag"):
+        label = f"p19_ring_{layout}"
+        ranks = rec[label]
+        losses, diffs = p19_losses(label, ranks, local)
+        p19_launch_check(label, ranks, cfg, flash=False, device=device)
+        p19_replicas_check(label, cfg, P19_RING_AXES, rec[label + "_shapes"],
+                           {"attn_impl": "ring", "ring_layout": layout})
+        mem = p19_memory(ranks)
+        res[layout] = {"losses": losses, "loss_diffs": diffs,
+                       "ms": p15_ms(ranks[0]), "memory": mem,
+                       "wall_s": out["walls"][label]}
+        print(f"phase 19 (a) ring {layout}: {P19_RING_AXES} on 4 gloo ranks "
+              f"sharing the card, GPT-2-small's width at {cfg.n_layer} "
+              f"layers, bf16, seq {cfg.seq_len} ({P19_RING_B // 2} x {s_loc} "
+              f"tokens a rank), {P19_STEPS} steps: losses {losses} (diffs "
+              f"against LocalStrategy's flash fit "
+              f"{', '.join(f'{d:.2e}' for d in diffs)}, limits "
+              f"{P19_LOSS_TOL}); {p15_ms(ranks[0]):.1f} ms/step "
+              f"(LocalStrategy {p15_ms(local):.1f}); memory a rank (setup, "
+              f"peak GiB) " + ", ".join(
+                  f"{r}: {m['setup'] / 2**30:.3f}/{m['peak'] / 2**30:.3f}"
+                  for r, m in mem.items())
+              + f" (predicted fold {per_hop * 2 / 2**30:.3f} GiB a layer "
+              f"under remat, {trunk / 2**30:.3f} GiB the trunk without; "
+              f"LocalStrategy peak {local['peak_bytes'] / 2**30:.3f}); "
+              f"{card}")
+        # The ring's op check on two and four ranks against the in-process
+        # fold, and against the plain causal attention on the whole
+        # sequence (whose mask does not come from the ring's positions).
+        worlds = out.pop(f"p19_ring_op_{layout}")
+        op = p19_ring_op(cfg)
+        errs = {}
+        for ref_name, n_ref in [("plain", 0), *(
+                ("local", n) for n in worlds)]:
+            q, k, v, cot = helpers.ring_inputs(op, device)
+            for x in (q, k, v):
+                x.requires_grad_(True)
+            ref = (xla_causal_attention(q, k, v) if n_ref == 0
+                   else ring_attention_local(q, k, v, n_ref, layout))
+            ref.backward(cot)
+            refs = {"out": ref.detach(), "dq": q.grad, "dk": k.grad,
+                    "dv": v.grad}
+            for n, ranks_n in worlds.items():
+                if n_ref not in (0, n):
+                    continue
+                for r in ranks_n:
+                    rows = torch.as_tensor(r["rows"], device=device)
+                    for name, full in refs.items():
+                        e = float(np.abs(r[name] - full.index_select(
+                            1, rows).cpu().numpy()).max())
+                        key = f"{name}_{ref_name}"
+                        errs[key] = max(errs.get(key, 0.0), e)
+            del q, k, v, cot, ref, refs
+        ranks_op = worlds[2]
+        r0 = ranks_op[0]
+        res[layout].update({"op_errs": errs, "route": r0["route"],
+                            "hop_ms": [r["hop_ms"] for r in ranks_op],
+                            "hop_bytes": r0["hop_bytes"]})
+        print(f"phase 19 (a) ring {layout} op: {op['shape']} f32 "
+              f"on 2 and 4 gloo ranks against ring_attention_local and the "
+              f"plain causal attention on {device}: "
+              f"max abs errors {({n: f'{e:.2e}' for n, e in errs.items()})} "
+              f"(limits {P19_RING_OP_TOL}); hop route {r0['route']}; a hop of "
+              f"{r0['hop_bytes'] / 2**20:.1f} MiB (the fit's k and v, bf16) "
+              f"at two ranks {', '.join(f'{r['hop_ms']:.2f}' for r in ranks_op)}"
+              f" ms a rank; {card}")
+        check(all(e <= P19_RING_OP_TOL["out" if n.startswith("out")
+                                        else "grad"]
+                  for n, e in errs.items()),
+              f"(a) {layout}: the ring on the ranks equals the local fold "
+              f"and the plain attention {errs}")
+        route = "gloo-host" if device == "cuda" else "gloo"
+        check(r0["route"] == route, f"(a) the gloo hop on {device} takes "
+              f"the route {route} ({r0['route']})")
+    return res
+
+
+def p19_tensor_check(cfg, root, card, out, device):
+    import torch_dist_helpers as helpers
+    from ray_lightning_tpu_torch.parallel.strategies import LocalStrategy
+
+    rec = helpers.RECORDS
+    tr = p19_fit(LocalStrategy(device=device), cfg, "p19_tp_local", root,
+                 P19_TP_B, device=device)
+    ref = p15_host_params(tr)
+    del tr
+    local = rec["p19_tp_local"][0]
+    full_bytes = rec["p19_tp_local_shapes"][0]["param_bytes"]
+    res = {"local_ms": p15_ms(local), "local_losses": local["losses"],
+           "full_param_bytes": full_bytes}
+    for axes in P19_TP_AXES:
+        label = "p19_tp_" + "_".join(axes)
+        ranks = rec[label]
+        losses, diffs = p19_losses(label, ranks, local)
+        want = p19_launch_check(label, ranks, cfg, device=device)
+        shapes = rec[label + "_shapes"]
+        heads = {r: sh["model_shapes"]["blocks/qkv_w"][-1]
+                 // (3 * cfg.head_dim)
+                 for r, sh in shapes.items()}
+        check(all(h == cfg.n_head // 2 for h in heads.values()),
+              f"{label}: each rank attends over {cfg.n_head // 2} heads "
+              f"({heads})")
+        pbytes = {r: sh["param_bytes"] for r, sh in sorted(shapes.items())}
+        if "fsdp" not in axes:  # ZeRO-3 ranks hold slices of slices
+            p19_replicas_check(label, cfg, axes, shapes)
+        params = p19_params_check(label, out.pop(label + "_params"), ref,
+                                  local["init_vectors"])
+        mem = p19_memory(ranks)
+        res[label] = {"losses": losses, "loss_diffs": diffs,
+                      "ms": p15_ms(ranks[0]), "param_bytes": pbytes,
+                      "heads": heads, "memory": mem, **params,
+                      "wall_s": out["walls"][label]}
+        print(f"phase 19 (b) {axes}"
+              f"{' ZeRO-3' if 'fsdp' in axes else ''}: 4 gloo ranks sharing "
+              f"the card, GPT-2-small's width at {cfg.n_layer} layers, bf16, "
+              f"{P19_TP_B // 2} x {cfg.seq_len} rows a rank, {P19_STEPS} "
+              f"steps: losses {losses} (diffs against LocalStrategy "
+              f"{', '.join(f'{d:.2e}' for d in diffs)}, limits "
+              f"{P19_LOSS_TOL}); gathered params against LocalStrategy's: "
+              f"{({k: f'{v:.2e}' for k, v in params['measures'].items()})},"
+              f" model rel Frobenius {params['model_frob']:.2e}, worst "
+              f"vector update {params['worst_update'][1]:.3e} "
+              f"({params['worst_update'][0]}); param bytes a rank {pbytes} "
+              f"(one device {full_bytes}); the flash kernels at {heads[0]} "
+              f"heads, {want['flash_fwd']} + {want['flash_bwd']} launches a "
+              f"step a rank; {p15_ms(ranks[0]):.1f} ms/step (LocalStrategy "
+              f"{p15_ms(local):.1f}); peak GiB a rank " + ", ".join(
+                  f"{r}: {m['peak'] / 2**30:.3f}" for r, m in mem.items())
+              + f"; {card}")
+        check(all(b < 0.75 * full_bytes for b in pbytes.values()),
+              f"{label}: each rank holds under 3/4 of the params")
+    return res
+
+
+def p19_moe_check(cfg, root, card, out, device):
+    import torch
+
+    import torch_dist_helpers as helpers
+    from ray_lightning_tpu_torch.models.generate import generate
+    from ray_lightning_tpu_torch.models.gpt import GPT
+    from ray_lightning_tpu_torch.parallel.strategies import LocalStrategy
+
+    rec = helpers.RECORDS
+    tr = p19_fit(LocalStrategy(device=device), cfg, "p19_moe_local", root,
+                 P19_MOE_B, device=device)
+    ref = p15_host_params(tr)
+    trained = tr.state.params
+    local = rec["p19_moe_local"][0]
+    res = {"local_losses": local["losses"], "local_ms": p15_ms(local)}
+    # One NCCL rank: bitwise LocalStrategy.
+    nccl = rec["p19_moe_nccl"][0]
+    got = out.pop("p19_moe_nccl_params")
+    differ = [k for k in ref if not torch.equal(ref[k], got[k])]
+    same = nccl["losses"] == local["losses"]
+    p19_launch_check("p19_moe_nccl", rec["p19_moe_nccl"], cfg,
+                     device=device)
+    res["nccl"] = {"losses": nccl["losses"], "bitwise": same and not differ,
+                   "ms": p15_ms(nccl)}
+    print(f"phase 19 (c) MoE, {cfg.n_experts} experts at GPT-2-small's "
+          f"width, {cfg.n_layer} layers, capacity factor "
+          f"{cfg.moe_capacity_factor}, bf16: one NCCL rank, {P19_STEPS} "
+          f"steps: params {len(ref) - len(differ)}/{len(ref)} leaves "
+          f"bitwise equal to LocalStrategy's, losses "
+          f"{'bitwise equal' if same else 'differ'} ({nccl['losses']}); "
+          f"{p15_ms(nccl):.1f} ms/step (LocalStrategy "
+          f"{p15_ms(local):.1f}); {card}")
+    check(same and not differ, f"(c) one NCCL rank bitwise LocalStrategy: "
+          f"losses {nccl['losses']} vs {local['losses']}, {differ[:3]}")
+    # {"data": 2, "expert": 2} on four gloo ranks.
+    ranks = rec["p19_moe_expert"]
+    losses, diffs = p19_losses("p19_moe_expert", ranks, local)
+    aux = [r["aux"] for r in (ranks[0], local)]
+    aux_diff = max(abs(a - b) for a, b in zip(*aux))
+    p19_launch_check("p19_moe_expert", ranks, cfg, device=device)
+    shapes = rec["p19_moe_expert_shapes"]
+    experts = {r: sh["model_shapes"]["blocks/moe_in_w"][1]
+               for r, sh in shapes.items()}
+    pbytes = {r: sh["param_bytes"] for r, sh in sorted(shapes.items())}
+    p19_replicas_check("p19_moe_expert", cfg, P19_MOE_AXES, shapes)
+    params = p19_params_check("p19_moe_expert",
+                              out.pop("p19_moe_expert_params"), ref,
+                              local["init_vectors"])
+    res["expert"] = {"losses": losses, "loss_diffs": diffs, "aux": aux[0],
+                     "aux_diff": aux_diff, "experts": experts,
+                     "param_bytes": pbytes, "ms": p15_ms(ranks[0]),
+                     **params}
+    print(f"phase 19 (c) MoE {P19_MOE_AXES}: 4 gloo ranks sharing the card, "
+          f"{P19_MOE_B // 2} x {cfg.seq_len} rows a rank: losses {losses} "
+          f"(diffs {', '.join(f'{d:.2e}' for d in diffs)}, limits "
+          f"{P19_LOSS_TOL}); moe_aux_loss {aux[0]} (LocalStrategy "
+          f"{aux[1]}, worst diff {aux_diff:.2e}, limit {P19_AUX_TOL}); "
+          f"experts a rank {experts}; gathered params "
+          f"{({k: f'{v:.2e}' for k, v in params['measures'].items()})}, "
+          f"worst vector update {params['worst_update'][1]:.3e}; param "
+          f"bytes a rank {pbytes}; {p15_ms(ranks[0]):.1f} ms/step; {card}")
+    check(aux_diff <= P19_AUX_TOL, f"(c) moe_aux_loss within {P19_AUX_TOL}")
+    check(all(e == cfg.n_experts // 2 for e in experts.values()),
+          f"(c) each rank holds {cfg.n_experts // 2} experts ({experts})")
+    # Greedy decode of the trained MoE in f32 against the argmax rollout of
+    # full forwards (plain attention on both sides).
+    m = GPT(cfg, device=device, attn_impl="xla")
+    g = torch.Generator().manual_seed(SEED + 19)
+    b, t0 = P19_DECODE["prompt"]
+    prompt = torch.randint(0, cfg.vocab_size, (b, t0), generator=g).to(device)
+    with torch.no_grad():
+        outp = generate(m, trained, prompt, P19_DECODE["new"], device=device)
+        cur, gaps = prompt, []
+        for _ in range(P19_DECODE["new"]):
+            logits = m.forward(trained, cur)[:, -1]
+            top = torch.topk(logits, 2, dim=-1).values
+            gaps.append(float((top[:, 0] - top[:, 1]).min()))
+            cur = torch.cat([cur, torch.argmax(logits, -1, keepdim=True
+                                               ).to(cur.dtype)], dim=1)
+    equal = torch.equal(outp.to(cur.dtype), cur)
+    res["decode"] = {"equal": equal, "min_top2_gap": min(gaps),
+                     "tokens": outp[:, t0:].tolist()}
+    print(f"phase 19 (c) MoE greedy decode on the card, f32, {b} x {t0} "
+          f"prompt, {P19_DECODE['new']} new tokens: "
+          f"{'equal to' if equal else 'differs from'} the argmax rollout "
+          f"of full forwards (smallest top-2 logit gap {min(gaps):.3e}); "
+          f"{card}")
+    check(equal, "(c) MoE decode equals the full-forward rollout")
+    return res
+
+
+def phase19_main(arms=P19_ARMS, device="cuda", cfg=None,
+                 ring_t=P19_RING_T) -> int:
+    """Phase 19 alone (``chip_smoke.py --phase19 [arm ...]``): its lines,
+    then one JSON object as its last line.  A CPU rehearsal:
+    ``device="cpu"`` with a narrow ``cfg`` and a short ``ring_t`` (the
+    one-rank arm of (c) then runs on a CPU rank over gloo)."""
+    return staged_main(19, phase19_steps(arms, device, cfg, ring_t), device)
+
+
+def phase19_steps(arms=P19_ARMS, device="cuda", cfg=None,
+                  ring_t=P19_RING_T):
+    """Phase 19's stages (``run_staged``): (a) ring attention over
+    ``{"data": 2, "sp": 2}`` in both layouts and the ring's op check, (b)
+    tensor parallelism over ``{"data": 2, "tensor": 2}`` and ZeRO-3 over
+    ``{"fsdp": 2, "tensor": 2}``, (c) MoE on one NCCL rank and over
+    ``{"data": 2, "expert": 2}``; then their LocalStrategy references, the
+    ring's local fold and MoE decode in this process."""
+    import tempfile
+
+    from ray_lightning_tpu_torch.models.gpt import GPTConfig
+
+    unknown = set(arms) - set(P19_ARMS)
+    check(not unknown, f"phase 19 arms {sorted(unknown)} in {P19_ARMS}")
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    card = card_line()
+    root = tempfile.mkdtemp(prefix="rlt-p19-")
+    full = cfg or dataclasses.replace(GPTConfig.gpt2_small(), warmup_steps=1)
+    cfgs = p19_configs(full, ring_t)
+    need = {"gloo": 4}
+    if "c_moe" in arms and device == "cuda":
+        need["nccl"] = 1
+    if "d_clip" in arms:
+        need["cpu"] = 4
+    out, result = {"card": card}, {"card": card}
+    pools = yield need, []
+    p19_remote(pools, cfgs, root, out, arms, device)
+    yield
+    ring, tp, moe = cfgs
+    if "a_ring" in arms:
+        result["a"] = p19_ring_check(ring, root, card, out, device)
+    if "b_tensor" in arms:
+        result["b"] = p19_tensor_check(tp, root, card, out, device)
+    if "c_moe" in arms:
+        result["c"] = p19_moe_check(moe, root, card, out, device)
+    if "d_clip" in arms:
+        result["d"] = p19_clip_check(root, card, out)
+    result["arm_walls_s"] = out["walls"]
+    print(f"phase 19: remote arms "
+          f"{json.dumps({k: round(v, 1) for k, v in out['walls'].items()})}"
+          f" s; {card}")
+    return result
+
+
 def multi_main() -> int:
-    """Phases 15-18 in one process (``chip_smoke.py --multi``): every
+    """Phases 15-19 in one process (``chip_smoke.py --multi``): every
     worker spawned once, every phase's remote arms, then every phase's
     references and checks (``run_staged``).  Prints their lines, then
     {phase: result, "spawn_s": seconds} as one JSON line."""
-    steps = (phase15_steps, phase16_steps, phase17_steps, phase18_steps)
+    steps = (phase15_steps, phase16_steps, phase17_steps, phase18_steps,
+             phase19_steps)
     out = run_staged({n: f() for n, f in zip(MULTI_PHASES, steps)})
     print(json.dumps(out, default=str))
     return 0
 
 
 def phase_multi(card):
-    """Phases 15-18, run as ``chip_smoke.py --multi`` in a process of its
+    """Phases 15-19, run as ``chip_smoke.py --multi`` in a process of its
     own (the driver of remote fits must not have initialised CUDA, and
     this one has); its lines are echoed, its last line returned with the
     process's seconds as ``all_s``."""
@@ -7151,11 +7766,11 @@ def phase_multi(card):
         print(line)
     if proc.returncode != 0:
         print(proc.stderr[-6000:], file=sys.stderr)
-        raise RuntimeError(f"chip_smoke: phases 15-18 failed (exit "
+        raise RuntimeError(f"chip_smoke: phases 15-19 failed (exit "
                            f"{proc.returncode})")
     result = json.loads(lines[-1])
     result["all_s"] = time.perf_counter() - t0
-    print(f"phases 15-18: {result['all_s']:.1f} s in all, the process's "
+    print(f"phases 15-19: {result['all_s']:.1f} s in all, the process's "
           f"start and the shared spawn ({result['spawn_s']:.1f} s) "
           f"included; {card}")
     return result
@@ -7221,13 +7836,15 @@ def main() -> int:
     plane = timed(phase_serve_plane, torch, np, card, world, phase3)
     fleet = timed(phase_serve_fleet, torch, np, card, world, phase3)
     staged = timed(phase_multi, card)
-    multi, wire, restarts, rest = (staged[str(n)] for n in MULTI_PHASES)
+    multi, wire, restarts, rest, model_par = (staged[str(n)]
+                                              for n in MULTI_PHASES)
     # Within phase_multi: the shared spawn, then each phase's remote arms
     # and checks (the process's start is the rest).
     walls["phase_multi_parts"] = {"spawn": round(staged["spawn_s"], 1), **{
         name: round(staged[str(n)]["wall_s"], 1) for n, name in zip(
             MULTI_PHASES, ("phase_multi_gpu", "phase_grad_wire",
-                           "phase_restarts", "phase_multi_gpu_rest"))}}
+                           "phase_restarts", "phase_multi_gpu_rest",
+                           "phase_model_parallel"))}}
 
     kernels = [{
         "name": "bgmv", "route": "cuda", "source": BGMV_SOURCE,
@@ -7259,6 +7876,7 @@ def main() -> int:
     print("grad_wire: " + json.dumps(wire))
     print("restarts: " + json.dumps(restarts))
     print("multi_gpu_rest: " + json.dumps(rest))
+    print("model_parallel: " + json.dumps(model_par, default=str))
     print("walls: " + json.dumps({**walls, "total_s": round(
         time.perf_counter() - t0, 1)}))
     print(card)
@@ -7283,6 +7901,8 @@ if __name__ == "__main__":
         sys.exit(phase17_main())
     if sys.argv[1:2] == ["--phase18"]:
         sys.exit(phase18_main(tuple(sys.argv[2:]) or P18_ARMS))
+    if sys.argv[1:2] == ["--phase19"]:
+        sys.exit(phase19_main(tuple(sys.argv[2:]) or P19_ARMS))
     if sys.argv[1:2] == ["--multi"]:
         sys.exit(multi_main())
     sys.exit(main())

@@ -55,6 +55,23 @@ and the telemetry meta say what was taken.  The EF residual is attached
 to the state after it is built and reconciled on resume; each rank's row
 enters its restart checkpoint (as the JAX restart state carries it),
 never an ``RLTCKPT1`` file or the rank-0 package.
+
+Under model axes (a layout with ``sp``, ``tensor`` or ``expert``;
+``parallel/model_parallel.py``) a rank takes its batch rows by its data
+coordinate (``RankLayout.data_coord``: the ranks along the model axes
+share rows), and under ``sp`` its sequence rows of each batch, cut (and
+for a zig-zag ring permuted) once at the data layer by the module's
+``shard_sequence``; its state holds its slices of the weights
+(``sharding.ModelPlan`` by the module's ``param_partition_specs``), the
+logs are averaged over its replica group, and the state a checkpoint or
+the fit's package carries is gathered to the JAX global arrays.  There
+megastep's auto is 1, and the resolvers refuse megastep K > 1, the int8
+gradient wire, the sharded weight update and the backward-overlapped
+sync, as ``_fit`` refuses ``RLTSHRD2`` restart checkpoints (ROADMAP
+Queue 1 item 3), on every rank before any of them is used; int8 moments
+are refused there too, as are the stand-alone eval and predict loops.
+A mesh of model axes only gives a rank a replica group of itself: its
+gradients take no sync.
 """
 
 from __future__ import annotations
@@ -240,6 +257,13 @@ def _resolve_update_sharding(config: FitConfig, world: Optional[int],
             os.environ.get("RLT_UPDATE_SHARDING", "auto"))
     if value == "off":
         return False
+    if _has_model_axes(axes):
+        if value == "on":
+            raise NotImplementedError(
+                f"update_sharding='on' under the model axes of mesh {axes} "
+                f"is not ported (ROADMAP Queue 1 item 3); use 'auto' or "
+                f"'off'")
+        return False
     eligible = (world is not None and world > 1 and mode == "gspmd"
                 and zero_stage == 0)
     if value == "on":
@@ -256,8 +280,15 @@ def _resolve_update_sharding(config: FitConfig, world: Optional[int],
     return eligible and device.type == "cuda" and backend != "gloo"
 
 
+def _has_model_axes(axes: Optional[tuple]) -> bool:
+    from ray_lightning_tpu_torch.parallel.mesh import MODEL_AXES
+
+    return any(a in MODEL_AXES for a in (axes or ()))
+
+
 def _resolve_megastep(config: FitConfig, device: torch.device,
-                      backend: Optional[str] = None) -> int:
+                      backend: Optional[str] = None,
+                      model_axes: bool = False) -> int:
     """The concrete stride length K for this fit.
 
     Strongest first: an explicit ``megastep=`` on the Trainer/strategy →
@@ -271,7 +302,9 @@ def _resolve_megastep(config: FitConfig, device: torch.device,
     card's tensors through the host, and a capture may not wait for the
     card): over NCCL auto is 8, over gloo on the card auto is 1 and
     K > 1 raises.  On CPU workers K > 1 runs its steps eagerly, as on one
-    CPU device (the JAX megastep runs on a CPU mesh)."""
+    CPU device (the JAX megastep runs on a CPU mesh).  Under model axes
+    (``model_axes``: the tensor- and expert-parallel collectives and the
+    ring's hops are not captured) auto is 1 and K > 1 raises."""
     value = config.megastep
     if value is None:
         value = os.environ.get("RLT_MEGASTEP")
@@ -281,7 +314,14 @@ def _resolve_megastep(config: FitConfig, device: torch.device,
         return 1
     gloo_card = device.type == "cuda" and backend == "gloo"
     if value == "auto":
-        return 8 if device.type == "cuda" and not gloo_card else 1
+        return (8 if device.type == "cuda" and not gloo_card
+                and not model_axes else 1)
+    if model_axes and int(value) > 1:
+        raise NotImplementedError(
+            f"megastep={value} under model axes is not ported (ROADMAP "
+            f"Queue 1 item 3): a stride's CUDA graph would capture the "
+            f"model-parallel collectives and the ring's hops; use "
+            f"megastep='auto' or 'off'")
     if gloo_card and int(value) > 1:
         raise NotImplementedError(
             f"megastep={value} on the card over gloo: a stride's CUDA graph "
@@ -305,6 +345,9 @@ class LoopContext:
         # RayShardedStrategy, the ZeRO plan of the state's leaves.
         self.dist = dist
         self.zero_plan = None
+        # Under model axes the layout of the rank's weight slices
+        # (``sharding.ModelPlan``).
+        self.model_plan = None
         # The gradient wire of the fit (``_resolve_comm``): its
         # accounting and the tap plane of the differentiation in flight
         # (which the module's forward reads).
@@ -353,13 +396,17 @@ class LoopContext:
     def full_state(self) -> TrainState:
         """The whole state: under ZeRO gathered from every rank's slices
         (a collective, on every rank), else the state itself."""
-        plan = self.zero_plan
-        if plan is None:
-            return self.state
-        st = self.state
-        params = plan.all_gather(st.params) if plan.stage == 3 else st.params
-        return TrainState(params, plan.gather_opt_state(st.opt_state),
-                          st.step)
+        plan, st = self.zero_plan, self.state
+        if plan is not None:
+            params = (plan.all_gather(st.params) if plan.stage == 3
+                      else st.params)
+            st = TrainState(params, plan.gather_opt_state(st.opt_state),
+                            st.step)
+        if self.model_plan is not None:
+            st = TrainState(self.model_plan.gather(st.params),
+                            self.model_plan.gather_opt_state(st.opt_state),
+                            st.step)
+        return st
 
     def log_metrics(self, metrics: Dict[str, Any]) -> None:
         for k, v in metrics.items():
@@ -569,6 +616,13 @@ def _resolve_comm(ctx: LoopContext, module: TrainModule, tel: Telemetry,
     grad_sync = gsync.maybe_build_grad_sync(
         module, grad_comm, world, mode=mode, zero_stage=zero_stage,
         params=params, overlap_segments=overlap_segments)
+    if dist is not None and dist.mp is not None and (
+            grad_sync is not None or overlap_segments):
+        raise NotImplementedError(
+            f"the int8 gradient wire and the backward-overlapped sync "
+            f"under the model axes of mesh {dist.layout.sizes} are not "
+            f"ported (ROADMAP Queue 1 item 3); use grad_comm='full' and "
+            f"no grad_overlap_segments")
     tel.set_meta("grad_overlap_segments", overlap_segments)
     if grad_sync is not None:
         grad_sync.register_telemetry(tel)
@@ -600,10 +654,24 @@ def _init_dist_state(ctx: LoopContext, module: TrainModule, tx, tel,
     params = _initial_params(module, ctx.device, config.seed)
     with torch.no_grad():
         dist.broadcast_(tree_leaves(params))
+    if dist.mp is not None:
+        # Every rank starts from the same global arrays and keeps its
+        # slices of them.
+        from ray_lightning_tpu_torch.parallel.sharding import ModelPlan
+
+        specs = getattr(module, "param_partition_specs", None)
+        if specs is None:
+            raise ValueError(
+                f"mesh {dist.layout.sizes} has model axes, and "
+                f"{type(module).__name__} publishes no "
+                f"param_partition_specs")
+        ctx.model_plan = ModelPlan(params, specs(), dist.mp)
+        params = ctx.model_plan.shard(params)
     grad_sync, shard_update = _resolve_comm(ctx, module, tel, params, mode,
                                             zero_stage, grad_comm)
     step = step_fns.build_dist_step(module, tx, dist, params, mode,
-                                    zero_stage, grad_sync, shard_update)
+                                    zero_stage, grad_sync, shard_update,
+                                    ctx.model_plan)
     plan = step.plan
     if plan is None:
         ctx.state = TrainState.create(params, tx)
@@ -1025,6 +1093,11 @@ def _resume(ctx: LoopContext, callbacks: List[Callback], accum: int,
         payload = load_state_stream(state_stream_from_file(path),
                                     device=ctx.device)
     loaded = _loaded_state(payload["state"], ctx, recorded_world)
+    if ctx.model_plan is not None:
+        # The global arrays of an RLTCKPT1 file, cut to this rank's slices.
+        loaded = TrainState(ctx.model_plan.shard(loaded.params),
+                            ctx.model_plan.shard_opt_state(loaded.opt_state),
+                            loaded.step, loaded.grad_residual)
     if grad_sync is not None:
         loaded = grad_sync.reconcile_resumed_state(loaded)
     elif loaded.grad_residual is not None:
@@ -1142,6 +1215,50 @@ def _wait_device(device: torch.device) -> None:
         ev.synchronize()
 
 
+def _is_sharded(path: Optional[str]) -> bool:
+    from ray_lightning_tpu_torch.utils import sharded_ckpt
+
+    return bool(path) and sharded_ckpt.is_sharded_ckpt(path)
+
+
+def _data_shard(ctx: LoopContext):
+    """``(index, count)`` of the rank's batch rows: its data coordinate
+    (the rank itself on a batch-only mesh)."""
+    if ctx.dist is None:
+        return 0, 1
+    return ctx.dist.layout.data_coord(ctx.global_rank)
+
+
+class _SequenceShards:
+    """A loader whose host batches are cut to the rank's sequence rows by
+    ``module.shard_sequence`` (``sp``), once a batch."""
+
+    def __init__(self, loader: Any, module: TrainModule, index: int, n: int):
+        self.loader, self.module, self.index, self.n = (loader, module,
+                                                        index, n)
+
+    def set_epoch(self, epoch: int) -> None:
+        if hasattr(self.loader, "set_epoch"):
+            self.loader.set_epoch(epoch)
+
+    def __iter__(self):
+        for batch in self.loader:
+            yield self.module.shard_sequence(batch, self.index, self.n)
+
+
+def _sequence_sharded(loader: Any, module: TrainModule, dist: Any) -> Any:
+    """``loader`` as the rank sees it: under an ``sp`` axis its sequence
+    rows (:class:`_SequenceShards`), else as it is."""
+    mp = None if dist is None else dist.mp
+    if loader is None or mp is None or mp.sp.size == 1:
+        return loader
+    if not hasattr(module, "shard_sequence"):
+        raise ValueError(f"an 'sp' mesh axis needs the module to cut its "
+                         f"batches (shard_sequence); "
+                         f"{type(module).__name__} has none")
+    return _SequenceShards(loader, module, mp.sp.index, mp.sp.size)
+
+
 def _examples(batch: Any) -> int:
     leaves = list(step_fns._batch_items(batch).values())
     return int(leaves[0].shape[0]) if leaves and leaves[0].ndim else 1
@@ -1179,6 +1296,17 @@ def _fit(ctx: LoopContext, module: TrainModule, datamodule: TpuDataModule,
     tel = Telemetry.build(telemetry)
     tx = module.configure_optimizers()
     accum = max(int(config.accumulate_grad_batches), 1)
+    model_axes = dist is not None and dist.mp is not None
+    if model_axes and (config.restart_dir or _is_sharded(
+            config.resume_from_checkpoint)):
+        raise NotImplementedError(
+            f"RLTSHRD2 restart checkpoints of the model-parallel layout "
+            f"{dist.layout.sizes} are not ported (ROADMAP Queue 1 item 3); "
+            f"checkpoint with ModelCheckpoint (RLTCKPT1, the gathered "
+            f"global arrays)")
+    megastep_k = _resolve_megastep(config, device,
+                                   None if dist is None else dist.backend,
+                                   model_axes)
     # An elastic resume re-derives accum from the checkpoint's recorded
     # world before the optimizer is wrapped (global-batch invariance).
     resize_info = None
@@ -1203,7 +1331,7 @@ def _fit(ctx: LoopContext, module: TrainModule, datamodule: TpuDataModule,
         _announce_resize(resize_info, ctx, tel)
 
     module.setup("fit")
-    datamodule.set_shard(ctx.global_rank, ctx.world_size)
+    datamodule.set_shard(*_data_shard(ctx))
     datamodule.prepare_data()
     datamodule.setup("fit")
     _call_hooks(callbacks, "setup", ctx, module, "fit")
@@ -1229,21 +1357,20 @@ def _fit(ctx: LoopContext, module: TrainModule, datamodule: TpuDataModule,
                                                 resize_info=resize_info)
         train_step = step_fns.single_device_step(module, tx)
     rng = step_fns.StepRng(device, config.seed)
-    megastep_k = _resolve_megastep(config, device,
-                                   None if dist is None else dist.backend)
     multi_step = (step_fns.MultiStep(
         module, tx, megastep_k, device, rng,
         step=None if dist is None else train_step)
         if megastep_k > 1 else None)
     tel.set_meta("megastep", megastep_k)
-    val_loader = datamodule.val_dataloader()
+    val_loader = _sequence_sharded(datamodule.val_dataloader(), module, dist)
     eval_step = (step_fns.build_eval_step(module) if val_loader is not None
                  else None)
 
     module.on_fit_start()
     _call_hooks(callbacks, "on_fit_start", ctx, module)
 
-    train_loader = datamodule.train_dataloader()
+    train_loader = _sequence_sharded(datamodule.train_dataloader(), module,
+                                     dist)
     stop = False
     pending_logs: Optional[Dict[str, Any]] = None
     # Micro-batches since the last optimizer update (the host mirror of
@@ -1478,6 +1605,14 @@ def _resolve_params(module: TrainModule, config: FitConfig,
     return tree_map(lambda t: t.to(device), module.init_params(gen))
 
 
+def _refuse_model_axes(dist: Any, kind: str) -> None:
+    if dist is not None and dist.layout.model_axes:
+        raise NotImplementedError(
+            f"the stand-alone {kind} loop under the model axes of mesh "
+            f"{dist.layout.sizes} is not ported (ROADMAP Queue 1 item 3); "
+            f"a fit validates under them")
+
+
 def run_eval(module: TrainModule, datamodule: TpuDataModule,
              config: FitConfig, callbacks: List[Callback],
              device: torch.device, kind: str = "validation", params=None,
@@ -1489,6 +1624,7 @@ def run_eval(module: TrainModule, datamodule: TpuDataModule,
     ``{"callback_metrics": metrics}`` (under a strategy, with the rank;
     each rank evaluates its rows on the full params and the metrics are
     the means over the ranks)."""
+    _refuse_model_axes(dist, kind)
     stage = "validate" if kind == "validation" else "test"
     ctx = LoopContext(config, device, dist)
     module.trainer = ctx
@@ -1523,6 +1659,7 @@ def run_predict(module: TrainModule, datamodule: TpuDataModule,
     stay on the device until the last batch is issued.  Under a strategy
     each rank predicts its rows of every batch and its package carries
     its rank (the driver interleaves them back into row order)."""
+    _refuse_model_axes(dist, "predict")
     module.precision = config.precision
     module.setup("predict")
     datamodule.set_shard(*((0, 1) if dist is None

@@ -27,6 +27,14 @@ step, grad_residual)``, for the GPT family's optimizers:
   ``BlockQuantized`` node (``ops/optim_quant.py``; its static fields are
   the JAX node's aux data, kept as read).
 
+A model-parallel rank holds slices of the JAX global arrays
+(:func:`shard_params` cuts them by the module's ``param_partition_specs``
+and :func:`gather_params` puts them back together over the ranks' groups,
+so what a fit streams back holds the JAX global arrays).  One departure:
+``qkv_w``/``qkv_b`` (:data:`HEAD_ALIGNED`), whose JAX spec splits the
+``3·d`` columns contiguously, are split by heads here: a rank holds the
+same ``d/t`` columns of each of q, k and v.
+
 JAX keeps two counts (Adam's and the schedule's) where the port keeps
 one: they advance together, so a read takes Adam's (and refuses a tree
 where they differ) and a write writes it to both.  JAX's step is a 0-d
@@ -51,7 +59,13 @@ from ray_lightning_tpu_torch.utils.treedef import (
 )
 
 __all__ = ["params_from_jax", "adapter_from_jax", "jax_train_state_fields",
-           "train_state_from_jax", "train_state_to_jax"]
+           "train_state_from_jax", "train_state_to_jax", "HEAD_ALIGNED",
+           "shard_leaf", "gather_leaf", "shard_params", "gather_params",
+           "spec_of"]
+
+# Leaves whose last dim is [q | k | v] and which a ``tensor`` rank holds by
+# heads: its run of each third.
+HEAD_ALIGNED = ("qkv_w", "qkv_b")
 
 _FACTOR_KEYS = ("qkv_a", "qkv_b", "proj_a", "proj_b")
 _LORA_LABELS = ("freeze", "train")
@@ -288,3 +302,93 @@ def train_state_to_jax(state: TrainState) -> JaxNode:
         opt = _adamw_to_jax(opt)
     step = torch.tensor(int(state.step), dtype=torch.int32)
     return JaxNode(TRAIN_STATE, (state.params, opt, step, None), custom=True)
+
+
+# ---------------------------------------------------------------------------
+# Model-parallel slices
+# ---------------------------------------------------------------------------
+
+def spec_of(specs: Any, path: Tuple) -> Tuple:
+    """The partition spec of the param at key ``path`` in ``specs`` (a
+    params-shaped dict of tuples; ``()`` replicated)."""
+    node = specs
+    for k in path:
+        node = node[k]
+    return tuple(node)
+
+
+def shard_leaf(t: torch.Tensor, spec: Tuple, groups: Any,
+               head_aligned: bool = False) -> torch.Tensor:
+    """This rank's slice of the global leaf ``t``: along each dim that
+    ``spec`` names an axis for, its run ``index`` of ``size`` (``groups``:
+    an object whose ``axis(name)`` gives the rank's ``AxisGroup`` along
+    it, or None for an axis the mesh lacks).  ``head_aligned``: the last
+    dim is ``[q | k | v]`` and the rank takes its run of each third."""
+    for dim, axis in enumerate(spec):
+        g = None if axis is None else _group(groups, axis)
+        if g is None or g.size == 1:
+            continue
+        if head_aligned and dim == t.dim() - 1:
+            parts = t.unflatten(dim, (3, t.shape[dim] // 3))
+            c = parts.shape[-1] // g.size
+            t = parts.narrow(-1, g.index * c, c).flatten(-2)
+        else:
+            c = t.shape[dim] // g.size
+            t = t.narrow(dim, g.index * c, c)
+    return t.contiguous()
+
+
+def gather_leaf(t: torch.Tensor, spec: Tuple, groups: Any,
+                head_aligned: bool = False) -> torch.Tensor:
+    """The global leaf from every rank's slice :func:`shard_leaf` cut:
+    one all-gather a sharded dim, over the rank's group along its axis (a
+    collective of those groups)."""
+    import torch.distributed as dist
+
+    for dim in reversed(range(len(spec))):
+        axis = spec[dim]
+        g = None if axis is None else _group(groups, axis)
+        if g is None or g.size == 1:
+            continue
+        parts = [torch.empty_like(t, memory_format=torch.contiguous_format)
+                 for _ in range(g.size)]
+        dist.all_gather(parts, t.contiguous(), group=g.group)
+        if head_aligned and dim == t.dim() - 1:
+            # [q_r | k_r | v_r] for each rank r -> [q | k | v].
+            t = torch.stack([p.unflatten(dim, (3, p.shape[dim] // 3))
+                             for p in parts], dim=-2).flatten(-3)
+        else:
+            t = torch.cat(parts, dim=dim)
+    return t
+
+
+def _group(groups: Any, axis: str):
+    try:
+        return groups.axis(axis)
+    except AttributeError:
+        return None
+
+
+def _map_specs(tree: Any, specs: Any, fn, path: Tuple = ()) -> Any:
+    if isinstance(tree, dict):
+        return {k: _map_specs(v, specs[k], fn, path + (k,))
+                for k, v in tree.items()}
+    return fn(tree, tuple(specs), path[-1] in HEAD_ALIGNED)
+
+
+def shard_params(full: Dict[str, Any], groups: Any,
+                 specs: Dict[str, Any]) -> Dict[str, Any]:
+    """A rank's slices of a full params tree by ``specs``
+    (``GPT.param_partition_specs``) over its model groups (a
+    ``parallel.model_parallel.ModelParallel``): :func:`shard_leaf` a
+    leaf."""
+    return _map_specs(full, specs, lambda t, spec, ha: shard_leaf(
+        t, spec, groups, ha))
+
+
+def gather_params(local: Dict[str, Any], groups: Any,
+                  specs: Dict[str, Any]) -> Dict[str, Any]:
+    """The full params tree from every rank's slices (a collective of the
+    model groups): :func:`gather_leaf` a leaf."""
+    return _map_specs(local, specs, lambda t, spec, ha: gather_leaf(
+        t, spec, groups, ha))

@@ -23,7 +23,7 @@ import torch
 
 from ray_lightning_tpu_torch.device import resolve_device
 from ray_lightning_tpu_torch.models.gpt import (
-    GPT, GPTConfig, _mlp_residual, has_lora_adapters,
+    GPT, GPTConfig, _mlp_residual, _moe_residual, has_lora_adapters,
 )
 from ray_lightning_tpu_torch.models.quant import (
     dequantize_decode_params, is_quantized, resolve_weight,
@@ -94,6 +94,12 @@ def _block_pass(
     ).reshape(B, T, d).to(c)
     proj = att @ resolve_weight(p, "proj_w", c) + p["proj_b"].to(c)
     proj = apply_lora(proj, att, ad, "proj", ad_ids, lora_impl)
+    if cfg.n_experts > 0:
+        # The training trunk's routed MLP with one group (decode runs on
+        # one device), as the JAX package decodes: the full forward
+        # routes every prompt token together, decode the B current ones,
+        # the same decisions wherever the capacity does not saturate.
+        return _moe_residual(x + proj, p, cfg, groups=1)[0]
     return _mlp_residual(x + proj, p, c)
 
 

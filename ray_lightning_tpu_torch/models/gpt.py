@@ -34,6 +34,37 @@ weight-gradient products (the CE dW kernel among them) are never
 computed.  The adapter helpers (``add_lora_adapters``, ``extract_lora``,
 ``merge_lora``, ``synthetic_lora_adapter``) keep the JAX package's
 ``lora_*`` key names and its scale.
+
+MoE (``n_experts > 0``): every block's MLP is the routed expert MLP
+(``ops/moe.py``, :func:`_moe_residual`), its load-balance loss averaged
+over the layers, logged as ``moe_aux_loss`` and added with weight
+``moe_aux_weight`` in ``training_step``; generation and serving run the
+same residual with one routing group, as the JAX package does.
+
+Model parallelism (a fit under a strategy whose mesh has ``sp``,
+``tensor`` or ``expert``; ``parallel/model_parallel.py``): the parameters
+a rank holds are its slices under :meth:`GPT.param_partition_specs` (the
+JAX specs; ``models/convert.py::shard_params``), and the block places
+Megatron's collectives where GSPMD inserts them in the JAX package:
+
+* ``tensor``: the LayerNorm output goes through ``copy_in`` into the
+  column-parallel QKV and MLP-in products, the rank attends over its own
+  ``H/t`` heads (the flash kernels launch at ``H/t`` heads), and the
+  row-parallel proj and MLP-out products end in ``reduce_out``.  The JAX
+  spec of ``qkv_w`` splits its ``3·d`` columns contiguously, which is not
+  head-aligned (GSPMD re-lays it out after the reshape to heads); here a
+  rank holds the same heads of q, k and v (a departure; ``shard_params``
+  and ``gather_params`` map it to and from the JAX array exactly).  The
+  tied ``wte`` is feature-sharded (``P(None, "tensor")``): the embedding
+  and the head's CE kernels run on the table gathered along ``d``
+  (``gather_dim``, the rank's slice of the gradient going back);
+* ``sp`` (``attn_impl="ring"``): the rank holds its sequence rows (cut,
+  and for ``ring_layout="zigzag"`` permuted, once at the data layer by
+  :meth:`GPT.shard_sequence`, with the ``wpe`` positions that go with
+  them) and attends through ``ops/ring_attention.py``; its loss is the
+  mean over its rows;
+* ``expert``: the MoE MLP computes the rank's experts and sums the
+  partial output over the ``expert`` x ``tensor`` group.
 """
 
 from __future__ import annotations
@@ -73,6 +104,13 @@ from ray_lightning_tpu_torch.ops.cross_entropy import (
 )
 from ray_lightning_tpu_torch.ops.layer_norm import layer_norm
 from ray_lightning_tpu_torch.ops.matmul import mm_f32
+from ray_lightning_tpu_torch.ops.moe import moe_mlp
+from ray_lightning_tpu_torch.ops.ring_attention import (
+    RING_LAYOUTS, ring_causal_attention, zigzag_indices,
+)
+from ray_lightning_tpu_torch.parallel.model_parallel import (
+    copy_in, data_group_of, gather_dim, model_parallel_of, reduce_out,
+)
 from ray_lightning_tpu_torch.parallel.pipeline import layer_splits
 
 __all__ = ["GPTConfig", "GPT", "SyntheticLMDataModule", "REMAT_POLICIES",
@@ -84,10 +122,11 @@ __all__ = ["GPTConfig", "GPT", "SyntheticLMDataModule", "REMAT_POLICIES",
 
 @dataclasses.dataclass(frozen=True)
 class GPTConfig:
-    """The JAX package's ``GPTConfig`` for dense models.  ``n_experts``
-    exists so that a config asking for MoE is refused (a later slice of
-    the port).  ``opt_state_dtype``: None (bf16 mu, f32 nu), "float32",
-    "bfloat16" or "int8" AdamW moments (``models/optim.py``)."""
+    """The JAX package's ``GPTConfig``.  ``n_experts > 0``: every block's
+    MLP is ``n_experts`` routed experts (top ``moe_top_k``, capacity
+    ``moe_capacity_factor``, the load-balance loss weighted by
+    ``moe_aux_weight``).  ``opt_state_dtype``: None (bf16 mu, f32 nu),
+    "float32", "bfloat16" or "int8" AdamW moments (``models/optim.py``)."""
 
     vocab_size: int = 50304  # GPT-2 vocab padded to a multiple of 128
     n_layer: int = 12
@@ -99,6 +138,9 @@ class GPTConfig:
     weight_decay: float = 0.1
     warmup_steps: int = 100
     n_experts: int = 0
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.25
+    moe_aux_weight: float = 1e-2
     # AdamW first-moment storage dtype ("bfloat16" or "float32").
     mu_dtype: str = "bfloat16"
     opt_state_dtype: Optional[str] = None
@@ -117,23 +159,53 @@ class GPTConfig:
     def gpt2_small(cls) -> "GPTConfig":
         return cls()  # 124M params
 
+    @classmethod
+    def tiny_moe(cls, n_experts: int = 4, **kw) -> "GPTConfig":
+        return cls(vocab_size=512, n_layer=2, n_head=4, d_model=128,
+                   seq_len=128, warmup_steps=2, n_experts=n_experts, **kw)
+
     @property
     def head_dim(self) -> int:
         return self.d_model // self.n_head
 
 
 def _mlp_residual(x: torch.Tensor, p: Dict[str, Any],
-                  c: torch.dtype, ln_kernel: bool = False) -> torch.Tensor:
+                  c: torch.dtype, ln_kernel: bool = False,
+                  tensor=None) -> torch.Tensor:
     """LN2 + GELU MLP + residual — the dense second half of a GPT block,
     over any leading dims.  GELU is the tanh form, as ``jax.nn.gelu``'s
-    default.  ``ln_kernel``: the LayerNorm kernel pair (training)."""
+    default.  ``ln_kernel``: the LayerNorm kernel pair (training).
+    ``tensor``: the rank's tensor group (``p`` holds its column slice of
+    MLP-in and row slice of MLP-out)."""
     h = layer_norm(x, p["ln2_g"], p["ln2_b"], use_kernel=ln_kernel)
     h = F.gelu(
-        h @ resolve_weight(p, "mlp_in_w", c) + p["mlp_in_b"].to(c),
+        copy_in(h, tensor) @ resolve_weight(p, "mlp_in_w", c)
+        + p["mlp_in_b"].to(c),
         approximate="tanh",
     )
-    return (x + h @ resolve_weight(p, "mlp_out_w", c)
+    return (x + reduce_out(h @ resolve_weight(p, "mlp_out_w", c), tensor)
             + p["mlp_out_b"].to(c))
+
+
+def _moe_residual(x: torch.Tensor, p: Dict[str, Any], cfg: "GPTConfig",
+                  groups: int, ln_kernel: bool = False, mp=None, data=None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """LN2 + routed expert MLP + residual — the MoE second half of a GPT
+    block, for training and decode alike: ``(x, aux_loss)``.  ``mp``: the
+    rank's ``ModelParallel`` (``p`` holds its experts' slices); ``data``:
+    the group of the other data shards (the load-balance statistics are
+    summed over it)."""
+    h = layer_norm(x, p["ln2_g"], p["ln2_b"], use_kernel=ln_kernel)
+    w = p["gate_w"].dtype
+    y, aux = moe_mlp(
+        h, p["gate_w"], resolve_weight(p, "moe_in_w", w), p["moe_in_b"],
+        resolve_weight(p, "moe_out_w", w), p["moe_out_b"],
+        top_k=cfg.moe_top_k, capacity_factor=cfg.moe_capacity_factor,
+        groups=groups, data=data,
+        **({} if mp is None else dict(
+            expert=mp.expert, tensor=mp.tensor,
+            expert_tensor=mp.expert_tensor)))
+    return x + y, aux
 
 
 REMAT_POLICIES = ("dots+flash", "dots+flash-out", "dots", "bf16-resid")
@@ -205,21 +277,36 @@ class GPT(TrainModule):
         ce_kernel: the LM head's cross-entropy on its kernel route
             (default, the JAX package's one-chip program) where the JAX
             gate admits ``d``; ``False`` takes the vocab-chunk scan.
+        seq_axis: the mesh axis ring attention cuts the sequence over.
+        ring_layout: ``"contiguous"`` or ``"zigzag"`` (each rank holds
+            chunks ``j`` and ``2n-1-j`` of ``2n``, balancing the causal
+            work; ``ops/ring_attention.py``).
+
+    ``attn_impl="ring"`` runs ring attention over the ``seq_axis`` group
+    of a strategy's mesh and raises without one, as the JAX package does.
     """
 
     def __init__(self, config: Optional[GPTConfig] = None,
                  attn_impl: str = "auto", precision: str = "f32",
                  device=None, remat: bool = False,
-                 remat_policy: str = "dots+flash", ce_kernel: bool = True):
+                 remat_policy: str = "dots+flash", ce_kernel: bool = True,
+                 seq_axis: str = "sp", ring_layout: str = "contiguous"):
         super().__init__()
         if precision not in ("f32", "bf16", "bfloat16"):
             raise ValueError(
                 f"precision {precision!r} not in ('f32', 'bf16')"
             )
-        if attn_impl not in ATTN_IMPLS:
+        if attn_impl not in ATTN_IMPLS + ("ring",):
             raise ValueError(
-                f"attn_impl {attn_impl!r} not in {ATTN_IMPLS} (ring "
-                f"attention is a later slice of the port)")
+                f"attn_impl {attn_impl!r} not in {ATTN_IMPLS + ('ring',)}")
+        if ring_layout not in RING_LAYOUTS:
+            raise ValueError(
+                f"ring_layout={ring_layout!r}: expected 'contiguous' or "
+                f"'zigzag'")
+        if seq_axis != "sp":
+            raise ValueError(
+                f"seq_axis={seq_axis!r}: the port's mesh names the "
+                f"sequence axis 'sp'")
         if remat_policy not in REMAT_POLICIES:
             raise ValueError(
                 f"remat_policy {remat_policy!r} not in {REMAT_POLICIES}")
@@ -237,6 +324,8 @@ class GPT(TrainModule):
         self.remat = remat
         self.remat_policy = remat_policy
         self.ce_kernel = ce_kernel
+        self.seq_axis = seq_axis
+        self.ring_layout = ring_layout
         self.save_hyperparameters(**dataclasses.asdict(self.config),
                                   attn_impl=attn_impl, remat=remat,
                                   remat_policy=remat_policy,
@@ -267,11 +356,23 @@ class GPT(TrainModule):
             "proj_b": torch.zeros(L, d),
             "ln2_g": torch.ones(L, d),
             "ln2_b": torch.zeros(L, d),
-            "mlp_in_w": _normal((L, d, h), 0.02, g),
-            "mlp_in_b": torch.zeros(L, h),
-            "mlp_out_w": _normal((L, h, d), resid_std, g),
-            "mlp_out_b": torch.zeros(L, d),
         }
+        E = cfg.n_experts
+        if E > 0:
+            blocks.update({
+                "gate_w": _normal((L, d, E), 0.02, g),
+                "moe_in_w": _normal((L, E, d, h), 0.02, g),
+                "moe_in_b": torch.zeros(L, E, h),
+                "moe_out_w": _normal((L, E, h, d), resid_std, g),
+                "moe_out_b": torch.zeros(L, E, d),
+            })
+        else:
+            blocks.update({
+                "mlp_in_w": _normal((L, d, h), 0.02, g),
+                "mlp_in_b": torch.zeros(L, h),
+                "mlp_out_w": _normal((L, h, d), resid_std, g),
+                "mlp_out_b": torch.zeros(L, d),
+            })
         if cfg.lora_rank > 0:
             blocks.update(_init_lora_blocks(cfg, g))
         params = {
@@ -283,30 +384,103 @@ class GPT(TrainModule):
         }
         return _tree_to(params, self.device)
 
+    def param_partition_specs(self) -> Dict[str, Any]:
+        """The JAX package's tensor- and expert-parallel layout, as tuples
+        (one axis name or None a dim; ``()`` replicated): QKV and MLP-in
+        column-parallel, proj and MLP-out row-parallel, the tied ``wte``
+        sharded on ``d``, the experts over ``expert`` with each expert's
+        hidden dim over ``tensor``.  An axis the mesh lacks shards
+        nothing (``models/convert.py::shard_params``)."""
+        t, e = "tensor", "expert"
+        blocks = {
+            "ln1_g": (), "ln1_b": (),
+            "qkv_w": (None, None, t), "qkv_b": (None, t),
+            "proj_w": (None, t, None), "proj_b": (),
+            "ln2_g": (), "ln2_b": (),
+        }
+        if self.config.lora_rank > 0:
+            blocks.update({
+                "lora_qkv_a": (), "lora_qkv_b": (None, None, t),
+                "lora_proj_a": (None, t, None), "lora_proj_b": (),
+            })
+        if self.config.n_experts > 0:
+            blocks.update({
+                "gate_w": (),
+                "moe_in_w": (None, e, None, t),
+                "moe_in_b": (None, e, t),
+                "moe_out_w": (None, e, t, None),
+                "moe_out_b": (None, e, None),
+            })
+        else:
+            blocks.update({
+                "mlp_in_w": (None, None, t), "mlp_in_b": (None, t),
+                "mlp_out_w": (None, t, None), "mlp_out_b": (),
+            })
+        return {"wte": (None, t), "wpe": (), "blocks": blocks,
+                "ln_f_g": (), "ln_f_b": ()}
+
+    def shard_sequence(self, batch: Dict[str, Any], index: int,
+                       n: int) -> Dict[str, Any]:
+        """Shard ``index`` of ``n`` of a host batch ``{"tokens": (B,
+        T+1), ...}`` along the sequence, once at the data layer (``sp``):
+        ``{"tokens": inputs, "targets": targets, "positions": their
+        positions}`` over the rank's rows, contiguous or in the zig-zag
+        order of ``ring_layout``; the batch's other keys as they are."""
+        tokens = np.asarray(batch["tokens"])
+        T = tokens.shape[1] - 1
+        if T % n:
+            raise ValueError(f"seq_len {T} does not divide over sp={n}")
+        s = T // n
+        order = (zigzag_indices(T, n).astype(np.int64)
+                 if self.ring_layout == "zigzag" else np.arange(T))
+        mine = order[index * s:(index + 1) * s]
+        out = {k: tokens[:, mine] if k == "tokens" else v
+               for k, v in batch.items()}
+        return {**out, "targets": tokens[:, mine + 1], "positions": mine}
+
+    def _moe_groups(self) -> int:
+        """Routing groups of the training trunk: one.  The JAX package
+        routes ``data``-shard-count groups, each a shard's rows; a rank
+        here holds one shard's rows and routes them as its one group
+        (one device: every row, as JAX's one device)."""
+        return 1
+
     # -- forward ------------------------------------------------------------
     def forward(self, params: Dict[str, Any],
                 tokens: torch.Tensor) -> torch.Tensor:
         """tokens (B, T) -> logits (B, T, vocab) f32.  Materialises the
         full logits: inference only; the loss goes through the chunked
         head."""
-        x, _ = self.forward_hidden(params, tokens)
+        wte = self._wte_full(params)
+        x, _ = self.forward_hidden(params, tokens, wte=wte)
         c = self._compute_dtype()
         B, T, d = x.shape
-        return mm_f32(x.reshape(B * T, d), params["wte"].to(c).T).reshape(
-            B, T, -1)
+        return mm_f32(x.reshape(B * T, d), wte.to(c).T).reshape(B, T, -1)
 
-    def forward_hidden(self, params: Dict[str, Any], tokens: torch.Tensor
+    def _wte_full(self, params: Dict[str, Any]) -> torch.Tensor:
+        """The token table: under ``tensor`` gathered from the ranks'
+        ``d``-slices (``gather_dim``)."""
+        mp = model_parallel_of(self)
+        return params["wte"] if mp is None else gather_dim(
+            params["wte"], 1, mp.tensor)
+
+    def forward_hidden(self, params: Dict[str, Any], tokens: torch.Tensor,
+                       positions: Optional[torch.Tensor] = None,
+                       wte: Optional[torch.Tensor] = None,
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Trunk: tokens (B, T) -> (final hidden (B, T, d) after ``ln_f``,
-        MoE aux loss — 0.0, the port's configs being dense)."""
+        MoE aux loss: the layers' mean, 0.0 for a dense config).
+        ``positions``: the tokens' sequence positions (``sp``: the rank's
+        rows), default ``0..T-1``; ``wte``: the full token table (under
+        ``tensor`` the caller's gathered one)."""
         cfg = self.config
-        if cfg.n_experts > 0:
-            raise NotImplementedError(
-                "MoE (n_experts > 0) is not supported by the PyTorch port "
-                "yet (a later slice ports ops/moe.py)")
         c = self._compute_dtype()
-        x = (params["wte"][tokens.long()] + params["wpe"][:tokens.shape[1]]
-             ).to(c)
+        mp = model_parallel_of(self)
+        if wte is None:
+            wte = self._wte_full(params)
+        pos = (params["wpe"][:tokens.shape[1]] if positions is None
+               else params["wpe"][positions.long()])
+        x = (wte[tokens.long()] + pos).to(c)
         # "bf16-resid": the carry between blocks — what the remat backward
         # keeps of each layer — is held in bf16 and upcast on entry; gated
         # on remat, as in the JAX package.
@@ -319,25 +493,33 @@ class GPT(TrainModule):
         layers = [dict(zip(names, ts)) for sub in self._trunk_segments(
             params["blocks"]) for ts in zip(*(sub[k].unbind(0)
                                               for k in names))]
-        block = functools.partial(self._block, c=c, bf16r=bf16r)
+        block = functools.partial(self._block, c=c, bf16r=bf16r, mp=mp)
         remat = self.remat and torch.is_grad_enabled()
         context_fn = functools.partial(
             create_selective_checkpoint_contexts,
             remat_policy_fn(self.remat_policy))
+        moe = cfg.n_experts > 0
+        aux = torch.zeros((), device=x.device)
         for p in layers:
             if remat:
                 # A block draws no random numbers, so there is no RNG state
                 # to keep for its recompute (and reading the CUDA RNG state
                 # would stop a CUDA-graph capture of the step).
-                x = checkpoint(block, x, p, use_reentrant=False,
-                               preserve_rng_state=False,
-                               context_fn=context_fn)
+                out = checkpoint(block, x, p, use_reentrant=False,
+                                 preserve_rng_state=False,
+                                 context_fn=context_fn)
             else:
-                x = block(x, p)
+                out = block(x, p)
+            if moe:
+                x, layer_aux = out
+                aux = aux + layer_aux
+            else:
+                x = out
         if bf16r:
             x = x.to(c)
         x = layer_norm(x, params["ln_f_g"], params["ln_f_b"], use_kernel=True)
-        return x, torch.zeros((), device=x.device)
+        # The layers' mean: balanced routing scores ~1 at any depth.
+        return x, aux / max(cfg.n_layer, 1)
 
     def _trunk_segments(self, blocks: Dict[str, torch.Tensor]
                         ) -> List[Dict[str, torch.Tensor]]:
@@ -391,25 +573,49 @@ class GPT(TrainModule):
         return groups
 
     def _block(self, x: torch.Tensor, p: Dict[str, torch.Tensor], *,
-               c: torch.dtype, bf16r: bool) -> torch.Tensor:
-        """One transformer block of the training trunk."""
+               c: torch.dtype, bf16r: bool, mp=None):
+        """One transformer block of the training trunk: the new residual,
+        and for MoE ``(residual, aux)``.  Under ``tensor`` ``p`` holds the
+        rank's heads (``H/t`` of q, k and v) and MLP columns."""
         cfg = self.config
         B, T, d = x.shape
+        tensor = None if mp is None else mp.tensor
         if bf16r:
             x = x.to(c)
         h = layer_norm(x, p["ln1_g"], p["ln1_b"], use_kernel=True)
-        qkv = h @ p["qkv_w"].to(c) + p["qkv_b"].to(c)
+        qkv = copy_in(h, tensor) @ p["qkv_w"].to(c) + p["qkv_b"].to(c)
         if cfg.lora_rank > 0:
             qkv = qkv + self._lora(h, p, "qkv", c)
-        q, k, v = (z.reshape(B, T, cfg.n_head, cfg.head_dim)
-                   for z in qkv.split(d, dim=-1))
-        att = causal_attention(q, k, v, impl=self.attn_impl).reshape(B, T, d)
-        proj = att @ p["proj_w"].to(c) + p["proj_b"].to(c)
+        width = qkv.shape[-1] // 3
+        q, k, v = (z.reshape(B, T, width // cfg.head_dim, cfg.head_dim)
+                   for z in qkv.split(width, dim=-1))
+        att = self._attention(q, k, v, mp).reshape(B, T, width)
+        proj = reduce_out(att @ p["proj_w"].to(c), tensor) + p["proj_b"].to(c)
         if cfg.lora_rank > 0:
             proj = proj + self._lora(att, p, "proj", c)
         x = x + proj
-        x = _mlp_residual(x, p, c, ln_kernel=True)
-        return x.to(torch.bfloat16) if bf16r else x
+        aux = None
+        if cfg.n_experts > 0:
+            x, aux = _moe_residual(x, p, cfg, groups=self._moe_groups(),
+                                   ln_kernel=True, mp=mp,
+                                   data=data_group_of(self))
+        else:
+            x = _mlp_residual(x, p, c, ln_kernel=True, tensor=tensor)
+        if bf16r:
+            x = x.to(torch.bfloat16)
+        return x if aux is None else (x, aux)
+
+    def _attention(self, q, k, v, mp):
+        if self.attn_impl == "ring":
+            if mp is None:
+                # Ring attention asked for with no sequence axis: falling
+                # back would hide an O(seq^2) attention (the JAX rule).
+                raise ValueError(
+                    f"attn_impl='ring' needs mesh axis {self.seq_axis!r}: "
+                    f"fit under a strategy with {self.seq_axis!r} in "
+                    f"mesh_axes, or use attn_impl='auto'")
+            return ring_causal_attention(q, k, v, mp.sp, self.ring_layout)
+        return causal_attention(q, k, v, impl=self.attn_impl)
 
     def _lora(self, z: torch.Tensor, p: Dict[str, torch.Tensor], site: str,
               c: torch.dtype) -> torch.Tensor:
@@ -420,12 +626,18 @@ class GPT(TrainModule):
                 ) * (cfg.lora_alpha / cfg.lora_rank)
 
     # -- steps --------------------------------------------------------------
-    def _loss(self, params: Dict[str, Any], tokens: torch.Tensor
+    def _loss(self, params: Dict[str, Any], tokens: torch.Tensor,
+              targets: Optional[torch.Tensor] = None,
+              positions: Optional[torch.Tensor] = None,
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Mean next-token CE of ``tokens (B, T+1)`` through the fused tied
-        head: on its kernel route unless ``ce_kernel`` is off (the JAX
-        package's one-chip program; the JAX gate on ``d`` sends other
-        widths to the scan).
+        """Mean next-token CE of ``tokens (B, T+1)`` (or of ``tokens``
+        against ``targets`` at ``positions``: a sequence shard,
+        :meth:`shard_sequence`) through the fused tied head: on its kernel
+        route unless ``ce_kernel`` is off (the JAX package's one-chip
+        program; the JAX gate on ``d`` sends other widths to the scan).
+        Under ``tensor`` the head runs on the ``wte`` gathered for the
+        embedding (the CE kernels contract over the whole ``d``): every
+        tensor rank computes the same loss over the same rows.
 
         Under a strategy (``parallel.step_fns.DistributedStep``) this is
         still the rank-local CE, where the JAX package dispatches a
@@ -435,20 +647,30 @@ class GPT(TrainModule):
         would sum it twice.  The island stands alone as
         ``ops.cross_entropy.fused_lm_head_cross_entropy_sharded``, for a
         loss written over a process group by hand."""
-        inputs, targets = tokens[:, :-1], tokens[:, 1:]
-        x, aux = self.forward_hidden(params, inputs)
+        if targets is None:
+            tokens, targets = tokens[:, :-1], tokens[:, 1:]
+        wte = self._wte_full(params)
+        x, aux = self.forward_hidden(params, tokens, positions, wte=wte)
         loss = fused_lm_head_cross_entropy(
-            x, params["wte"], targets, compute_dtype=self._compute_dtype(),
+            x, wte, targets, compute_dtype=self._compute_dtype(),
             use_kernel=self.ce_kernel,
         ).mean()
         return loss, aux
 
+    @staticmethod
+    def _batch_parts(batch):
+        return batch["tokens"], batch.get("targets"), batch.get("positions")
+
     def training_step(self, params, batch, rng):
-        loss, _ = self._loss(params, batch["tokens"])
-        return loss, {"train_loss": loss}
+        loss, aux = self._loss(params, *self._batch_parts(batch))
+        logs = {"train_loss": loss}
+        if self.config.n_experts > 0:
+            logs["moe_aux_loss"] = aux
+            loss = loss + self.config.moe_aux_weight * aux
+        return loss, logs
 
     def validation_step(self, params, batch):
-        loss, _ = self._loss(params, batch["tokens"])
+        loss, _ = self._loss(params, *self._batch_parts(batch))
         return self.derive_logs({"val_loss": loss})
 
     def derive_logs(self, logs):

@@ -227,17 +227,19 @@ def jax_order(tree: Any) -> List[int]:
 
 
 def sync_leaf_buckets(leaves: List[torch.Tensor], buckets: Sequence[Bucket],
-                      world_size: int) -> List[torch.Tensor]:
+                      world_size: int, group: Any = None
+                      ) -> List[torch.Tensor]:
     """The full-width path of the JAX ``sync_leaf_buckets``: each bucket's
-    leaves flattened into one f32 vector, all-reduced (sum) and divided by
-    ``world_size``, then cut back into the leaves' shapes and dtypes."""
+    leaves flattened into one f32 vector, all-reduced (sum) over ``group``
+    (None: every rank) and divided by ``world_size`` (its size), then cut
+    back into the leaves' shapes and dtypes."""
     import torch.distributed as dist
 
     out = list(leaves)
     for b in buckets:
         parts = [leaves[i].reshape(-1).float() for i in b.indices]
         flat = torch.cat(parts) if len(parts) > 1 else parts[0].clone()
-        dist.all_reduce(flat, op=dist.ReduceOp.SUM)
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
         flat.div_(world_size)
         pos = 0
         for i, sz in zip(b.indices, b.sizes):
@@ -250,11 +252,15 @@ def sync_leaf_buckets(leaves: List[torch.Tensor], buckets: Sequence[Bucket],
 class BucketSync:
     """``RayStrategy``'s gradient sync: the synced leaves in JAX tree
     order, bucketed by :func:`build_bucket_plan` (built at the first call,
-    from that tree's shapes), one ``all_reduce`` a bucket."""
+    from that tree's shapes), one ``all_reduce`` a bucket over ``group``
+    of ``world_size`` ranks (None: every rank; under model axes the
+    rank's replica group, the ranks holding the same slices: each leaf
+    is synced over the ranks that hold the same slice of it)."""
 
     def __init__(self, world_size: int,
-                 bucket_bytes: int = DEFAULT_BUCKET_BYTES):
+                 bucket_bytes: int = DEFAULT_BUCKET_BYTES, group: Any = None):
         self.world = world_size
+        self.group = group
         self.bucket_bytes = bucket_bytes
         self.plan: Optional[BucketPlan] = None
         self._synced: Optional[List[int]] = None
@@ -268,7 +274,7 @@ class BucketSync:
                 [tuple(leaves[i].shape) for i in self._synced], self.world,
                 self.bucket_bytes)
         synced = sync_leaf_buckets([leaves[i] for i in self._synced],
-                                   self.plan.buckets, self.world)
+                                   self.plan.buckets, self.world, self.group)
         out = list(leaves)
         for i, g in zip(self._synced, synced):
             out[i] = g
@@ -277,10 +283,12 @@ class BucketSync:
 
 class LeafSync:
     """``HorovodRayStrategy``'s gradient sync: one ``all_reduce`` a synced
-    leaf, in JAX tree order, then divided by the world size."""
+    leaf over ``group`` (as :class:`BucketSync`'s), in JAX tree order,
+    then divided by its size."""
 
-    def __init__(self, world_size: int):
+    def __init__(self, world_size: int, group: Any = None):
         self.world = world_size
+        self.group = group
 
     def __call__(self, grads: Any) -> Any:
         import torch.distributed as dist
@@ -291,7 +299,7 @@ class LeafSync:
             g = leaves[i]
             if is_known_zeros(g):
                 continue
-            dist.all_reduce(g, op=dist.ReduceOp.SUM)
+            dist.all_reduce(g, op=dist.ReduceOp.SUM, group=self.group)
             out[i] = g.div_(self.world)
         return tree_unflatten(grads, out)
 

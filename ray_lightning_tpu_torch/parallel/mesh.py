@@ -7,12 +7,17 @@ collectives are compiled into the step.  The port runs one process per
 rank and one card per process, joined by one ``torch.distributed``
 process group (:func:`bootstrap_distributed`, an explicit backend and
 timeout), and keeps the mesh as a record of the rank layout
-(:class:`RankLayout`: rank r at device r's place in the JAX mesh).  Only
-the batch-parallel axes that the JAX ``sharding.data_axes`` reads
-(``data``, ``fsdp``) are taken; any other axis (``tensor``, ``sp``, ...)
-raises, naming ROADMAP Queue 1 item 3.  ZeRO over a ``data`` x ``fsdp``
-mesh shards over each ``fsdp`` group and replicates along ``data``
-(:func:`zero_groups`, ``torch.distributed`` subgroups).
+(:class:`RankLayout`: rank r at device r's place in the JAX mesh).  The
+batch shards over the batch-parallel axes that the JAX
+``sharding.data_axes`` reads (``data``, ``fsdp``): a rank's rows are given
+by its data coordinate (:meth:`RankLayout.data_coord`).  The model axes
+(``sp``, ``tensor``, ``expert``) see the same rows, as under the JAX
+package's GSPMD: ``sp`` cuts the sequence, ``tensor`` and ``expert`` the
+weights (``parallel/model_parallel.py``, one ``torch.distributed``
+subgroup an axis, :func:`model_groups`).  ``pipe`` raises, naming ROADMAP
+Queue 1 item 4 (the MPMD plane).  ZeRO shards over the ZeRO axis's group
+among the ranks with the same model coordinates and replicates along the
+other batch axes and ``sp`` (:func:`zero_groups`).
 """
 
 from __future__ import annotations
@@ -22,11 +27,17 @@ import datetime
 from typing import Any, Dict, Optional, Tuple
 
 __all__ = ["bootstrap_distributed", "MeshSpec",
-           "RankLayout", "build_mesh", "BATCH_AXES", "DistContext",
-           "zero_groups"]
+           "RankLayout", "build_mesh", "BATCH_AXES", "MODEL_AXES",
+           "REPLICA_AXES", "DistContext", "zero_groups", "model_groups"]
 
 # The mesh axes a batch shards over (JAX ``sharding.data_axes``).
 BATCH_AXES = ("data", "fsdp")
+# The model-parallel axes: the sequence (ring attention), the Megatron
+# weight split and the experts.
+MODEL_AXES = ("sp", "tensor", "expert")
+# The axes whose ranks hold the same slice of every weight (a gradient is
+# a partial over each's rows): the batch axes and the sequence axis.
+REPLICA_AXES = BATCH_AXES + ("sp",)
 
 
 def bootstrap_distributed(coordinator: str, world_size: int, rank: int,
@@ -117,6 +128,25 @@ class RankLayout:
             rank = rank * self.sizes[name] + coords[name]
         return rank
 
+    def data_coord(self, rank: int) -> Tuple[int, int]:
+        """``(index, count)`` of rank ``rank``'s batch rows: its place
+        row-major over the batch axes in their order (the JAX
+        ``P(data_axes)`` batch sharding), so the ranks along the model
+        axes share their rows."""
+        c = self.coords(rank)
+        index, count = 0, 1
+        for name in self.axis_names:
+            if name in BATCH_AXES:
+                index = index * self.sizes[name] + c[name]
+                count *= self.sizes[name]
+        return index, count
+
+    @property
+    def model_axes(self) -> Tuple[str, ...]:
+        """The model axes of the mesh with more than one rank."""
+        return tuple(a for a in self.axis_names
+                     if a in MODEL_AXES and self.sizes[a] > 1)
+
     @property
     def zero_axis(self) -> str:
         """The axis ZeRO shards the state over (the JAX
@@ -148,16 +178,21 @@ def _product(ranges) -> list:
 
 
 def build_mesh(spec: Optional[MeshSpec], world_size: int) -> RankLayout:
-    """The rank layout of ``spec`` over ``world_size`` ranks.  Axes other
-    than ``data`` and ``fsdp`` raise (model parallelism is ROADMAP Queue 1
-    item 3)."""
+    """The rank layout of ``spec`` over ``world_size`` ranks: the batch
+    axes and the model axes.  ``pipe`` raises (pipeline parallelism runs
+    on the MPMD plane, ROADMAP Queue 1 item 4), as does an unknown axis."""
     spec = spec or MeshSpec()
-    other = [a for a in spec.axis_names if a not in BATCH_AXES]
-    if other:
+    if "pipe" in spec.axis_names:
         raise NotImplementedError(
-            f"mesh axes {other} are not ported: the port's strategies "
-            f"shard the batch over {BATCH_AXES} only (tensor, sequence and "
-            f"pipeline parallelism are ROADMAP Queue 1 item 3)")
+            "mesh axis 'pipe' is not ported: pipeline parallelism "
+            "(pipeline_apply, pipelined_scan) comes with the MPMD plane, "
+            "ROADMAP Queue 1 item 4")
+    other = [a for a in spec.axis_names
+             if a not in BATCH_AXES + MODEL_AXES]
+    if other:
+        raise ValueError(
+            f"unknown mesh axes {other}: the port takes {BATCH_AXES} "
+            f"(batch) and {MODEL_AXES} (model)")
     return RankLayout(spec.resolve(world_size))
 
 
@@ -166,11 +201,13 @@ def zero_groups(dist: Any) -> Dict[str, Any]:
     :class:`DistContext`; ``sharding.ZeroPlan``): the state sharded over
     the ranks along the ZeRO axis (``RankLayout.zero_axis``).  Where that
     axis spans every rank (or ``dist`` carries no layout: one ``data``
-    axis), over the default group; on a ``data`` x ``fsdp`` mesh over the
-    rank's ``fsdp`` group, replicated across its ``data`` group.  The
-    subgroups are made here by every rank, every one in the same order
-    (``torch.distributed.new_group`` is a collective of the default
-    group): a collective."""
+    axis), over the default group; else over the rank's group along the
+    ZeRO axis, replicated across its group along the other batch axes and
+    ``sp`` (on a ``data`` x ``fsdp`` mesh its ``data`` group).  The ranks
+    along ``tensor`` and ``expert`` hold other slices of the weights and
+    sit in neither.  The subgroups are made here by every rank, every one
+    in the same order (``torch.distributed.new_group`` is a collective of
+    the default group): a collective."""
     layout = getattr(dist, "layout", None)
     if layout is None or layout.sizes[layout.zero_axis] == layout.world_size:
         return {"rank": dist.rank, "world_size": dist.world_size}
@@ -178,16 +215,50 @@ def zero_groups(dist: Any) -> Dict[str, Any]:
 
     axis = layout.zero_axis
     size = layout.sizes[axis]
-    others = tuple(a for a in layout.axis_names if a != axis)
+    others = tuple(a for a in layout.axis_names
+                   if a != axis and a in REPLICA_AXES)
     mine = {}
     for key, axes in (("group", (axis,)), ("data_group", others)):
         for members in layout.groups_along(axes):
             g = tdist.new_group(members)
             if dist.rank in members:
                 mine[key] = g
+    replicas = 1
+    for a in others:
+        replicas *= layout.sizes[a]
     return {"rank": layout.coords(dist.rank)[axis], "world_size": size,
-            "group": mine["group"], "replicas": layout.world_size // size,
-            "data_group": mine["data_group"]}
+            "group": mine["group"], "replicas": replicas,
+            "data_group": mine["data_group"] if replicas > 1 else None}
+
+
+def model_groups(layout: RankLayout, rank: int) -> Any:
+    """Rank ``rank``'s :class:`model_parallel.ModelParallel`: its data
+    coordinate and one subgroup for each of ``sp``, ``tensor``,
+    ``expert``, ``expert`` x ``tensor`` (MoE's reduction) and the
+    replica axes (:data:`REPLICA_AXES`: the gradient sync and the logs'
+    mean).  Every rank makes every group, in this order (a collective of
+    the default group); an axis the mesh lacks gives a group of one."""
+    import torch.distributed as tdist
+
+    from ray_lightning_tpu_torch.parallel.model_parallel import (
+        AxisGroup, ModelParallel,
+    )
+
+    def make(axes):
+        axes = tuple(a for a in axes if a in layout.sizes)
+        mine = None
+        for members in layout.groups_along(axes):
+            g = tdist.new_group(members) if len(members) > 1 else None
+            if rank in members:
+                mine = AxisGroup(g, members.index(rank), len(members),
+                                 tuple(members))
+        return mine
+
+    index, count = layout.data_coord(rank)
+    return ModelParallel(
+        sp=make(("sp",)), tensor=make(("tensor",)), expert=make(("expert",)),
+        expert_tensor=make(("expert", "tensor")), replica=make(REPLICA_AXES),
+        data_index=index, data_count=count)
 
 
 class DistContext:
@@ -204,6 +275,16 @@ class DistContext:
         self.device = device
         self.backend = backend
         self.layout = layout or RankLayout({"data": world_size})
+        # The model-parallel groups (``model_groups``), made by
+        # :meth:`setup_model_groups` where the layout has a model axis.
+        self.mp: Any = None
+
+    def setup_model_groups(self) -> None:
+        """Make the rank's model-parallel groups where the layout has a
+        model axis (a collective: every rank calls it at the same
+        point)."""
+        if self.layout.model_axes and self.mp is None:
+            self.mp = model_groups(self.layout, self.rank)
 
     def mean_logs(self, logs: Dict[str, Any]) -> Dict[str, Any]:
         """Each log's mean over the ranks (one all-reduce of the logs
@@ -211,7 +292,9 @@ class DistContext:
         over the global batch logs where the log is a mean over the rows,
         each rank's being the mean of its equal share of them.  A log that
         is not (``val_ppl``) is derived again from the means by the
-        caller (``TrainModule.derive_logs``)."""
+        caller (``TrainModule.derive_logs``).  With model axes the mean
+        runs over the rank's replica group (the batch axes and ``sp``:
+        the ranks along ``tensor`` and ``expert`` log the same values)."""
         import torch
         import torch.distributed as dist
 
@@ -221,8 +304,15 @@ class DistContext:
         vals = [torch.as_tensor(logs[k]) for k in keys]
         flat = torch.cat([v.detach().float().reshape(-1).to(self.device)
                           for v in vals])
-        dist.all_reduce(flat, op=dist.ReduceOp.SUM)
-        flat = flat / self.world_size
+        if self.mp is None:
+            n = self.world_size
+            dist.all_reduce(flat, op=dist.ReduceOp.SUM)
+        else:
+            n = self.mp.replica.size
+            if n > 1:
+                dist.all_reduce(flat, op=dist.ReduceOp.SUM,
+                                group=self.mp.replica.group)
+        flat = flat / n
         out, pos = {}, 0
         for k, v in zip(keys, vals):
             n = v.numel()

@@ -48,6 +48,15 @@ gradient, param and moments is one range.  On a ``data`` x ``fsdp`` mesh
 the plan shards over the rank's ``fsdp`` group (``mesh.zero_groups``).
 The JAX ``make_global_batch`` has no counterpart: each rank's loader
 yields its own rows (``core.data.NumpyLoader.set_shard``).
+
+Under model axes (``tensor``, ``expert``) a rank's leaves are already its
+slices of the global arrays (:class:`ModelPlan`, by the module's
+``param_partition_specs``), and ZeRO shards those local leaves over the
+ZeRO axis among the ranks with the same model coordinates
+(``mesh.zero_groups``).  The clip's global norm then sums each sharded
+leaf's squares over the group it is sharded over and counts each
+replicated leaf once (:meth:`ModelPlan.reduce_sums`, which the ZeRO
+plan's :meth:`ZeroPlan.norm_sq` applies too).
 """
 
 from __future__ import annotations
@@ -66,7 +75,7 @@ from ray_lightning_tpu_torch.ops.optim_quant import (
 )
 
 __all__ = ["MIN_LEAF_SIZE", "shard_leaf_spec", "leaves_with_paths",
-           "has_quantized", "ZeroPlan"]
+           "has_quantized", "ZeroPlan", "ModelPlan"]
 
 MIN_LEAF_SIZE = 2 ** 12
 
@@ -176,7 +185,9 @@ class ZeroPlan:
 
     def __init__(self, params: Any, stage: int, rank: int, world_size: int,
                  min_leaf_size: int = MIN_LEAF_SIZE, group: Any = None,
-                 replicas: int = 1, data_group: Any = None):
+                 replicas: int = 1, data_group: Any = None,
+                 model: Optional["ModelPlan"] = None,
+                 replica_group: Any = None):
         if stage not in (1, 3):
             raise ValueError(f"zero stage must be 1 or 3, got {stage}")
         self.stage = stage
@@ -185,6 +196,11 @@ class ZeroPlan:
         self.group = group
         self.replicas = replicas
         self.data_group = data_group
+        self.model = model
+        # The group the unsharded leaves' gradients are averaged over: the
+        # ZeRO group with its replicas (None: every rank; under model axes
+        # the rank's replica group).
+        self.replica_group = replica_group
         pairs = list(leaves_with_paths(params))
         self.paths = [p for p, _ in pairs]
         self.full_shapes = [tuple(t.shape) for _, t in pairs]
@@ -479,7 +495,8 @@ class ZeroPlan:
                 out[i] = s
         if repl:
             synced = sync_leaf_buckets([leaves[i] for i in repl],
-                                       repl_buckets, total)
+                                       repl_buckets, total,
+                                       self.replica_group)
             for i, g in zip(repl, synced):
                 out[i] = g
         return tree_unflatten(grads, out)
@@ -501,8 +518,10 @@ class ZeroPlan:
         """The clip's squared global norm over an update tree of slices
         (the ``norm_sq`` a ZeRO step hands ``models.optim``'s
         transformations): each leaf's sum of squares in order, the
-        sharded leaves' summed over the group by one all-reduce, then
-        added up in leaf order as the one-device clip adds them."""
+        sharded leaves' summed over the group by one all-reduce (and under
+        model axes over the leaf's model group, :meth:`ModelPlan.
+        reduce_sums`), then added up in leaf order as the one-device clip
+        adds them."""
         import torch.distributed as dist
 
         self._check_len(leaves, "update tree")
@@ -515,6 +534,8 @@ class ZeroPlan:
             dist.all_reduce(stacked, op=dist.ReduceOp.SUM, group=self.group)
             for i, v in zip(shard_idx, stacked.unbind()):
                 sums[i] = v
+        if self.model is not None:
+            sums = self.model.reduce_sums(sums)
         return sum(s for s in sums if s is not None)
 
     # -- optimizer state ----------------------------------------------------
@@ -599,3 +620,136 @@ class ZeroPlan:
                 f"params have {len(self.dims)}; a transformation that "
                 f"reshapes the tree before the clip is not supported under "
                 f"RayShardedStrategy")
+
+
+class ModelPlan:
+    """The model-parallel layout of a params tree on one rank: each leaf's
+    partition spec (``GPT.param_partition_specs``, a tuple of axis names
+    or None), its global and local shapes, and the group its squares are
+    summed over in the clip's norm (the rank's group over the ``tensor``
+    and ``expert`` axes its spec names; None for a replicated leaf).
+    ``mp`` is the rank's ``parallel.model_parallel.ModelParallel``.
+
+    :meth:`shard` and :meth:`gather` cut a params-shaped tree to the
+    rank's slices and put it back (``models/convert.py::shard_leaf``,
+    ``gather_leaf``); :meth:`gather_opt_state` does the same for the
+    optimizer moments, matched to their param by key-path suffix and
+    shape, as ``ZeroPlan`` matches them."""
+
+    def __init__(self, params: Any, specs: Any, mp: Any):
+        from ray_lightning_tpu_torch.models.convert import (
+            HEAD_ALIGNED, shard_leaf, spec_of,
+        )
+
+        self.mp = mp
+        pairs = list(leaves_with_paths(params))
+        self.paths = [p for p, _ in pairs]
+        self.specs = [spec_of(specs, p) for p in self.paths]
+        self.head = [p[-1] in HEAD_ALIGNED for p in self.paths]
+        self.full_shapes = [tuple(t.shape) for _, t in pairs]
+        self.local_shapes = [tuple(shard_leaf(
+            torch.empty(shape, device="meta"), spec, mp, ha).shape)
+            for shape, spec, ha in zip(self.full_shapes, self.specs,
+                                       self.head)]
+        self.norm_groups = [self._norm_group(spec) for spec in self.specs]
+        self._by_path = {p: i for i, p in enumerate(self.paths)}
+
+    def _norm_group(self, spec: Tuple) -> Any:
+        axes = {a for a in spec if a in ("tensor", "expert")
+                and self.mp.axis(a).size > 1}
+        if axes == {"tensor", "expert"}:
+            return self.mp.expert_tensor
+        return self.mp.axis(axes.pop()) if axes else None
+
+    def shard(self, tree: Any) -> Any:
+        """This rank's slices of a full params-shaped tree."""
+        from ray_lightning_tpu_torch.models.convert import shard_leaf
+
+        leaves = tree_leaves(tree)
+        return tree_unflatten(tree, [
+            shard_leaf(t, spec, self.mp, ha)
+            for t, spec, ha in zip(leaves, self.specs, self.head)])
+
+    def gather(self, tree: Any) -> Any:
+        """The full tree from every rank's slices (a collective)."""
+        from ray_lightning_tpu_torch.models.convert import gather_leaf
+
+        leaves = tree_leaves(tree)
+        return tree_unflatten(tree, [
+            gather_leaf(t, spec, self.mp, ha)
+            for t, spec, ha in zip(leaves, self.specs, self.head)])
+
+    def _param_of(self, path: Tuple, shape: Tuple,
+                  shapes: List[Tuple]) -> Optional[int]:
+        """The param whose key path ``path`` ends with, of ``shape`` in
+        ``shapes`` (the local or the global shapes)."""
+        for k in range(len(path)):
+            i = self._by_path.get(path[k:])
+            if i is not None and shapes[i] == tuple(shape):
+                return i
+        return None
+
+    def gather_opt_state(self, opt_state: Any) -> Any:
+        """The optimizer state with each moment of a sharded param
+        gathered to its global shape (a collective)."""
+        from ray_lightning_tpu_torch.models.convert import gather_leaf
+
+        if has_quantized(opt_state):
+            raise NotImplementedError(
+                "int8 optimizer moments under model axes are not ported "
+                "(ROADMAP Queue 1 item 3)")
+        out = []
+        for path, leaf in leaves_with_paths(opt_state):
+            i = self._param_of(path, tuple(getattr(leaf, "shape", ())),
+                               self.local_shapes)
+            out.append(leaf if i is None or self.local_shapes[i]
+                       == self.full_shapes[i] else gather_leaf(
+                           leaf, self.specs[i], self.mp, self.head[i]))
+        return tree_unflatten(opt_state, out)
+
+    def shard_opt_state(self, opt_state: Any) -> Any:
+        """This rank's slices of a global optimizer state (a resumed
+        one): each moment of a sharded param cut as its param."""
+        from ray_lightning_tpu_torch.models.convert import shard_leaf
+
+        if has_quantized(opt_state):
+            raise NotImplementedError(
+                "int8 optimizer moments under model axes are not ported "
+                "(ROADMAP Queue 1 item 3)")
+        out = []
+        for path, leaf in leaves_with_paths(opt_state):
+            i = self._param_of(path, tuple(getattr(leaf, "shape", ())),
+                               self.full_shapes)
+            out.append(leaf if i is None else shard_leaf(
+                leaf, self.specs[i], self.mp, self.head[i]))
+        return tree_unflatten(opt_state, out)
+
+    def reduce_sums(self, sums: List[Optional[torch.Tensor]]
+                    ) -> List[Optional[torch.Tensor]]:
+        """Each leaf's sum of squares summed over its model group (one
+        all-reduce a group, of the stacked sums of its leaves); the
+        replicated leaves' left as they are, counted once."""
+        import torch.distributed as dist
+
+        out = list(sums)
+        groups: dict = {}
+        for i, g in enumerate(self.norm_groups):
+            if g is not None and out[i] is not None:
+                groups.setdefault(g.ranks, (g, []))[1].append(i)
+        for g, idx in groups.values():
+            stacked = torch.stack([out[i] for i in idx])
+            dist.all_reduce(stacked, op=dist.ReduceOp.SUM, group=g.group)
+            for i, v in zip(idx, stacked.unbind()):
+                out[i] = v
+        return out
+
+    def norm_sq(self, leaves: List[torch.Tensor]) -> torch.Tensor:
+        """The clip's squared global norm over a tree of this rank's
+        slices (every leaf a whole slice: no ZeRO)."""
+        if len(leaves) != len(self.specs):
+            raise ValueError(
+                f"model plan: the update tree has {len(leaves)} leaves "
+                f"where the params have {len(self.specs)}")
+        sums = [None if is_known_zeros(t) else torch.sum(t * t)
+                for t in leaves]
+        return sum(s for s in self.reduce_sums(sums) if s is not None)

@@ -81,13 +81,14 @@ def single_device_step(module: TrainModule, tx
     return step
 
 
-def accum_flush(state: TrainState, inner_tx) -> TrainState:
+def accum_flush(state: TrainState, inner_tx, norm_sq=None) -> TrainState:
     """The partial-window flush (the JAX loop's ``_build_accum_flush``):
     one optimizer update from the running mean of the window's
-    micro-gradients."""
+    micro-gradients (``norm_sq``: the clip's norm over a model-parallel
+    rank's slices, ``sharding.ModelPlan.norm_sq``)."""
     with torch.no_grad():
         updates, opt_state = multi_steps_flush(inner_tx, state.opt_state,
-                                               state.params)
+                                               state.params, norm_sq=norm_sq)
         return TrainState(apply_updates(state.params, updates), opt_state,
                           state.step + 1, state.grad_residual)
 
@@ -125,10 +126,15 @@ class DistributedStep:
     under accumulation is synced, as the JAX island syncs each one.
 
     :meth:`flush` is the partial accumulation window's update
-    (:func:`accum_flush`) under the same rule."""
+    (:func:`accum_flush`) under the same rule.
+
+    Under model axes (``model_plan``, a ``sharding.ModelPlan``) the state
+    holds the rank's slices of the weights, the sync runs over the rank's
+    replica group and the clip's norm is the plan's (each sharded leaf's
+    squares summed over its model group, each replicated leaf once)."""
 
     def __init__(self, module: TrainModule, tx, dist, sync=None,
-                 zero_plan=None):
+                 zero_plan=None, model_plan=None):
         if sync is None and zero_plan is None:
             raise ValueError("a DistributedStep takes a gradient sync, a "
                              "ZeRO plan or both")
@@ -137,6 +143,7 @@ class DistributedStep:
         self.dist = dist
         self.sync = sync
         self.plan = zero_plan
+        self._norm_sq = None if model_plan is None else model_plan.norm_sq
         self._wire = hasattr(sync, "step")
         self._wire_bytes = (float(sync.bytes_per_step) if self._wire
                             else None)
@@ -168,7 +175,15 @@ class DistributedStep:
                     device=tree_leaves(params)[0].device)
             logs["grad_sync_bytes"] = self._wire_bytes_t.clone()
         if self.plan is None:
-            new = state.apply_gradients(grads, self.tx)
+            if self._norm_sq is None:
+                new = state.apply_gradients(grads, self.tx)
+            else:
+                with torch.no_grad():
+                    updates, opt_state = self.tx.update(
+                        grads, state.opt_state, state.params,
+                        norm_sq=self._norm_sq)
+                    new = TrainState(apply_updates(state.params, updates),
+                                     opt_state, state.step + 1)
             new.grad_residual = resid
             return new, logs
         gshards = (self.plan.reduce_scatter_grads(grads) if self.sync is None
@@ -182,7 +197,7 @@ class DistributedStep:
 
     def flush(self, state: TrainState, inner_tx) -> TrainState:
         if self.plan is None:
-            return accum_flush(state, inner_tx)
+            return accum_flush(state, inner_tx, self._norm_sq)
         new = self._sharded_update(
             state, lambda opt, pview, norm_sq: multi_steps_flush(
                 inner_tx, opt, pview, norm_sq=norm_sq))
@@ -213,9 +228,15 @@ class DistributedStep:
         return TrainState(new, opt_state, state.step + 1)
 
 
+def _unsynced(grads: Any) -> Any:
+    """The gradient sync of a rank whose replica group is itself."""
+    return grads
+
+
 def build_dist_step(module: TrainModule, tx, dist, params: Any, mode: str,
                     zero_stage: int, grad_sync=None,
-                    shard_update: bool = False) -> DistributedStep:
+                    shard_update: bool = False,
+                    model_plan=None) -> DistributedStep:
     """The flavor's :class:`DistributedStep`: under ZeRO (``zero_stage``
     1 or 3) and for the sharded weight update (``shard_update``, as
     stage 1) a ``ZeroPlan`` of ``params``, its gradients reduce-scattered
@@ -224,18 +245,35 @@ def build_dist_step(module: TrainModule, tx, dist, params: Any, mode: str,
     full-width one (bucketed for ``"gspmd"``, a leaf at a time for
     ``"shard_map"``).  The sharded update at full width is ZeRO-1's
     step: the JAX package's GSPMD likewise turns its all-reduce into a
-    reduce-scatter."""
+    reduce-scatter.  Under model axes (``model_plan``; ``params`` the
+    rank's slices) the full-width sync runs over the rank's replica group
+    and ZeRO over its ZeRO group among the ranks with the same model
+    coordinates."""
     from ray_lightning_tpu_torch.parallel.grad_sync import BucketSync, LeafSync
     from ray_lightning_tpu_torch.parallel.mesh import zero_groups
     from ray_lightning_tpu_torch.parallel.sharding import ZeroPlan
 
+    mp = dist.mp if model_plan is not None else None
     if zero_stage >= 1 or shard_update:
+        extra = {} if mp is None else dict(model=model_plan,
+                                           replica_group=mp.replica.group)
         return DistributedStep(module, tx, dist, sync=grad_sync,
                                zero_plan=ZeroPlan(params, zero_stage or 1,
-                                                  **zero_groups(dist)))
-    sync = grad_sync or (BucketSync(dist.world_size) if mode == "gspmd"
-                         else LeafSync(dist.world_size))
-    return DistributedStep(module, tx, dist, sync=sync)
+                                                  **zero_groups(dist),
+                                                  **extra),
+                               model_plan=model_plan)
+    n, group = ((dist.world_size, None) if mp is None
+                else (mp.replica.size, mp.replica.group))
+    if mp is not None and n == 1:
+        # A mesh of model axes only: no other rank holds this rank's
+        # slices, and a group of one has no handle (None would be every
+        # rank), so the gradients go to the update as they are.
+        sync = grad_sync or _unsynced
+    else:
+        sync = grad_sync or (BucketSync(n, group=group) if mode == "gspmd"
+                             else LeafSync(n, group=group))
+    return DistributedStep(module, tx, dist, sync=sync,
+                           model_plan=model_plan)
 
 
 def build_eval_step(module: TrainModule, kind: str = "validation"

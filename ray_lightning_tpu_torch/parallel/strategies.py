@@ -49,6 +49,22 @@ spending the budget, stopped by a flap guard) and grows back at a
 restart; a resume at another world re-derives the accumulation factor.
 ``restarts_used``, ``resizes_used`` and ``recovery_events`` record it.
 
+Model axes (``mesh_axes`` with ``sp``, ``tensor`` or ``expert``; the
+JAX package trains them through the same ``Trainer.fit``): the workers
+make their model groups (``mesh.model_groups``) and each rank holds its
+slices of the weights, its batch rows by its data coordinate and, under
+``sp``, its sequence rows (``core/loop.py``; ``parallel/
+model_parallel.py``).  Refused, each naming its ROADMAP item: before any
+worker runs (:func:`check_model_axes`), ``sp`` without
+``attn_impl="ring"`` (JAX's GSPMD would gather K/V; the port does not),
+MoE together with ``sp`` (routing positions would cross ranks), LoRA or
+int8 moments under a model axis, and ZeRO on a mesh with no ``data`` or
+``fsdp`` axis; on every rank, by the loop's resolvers, megastep K > 1,
+the int8 wire, the overlapped sync and the sharded update there, and
+``RLTSHRD2`` restart checkpoints (``restart_dir``, ``max_restarts``) of
+a model-parallel layout (a ``RemoteError`` on the driver).  The ``RLTCKPT1`` checkpoint of such a fit
+holds the gathered global arrays.
+
 Departures, each raising rather than ignoring: ``backend`` names the
 process group's backend ("nccl", the default for card workers, or
 "gloo", the default for CPU workers; the strategy never switches on its
@@ -191,6 +207,7 @@ def _execute_remote(task_ref, global_rank: int, queue_handle
         layout = build_mesh(MeshSpec(task["mesh_axes"]), world)
         dist = DistContext(global_rank, world, device, task["backend"],
                            layout)
+        dist.setup_model_groups()
         session_mod.get_session().mesh = layout
         module = task["module"]
         _place_module(module, device)
@@ -213,6 +230,13 @@ def _execute_remote(task_ref, global_rank: int, queue_handle
             raise ValueError(f"Unknown stage kind {kind!r}")
         torch_dist.destroy_process_group()
         return out
+    except NotImplementedError:
+        # A refusal (the loop's, under model axes): every rank raises it
+        # at the same point, with no collective in flight, and leaves the
+        # group, so the worker can take the next stage.
+        if torch_dist.is_initialized():
+            torch_dist.destroy_process_group()
+        raise
     finally:
         session_mod.shutdown_session()
 
@@ -461,6 +485,8 @@ class TpuStrategy:
         if not self._workers:
             raise RuntimeError("setup() must run first")
         config = _fill_config(config, self)
+        if kind == "fit":
+            check_model_axes(module, self)
         elastic = self.max_restarts > 0 and kind == "fit"
         if elastic and config.restart_every_n_epochs is None:
             config = dataclasses.replace(
@@ -739,6 +765,43 @@ class TpuStrategy:
     def get_worker_device_info(self) -> List[Dict[str, Any]]:
         """Each worker's devices, as its own process sees them."""
         return [w.get_device_info() for w in self._workers]
+
+
+def check_model_axes(module: Any, strategy: Any) -> None:
+    """Raise, before any worker runs, for a model or a mesh under
+    ``strategy``'s model axes that the port does not run, naming its
+    ROADMAP item (Queue 1 item 3's leftovers).  The fit's knobs under
+    model axes (megastep, the gradient wire, the sharded update,
+    ``RLTSHRD2`` restarts) are refused by the loop's resolvers that decide
+    them, on every rank (``core/loop.py``)."""
+    layout = build_mesh(MeshSpec(strategy.mesh_axes), strategy.world_size)
+    model = layout.model_axes
+    if not model:
+        return
+    cfg = getattr(module, "config", None)
+
+    def refuse(what: str) -> None:
+        raise NotImplementedError(
+            f"{what} under the model axes of mesh {layout.sizes} is not "
+            f"ported (ROADMAP Queue 1 item 3)")
+
+    if "sp" in model and getattr(module, "attn_impl", None) != "ring":
+        refuse(f"an 'sp' axis with attn_impl="
+               f"{getattr(module, 'attn_impl', None)!r} (the JAX package's "
+               f"GSPMD gathers K/V over 'sp'; the port cuts the sequence "
+               f"for ring attention only: pass attn_impl='ring')")
+    if "sp" in model and getattr(cfg, "n_experts", 0) > 0:
+        refuse("MoE together with 'sp' (routing positions would cross "
+               "ranks)")
+    if getattr(cfg, "lora_rank", 0) > 0:
+        refuse("LoRA")
+    if getattr(cfg, "opt_state_dtype", None) == "int8":
+        refuse("opt_state_dtype='int8'")
+    if strategy.zero_stage and not any(a in layout.sizes
+                                       for a in ("data", "fsdp")):
+        raise ValueError(
+            f"ZeRO shards over a 'data' or 'fsdp' axis; mesh "
+            f"{layout.sizes} has neither")
 
 
 def _resume_config(config: FitConfig, resume: Optional[str]) -> FitConfig:

@@ -46,7 +46,9 @@ from ray_lightning_tpu_torch.device import resolve_device
 from ray_lightning_tpu_torch.models.generate import (
     _embed, _head_logits, _layer, _trunk_blocks,
 )
-from ray_lightning_tpu_torch.models.gpt import GPTConfig, _mlp_residual
+from ray_lightning_tpu_torch.models.gpt import (
+    GPTConfig, _mlp_residual, _moe_residual,
+)
 from ray_lightning_tpu_torch.models.quant import (
     dequantize_decode_params, is_quantized,
 )
@@ -705,7 +707,11 @@ def paged_verify_step(
         ).reshape(W, T, d).to(c)
         proj = att @ p["proj_w"] + p["proj_b"]
         proj = apply_lora(proj, att, ad, "proj", adapter_ids, lora_impl)
-        x = _mlp_residual(x + proj, p, c)
+        if cfg.n_experts > 0:
+            # The routed MLP with one group, as the JAX paged step runs it.
+            x = _moe_residual(x + proj, p, cfg, groups=1)[0]
+        else:
+            x = _mlp_residual(x + proj, p, c)
     if head_at is not None:
         x = x[:, head_at]
     return _head_logits(params, x, c), pool

@@ -482,3 +482,51 @@ def test_step_split_books_each_part_once():
     assert helpers.split_step(rec) == {
         "grads": 30.0, "collectives": 34.0, "update": 17.0, "copies": 4.0,
         "gaps": 100.0 - 30.0 - 2.0 - 38.0 - 17.0, "mean_logs": 2.0}
+
+
+def test_model_faults_apply_once_and_name_phase19_arms(scripts):
+    """Step 17 writes each fault into a copy of the port: each of its
+    texts occurs once in the checkout's file, and the arm it names is
+    phase 19's."""
+    cf = scripts[0]
+    import chip_smoke
+
+    assert len(cf.MODEL_FAULTS) == 5
+    assert {arm for *_, arm in cf.MODEL_FAULTS.values()} == set(
+        chip_smoke.P19_ARMS)
+    for name, (path, subs, arm) in cf.MODEL_FAULTS.items():
+        text = (ROOT / "ray_lightning_tpu_torch" / path).read_text()
+        for old, new in subs:
+            assert text.count(old) == 1 and old != new, name
+
+
+def test_phase19_rehearses_on_the_cpu(monkeypatch, capsys):
+    """Phase 19's arms on CPU workers at a narrow width and a short ring
+    (the one-rank arm of (c) on a CPU rank over gloo): its checks pass,
+    its last line is the result the main script reads."""
+    import json
+
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    from ray_lightning_tpu_torch.models.gpt import GPTConfig
+
+    monkeypatch.setattr(chip_smoke, "card_line", lambda: "cpu")
+    cfg = GPTConfig(vocab_size=256, n_layer=2, n_head=4, d_model=64,
+                    seq_len=32, warmup_steps=1)
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        assert chip_smoke.phase19_main(device="cpu", cfg=cfg,
+                                       ring_t=64) == 0
+    finally:
+        torch.set_num_threads(n)
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert set(out) >= {"a", "b", "c", "d", "wall_s", "spawn_s"}
+    assert out["a"]["zigzag"]["route"] == "gloo"
+    assert out["c"]["nccl"]["bitwise"] and out["c"]["decode"]["equal"]
+    assert all(h == 2 for h in out["b"]["p19_tp_data_tensor"]["heads"]
+               .values())
+    with pytest.raises(RuntimeError, match="phase 19 arms"):
+        chip_smoke.phase19_main(("z_nothing",), device="cpu")

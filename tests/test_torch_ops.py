@@ -187,9 +187,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     loaded already, so the check runs in a subprocess), and checkpoints
     (the default, an int8 and a LoRA state) round-trip there with jax,
     msgpack, ml_dtypes and cloudpickle blocked; so does an adapter frame
-    of the queue plane, and a two-rank fit of ``RayStrategy`` on the CPU
-    over gloo, whose worker processes load neither jax nor the JAX
-    package either (a callback of theirs lists what they loaded)."""
+    of the queue plane, and a two-rank tensor-parallel fit of
+    ``RayStrategy`` on the CPU over gloo, whose worker processes load
+    neither jax nor the JAX package either (a callback of theirs lists
+    what they loaded)."""
     import ray_lightning_tpu_torch
 
     names = sorted(
@@ -210,7 +211,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "serve.dist.router", "session", "util", "cluster.actor",
                 "cluster.backend", "parallel.env_bus", "parallel.mesh",
                 "parallel.sharding", "parallel.grad_sync",
-                "telemetry.aggregate"):
+                "telemetry.aggregate", "parallel.model_parallel",
+                "ops.ring_attention", "ops.moe"):
         assert "ray_lightning_tpu_torch." + new in names, new
     code = textwrap.dedent(f"""
         import importlib, os, sys, tempfile
@@ -277,7 +279,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         r = router.Router(lost_after_s=60.0)
         assert r.snapshot()["counters"]["routed"] == 0
         r.stop()
-        # A two-rank fit; the workers report the modules they loaded.
+        # A two-rank fit, tensor-parallel; the workers report the modules
+        # they loaded.
         probe_dir = tempfile.mkdtemp()
         with open(os.path.join(probe_dir, "no_jax_probe.py"), "w") as f:
             f.write(
@@ -299,6 +302,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         cfg = dataclasses.replace(GPTConfig.tiny(), n_layer=1, d_model=32,
                                   n_head=2, vocab_size=64, seq_len=16)
         tr = Trainer(RayStrategy(num_workers=2, device="cpu", timeout_s=60,
+                                 mesh_axes={{"tensor": 2}},
                                  env_per_worker={{"OMP_NUM_THREADS": "1"}}),
                      max_steps=2, limit_val_batches=0,
                      enable_checkpointing=False,

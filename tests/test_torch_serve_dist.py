@@ -465,13 +465,13 @@ class _Rig:
             q.shutdown()
 
 
-def _router_script(rig, world):
+def _router_script(rig, world, t):
     """Hellos, placements (least loaded, prefix affinity, adapters with
     their load frame ahead of the dispatch), typed rejections, done and
     failed beats, a worker death and respawn, a replica death with
-    failover, a migration frame, a closing beat.  Returns the records."""
+    failover, a migration frame, a closing beat, on a clock scripted from
+    ``t``.  Returns the records."""
     rec = []
-    t = 1000.0
     rig.member("decode", "r0", t)
     rig.member("decode", "r1", t)
     rig.member("prefill", "p0", t)
@@ -522,9 +522,19 @@ def _router_script(rig, world):
 
 
 def test_router_script_equals_jax(world):
+    # The script's clock starts at the routers' own (``time.monotonic``),
+    # read once for both packages: a router stamps a member's registration
+    # with that clock, and the worker it respawns says no hello, so its
+    # age at the script's later polls is the script's time less the
+    # clock's.  From a fixed 1000.0 s, a host whose monotonic clock read
+    # under ~900 s (freshly booted) saw the respawned worker 100 s
+    # (``hello_grace_s``) overdue and declared it lost again, in both
+    # packages alike.
+    t = time.monotonic()
     rigs = {pkg: _Rig(pkg) for pkg in ("port", "jax")}
     try:
-        got = {pkg: _router_script(rig, world) for pkg, rig in rigs.items()}
+        got = {pkg: _router_script(rig, world, t)
+               for pkg, rig in rigs.items()}
     finally:
         for rig in rigs.values():
             rig.close()

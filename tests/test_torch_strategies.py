@@ -418,21 +418,29 @@ def test_mesh_spec_resolve_equals_jax(axes, n):
 
 
 def test_mesh_refuses_model_axes_and_two_minus_ones():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        mesh.build_mesh(mesh.MeshSpec({"data": 2, "tensor": 2}), 4)
+    # The model axes are taken (tests/test_torch_model_parallel.py); the
+    # pipeline axis is the MPMD plane's (item 4) and an unknown axis
+    # raises.
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+        mesh.build_mesh(mesh.MeshSpec({"data": 2, "pipe": 2}), 4)
+    with pytest.raises(ValueError, match="unknown mesh axes"):
+        mesh.build_mesh(mesh.MeshSpec({"data": 2, "model": 2}), 4)
     with pytest.raises(ValueError, match="Only one axis"):
         mesh.MeshSpec({"data": -1, "fsdp": -1})
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        RayStrategy(num_workers=2, mesh_axes={"sp": 2}, **WORKER)
-    # ZeRO over a data x fsdp mesh (hybrid sharding) is taken; a model
-    # axis beside it is item 3.
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+        RayStrategy(num_workers=2, mesh_axes={"pipe": 2}, **WORKER)
+    layout = mesh.build_mesh(mesh.MeshSpec({"data": 2, "tensor": 2}), 4)
+    assert layout.model_axes == ("tensor",)
+    # Rank r's rows follow its data coordinate: the tensor ranks share.
+    assert [layout.data_coord(r) for r in range(4)] == [
+        (0, 2), (0, 2), (1, 2), (1, 2)]
     assert RayShardedStrategy(num_workers=4, zero_stage=3,
                               mesh_axes={"data": 2, "fsdp": 2},
                               **WORKER).world_size == 4
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        RayShardedStrategy(num_workers=4, mesh_axes={"fsdp": 2, "tensor": 2},
-                           **WORKER)
-    assert RayStrategy(num_workers=4, mesh_axes={"data": 2, "fsdp": 2},
+    assert RayShardedStrategy(num_workers=4, mesh_axes={"fsdp": 2,
+                                                        "tensor": 2},
+                              **WORKER).world_size == 4
+    assert RayStrategy(num_workers=4, mesh_axes={"data": 2, "sp": 2},
                        **WORKER).world_size == 4
 
 

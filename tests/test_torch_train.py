@@ -361,7 +361,9 @@ def test_entry_points_refuse_what_is_not_ported():
     # The cheap tier is ported; the full tier (spans) is refused.
     with pytest.raises(NotImplementedError, match="telemetry tier 'full'"):
         LocalStrategy(device="cpu", telemetry="full")
-    moe = GPT(dataclasses.replace(GPTConfig.tiny(), n_experts=4),
-              device="cpu")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        moe.forward_hidden(moe.init_params(), torch.zeros(1, 4, dtype=torch.int32))
+    # MoE is ported; ring attention with no 'sp' axis is refused, as the
+    # JAX package refuses it.
+    ring = GPT(GPTConfig.tiny(), device="cpu", attn_impl="ring")
+    with pytest.raises(ValueError, match="needs mesh axis 'sp'"):
+        ring.forward_hidden(ring.init_params(),
+                            torch.zeros(1, 4, dtype=torch.int32))

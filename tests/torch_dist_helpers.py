@@ -178,8 +178,8 @@ class StepProbe(Callback):
     """The rank's ``memory_allocated`` once the state is built and its
     peak over the steps (on a card), each step's wall time (the card
     synchronised at each step's end), its kernel launches (counts set to
-    0 at the fit's start), the per-step losses, the wall-clock times of
-    the fit's start and end, and on one rank the vector leaves of the
+    0 at the fit's start), the per-step losses (and MoE's
+    ``moe_aux_loss``), the wall-clock times of the fit's start and end, and on one rank the vector leaves of the
     initial params (:func:`vector_leaves`); delivered to the driver's
     :data:`RECORDS` under ``label``."""
 
@@ -201,7 +201,7 @@ class StepProbe(Callback):
         _zero_launches()
         self._init = (vector_leaves(trainer.state.params)
                       if trainer.world_size == 1 else {})
-        self._times, self._losses = [], []
+        self._times, self._losses, self._aux = [], [], []
         self._start = time.time()
         self._t = time.perf_counter()
 
@@ -213,6 +213,8 @@ class StepProbe(Callback):
         self._times.append(now - self._t)
         self._t = now
         self._losses.append(float(logs["train_loss"]))
+        if "moe_aux_loss" in logs:
+            self._aux.append(float(logs["moe_aux_loss"]))
 
     def on_fit_end(self, trainer, module) -> None:
         import time
@@ -220,7 +222,7 @@ class StepProbe(Callback):
         from ray_lightning_tpu_torch import session
 
         cuda = trainer.device.type == "cuda"
-        payload = {"setup_bytes": self._setup_bytes,
+        payload = {"setup_bytes": self._setup_bytes, "aux": self._aux,
                    "peak_bytes": (torch.cuda.max_memory_allocated()
                                   if cuda else 0),
                    "step_s": self._times, "losses": self._losses,
@@ -1455,6 +1457,212 @@ class GraphProbe(Callback):
                    "peak_bytes": torch.cuda.max_memory_allocated(),
                    "reserved_bytes": torch.cuda.memory_reserved()}
         if session.is_session_enabled():
+            session.put_queue(functools.partial(
+                record, self.label, trainer.global_rank, payload))
+        else:
+            record(self.label, 0, payload)
+
+
+# -- model parallelism (tests/test_torch_model_parallel.py, ring) ------------
+
+class GradProbe(Callback):
+    """Each rank's gradient of its first step, as the rank's backward
+    leaves it (the gradient of its own loss, before the sync; under
+    ``tensor`` and ``expert`` the copy-in all-reduces already applied), by
+    key path, delivered to :data:`RECORDS` under ``label``.  For the fit's
+    span ``step_fns.loss_and_grads`` is wrapped to keep the first call's
+    result."""
+
+    def __init__(self, label: str):
+        self.label = label
+
+    def on_fit_start(self, trainer, module) -> None:
+        from ray_lightning_tpu_torch.parallel import step_fns
+        from ray_lightning_tpu_torch.parallel.sharding import (
+            leaves_with_paths,
+        )
+
+        self._orig = step_fns.loss_and_grads
+        self._grads = None
+        probe = self
+
+        def kept(*args, **kwargs):
+            grads, logs = probe._orig(*args, **kwargs)
+            if probe._grads is None:
+                probe._grads = {"/".join(map(str, p)):
+                                t.detach().float().cpu().numpy().copy()
+                                for p, t in leaves_with_paths(grads)}
+            return grads, logs
+
+        step_fns.loss_and_grads = kept
+
+    def on_fit_end(self, trainer, module) -> None:
+        from ray_lightning_tpu_torch import session
+        from ray_lightning_tpu_torch.parallel import step_fns
+
+        step_fns.loss_and_grads = self._orig
+        payload = {"grads": self._grads}
+        if session.is_session_enabled():
+            import functools
+
+            session.put_queue(functools.partial(
+                record, self.label, trainer.global_rank, payload))
+        else:
+            record(self.label, 0, payload)
+
+
+def ring_rank(rank: int, world: int, port: int, payload: Dict[str, Any]
+              ) -> Dict[str, Any]:
+    """One CPU rank of the ring checks: joins a gloo group of ``world``
+    ranks, runs ``ring_causal_attention`` on its rows of the payload's
+    (B, S, H, D) ``q``/``k``/``v`` (zig-zag order for that layout) and
+    backpropagates its rows of ``cot``; returns its rows of the output and
+    of dq, dk, dv."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from ray_lightning_tpu_torch.ops.ring_attention import (
+        ring_causal_attention, zigzag_indices,
+    )
+    from ray_lightning_tpu_torch.parallel.model_parallel import AxisGroup
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        layout = payload["layout"]
+        S = payload["q"].shape[1]
+        order = (zigzag_indices(S, world) if layout == "zigzag"
+                 else np.arange(S))
+        s = S // world
+        rows = order[rank * s:(rank + 1) * s]
+        q, k, v = (torch.from_numpy(payload[n][:, rows].copy()
+                                    ).requires_grad_(True)
+                   for n in ("q", "k", "v"))
+        group = AxisGroup(None, rank, world, tuple(range(world)))
+        out = ring_causal_attention(q, k, v, group, layout)
+        out.backward(torch.from_numpy(payload["cot"][:, rows].copy()))
+        return {"rows": rows, "out": out.detach().numpy(),
+                "dq": q.grad.numpy(), "dk": k.grad.numpy(),
+                "dv": v.grad.numpy()}
+    finally:
+        dist.destroy_process_group()
+
+
+def ring_inputs(payload: Dict[str, Any], device) -> List[torch.Tensor]:
+    """``q``, ``k``, ``v`` and the output's cotangent, (B, S, H, D) f32,
+    drawn from ``payload["seed"]`` on the CPU and put on ``device``."""
+    g = torch.Generator().manual_seed(int(payload["seed"]))
+    return [torch.randn(tuple(payload["shape"]), generator=g).to(device)
+            for _ in range(4)]
+
+
+def ring_card_rank(rank: int, world: int, port: int,
+                   payload: Dict[str, Any]) -> Dict[str, Any]:
+    """One gloo rank on the card (``chip_smoke.py`` phase 19 (a); on the
+    CPU where ``payload["device"]`` says so): the ring's forward and input
+    gradients over its rows of :func:`ring_inputs` (on the card the route
+    gloo-host: blocks staged through the host); and the ms of a hop of
+    ``payload["hop_shape"]`` (k and v stacked, bf16) over the route, a
+    median of five after one."""
+    import datetime
+    import time
+
+    import torch.distributed as dist
+
+    from ray_lightning_tpu_torch.ops.ring_attention import (
+        _exchange, hop_route, ring_causal_attention, zigzag_indices,
+    )
+    from ray_lightning_tpu_torch.parallel.model_parallel import AxisGroup
+
+    cuda = payload.get("device", "cuda") == "cuda"
+    device = torch.device("cuda", 0) if cuda else torch.device("cpu")
+    if cuda:
+        torch.cuda.set_device(device)
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        q, k, v, cot = ring_inputs(payload, device)
+        S = q.shape[1]
+        order = (zigzag_indices(S, world) if payload["layout"] == "zigzag"
+                 else np.arange(S))
+        s = S // world
+        rows = torch.as_tensor(order[rank * s:(rank + 1) * s].astype(
+            np.int64), device=device)
+        mine = [x.index_select(1, rows).requires_grad_(True)
+                for x in (q, k, v)]
+        group = AxisGroup(None, rank, world, tuple(range(world)))
+        out = ring_causal_attention(*mine, group, payload["layout"])
+        out.backward(cot.index_select(1, rows))
+        block = torch.randn(tuple(payload["hop_shape"]), device=device
+                            ).to(torch.bfloat16)
+        times = []
+        for _ in range(6):
+            sync()
+            t0 = time.perf_counter()
+            _exchange(block, group, group.rank_at(rank + 1),
+                      group.rank_at(rank - 1))
+            sync()
+            times.append(time.perf_counter() - t0)
+        hop = sorted(times[1:])[2]
+        return {"rows": rows.cpu().numpy(),
+                "out": out.detach().cpu().numpy(),
+                "dq": mine[0].grad.cpu().numpy(),
+                "dk": mine[1].grad.cpu().numpy(),
+                "dv": mine[2].grad.cpu().numpy(),
+                "route": hop_route(group, block),
+                "hop_ms": 1e3 * hop,
+                "hop_bytes": block.numel() * block.element_size()}
+    finally:
+        dist.destroy_process_group()
+
+
+class ShapeProbe(Callback):
+    """The rank's param shapes and bytes once the state is built (its
+    slices under model axes, and under ZeRO-3 the ZeRO slices of those),
+    its model-parallel slices' shapes (``trainer.model_plan``), and a
+    digest of each of its final param leaves, by key path, delivered to
+    :data:`RECORDS` at the fit's end."""
+
+    def __init__(self, label: str):
+        self.label = label
+
+    def on_fit_start(self, trainer, module) -> None:
+        from ray_lightning_tpu_torch.parallel.sharding import (
+            leaves_with_paths,
+        )
+
+        leaves = list(leaves_with_paths(trainer.state.params))
+        plan = getattr(trainer, "model_plan", None)
+        self._payload = {
+            "shapes": {"/".join(map(str, p)): tuple(t.shape)
+                       for p, t in leaves},
+            "model_shapes": {} if plan is None else {
+                "/".join(map(str, p)): s for p, s in zip(
+                    plan.paths, plan.local_shapes)},
+            "param_bytes": sum(t.numel() * t.element_size()
+                               for _, t in leaves)}
+
+    def on_fit_end(self, trainer, module) -> None:
+        import hashlib
+
+        from ray_lightning_tpu_torch import session
+        from ray_lightning_tpu_torch.parallel.sharding import (
+            leaves_with_paths,
+        )
+
+        payload = dict(self._payload, digests={
+            "/".join(map(str, p)): hashlib.sha1(
+                t.detach().cpu().contiguous().view(torch.uint8).numpy()
+                .tobytes()).hexdigest()
+            for p, t in leaves_with_paths(trainer.state.params)})
+        if session.is_session_enabled():
+            import functools
+
             session.put_queue(functools.partial(
                 record, self.label, trainer.global_rank, payload))
         else:
