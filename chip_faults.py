@@ -191,10 +191,24 @@ last column of a ragged chunk of k dropped, the d tail past the last
    clip's norm counting each replicated leaf once per tensor rank
    (``d_clip``: the forged-scale fit against one rank).
 
+18. the MPMD pipeline plane (``MPMD_FAULTS``, ``mpmd_step``): five
+   faults planted in a copy of the port as step 13 plants them, each
+   failing the phase 20 arm its entry names (``chip_smoke.py --phase20
+   ARM``): a middle chunk's backward returning a zero ``dx`` (``b_bf16``:
+   the losses against the bf16 one-program reference), the backward of
+   micro-batch ``mb`` reading micro-batch ``mb + 1``'s tokens and
+   targets (``a_f32``: the losses against the reference), the grad
+   lane's error-feedback residual dropped (``b_bf16``: the codec's
+   8-resend probe), stage 1 resuming from the checkpoint one step older
+   than the step it resumes at (``c_restart``: the resumed losses
+   against the uninterrupted fit's), and the gradient accumulators
+   applied without the division by ``n_micro`` (``a_f32``: the stages'
+   second moments against the reference's; AdamW's update is blind to
+   the scale).
+
 ``python3 chip_faults.py --only 12`` builds the kernels and runs step 12
-alone; ``--only 13``, ``--only 14``, ``--only 15``, ``--only 16`` and
-``--only 17`` run
-that step alone.
+alone; ``--only 13``, ``--only 14``, ``--only 15``, ``--only 16``,
+``--only 17`` and ``--only 18`` run that step alone.
 
 The wrappers are routed to a faulty library by replacing the cached ctypes
 functions of ``ops/_build.py``.  Exits 1 if a correct kernel fails a
@@ -1504,6 +1518,70 @@ def model_step(summary, failures):
             failures.append(f"step 17 fault {name} not caught by phase 19")
 
 
+# name -> (file under ray_lightning_tpu_torch/, its (correct text,
+# replacement) pairs, phase 20's arm that must fail)
+MPMD_FAULTS = {
+    "middle_chunk_zero_dx": (
+        "mpmd/stage.py", [
+            ("        return tree_unflatten(params, grads[:-1]), grads[-1]\n",
+             "        return tree_unflatten(params, grads[:-1]), (\n"
+             "            grads[-1] if last else torch.zeros_like(grads[-1]))"
+             "\n")],
+        "b_bf16"),
+    "backward_takes_micro_batch_mb_plus_1": (
+        "mpmd/stage.py", [
+            ("                batch = micro[mb] if (first or last) else None\n"
+             "                dp, dx = self._bwd(\n",
+             "                batch = (micro[(mb + 1) % self.n_micro]\n"
+             "                         if (first or last) else None)\n"
+             "                dp, dx = self._bwd(\n")],
+        "a_f32"),
+    "grad_ef_residual_dropped": (
+        "mpmd/transfer.py", [
+            ("                self._resid[key] = flat - deq\n",
+             "                pass\n")],
+        "b_bf16"),
+    "stage_resumes_one_step_older": (
+        "mpmd/stage.py", [
+            ("        payload = load_state_stream(state_stream_from_file(path))\n"
+             "        self.load_state(stage_state_from_jax(payload[\"state\"]))\n"
+             "        return int(payload[\"step\"])\n",
+             "        payload = load_state_stream(state_stream_from_file(path))\n"
+             "        step = int(payload[\"step\"])\n"
+             "        if self.worker == 1:\n"
+             "            payload = load_state_stream(state_stream_from_file(\n"
+             "                f\"{prefix[:-8]}{step - 1:08d}-stage1.ckpt\"))\n"
+             "        self.load_state(stage_state_from_jax(payload[\"state\"]))\n"
+             "        return step\n")],
+        "c_restart"),
+    "accumulators_not_divided_by_n_micro": (
+        "mpmd/stage.py", [
+            ("                grads = {\"chunks\": [tree_map(lambda a: a / n, acc)\n",
+             "                grads = {\"chunks\": [tree_map(lambda a: a, acc)\n")],
+        "a_f32"),
+}
+
+
+def mpmd_step(summary, failures):
+    """Step 18: each of ``MPMD_FAULTS`` from a copy of the port with the
+    fault written in (:func:`faulty_copy`), caught where a check of the
+    phase 20 arm it names fails (the correct arms run in
+    ``chip_smoke.py``'s own phase 20)."""
+    root = os.path.dirname(os.path.abspath(cs.__file__))
+    summary["mpmd"] = {}
+    for name, (path, subs, arm) in MPMD_FAULTS.items():
+        with faulty_copy(root, path, subs, 18) as tmp:
+            rc, why = phase15_run(tmp, [arm], phase=20)
+        # Caught by a check, not by a crash of the run.
+        caught = rc != 0 and "check failed" in why
+        verdict = ("failed (caught): " + why[:300] if caught
+                   else "passed (NOT caught)")
+        print(f"step 18 fault {name}: phase 20 {arm} {verdict}")
+        summary["mpmd"][name] = caught
+        if not caught:
+            failures.append(f"step 18 fault {name} not caught by phase 20")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1524,14 +1602,14 @@ def main() -> int:
     failures = []
     if sys.argv[1:3] in (["--only", "13"], ["--only", "14"],
                          ["--only", "15"], ["--only", "16"],
-                         ["--only", "17"]):
+                         ["--only", "17"], ["--only", "18"]):
         with ThreadPoolExecutor(4) as pool:
             list(pool.map(_build.build, ("flash_attention", "layer_norm",
                                          "cross_entropy", "bgmv")))
         summary = {}
         {"13": dist_step, "14": grad_wire_step, "15": restart_step,
-         "16": multi_step, "17": model_step}[sys.argv[2]](summary,
-                                                          failures)
+         "16": multi_step, "17": model_step,
+         "18": mpmd_step}[sys.argv[2]](summary, failures)
         for f in failures:
             print(f"chip_faults: FAILED: {f}")
         print(card)

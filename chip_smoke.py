@@ -190,7 +190,7 @@ under ``remat_policy="dots+flash"``), counted per step.  Phases:
    the bf16 monolith's (or leave them where the top-2 logit gap is below
    one bf16 step of the top logit, ``bf16_ulp``).
 
-Phases 15-19 run in one process of their own (``phase_multi``,
+Phases 15-20 run in one process of their own (``phase_multi``,
 ``chip_smoke.py --multi``; each alone as ``chip_smoke.py --phaseN``): the
 workers they need spawned and warmed up once, all at once, and kept
 across their fits (``run_staged``); every phase's remote fits first, the
@@ -268,6 +268,25 @@ driver never touching the card, then each phase's references and checks.
    full forwards; (d) the clip under ``{"data": 2, "tensor": 2}`` on four
    CPU workers with forged loss scales against one CPU rank.  In (a)-(c)
    each leaf is bitwise alike on every rank that holds the same slice.
+20. the MPMD pipeline plane (``phase20_steps``, two stage workers of its
+   own sharing the card, no process group): ``Trainer.fit`` with
+   ``MpmdStrategy`` at GPT-2-small's width and seq 1024, 8 x 1024 tokens a
+   step as 4 micro-batches: (a) 12 layers, f32, 1F1B, P = 2, 3 steps,
+   the losses within 1e-4 of the one-program GPipe reference (run here
+   on a one-rank pipe from the stages' initial params) and the
+   reassembled params within 1e-4 relative Frobenius, the bubble and
+   occupancy in [0, 1] beside the schedule's ideal, and the int8 wire at
+   ``P15_LAYERS`` layers: the losses within the JAX gate of the
+   reference there, the wire ratio >= 3; (b) 12 layers, bf16,
+   interleaved 1F1B (4 chunks of 3 layers) with the f32 and the int8
+   wire: the losses within the JAX gate, the codec's full width the
+   bytes the f32 wire sent (a bf16 leaf at its 2 bytes), every
+   stage's training-kernel counters 0 and a profiler pass over one step
+   of two stage threads showing none of the training kernels; (c)
+   ``P15_LAYERS`` layers, f32, stage 1 killed at step 2 of 4: one
+   restart, the resumed losses bitwise an uninterrupted fit's, the
+   seconds to recover.  Each arm prints ms/step, each stage's op costs,
+   the wire's bytes a step and ratio, and each stage's peak memory.
 
 Any failure raises: the script exits non-zero and prints no result.  The
 line before the last is the kernels' JSON record; the last line is
@@ -5530,9 +5549,9 @@ def ce_occupancy(torch, card):
             check(clusters >= 1, f"ce {name} d={d}: a cluster fits")
 
 
-# -- phases 15-19: one driver process, one set of workers --------------------
+# -- phases 15-20: one process, one set of workers ---------------------------
 #
-# Each of phases 15-19 is a generator of three stages (``run_staged``):
+# Each of phases 15-20 is a generator of three stages (``run_staged``):
 # before the spawn it yields what it needs, ``({pool: workers}, [its own
 # strategies])``; sent the spawned pools, it runs its remote arms and
 # yields; then, the workers gone, it runs its references and checks in
@@ -5540,7 +5559,7 @@ def ce_occupancy(torch, card):
 # arms of every phase run before the driver touches the card, and every
 # worker is spawned and warmed up once, all at once.
 
-MULTI_PHASES = (15, 16, 17, 18, 19)
+MULTI_PHASES = (15, 16, 17, 18, 19, 20)
 
 
 def kept_strategy(strategy_cls, pool, n, **kw):
@@ -7740,20 +7759,532 @@ def phase19_steps(arms=P19_ARMS, device="cuda", cfg=None,
     return result
 
 
+# -- phase 20: the MPMD pipeline plane -----------------------------------------
+
+P20_ARMS = ("a_f32", "b_bf16", "c_restart")
+# Each arm trains GPT-2-small's width at seq 1024: 8 x 1024 tokens a step as
+# M = 4 micro-batches of 2 rows, over P = 2 stage workers sharing the card.
+P20_B, P20_M, P20_STEPS = 8, 4, 3
+P20_C_STEPS = 4
+P20_LOSS_ATOL = 1e-4        # (a) against the one-program reference, f32
+P20_PARAM_FROB = 1e-4       # (a) its reassembled params, relative Frobenius
+P20_MOMENT_FROB = 1e-4     # (a) the stages' second moments, likewise
+P20_WIRE_TOL = {"rtol": 2e-3, "atol": 1e-4}  # tests/test_grad_overlap.py
+# (a) the int8 wire on f32 activations: bytes_full_width / bytes_sent.
+P20_WIRE_RATIO = 3.0
+# (b) a bf16 leaf is counted at its own 2 bytes: the int8 run's full
+# width within this share of the bytes its f32 wire sent (the pickle's
+# framing: ~1% a hop at the CPU rehearsal's width; at 4 bytes a bf16
+# leaf would be 100% off).
+P20_FULL_WIDTH_SHARE = 0.05
+# (b) the bf16 f32-wire fit against the bf16 one-program reference: the
+# same per-layer bf16 math, the gradients summed in another f32 order, so
+# AdamW's first update flips the sign of near-zero gradients' steps.
+# Each limit lies between the sound fit's reading and that of a middle
+# chunk's zero dx (``chip_faults.py`` step 18), read on an H100:
+# losses 7.5e-05 against 1.3e-03, params 4.7e-04 against 1.1e-02.
+P20_BF16_REF_ATOL = 5e-4
+P20_BF16_PARAM_FROB = 2.5e-3
+# (b) the grad lane's error feedback: the mean of 8 decodes of one slot
+# at least this many times closer to the gradient than one decode.
+P20_EF_GAIN = 4.0
+# Rows 1-7 of PERF.md's kernel table (the training kernels): a stage
+# runs the JAX stage's plain math, so it launches none of them.
+P20_KERNEL_NAMES = ("tc_flash", "tc_delta_kernel", "ln_fwd_kernel",
+                    "ln_bwd_rows_kernel", "ln_col_sum", "ce_fwd",
+                    "ce_grad")
+
+
+def p20_strategy(own, device, **kw):
+    """An ``MpmdStrategy`` over the phase's two stage workers (``own``'s,
+    warmed up once); a fit's teardown leaves them to ``own``."""
+    import torch_dist_helpers as helpers
+    from ray_lightning_tpu_torch.parallel.strategies import MpmdStrategy
+
+    s = MpmdStrategy(num_stages=2, num_microbatches=P20_M, timeout_s=300.0,
+                     init_hook=functools.partial(helpers.warm_stage, device),
+                     **p20_device_kw(device), **kw)
+    s._backend, s._workers = own._backend, own._workers[:2]
+    s.teardown = lambda: None
+    return s
+
+
+def p20_device_kw(device):
+    return ({} if device == "cuda" else
+            {"devices_per_stage": 1,
+             "env_per_worker": {"OMP_NUM_THREADS": "1"}})
+
+
+def p20_fit(strategy, cfg, precision, steps, root, label, **trainer_kw):
+    """A Trainer fit of ``GPT(cfg)`` at ``precision`` (the stages' compute
+    dtype) through ``strategy``: its trainer and wall seconds."""
+    from ray_lightning_tpu_torch.core.trainer import Trainer
+    from ray_lightning_tpu_torch.models.gpt import GPT, SyntheticLMDataModule
+
+    tr = Trainer(strategy, max_steps=steps, seed=SEED,
+                 enable_checkpointing=False,
+                 default_root_dir=os.path.join(str(root), label),
+                 **trainer_kw)
+    t0 = time.perf_counter()
+    tr.fit(GPT(cfg, device="cpu", precision=precision),
+           SyntheticLMDataModule(cfg, batch_size=P20_B, num_batches=steps,
+                                 seed=SEED))
+    return {"trainer": tr, "wall_s": time.perf_counter() - t0,
+            "report": strategy.mpmd_report}
+
+
+def p20_remote(own, cfgs, root, out, arms, device):
+    """The remote fits: (a) f32 1F1B at 12 layers, then on the int8 wire
+    at ``P15_LAYERS`` layers; (b) bf16 interleaved 1F1B with
+    the f32 and the int8 wire, each stage's kernel counters read after
+    each; (c) the uninterrupted fit, then the one whose stage 1 is killed
+    at step 2 (its restart respawns the workers, so it runs last)."""
+    import torch_dist_helpers as helpers
+
+    full, short = cfgs
+    walls = out.setdefault("walls", {})
+    workers = own._workers[:2]
+
+    def run(label, strategy, cfg, precision, steps, **trainer_kw):
+        for w in workers:
+            w.execute(helpers._zero_launches)
+        res = p20_fit(strategy, cfg, precision, steps, root, label,
+                      **trainer_kw)
+        walls[label] = res["wall_s"]
+        res["launches"] = [w.execute(helpers.kernel_launches)
+                           for w in workers]
+        res["ckpt_dir"] = trainer_kw.get("restart_dir")
+        out[label] = res
+
+    if "a_f32" in arms:
+        # Each stage's final checkpoint carries its moments (the package
+        # the Trainer adopts holds none).
+        run("p20_a", p20_strategy(own, device, schedule="1f1b",
+                                  ckpt_every_n_steps=P20_STEPS),
+            full, "f32", P20_STEPS,
+            restart_dir=os.path.join(str(root), "p20_a_ckpt"))
+        # The wire's ratio depends on the hops' shapes, not the depth.
+        run("p20_a_int8", p20_strategy(own, device, schedule="1f1b",
+                                       wire_dtype="int8"),
+            short, "f32", P20_STEPS)
+    if "b_bf16" in arms:
+        for wire in ("f32", "int8"):
+            run(f"p20_b_{wire}", p20_strategy(
+                own, device, schedule="1f1b", interleave=2,
+                wire_dtype=wire), full, "bf16", P20_STEPS)
+    if "c_restart" in arms:
+        run("p20_c_clean", p20_strategy(own, device, schedule="1f1b"),
+            short, "f32", P20_C_STEPS)
+        # The kill rides an init hook: installed here in the shared
+        # workers, and by the strategy in the two it respawns (which it
+        # kills after the fit: only these two outlive the shared ones).
+        marker = os.path.join(str(root), "p20-crash-marker")
+        crash = p20_strategy(
+            own, device, schedule="1f1b", max_restarts=1,
+            restart_backoff_s=0.0)
+        crash.init_hook = helpers.CrashStageOnce(
+            marker, stage=1, step=2, then=crash.init_hook)
+        for w in workers:
+            w.execute(crash.init_hook)
+        try:
+            res = p20_fit(crash, short, "f32", P20_C_STEPS, root,
+                          "p20_c_crash")
+        finally:
+            crash._kill_workers()
+        walls["p20_c_crash"] = res["wall_s"]
+        res["strategy"] = crash
+        res["marker"] = marker
+        out["p20_c_crash"] = res
+
+
+def p20_print_fit(label, res, card):
+    """ms/step, each stage's op costs, the wire's bytes a step and ratio,
+    each stage's peak memory."""
+    rep = res["report"]
+    steps = rep["steps"]
+    step_ms = max(s["step_s"] for s in rep["per_stage"]) * 1e3
+    xf = rep["xfer"]
+    peaks = [None if b is None else round(b / 2 ** 20, 1)
+             for b in rep["stage_peak_bytes"]]
+    print(f"phase 20 {label}: {steps} steps, {step_ms:.1f} ms/step "
+          f"(steady state, the slower stage), op costs ms by stage "
+          f"{json.dumps([{k: round(v, 3) for k, v in c.items()} for c in rep['stage_op_costs_ms']])}"
+          f", wire {xf['bytes_sent'] / steps / 2 ** 20:.2f} MiB a step "
+          f"sent ({xf['bytes_full_width'] / steps / 2 ** 20:.2f} MiB full "
+          f"width, ratio {xf['wire_ratio']:.3f}, {xf.get('enc')}), peak "
+          f"MiB by stage {peaks}, bubble {rep['bubble_fraction']:.4f}, "
+          f"occupancy {rep['stage_occupancy']:.4f}; {card}")
+    return {"ms_per_step": step_ms, "op_costs_ms": rep["stage_op_costs_ms"],
+            "wire_bytes_per_step": xf["bytes_sent"] / steps,
+            "wire_ratio": xf["wire_ratio"], "peak_mib": peaks,
+            "bubble_fraction": rep["bubble_fraction"],
+            "stage_occupancy": rep["stage_occupancy"],
+            "losses": rep["losses"], "wall_s": res["wall_s"]}
+
+
+def p20_reference(cfg, device, init, steps, precision="f32"):
+    """The one-program GPipe reference over a one-rank pipe, from the
+    stages' initial params (untied) on the same batches, at
+    ``precision``: its losses, final state and ms/step."""
+    import torch
+
+    from ray_lightning_tpu_torch.models.gpt import GPT, SyntheticLMDataModule
+    from ray_lightning_tpu_torch.mpmd.plan import gpt_mpmd_spec
+    from ray_lightning_tpu_torch.mpmd.reference import gpipe_reference_fit
+
+    dm = SyntheticLMDataModule(cfg, batch_size=P20_B, num_batches=steps,
+                               seed=SEED)
+    dm.setup("fit")
+    batches = list(dm.train_dataloader())
+    spec = gpt_mpmd_spec(GPT(cfg, device="cpu", precision=precision))
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = gpipe_reference_fit(spec, init, spec.tx_factory(),
+                              lambda s: batches[s], steps, n_stages=2,
+                              n_micro=P20_M, device=device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    ref["ms_per_step"] = (time.perf_counter() - t0) / steps * 1e3
+    return ref
+
+
+def p20_init(cfg, device):
+    """The stages' initial params (``core/loop.py::_initial_params`` at the
+    fit's seed on card 0, as each stage draws them), untied."""
+    import torch
+
+    from ray_lightning_tpu_torch.core.loop import _initial_params
+    from ray_lightning_tpu_torch.models.gpt import GPT
+    from ray_lightning_tpu_torch.mpmd.plan import _gpt_untie
+
+    dev = torch.device("cuda", 0) if device == "cuda" else \
+        torch.device("cpu")
+    return _gpt_untie(_initial_params(GPT(cfg, device=dev), dev, SEED))
+
+
+def p20_stage_moments(cfg, ckpt_dir, step):
+    """The second moments of both stages' step-``step`` checkpoints,
+    reassembled into one tree of the model's layout."""
+    from ray_lightning_tpu_torch.models.convert import stage_state_from_jax
+    from ray_lightning_tpu_torch.models.gpt import GPT
+    from ray_lightning_tpu_torch.mpmd.plan import StagePlan, gpt_mpmd_spec
+    from ray_lightning_tpu_torch.utils.state_stream import (
+        load_state_stream, state_stream_from_file,
+    )
+
+    parts = []
+    for stage in range(2):
+        payload = load_state_stream(state_stream_from_file(os.path.join(
+            ckpt_dir, f"mpmd-step{step:08d}-stage{stage}.ckpt")))
+        state = stage_state_from_jax(payload["state"])
+        parts.append(state.opt_state["nu"]["chunks"][0])
+    return gpt_mpmd_spec(GPT(cfg, device="cpu")).assemble_params(
+        parts, StagePlan.split(cfg.n_layer, 2))
+
+
+def p20_frob(got, ref):
+    """The relative Frobenius distance of two param trees (by path)."""
+    g, r = by_path(got), by_path(ref)
+    check(set(g) == set(r), f"param leaves {sorted(set(g) ^ set(r))[:4]}")
+    num = sum(float((g[k].double().cpu() - r[k].double().cpu()).square()
+                    .sum()) for k in r)
+    den = sum(float(r[k].double().cpu().square().sum()) for k in r)
+    return math.sqrt(num / den)
+
+
+def p20_check_a(cfg, out, card, device):
+    import numpy as np
+
+    res = out["p20_a"]
+    rep = res["report"]
+    printed = p20_print_fit("(a) f32 1F1B, P = 2", res, card)
+    ref = p20_reference(cfg, device, p20_init(cfg, device), P20_STEPS)
+    diff = float(np.max(np.abs(np.asarray(rep["losses"])
+                               - np.asarray(ref["losses"]))))
+    frob = p20_frob(res["trainer"].params, ref["state"].params)
+    ideal = (2 - 1) / (P20_M + 2 - 1)
+    print(f"phase 20 (a): losses {rep['losses']} vs the one-program "
+          f"reference {ref['losses']}: max |diff| {diff:.3e} (gate "
+          f"{P20_LOSS_ATOL}); params relative Frobenius {frob:.3e} (gate "
+          f"{P20_PARAM_FROB}); bubble {rep['bubble_fraction']:.4f}, "
+          f"occupancy {rep['stage_occupancy']:.4f}, the schedule's ideal "
+          f"bubble (P-1)/(M+P-1) = {ideal:.4f}; the reference "
+          f"{ref['ms_per_step']:.1f} ms/step on one device (context, no "
+          f"gate); {card}")
+    check(diff <= P20_LOSS_ATOL, f"(a) losses within {P20_LOSS_ATOL} of "
+          f"the reference: {diff}")
+    check(frob <= P20_PARAM_FROB, f"(a) params within {P20_PARAM_FROB}: "
+          f"{frob}")
+    for key in ("bubble_fraction", "stage_occupancy"):
+        check(0.0 <= rep[key] <= 1.0, f"(a) {key} in [0, 1]: {rep[key]}")
+    check(res["trainer"].global_step == P20_STEPS, "(a) every step ran")
+    nu = p20_stage_moments(cfg, res["ckpt_dir"], P20_STEPS)
+    nu_frob = p20_frob(nu, ref["state"].opt_state["nu"])
+    print(f"phase 20 (a): the stages' second moments (their step-"
+          f"{P20_STEPS} checkpoints) against the reference's: relative "
+          f"Frobenius {nu_frob:.3e} (gate {P20_MOMENT_FROB}); {card}")
+    check(nu_frob <= P20_MOMENT_FROB, f"(a) the stages' moments within "
+          f"{P20_MOMENT_FROB} of the reference's: {nu_frob}")
+    wire = p20_check_a_wire(
+        dataclasses.replace(cfg, n_layer=min(P15_LAYERS, cfg.n_layer)),
+        out, card, device)
+    return {**printed, "loss_diff": diff, "param_frob": frob,
+            "moment_frob": nu_frob, "wire": wire,
+            "ideal_bubble": ideal, "reference_ms_per_step":
+            ref["ms_per_step"], "reference_losses": ref["losses"]}
+
+
+def p20_check_a_wire(cfg, out, card, device):
+    """The int8 wire on f32 activations (``cfg``, the short depth) against
+    the one-program reference there (which the f32 wire matches within
+    (a)'s gate): the losses at the JAX gate, and at least
+    ``P20_WIRE_RATIO`` x fewer bytes sent than the codec's full width
+    (f32 leaves at 4 bytes: what the f32 wire sends)."""
+    import numpy as np
+
+    q = out["p20_a_int8"]
+    b = p20_print_fit(f"(a) f32 1F1B, {cfg.n_layer} layers, int8 wire", q,
+                      card)
+    ref = p20_reference(cfg, device, p20_init(cfg, device), P20_STEPS)
+    lr, lq = np.asarray(ref["losses"]), np.asarray(b["losses"])
+    ok = bool(np.allclose(lq, lr, **P20_WIRE_TOL))
+    xf = q["report"]["xfer"]
+    ratio = xf["bytes_full_width"] / xf["bytes_sent"]
+    print(f"phase 20 (a): int8-wire losses {lq.tolist()} vs the "
+          f"{cfg.n_layer}-layer one-program reference's {lr.tolist()} "
+          f"(rtol {P20_WIRE_TOL['rtol']}, atol {P20_WIRE_TOL['atol']}: "
+          f"{'within' if ok else 'outside'}); bytes_full_width / "
+          f"bytes_sent {ratio:.3f} (gate >= {P20_WIRE_RATIO}); {card}")
+    check(ok, "(a) int8-wire losses within the JAX gate of the reference's")
+    check(ratio >= P20_WIRE_RATIO, f"(a) wire ratio {ratio} >= "
+          f"{P20_WIRE_RATIO}")
+    return {"int8_wire": b, "wire_ratio": ratio}
+
+
+def p20_profile_stage(cfg, device):
+    """A profiler pass over one step of a bf16 interleaved pipeline in
+    this process (two stage threads on the card, 2 layers): the kernel
+    names it launched."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ray_lightning_tpu_torch.models.gpt import GPT
+    from ray_lightning_tpu_torch.mpmd.inproc import run_inproc_pipeline_fit
+    from ray_lightning_tpu_torch.mpmd.plan import gpt_mpmd_spec
+
+    small = dataclasses.replace(cfg, n_layer=4)
+    spec = gpt_mpmd_spec(GPT(small, device="cpu", precision="bf16"))
+    init = p20_init(small, device)
+    rng = __import__("numpy").random.default_rng(SEED)
+    batch = {"tokens": rng.integers(0, small.vocab_size, (
+        P20_B, small.seq_len + 1)).astype("int32")}
+
+    def one_step():
+        return run_inproc_pipeline_fit(
+            spec, init, spec.tx_factory, lambda s: batch, 1, n_workers=2,
+            n_micro=P20_M, schedule="1f1b", interleave=2, devices=device)
+
+    one_step()  # warm-up
+    acts = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if device == "cuda" else [])
+    with profile(activities=acts) as prof:
+        one_step()
+        if device == "cuda":
+            torch.cuda.synchronize()
+    return sorted({e.key for e in prof.key_averages()
+                   if getattr(e, "device_type", None) is not None
+                   and str(e.device_type).endswith("CUDA")})
+
+
+def p20_check_b(cfg, out, card, device):
+    import numpy as np
+
+    f32, q = out["p20_b_f32"], out["p20_b_int8"]
+    a = p20_print_fit("(b) bf16 interleaved 1F1B, f32 wire", f32, card)
+    b = p20_print_fit("(b) bf16 interleaved 1F1B, int8 wire", q, card)
+    lf, lq = np.asarray(f32["report"]["losses"]), np.asarray(
+        q["report"]["losses"])
+    ok = bool(np.allclose(lq, lf, **P20_WIRE_TOL))
+    xf = q["report"]["xfer"]
+    ratio = xf["bytes_full_width"] / xf["bytes_sent"]
+    f32_sent = f32["report"]["xfer"]["bytes_sent"]
+    share = abs(xf["bytes_full_width"] - f32_sent) / f32_sent
+    print(f"phase 20 (b): int8-wire losses {lq.tolist()} vs the f32 "
+          f"wire's {lf.tolist()} (rtol {P20_WIRE_TOL['rtol']}, atol "
+          f"{P20_WIRE_TOL['atol']}: {'within' if ok else 'outside'}); "
+          f"bytes the f32 wire sent / bytes the int8 wire sent "
+          f"{f32_sent / xf['bytes_sent']:.3f}, bytes_full_width / "
+          f"bytes_sent {ratio:.3f} (bf16 leaves at their 2 bytes; the "
+          f"full width {share:.2e} off the f32 wire's bytes, gate "
+          f"{P20_FULL_WIDTH_SHARE}); {card}")
+    check(ok, "(b) int8-wire losses within the JAX gate of the f32 wire's")
+    check(share <= P20_FULL_WIDTH_SHARE, f"(b) the int8 run's full width "
+          f"{xf['bytes_full_width']} is the f32 wire's {f32_sent}")
+    ref = p20_reference(cfg, device, p20_init(cfg, device), P20_STEPS,
+                        precision="bf16")
+    ref_gap = float(np.max(np.abs(lf - np.asarray(ref["losses"]))))
+    print(f"phase 20 (b): the f32-wire losses against the bf16 "
+          f"one-program reference {ref['losses']}: max |diff| "
+          f"{ref_gap:.3e} (gate {P20_BF16_REF_ATOL}); the reference "
+          f"{ref['ms_per_step']:.1f} ms/step on one device (context, no "
+          f"gate); {card}")
+    check(ref_gap <= P20_BF16_REF_ATOL, f"(b) losses within "
+          f"{P20_BF16_REF_ATOL} of the bf16 reference: {ref_gap}")
+    ref_frob = p20_frob(f32["trainer"].params, ref["state"].params)
+    print(f"phase 20 (b): the f32-wire fit's reassembled params against "
+          f"the bf16 reference's: relative Frobenius {ref_frob:.3e} (gate "
+          f"{P20_BF16_PARAM_FROB}); {card}")
+    check(ref_frob <= P20_BF16_PARAM_FROB, f"(b) params within "
+          f"{P20_BF16_PARAM_FROB} of the bf16 reference's: {ref_frob}")
+    ef = p20_ef_probe(device)
+    print(f"phase 20 (b): the grad lane's error feedback on a (2, 1024, "
+          f"768) bf16 activation gradient: mean |error| of one int8 decode "
+          f"{ef['single']:.3e}, of the mean of 8 decodes of its slot "
+          f"{ef['averaged']:.3e} ({ef['gain']:.1f}x closer; gate >= "
+          f"{P20_EF_GAIN}); {card}")
+    check(ef["gain"] >= P20_EF_GAIN, f"(b) the grad lane's error feedback "
+          f"telescopes: {ef}")
+    for label, res in (("f32 wire", f32), ("int8 wire", q)):
+        for stage, launches in enumerate(res["launches"]):
+            check(all(n == 0 for n in launches.values()),
+                  f"(b) {label} stage {stage}: no training kernel "
+                  f"launched, {launches}")
+    print(f"phase 20 (b): each stage's training-kernel launches in both "
+          f"fits {json.dumps(f32['launches'][0])} (every counter 0: the "
+          f"JAX stage's plain math); {card}")
+    names = p20_profile_stage(cfg, device)
+    hits = [n for n in names if any(k in n for k in P20_KERNEL_NAMES)]
+    print(f"phase 20 (b): profiler pass over one step of a bf16 "
+          f"interleaved pipeline (two stage threads, 4 layers): "
+          f"{len(names)} distinct device kernels, none of kernel rows 1-7 "
+          f"({'none' if not hits else hits}); {card}")
+    check(not hits, f"(b) a stage launched kernel rows 1-7: {hits}")
+    if device == "cuda":
+        check(names, "(b) the profiler saw the stages' device kernels")
+    return {"f32_wire": a, "int8_wire": b, "wire_ratio": ratio,
+            "sent_ratio": f32_sent / xf["bytes_sent"],
+            "device_kernels": len(names), "reference_gap": ref_gap,
+            "reference_param_frob": ref_frob,
+            "reference_ms_per_step": ref["ms_per_step"], "ef": ef}
+
+
+def p20_ef_probe(device):
+    """One grad-lane slot resent 8 times through an int8 ``WireCodec``:
+    the mean |error| of one decode and of the mean of the 8 decodes (the
+    error feedback makes the errors telescope)."""
+    import torch
+
+    from ray_lightning_tpu_torch.mpmd.transfer import (
+        WireCodec, WireDtypeConfig, decode_tree,
+    )
+
+    g = torch.randn((2, 1024, 768), generator=torch.Generator().manual_seed(
+        SEED)).to(device=device, dtype=torch.bfloat16)
+    codec = WireCodec(WireDtypeConfig.coerce("int8"))
+    outs = [decode_tree(codec.encode_payload("grad", s, 0, 0, {"g": g})
+                             )["g"].float() for s in range(8)]
+    want = g.float().cpu()
+    single = float((outs[0] - want).abs().mean())
+    averaged = float((torch.stack(outs).mean(0) - want).abs().mean())
+    return {"single": single, "averaged": averaged,
+            "gain": single / max(averaged, 1e-30)}
+
+
+def p20_check_c(out, card):
+    clean, crash = out["p20_c_clean"], out["p20_c_crash"]
+    s = crash["strategy"]
+    kinds = [e["kind"] for e in s.recovery_events]
+    resumed = crash["report"]["losses"]
+    want = clean["report"]["losses"]
+    with open(crash["marker"]) as f:
+        died = float(f.read())
+    with open(crash["marker"] + ".resumed") as f:
+        first = [line.split() for line in f]
+    recover_s = float(first[0][1]) - died
+    print(f"phase 20 (c): stage 1 killed at step 2 of {P20_C_STEPS}: "
+          f"restarts {s.restarts_used}, recovery events {kinds}; resumed "
+          f"losses {resumed} vs the uninterrupted fit's {want}; "
+          f"{recover_s:.2f} s from the death to the first resumed step "
+          f"(the respawn and the checkpoint's read included); {card}")
+    check(s.restarts_used == 1 and kinds.count("elastic_restart") == 1,
+          f"(c) one restart booked: {kinds}")
+    check(len(resumed) == P20_C_STEPS - 2 and resumed == want[2:],
+          "(c) the resumed losses bitwise the uninterrupted fit's")
+    check(crash["trainer"].global_step == P20_C_STEPS, "(c) every step ran")
+    return {"restarts": s.restarts_used, "events": kinds,
+            "recover_s": recover_s, "losses": resumed,
+            "clean_losses": want}
+
+
+def phase20_main(arms=P20_ARMS, device="cuda", cfg=None) -> int:
+    """Phase 20 alone (``chip_smoke.py --phase20 [arm ...]``): its lines,
+    then one JSON object as its last line.  A CPU rehearsal:
+    ``device="cpu"`` with a narrow ``cfg``."""
+    return staged_main(20, phase20_steps(arms, device, cfg), device)
+
+
+def phase20_steps(arms=P20_ARMS, device="cuda", cfg=None):
+    """Phase 20's stages (``run_staged``), on two stage workers of its
+    own: (a) ``MpmdStrategy`` f32 1F1B at GPT-2-small (12 layers), P = 2,
+    against the one-program reference; (b) bf16 interleaved 1F1B
+    (``interleave=2``) with the f32 and the int8 wire, the stages'
+    kernel counters and a profiler pass; (c) a restart at ``P15_LAYERS``
+    layers: stage 1 killed at step 2, resumed step-exactly."""
+    import tempfile
+
+    from ray_lightning_tpu_torch.models.gpt import GPTConfig
+    from ray_lightning_tpu_torch.parallel.strategies import MpmdStrategy
+
+    unknown = set(arms) - set(P20_ARMS)
+    check(not unknown, f"phase 20 arms {sorted(unknown)} in {P20_ARMS}")
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_dist_helpers as helpers
+    card = card_line()
+    root = tempfile.mkdtemp(prefix="rlt-p20-")
+    full = cfg or dataclasses.replace(GPTConfig.gpt2_small(), warmup_steps=1)
+    short = dataclasses.replace(full, n_layer=min(P15_LAYERS, full.n_layer))
+    own = MpmdStrategy(num_stages=2, timeout_s=300.0,
+                       init_hook=functools.partial(helpers.warm_stage,
+                                                   device),
+                       **p20_device_kw(device))
+    out, result = {"card": card}, {"card": card}
+    yield {}, [own]
+    p20_remote(own, (full, short), root, out, arms, device)
+    yield
+    checks = {"a_f32": ("a", lambda: p20_check_a(full, out, card, device)),
+              "b_bf16": ("b", lambda: p20_check_b(full, out, card, device)),
+              "c_restart": ("c", lambda: p20_check_c(out, card))}
+    check_s = {}
+    for arm in P20_ARMS:
+        if arm in arms:
+            key, fn = checks[arm]
+            t0 = time.perf_counter()
+            result[key] = fn()
+            check_s[key] = time.perf_counter() - t0
+    result["arm_walls_s"], result["check_s"] = out["walls"], check_s
+    print(f"phase 20: remote arms "
+          f"{json.dumps({k: round(v, 1) for k, v in out['walls'].items()})}"
+          f" s, checks "
+          f"{json.dumps({k: round(v, 1) for k, v in check_s.items()})} s; "
+          f"{card}")
+    return result
+
+
 def multi_main() -> int:
-    """Phases 15-19 in one process (``chip_smoke.py --multi``): every
+    """Phases 15-20 in one process (``chip_smoke.py --multi``): every
     worker spawned once, every phase's remote arms, then every phase's
     references and checks (``run_staged``).  Prints their lines, then
     {phase: result, "spawn_s": seconds} as one JSON line."""
     steps = (phase15_steps, phase16_steps, phase17_steps, phase18_steps,
-             phase19_steps)
+             phase19_steps, phase20_steps)
     out = run_staged({n: f() for n, f in zip(MULTI_PHASES, steps)})
     print(json.dumps(out, default=str))
     return 0
 
 
 def phase_multi(card):
-    """Phases 15-19, run as ``chip_smoke.py --multi`` in a process of its
+    """Phases 15-20, run as ``chip_smoke.py --multi`` in a process of its
     own (the driver of remote fits must not have initialised CUDA, and
     this one has); its lines are echoed, its last line returned with the
     process's seconds as ``all_s``."""
@@ -7766,11 +8297,11 @@ def phase_multi(card):
         print(line)
     if proc.returncode != 0:
         print(proc.stderr[-6000:], file=sys.stderr)
-        raise RuntimeError(f"chip_smoke: phases 15-19 failed (exit "
+        raise RuntimeError(f"chip_smoke: phases 15-20 failed (exit "
                            f"{proc.returncode})")
     result = json.loads(lines[-1])
     result["all_s"] = time.perf_counter() - t0
-    print(f"phases 15-19: {result['all_s']:.1f} s in all, the process's "
+    print(f"phases 15-20: {result['all_s']:.1f} s in all, the process's "
           f"start and the shared spawn ({result['spawn_s']:.1f} s) "
           f"included; {card}")
     return result
@@ -7836,15 +8367,15 @@ def main() -> int:
     plane = timed(phase_serve_plane, torch, np, card, world, phase3)
     fleet = timed(phase_serve_fleet, torch, np, card, world, phase3)
     staged = timed(phase_multi, card)
-    multi, wire, restarts, rest, model_par = (staged[str(n)]
-                                              for n in MULTI_PHASES)
+    multi, wire, restarts, rest, model_par, mpmd = (staged[str(n)]
+                                                    for n in MULTI_PHASES)
     # Within phase_multi: the shared spawn, then each phase's remote arms
     # and checks (the process's start is the rest).
     walls["phase_multi_parts"] = {"spawn": round(staged["spawn_s"], 1), **{
         name: round(staged[str(n)]["wall_s"], 1) for n, name in zip(
             MULTI_PHASES, ("phase_multi_gpu", "phase_grad_wire",
                            "phase_restarts", "phase_multi_gpu_rest",
-                           "phase_model_parallel"))}}
+                           "phase_model_parallel", "phase_mpmd"))}}
 
     kernels = [{
         "name": "bgmv", "route": "cuda", "source": BGMV_SOURCE,
@@ -7877,6 +8408,7 @@ def main() -> int:
     print("restarts: " + json.dumps(restarts))
     print("multi_gpu_rest: " + json.dumps(rest))
     print("model_parallel: " + json.dumps(model_par, default=str))
+    print("mpmd: " + json.dumps(mpmd, default=str))
     print("walls: " + json.dumps({**walls, "total_s": round(
         time.perf_counter() - t0, 1)}))
     print(card)
@@ -7903,6 +8435,8 @@ if __name__ == "__main__":
         sys.exit(phase18_main(tuple(sys.argv[2:]) or P18_ARMS))
     if sys.argv[1:2] == ["--phase19"]:
         sys.exit(phase19_main(tuple(sys.argv[2:]) or P19_ARMS))
+    if sys.argv[1:2] == ["--phase20"]:
+        sys.exit(phase20_main(tuple(sys.argv[2:]) or P20_ARMS))
     if sys.argv[1:2] == ["--multi"]:
         sys.exit(multi_main())
     sys.exit(main())

@@ -59,7 +59,8 @@ from ray_lightning_tpu_torch.utils.treedef import (
 )
 
 __all__ = ["params_from_jax", "adapter_from_jax", "jax_train_state_fields",
-           "train_state_from_jax", "train_state_to_jax", "HEAD_ALIGNED",
+           "train_state_from_jax", "train_state_to_jax",
+           "stage_state_from_jax", "stage_state_to_jax", "HEAD_ALIGNED",
            "shard_leaf", "gather_leaf", "shard_params", "gather_params",
            "spec_of"]
 
@@ -128,9 +129,12 @@ def _fields_tuple(node: Any, arity: int, path: str) -> Tuple[Any, ...]:
 
 
 def _leaves(tree: Any, path: str) -> Any:
-    """A dict tree of array leaves as torch tensors, where they are."""
+    """A dict (or list) tree of array leaves as torch tensors, where they
+    are."""
     if isinstance(tree, dict):
         return {k: _leaves(v, f"{path}['{k}']") for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_leaves(v, f"{path}[{i}]") for i, v in enumerate(tree)]
     if isinstance(tree, (torch.Tensor, np.ndarray)):
         return _tensor(tree, tree.device if isinstance(tree, torch.Tensor)
                        else torch.device("cpu"))
@@ -158,6 +162,8 @@ def _moments(tree: Any, path: str) -> Any:
     places."""
     if isinstance(tree, dict):
         return {k: _moments(v, f"{path}['{k}']") for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_moments(v, f"{path}[{i}]") for i, v in enumerate(tree)]
     if isinstance(tree, JaxNode) and tree.cls == MASKED_NODE:
         _fields(tree, MASKED_NODE, 0, path)
         return MaskedNode()
@@ -237,7 +243,12 @@ def train_state_from_jax(tree: Any) -> TrainState:
     port's, its tensors where the tree's leaves are (numpy leaves land on
     the CPU)."""
     params, opt_state, step = jax_train_state_fields(tree)
-    if isinstance(opt_state, JaxNode) and opt_state.cls == MULTI_STEPS_STATE:
+    if opt_state is None:
+        # A pipeline fit's reassembled params: the moments stay with the
+        # stages (``parallel/strategies.py::MpmdStrategy``).
+        opt = None
+    elif (isinstance(opt_state, JaxNode)
+          and opt_state.cls == MULTI_STEPS_STATE):
         path = "state.opt_state"
         mini, grad_step, inner, acc, skip = _fields(
             opt_state, MULTI_STEPS_STATE, 5, path)
@@ -258,6 +269,8 @@ def train_state_from_jax(tree: Any) -> TrainState:
 def _moments_to_jax(tree: Any) -> Any:
     if isinstance(tree, dict):
         return {k: _moments_to_jax(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_moments_to_jax(v) for v in tree]
     if isinstance(tree, MaskedNode):
         return JaxNode(MASKED_NODE, ())
     if isinstance(tree, BlockQuantized):
@@ -294,7 +307,9 @@ def train_state_to_jax(state: TrainState) -> JaxNode:
     ``utils/state_stream.py`` writes and the JAX package loads (tensors
     as they are: the stream copies them to the host)."""
     opt = state.opt_state
-    if isinstance(opt, dict):
+    if opt is None:
+        pass
+    elif isinstance(opt, dict):
         opt = JaxNode(MULTI_STEPS_STATE, (
             opt["mini_step"], opt["gradient_step"],
             _adamw_to_jax(opt["inner_opt_state"]), opt["acc_grads"], ()))
@@ -302,6 +317,26 @@ def train_state_to_jax(state: TrainState) -> JaxNode:
         opt = _adamw_to_jax(opt)
     step = torch.tensor(int(state.step), dtype=torch.int32)
     return JaxNode(TRAIN_STATE, (state.params, opt, step, None), custom=True)
+
+
+def stage_state_to_jax(state: TrainState) -> JaxNode:
+    """A pipeline stage's :class:`TrainState` (params ``{"chunks": [...]}``
+    under the clip-free ``gpt_adamw``) → the JAX stage's ``TrainState``
+    tree: the optax ``adamw`` state ``(ScaleByAdamState,
+    MaskedState(EmptyState), ScaleByScheduleState)``."""
+    step = torch.tensor(int(state.step), dtype=torch.int32)
+    return JaxNode(TRAIN_STATE, (state.params, _adam_to_jax(state.opt_state),
+                                 step, None), custom=True)
+
+
+def stage_state_from_jax(tree: Any) -> TrainState:
+    """The JAX stage's ``TrainState`` (an ``mpmd-step*-stage*.ckpt``
+    payload's ``"state"``) → the port's, as :func:`stage_state_to_jax`
+    writes it."""
+    params, opt_state, step = jax_train_state_fields(tree)
+    return TrainState(_leaves(params, "state.params"),
+                      _adam_from_jax(opt_state, "state.opt_state"),
+                      int(_count(step, "state.step")))
 
 
 # ---------------------------------------------------------------------------

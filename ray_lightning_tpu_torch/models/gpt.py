@@ -117,7 +117,7 @@ __all__ = ["GPTConfig", "GPT", "SyntheticLMDataModule", "REMAT_POLICIES",
            "remat_policy_fn", "resolve_weight",
            "is_quantized", "has_lora_adapters", "add_lora_adapters",
            "extract_lora", "merge_lora", "synthetic_lora_adapter",
-           "lora_labels"]
+           "lora_labels", "make_block_stage"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -709,6 +709,46 @@ class GPT(TrainModule):
         if self.config.lora_rank <= 0:
             return None
         return tree_map(lambda lab: lab == "train", lora_labels(params))
+
+
+def make_block_stage(cfg: GPTConfig,
+                     compute_dtype: torch.dtype = torch.float32) -> Callable:
+    """The JAX package's ``make_block_stage``: ``(blocks, x) -> x`` over a
+    contiguous run of dense GPT blocks (any leading layer count), the
+    stage function of ``parallel/pipeline.py::pipeline_apply`` and of
+    the pipeline plane's stages.  Its math is the JAX stage's plain math:
+    the plain LayerNorm (``use_kernel=False``) and ``impl="xla"``
+    attention, the activations in ``compute_dtype`` throughout."""
+    if cfg.n_experts > 0:
+        raise ValueError("make_block_stage covers dense blocks only")
+    if cfg.lora_rank > 0:
+        raise ValueError(
+            "make_block_stage does not apply LoRA adapters; fold them "
+            "with merge_lora(params, cfg) first (running unmerged would "
+            "silently use the frozen base weights)"
+        )
+
+    def stage(blocks: Dict[str, torch.Tensor],
+              x: torch.Tensor) -> torch.Tensor:
+        b, t = x.shape[0], x.shape[1]
+        c = compute_dtype
+        x = x.to(c)
+        names = list(blocks)
+        # unbind: the per-layer gradients come back stacked (L, ...).
+        for ts in zip(*(blocks[k].unbind(0) for k in names)):
+            p = dict(zip(names, ts))
+            h = layer_norm(x, p["ln1_g"], p["ln1_b"])
+            qkv = h @ p["qkv_w"].to(c) + p["qkv_b"].to(c)
+            q, k, v = qkv.split(cfg.d_model, dim=-1)
+            att = causal_attention(
+                *(z.reshape(b, t, cfg.n_head, cfg.head_dim)
+                  for z in (q, k, v)), impl="xla",
+            ).reshape(b, t, cfg.d_model)
+            x = x + att @ p["proj_w"].to(c) + p["proj_b"].to(c)
+            x = _mlp_residual(x, p, c)
+        return x
+
+    return stage
 
 
 class SyntheticLMDataModule(TpuDataModule):

@@ -159,10 +159,14 @@ def tree_unflatten(template: Any, leaves) -> Any:
 
 
 def decay_mask(params: Dict[str, Any]) -> Dict[str, Any]:
-    """AdamW weight-decay mask: True for ``*_w`` leaves and ``wte``."""
+    """AdamW weight-decay mask: True for ``*_w`` leaves and ``wte``, by
+    the leaf's own dict key (a leaf directly in a list has none, as in
+    JAX's ``tree_map_with_path`` rule)."""
     def walk(node, name):
         if isinstance(node, dict):
             return {k: walk(v, k) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v, "") for v in node)
         if isinstance(node, MaskedNode):
             return node
         return name.endswith("_w") or name in _DECAY_EXACT

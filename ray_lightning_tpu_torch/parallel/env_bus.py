@@ -36,6 +36,9 @@ KNOBS: Tuple[EnvKnob, ...] = (
     EnvKnob("RLT_TELEMETRY_PEAK", True, "device peak for MFU"),
     EnvKnob("RLT_MEGASTEP", True, "fused micro-steps per dispatch"),
     EnvKnob("RLT_UPDATE_SHARDING", True, "cross-replica sharded update"),
+    # -- the pipeline plane's transfer lane (mpmd/transfer.py, worker-side)
+    EnvKnob("RLT_MPMD_WIRE_DTYPE", True,
+            "stage activation/grad wire dtype (f32/bf16/int8)"),
     # -- driver- and process-local knobs ----------------------------------
     EnvKnob("RLT_BACKEND", False, "cluster backend selector (driver)"),
     EnvKnob("RLT_ELASTIC_MIN_WORKERS", False, "governor floor (driver)"),

@@ -14,8 +14,9 @@ by its data coordinate (:meth:`RankLayout.data_coord`).  The model axes
 (``sp``, ``tensor``, ``expert``) see the same rows, as under the JAX
 package's GSPMD: ``sp`` cuts the sequence, ``tensor`` and ``expert`` the
 weights (``parallel/model_parallel.py``, one ``torch.distributed``
-subgroup an axis, :func:`model_groups`).  ``pipe`` raises, naming ROADMAP
-Queue 1 item 4 (the MPMD plane).  ZeRO shards over the ZeRO axis's group
+subgroup an axis, :func:`model_groups`).  ``pipe`` raises, naming the
+port's pipelines (``pipeline_apply`` over a process group and
+``MpmdStrategy``).  ZeRO shards over the ZeRO axis's group
 among the ranks with the same model coordinates and replicates along the
 other batch axes and ``sp`` (:func:`zero_groups`).
 """
@@ -179,14 +180,16 @@ def _product(ranges) -> list:
 
 def build_mesh(spec: Optional[MeshSpec], world_size: int) -> RankLayout:
     """The rank layout of ``spec`` over ``world_size`` ranks: the batch
-    axes and the model axes.  ``pipe`` raises (pipeline parallelism runs
-    on the MPMD plane, ROADMAP Queue 1 item 4), as does an unknown axis."""
+    axes and the model axes.  ``pipe`` raises (the JAX fit has no ``pipe``
+    path either; the port's pipelines are named), as does an unknown
+    axis."""
     spec = spec or MeshSpec()
     if "pipe" in spec.axis_names:
         raise NotImplementedError(
-            "mesh axis 'pipe' is not ported: pipeline parallelism "
-            "(pipeline_apply, pipelined_scan) comes with the MPMD plane, "
-            "ROADMAP Queue 1 item 4")
+            "mesh axis 'pipe' is not a strategy's mesh axis: pipeline "
+            "parallelism runs as parallel.pipeline.pipeline_apply(stage_fn, "
+            "stacked, x, group=...) over a process group (one rank a "
+            "stage) or as MpmdStrategy (the MPMD plane)")
     other = [a for a in spec.axis_names
              if a not in BATCH_AXES + MODEL_AXES]
     if other:

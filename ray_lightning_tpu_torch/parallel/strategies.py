@@ -74,7 +74,12 @@ own), and NCCL's one rank a card is checked before spawning; the JAX
 ``num_workers`` (the JAX default reads the fault plane's lost-worker
 markers).  Preemption drains (``PreemptedError``, the drain-driven grow
 of ``elastic_grow_after_s``, SIGTERM forwarding) and the run monitor are
-ROADMAP Queue 1 item 6, as ``MpmdStrategy`` is item 4.
+ROADMAP Queue 1 item 6.
+
+:class:`MpmdStrategy` is the pipeline plane (``mpmd/``): one worker
+process a pipeline stage, its own programs on its own device, the stages
+exchanging activations over the transfer lane (``mpmd/transfer.py``) and
+joined by no process group.
 """
 
 from __future__ import annotations
@@ -109,8 +114,8 @@ from ray_lightning_tpu_torch.telemetry.runtime import TelemetryConfig
 from ray_lightning_tpu_torch.util import process_results
 
 __all__ = ["TpuStrategy", "LocalStrategy", "RayStrategy",
-           "HorovodRayStrategy", "RayShardedStrategy", "RayPlugin",
-           "HorovodRayPlugin", "RayShardedPlugin"]
+           "HorovodRayStrategy", "RayShardedStrategy", "MpmdStrategy",
+           "RayPlugin", "HorovodRayPlugin", "RayShardedPlugin"]
 
 MODES = ("gspmd", "shard_map")
 
@@ -921,6 +926,345 @@ class RayShardedStrategy(TpuStrategy):
             zero_stage = 1
         self.zero_stage = zero_stage
         super().__init__(*args, **kwargs)
+
+
+class MpmdStrategy(TpuStrategy):
+    """MPMD pipeline parallelism (the JAX package's ``MpmdStrategy``): one
+    worker process a pipeline stage, each with its own device and its own
+    programs (``mpmd/stage.py``), following explicit per-worker
+    instruction streams (``mpmd/schedule.py``) and exchanging
+    activations and their gradients over the transfer lane
+    (``mpmd/transfer.py``: a shared-memory segment a payload, or the
+    queue frame itself below 256 KiB).  There is no process group: the
+    lanes carry
+    everything, so two stages may share a card (NCCL would refuse two
+    ranks on one).
+
+    ``num_stages`` workers; ``schedule`` ("gpipe" | "1f1b");
+    ``num_microbatches``; ``interleave`` (model chunks a worker, the
+    interleaved 1F1B); ``ckpt_every_n_steps`` (per-stage restart
+    checkpoints; the restart governor resumes at the newest step every
+    stage persisted); ``tx_factory`` (the per-stage optimizer; default
+    the spec's, ``gpt_adamw`` for GPT); ``trace_dir`` (each stage exports
+    ``trace-mpmd-stage<k>.jsonl`` there); ``wire_dtype`` (the lane's
+    codec, ``mpmd/transfer.py::WireDtypeConfig``; None reads
+    ``RLT_MPMD_WIRE_DTYPE``).  A dead stage raises ``ActorDiedError``
+    into the inherited restart governor (``max_restarts``).
+
+    Devices: ``use_gpu`` defaults to ``devices_per_stage is None`` (the
+    JAX ``use_tpu`` rule): a stage runs on card ``stage % cards`` (on a
+    one-card host every stage shares card 0), and without a card the
+    strategy raises.  ``devices_per_stage=1`` runs the stages as CPU
+    workers (the JAX knob sets the virtual device count of a CPU stage's
+    mesh; the math is the same); a stage over several cards (a
+    data-parallel group inside each stage) raises, ROADMAP Queue 1 item
+    4b.
+
+    Fit-only; ``mpmd_report`` holds the fit's pipeline report (losses,
+    per-stage stats, ``op_costs_ms``, ``bubble_fraction``,
+    ``stage_occupancy``, ``xfer``), and ``<default_root_dir>/telemetry/
+    mpmd-live.json`` the live snapshot.  The Trainer adopts the
+    reassembled params (with the untied ``head_w``) and no optimizer
+    state: the moments stay with their stages."""
+
+    zero_stage = 0
+
+    def __init__(self, num_stages: int = 2, schedule: str = "1f1b",
+                 num_microbatches: int = 8, interleave: int = 1,
+                 devices_per_stage: Optional[int] = None,
+                 recv_timeout_s: float = 120.0,
+                 ckpt_every_n_steps: int = 1,
+                 tx_factory: Optional[Callable[[], Any]] = None,
+                 trace_dir: Optional[str] = None, wire_dtype: Any = None,
+                 **kwargs: Any):
+        from ray_lightning_tpu_torch.mpmd.schedule import SCHEDULES
+        from ray_lightning_tpu_torch.mpmd.transfer import WireDtypeConfig
+
+        if wire_dtype is not None:
+            # A bad codec string fails here, not in a stage worker; the
+            # raw knob ships (None defers to RLT_MPMD_WIRE_DTYPE there).
+            WireDtypeConfig.coerce(wire_dtype)
+        if num_stages < 1:
+            raise ValueError("num_stages must be >= 1")
+        if schedule not in SCHEDULES:
+            raise ValueError(
+                f"unknown schedule {schedule!r} (expected one of "
+                f"{SCHEDULES})"
+            )
+        if interleave < 1:
+            raise ValueError("interleave must be >= 1")
+        if interleave > 1 and schedule != "1f1b":
+            raise ValueError(
+                "interleave > 1 requires schedule='1f1b' (interleaved "
+                "GPipe would deepen the pipe without shrinking the "
+                "bubble)"
+            )
+        if interleave > 1 and num_stages < 2:
+            raise ValueError(
+                "interleave > 1 needs num_stages >= 2: a single worker "
+                "has no pipeline to overlap, and its chunk handoffs "
+                "would need a self-loop transfer lane the actor plane "
+                "does not wire"
+            )
+        if num_microbatches < 1:
+            raise ValueError("num_microbatches must be >= 1")
+        if ckpt_every_n_steps < 1:
+            raise ValueError("ckpt_every_n_steps must be >= 1")
+        if kwargs.get("elastic_min_workers") is not None:
+            raise ValueError(
+                "MpmdStrategy cannot resize elastically: the stage "
+                "count is structural (the layer split is baked into "
+                "every stage's compiled program); run SPMD strategies "
+                "for shrink/grow recovery"
+            )
+        if devices_per_stage is not None and devices_per_stage != 1:
+            raise NotImplementedError(
+                f"devices_per_stage={devices_per_stage}: a stage over "
+                f"several devices (a data-parallel group inside each "
+                f"stage) is not ported (ROADMAP Queue 1 item 4b); "
+                f"devices_per_stage=1 runs CPU stages, None one card a "
+                f"stage")
+        kwargs.setdefault("use_gpu", devices_per_stage is None)
+        super().__init__(num_workers=num_stages, **kwargs)
+        # Set past the SPMD strategies' mode check: the plane runs no
+        # SPMD program.
+        self.mode = "mpmd"
+        # The fleet-wide RLT_ELASTIC_* knobs do not apply to a structural
+        # stage count.
+        self.elastic_min_workers = None
+        self.schedule = schedule
+        self.num_microbatches = num_microbatches
+        self.interleave = interleave
+        self.devices_per_stage = devices_per_stage
+        self.recv_timeout_s = recv_timeout_s
+        self.ckpt_every_n_steps = ckpt_every_n_steps
+        self.tx_factory = tx_factory
+        self.wire_dtype = wire_dtype
+        self.trace_dir = trace_dir
+        self.mpmd_report: Dict[str, Any] = {}
+        self._live_stage_items: Dict[int, Dict[str, Any]] = {}
+        self._live_written_at = 0.0
+        self._live_dir: Optional[str] = None
+
+    def _check_devices(self) -> None:
+        """Card stages need a card; the process group's checks do not
+        apply (the plane opens none)."""
+        if self.use_gpu and not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass devices_per_stage=1 to "
+                "run the stages on the CPU")
+
+    def run(self, kind: str, module, datamodule, config: FitConfig,
+            callbacks: List, params=None, ckpt_path: Optional[str] = None
+            ) -> List[Dict[str, Any]]:
+        if kind != "fit":
+            raise NotImplementedError(
+                "MpmdStrategy supports fit only; run validate/test/"
+                "predict through an SPMD strategy on the trained params")
+        return super().run(kind, module, datamodule, config, callbacks,
+                           params, ckpt_path)
+
+    def _latest_restart_checkpoint(self, restart_dir: Optional[str]
+                                   ) -> Dict[str, Any]:
+        from ray_lightning_tpu_torch.mpmd.worker import (
+            latest_mpmd_checkpoint,
+        )
+
+        return latest_mpmd_checkpoint(restart_dir, self.num_workers)
+
+    def _kill_workers(self) -> None:
+        """Kill the stage workers and reclaim the segments of dead
+        producers (a stage killed mid-handoff leaves its own)."""
+        from ray_lightning_tpu_torch.cluster.shm import sweep_stale_segments
+
+        super()._kill_workers()
+        sweep_stale_segments()
+
+    # -- live export ---------------------------------------------------------
+    def _on_mpmd_item(self, item: Any) -> None:
+        if not (isinstance(item, dict)
+                and item.get("type") == "mpmd_stage"):
+            return
+        self._live_stage_items[int(item.get("stage", -1))] = item
+        now = time.monotonic()
+        if self._live_dir is None or now - self._live_written_at < 0.5:
+            return
+        self._live_written_at = now
+        self._write_live_snapshot()
+
+    def _live_snapshot(self) -> Dict[str, Any]:
+        stages = [self._live_stage_items[k]
+                  for k in sorted(self._live_stage_items)]
+        return {
+            "ts": time.time(),
+            "mpmd": {
+                "schedule": self.schedule,
+                "interleave": self.interleave,
+                "n_micro": self.num_microbatches,
+                "n_stages": self.num_workers,
+                "stages": stages,
+            },
+        }
+
+    def _write_live_snapshot(self) -> None:
+        import json
+
+        if self._live_dir is None:
+            return
+        try:
+            os.makedirs(self._live_dir, exist_ok=True)
+            path = os.path.join(self._live_dir, "mpmd-live.json")
+            tmp = f"{path}.tmp{os.getpid()}"
+            with open(tmp, "w") as f:
+                json.dump(self._live_snapshot(), f)
+            os.replace(tmp, path)
+        except OSError:
+            pass
+
+    def _run_once(self, kind: str, module, datamodule, config: FitConfig,
+                  callbacks: List, params=None,
+                  ckpt_path: Optional[str] = None) -> List[Dict[str, Any]]:
+        from ray_lightning_tpu_torch.mpmd import worker as mpmd_worker
+        from ray_lightning_tpu_torch.mpmd.plan import (
+            StagePlan, resolve_mpmd_spec,
+        )
+        from ray_lightning_tpu_torch.mpmd.schedule import (
+            fleet_pipeline_stats, measured_schedule_bubble, pool_op_costs,
+        )
+
+        module = copy.copy(module)
+        module.trainer = None
+        spec = resolve_mpmd_spec(module)  # fail fast, before any worker
+        plan = StagePlan.split(spec.n_layers,
+                               self.num_workers * self.interleave)
+        self._live_stage_items = {}
+        self._live_dir = os.path.join(config.default_root_dir, "telemetry")
+        n = self.num_workers
+        # Every worker's inbox at once (a fresh worker's first call pays
+        # its imports).
+        addrs = [f.result() for f in [
+            w.submit(mpmd_worker._remote_create_inbox)
+            for w in self._workers]]
+        task = {
+            "module": module, "datamodule": datamodule, "config": config,
+            "n_workers": n, "interleave": self.interleave,
+            "n_micro": self.num_microbatches, "schedule": self.schedule,
+            "device": self.device, "same_host": True,
+            "recv_timeout_s": self.recv_timeout_s,
+            "restart_dir": config.restart_dir,
+            "resume_prefix": config.resume_from_checkpoint,
+            "ckpt_every": self.ckpt_every_n_steps,
+            "steps": (config.max_steps if config.max_steps
+                      and config.max_steps > 0 else None),
+            "tx_factory": self.tx_factory, "trace_dir": self.trace_dir,
+            "wire_dtype": self.wire_dtype,
+        }
+        task_ref = self._backend.put(task)
+        queue = self._backend.create_queue()
+        futures: list = []
+        try:
+            futures = [
+                w.submit(mpmd_worker._stage_execute_remote, task_ref, rank,
+                         queue.handle,
+                         addrs[(rank - 1) % n] if n > 1 else None,
+                         addrs[(rank + 1) % n] if n > 1 else None)
+                for rank, w in enumerate(self._workers)]
+            results = process_results(futures, queue,
+                                      on_item=self._on_mpmd_item)
+        except RemoteError as err:
+            # A dead stage wedges its peers' lanes: a peer's failure can
+            # reach this process before the death does, and the death is
+            # the failure (the restart governor takes it).
+            died = self._dead_peer(futures)
+            if died is None:
+                raise
+            self._enrich_failure(died, futures)
+            first = str(err).splitlines()
+            raise ActorDiedError(
+                f"stage worker {died.rank} died mid-fit (peer error: "
+                f"{first[-1] if first else err})", rank=died.rank,
+                exit_code=died.exit_code) from err
+        except ActorDiedError as err:
+            self._enrich_failure(err, futures)
+            raise
+        finally:
+            queue.shutdown()
+            task_ref.release()
+
+        # -- the rank-0 package ----------------------------------------------
+        results = sorted(results, key=lambda r: r["rank"])
+        parts = [results[g % n]["chunks"][g // n]
+                 for g in range(plan.n_stages)]
+        full_params = spec.assemble_params(parts, plan)
+        loss_result = next(r for r in results if r.get("hosts_loss"))
+        final_step = int(loss_result["final_step"])
+        per_stage = [r["stats"] for r in results]
+        costs = pool_op_costs([r["op_costs"] for r in results])
+        report: Dict[str, Any] = {
+            "schedule": self.schedule,
+            "interleave": self.interleave,
+            "n_stages": n,
+            "n_micro": self.num_microbatches,
+            "steps": final_step,
+            "losses": list(loss_result["losses"]),
+            "per_stage": per_stage,
+            "op_costs_ms": {k: v * 1e3 for k, v in costs.items()},
+            "stage_op_costs_ms": [
+                {k: v * 1e3 for k, v in r["op_costs"].items()}
+                for r in results],
+            "stage_peak_bytes": [r["peak_bytes"] for r in results],
+            **fleet_pipeline_stats(per_stage),
+        }
+        if costs:
+            report["bubble_fraction"] = measured_schedule_bubble(
+                self.schedule, n, self.num_microbatches, self.interleave,
+                costs)
+        xfers = [r["xfer"] for r in results if r.get("xfer")]
+        if xfers:
+            sent = sum(int(x.get("bytes_sent", 0)) for x in xfers)
+            full = sum(int(x.get("bytes_full_width", 0)) for x in xfers)
+            wire: Dict[str, Any] = {
+                "bytes_sent": sent, "bytes_full_width": full,
+                "wire_ratio": (full / sent) if sent else 1.0,
+                "per_stage": xfers,
+            }
+            enc = next((x["enc"] for x in xfers if x.get("enc")), None)
+            if enc is not None:
+                wire["enc"] = enc
+            report["xfer"] = wire
+        self.mpmd_report = report
+        self._write_live_snapshot()
+
+        from ray_lightning_tpu_torch.utils.state_stream import (
+            to_state_stream,
+        )
+        from ray_lightning_tpu_torch.utils.treedef import (
+            TRAIN_STATE, JaxNode,
+        )
+
+        # The moments stay with their stages: the package's state holds
+        # the params and the step.
+        state = JaxNode(TRAIN_STATE, (
+            full_params, None, torch.tensor(final_step, dtype=torch.int32),
+            None), custom=True)
+        metrics = dict(loss_result["callback_metrics"])
+        metrics.update({
+            "bubble_fraction": report.get("bubble_fraction", 0.0),
+            "stage_occupancy": report["stage_occupancy"],
+        })
+        return [{
+            "rank": 0,
+            "state_stream": to_state_stream(state),
+            "callback_metrics": metrics,
+            "logged_metrics": dict(metrics),
+            "best_model_path": "",
+            "epochs_run": 1,
+            "global_step": final_step,
+            "micro_step": final_step * self.num_microbatches,
+            "callback_states": [],
+            "comm_stats": {},
+            "telemetry": None,
+        }]
 
 
 # The reference's names.

@@ -26,11 +26,11 @@ def _esc(value: Any) -> str:
 def render_openmetrics(snapshot: Dict[str, Any]) -> str:
     """Render a live snapshot as OpenMetrics text: the fleet and rank
     gauges, then the ``serve`` block with its ``capacity`` block, the
-    ``slo`` block, and the ``router`` block with its fleet ``capacity``
-    block.  The JAX renderer's monitor event counts and its ``mpmd`` and
-    ``programs`` blocks are not rendered here (their modules are not
-    ported); without them the text is the JAX renderer's byte for
-    byte."""
+    ``slo`` block, the ``router`` block with its fleet ``capacity``
+    block, and the ``mpmd`` block (the pipeline plane's live snapshot).
+    The JAX renderer's monitor event counts and its ``programs`` block
+    are not rendered here (their modules are not ported); without them
+    the text is the JAX renderer's byte for byte."""
     lines = []
 
     def gauge(name: str, help_: str, samples) -> None:
@@ -90,8 +90,59 @@ def render_openmetrics(snapshot: Dict[str, Any]) -> str:
         fleet = router.get("capacity")
         if fleet:
             lines.extend(_render_fleet_capacity(fleet))
+    mpmd = snapshot.get("mpmd")
+    if mpmd:
+        lines.extend(_render_mpmd(mpmd))
     lines.append("# EOF")
     return "\n".join(lines) + "\n"
+
+
+def _render_mpmd(mpmd: Dict[str, Any]) -> list:
+    """The pipeline plane's section (``mpmd-live.json``'s shape):
+    per-stage occupancy and bubble gauges and the pipeline's shape."""
+    lines = []
+    for name, help_, key in (
+        ("mpmd_stages", "pipeline stage workers", "n_stages"),
+        ("mpmd_microbatches", "micro-batches per optimizer step",
+         "n_micro"),
+        ("mpmd_interleave", "model chunks per stage worker",
+         "interleave"),
+    ):
+        if key in mpmd:
+            lines.append(f"# TYPE {_PREFIX}_{name} gauge")
+            lines.append(f"# HELP {_PREFIX}_{name} {help_}")
+            lines.append(f"{_PREFIX}_{name} {mpmd[key]}")
+    stages = mpmd.get("stages", [])
+    for metric, help_, key in (
+        ("mpmd_stage_step", "last completed optimizer step", "step"),
+        ("mpmd_stage_bubble_fraction",
+         "idle fraction of the stage's pipeline wall", "bubble_fraction"),
+        ("mpmd_stage_occupancy",
+         "compute fraction of the stage's pipeline wall",
+         "stage_occupancy"),
+        ("mpmd_stage_loss", "last micro-batch-mean loss (loss stage)",
+         "loss"),
+        ("mpmd_trace_busy_seconds",
+         "per-step stage compute seconds (trace decomposition)",
+         "busy_s"),
+        ("mpmd_trace_blocked_seconds",
+         "per-step stage blocked-recv seconds (trace decomposition)",
+         "blocked_s"),
+    ):
+        samples = [
+            (item.get("stage"), item[key])
+            for item in stages
+            if isinstance(item.get(key), (int, float))
+        ]
+        if not samples:
+            continue
+        lines.append(f"# TYPE {_PREFIX}_{metric} gauge")
+        lines.append(f"# HELP {_PREFIX}_{metric} {help_}")
+        for stage, value in samples:
+            lines.append(
+                f'{_PREFIX}_{metric}{{stage="{_esc(stage)}"}} {value}'
+            )
+    return lines
 
 
 def _render_capacity(capacity: Dict[str, Any]) -> list:

@@ -530,3 +530,52 @@ def test_phase19_rehearses_on_the_cpu(monkeypatch, capsys):
                .values())
     with pytest.raises(RuntimeError, match="phase 19 arms"):
         chip_smoke.phase19_main(("z_nothing",), device="cpu")
+
+
+def test_mpmd_faults_apply_once_and_name_phase20_arms(scripts):
+    """Step 18 writes each fault into a copy of the port: each of its
+    texts occurs once in the checkout's file, and the arm it names is
+    phase 20's (every arm named by one fault at least)."""
+    cf = scripts[0]
+    import chip_smoke
+
+    assert len(cf.MPMD_FAULTS) == 5
+    assert {arm for *_, arm in cf.MPMD_FAULTS.values()} == set(
+        chip_smoke.P20_ARMS)
+    for name, (path, subs, arm) in cf.MPMD_FAULTS.items():
+        text = (ROOT / "ray_lightning_tpu_torch" / path).read_text()
+        for old, new in subs:
+            assert text.count(old) == 1 and old != new, name
+
+
+def test_phase20_rehearses_on_the_cpu(monkeypatch, capsys):
+    """Phase 20's arms on two CPU stage workers at a narrow width: its
+    checks pass (the f32 fit against the reference and the int8 wire's
+    ratio, the bf16 interleaved fit's wire and its kernel counters, the
+    restart bitwise), its last
+    line is the result the main script reads."""
+    import json
+
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    from ray_lightning_tpu_torch.models.gpt import GPTConfig
+
+    monkeypatch.setattr(chip_smoke, "card_line", lambda: "cpu")
+    cfg = GPTConfig(vocab_size=256, n_layer=4, n_head=4, d_model=64,
+                    seq_len=64, warmup_steps=1)
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        assert chip_smoke.phase20_main(device="cpu", cfg=cfg) == 0
+    finally:
+        torch.set_num_threads(n)
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert set(out) >= {"a", "b", "c", "wall_s", "spawn_s"}
+    assert out["a"]["loss_diff"] <= chip_smoke.P20_LOSS_ATOL
+    assert out["a"]["wire"]["wire_ratio"] >= chip_smoke.P20_WIRE_RATIO
+    assert out["c"]["restarts"] == 1
+    assert out["c"]["losses"] == out["c"]["clean_losses"][2:]
+    with pytest.raises(RuntimeError, match="phase 20 arms"):
+        chip_smoke.phase20_main(("z_nothing",), device="cpu")

@@ -419,15 +419,15 @@ def test_mesh_spec_resolve_equals_jax(axes, n):
 
 def test_mesh_refuses_model_axes_and_two_minus_ones():
     # The model axes are taken (tests/test_torch_model_parallel.py); the
-    # pipeline axis is the MPMD plane's (item 4) and an unknown axis
-    # raises.
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+    # pipeline axis raises, naming the port's pipelines (pipeline_apply
+    # over a process group, MpmdStrategy), and an unknown axis raises.
+    with pytest.raises(NotImplementedError, match="MpmdStrategy"):
         mesh.build_mesh(mesh.MeshSpec({"data": 2, "pipe": 2}), 4)
     with pytest.raises(ValueError, match="unknown mesh axes"):
         mesh.build_mesh(mesh.MeshSpec({"data": 2, "model": 2}), 4)
     with pytest.raises(ValueError, match="Only one axis"):
         mesh.MeshSpec({"data": -1, "fsdp": -1})
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+    with pytest.raises(NotImplementedError, match="pipeline_apply"):
         RayStrategy(num_workers=2, mesh_axes={"pipe": 2}, **WORKER)
     layout = mesh.build_mesh(mesh.MeshSpec({"data": 2, "tensor": 2}), 4)
     assert layout.model_axes == ("tensor",)

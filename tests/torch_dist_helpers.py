@@ -11,7 +11,7 @@ from __future__ import annotations
 import importlib
 import math
 import os
-from typing import Any, Dict, List
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -282,6 +282,16 @@ def warm_up(device: str, warnings_to: str = None) -> None:
     torch.cuda.synchronize()
     del params
     torch.cuda.empty_cache()
+
+
+def warm_stage(device: str) -> None:
+    """A pipeline stage worker's ``init_hook``: import the port's model
+    and, on a card, make the CUDA context and run one product, launching
+    none of the training kernels (a stage's counters stay at 0)."""
+    importlib.import_module("ray_lightning_tpu_torch.mpmd.stage")
+    if device == "cuda":
+        a = torch.ones((64, 64), device="cuda")
+        (a @ a).sum().item()
 
 
 # -- the int8 gradient wire on CPU ranks (tests/test_torch_grad_comm.py and
@@ -778,6 +788,54 @@ class AlwaysCrash(CrashOnce):
         if (trainer.global_rank == self.crash_rank
                 and trainer.current_epoch == self.crash_epoch):
             os._exit(1)
+
+
+class CrashStageOnce:
+    """A pipeline stage worker's ``init_hook`` (``MpmdStrategy(init_hook=)``
+    runs it in every worker, a respawned one too): runs ``then`` (another
+    init hook) if given, then wraps ``StageRunner._run_opt_step`` in this
+    process so that stage ``stage`` is hard-killed at the start of
+    optimizer step ``step`` on the first attempt only (a marker file
+    records the death's time).  On a later attempt the stage appends each
+    step's start time to ``<marker>.resumed``, so the seconds from the
+    death to the first resumed step can be read."""
+
+    def __init__(self, marker: str, stage: int = 1, step: int = 2,
+                 then: Optional[Callable[[], None]] = None):
+        self.marker = marker
+        self.stage = stage
+        self.step = step
+        self.then = then
+
+    def __call__(self) -> None:
+        from ray_lightning_tpu_torch.mpmd.stage import StageRunner
+
+        if self.then is not None:
+            self.then()
+        run = getattr(StageRunner, "_unhooked_run_opt_step",
+                      StageRunner._run_opt_step)
+        at_step = self.at_step
+
+        def _run_opt_step(runner, step, micro):
+            at_step(runner.worker, step)
+            return run(runner, step, micro)
+
+        StageRunner._unhooked_run_opt_step = run
+        StageRunner._run_opt_step = _run_opt_step
+
+    def at_step(self, stage: int, step: int) -> None:
+        import time
+
+        if stage != self.stage:
+            return
+        if not os.path.exists(self.marker):
+            if step == self.step:
+                with open(self.marker, "w") as f:
+                    f.write(repr(time.time()))
+                os._exit(1)
+            return
+        with open(self.marker + ".resumed", "a") as f:
+            f.write(f"{step} {time.time()!r}\n")
 
 
 class BadHook(Callback):
@@ -1547,6 +1605,76 @@ def ring_rank(rank: int, world: int, port: int, payload: Dict[str, Any]
         return {"rows": rows, "out": out.detach().numpy(),
                 "dq": q.grad.numpy(), "dk": k.grad.numpy(),
                 "dv": v.grad.numpy()}
+    finally:
+        dist.destroy_process_group()
+
+
+def tanh_stage(params: Dict[str, torch.Tensor], x: torch.Tensor
+               ) -> torch.Tensor:
+    """The pipeline tests' stage: ``x <- tanh(x @ w + b)`` a layer of the
+    stacked ``w (L, D, D)``, ``b (L, D)``."""
+    for w, b in zip(params["w"].unbind(0), params["b"].unbind(0)):
+        x = torch.tanh(x @ w + b)
+    return x
+
+
+def pipeline_rank(rank: int, world: int, port: int, payload: Dict[str, Any]
+                  ) -> Dict[str, Any]:
+    """One CPU rank of the pipeline checks: joins a gloo group of
+    ``world`` ranks (the pipe), runs ``pipeline_apply`` of
+    :func:`tanh_stage` on the payload's ``w``/``b``/``x`` at
+    ``payload["micro"]`` micro-batches and backpropagates ``sum(out²)``;
+    then, when the payload holds a GPT (``gpt``: its config's kwargs,
+    ``params``, ``batches``), the one-program GPipe reference fit over the
+    same pipe.  Returns the output, ``dx``, this rank's layer rows of
+    ``dw``/``db`` and the fit's losses."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from ray_lightning_tpu_torch.parallel.pipeline import (
+        layer_splits, pipeline_apply,
+    )
+
+    torch.set_num_threads(1)
+    torch.use_deterministic_algorithms(True)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        group = dist.group.WORLD
+        params = {k: torch.from_numpy(payload[k].copy()).requires_grad_(True)
+                  for k in ("w", "b")}
+        x = torch.from_numpy(payload["x"].copy()).requires_grad_(True)
+        out = pipeline_apply(tanh_stage, params, x, group,
+                             num_microbatches=payload["micro"])
+        (out ** 2).sum().backward()
+        lo, hi = layer_splits(payload["w"].shape[0], world)[rank:rank + 2]
+        res = {"rank": rank, "out": out.detach().numpy(),
+               "dx": x.grad.numpy(), "rows": (lo, hi),
+               "dw": params["w"].grad[lo:hi].numpy(),
+               "db": params["b"].grad[lo:hi].numpy()}
+        gpt = payload.get("gpt")
+        if gpt is not None:
+            from ray_lightning_tpu_torch.models.gpt import GPTConfig
+            from ray_lightning_tpu_torch.models.convert import (
+                params_from_jax,
+            )
+            from ray_lightning_tpu_torch.mpmd.plan import gpt_mpmd_spec
+            from ray_lightning_tpu_torch.mpmd.reference import (
+                gpipe_reference_fit,
+            )
+
+            module = GPT(GPTConfig(**gpt["config"]), device="cpu")
+            spec = gpt_mpmd_spec(module)
+            batches = gpt["batches"]
+            fit = gpipe_reference_fit(
+                spec, params_from_jax(gpt["params"], "cpu"),
+                spec.tx_factory(), lambda s: batches[s], len(batches),
+                n_stages=world, n_micro=gpt["micro"], group=group,
+                device="cpu")
+            res["losses"] = fit["losses"]
+        return res
     finally:
         dist.destroy_process_group()
 

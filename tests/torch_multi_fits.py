@@ -157,3 +157,25 @@ def losses(tr) -> Optional[list]:
         if isinstance(cb, helpers.LossLog):
             return list(cb.losses)
     return None
+
+
+def shared_once(tmp_path_factory, name, make):
+    """``make()`` once for the run: under xdist its result is pickled
+    under the run's shared temporary directory, a lock file ordering the
+    workers, so the module fixtures of every worker read one
+    computation."""
+    import fcntl
+    import os
+    import pickle
+
+    if os.environ.get("PYTEST_XDIST_WORKER") is None:
+        return make()
+    root = tmp_path_factory.getbasetemp().parent
+    path = root / f"{name}.pkl"
+    with open(root / f"{name}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if path.exists():
+            return pickle.loads(path.read_bytes())
+        value = make()
+        path.write_bytes(pickle.dumps(value))
+        return value
